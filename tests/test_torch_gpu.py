@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `gpu`: on a machine without a CUDA device every test skips (decided
+in the `cuda` fixture, so every pytest worker collects the same tests). On
+the card: `python -m pytest -m gpu tests/test_torch_gpu.py`. TF32 is off,
+so the plain versions run in full float32; the bound is the fused-vs-unfused
+tolerance the JAX package holds its own kernels to (5e-4).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from zerovox_tpu_torch.device import use_full_f32
+from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain
+from zerovox_tpu_torch.ops.upsample_stage import (KERNEL_WIDTHS, fused_upsample_stage,
+                                                   upsample_stage_plain)
+
+pytestmark = pytest.mark.gpu
+
+KS = (3, 7, 11)
+DILS = (1, 3, 5)
+TOL = 5e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    use_full_f32()
+    return torch.device("cuda")
+
+
+def _w(rng, *shape, fan_in):
+    return torch.tensor((rng.normal(size=shape) / np.sqrt(fan_in)).astype(np.float32))
+
+
+def _towers(rng, C, ks=KS, dils=DILS):
+    P = len(dils)
+    return [(_w(rng, P, k, C, C, fan_in=k * C), _w(rng, P, C, fan_in=4),
+             _w(rng, P, k, C, C, fan_in=k * C), _w(rng, P, C, fan_in=4)) for k in ks]
+
+
+def _to(dev, towers):
+    return [tuple(t.to(dev) for t in tw) for tw in towers]
+
+
+@pytest.mark.parametrize("C,T", [(128, 101), (128, 1000), (64, 333), (32, 77)])
+def test_mrf_kernel_matches_plain(cuda, C, T):
+    rng = np.random.default_rng(C + T)
+    x = torch.tensor(rng.normal(size=(1, T, C)).astype(np.float32)).to(cuda)
+    towers = _to(cuda, _towers(rng, C))
+    n0 = fused_mrf.launches
+    got = fused_mrf(x, towers, DILS, KS)
+    torch.cuda.synchronize()
+    assert fused_mrf.launches == n0 + 1
+    ref = mrf_plain(x, towers, DILS)
+    assert got.shape == ref.shape
+    assert torch.max(torch.abs(got - ref)).item() < TOL
+
+
+def test_mrf_kernel_batch(cuda):
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.normal(size=(3, 150, 64)).astype(np.float32)).to(cuda)
+    towers = _to(cuda, _towers(rng, 64, ks=(3, 5), dils=(1, 2)))
+    got = fused_mrf(x, towers, (1, 2), (3, 5))
+    ref = mrf_plain(x, towers, (1, 2))
+    assert torch.max(torch.abs(got - ref)).item() < TOL
+
+
+@pytest.mark.parametrize("widths", KERNEL_WIDTHS)
+@pytest.mark.parametrize("T_in", [80, 101, 700])
+@pytest.mark.parametrize("post", [False, True])
+def test_upsample_stage_kernel_matches_plain(cuda, widths, T_in, post):
+    C_in, C_out = widths
+    rng = np.random.default_rng(C_in + T_in + post)
+    x = torch.tensor(rng.normal(size=(1, T_in, C_in)).astype(np.float32)).to(cuda)
+    up_w = _w(rng, 4, C_in, C_out, fan_in=2 * C_in).to(cuda)
+    up_b = _w(rng, C_out, fan_in=4).to(cuda)
+    towers = _to(cuda, _towers(rng, C_out))
+    p = (_w(rng, 7, C_out, 1, fan_in=7 * C_out).to(cuda), _w(rng, 1, fan_in=4).to(cuda)) if post else None
+    n0 = fused_upsample_stage.launches
+    got = fused_upsample_stage(x, up_w, up_b, 2, 1, towers, DILS, KS, post=p)
+    torch.cuda.synchronize()
+    assert fused_upsample_stage.launches == n0 + 1
+    ref = upsample_stage_plain(x, up_w, up_b, 2, 1, towers, DILS, post=p)
+    assert got.shape == ref.shape == ((1, 2 * T_in) if post else (1, 2 * T_in, C_out))
+    assert torch.max(torch.abs(got - ref)).item() < TOL
+
+
+def test_kernels_reject_what_they_do_not_take(cuda):
+    rng = np.random.default_rng(0)
+    towers = _to(cuda, _towers(rng, 64))
+    x = torch.zeros(1, 50, 64, device=cuda)
+    with pytest.raises(TypeError):
+        fused_mrf(x.double(), towers, DILS, KS)
+    with pytest.raises(ValueError):
+        fused_mrf(torch.zeros(1, 64, 50, device=cuda).transpose(1, 2), towers, DILS, KS)
+    with pytest.raises(ValueError):
+        fused_mrf(torch.zeros(1, 50, 48, device=cuda), towers, DILS, KS)
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    """A small engine whose every vocoder stage takes a kernel (widths
+    128/64 via K1, 64->32 and 32->16 via K2): the card's waveform equals
+    the CPU plain run within the waveform tolerance (1e-3), and the
+    streamed chunks concatenate to the full render."""
+    from zerovox_tpu_torch.config import (DecoderConfig, EncoderConfig, ModelConfig,
+                                          ResNetConfig, ZeroVoxConfig)
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.synthesize import ZeroVoxTTS
+
+    cfg = ZeroVoxConfig(model=ModelConfig(
+        max_txt_len=64, max_mel_len=256, emb_dim=48, punct_emb_dim=16,
+        encoder=EncoderConfig(fs2_layer=1, vp_filter_size=16, ve_n_bins=16),
+        decoder=DecoderConfig(n_layers=1, conv_filter_size=64),
+        resnet=ResNetConfig(layers=(1, 1, 1, 1), num_filters=(8, 16, 16, 16))))
+    gpu = ZeroVoxTTS.from_random(cfg, HifiGanConfig(upsample_initial_channel=256), seed=3)
+    cpu = ZeroVoxTTS(cfg, *_sd_pair(gpu), device="cpu")
+    wav = np.random.default_rng(1).normal(size=22050).astype(np.float32) * 0.1
+    spk = gpu.speaker_embed(wav)
+    text = "Hello there, general test."
+    dur = np.full(len(gpu.text2phonemeids(text)[0]), 4, np.int32)
+    k1, k2 = fused_mrf.launches, fused_upsample_stage.launches
+    w_gpu, _, n = gpu.tts(text, spk, duration=dur)
+    assert fused_mrf.launches - k1 == 2 and fused_upsample_stage.launches - k2 == 2
+    w_cpu, _, n_cpu = cpu.tts(text, spk.cpu(), duration=dur)
+    assert n == n_cpu == 4 * len(dur)
+    assert np.max(np.abs(w_gpu - w_cpu)) < 1e-3
+    streamed = np.concatenate(list(gpu.tts_stream(text, spk, duration=dur, chunk_frames=24)))
+    assert streamed.shape == w_gpu.shape
+    assert np.max(np.abs(streamed - w_gpu)) < 1e-4
+
+
+def _sd_pair(engine):
+    sd, msd = engine.state_dicts()
+    return sd, engine._meldec_cfg, msd

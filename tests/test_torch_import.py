@@ -1,0 +1,52 @@
+"""The PyTorch package stands alone: it imports with JAX and the JAX package
+blocked, no file of it imports either, and its entry points never fall back
+to the CPU on their own."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+PKG = Path(__file__).resolve().parent.parent / "zerovox_tpu_torch"
+
+
+def test_imports_with_jax_and_jax_package_blocked():
+    code = (
+        "import sys\n"
+        # the card's machine has no JAX, flax, pyyaml or msgpack
+        "for m in ('jax', 'jaxlib', 'flax', 'zerovox_tpu', 'yaml', 'msgpack'):\n"
+        "    sys.modules[m] = None\n"
+        "import zerovox_tpu_torch\n"
+        "from zerovox_tpu_torch import ZeroVoxTTS\n"
+        "import zerovox_tpu_torch.weights, zerovox_tpu_torch.streaming\n"
+        "import zerovox_tpu_torch.ops.mrf, zerovox_tpu_torch.ops.upsample_stage\n"
+        "import zerovox_tpu_torch.text, zerovox_tpu_torch.utils.profiling\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))\n"
+        "               for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_no_file_imports_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|zerovox_tpu)\b(?!_torch)",
+                         re.M)
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
+
+
+def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    from zerovox_tpu_torch.synthesize import ZeroVoxTTS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ZeroVoxTTS.from_random()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ZeroVoxTTS.load_model("/nonexistent")

@@ -1,0 +1,23 @@
+"""Device choice and float32 numerics of the engine."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the CUDA card. Without one that raises: the port never
+    falls back to the CPU unless the caller passes device="cpu"."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def use_full_f32() -> None:
+    """Turn TF32 off for matmuls and cuDNN convolutions (cuDNN defaults to
+    TF32, whose ~3 decimal digits would put the plain stages ~1e-3 away from
+    the float32 reference before any kernel is involved). Process-wide."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,233 @@
+"""HiFi-GAN vocoder ("meldec") generator, inference only.
+
+The PyTorch counterpart of the JAX package's `models/hifigan.py`: conv_pre
+-> per stage [leaky-relu, ConvTranspose1d upsample, multi-receptive-field
+(MRF) mean of dilated ResBlocks] -> leaky-relu(0.01) -> conv_post -> tanh.
+Module names follow the upstream generator state_dict (`conv_pre`, `ups.i`,
+`resblocks.n.convs1.c`, `conv_post`), with weight norm already folded.
+
+Stage routing keeps the JAX Generator's rules, so both packages send the
+same stage to the same kernel:
+
+  * a stage whose channels satisfy the lane-packing condition (C_out <= 64,
+    128 % C_in == 0, stride * (128 // C_in) * C_out == 128) runs as one
+    fused upsample stage (ops/upsample_stage.py); the last stage also folds
+    in leaky(0.01) + conv_post + tanh;
+  * else a stage with C <= 128 at batch 1 runs its MRF as one fused kernel
+    (ops/mrf.py);
+  * else plain convolutions.
+
+Both fused paths need identical dilation schedules across the towers
+(`mrf_fusable`). With the default config (512 channels, rates 8,8,2,2)
+stage 0 is plain, stage 1 takes the MRF kernel and stages 2-3 the
+upsample-stage kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from zerovox_tpu_torch.ops.mrf import LRELU_SLOPE, fused_mrf, resblock1_ncl
+from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
+
+
+@dataclass(frozen=True)
+class HifiGanConfig:
+    """The part of the HiFi-GAN config.json contract the generator needs."""
+
+    resblock: str = "1"
+    upsample_rates: tuple[int, ...] = (8, 8, 2, 2)
+    upsample_kernel_sizes: tuple[int, ...] = (16, 16, 4, 4)
+    upsample_initial_channel: int = 512
+    resblock_kernel_sizes: tuple[int, ...] = (3, 7, 11)
+    resblock_dilation_sizes: tuple[tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    num_mels: int = 80
+    sampling_rate: int = 22050
+
+    @staticmethod
+    def from_dict(d: dict[str, Any]) -> "HifiGanConfig":
+        def tt(v):
+            return tuple(tuple(x) if isinstance(x, list) else x for x in v)
+
+        return HifiGanConfig(
+            resblock=str(d.get("resblock", "1")),
+            upsample_rates=tuple(d.get("upsample_rates", (8, 8, 2, 2))),
+            upsample_kernel_sizes=tuple(d.get("upsample_kernel_sizes", (16, 16, 4, 4))),
+            upsample_initial_channel=int(d.get("upsample_initial_channel", 512)),
+            resblock_kernel_sizes=tuple(d.get("resblock_kernel_sizes", (3, 7, 11))),
+            resblock_dilation_sizes=tt(d.get("resblock_dilation_sizes", ((1, 3, 5),) * 3)),
+            num_mels=int(d.get("num_mels", 80)),
+            sampling_rate=int(d.get("sampling_rate", 22050)),
+        )
+
+    @property
+    def total_upsample(self) -> int:
+        return math.prod(self.upsample_rates)
+
+    def receptive_field_frames(self) -> int:
+        """Halo in mel frames that a streamed window needs on each side so
+        its interior samples equal a full-utterance render (conservative)."""
+        halo = 3.0  # conv_pre k=7
+        up = 1.0
+        for r, k in zip(self.upsample_rates, self.upsample_kernel_sizes):
+            up *= r
+            halo += (k - r) / 2 / up * 2
+            for ks, dils in zip(self.resblock_kernel_sizes, self.resblock_dilation_sizes):
+                halo += (sum((ks - 1) * d for d in dils) + len(dils) * (ks - 1)) / up
+        halo += 3.0 / up  # conv_post
+        return int(math.ceil(halo))
+
+
+def get_padding(kernel_size: int, dilation: int = 1) -> int:
+    return (kernel_size * dilation - dilation) // 2
+
+
+class ResBlock1(nn.Module):
+    def __init__(self, channels: int, kernel_size: int = 3, dilation=(1, 3, 5)):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.dilation = tuple(dilation)
+        self.convs1 = nn.ModuleList(
+            nn.Conv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, d),
+                      dilation=d) for d in self.dilation)
+        self.convs2 = nn.ModuleList(
+            nn.Conv1d(channels, channels, kernel_size, padding=get_padding(kernel_size))
+            for _ in self.dilation)
+
+    def forward(self, x):  # NCL
+        return resblock1_ncl(x, [(c.weight, c.bias) for c in self.convs1],
+                             [(c.weight, c.bias) for c in self.convs2], self.dilation)
+
+    def tower(self):
+        """(w1 [P, k, C, C], b1 [P, C], w2, b2) with taps (k, in, out), the
+        layout of the fused kernels."""
+        def stack(convs):
+            return (torch.stack([c.weight.permute(2, 1, 0) for c in convs]).contiguous(),
+                    torch.stack([c.bias for c in convs]).contiguous())
+
+        return stack(self.convs1) + stack(self.convs2)
+
+
+class ResBlock2(nn.Module):
+    def __init__(self, channels: int, kernel_size: int = 3, dilation=(1, 3)):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            nn.Conv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, d),
+                      dilation=d) for d in dilation)
+
+    def forward(self, x):  # NCL
+        for c in self.convs:
+            x = c(F.leaky_relu(x, LRELU_SLOPE)) + x
+        return x
+
+
+class Generator(nn.Module):
+    """mel [B, T, n_mels] (NLC) -> waveform [B, T * prod(upsample_rates)]."""
+
+    def __init__(self, cfg: HifiGanConfig):
+        super().__init__()
+        self.cfg = cfg
+        nk = len(cfg.resblock_kernel_sizes)
+        c0 = cfg.upsample_initial_channel
+        self.conv_pre = nn.Conv1d(cfg.num_mels, c0, 7, padding=3)
+        self.ups = nn.ModuleList(
+            nn.ConvTranspose1d(c0 // 2 ** i, c0 // 2 ** (i + 1), k, stride=u, padding=(k - u) // 2)
+            for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)))
+        block = ResBlock1 if cfg.resblock == "1" else ResBlock2
+        self.resblocks = nn.ModuleList(
+            block(c0 // 2 ** (i + 1), k, tuple(d))
+            for i in range(len(cfg.upsample_rates))
+            for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes))
+        self.conv_post = nn.Conv1d(c0 // 2 ** len(cfg.upsample_rates), 1, 7, padding=3)
+        dil0 = tuple(cfg.resblock_dilation_sizes[0])
+        self._dil0 = dil0
+        self._mrf_fusable = (cfg.resblock == "1" and nk > 1
+                             and all(tuple(d) == dil0 for d in cfg.resblock_dilation_sizes))
+        self._kcache: dict[int, tuple] = {}
+
+    def _stage_kernel_params(self, i: int, post: bool):
+        """Kernel-layout weights of stage i, rebuilt only when a parameter
+        was replaced or written to (device move, load_state_dict)."""
+        nk = len(self.cfg.resblock_kernel_sizes)
+        blocks = [self.resblocks[i * nk + j] for j in range(nk)]
+        mods = [self.ups[i], *blocks] + ([self.conv_post] if post else [])
+        key = tuple((p.data_ptr(), p._version) for m in mods for p in m.parameters())
+        hit = self._kcache.get(i)
+        if hit is not None and hit[0] == key:
+            return hit[1]
+        with torch.no_grad():
+            up = self.ups[i]
+            params = {
+                # torch (in, out, k) -> taps (k, in, out), not flipped
+                "up": (up.weight.permute(2, 0, 1).contiguous(), up.bias.detach()),
+                "towers": [b.tower() for b in blocks],
+                "post": ((self.conv_post.weight.permute(2, 1, 0).contiguous(),
+                          self.conv_post.bias.detach()) if post else None),
+            }
+        self._kcache[i] = (key, params)
+        return params
+
+    def forward(self, mel):
+        cfg = self.cfg
+        nk = len(cfg.resblock_kernel_sizes)
+        ksizes = tuple(cfg.resblock_kernel_sizes)
+        n_stages = len(cfg.upsample_rates)
+        x = self.conv_pre(mel.transpose(1, 2))  # NCL until a fused stage takes over
+        nlc = False
+        for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+            in_ch = x.shape[-1] if nlc else x.shape[1]
+            ch = cfg.upsample_initial_channel // 2 ** (i + 1)
+            packed_ok = (self._mrf_fusable and ch <= 64 and 128 % in_ch == 0
+                         and u * (128 // in_ch) * ch == 128)
+            if packed_ok:
+                last = i == n_stages - 1
+                p = self._stage_kernel_params(i, post=last)
+                if not nlc:
+                    x, nlc = x.transpose(1, 2).contiguous(), True
+                x = fused_upsample_stage(x, p["up"][0], p["up"][1], u, (k - u) // 2,
+                                         p["towers"], self._dil0, ksizes, post=p["post"])
+                if last:
+                    return x
+                continue
+
+            if nlc:
+                x, nlc = x.transpose(1, 2), False
+            x = self.ups[i](F.leaky_relu(x, LRELU_SLOPE))
+            if self._mrf_fusable and ch <= 128 and mel.shape[0] == 1:
+                towers = self._stage_kernel_params(i, post=False)["towers"]
+                x, nlc = fused_mrf(x.transpose(1, 2).contiguous(), towers, self._dil0, ksizes), True
+                continue
+            xs = None
+            for j in range(nk):
+                r = self.resblocks[i * nk + j](x)
+                xs = r if xs is None else xs + r
+            x = xs / nk
+
+        if nlc:
+            x = x.transpose(1, 2)
+        x = F.conv1d(F.leaky_relu(x, 0.01), self.conv_post.weight, self.conv_post.bias, padding=3)
+        return torch.tanh(x)[:, 0, :]
+
+
+class MelDec(nn.Module):
+    """Vocoder wrapper carrying the mel normalization stats some upstream
+    checkpoints embed (`mean`, `scale`; identity by default). The synthesis
+    path calls it with normalize_before=False, as the JAX package does."""
+
+    def __init__(self, cfg: HifiGanConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.generator = Generator(cfg)
+        self.register_buffer("mean", torch.zeros(cfg.num_mels))
+        self.register_buffer("scale", torch.ones(cfg.num_mels))
+
+    def forward(self, mel, normalize_before: bool = False):
+        if normalize_before:
+            mel = (mel - self.mean) / self.scale
+        return self.generator(mel)

@@ -1,0 +1,117 @@
+"""Shared neural-net primitives with the numerics of the JAX package's layers.
+
+Activations at these functions' boundaries are NLC ([batch, length,
+channels]), the layout the JAX package uses, so tests compare like with
+like. Parameters use PyTorch's own layouts and the upstream gooofy/zerovox
+module names: Conv1d weight (out, in, k), Linear weight (out, in),
+ConvTranspose1d weight (in, out, k).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def conv1d(x: torch.Tensor, weight: torch.Tensor, bias=None, padding: int = 0,
+           dilation: int = 1, stride: int = 1) -> torch.Tensor:
+    """Conv over NLC x [B, T, Cin] with a torch weight (out, in, k)."""
+    y = F.conv1d(x.transpose(1, 2), weight, bias, stride=stride,
+                 padding=padding, dilation=dilation)
+    return y.transpose(1, 2)
+
+
+def conv_transpose1d(x: torch.Tensor, weight: torch.Tensor, bias, stride: int,
+                     padding: int) -> torch.Tensor:
+    """Transposed conv over NLC x [B, T, Cin] with a torch weight (in, out, k)."""
+    y = F.conv_transpose1d(x.transpose(1, 2), weight, bias, stride=stride,
+                           padding=padding)
+    return y.transpose(1, 2)
+
+
+def torch_std(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Unbiased std with 1e-12 inside the sqrt, as the JAX package's
+    `torch_std` (its epsilon keeps gradients finite on constant rows)."""
+    n = x.shape[dim]
+    mu = x.mean(dim=dim, keepdim=True)
+    var = ((x - mu) ** 2).sum(dim=dim, keepdim=True) / max(n - 1, 1)
+    return torch.sqrt(var + 1e-12)
+
+
+class Conv(nn.Module):
+    """`Conv1d` wrapped as `.conv`, the upstream variance predictor's key
+    layout (`conv_layer.conv1d_1.conv.weight`)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, padding: int):
+        super().__init__()
+        self.conv = nn.Conv1d(in_ch, out_ch, kernel_size, padding=padding)
+
+    def forward(self, x):  # NLC
+        return self.conv(x.transpose(1, 2)).transpose(1, 2)
+
+
+class NLCConv1d(nn.Conv1d):
+    """nn.Conv1d applied to NLC activations."""
+
+    def forward(self, x):
+        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+
+
+class LinearNorm(nn.Module):
+    """Linear projection stored as `.linear` (upstream fs2 LinearNorm)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = False):
+        super().__init__()
+        self.linear = nn.Linear(in_features, out_features, bias=bias)
+
+    def forward(self, x):
+        return self.linear(x)
+
+
+class SCLN(nn.Module):
+    """Speaker-conditional LayerNorm: g(s) * (x - mu) / (sigma + eps) + b(s)
+    with the unbiased std and eps added to sigma."""
+
+    def __init__(self, hidden_size: int, eps: float = 1e-8):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.eps = eps
+        self.affine_layer = LinearNorm(hidden_size, 2 * hidden_size, bias=False)
+
+    def forward(self, x, s):
+        mu = x.mean(dim=-1, keepdim=True)
+        y = (x - mu) / (torch_std(x, dim=-1) + self.eps)
+        b, g = torch.split(self.affine_layer(s), self.hidden_size, dim=-1)
+        return g * y + b
+
+
+def instance_norm_time(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalize each channel of NLC x over the length axis (biased var)."""
+    mu = x.mean(dim=1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
+def sinusoid_table(n_position: int, d_hid: int) -> np.ndarray:
+    """Sinusoid position table, computed in float64 then cast to float32."""
+    positions = np.arange(n_position)[:, None]
+    hid_idx = np.arange(d_hid)[None, :]
+    angle = positions / np.power(10000, 2 * (hid_idx // 2) / d_hid)
+    table = np.zeros((n_position, d_hid))
+    table[:, 0::2] = np.sin(angle[:, 0::2])
+    table[:, 1::2] = np.cos(angle[:, 1::2])
+    return table.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def position_table(seq_len: int, d_model: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """[seq_len, d_model] positions, cached per bucket and device (callers
+    must not write to it). Row p of the table does not depend on the
+    table's length, so a bucket past the trained length needs no special
+    case."""
+    return torch.tensor(sinusoid_table(seq_len, d_model), device=device, dtype=dtype)

@@ -1,0 +1,107 @@
+"""Fused HiFi-GAN multi-receptive-field (MRF) stage: kernel K1.
+
+One vocoder upsample stage averages several ResBlock1 towers (kernel sizes
+3/7/11, dilations 1,3,5 each) over the same input. `fused_mrf` computes
+that mean in one pass over x [B, T, C]:
+
+  * on a CUDA tensor it launches the hand-written Hopper kernel
+    `csrc/mrf.cu`, which replaces the TPU kernel
+    `zerovox_tpu/ops/pallas/mrf.py::fused_mrf`. On an H100 the stage is
+    bound by arithmetic (252 C^2 FLOP per row, ~3400 FLOP per byte at the
+    main path's C=128), not by memory; the kernel keeps every tower
+    activation of a time tile in shared memory and writes the output once
+    (design notes in the source);
+  * on a CPU tensor it runs `mrf_plain`, the same function in plain PyTorch.
+
+There is no fallback: a CUDA tensor the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from zerovox_tpu_torch.ops import _cuda
+
+LRELU_SLOPE = 0.1
+
+
+def resblock1_ncl(x, convs1, convs2, dilations):
+    """One ResBlock1 tower over NCL x [B, C, T]; convs1/convs2 are lists of
+    torch-layout (weight (out, in, k), bias) per dilation."""
+    for (w1, b1), (w2, b2), d in zip(convs1, convs2, dilations):
+        k = w1.shape[-1]
+        xt = F.conv1d(F.leaky_relu(x, LRELU_SLOPE), w1, b1, padding=(k * d - d) // 2, dilation=d)
+        xt = F.conv1d(F.leaky_relu(xt, LRELU_SLOPE), w2, b2, padding=(k - 1) // 2)
+        x = xt + x
+    return x
+
+
+def _torch_convs(w, b):
+    """[P, k, Cin, Cout] taps + [P, Cout] -> list of ((out, in, k), bias)."""
+    return [(w[p].permute(2, 1, 0), b[p]) for p in range(w.shape[0])]
+
+
+def mrf_plain(x, towers, dilations):
+    """Plain PyTorch MRF: mean over towers (w1 [P,k,C,C], b1 [P,C], w2, b2)
+    of ResBlock1 over NLC x [B, T, C]."""
+    xc = x.transpose(1, 2)
+    outs = [resblock1_ncl(xc, _torch_convs(w1, b1), _torch_convs(w2, b2), dilations)
+            for w1, b1, w2, b2 in towers]
+    return (sum(outs) / len(outs)).transpose(1, 2)
+
+
+def flat_towers(towers):
+    """The kernels' flat weight and bias buffers: tower by tower, w1 then w2
+    ([P, k, C, C] taps (k, in, out)), b1 then b2 ([P, C])."""
+    w = torch.cat([t.reshape(-1) for w1, _, w2, _ in towers for t in (w1, w2)])
+    b = torch.cat([t.reshape(-1) for _, b1, _, b2 in towers for t in (b1, b2)])
+    return w, b
+
+
+def check_towers(name, towers, kernel_sizes, n_pairs, C):
+    """Raise unless every tower is (w1, b1, w2, b2) of shapes [P, k, C, C],
+    [P, C], [P, k, C, C], [P, C]: the kernels read the flat buffers by them."""
+    for (w1, b1, w2, b2), k in zip(towers, kernel_sizes):
+        if (tuple(w1.shape) != (n_pairs, k, C, C) or tuple(w2.shape) != (n_pairs, k, C, C)
+                or tuple(b1.shape) != (n_pairs, C) or tuple(b2.shape) != (n_pairs, C)):
+            raise ValueError(f"{name}: tower weights {[tuple(t.shape) for t in (w1, b1, w2, b2)]} "
+                             f"do not match C={C}, k={k}, {n_pairs} pairs")
+
+
+def tower_args(towers, dilations, kernel_sizes):
+    """(n_towers, k0, k1, k2, n_pairs, d0, d1, d2) for the C interface."""
+    if not 1 <= len(towers) <= 3 or not 1 <= len(dilations) <= 3:
+        raise ValueError("the fused MRF kernels take 1-3 towers of 1-3 conv pairs")
+    if len(kernel_sizes) != len(towers) or any(k % 2 == 0 for k in kernel_sizes):
+        raise ValueError(f"need one odd kernel size per tower, got {kernel_sizes}")
+    ks = list(kernel_sizes) + [0] * (3 - len(kernel_sizes))
+    ds = list(dilations) + [0] * (3 - len(dilations))
+    return [len(towers), *ks, len(dilations), *ds]
+
+
+def fused_mrf(x, towers, dilations, kernel_sizes):
+    """Mean over ResBlock1 towers of x [B, T, C] -> [B, T, C].
+
+    towers: list of (w1 [P, k, C, C], b1 [P, C], w2 [P, k, C, C], b2 [P, C])
+    with conv taps (k, in, out); dilations: the P first-conv dilations,
+    shared by every tower; kernel_sizes: k of each tower."""
+    if x.device.type == "cpu":
+        return mrf_plain(x, towers, dilations)
+    B, T, C = x.shape
+    if C not in (32, 64, 128):
+        raise ValueError(f"fused_mrf: the kernel takes C in (32, 64, 128), got {C}")
+    args = tower_args(towers, dilations, kernel_sizes)
+    check_towers("fused_mrf", towers, kernel_sizes, len(dilations), C)
+    w, b = flat_towers(towers)
+    _cuda.require_f32_cuda("fused_mrf", x, w, b)
+    out = torch.empty_like(x)
+    err = _cuda.lib("mrf").zv_mrf_f32(
+        x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), B, T, C, *args,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _cuda.check(err, "fused_mrf")
+    fused_mrf.launches += 1
+    return out
+
+
+fused_mrf.launches = 0

@@ -1,0 +1,86 @@
+"""Fused HiFi-GAN upsample stage: kernel K2.
+
+One whole vocoder stage — leaky_relu(0.1) -> ConvTranspose1d (stride s,
+padding p) -> MRF mean of ResBlock1 towers — and on the last stage also
+leaky_relu(0.01) -> conv_post (C_out -> 1, k=7) -> tanh. `fused_upsample_stage`
+computes it in one pass over x [B, T_in, C_in]:
+
+  * on a CUDA tensor it launches the hand-written Hopper kernel
+    `csrc/upsample_stage.cu`, which replaces the TPU kernel
+    `zerovox_tpu/ops/pallas/packed.py::fused_packed_stage`. On an H100 the
+    stage is bound by arithmetic (several hundred FLOP per byte at the main
+    path's shapes); the kernel recomputes the upsampler per tower inside a
+    time tile instead of writing the upsampled activation, and writes only
+    the stage output (design notes in the source);
+  * on a CPU tensor it runs `upsample_stage_plain`, the same function in
+    plain PyTorch.
+
+There is no fallback: a CUDA tensor the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from zerovox_tpu_torch.ops import _cuda
+from zerovox_tpu_torch.ops.mrf import (LRELU_SLOPE, check_towers, flat_towers, mrf_plain,
+                                       tower_args)
+
+KERNEL_WIDTHS = ((128, 64), (64, 32), (32, 16))  # (C_in, C_out) instantiated in the source
+
+
+def upsample_stage_plain(x, up_w, up_b, stride, up_padding, towers, dilations, post=None):
+    """Plain PyTorch stage. up_w [k, C_in, C_out] holds torch's taps (the
+    weight (in, out, k) permuted, not flipped); post = (w [k, C_out, 1], b [1])."""
+    y = F.conv_transpose1d(F.leaky_relu(x, LRELU_SLOPE).transpose(1, 2), up_w.permute(1, 2, 0), up_b,
+                           stride=stride, padding=up_padding)
+    y = mrf_plain(y.transpose(1, 2), towers, dilations)
+    if post is None:
+        return y
+    pw, pb = post
+    y = F.conv1d(F.leaky_relu(y, 0.01).transpose(1, 2), pw.permute(2, 1, 0), pb,
+                 padding=(pw.shape[0] - 1) // 2)
+    return torch.tanh(y)[:, 0, :]
+
+
+def fused_upsample_stage(x, up_w, up_b, stride, up_padding, towers, dilations, kernel_sizes,
+                         post=None):
+    """x [B, T_in, C_in] -> [B, T_out, C_out], or the waveform [B, T_out]
+    when post = (w [k, C_out, 1], b [1]) is given. T_out = (T_in - 1) *
+    stride + k - 2 * up_padding. Towers as in ops.mrf.fused_mrf."""
+    if x.device.type == "cpu":
+        return upsample_stage_plain(x, up_w, up_b, stride, up_padding, towers, dilations, post)
+    B, T_in, C_in = x.shape
+    up_k, _, C_out = up_w.shape
+    if (C_in, C_out) not in KERNEL_WIDTHS:
+        raise ValueError(f"fused_upsample_stage: the kernel takes (C_in, C_out) in "
+                         f"{KERNEL_WIDTHS}, got {(C_in, C_out)}")
+    if tuple(up_w.shape) != (up_k, C_in, C_out) or tuple(up_b.shape) != (C_out,):
+        raise ValueError("fused_upsample_stage: upsampler weight must be [k, C_in, C_out]")
+    T_out = (T_in - 1) * stride + up_k - 2 * up_padding
+    args = tower_args(towers, dilations, kernel_sizes)
+    check_towers("fused_upsample_stage", towers, kernel_sizes, len(dilations), C_out)
+    w, b = flat_towers(towers)
+    if post is not None:
+        pw, pb = post
+        post_k = pw.shape[0]
+        if tuple(pw.shape) != (post_k, C_out, 1) or post_k % 2 == 0:
+            raise ValueError("fused_upsample_stage: post weight must be [odd k, C_out, 1]")
+        pw = pw.reshape(post_k, C_out)
+        out = torch.empty(B, T_out, device=x.device, dtype=x.dtype)
+    else:
+        pw = pb = up_b  # ignored by the kernel
+        post_k = 0
+        out = torch.empty(B, T_out, C_out, device=x.device, dtype=x.dtype)
+    _cuda.require_f32_cuda("fused_upsample_stage", x, up_w, up_b, w, b, pw, pb)
+    err = _cuda.lib("upsample_stage").zv_upsample_stage_f32(
+        x.data_ptr(), out.data_ptr(), up_w.data_ptr(), up_b.data_ptr(), w.data_ptr(),
+        b.data_ptr(), pw.data_ptr(), pb.data_ptr(), B, T_in, C_in, C_out, up_k, stride,
+        up_padding, post_k, *args, torch.cuda.current_stream(x.device).cuda_stream)
+    _cuda.check(err, "fused_upsample_stage")
+    fused_upsample_stage.launches += 1
+    return out
+
+
+fused_upsample_stage.launches = 0

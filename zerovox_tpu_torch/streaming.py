@@ -1,0 +1,73 @@
+"""Chunked streaming vocoding.
+
+The mel is split into fixed-size chunks; each is vocoded in a window with a
+receptive-field halo of extra frames on both sides, and the halo samples
+are trimmed, so the concatenated stream equals a full-utterance render (the
+generator is purely convolutional). The first audio arrives after one small
+fixed-shape window instead of the whole utterance.
+
+Window 0 starts at mel[0] with no left halo: a zero halo is not equivalent
+to the full render's implicit zero padding, because conv biases make
+activations nonzero over an explicit zero prefix that deeper layers read.
+Past mel_len both paths see the same explicit zeros (the decoder masks the
+bucket tail), so the right edge is exact except within one receptive field
+of the bucket's end.
+
+The window is sliced out of the decoder's mel on the device; only audio
+chunks come back to the host.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+class ChunkStreamer:
+    """Fixed-window chunked vocoder over one decoded mel [1, T, n_mels]."""
+
+    def __init__(self, meldec, meldec_cfg, mel: torch.Tensor, chunk_frames: int = 96,
+                 halo_frames: int | None = None):
+        if halo_frames is None:
+            halo_frames = meldec_cfg.receptive_field_frames()
+        self.halo = halo_frames
+        self.up = meldec_cfg.total_upsample
+        self.chunk = chunk_frames
+        self.window = chunk_frames + 2 * halo_frames
+        self._meldec = meldec
+        # left halo zeros + right padding so any window start is in range
+        self._mel_padded = F.pad(mel, (0, 0, self.halo, self.window))
+
+    def dispatch(self, pos: int) -> torch.Tensor:
+        """Start vocoding the window of the chunk at mel position `pos`
+        (asynchronous on the card). pos == 0 anchors the window at mel[0]
+        with no left halo (module docstring)."""
+        start = self.halo if pos == 0 else pos
+        with torch.inference_mode():
+            return self._meldec(self._mel_padded[:, start:start + self.window])
+
+    def trim(self, wav: torch.Tensor, n_frames: int, pos: int | None = None) -> np.ndarray:
+        """Samples of the chunk at `pos` (an interior chunk by default)."""
+        start_s = 0 if pos == 0 else self.halo * self.up
+        return wav[0, start_s:start_s + n_frames * self.up].cpu().numpy()
+
+    def chunks(self, mel_len: int, pos: int = 0, first_wav=None) -> Iterator[np.ndarray]:
+        """Yield chunks covering mel[pos:mel_len]. The next window is
+        dispatched before the current one is fetched, so the card computes
+        while the host copies and yields."""
+        pending_pos = pos
+        pending = first_wav if first_wav is not None else self.dispatch(pos)
+        while pending_pos < mel_len:
+            end = min(pending_pos + self.chunk, mel_len)
+            nxt = self.dispatch(end) if end < mel_len else None
+            yield self.trim(pending, end - pending_pos, pos=pending_pos)
+            pending, pending_pos = nxt, end
+
+
+def stream_vocode(meldec, meldec_cfg, mel: torch.Tensor, mel_len: int, chunk_frames: int = 96,
+                  halo_frames: int | None = None) -> Iterator[np.ndarray]:
+    """Yield waveform chunks covering mel[:, :mel_len]."""
+    yield from ChunkStreamer(meldec, meldec_cfg, mel, chunk_frames, halo_frames).chunks(mel_len)

@@ -1,0 +1,370 @@
+"""ZeroVoxTTS: the synthesis API of the PyTorch package.
+
+The counterpart of the JAX package's `synthesize.py`, on PyTorch and CUDA:
+
+  * text and mel lengths are padded to static buckets (the same buckets as
+    the JAX package, so both run the same shapes);
+  * synthesis is three stages: `encode` (phoneme encoder + variance
+    predictors), `decode` (length regulation into a mel bucket + mel
+    decoder) and the vocoder. The mel bucket is chosen speculatively from
+    the phone count so decode and vocode are queued before the one host
+    sync on the duration sum; when the speculation was too small the
+    exact bucket is redone;
+  * `tts_stream` yields audio chunk by chunk (streaming.py).
+
+Entry points run on the CUDA card unless the caller passes device="cpu";
+without a card they raise. The engine runs float32 with TF32 off.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import re
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from zerovox_tpu_torch.config import ZeroVoxConfig
+from zerovox_tpu_torch.device import resolve_device, use_full_f32
+from zerovox_tpu_torch.dsp.audio import trim_silence
+from zerovox_tpu_torch.dsp.mels import MelFrontend
+from zerovox_tpu_torch.models.hifigan import HifiGanConfig, MelDec
+from zerovox_tpu_torch.models.zerovox import ZeroVox
+from zerovox_tpu_torch.streaming import ChunkStreamer, stream_vocode
+from zerovox_tpu_torch.symbols import Symbols
+from zerovox_tpu_torch.text.normalize import ZeroVoxNormalizer
+from zerovox_tpu_torch.text.tokenizer import transcript2phonemids
+from zerovox_tpu_torch.utils.profiling import StageTimer
+
+TEXT_BUCKETS = (16, 32, 64, 96, 128, 192, 256, 384, 512)
+MEL_BUCKETS = (96, 176, 344, 512, 689, 1024, 1408, 1750)
+
+_SENTENCE_SPLIT = re.compile(r"(?<=[.!?;:])\s+")
+
+
+def pick_bucket(n: int, buckets) -> int:
+    for b in buckets:
+        if b >= n:
+            return b
+    return ((n + 127) // 128) * 128  # beyond the largest bucket: 128-grid
+
+
+def random_init_(module: torch.nn.Module, gen: torch.Generator) -> None:
+    """Seeded random weights: LeCun-normal for weight matrices and kernels,
+    unit-variance/sqrt(dim) embeddings, zero biases, identity norms."""
+    with torch.no_grad():
+        for mod in module.modules():
+            for name, p in mod.named_parameters(recurse=False):
+                if isinstance(mod, torch.nn.Embedding):
+                    p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+                elif p.dim() < 2:
+                    p.fill_(1.0 if name == "weight" else 0.0)
+                else:
+                    if isinstance(mod, torch.nn.ConvTranspose1d):  # (in, out, k)
+                        fan_in = p.shape[0] * p.shape[2]
+                    else:
+                        fan_in = p[0].numel()
+                    p.normal_(0.0, fan_in ** -0.5, generator=gen)
+
+
+class ZeroVoxTTS:
+    """End-to-end zero-shot TTS engine."""
+
+    # generous upper bound on frames per phone for the speculative mel bucket
+    _SPEC_FRAMES_PER_PHONE = 12
+
+    def __init__(self, cfg: ZeroVoxConfig, state_dict: dict, meldec_cfg: HifiGanConfig,
+                 meldec_state_dict: dict, language: str | None = None, verbose: bool = False,
+                 meldec_model: str = "", device=None):
+        """`state_dict`: models.zerovox.ZeroVox weights (upstream key names);
+        `meldec_state_dict`: models.hifigan.MelDec weights."""
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            use_full_f32()
+        self.cfg = cfg
+        self._verbose = verbose
+        self._meldec_model = meldec_model
+        self._symbols = Symbols(phones=cfg.model.phones, puncts=cfg.model.puncts)
+        self._normalizer = ZeroVoxNormalizer(language or cfg.langs[0])
+
+        self._model = ZeroVox(cfg)
+        self._model.load_state_dict(state_dict)
+        self._model.eval().to(self.device)
+        self._meldec_cfg = meldec_cfg
+        self._meldec = MelDec(meldec_cfg)
+        self._meldec.load_state_dict(meldec_state_dict)
+        self._meldec.eval().to(self.device)
+
+        a = cfg.audio
+        self._hop_length = a.hop_size
+        self._frontend = MelFrontend(a.sampling_rate, a.fft_size, a.hop_size, a.win_length,
+                                     a.num_mels, a.fmin, a.fmax, device=self.device)
+
+    # ------------------------------------------------------------ public API
+
+    @property
+    def normalizer(self):
+        return self._normalizer
+
+    @property
+    def language(self) -> str:
+        return self._normalizer.language
+
+    @language.setter
+    def language(self, value: str):
+        if value != self._normalizer.language:
+            self._normalizer = ZeroVoxNormalizer(value)
+
+    @property
+    def meldec_model(self) -> str:
+        return self._meldec_model
+
+    def state_dicts(self) -> tuple[dict, dict]:
+        """(acoustic model, vocoder) state_dicts on the CPU."""
+        def cpu(sd):
+            return {k: v.detach().cpu() for k, v in sd.items()}
+        return cpu(self._model.state_dict()), cpu(self._meldec.state_dict())
+
+    def speaker_embed(self, wav: np.ndarray) -> torch.Tensor:
+        """Reference wav -> [1, 1, emb] on the engine's device."""
+        wav, _ = trim_silence(wav, top_db=40.0)
+        mel, _ = self._frontend(wav)  # [n_mels, T]
+        with torch.inference_mode():
+            return self._model.speaker_embed(mel.T[None].contiguous())
+
+    def text2phonemeids(self, text: str) -> tuple[list[int], list[int]]:
+        transcript_uroman, _ = self._normalizer.normalize(text)
+        phone_ids, punct_ids = transcript2phonemids(transcript_uroman, self._symbols)
+        if self._verbose:
+            print(f"Raw Text Sequence: {text}")
+            print(f"Normalized       : {transcript_uroman}")
+            print(f"Phoneme IDs      : {phone_ids}")
+            print(f"Punct IDs        : {punct_ids}")
+        return phone_ids, punct_ids
+
+    # ------------------------------------------------------- synthesis core
+
+    def _spk(self, spkemb) -> torch.Tensor:
+        if isinstance(spkemb, torch.Tensor):
+            return spkemb.to(device=self.device, dtype=torch.float32)
+        return torch.tensor(np.asarray(spkemb, np.float32), device=self.device)
+
+    def _encode(self, phone_ids, punct_ids, spkemb, duration=None):
+        """Stage A at the text bucket. Returns (encoder outputs, speculative
+        mel length, forced durations or None)."""
+        n = len(phone_ids)
+        L = pick_bucket(n, TEXT_BUCKETS)
+        phonemes = np.zeros((1, L), np.int64)
+        puncts = np.zeros((1, L), np.int64)
+        mask = np.ones((1, L), bool)
+        phonemes[0, :n] = phone_ids
+        puncts[0, :n] = punct_ids
+        mask[0, :n] = False
+        dur = None
+        if duration is not None:
+            dur = np.zeros((1, L), np.int32)
+            dur[0, :n] = np.asarray(duration)[:n]
+        dev = self.device
+        with torch.inference_mode():
+            enc = self._model.encode(
+                torch.from_numpy(phonemes).to(dev), torch.from_numpy(puncts).to(dev),
+                self._spk(spkemb), phoneme_mask=torch.from_numpy(mask).to(dev),
+                duration_target=None if dur is None else torch.from_numpy(dur).to(dev))
+        spec_len = int(dur.sum()) if dur is not None else self._SPEC_FRAMES_PER_PHONE * n + 16
+        return enc, spec_len, dur
+
+    def _decode(self, enc, spkemb, T: int) -> torch.Tensor:
+        with torch.inference_mode():
+            mel, _, _ = self._model.decode(enc["x"], enc["duration_rounded"], self._spk(spkemb), T)
+        return mel
+
+    def _vocode(self, mel: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return self._meldec(mel)
+
+    def _mel_len(self, enc, dur) -> int:
+        # forced durations are known on the host; otherwise one device sync
+        n = int(dur.sum()) if dur is not None else int(enc["duration_rounded"].sum())
+        return max(min(n, self.cfg.model.max_mel_len), 1)
+
+    def _synthesize(self, phone_ids, punct_ids, spkemb, duration=None,
+                    timer: StageTimer | None = None, want_mel: bool = True):
+        """Returns (wav [N] numpy, mel_len, log_duration, mel [n_mels, mel_len] or None)."""
+        enc, spec_len, dur = self._encode(phone_ids, punct_ids, spkemb, duration)
+        max_len = self.cfg.model.max_mel_len
+        T_spec = pick_bucket(min(max(spec_len, 1), max_len), MEL_BUCKETS)
+        mel = self._decode(enc, spkemb, T_spec)
+        wav = self._vocode(mel)
+        mel_len = self._mel_len(enc, dur)
+        if timer:
+            timer.mark("pe")
+        if mel_len > T_spec:
+            # speculation too small: redo at the exact bucket
+            mel = self._decode(enc, spkemb, pick_bucket(mel_len, MEL_BUCKETS))
+            wav = self._vocode(mel)
+        if timer:
+            timer.mark("dec+meldec")
+        wav_np = wav[0, : mel_len * self._hop_length].cpu().numpy()
+        mel_np = mel[0, :mel_len, :].T.cpu().numpy() if want_mel else None
+        return wav_np, mel_len, enc["log_duration"], mel_np
+
+    def tts_ex(self, text: str, spkemb, duration=None, want_mel: bool = True):
+        text = text.strip()
+        tstart_g2p = time.time()
+        phone_ids, punct_ids = self.text2phonemeids(text)
+        tend_g2p = time.time()
+        if not phone_ids:
+            return (np.array([[0.0]], dtype=np.float32), np.array([[0]], dtype=np.int32), 0,
+                    np.array([[0.0]], dtype=np.float32))
+        timer = StageTimer(self.device) if self._verbose else None
+        tstart_synth = time.time()
+        wav, length, _, mel = self._synthesize(phone_ids, punct_ids, spkemb, duration=duration,
+                                               timer=timer, want_mel=want_mel)
+        if self._verbose:
+            print(f"synthesis timing stats: {timer.report()}")
+            print(f"tts timing stats: g2p={tend_g2p - tstart_g2p}s, "
+                  f"synth={time.time() - tstart_synth}s")
+        return wav, np.array([phone_ids], dtype=np.int32), length, mel
+
+    def tts(self, text: str, spkemb, duration=None):
+        wav, phoneme, length, _ = self.tts_ex(text, spkemb, duration=duration, want_mel=False)
+        return wav, phoneme, length
+
+    def tts_stream(self, text: str, spkemb, chunk_frames: int = 96, duration=None):
+        """Streaming synthesis: yields waveform chunks as they are vocoded.
+        Decode and the first window are queued at the speculative bucket
+        before the duration sum is read; if the speculation was too small
+        the decode is redone at the exact bucket before anything is emitted."""
+        phone_ids, punct_ids = self.text2phonemeids(text.strip())
+        if not phone_ids:
+            return
+        enc, spec_len, dur = self._encode(phone_ids, punct_ids, spkemb, duration)
+        max_len = self.cfg.model.max_mel_len
+        T_spec = pick_bucket(min(max(spec_len, 1), max_len), MEL_BUCKETS)
+        mel = self._decode(enc, spkemb, T_spec)
+        streamer = ChunkStreamer(self._meldec, self._meldec_cfg, mel, chunk_frames)
+        first_wav = streamer.dispatch(0)
+        mel_len = self._mel_len(enc, dur)
+        if mel_len > T_spec:
+            mel = self._decode(enc, spkemb, pick_bucket(mel_len, MEL_BUCKETS))
+            yield from stream_vocode(self._meldec, self._meldec_cfg, mel, mel_len,
+                                     chunk_frames=chunk_frames)
+            return
+        yield from streamer.chunks(mel_len, pos=0, first_wav=first_wav)
+
+    def tts_stream_text(self, text: str, spkemb, chunk_frames: int = 96):
+        """Streaming over arbitrarily long text: split into sentences (and
+        clauses past max_txt_len), each synthesized and streamed in turn."""
+        pieces: list[str] = []
+        for sentence in _SENTENCE_SPLIT.split(text.strip()):
+            sentence = sentence.strip()
+            if not sentence:
+                continue
+            while len(sentence) > self.cfg.model.max_txt_len:
+                cut = sentence.rfind(",", 0, self.cfg.model.max_txt_len)
+                cut = cut if cut > 0 else self.cfg.model.max_txt_len
+                pieces.append(sentence[:cut + 1])
+                sentence = sentence[cut + 1:].strip()
+            pieces.append(sentence)
+        for piece in pieces:
+            yield from self.tts_stream(piece, spkemb, chunk_frames=chunk_frames)
+
+    def warmup(self, texts=("This is a warmup utterance.",), spkemb=None, mel_buckets=None):
+        """Run the given texts (and, with `mel_buckets`, every such bucket
+        through forced durations) once, so first requests find the kernels
+        built and cuDNN's algorithm choices made."""
+        if spkemb is None:
+            spkemb = torch.zeros((1, 1, self.cfg.model.emb_size), device=self.device)
+        for t in texts:
+            self.tts(t, spkemb)
+        if mel_buckets:
+            ids, _ = self.text2phonemeids(texts[0])
+            n = max(len(ids), 1)
+            for T in mel_buckets:
+                if T > self.cfg.model.max_mel_len:
+                    continue
+                dur = np.full(n, max(1, T // n), dtype=np.int32)
+                dur[-1] += T - int(dur.sum())
+                self.tts(texts[0], spkemb, duration=dur)
+
+    # ------------------------------------------------------------- loaders
+
+    @classmethod
+    def from_random(cls, cfg: ZeroVoxConfig | None = None,
+                    meldec_cfg: HifiGanConfig | None = None, seed: int = 0,
+                    language: str = "en", verbose: bool = False, device=None):
+        """Engine with seeded random weights (benchmarks, tests, offline)."""
+        device = resolve_device(device)
+        cfg = cfg or ZeroVoxConfig()
+        meldec_cfg = meldec_cfg or HifiGanConfig(num_mels=cfg.audio.num_mels,
+                                                 sampling_rate=cfg.audio.sampling_rate)
+        gen = torch.Generator().manual_seed(seed)
+        model, meldec = ZeroVox(cfg), MelDec(meldec_cfg)
+        random_init_(model, gen)
+        random_init_(meldec, gen)
+        return cls(cfg, model.state_dict(), meldec_cfg, meldec.state_dict(), language=language,
+                   verbose=verbose, device=device)
+
+    @classmethod
+    def from_jax_variables(cls, cfg: ZeroVoxConfig, variables: dict, meldec_cfg: HifiGanConfig,
+                           meldec_variables: dict, language: str = "en", device=None):
+        """Engine on the JAX package's weights (variable trees of numpy arrays)."""
+        from zerovox_tpu_torch.weights import from_jax_variables, meldec_from_jax_variables
+
+        return cls(cfg, from_jax_variables(variables, cfg), meldec_cfg,
+                   meldec_from_jax_variables(meldec_variables, meldec_cfg),
+                   language=language, device=device)
+
+    @classmethod
+    def load_model(cls, modelpath, meldec_model=None, verbose: bool = False, device=None):
+        """Load `modelcfg.yaml` + the newest `checkpoints/*.ckpt` (upstream
+        Lightning format) from a local directory. The vocoder comes from
+        `meldec_model`, a directory holding `config.json` + `generator.ckpt`,
+        or else from `_meldec.*` weights embedded in the checkpoint. Returns
+        (modelcfg dict, engine)."""
+        import yaml  # only YAML loading needs it
+
+        from zerovox_tpu_torch.weights import upstream_generator_state_dict, upstream_state_dict
+
+        device = resolve_device(device)
+        if not os.path.isdir(str(modelpath)):
+            raise FileNotFoundError(f"model directory not found: {modelpath}")
+        ckpts = glob.glob(os.path.join(str(modelpath), "checkpoints", "*.ckpt"))
+        if not ckpts:
+            raise FileNotFoundError(f"no checkpoints/*.ckpt under {modelpath}")
+        checkpoint = max(ckpts, key=os.path.getctime)
+        with open(Path(modelpath) / "modelcfg.yaml") as f:
+            modelcfg = yaml.load(f, Loader=yaml.FullLoader)
+        cfg = ZeroVoxConfig.from_dict(modelcfg)
+        if verbose:
+            print("synthesize: using checkpoint: ", checkpoint)
+
+        sd = _torch_state_dict(checkpoint)
+        state_dict = upstream_state_dict(sd, ZeroVox(cfg))
+        embedded = {k[len("_meldec."):]: v for k, v in sd.items() if k.startswith("_meldec.")}
+        if meldec_model:
+            with open(Path(meldec_model) / "config.json") as f:
+                meldec_cfg = HifiGanConfig.from_dict(json.load(f))
+            gen_sd = _torch_state_dict(Path(meldec_model) / "generator.ckpt")
+        elif embedded:
+            meldec_cfg, gen_sd = HifiGanConfig(), embedded
+        else:
+            raise ValueError("no meldec model given and none embedded in the checkpoint")
+        md = MelDec(meldec_cfg).state_dict()
+        md.update(upstream_generator_state_dict(gen_sd))
+        engine = cls(cfg, state_dict, meldec_cfg, md, language=cfg.langs[0], verbose=verbose,
+                     meldec_model=str(meldec_model or ""), device=device)
+        return modelcfg, engine
+
+
+def _torch_state_dict(path) -> dict:
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        return ckpt["state_dict"]
+    if isinstance(ckpt, dict) and "generator" in ckpt:
+        return ckpt["generator"]
+    return ckpt
