@@ -2,26 +2,38 @@
 """Smoke run of the PyTorch/CUDA port (`zerovox_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py              # the whole check; exits 0 only if every phase passed
-    python3 chip_smoke.py --profile DIR   # also a torch.profiler breakdown of tts_ex,
-                                          # written to DIR/profile_main_path.txt
+    python3 chip_smoke.py --profile DIR   # also torch.profiler breakdowns of tts_ex and of
+                                          # a train step, written to DIR/profile_*.txt
 
 Phases, in order; any failure exits nonzero:
 
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. Build: every CUDA kernel from `zerovox_tpu_torch/csrc/`, with nvcc's
    register and shared-memory report.
-3. Kernels at the main path's shapes (bucket 689 of bench.py's text), each
-   against its plain PyTorch version on the card (max abs diff < 5e-4),
-   timed with CUDA events beside the plain version and the card's bound.
-4. The main path at full width (default ZeroVoxConfig + HiFi-GAN, random
+3. Kernels at their paths' shapes, each against its plain PyTorch version on
+   the card, timed with CUDA events beside the plain version and the card's
+   bound: K1 and K2 at the serving path's (bucket 689 of bench.py's text;
+   max abs diff < 5e-4); K4 forward and backward (`se_conv`) at the training
+   path's [24, 32, 80, 500] (y and dx < 5e-4 absolute, every reduction
+   < 1e-4 x the plain result's max |value|), with F.conv2d alone beside them.
+4. The serving path at full width (default ZeroVoxConfig + HiFi-GAN, random
    weights from seed 0): speaker_embed -> tts_ex -> tts_stream, with the
    kernels' launch counts read around that run; then RTF and first-chunk
    latency by bench.py's method.
 5. The same weights on the CPU (plain versions) on a short text: the card's
    waveform must match within 1e-3.
+6. The training path at full width (ZeroVoxConfig with packed_speaker=1,
+   fused_speaker=True, random weights from seed 0): a synthetic corpus of 48
+   utterances, SpeechDataModule at batch 24, Trainer.fit for 6 steps with the
+   launch counts read around it (6 + 6 K4 launches a step) and finite losses;
+   then the step's device time with and without the fused stage 1, in turns.
+7. One train step at reduced depth (one FFT layer each side, dropout 0) on
+   the card and on the CPU from the same weights and batch: losses within
+   1e-4 relative, every gradient within 1e-3 x its tensor's max |value|.
 
-The line before the last is a JSON object {"kernels": [...]}; the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+The last three lines are the card's name and power limit, a JSON object
+{"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}.
 """
 
 from __future__ import annotations
@@ -29,10 +41,12 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+BUILD = ROOT / "build"  # gitignored: the kernels' libraries and the synthetic corpus
 
 # bench.py's text and forced duration: 102 phones x 6 frames = 612 frames, mel bucket 689
 TEXT = ("The quick brown fox jumps over the lazy dog while the curious cat "
@@ -43,6 +57,15 @@ SHORT_TEXT = "Hello world."  # text bucket 16, mel bucket 96 (the CPU cross-chec
 KERNEL_TOL = 5e-4  # fused kernel against its unfused version
 WAV_TOL = 1e-3  # waveform against the float32 CPU run
 STREAM_TOL = 1e-4  # streamed chunks against the full render on the card
+# stage 1 of the speaker encoder in training: batch 24 (cli/train.py's default)
+# x 32 channels over the 80-mel x 500-frame reference crop (training/data.py)
+SE_SHAPE = (24, 32, 80, 500)
+RED_TOL = 1e-4  # a kernel's reductions, relative to the plain result's max |value|
+TRAIN_BATCH, TRAIN_UTTS, TRAIN_EPOCHS = 24, 48, 3  # 2 steps an epoch
+STEP_LOSS_RTOL = 1e-4  # a train step's losses on the card against the CPU
+STEP_GRAD_TOL = 1e-3  # its gradients, relative to each tensor's max |value|
+SPK_BATCH_STATS_TOL = 2e-2  # see train_cross_check: ~6x the CPU float32 run's own distance
+STATS = {"pitch_min": 50.0, "pitch_max": 400.0, "energy_min": 0.1, "energy_max": 50.0}
 # H100 SXM data sheet: float32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -159,30 +182,338 @@ def kernel_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
     return rows
 
 
-def profile_tts(torch, engine, spk, dur, out: Path) -> None:
-    """torch.profiler over three tts_ex calls: device time by kernel and the
-    device's busy share of the window, the table written to `out`."""
+def se_conv_phase(torch, dev) -> list[dict]:
+    """K4 forward and backward at the training path's stage-1 shape against
+    se_conv_plain (its outputs; autograd's gradients for the backward), with
+    F.conv2d alone (forward; dgrad + wgrad) timed beside each."""
+    import torch.nn.functional as F
+    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd, se_conv_fwd, se_conv_plain
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    B, C, H, W = SE_SHAPE
+    gen = torch.Generator().manual_seed(4321)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    x, w = rnd(B, C, H, W), rnd(C, C, 3, 3, scale=(9 * C) ** -0.5)
+    s, t = (torch.rand(C, generator=gen) + 0.5).to(dev), rnd(C, scale=0.3)
+    cts = (rnd(B, C, H, W), rnd(C), rnd(C), rnd(B, C))
+    act_bytes, w_bytes = 4.0 * x.numel(), 4.0 * (w.numel() + 2 * C)
+    conv_flop = 2.0 * B * H * W * 9 * C * C
+
+    def compare(name, keys, got, ref) -> tuple[float, float]:
+        """(max abs error of the first output, largest relative error of the
+        reductions); fails past KERNEL_TOL or RED_TOL."""
+        rel = 0.0
+        for i, (key, a, b) in enumerate(zip(keys, got, ref)):
+            check(a.shape == b.shape, f"{name} {key}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+            check(bool(torch.isfinite(a).all()), f"{name} {key}: non-finite")
+            err = (a - b).abs().max().item()
+            if i == 0:
+                first = err
+                check(err < KERNEL_TOL, f"{name} {key}: max abs diff {err} against the plain version")
+            else:
+                scale = max(b.abs().max().item(), 1e-30)
+                rel = max(rel, err / scale)
+                check(err <= RED_TOL * scale, f"{name} {key}: max abs diff {err}, plain max {scale}")
+        return first, rel
+
+    def row(name, replaces, errs, fn, plain, conv, flop, nbytes) -> dict:
+        ms, plain_ms = cuda_time_ms(fn, iters=10, warmup=2), cuda_time_ms(plain, iters=5, warmup=1)
+        conv_ms = cuda_time_ms(conv, iters=5, warmup=1)
+        bound_ms, bound_by = bound(flop, nbytes)
+        r = {"name": name, "route": "cuda", "source": "zerovox_tpu_torch/csrc/se_conv.cu",
+             "replaces": replaces, "shape": f"[{B},{C},{H},{W}]", "max_abs_err": errs[0],
+             "max_rel_err_reductions": errs[1], "ms": ms, "plain_ms": plain_ms,
+             "gflop": flop / 1e9, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "conv2d_only_ms": conv_ms}
+        print(json.dumps(r), flush=True)
+        return r
+
+    rows = []
+    for relu in (True, False):  # conv1 (relu out) and conv2 passes; timed at conv1's
+        got = se_conv_fwd(x, w, s, t, relu)
+        torch.cuda.synchronize()
+        errs = compare(f"se_conv_fwd(relu={relu})", ("y", "sum", "sq", "m"), got,
+                       se_conv_plain(x, w, s, t, relu))
+        del got
+        if relu:
+            rows.append(row("se_conv_fwd", "zerovox_tpu/ops/pallas/se_fused.py:375", errs,
+                            lambda: se_conv_fwd(x, w, s, t, True),
+                            lambda: se_conv_plain(x, w, s, t, True),
+                            lambda: F.conv2d(x, w, padding=1),
+                            conv_flop, 2 * act_bytes + w_bytes))
+    for relu in (True, False):
+        leaves = [a.clone().requires_grad_(True) for a in (x, w, s, t)]
+        outs = se_conv_plain(*leaves, relu)
+        ref = torch.autograd.grad(outs, leaves, cts, retain_graph=True)
+        y = outs[0].detach()  # one y for both, so relu' agrees at y == 0
+
+        def kernel(y=y, relu=relu):
+            return se_conv_bwd(x, y, cts[0], w, s, t, cts[1], cts[2], cts[3], relu)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        errs = compare(f"se_conv_bwd(relu={relu})", ("dx", "dw", "ds", "dt"), got, ref)
+        del got, ref
+        if relu:
+            u = (x * s[:, None, None] + t[:, None, None]).requires_grad_(True)
+            wc = w.clone().requires_grad_(True)
+            conv_out = F.conv2d(u, wc, padding=1)
+            rows.append(row("se_conv_bwd", "zerovox_tpu/ops/pallas/se_fused.py:439", errs, kernel,
+                            lambda: torch.autograd.grad(outs, leaves, cts, retain_graph=True),
+                            lambda: torch.autograd.grad(conv_out, (u, wc), cts[0],
+                                                        retain_graph=True),
+                            2 * conv_flop, 4 * act_bytes + 2 * w_bytes))
+            del u, wc, conv_out
+        del outs, leaves, y
+    return rows
+
+
+def write_corpus(root: Path, name: str, syms, n_mels: int, n_utts: int, phones: tuple[int, int],
+                 seed: int) -> None:
+    """A synthetic preprocessed corpus under root/name in training/data.py's
+    on-disk contract: train.txt, and mel, pitch, energy, duration and
+    startstop files per utterance; durations of 2-7 frames a phone."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pp = root / name
+    for d in ("mel", "pitch", "energy", "duration"):
+        (pp / d).mkdir(parents=True)
+    lines = []
+    for i in range(n_utts):
+        base = f"utt{i:03d}"
+        L = int(rng.integers(phones[0], phones[1] + 1))
+        durations = rng.integers(2, 8, size=L).astype(np.int64)
+        T = int(durations.sum())
+        np.save(pp / "mel" / f"mel-{base}.npy", rng.normal(-4.0, 2.0, (T, n_mels)).astype(np.float32))
+        np.save(pp / "pitch" / f"pitch-{base}.npy", rng.uniform(60, 390, L).astype(np.float32))
+        np.save(pp / "energy" / f"energy-{base}.npy", rng.uniform(0.2, 45, L).astype(np.float32))
+        np.save(pp / "duration" / f"duration-{base}.npy", durations)
+        (pp / "mel" / f"startstop-{base}.json").write_text(json.dumps({"start_hop": 0, "end_hop": T}))
+        ids = ",".join(map(str, rng.integers(1, syms.num_phones, size=L)))
+        puncts = ",".join(map(str, rng.integers(0, syms.num_puncts, size=L)))
+        lines.append(f"{base}.wav|{ids}|{puncts}|utterance {i}")
+    (pp / "train.txt").write_text("\n".join(lines) + "\n")
+
+
+def train_config(fused: bool, shallow: bool = False):
+    """ZeroVoxConfig() (tts_medium) for training, with the fused stage 1 or
+    without; `shallow`: one FFT layer each side and every dropout rate 0."""
+    import dataclasses as dc
+
+    from zerovox_tpu_torch.config import Stats, ZeroVoxConfig
+
+    base = ZeroVoxConfig()
+    m = dc.replace(base.model, packed_speaker=int(fused), fused_speaker=fused)
+    if shallow:
+        m = dc.replace(m, encoder=dc.replace(m.encoder, fs2_layer=1, fs2_dropout=0.0, vp_dropout=0.0),
+                       decoder=dc.replace(m.decoder, n_layers=1, dropout=0.0))
+    return dc.replace(base, model=m, stats=Stats(**STATS))
+
+
+def k4_counts():
+    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd, se_conv_fwd
+
+    return se_conv_fwd.launches, se_conv_bwd.launches
+
+
+def train_phase(torch, corpus_root: Path) -> dict:
+    """Trainer.fit at full width over the synthetic corpus: per-step device
+    time, K4 launches and losses; then the step with and without the fused
+    stage 1, timed in turns on one batch."""
+    import numpy as np
+
+    from zerovox_tpu_torch.training.data import SpeechDataModule
+    from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig, device_batch
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    cfg = train_config(fused=True)
+    dm = SpeechDataModule([{"path": {"preprocessed_path": "train"}}], cfg.symbols(), STATS,
+                          batch_size=TRAIN_BATCH, num_workers=4, seed=0, base_path=str(corpus_root))
+    dm.prepare_data()
+    tcfg = TrainerConfig(max_epochs=TRAIN_EPOCHS, warmup_epochs=1, log_every_n_steps=2, seed=0)
+    trainer = Trainer(cfg, tcfg, steps_per_epoch=dm.steps_per_epoch())
+    state = trainer.init_state()
+
+    steps = []
+    inner = trainer.train_step
+
+    def timed_step(st, batch):
+        n0 = k4_counts()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses = inner(st, batch)
+        b.record()
+        n1 = k4_counts()
+        steps.append({"events": (a, b), "losses": losses, "k4": (n1[0] - n0[0], n1[1] - n0[1]),
+                      "mel_bucket": batch["mel"].shape[1], "ref": tuple(batch["ref_mel"].shape)})
+        return losses
+
+    trainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit(dm.train_dataloader, state)
+    torch.cuda.synchronize()
+    fit_launches = dict(zip(("se_conv_fwd", "se_conv_bwd"), k4_counts()))
+    del trainer.train_step
+    out = {"steps": len(steps), "launches": fit_launches, "mel_buckets": [s["mel_bucket"] for s in steps],
+           "ref_mel": list(steps[0]["ref"]) if steps else None,
+           "k4_per_step": [list(s["k4"]) for s in steps],
+           "step_ms": [s["events"][0].elapsed_time(s["events"][1]) for s in steps],
+           "losses": [{k: float(v) for k, v in s["losses"].items()} for s in steps],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["median_step_ms"] = float(np.median(out["step_ms"][1:])) if len(steps) > 1 else None
+
+    # the same step without the fused stage 1 (cuDNN convs), from the same weights
+    batch = device_batch(next(iter(dm.train_dataloader(0))), "cuda")
+    plain = Trainer(train_config(fused=False), tcfg, steps_per_epoch=dm.steps_per_epoch())
+    plain_state = plain.init_state(state.model.state_dict())
+    times = {"fused": [], "unfused": []}
+    for label, tr, st in (("fused", trainer, state), ("unfused", plain, plain_state),
+                          ("unfused", plain, plain_state), ("fused", trainer, state)):
+        n0 = k4_counts()
+        times[label].append(cuda_time_ms(lambda: tr.train_step(st, batch), iters=3, warmup=1))
+        n1 = k4_counts()
+        expect = 4 * 6 if label == "fused" else 0
+        check(n1[0] - n0[0] == expect and n1[1] - n0[1] == expect,
+              f"{label} steps launched K4 {n1[0] - n0[0]} + {n1[1] - n0[1]} times, not {expect} each")
+    out["turns_ms"] = times
+    out["fused_step_ms"] = float(np.mean(times["fused"]))
+    out["unfused_step_ms"] = float(np.mean(times["unfused"]))
+    out["turn_mel_bucket"] = batch["mel"].shape[1]
+    out["model"] = (trainer, state, batch)
+    return out
+
+
+def step_grads(model, batch, spkemb_train: bool) -> tuple[dict, dict]:
+    """Forward in train mode + zerovox_loss + backward -> (losses, {name:
+    float64 gradient on the host}). `spkemb_train=False` keeps the speaker
+    encoder's BatchNorms on their running statistics."""
+    from zerovox_tpu_torch.models.zerovox import zerovox_loss
+
+    for p in model.parameters():
+        p.grad = None
+    losses = zerovox_loss(model(batch, train=True, spkemb_train=spkemb_train), batch)
+    losses["loss"].backward()
+    return ({k: v.item() for k, v in losses.items()},
+            {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()
+             if p.grad is not None})
+
+
+def train_cross_check(torch, dev, corpus_root: Path) -> dict:
+    """One train step at reduced depth from the same weights and 2-utterance
+    batch on the card and on the CPU, twice: with the speaker encoder's
+    BatchNorms on batch statistics (the step `fit` takes) and on their
+    running statistics.
+
+    Every gradient is held within STEP_GRAD_TOL x its max |value| of the CPU
+    run, except the speaker encoder's under batch statistics: there the
+    BatchNorm backward (which takes out the gradient's mean and its
+    projection on the normalized input) cancels most of the gradient at this
+    point (random weights, 2 utterances), and float32 rounding leaves percents
+    of a tensor's max on the CPU itself against float64. Those are held in
+    aggregate, ||card - cpu64|| / ||cpu64|| over the speaker encoder's
+    gradients, against a float64 CPU run, within SPK_BATCH_STATS_TOL; the
+    CPU float32 run's own distances (aggregate and worst tensor) are printed
+    beside the card's."""
+    import numpy as np
+
+    from zerovox_tpu_torch.models.zerovox import ZeroVox
+    from zerovox_tpu_torch.training.data import SpeechDataset, collate
+    from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig, device_batch
+
+    cfg = train_config(fused=True, shallow=True)
+    ds = SpeechDataset("train.txt", [{"path": {"preprocessed_path": "short"}}], cfg.symbols(),
+                       STATS, base_path=str(corpus_root))
+    host = collate([ds.load_item(i) for i in range(len(ds))], np.random.default_rng(6))
+    check(host[1]["mel"].shape[:2] == (2, 128), f"cross-check batch mel {host[1]['mel'].shape}")
+    sd = {k: v.cpu() for k, v in
+          Trainer(cfg, TrainerConfig(seed=0), 1, device="cpu").init_state().model.state_dict().items()}
+    card_batch, cpu_batch = device_batch(host, dev), device_batch(host, "cpu")
+    f64_batch = {k: v.double() if v.is_floating_point() else v for k, v in cpu_batch.items()}
+
+    def model(device, dtype=torch.float32):
+        m = ZeroVox(cfg)
+        m.load_state_dict(sd)
+        return m.to(device=device, dtype=dtype).train()
+
+    def close(name, got, want, floor) -> float:
+        scale = max(want.abs().max().item(), floor)
+        err = (got - want).abs().max().item() / scale
+        check(err <= STEP_GRAD_TOL, f"cross-check {name}: {err} x its max |value|")
+        return err
+
+    out = {}
+    for spk_train in (True, False):
+        n0 = k4_counts()
+        l_card, g_card = step_grads(model(dev), card_batch, spk_train)
+        n1 = k4_counts()
+        check(n1[0] - n0[0] == 6 and n1[1] - n0[1] == 6,
+              f"the card's step launched K4 {n1[0] - n0[0]} + {n1[1] - n0[1]} times, not 6 + 6")
+        l_cpu, g_cpu = step_grads(model("cpu"), cpu_batch, spk_train)
+        check(g_card.keys() == g_cpu.keys(), "cross-check: gradients of other parameters")
+        loss_err = {}
+        for k, b in l_cpu.items():
+            a = l_card[k]
+            loss_err[k] = abs(a - b) / max(abs(b), 1e-30)
+            check(np.isfinite(a) and loss_err[k] <= STEP_LOSS_RTOL, f"cross-check {k}: card {a}, cpu {b}")
+        # a gradient that is exactly zero (the attention key biases: softmax is
+        # shift-invariant) is held against 1e-3 x the model's largest instead
+        # of its own float noise
+        floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+        spk = [n for n in g_cpu if n.startswith("_spkemb.")]
+        held = [n for n in g_cpu if not (spk_train and n in spk)]
+        res = {"loss": l_cpu["loss"], "loss_rel_err": loss_err, "n_grads": len(g_cpu),
+               "worst_grad_rel_err": max(close(n, g_card[n], g_cpu[n], floor) for n in held)}
+        if spk_train:
+            _, g64 = step_grads(model("cpu", torch.float64), f64_batch, True)
+
+            def l2_err(g):
+                return (sum(((g[n] - g64[n]) ** 2).sum().item() for n in spk)
+                        / sum((g64[n] ** 2).sum().item() for n in spk)) ** 0.5
+
+            def worst_err(g):
+                return max((g[n] - g64[n]).abs().max().item()
+                           / max(g64[n].abs().max().item(), floor) for n in spk)
+
+            res["spkemb_l2_rel_err"] = {"card": l2_err(g_card), "cpu_f32": l2_err(g_cpu)}
+            res["spkemb_worst_rel_err"] = {"card": worst_err(g_card), "cpu_f32": worst_err(g_cpu)}
+            check(res["spkemb_l2_rel_err"]["card"] <= SPK_BATCH_STATS_TOL,
+                  f"cross-check: speaker-encoder gradients {res['spkemb_l2_rel_err']} from float64")
+        out["batch_stats" if spk_train else "running_stats"] = res
+    return out
+
+
+def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
+    """torch.profiler over `calls` calls of fn: device time by kernel, the
+    device's busy share of the window and K4's device time, the table
+    written to out/profile_<label>.txt."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            engine.tts_ex(TEXT, spk, duration=dur)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
 
     # device activity (kernels and copies; one stream, so they do not overlap)
-    busy_s = sum(e.self_device_time_total for e in avgs
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not e.is_user_annotation) / 1e6
+    dev_events = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation]
+    busy_s = sum(e.self_device_time_total for e in dev_events) / 1e6
+    k4_s = sum(e.self_device_time_total for e in dev_events if "se_conv" in e.key) / 1e6
     out.mkdir(parents=True, exist_ok=True)
     table = avgs.table(sort_by="self_cuda_time_total", row_limit=40)
-    (out / "profile_main_path.txt").write_text(f"{card_line()}\n{table}\n")
-    print(json.dumps({"profile": {"calls": 3, "wall_ms": 1e3 * wall, "device_busy_ms": 1e3 * busy_s,
-                                  "device_busy_share": busy_s / wall}}), flush=True)
+    (out / f"profile_{label}.txt").write_text(f"{card_line()}\n{table}\n")
+    res = {"label": label, "calls": calls, "wall_ms": 1e3 * wall, "device_busy_ms": 1e3 * busy_s,
+           "device_busy_share": busy_s / wall, "k4_device_ms": 1e3 * k4_s}
+    print(json.dumps({"profile": res}), flush=True)
+    return res
 
 
 def main() -> None:
@@ -204,6 +535,7 @@ def main() -> None:
     from zerovox_tpu_torch.models.hifigan import HifiGanConfig
     from zerovox_tpu_torch.ops import _cuda
     from zerovox_tpu_torch.ops.mrf import fused_mrf
+    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd, se_conv_fwd
     from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
     from zerovox_tpu_torch.synthesize import MEL_BUCKETS, TEXT_BUCKETS, ZeroVoxTTS, pick_bucket
     from zerovox_tpu_torch.utils.profiling import RtfStats, cuda_time_ms
@@ -236,18 +568,21 @@ def main() -> None:
     bucket = pick_bucket(n_frames, MEL_BUCKETS)
     print(f"text: {n_phones} phones x {FRAMES_PER_PHONE} = {n_frames} frames, mel bucket {bucket}")
     rows = kernel_phase(torch, dev, hcfg, bucket)
+    rows += se_conv_phase(torch, dev)
 
     # ---- 4. the main path at full width
     phase("main path")
     refwav = np.random.default_rng(0).normal(size=2 * sr).astype(np.float32) * 0.1
     dur = np.full(n_phones, FRAMES_PER_PHONE, dtype=np.int32)
     fused_mrf.launches = fused_upsample_stage.launches = 0
+    se_conv_fwd.launches = se_conv_bwd.launches = 0
     spk = engine.speaker_embed(refwav)
     wav, _, n, mel = engine.tts_ex(TEXT, spk, duration=dur)
     per_call = (fused_mrf.launches, fused_upsample_stage.launches)
     chunks = list(engine.tts_stream(TEXT, spk, duration=dur))
     torch.cuda.synchronize()
     launches = {"fused_mrf": fused_mrf.launches, "fused_upsample_stage": fused_upsample_stage.launches}
+    check(k4_counts() == (0, 0), f"the serving path launched K4: {k4_counts()}")
     print(f"launches: tts_ex {dict(zip(launches, per_call))}; speaker_embed + tts_ex + "
           f"tts_stream ({len(chunks)} chunks) {launches}")
     check(tuple(spk.shape) == (1, 1, engine.cfg.model.emb_size) and bool(torch.isfinite(spk).all()),
@@ -264,7 +599,8 @@ def main() -> None:
     print(f"wav: {wav.shape[0]} samples, peak {np.max(np.abs(wav)):.6g}; "
           f"stream max abs diff {stream_err:.3g}")
     for row in rows:
-        row["launches"] = launches[row["name"].removesuffix("+post")]
+        if row["name"] in launches or row["name"].endswith("+post"):
+            row["launches"] = launches[row["name"].removesuffix("+post")]
 
     # device time of each stage of tts_ex at this bucket (CUDA events)
     ids, puncts = engine.text2phonemeids(TEXT)
@@ -297,7 +633,8 @@ def main() -> None:
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}),
           flush=True)
     if "--profile" in sys.argv:
-        profile_tts(torch, engine, spk, dur, Path(sys.argv[sys.argv.index("--profile") + 1]))
+        profile_calls(torch, lambda: engine.tts_ex(TEXT, spk, duration=dur), 3,
+                      Path(sys.argv[sys.argv.index("--profile") + 1]), "main_path")
 
     # ---- 5. the same weights on the CPU (plain versions)
     phase("cpu cross-check")
@@ -317,9 +654,53 @@ def main() -> None:
     check(peak > 0 and cpu_err < WAV_TOL * min(peak, 1.0),
           f"card waveform differs from the CPU run by {cpu_err} (peak {peak})")
 
+    # ---- 6. the training path at full width
+    phase("training path")
+    del engine, cpu
+    torch.cuda.empty_cache()
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        corpus = Path(tmp)
+        syms = train_config(fused=True).symbols()
+        n_mels = train_config(fused=True).audio.num_mels
+        write_corpus(corpus, "train", syms, n_mels, TRAIN_UTTS, (80, 100), seed=0)
+        write_corpus(corpus, "short", syms, n_mels, 2, (16, 16), seed=1)
+        fused_mrf.launches = fused_upsample_stage.launches = 0
+        se_conv_fwd.launches = se_conv_bwd.launches = 0
+        train = train_phase(torch, corpus)
+        k4 = train["launches"]
+        trainer, state, batch = train.pop("model")
+        steps = train["steps"]
+        check(steps >= 6, f"fit took {steps} steps")
+        check(all(n == [6, 6] for n in train["k4_per_step"]),
+              f"K4 launches per step {train['k4_per_step']}, not 6 + 6")
+        check(all(np.isfinite(v) for d in train["losses"] for v in d.values()), "non-finite loss")
+        print(f"training: {steps} steps at batch {TRAIN_BATCH}, mel buckets {train['mel_buckets']}, "
+              f"K4 launches {k4} ({k4['se_conv_fwd'] // steps} + {k4['se_conv_bwd'] // steps} a step)")
+        print("losses: " + ", ".join(f"{d['loss']:.6g}" for d in train["losses"]) + " (all finite)")
+        k4_ms = {r["name"]: r["ms"] for r in rows if r["name"] in k4}
+        stage1_ms = 6 * (k4_ms["se_conv_fwd"] + k4_ms["se_conv_bwd"])
+        train["stage1_k4_ms_est"] = stage1_ms
+        train["stage1_share_est"] = stage1_ms / train["fused_step_ms"]
+        train["card"] = card
+        print(json.dumps({"train": train}), flush=True)
+        for row in rows:
+            if row["name"] in k4:
+                row["launches"] = k4[row["name"]]
+        if "--profile" in sys.argv:
+            profile_calls(torch, lambda: trainer.train_step(state, batch), 2,
+                          Path(sys.argv[sys.argv.index("--profile") + 1]), "train_step")
+        del trainer, state, batch
+        torch.cuda.empty_cache()
+
+        # ---- 7. one train step on the card and on the CPU
+        phase("training cross-check")
+        xc = train_cross_check(torch, dev, corpus)
+        print(json.dumps({"train_cross_check": xc}), flush=True)
+
     # ---- results
-    print(json.dumps({"kernels": rows}))
     print(card)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 

@@ -100,6 +100,73 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         fused_mrf(torch.zeros(1, 50, 48, device=cuda), towers, DILS, KS)
 
 
+def _se_inputs(rng, B, H, W, dev):
+    def t(*shape, scale=1.0):
+        return torch.tensor((rng.normal(size=shape) * scale).astype(np.float32), device=dev)
+
+    x = t(B, 32, H, W)
+    w = t(32, 32, 3, 3, scale=1 / np.sqrt(288))
+    s = torch.tensor(rng.uniform(0.5, 1.5, 32).astype(np.float32), device=dev)
+    return x, w, s, t(32, scale=0.3)
+
+
+def _close_rel(got, ref, tol):
+    """max |got - ref| within tol x max |ref| (a reduction's bound)."""
+    return torch.max(torch.abs(got - ref)).item() <= tol * max(torch.max(torch.abs(ref)).item(), 1e-12)
+
+
+@pytest.mark.parametrize("B,H,W", [(2, 20, 64), (3, 13, 45), (1, 80, 500)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_se_conv_forward_matches_plain(cuda, B, H, W, relu):
+    from zerovox_tpu_torch.ops.se_conv import se_conv, se_conv_fwd, se_conv_plain
+
+    x, w, s, t = _se_inputs(np.random.default_rng(B * H + W + relu), B, H, W, cuda)
+    n0 = se_conv_fwd.launches
+    got = se_conv(x, w, s, t, relu)
+    torch.cuda.synchronize()
+    assert se_conv_fwd.launches == n0 + 1
+    ref = se_conv_plain(x, w, s, t, relu)
+    assert torch.max(torch.abs(got[0] - ref[0])).item() < TOL
+    for a, b in zip(got[1:], ref[1:]):
+        assert a.shape == b.shape and _close_rel(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("B,H,W", [(2, 20, 64), (3, 13, 45), (2, 80, 250)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_se_conv_backward_matches_plain(cuda, B, H, W, relu):
+    from zerovox_tpu_torch.ops.se_conv import se_conv, se_conv_bwd, se_conv_plain
+
+    rng = np.random.default_rng(7 * B + H + W + relu)
+    x, w, s, t = _se_inputs(rng, B, H, W, cuda)
+    cts = [torch.tensor(rng.normal(size=shape).astype(np.float32), device=cuda)
+           for shape in ((B, 32, H, W), (32,), (32,), (B, 32))]
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_(True) for a in (x, w, s, t)]
+        outs = fn(*leaves, relu)
+        torch.autograd.backward(outs, cts)
+        return [a.grad for a in leaves]
+
+    n0 = se_conv_bwd.launches
+    got = grads(se_conv)
+    torch.cuda.synchronize()
+    assert se_conv_bwd.launches == n0 + 1
+    ref = grads(se_conv_plain)
+    assert torch.max(torch.abs(got[0] - ref[0])).item() < TOL  # dx
+    for a, b in zip(got[1:], ref[1:]):  # dw, ds, dt: reductions over every position
+        assert a.shape == b.shape and _close_rel(a, b, 1e-4)
+
+
+def test_se_conv_rejects_what_it_does_not_take(cuda):
+    from zerovox_tpu_torch.ops.se_conv import se_conv
+
+    x, w, s, t = _se_inputs(np.random.default_rng(0), 1, 8, 8, cuda)
+    with pytest.raises(TypeError):
+        se_conv(x.double(), w, s, t, True)
+    with pytest.raises(ValueError):
+        se_conv(x[:, :16].contiguous(), w, s, t, True)
+
+
 def test_engine_on_card_matches_cpu(cuda):
     """A small engine whose every vocoder stage takes a kernel (widths
     128/64 via K1, 64->32 and 32->16 via K2): the card's waveform equals

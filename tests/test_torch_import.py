@@ -24,6 +24,7 @@ def test_imports_with_jax_and_jax_package_blocked():
         "import zerovox_tpu_torch.weights, zerovox_tpu_torch.streaming\n"
         "import zerovox_tpu_torch.ops.mrf, zerovox_tpu_torch.ops.upsample_stage\n"
         "import zerovox_tpu_torch.text, zerovox_tpu_torch.utils.profiling\n"
+        "import zerovox_tpu_torch.ops.se_conv, zerovox_tpu_torch.training.trainer\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
@@ -50,3 +51,14 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         ZeroVoxTTS.from_random()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ZeroVoxTTS.load_model("/nonexistent")
+
+
+def test_trainer_needs_a_card_unless_told_cpu(monkeypatch):
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+    from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(ZeroVoxConfig(), TrainerConfig(), steps_per_epoch=1)
+    assert Trainer(ZeroVoxConfig(), TrainerConfig(), steps_per_epoch=1,
+                   device="cpu").device.type == "cpu"

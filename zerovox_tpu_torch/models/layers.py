@@ -89,6 +89,31 @@ class SCLN(nn.Module):
         return g * y + b
 
 
+class Dropout(nn.Module):
+    """Dropout with flax's rule (keep with probability 1 - rate, scale the
+    kept values by 1 / (1 - rate)), drawing from `generator` when one is
+    set (see `set_dropout_generator`). The identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_dropout_generator(module: nn.Module, generator: torch.Generator | None) -> None:
+    """Point every Dropout under `module` at `generator`."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 def instance_norm_time(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Normalize each channel of NLC x over the length axis (biased var)."""
     mu = x.mean(dim=1, keepdim=True)

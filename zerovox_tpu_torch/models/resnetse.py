@@ -1,20 +1,59 @@
-"""ResNetSE34V2 zero-shot speaker encoder, eval mode.
+"""ResNetSE34V2 zero-shot speaker encoder.
 
 The PyTorch counterpart of the JAX package's `models/resnetse.py`: log-mel
 [B, T, n_mels] -> per-bin instance norm over time -> Conv2d stem -> four
 SE-ResNet stages (strides 1,2,2,2) -> attentive statistics pooling -> FC ->
 L2-normalized embedding [B, 1, n_out]. Convolutions run in NCHW with
 frequency as height and time as width. The JAX package's 2x2 lane packing is
-a TPU layout of the same math and has no counterpart here. BatchNorms use
-their running statistics.
+a TPU layout of the same math and has no counterpart here.
+
+`forward(x, train)`: in train mode the BatchNorms normalize with batch
+statistics and update their running statistics (momentum 0.1, running_var
+from the unbiased variance), as the JAX package's BatchNorm does; otherwise
+they use the running statistics.
+
+With `fused_stage1`, stage 1 runs as six passes of kernel K4
+(ops/se_conv.py), as the JAX package's fused path does
+(`SEBasicBlock._fused_call`): each BatchNorm affine rides the next conv's
+prologue, its batch statistics come from the previous conv's sums, and the
+SE squeeze is the per-sample sum of conv2's output. The parameters and
+running statistics are the unfused module's.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from zerovox_tpu_torch.models.layers import instance_norm_time
+from zerovox_tpu_torch.ops.se_conv import CHANNELS, se_conv
+
+
+def batch_norm(bn: nn.BatchNorm2d | nn.BatchNorm1d, x, train: bool):
+    """`bn` over x with batch statistics (updating the running ones) in
+    train mode, with its running statistics otherwise."""
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, train,
+                        bn.momentum, bn.eps)
+
+
+def fused_bn_affine(bn: nn.BatchNorm2d, ssum, ssq, n: int, train: bool):
+    """(scale, shift) [C] of `bn` for a conv output whose per-channel sum and
+    sum of squares over its n positions are ssum, ssq. In train mode the
+    batch statistics are the single-pass mean and E[y^2] - mean^2 of the
+    JAX package's fused path, and the running statistics take torch's
+    update; gradients flow through the sums."""
+    if train:
+        mean = ssum / n
+        var = ssq / n - mean * mean
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            bn.running_var.mul_(1 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    scale = bn.weight * torch.rsqrt(var + bn.eps)
+    return scale, bn.bias - mean * scale
 
 
 class SELayer(nn.Module):
@@ -44,20 +83,44 @@ class SEBasicBlock(nn.Module):
                                          nn.BatchNorm2d(planes))
                            if downsample else None)
 
-    def forward(self, x):
-        out = self.bn1(torch.relu(self.conv1(x)))
-        out = self.se(self.bn2(self.conv2(out)))
-        residual = self.downsample(x) if self.downsample is not None else x
+    def forward(self, x, train: bool = False):
+        out = batch_norm(self.bn1, torch.relu(self.conv1(x)), train)
+        out = self.se(batch_norm(self.bn2, self.conv2(out), train))
+        if self.downsample is not None:
+            residual = batch_norm(self.downsample[1], self.downsample[0](x), train)
+        else:
+            residual = x
         return torch.relu(out + residual)
+
+    def fused_forward(self, x, s_in, t_in, train: bool):
+        """The block as two K4 passes plus one elementwise boundary. x is the
+        block input before its pending affine (s_in, t_in) [C]: the stem BN
+        on block 0, the identity after."""
+        B, _, H, W = x.shape
+        n = B * H * W
+        t1, ssum, ssq, _ = se_conv(x, self.conv1.weight, s_in, t_in, relu_out=True)
+        s1, tt1 = fused_bn_affine(self.bn1, ssum, ssq, n, train)
+        t2, ssum2, ssq2, m = se_conv(t1, self.conv2.weight, s1, tt1, relu_out=False)
+        s2, tt2 = fused_bn_affine(self.bn2, ssum2, ssq2, n, train)
+        # SE squeeze by linearity: mean_hw(bn2(t2)) = bn2(mean_hw(t2))
+        gate = self.se.fc(m / (H * W) * s2 + tt2)
+        # residual: the block input as its convs see it (pending affine applied)
+        out = ((t2 * s2[:, None, None] + tt2[:, None, None]) * gate[:, :, None, None]
+               + x * s_in[:, None, None] + t_in[:, None, None])
+        return torch.relu(out)
 
 
 class ResNetSE34V2(nn.Module):
     def __init__(self, layers=(3, 4, 6, 3), num_filters=(32, 64, 128, 256), n_out: int = 528,
-                 encoder_type: str = "ASP", n_mels: int = 80):
+                 encoder_type: str = "ASP", n_mels: int = 80, fused_stage1: bool = False):
         super().__init__()
         if encoder_type not in ("ASP", "SAP"):
             raise ValueError(f"undefined encoder type {encoder_type!r}")
+        if fused_stage1 and (num_filters[0] != CHANNELS or layers[0] < 1):
+            raise ValueError(f"the fused stage 1 needs num_filters[0] == {CHANNELS} and "
+                             f"layers[0] >= 1, got {num_filters[0]}, {layers[0]}")
         self.encoder_type = encoder_type
+        self.fused_stage1 = fused_stage1
         self.conv1 = nn.Conv2d(1, num_filters[0], 3, padding=1)
         self.bn1 = nn.BatchNorm2d(num_filters[0])
         inplanes = num_filters[0]
@@ -78,17 +141,36 @@ class ResNetSE34V2(nn.Module):
             nn.Conv1d(128, outmap, 1), nn.Softmax(dim=2))
         self.fc = nn.Linear(outmap * (2 if encoder_type == "ASP" else 1), n_out)
 
-    def forward(self, x):
+    def _stage1_fused(self, x, train: bool):
+        """Stem BN + stage 1 through K4: the stem BN's statistics come from
+        one reduction over the stem output, its affine rides block 0's conv1."""
+        B, _, H, W = x.shape
+        n = B * H * W
+        s_in, t_in = fused_bn_affine(self.bn1, x.sum(dim=(0, 2, 3)),
+                                     (x * x).sum(dim=(0, 2, 3)), n, train)
+        ones, zeros = torch.ones_like(s_in), torch.zeros_like(t_in)
+        for block in self.layer1:
+            x = block.fused_forward(x, s_in, t_in, train)
+            s_in, t_in = ones, zeros
+        return x
+
+    def forward(self, x, train: bool = False):
         """x [B, T, n_mels] log-mel -> [B, 1, n_out]."""
         x = instance_norm_time(x).transpose(1, 2)[:, None]  # [B, 1, n_mels, T]
 
-        x = self.bn1(torch.relu(self.conv1(x)))
-        for stage in range(self.n_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+        x = torch.relu(self.conv1(x))
+        if self.fused_stage1:
+            x = self._stage1_fused(x, train)
+        else:
+            x = batch_norm(self.bn1, x, train)
+        for stage in range(1 if self.fused_stage1 else 0, self.n_stages):
+            for block in getattr(self, f"layer{stage + 1}"):
+                x = block(x, train)
 
         B, C, H, W = x.shape
         x = x.reshape(B, C * H, W)
-        w = self.attention(x)
+        att = self.attention
+        w = att[4](att[3](batch_norm(att[2], att[1](att[0](x)), train)))
         if self.encoder_type == "SAP":
             pooled = torch.sum(x * w, dim=2)
         else:

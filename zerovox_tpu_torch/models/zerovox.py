@@ -1,7 +1,9 @@
-"""The composite ZeroVox acoustic model (inference entry points).
+"""The composite ZeroVox acoustic model and its training loss.
 
 The PyTorch counterpart of the JAX package's `models/zerovox.py`:
 
+  * ``forward``       — training forward: teacher pitch/energy/duration,
+                        returns the prediction dict the loss consumes.
   * ``speaker_embed`` — reference mel -> [B, 1, emb] (run once per voice).
   * ``encode``        — stage A of bucketed inference (text-bucket shaped).
   * ``decode``        — stage B: length-regulate into a static mel bucket and
@@ -15,6 +17,7 @@ ships it as a separate artifact.
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 
 from zerovox_tpu_torch.config import ZeroVoxConfig
@@ -30,15 +33,17 @@ class ZeroVox(nn.Module):
         if m.decoder.kind != "fastspeech2":
             raise NotImplementedError(
                 f"decoder kind {m.decoder.kind!r} is not ported yet (fastspeech2 only)")
+        if m.fused_speaker and m.packed_speaker < 1:
+            raise ValueError("fused_speaker requires packed_speaker >= 1, as in the JAX package")
         self._phoneme_encoder = FS2Encoder(m)
         self._spkemb = ResNetSE34V2(tuple(m.resnet.layers), tuple(m.resnet.num_filters),
                                     n_out=m.emb_size, encoder_type=m.resnet.encoder_type,
-                                    n_mels=cfg.audio.num_mels)
+                                    n_mels=cfg.audio.num_mels, fused_stage1=m.fused_speaker)
         self._mel_decoder = FS2Decoder(m.decoder, m.emb_size, cfg.audio.num_mels)
 
-    def speaker_embed(self, ref_mel):
+    def speaker_embed(self, ref_mel, train: bool = False):
         """ref_mel [B, T, n_mels] -> [B, 1, emb_size], L2-normalized."""
-        return self._spkemb(ref_mel)
+        return self._spkemb(ref_mel, train=train)
 
     def encode(self, phonemes, puncts, style_embed, phoneme_mask=None, duration_target=None):
         return self._phoneme_encoder.encode_variance(
@@ -50,3 +55,47 @@ class ZeroVox(nn.Module):
         frames, mel_len, mel_mask = length_regulate(x, durations, max_mel_len)
         mel = self._mel_decoder(frames, mel_mask, style_embed)
         return mel.masked_fill(mel_mask[..., None], 0.0), mel_len, mel_mask
+
+    def forward(self, batch: dict, train: bool = True, force_duration: bool = False,
+                spkemb_train: bool | None = None):
+        """Training/teacher forward over a collated batch (phoneme, puncts,
+        phoneme_mask, pitch, energy, duration, mel_mask, ref_mel). `train`
+        feeds the teacher targets and gives the speaker encoder's BatchNorms
+        batch statistics (`spkemb_train=False` keeps them on their running
+        statistics, the decoder-only finetune); dropout follows the module's
+        own train mode."""
+        spk_train = train if spkemb_train is None else (train and spkemb_train)
+        style_embed = self._spkemb(batch["ref_mel"], train=spk_train)
+        teacher = train or force_duration
+        pred = self._phoneme_encoder(
+            batch["phoneme"], batch["puncts"], style_embed,
+            max_mel_len=batch["mel_mask"].shape[1],
+            phoneme_mask=batch.get("phoneme_mask"),
+            pitch_target=batch["pitch"] if train else None,
+            energy_target=batch["energy"] if train else None,
+            duration_target=batch["duration"] if teacher else None,
+            mel_mask=batch.get("mel_mask") if teacher else None)
+        mel = self._mel_decoder(pred["features"], pred["mel_mask"], style_embed)
+        pred["mel"] = mel.masked_fill(pred["mel_mask"][..., None], 0.0)
+        return pred
+
+
+def masked_mean(values: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Mean over the elements where `keep` is True."""
+    keep = keep.expand(values.shape).to(values.dtype)
+    return torch.sum(values * keep) / torch.clamp(torch.sum(keep), min=1.0)
+
+
+def zerovox_loss(pred: dict, batch: dict) -> dict[str, torch.Tensor]:
+    """Masked L1 on mel, masked MSE on pitch, energy and log(d + 1)
+    duration, weighted 10/2/2/1."""
+    mel_keep = ~batch["mel_mask"]
+    phon_keep = ~batch["phoneme_mask"]
+    mel_loss = masked_mean(torch.abs(pred["mel"] - batch["mel"]), mel_keep[..., None])
+    pitch_loss = masked_mean((pred["pitch"] - batch["pitch"]) ** 2, phon_keep)
+    energy_loss = masked_mean((pred["energy"] - batch["energy"]) ** 2, phon_keep)
+    log_dur_target = torch.log(batch["duration"].to(torch.float32) + 1.0)
+    duration_loss = masked_mean((pred["log_duration"] - log_dur_target) ** 2, phon_keep)
+    loss = 10.0 * mel_loss + 2.0 * pitch_loss + 2.0 * energy_loss + duration_loss
+    return {"loss": loss, "mel_loss": mel_loss, "pitch_loss": pitch_loss,
+            "energy_loss": energy_loss, "duration_loss": duration_loss}

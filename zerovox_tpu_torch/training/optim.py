@@ -1,0 +1,87 @@
+"""Optimizer and learning-rate schedule of the acoustic-model trainer.
+
+The PyTorch counterpart of the JAX package's `training/optim.py`, in optax's
+order: global-norm gradient clipping, then Adam's scaling, then decoupled
+weight decay, then the learning rate:
+
+    g   <- g * min(1, clip / ||g||)
+    nu  <- b2 nu + (1 - b2) g^2                      (mu likewise when b1 != 0)
+    u   <- mu_hat / (sqrt(nu / (1 - b2^t)) + eps)    (mu_hat = g when b1 == 0)
+    p   <- p - lr(t - 1) * (u + weight_decay * p)
+
+With b1 == 0 (the production configs' betas (0.0, 0.99)) the first moment is
+the gradient itself and is not stored. The schedule is the epoch warmup +
+cosine decay with its floor at 0.1 of the base rate. Updates run on whole
+parameter lists with torch's multi-tensor (`_foreach`) ops.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+
+
+def warmup_cosine_epoch_schedule(base_lr: float, warmup_epochs: int, total_epochs: int,
+                                 steps_per_epoch: int,
+                                 min_lr_factor: float = 0.1) -> Callable[[int], float]:
+    """lr(step) = base_lr * f(epoch): (epoch + 1) / warmup during warmup,
+    then max(min_lr_factor, (1 + cos(pi * progress)) / 2)."""
+
+    def schedule(step: int) -> float:
+        epoch = step // max(steps_per_epoch, 1)
+        if epoch < warmup_epochs:
+            f = (epoch + 1.0) / float(max(warmup_epochs, 1))
+        else:
+            progress = (epoch - warmup_epochs) / float(max(1, total_epochs - warmup_epochs))
+            f = max(min_lr_factor, 0.5 * (1.0 + math.cos(math.pi * progress)))
+        return base_lr * f
+
+    return schedule
+
+
+class AdamW:
+    """Clip + Adam (mu-free when b1 == 0) + decoupled weight decay + lr over
+    a fixed list of float32 parameters. `step(lr)` reads their `.grad`."""
+
+    def __init__(self, params, betas=(0.0, 0.99), eps: float = 1e-9,
+                 weight_decay: float = 0.0, grad_clip: float = 1.0):
+        self.params = [p for p in params if p.requires_grad]
+        self.b1, self.b2 = float(betas[0]), float(betas[1])
+        self.eps, self.weight_decay, self.grad_clip = eps, weight_decay, grad_clip
+        self.count = 0
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.mu = [torch.zeros_like(p) for p in self.params] if self.b1 != 0.0 else None
+
+    @torch.no_grad()
+    def step(self, lr: float) -> None:
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        # global-norm clip: g * clip / ||g|| when ||g|| >= clip
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
+        grads = torch._foreach_mul(grads, scale)
+
+        self.count += 1
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
+        # bias corrections in float32, as optax computes them
+        bc2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32) ** self.count
+        denom = torch._foreach_div(self.nu, bc2.item())
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        if self.mu is None:
+            updates = torch._foreach_div(grads, denom)
+        else:
+            torch._foreach_mul_(self.mu, self.b1)
+            torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
+            bc1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32) ** self.count
+            updates = torch._foreach_div(self.mu, bc1.item())
+            torch._foreach_div_(updates, denom)
+        if self.weight_decay:
+            torch._foreach_add_(updates, self.params, alpha=self.weight_decay)
+        torch._foreach_add_(self.params, updates, alpha=-lr)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
