@@ -30,6 +30,18 @@ Phases, in order; any failure exits nonzero:
 7. One train step at reduced depth (one FFT layer each side, dropout 0) on
    the card and on the CPU from the same weights and batch: losses within
    1e-4 relative, every gradient within 1e-3 x its tensor's max |value|.
+8. The StyleTTS-decoder path at full width (ZeroVoxConfig with the StyleTTS
+   decoder, a single-tower HiFi-GAN at V1's widths, random weights from seed
+   0): speaker_embed -> tts_ex (3 K3 launches) -> tts_stream -> tts_batch at
+   B=4 with forced durations (no K3 launch), with the launch counts read
+   around that run; RTF, first-chunk p50 and stage times; then the card
+   against the CPU on a short text and on one tts_batch of 2 rows (1e-3).
+9. The default engine's tts_batch at B=4 (2 K2 launches, no K1: K1 is
+   batch-1 only), and stage 1 at B=4 through K1 against its plain version,
+   timed in turns.
+
+Phase 3 also holds K3 (`fused_resblock1`) at phase 8's three vocoder stage
+shapes against its plain version (< 5e-4).
 
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -53,6 +65,9 @@ TEXT = ("The quick brown fox jumps over the lazy dog while the curious cat "
         "watches from a sunny windowsill in the early morning light.")
 FRAMES_PER_PHONE = 6
 SHORT_TEXT = "Hello world."  # text bucket 16, mel bucket 96 (the CPU cross-check)
+# tts_batch's rows: texts of different lengths, one speaker each
+BATCH_TEXTS = (TEXT, SHORT_TEXT, "A third sentence, of middling length, for the batch.",
+               "And the fourth one.")
 
 KERNEL_TOL = 5e-4  # fused kernel against its unfused version
 WAV_TOL = 1e-3  # waveform against the float32 CPU run
@@ -113,11 +128,33 @@ def random_towers(torch, gen, C, kernel_sizes, n_pairs, dev):
              w(n_pairs, k, C, C, fan_in=k * C), w(n_pairs, C, fan_in=4)) for k in kernel_sizes]
 
 
+def measure(torch, rows, name, source, replaces, shape, fn, plain, flop, nbytes) -> None:
+    """A kernel against its plain version on the same inputs (max abs diff
+    < KERNEL_TOL), then both timed with CUDA events; appends its row."""
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    got = fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != plain {tuple(ref.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    err = (got - ref).abs().max().item()
+    check(err < KERNEL_TOL, f"{name}: max abs diff {err} against the plain version")
+    ms, plain_ms = cuda_time_ms(fn, iters=10, warmup=2), cuda_time_ms(plain, iters=5, warmup=1)
+    bound_ms, bound_by = bound(flop, nbytes)
+    row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "gflop": flop / 1e9, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None}
+    print(json.dumps(row), flush=True)
+    rows.append(row)
+
+
 def kernel_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
     """Each kernel at the main path's shapes against its plain version."""
     from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain
     from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage, upsample_stage_plain
-    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
 
     ks, dils = tuple(hcfg.resblock_kernel_sizes), tuple(hcfg.resblock_dilation_sizes[0])
     P = len(dils)
@@ -125,32 +162,15 @@ def kernel_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
     gen = torch.Generator().manual_seed(1234)
     rows = []
 
-    def measure(name, source, replaces, shape, fn, plain, flop, nbytes):
-        got = fn()
-        torch.cuda.synchronize()
-        ref = plain()
-        torch.cuda.synchronize()
-        check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != plain {tuple(ref.shape)}")
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        err = (got - ref).abs().max().item()
-        check(err < KERNEL_TOL, f"{name}: max abs diff {err} against the plain version")
-        ms, plain_ms = cuda_time_ms(fn, iters=10, warmup=2), cuda_time_ms(plain, iters=5, warmup=1)
-        bound_ms, bound_by = bound(flop, nbytes)
-        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "gflop": flop / 1e9, "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": None}
-        print(json.dumps(row), flush=True)
-        rows.append(row)
-
     # stage 1 (K1): the MRF at C = c0 / 4 over mel_frames * rates[0] * rates[1] rows
     C1, T1 = c0 // 4, mel_frames * rates[0] * rates[1]
     x1 = torch.randn(1, T1, C1, generator=gen).to(dev)
     tw1 = random_towers(torch, gen, C1, ks, P, dev)
     flop, wbytes = mrf_work(T1, C1, ks, P)
-    measure("fused_mrf", "zerovox_tpu_torch/csrc/mrf.cu", "zerovox_tpu/ops/pallas/mrf.py:93",
-            f"[1,{T1},{C1}]", lambda: fused_mrf(x1, tw1, dils, ks),
-            lambda: mrf_plain(x1, tw1, dils), flop, wbytes + 8.0 * T1 * C1)
+    measure(torch, rows, "fused_mrf", "zerovox_tpu_torch/csrc/mrf.cu",
+            "zerovox_tpu/ops/pallas/mrf.py:93", f"[1,{T1},{C1}]",
+            lambda: fused_mrf(x1, tw1, dils, ks), lambda: mrf_plain(x1, tw1, dils),
+            flop, wbytes + 8.0 * T1 * C1)
 
     # stages 2 and 3 (K2): upsample stages, the last with conv_post
     T_in, C_in = T1, C1
@@ -172,13 +192,39 @@ def kernel_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
             wbytes += 4.0 * (7 * C_out + 1)
         out_elems = T_out * (1 if last else C_out)
         args = (x, up_w, up_b, u, (k - u) // 2, tw, dils)
-        measure("fused_upsample_stage" + ("+post" if last else ""),
+        measure(torch, rows, "fused_upsample_stage" + ("+post" if last else ""),
                 "zerovox_tpu_torch/csrc/upsample_stage.cu", "zerovox_tpu/ops/pallas/packed.py:249",
                 f"[1,{T_in},{C_in}]->" + (f"[1,{T_out}]" if last else f"[1,{T_out},{C_out}]"),
                 lambda: fused_upsample_stage(*args, ks, post=post),
                 lambda: upsample_stage_plain(*args, post=post),
                 flop, wbytes + 4.0 * (T_in * C_in + out_elems))
         T_in, C_in = T_out, C_out
+    return rows
+
+
+def resblock_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
+    """K3 at the StyleTTS path's shapes: one ResBlock1 tower on each stage of
+    the single-tower vocoder with C <= 128 (stages 1-3 at V1's widths),
+    against its plain version."""
+    from zerovox_tpu_torch.ops.resblock import fused_resblock1, resblock1_plain
+
+    (k,), (dils,) = hcfg.resblock_kernel_sizes, hcfg.resblock_dilation_sizes
+    P, c0 = len(dils), hcfg.upsample_initial_channel
+    gen = torch.Generator().manual_seed(2345)
+    rows = []
+    T = mel_frames
+    for i, u in enumerate(hcfg.upsample_rates):
+        C, T = c0 // 2 ** (i + 1), T * u
+        if C > 128:
+            continue
+        x = torch.randn(1, T, C, generator=gen).to(dev)
+        tower = random_towers(torch, gen, C, (k,), P, dev)[0]
+        flop, wbytes = mrf_work(T, C, (k,), P)
+        measure(torch, rows, "fused_resblock1", "zerovox_tpu_torch/csrc/resblock.cu",
+                "zerovox_tpu/ops/pallas/resblock.py:106", f"[1,{T},{C}]",
+                lambda x=x, tw=tower: fused_resblock1(x, *tw, dils),
+                lambda x=x, tw=tower: resblock1_plain(x, *tw, dils), flop, wbytes + 8.0 * T * C)
+        del x, tower
     return rows
 
 
@@ -315,9 +361,8 @@ def train_config(fused: bool, shallow: bool = False):
 
 
 def k4_counts():
-    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd, se_conv_fwd
-
-    return se_conv_fwd.launches, se_conv_bwd.launches
+    n = kernel_counts()
+    return n["se_conv_fwd"], n["se_conv_bwd"]
 
 
 def train_phase(torch, corpus_root: Path) -> dict:
@@ -486,6 +531,221 @@ def train_cross_check(torch, dev, corpus_root: Path) -> dict:
     return out
 
 
+def single_tower_hifigan():
+    """HiFi-GAN V1's widths (512 channels, rates 8,8,2,2) with one ResBlock1
+    tower (k 3, dilations 1,3,5): the shape that routes to K3."""
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+
+    return HifiGanConfig(resblock="1", upsample_initial_channel=512, upsample_rates=(8, 8, 2, 2),
+                         upsample_kernel_sizes=(16, 16, 4, 4), resblock_kernel_sizes=(3,),
+                         resblock_dilation_sizes=((1, 3, 5),))
+
+
+def kernel_counts() -> dict:
+    from zerovox_tpu_torch.ops.mrf import fused_mrf
+    from zerovox_tpu_torch.ops.resblock import fused_resblock1
+    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd, se_conv_fwd
+    from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
+
+    return {f.__name__: f.launches for f in (fused_mrf, fused_upsample_stage, fused_resblock1,
+                                             se_conv_fwd, se_conv_bwd)}
+
+
+def zero_counts() -> None:
+    import zerovox_tpu_torch.ops.mrf as a
+    import zerovox_tpu_torch.ops.resblock as b
+    import zerovox_tpu_torch.ops.se_conv as c
+    import zerovox_tpu_torch.ops.upsample_stage as d
+
+    a.fused_mrf.launches = b.fused_resblock1.launches = d.fused_upsample_stage.launches = 0
+    c.se_conv_fwd.launches = c.se_conv_bwd.launches = 0
+
+
+def batch_inputs(engine, spk_wavs):
+    """BATCH_TEXTS with FRAMES_PER_PHONE frames a phone and one speaker
+    embedding per row."""
+    import numpy as np
+    import torch
+
+    durs = [np.full(len(engine.text2phonemeids(t)[0]), FRAMES_PER_PHONE, np.int32)
+            for t in BATCH_TEXTS]
+    spks = torch.cat([engine.speaker_embed(w) for w in spk_wavs])
+    return durs, spks
+
+
+def check_batch(rows, durs, hop, what: str) -> None:
+    import numpy as np
+
+    check(len(rows) == len(durs), f"{what}: {len(rows)} rows for {len(durs)} texts")
+    for i, ((w, n), d) in enumerate(zip(rows, durs)):
+        check(n == int(d.sum()) and w.shape == (n * hop,),
+              f"{what} row {i}: {n} frames, wav {w.shape}, durations sum {int(d.sum())}")
+        check(bool(np.isfinite(w).all()), f"{what} row {i}: non-finite")
+
+
+def styletts_phase(torch, card: str, refwav, sr: int, profile_dir) -> dict:
+    """Phase 8: speaker_embed -> tts_ex -> tts_stream -> tts_batch on the
+    StyleTTS decoder with the single-tower vocoder at full width; launch
+    counts around that run; RTF, first chunk, stage times; the card against
+    the CPU on SHORT_TEXT and on one tts_batch of 2 rows."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+    from zerovox_tpu_torch.ops.resblock import fused_resblock1
+    from zerovox_tpu_torch.synthesize import MEL_BUCKETS, ZeroVoxTTS, pick_bucket
+    from zerovox_tpu_torch.utils.profiling import RtfStats, cuda_time_ms
+
+    base = ZeroVoxConfig()  # configs/tts_medium_styledec.yaml, built in code (no pyyaml here)
+    cfg = dc.replace(base, model=dc.replace(
+        base.model, decoder=dc.replace(base.model.decoder, kind="styletts")))
+    hcfg = single_tower_hifigan()
+    engine = ZeroVoxTTS.from_random(cfg, hcfg, seed=0)
+    hop = cfg.audio.hop_size
+    ids, puncts = engine.text2phonemeids(TEXT)
+    dur = np.full(len(ids), FRAMES_PER_PHONE, dtype=np.int32)
+    n_frames = int(dur.sum())
+    bucket = pick_bucket(n_frames, MEL_BUCKETS)
+    rng = np.random.default_rng(8)
+    spk_wavs = [refwav] + [rng.normal(size=2 * sr).astype(np.float32) * s for s in (0.05, 0.2, 0.3)]
+
+    zero_counts()
+    spk = engine.speaker_embed(refwav)
+    wav, _, n, mel = engine.tts_ex(TEXT, spk, duration=dur)
+    per_tts_ex = fused_resblock1.launches
+    chunks = list(engine.tts_stream(TEXT, spk, duration=dur))
+    after_stream = fused_resblock1.launches
+    durs, spks = batch_inputs(engine, spk_wavs)
+    batch = engine.tts_batch(list(BATCH_TEXTS), spks, durations=durs)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    print(f"launches: tts_ex {per_tts_ex} K3; speaker_embed + tts_ex + tts_stream ({len(chunks)} "
+          f"chunks) + tts_batch (B={len(batch)}) {counts}")
+    check(per_tts_ex == 3, f"tts_ex launched K3 {per_tts_ex} times, not 3")
+    check(after_stream - per_tts_ex == 3 * len(chunks),
+          f"tts_stream launched K3 {after_stream - per_tts_ex} times for {len(chunks)} windows")
+    check(counts["fused_resblock1"] == after_stream, "tts_batch at B=4 launched K3")
+    check(all(v == 0 for k, v in counts.items() if k != "fused_resblock1"),
+          f"the StyleTTS path launched another kernel: {counts}")
+    check(n == n_frames and wav.shape == (n_frames * hop,), f"wav {wav.shape}, {n} frames")
+    check(bool(np.isfinite(wav).all()) and bool(np.isfinite(mel).all()), "non-finite wav or mel")
+    streamed = np.concatenate(chunks)
+    check(streamed.shape == wav.shape, f"stream {streamed.shape} != tts {wav.shape}")
+    stream_err = float(np.max(np.abs(streamed - wav)))
+    peak = float(np.max(np.abs(wav)))
+    check(stream_err < STREAM_TOL * min(peak, 1.0), f"stream differs from tts by {stream_err}")
+    check_batch(batch, durs, hop, "tts_batch")
+    print(f"wav: {wav.shape[0]} samples, peak {peak:.6g}; stream max abs diff {stream_err:.3g}; "
+          f"tts_batch rows {[r[1] for r in batch]} frames")
+
+    enc, _, _ = engine._encode(ids, puncts, spk, dur)
+    mel_b = engine._decode(enc, spk, bucket)
+    stages = {
+        "encode": cuda_time_ms(lambda: engine._encode(ids, puncts, spk, dur), iters=10),
+        "decode": cuda_time_ms(lambda: engine._decode(enc, spk, bucket), iters=10),
+        "vocode": cuda_time_ms(lambda: engine._vocode(mel_b), iters=10),
+    }
+    batch_ms = cuda_time_ms(lambda: engine.tts_batch(list(BATCH_TEXTS), spks, durations=durs),
+                            iters=3, warmup=1)
+    stats = RtfStats(warmup=10)
+    for _ in range(25):
+        t0 = time.perf_counter()
+        w, _, _, _ = engine.tts_ex(TEXT, spk, duration=dur)
+        stats.add(w.shape[0] / sr, time.perf_counter() - t0)
+    lat = RtfStats(warmup=4)
+    for _ in range(15):
+        t0 = time.perf_counter()
+        gen = engine.tts_stream(TEXT, spk, duration=dur)
+        next(gen)
+        first = time.perf_counter() - t0
+        for _ in gen:
+            pass
+        lat.add(wav.shape[0] / sr, time.perf_counter() - t0, first_chunk_s=first)
+    out = {"stage_ms": stages, "tts_batch_b4_ms": batch_ms, "rtf": stats.mean_rtf,
+           "first_chunk_p50_ms": lat.p50_first_chunk_ms, "voice_s": wav.shape[0] / sr,
+           "bucket": bucket, "launches": counts, "card": card}
+    print(json.dumps({"styletts_path": out}), flush=True)
+    if profile_dir is not None:
+        profile_calls(torch, lambda: engine.tts_ex(TEXT, spk, duration=dur), 3, profile_dir,
+                      "styletts_path")
+        for name, fn in (("encode", lambda: engine._encode(ids, puncts, spk, dur)),
+                         ("decode", lambda: engine._decode(enc, spk, bucket)),
+                         ("vocode", lambda: engine._vocode(mel_b))):
+            profile_calls(torch, fn, 3, profile_dir, f"styletts_{name}")
+
+    # the same weights on the CPU (plain versions)
+    sd, meldec_sd = engine.state_dicts()
+    cpu = ZeroVoxTTS(cfg, sd, hcfg, meldec_sd, device="cpu")
+    d_short = np.full(len(engine.text2phonemeids(SHORT_TEXT)[0]), FRAMES_PER_PHONE, np.int32)
+    w_card, _, n_card = engine.tts(SHORT_TEXT, spk, duration=d_short)
+    w_cpu, _, n_cpu = cpu.tts(SHORT_TEXT, spk.cpu(), duration=d_short)
+    check(n_card == n_cpu and w_card.shape == w_cpu.shape, f"card {w_card.shape}, cpu {w_cpu.shape}")
+    errs = {"tts": float(np.max(np.abs(w_card - w_cpu)))}
+    peaks = {"tts": float(np.max(np.abs(w_cpu)))}
+    pair = [SHORT_TEXT, BATCH_TEXTS[3]]
+    pair_durs = [d_short, durs[3]]
+    b_card = engine.tts_batch(pair, spks[:2], durations=pair_durs)
+    b_cpu = cpu.tts_batch(pair, spks[:2].cpu(), durations=pair_durs)
+    check_batch(b_cpu, pair_durs, hop, "tts_batch on the CPU")
+    errs["tts_batch"] = max(float(np.max(np.abs(a[0] - b[0]))) for a, b in zip(b_card, b_cpu))
+    peaks["tts_batch"] = min(float(np.max(np.abs(b[0]))) for b in b_cpu)
+    print(f"card vs cpu: max abs diff {errs}, peaks {peaks}")
+    for k in errs:
+        check(peaks[k] > 0 and errs[k] < WAV_TOL * min(peaks[k], 1.0),
+              f"card {k} differs from the CPU run by {errs[k]} (peak {peaks[k]})")
+    out["cpu_err"], out["cpu_peak"] = errs, peaks
+    return out
+
+
+def default_batch_phase(torch, dev, card: str, refwav, sr: int) -> dict:
+    """Phase 9: the default engine's tts_batch at B=4 (K2 twice, K1 never),
+    then stage 1 at B=4 through K1 against its plain version, in turns."""
+    import numpy as np
+
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain
+    from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
+    from zerovox_tpu_torch.synthesize import MEL_BUCKETS, ZeroVoxTTS, pick_bucket
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    engine = ZeroVoxTTS.from_random(seed=0)
+    rng = np.random.default_rng(9)
+    spk_wavs = [refwav] + [rng.normal(size=2 * sr).astype(np.float32) * s for s in (0.05, 0.2, 0.3)]
+    durs, spks = batch_inputs(engine, spk_wavs)
+    zero_counts()
+    rows = engine.tts_batch(list(BATCH_TEXTS), spks, durations=durs)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    check_batch(rows, durs, engine.cfg.audio.hop_size, "default tts_batch")
+    check(fused_upsample_stage.launches == 2 and fused_mrf.launches == 0
+          and counts["fused_resblock1"] == 0,
+          f"the default engine's tts_batch at B=4 launched {counts}, not K2 twice")
+    batch_ms = cuda_time_ms(lambda: engine.tts_batch(list(BATCH_TEXTS), spks, durations=durs),
+                            iters=3, warmup=1)
+
+    hcfg = HifiGanConfig()
+    ks, dils = tuple(hcfg.resblock_kernel_sizes), tuple(hcfg.resblock_dilation_sizes[0])
+    T_mel = pick_bucket(max(int(d.sum()) for d in durs), MEL_BUCKETS)
+    C1, T1 = hcfg.upsample_initial_channel // 4, T_mel * hcfg.upsample_rates[0] * hcfg.upsample_rates[1]
+    gen = torch.Generator().manual_seed(3456)
+    x = torch.randn(len(BATCH_TEXTS), T1, C1, generator=gen).to(dev)
+    towers = random_towers(torch, gen, C1, ks, len(dils), dev)
+    err = (fused_mrf(x, towers, dils, ks) - mrf_plain(x, towers, dils)).abs().max().item()
+    check(err < KERNEL_TOL, f"K1 at B=4: max abs diff {err} against the plain version")
+    turns = {"plain": [], "fused_mrf": []}
+    for label in ("plain", "fused_mrf", "fused_mrf", "plain"):
+        fn = (lambda: mrf_plain(x, towers, dils)) if label == "plain" else \
+            (lambda: fused_mrf(x, towers, dils, ks))
+        turns[label].append(cuda_time_ms(fn, iters=5, warmup=1))
+    flop, _ = mrf_work(len(BATCH_TEXTS) * T1, C1, ks, len(dils))
+    out = {"launches": counts, "tts_batch_b4_ms": batch_ms, "rows": [r[1] for r in rows],
+           "stage1_b4": {"shape": f"[{len(BATCH_TEXTS)},{T1},{C1}]", "max_abs_err": err,
+                         "turns_ms": turns, "gflop": flop / 1e9}, "card": card}
+    print(json.dumps({"default_batch": out}), flush=True)
+    return out
+
+
 def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
     """torch.profiler over `calls` calls of fn: device time by kernel, the
     device's busy share of the window and K4's device time, the table
@@ -535,7 +795,6 @@ def main() -> None:
     from zerovox_tpu_torch.models.hifigan import HifiGanConfig
     from zerovox_tpu_torch.ops import _cuda
     from zerovox_tpu_torch.ops.mrf import fused_mrf
-    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd, se_conv_fwd
     from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
     from zerovox_tpu_torch.synthesize import MEL_BUCKETS, TEXT_BUCKETS, ZeroVoxTTS, pick_bucket
     from zerovox_tpu_torch.utils.profiling import RtfStats, cuda_time_ms
@@ -568,21 +827,22 @@ def main() -> None:
     bucket = pick_bucket(n_frames, MEL_BUCKETS)
     print(f"text: {n_phones} phones x {FRAMES_PER_PHONE} = {n_frames} frames, mel bucket {bucket}")
     rows = kernel_phase(torch, dev, hcfg, bucket)
+    rows += resblock_phase(torch, dev, single_tower_hifigan(), bucket)
     rows += se_conv_phase(torch, dev)
 
     # ---- 4. the main path at full width
     phase("main path")
     refwav = np.random.default_rng(0).normal(size=2 * sr).astype(np.float32) * 0.1
     dur = np.full(n_phones, FRAMES_PER_PHONE, dtype=np.int32)
-    fused_mrf.launches = fused_upsample_stage.launches = 0
-    se_conv_fwd.launches = se_conv_bwd.launches = 0
+    zero_counts()
     spk = engine.speaker_embed(refwav)
     wav, _, n, mel = engine.tts_ex(TEXT, spk, duration=dur)
     per_call = (fused_mrf.launches, fused_upsample_stage.launches)
     chunks = list(engine.tts_stream(TEXT, spk, duration=dur))
     torch.cuda.synchronize()
     launches = {"fused_mrf": fused_mrf.launches, "fused_upsample_stage": fused_upsample_stage.launches}
-    check(k4_counts() == (0, 0), f"the serving path launched K4: {k4_counts()}")
+    check(k4_counts() == (0, 0) and kernel_counts()["fused_resblock1"] == 0,
+          f"the serving path launched K3 or K4: {kernel_counts()}")
     print(f"launches: tts_ex {dict(zip(launches, per_call))}; speaker_embed + tts_ex + "
           f"tts_stream ({len(chunks)} chunks) {launches}")
     check(tuple(spk.shape) == (1, 1, engine.cfg.model.emb_size) and bool(torch.isfinite(spk).all()),
@@ -665,8 +925,7 @@ def main() -> None:
         n_mels = train_config(fused=True).audio.num_mels
         write_corpus(corpus, "train", syms, n_mels, TRAIN_UTTS, (80, 100), seed=0)
         write_corpus(corpus, "short", syms, n_mels, 2, (16, 16), seed=1)
-        fused_mrf.launches = fused_upsample_stage.launches = 0
-        se_conv_fwd.launches = se_conv_bwd.launches = 0
+        zero_counts()
         train = train_phase(torch, corpus)
         k4 = train["launches"]
         trainer, state, batch = train.pop("model")
@@ -697,6 +956,19 @@ def main() -> None:
         phase("training cross-check")
         xc = train_cross_check(torch, dev, corpus)
         print(json.dumps({"train_cross_check": xc}), flush=True)
+
+    # ---- 8. the StyleTTS-decoder path with the single-tower vocoder (K3)
+    phase("styletts path")
+    profile_dir = Path(sys.argv[sys.argv.index("--profile") + 1]) if "--profile" in sys.argv else None
+    sty = styletts_phase(torch, card, refwav, sr, profile_dir)
+    for row in rows:
+        if row["name"] == "fused_resblock1":
+            row["launches"] = sty["launches"]["fused_resblock1"]
+    torch.cuda.empty_cache()
+
+    # ---- 9. the default engine's tts_batch at B=4, and K1 at B=4
+    phase("default batch")
+    default_batch_phase(torch, dev, card, refwav, sr)
 
     # ---- results
     print(card)

@@ -13,6 +13,7 @@ import torch
 
 from zerovox_tpu_torch.device import use_full_f32
 from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain
+from zerovox_tpu_torch.ops.resblock import fused_resblock1, resblock1_plain
 from zerovox_tpu_torch.ops.upsample_stage import (KERNEL_WIDTHS, fused_upsample_stage,
                                                    upsample_stage_plain)
 
@@ -98,6 +99,55 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         fused_mrf(torch.zeros(1, 64, 50, device=cuda).transpose(1, 2), towers, DILS, KS)
     with pytest.raises(ValueError):
         fused_mrf(torch.zeros(1, 50, 48, device=cuda), towers, DILS, KS)
+
+
+@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("T", [5, 23, 176, 1001, 44096])  # below the halo (12) up to stage 1's length
+def test_resblock_kernel_matches_plain(cuda, C, B, T):
+    rng = np.random.default_rng(C + B + T)
+    x = torch.tensor(rng.normal(size=(B, T, C)).astype(np.float32)).to(cuda)
+    tower = _to(cuda, _towers(rng, C, ks=(3,)))[0]
+    n0 = fused_resblock1.launches
+    got = fused_resblock1(x, *tower, DILS)
+    torch.cuda.synchronize()
+    assert fused_resblock1.launches == n0 + 1
+    ref = resblock1_plain(x, *tower, DILS)
+    assert got.shape == ref.shape == (B, T, C)
+    assert torch.max(torch.abs(got - ref)).item() < TOL
+
+
+@pytest.mark.parametrize("k,dils", [(5, (1, 3, 5)), (3, (1, 3)), (7, (2,))])
+def test_resblock_kernel_other_towers(cuda, k, dils):
+    rng = np.random.default_rng(k + len(dils))
+    x = torch.tensor(rng.normal(size=(1, 300, 64)).astype(np.float32)).to(cuda)
+    tower = _to(cuda, _towers(rng, 64, ks=(k,), dils=dils))[0]
+    got = fused_resblock1(x, *tower, dils)
+    assert torch.max(torch.abs(got - resblock1_plain(x, *tower, dils))).item() < TOL
+
+
+def test_resblock_kernel_rejects_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(1)
+    tower = _to(cuda, _towers(rng, 64, ks=(3,)))[0]
+    x = torch.zeros(1, 50, 64, device=cuda)
+    n0 = fused_resblock1.launches
+    with pytest.raises(TypeError):
+        fused_resblock1(x.double(), *tower, DILS)
+    with pytest.raises(ValueError):  # not contiguous
+        fused_resblock1(torch.zeros(1, 64, 50, device=cuda).transpose(1, 2), *tower, DILS)
+    with pytest.raises(ValueError):  # C not 32, 64 or 128
+        fused_resblock1(torch.zeros(1, 50, 48, device=cuda), *tower, DILS)
+    with pytest.raises(ValueError):  # one dilation per pair
+        fused_resblock1(x, *tower, (1, 3))
+    even = _to(cuda, _towers(rng, 64, ks=(4,)))[0]
+    with pytest.raises(ValueError):  # even kernel size
+        fused_resblock1(x, *even, DILS)
+    four = _to(cuda, _towers(rng, 64, ks=(3,), dils=(1, 2, 3, 4)))[0]
+    with pytest.raises(ValueError):  # more than 3 pairs
+        fused_resblock1(x, *four, (1, 2, 3, 4))
+    with pytest.raises(ValueError):  # weights on another device
+        fused_resblock1(x, *[t.cpu() for t in tower], DILS)
+    assert fused_resblock1.launches == n0
 
 
 def _se_inputs(rng, B, H, W, dev):
@@ -197,6 +247,51 @@ def test_engine_on_card_matches_cpu(cuda):
     streamed = np.concatenate(list(gpu.tts_stream(text, spk, duration=dur, chunk_frames=24)))
     assert streamed.shape == w_gpu.shape
     assert np.max(np.abs(streamed - w_gpu)) < 1e-4
+
+
+def test_styletts_single_tower_engine_on_card_matches_cpu(cuda):
+    """The StyleTTS decoder with a single-tower vocoder whose stages are
+    128, 64 and 32 channels wide: one K3 launch per stage at batch 1 (3 per
+    `tts`), the card's waveform within 1e-3 of the CPU plain run, streamed
+    chunks equal to the full render; `tts_batch` at batch 2 runs plain
+    (no K3 launch) and matches the CPU too."""
+    from zerovox_tpu_torch.config import (DecoderConfig, EncoderConfig, ModelConfig,
+                                          ResNetConfig, ZeroVoxConfig)
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.synthesize import ZeroVoxTTS
+
+    cfg = ZeroVoxConfig(model=ModelConfig(
+        max_txt_len=64, max_mel_len=256, emb_dim=48, punct_emb_dim=16,
+        encoder=EncoderConfig(fs2_layer=1, vp_filter_size=16, ve_n_bins=16),
+        decoder=DecoderConfig(kind="styletts"),
+        resnet=ResNetConfig(layers=(1, 1, 1, 1), num_filters=(8, 16, 16, 16))))
+    hcfg = HifiGanConfig(upsample_rates=(8, 8, 4), upsample_kernel_sizes=(16, 16, 8),
+                         upsample_initial_channel=256, resblock_kernel_sizes=(3,),
+                         resblock_dilation_sizes=((1, 3, 5),))
+    gpu = ZeroVoxTTS.from_random(cfg, hcfg, seed=5)
+    cpu = ZeroVoxTTS(cfg, *_sd_pair(gpu), device="cpu")
+    wav = np.random.default_rng(2).normal(size=22050).astype(np.float32) * 0.1
+    spk = gpu.speaker_embed(wav)
+    text = "Hello there, general test."
+    dur = np.full(len(gpu.text2phonemeids(text)[0]), 4, np.int32)
+    n0 = fused_resblock1.launches
+    w_gpu, _, n = gpu.tts(text, spk, duration=dur)
+    assert fused_resblock1.launches - n0 == 3
+    w_cpu, _, n_cpu = cpu.tts(text, spk.cpu(), duration=dur)
+    assert n == n_cpu == 4 * len(dur)
+    assert np.max(np.abs(w_gpu - w_cpu)) < 1e-3
+    streamed = np.concatenate(list(gpu.tts_stream(text, spk, duration=dur, chunk_frames=24)))
+    assert streamed.shape == w_gpu.shape
+    assert np.max(np.abs(streamed - w_gpu)) < 1e-4
+    texts = [text, "A second, longer utterance in the batch."]
+    spks = torch.cat([spk, gpu.speaker_embed(wav * 0.5)])
+    durs = [np.full(len(gpu.text2phonemeids(t)[0]), 3, np.int32) for t in texts]
+    n0 = fused_resblock1.launches
+    rows = gpu.tts_batch(texts, spks, durations=durs)
+    assert fused_resblock1.launches == n0
+    for (w_g, n_g), (w_c, n_c) in zip(rows, cpu.tts_batch(texts, spks.cpu(), durations=durs)):
+        assert n_g == n_c and w_g.shape == w_c.shape
+        assert np.max(np.abs(w_g - w_c)) < 1e-3
 
 
 def _sd_pair(engine):

@@ -25,6 +25,8 @@ def test_imports_with_jax_and_jax_package_blocked():
         "import zerovox_tpu_torch.ops.mrf, zerovox_tpu_torch.ops.upsample_stage\n"
         "import zerovox_tpu_torch.text, zerovox_tpu_torch.utils.profiling\n"
         "import zerovox_tpu_torch.ops.se_conv, zerovox_tpu_torch.training.trainer\n"
+        "import zerovox_tpu_torch.ops.resblock, zerovox_tpu_torch.models.styletts\n"
+        "import zerovox_tpu_torch.models.layers, zerovox_tpu_torch.models.zerovox\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")

@@ -15,12 +15,16 @@ same stage to the same kernel:
     in leaky(0.01) + conv_post + tanh;
   * else a stage with C <= 128 at batch 1 runs its MRF as one fused kernel
     (ops/mrf.py);
+  * else, for ResBlock1 towers at C <= 128 and batch 1, each tower is one
+    fused ResBlock1 kernel (ops/resblock.py) and the stage averages them;
   * else plain convolutions.
 
-Both fused paths need identical dilation schedules across the towers
-(`mrf_fusable`). With the default config (512 channels, rates 8,8,2,2)
-stage 0 is plain, stage 1 takes the MRF kernel and stages 2-3 the
-upsample-stage kernel.
+The two MRF-wide paths need identical dilation schedules across several
+towers (`mrf_fusable`). With the default config (512 channels, rates
+8,8,2,2) stage 0 is plain, stage 1 takes the MRF kernel and stages 2-3 the
+upsample-stage kernel. A single-tower vocoder (or one whose towers'
+dilations differ) runs stages of C <= 128 tower by tower through the
+ResBlock1 kernel at batch 1, and plain at batch > 1.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from zerovox_tpu_torch.ops.mrf import LRELU_SLOPE, fused_mrf, resblock1_ncl
+from zerovox_tpu_torch.ops.resblock import fused_resblock1
 from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
 
 
@@ -202,6 +207,15 @@ class Generator(nn.Module):
             if self._mrf_fusable and ch <= 128 and mel.shape[0] == 1:
                 towers = self._stage_kernel_params(i, post=False)["towers"]
                 x, nlc = fused_mrf(x.transpose(1, 2).contiguous(), towers, self._dil0, ksizes), True
+                continue
+            if cfg.resblock == "1" and ch <= 128 and mel.shape[0] == 1:
+                xn = x.transpose(1, 2).contiguous()
+                towers = self._stage_kernel_params(i, post=False)["towers"]
+                xs = None
+                for tw, dil in zip(towers, cfg.resblock_dilation_sizes):
+                    r = fused_resblock1(xn, *tw, tuple(dil))
+                    xs = r if xs is None else xs + r
+                x, nlc = xs / nk, True
                 continue
             xs = None
             for j in range(nk):

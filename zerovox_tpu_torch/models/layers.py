@@ -121,6 +121,51 @@ def instance_norm_time(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + eps)
 
 
+class InstanceNorm(nn.Module):
+    """InstanceNorm1d over the length axis of NLC x [B, L, C]: each channel
+    of each sample normalized over L (biased variance, no running
+    statistics), then `weight` and `bias` per channel when `affine`."""
+
+    def __init__(self, features: int, affine: bool = False, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        if affine:
+            self.weight = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+
+    def forward(self, x):
+        y = instance_norm_time(x, self.eps)
+        return y if self.weight is None else y * self.weight + self.bias
+
+
+class WeightNormConv1d(nn.Module):
+    """Conv1d with weight norm over NLC activations: weight = g * v / ||v||,
+    one g per output channel and the norm over (in, k), with 1e-12 inside
+    the sqrt as in the JAX package. `weight_g` (out, 1, 1) and `weight_v`
+    (out, in, k) stay separate parameters, the upstream
+    torch.nn.utils.weight_norm keys."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, padding: int = 0,
+                 bias: bool = True):
+        super().__init__()
+        self.padding = padding
+        self.weight_g = nn.Parameter(torch.ones(out_ch, 1, 1))
+        self.weight_v = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size))
+        nn.init.kaiming_uniform_(self.weight_v, a=5 ** 0.5)
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+
+    def weight(self) -> torch.Tensor:
+        v = self.weight_v
+        norm = torch.sqrt(torch.sum(v * v, dim=(1, 2), keepdim=True) + 1e-12)
+        return v * (self.weight_g / norm)
+
+    def forward(self, x):
+        return conv1d(x, self.weight(), self.bias, padding=self.padding)
+
+
 def sinusoid_table(n_position: int, d_hid: int) -> np.ndarray:
     """Sinusoid position table, computed in float64 then cast to float32."""
     positions = np.arange(n_position)[:, None]

@@ -9,7 +9,9 @@ The PyTorch counterpart of the JAX package's `models/zerovox.py`:
   * ``decode``        — stage B: length-regulate into a static mel bucket and
                         run the mel decoder.
 
-Submodules carry the upstream state_dict prefixes (`_phoneme_encoder`,
+The mel decoder is the FS2 decoder (`decoder.kind: fastspeech2`) or the
+StyleTTS AdaIN decoder (`styletts`, models/styletts.py). Submodules carry
+the upstream state_dict prefixes (`_phoneme_encoder`,
 `_spkemb`, `_mel_decoder`), so an upstream checkpoint's keys load as they
 are. The vocoder is a separate module (models/hifigan.py), as upstream
 ships it as a separate artifact.
@@ -23,6 +25,7 @@ import torch.nn as nn
 from zerovox_tpu_torch.config import ZeroVoxConfig
 from zerovox_tpu_torch.models.fs2 import FS2Decoder, FS2Encoder
 from zerovox_tpu_torch.models.resnetse import ResNetSE34V2
+from zerovox_tpu_torch.models.styletts import StyleTTSDecoder
 from zerovox_tpu_torch.ops.length_regulator import length_regulate
 
 
@@ -30,16 +33,19 @@ class ZeroVox(nn.Module):
     def __init__(self, cfg: ZeroVoxConfig):
         super().__init__()
         m = cfg.model
-        if m.decoder.kind != "fastspeech2":
-            raise NotImplementedError(
-                f"decoder kind {m.decoder.kind!r} is not ported yet (fastspeech2 only)")
         if m.fused_speaker and m.packed_speaker < 1:
             raise ValueError("fused_speaker requires packed_speaker >= 1, as in the JAX package")
         self._phoneme_encoder = FS2Encoder(m)
         self._spkemb = ResNetSE34V2(tuple(m.resnet.layers), tuple(m.resnet.num_filters),
                                     n_out=m.emb_size, encoder_type=m.resnet.encoder_type,
                                     n_mels=cfg.audio.num_mels, fused_stage1=m.fused_speaker)
-        self._mel_decoder = FS2Decoder(m.decoder, m.emb_size, cfg.audio.num_mels)
+        if m.decoder.kind == "fastspeech2":
+            self._mel_decoder = FS2Decoder(m.decoder, m.emb_size, cfg.audio.num_mels)
+        elif m.decoder.kind == "styletts":
+            self._mel_decoder = StyleTTSDecoder(m.emb_size, m.emb_size, residual_dim=64,
+                                                dim_out=cfg.audio.num_mels)
+        else:
+            raise ValueError(f"unknown decoder kind: {m.decoder.kind!r}")
 
     def speaker_embed(self, ref_mel, train: bool = False):
         """ref_mel [B, T, n_mels] -> [B, 1, emb_size], L2-normalized."""

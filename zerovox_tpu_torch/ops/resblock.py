@@ -1,0 +1,65 @@
+"""Fused HiFi-GAN ResBlock1 (one tower): kernel K3.
+
+A ResBlock1 tower is P pairs of leaky(0.1) -> dilated conv(k, d_p) -> leaky
+-> conv(k, 1) -> + residual. `fused_resblock1` computes one tower over
+x [B, T, C]:
+
+  * on a CUDA tensor it launches the hand-written Hopper kernel
+    `csrc/resblock.cu`, which replaces the TPU kernel
+    `zerovox_tpu/ops/pallas/resblock.py::fused_resblock1`. On an H100 the
+    tower is bound by arithmetic (36 C^2 FLOP per row at k=3, P=3); the
+    kernel keeps a time tile and the tower's halo in shared memory across
+    all 2P convs and writes the output once (design notes in the source);
+  * on a CPU tensor it runs `resblock1_plain`, the same function in plain
+    PyTorch.
+
+There is no fallback: a CUDA tensor the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from zerovox_tpu_torch.ops import _cuda
+from zerovox_tpu_torch.ops.mrf import _torch_convs, check_towers, flat_towers, resblock1_ncl
+
+
+def resblock1_plain(x, w1, b1, w2, b2, dilations):
+    """Plain PyTorch ResBlock1 over NLC x [B, T, C]; w1/w2 [P, k, C, C]
+    taps (k, in, out), b1/b2 [P, C]."""
+    y = resblock1_ncl(x.transpose(1, 2), _torch_convs(w1, b1), _torch_convs(w2, b2), dilations)
+    return y.transpose(1, 2)
+
+
+def fused_resblock1(x, w1, b1, w2, b2, dilations):
+    """One ResBlock1 tower of x [B, T, C] -> [B, T, C].
+
+    w1, w2: [P, k, C, C] conv taps (k, in, out) of the dilated and the plain
+    convs; b1, b2: [P, C]; dilations: the P first-conv dilations."""
+    if x.device.type == "cpu":
+        return resblock1_plain(x, w1, b1, w2, b2, dilations)
+    if x.dim() != 3:
+        raise ValueError(f"fused_resblock1: x must be [B, T, C], got {tuple(x.shape)}")
+    B, T, C = x.shape
+    if C not in (32, 64, 128):
+        raise ValueError(f"fused_resblock1: the kernel takes C in (32, 64, 128), got {C}")
+    P, k = w1.shape[0], w1.shape[1]
+    if not 1 <= P <= 3 or len(dilations) != P:
+        raise ValueError(f"fused_resblock1: need 1-3 conv pairs and one dilation each, "
+                         f"got {P} pairs and dilations {tuple(dilations)}")
+    if k % 2 == 0:
+        raise ValueError(f"fused_resblock1: the kernel takes an odd kernel size, got {k}")
+    check_towers("fused_resblock1", [(w1, b1, w2, b2)], (k,), P, C)
+    w, b = flat_towers([(w1, b1, w2, b2)])
+    _cuda.require_f32_cuda("fused_resblock1", x, w, b)
+    ds = list(dilations) + [0] * (3 - P)
+    out = torch.empty_like(x)
+    err = _cuda.lib("resblock").zv_resblock1_f32(
+        x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), B, T, C, k, P, *ds,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _cuda.check(err, "fused_resblock1")
+    fused_resblock1.launches += 1
+    return out
+
+
+fused_resblock1.launches = 0

@@ -10,7 +10,13 @@ The counterpart of the JAX package's `synthesize.py`, on PyTorch and CUDA:
     the phone count so decode and vocode are queued before the one host
     sync on the duration sum; when the speculation was too small the
     exact bucket is redone;
-  * `tts_stream` yields audio chunk by chunk (streaming.py).
+  * `tts_stream` yields audio chunk by chunk (streaming.py);
+  * `tts_batch` synthesizes several utterances, one speaker each, padded to
+    shared buckets.
+
+The StyleTTS decoder's InstanceNorms see the whole mel bucket, so its mel
+depends on the bucket: every path picks the same bucket as the JAX package
+(a `tts_batch` row is decoded at the batch's bucket, not at its own).
 
 Entry points run on the CUDA card unless the caller passes device="cpu";
 without a card they raise. The engine runs float32 with TF32 off.
@@ -55,12 +61,15 @@ def pick_bucket(n: int, buckets) -> int:
 
 def random_init_(module: torch.nn.Module, gen: torch.Generator) -> None:
     """Seeded random weights: LeCun-normal for weight matrices and kernels,
-    unit-variance/sqrt(dim) embeddings, zero biases, identity norms."""
+    unit-variance/sqrt(dim) embeddings, zero biases, identity norms, weight
+    norm gains of 1."""
     with torch.no_grad():
         for mod in module.modules():
             for name, p in mod.named_parameters(recurse=False):
                 if isinstance(mod, torch.nn.Embedding):
                     p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+                elif name == "weight_g":  # weight norm: unit-norm rows of v
+                    p.fill_(1.0)
                 elif p.dim() < 2:
                     p.fill_(1.0 if name == "weight" else 0.0)
                 else:
@@ -153,27 +162,39 @@ class ZeroVoxTTS:
             return spkemb.to(device=self.device, dtype=torch.float32)
         return torch.tensor(np.asarray(spkemb, np.float32), device=self.device)
 
+    @staticmethod
+    def _text_rows(ids):
+        """Rows of (phone_ids, punct_ids) padded to the text bucket of the
+        longest -> (phonemes, puncts, mask) [B, L] on the host."""
+        L = pick_bucket(max(len(p) for p, _ in ids), TEXT_BUCKETS)
+        phonemes = np.zeros((len(ids), L), np.int64)
+        puncts = np.zeros((len(ids), L), np.int64)
+        mask = np.ones((len(ids), L), bool)
+        for i, (p, q) in enumerate(ids):
+            phonemes[i, :len(p)] = p
+            puncts[i, :len(p)] = q
+            mask[i, :len(p)] = False
+        return phonemes, puncts, mask
+
+    def _run_encode(self, phonemes, puncts, mask, spk, dur=None):
+        """Stage A over host arrays [B, L] (dur: forced durations or None)."""
+        dev = self.device
+        with torch.inference_mode():
+            return self._model.encode(
+                torch.from_numpy(phonemes).to(dev), torch.from_numpy(puncts).to(dev), spk,
+                phoneme_mask=torch.from_numpy(mask).to(dev),
+                duration_target=None if dur is None else torch.from_numpy(dur).to(dev))
+
     def _encode(self, phone_ids, punct_ids, spkemb, duration=None):
         """Stage A at the text bucket. Returns (encoder outputs, speculative
         mel length, forced durations or None)."""
         n = len(phone_ids)
-        L = pick_bucket(n, TEXT_BUCKETS)
-        phonemes = np.zeros((1, L), np.int64)
-        puncts = np.zeros((1, L), np.int64)
-        mask = np.ones((1, L), bool)
-        phonemes[0, :n] = phone_ids
-        puncts[0, :n] = punct_ids
-        mask[0, :n] = False
+        phonemes, puncts, mask = self._text_rows([(phone_ids, punct_ids)])
         dur = None
         if duration is not None:
-            dur = np.zeros((1, L), np.int32)
+            dur = np.zeros(phonemes.shape, np.int32)
             dur[0, :n] = np.asarray(duration)[:n]
-        dev = self.device
-        with torch.inference_mode():
-            enc = self._model.encode(
-                torch.from_numpy(phonemes).to(dev), torch.from_numpy(puncts).to(dev),
-                self._spk(spkemb), phoneme_mask=torch.from_numpy(mask).to(dev),
-                duration_target=None if dur is None else torch.from_numpy(dur).to(dev))
+        enc = self._run_encode(phonemes, puncts, mask, self._spk(spkemb), dur)
         spec_len = int(dur.sum()) if dur is not None else self._SPEC_FRAMES_PER_PHONE * n + 16
         return enc, spec_len, dur
 
@@ -233,6 +254,63 @@ class ZeroVoxTTS:
     def tts(self, text: str, spkemb, duration=None):
         wav, phoneme, length, _ = self.tts_ex(text, spkemb, duration=duration, want_mel=False)
         return wav, phoneme, length
+
+    def tts_batch(self, texts: list[str], spkembs, durations=None) -> list[tuple[np.ndarray, int]]:
+        """Batched multi-speaker synthesis: one utterance per (text, speaker
+        embedding) pair, padded to the text bucket of the longest, so each
+        stage runs once for the batch. `spkembs` is [B, 1, emb] (stacked
+        `speaker_embed` outputs). `durations`, if given, holds one per-phone
+        frame-count array per utterance: the mel lengths are then known on
+        the host and the exact bucket is decoded directly. Otherwise decode
+        and vocode are queued at a speculative bucket from the longest
+        text, one host sync reads the duration sums, the exact bucket is
+        redone only if it is larger, and the waveform is trimmed to it.
+        Returns [(wav, mel_len), ...]."""
+        spk = self._spk(spkembs)
+        if spk.shape[0] != len(texts):
+            raise ValueError(f"{len(texts)} texts but {spk.shape[0]} speaker embeddings")
+        ids = [self.text2phonemeids(t.strip()) for t in texts]
+        max_n = max((len(p) for p, _ in ids), default=0)
+        if max_n == 0:
+            return [(np.zeros(1, np.float32), 0)] * len(texts)
+        phonemes, puncts, mask = self._text_rows(ids)
+        if durations is not None:
+            return self._tts_batch_forced(ids, phonemes, puncts, mask, spk, durations)
+
+        max_len = self.cfg.model.max_mel_len
+        enc = self._run_encode(phonemes, puncts, mask, spk)
+        T = pick_bucket(min(self._SPEC_FRAMES_PER_PHONE * max_n + 16, max_len), MEL_BUCKETS)
+        wav = self._vocode(self._decode(enc, spk, T))
+        mel_lens = enc["duration_rounded"].sum(dim=1).cpu().numpy()  # the one host sync
+        eff_max = min(int(mel_lens.max()), max_len)
+        if eff_max > T:  # speculation too small: redo at the exact bucket
+            T = pick_bucket(eff_max, MEL_BUCKETS)
+            wav = self._vocode(self._decode(enc, spk, T))
+        T_exact = pick_bucket(eff_max, MEL_BUCKETS)
+        return self._batch_postprocess(wav[:, :T_exact * self._hop_length], mel_lens)
+
+    def _tts_batch_forced(self, ids, phonemes, puncts, mask, spk, durations):
+        """tts_batch with per-phone durations: the exact mel bucket is known
+        on the host, so there is no host sync before the waveform copy."""
+        dur = np.zeros(phonemes.shape, np.int32)
+        for i, (p, _) in enumerate(ids):
+            d = np.asarray(durations[i], np.int32)
+            if d.shape[0] != len(p):
+                raise ValueError(f"durations[{i}] has {d.shape[0]} entries for {len(p)} phones")
+            dur[i, :len(p)] = d
+        max_len = self.cfg.model.max_mel_len
+        mel_lens = np.minimum(dur.sum(axis=1), max_len)
+        enc = self._run_encode(phonemes, puncts, mask, spk, dur)
+        T = pick_bucket(min(int(mel_lens.max()), max_len), MEL_BUCKETS)
+        return self._batch_postprocess(self._vocode(self._decode(enc, spk, T)), mel_lens)
+
+    def _batch_postprocess(self, wav: torch.Tensor, mel_lens) -> list[tuple[np.ndarray, int]]:
+        wav = wav.float().cpu().numpy()
+        out = []
+        for i in range(wav.shape[0]):
+            n = int(min(mel_lens[i], self.cfg.model.max_mel_len))
+            out.append((wav[i, :n * self._hop_length], n))
+        return out
 
     def tts_stream(self, text: str, spkemb, chunk_frames: int = 96, duration=None):
         """Streaming synthesis: yields waveform chunks as they are vocoded.

@@ -7,6 +7,9 @@
 
     Dense (in, out)                 -> Linear (out, in)
     Conv1d (k, in, out)             -> (out, in, k)
+    WeightNormConv1d v (k, in, out), g (out,)
+                                    -> weight_v (out, in, k), weight_g (out, 1, 1)
+    InstanceNorm, LayerNorm scale/bias -> weight/bias
     Conv2d (kh, kw, in, out)        -> (out, in, kh, kw)
     ConvTranspose1d (k, in, out),
       stored flipped on the taps    -> flip taps, then (in, out, k)
@@ -14,7 +17,8 @@
 
 * `upstream_state_dict` / `upstream_generator_state_dict` take the
   upstream gooofy/zerovox torch checkpoints, whose keys the modules already
-  use, and fold HiFi-GAN weight norm (w = g * v / ||v||, dim 0).
+  use, and fold HiFi-GAN weight norm (w = g * v / ||v||, dim 0); the
+  StyleTTS decoder keeps its `weight_g`/`weight_v` as they are.
 """
 
 from __future__ import annotations
@@ -106,12 +110,41 @@ def _resnetse(p, s, prefix: str, layers, out: dict) -> None:
     _dense(p["fc"], prefix + "fc.", out)
 
 
+def _wn_conv(p, prefix: str, out: dict) -> None:
+    """WeightNormConv1d {v (k, in, out), g (out,), bias} -> weight_v
+    (out, in, k), weight_g (out, 1, 1), bias."""
+    out[prefix + "weight_v"] = _t(np.transpose(p["v"], (2, 1, 0)))
+    out[prefix + "weight_g"] = _t(np.asarray(p["g"]).reshape(-1, 1, 1))
+    if "bias" in p:
+        out[prefix + "bias"] = _t(p["bias"])
+
+
+def _resblk1d(p, prefix: str, out: dict) -> None:
+    """ResBlk1d or AdainResBlk1d (whose norms are AdaIN1d with a Dense `fc`)."""
+    for name in ("conv1", "conv2", "conv1x1"):
+        if name in p:
+            _wn_conv(p[name], f"{prefix}{name}.", out)
+    for name in ("norm1", "norm2"):
+        if name in p and "fc" in p[name]:
+            _dense(p[name]["fc"], f"{prefix}{name}.fc.", out)
+        elif name in p:
+            _norm(p[name], f"{prefix}{name}.", out)
+
+
+def _styletts_decoder(p, prefix: str, out: dict) -> None:
+    for i in range(2):
+        _resblk1d(p[f"encode_{i}"], f"{prefix}encode.{i}.", out)
+    _wn_conv(p["asr_res_conv"], prefix + "asr_res.0.", out)
+    _norm(p["asr_res_norm"], prefix + "asr_res.1.", out)
+    for i in range(5):
+        _resblk1d(p[f"decode_{i}"], f"{prefix}decode.{i}.", out)
+    _wn_conv(p["to_out"], prefix + "to_out.0.", out)
+
+
 def from_jax_variables(variables: dict, cfg: ZeroVoxConfig) -> dict[str, torch.Tensor]:
     """JAX `ZeroVox` variables {"params", "batch_stats"} -> state_dict of
     models.zerovox.ZeroVox."""
     m = cfg.model
-    if m.decoder.kind != "fastspeech2":
-        raise NotImplementedError(f"decoder kind {m.decoder.kind!r} is not ported yet")
     params, stats = variables["params"], variables["batch_stats"]
     out: dict[str, torch.Tensor] = {}
 
@@ -129,6 +162,9 @@ def from_jax_variables(variables: dict, cfg: ZeroVoxConfig) -> dict[str, torch.T
     _resnetse(params["spkemb"], stats["spkemb"], "_spkemb.", tuple(m.resnet.layers), out)
 
     dec = params["mel_decoder"]
+    if m.decoder.kind == "styletts":
+        _styletts_decoder(dec, "_mel_decoder.", out)
+        return out
     for i in range(m.decoder.n_layers):
         _fft_block(dec[f"layer_{i}"], f"_mel_decoder.layer_stack.{i}.", m.decoder.scln, out)
     _dense(dec["mel_linear"], "_mel_decoder.mel_linear.", out)
