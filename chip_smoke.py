@@ -8,13 +8,15 @@
 Phases, in order; any failure exits nonzero:
 
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. Build: every CUDA kernel from `zerovox_tpu_torch/csrc/`, with nvcc's
-   register and shared-memory report.
+2. Build: every CUDA kernel from `zerovox_tpu_torch/csrc/`, with ptxas's
+   register and spill report of each entry function.
 3. Kernels at their paths' shapes, each against its plain PyTorch version on
    the card, timed with CUDA events beside the plain version and the card's
-   bound: K1 and K2 at the serving path's (bucket 689 of bench.py's text;
-   max abs diff < 5e-4); K4 forward and backward (`se_conv`) at the training
-   path's [24, 32, 80, 500] (y and dx < 5e-4 absolute, every reduction
+   bound for the kernel's method (3xTF32 tensor cores for K1 and K2, float32
+   FMA for K3 and K4): K1 and K2 at the serving path's (bucket 689 of
+   bench.py's text) and at one streamed window's shapes, with the tile each
+   takes (max abs diff < 5e-4); K4 forward and backward (`se_conv`) at the
+   training path's [24, 32, 80, 500] (y and dx < 5e-4 absolute, every reduction
    < 1e-4 x the plain result's max |value|), with F.conv2d alone beside them.
 4. The serving path at full width (default ZeroVoxConfig + HiFi-GAN, random
    weights from seed 0): speaker_embed -> tts_ex -> tts_stream, with the
@@ -38,7 +40,7 @@ Phases, in order; any failure exits nonzero:
    against the CPU on a short text and on one tts_batch of 2 rows (1e-3).
 9. The default engine's tts_batch at B=4 (2 K2 launches, no K1: K1 is
    batch-1 only), and stage 1 at B=4 through K1 against its plain version,
-   timed in turns.
+   timed in turns, with whether the batch-1 rule still holds (K1 slower).
 
 Phase 3 also holds K3 (`fused_resblock1`) at phase 8's three vocoder stage
 shapes against its plain version (< 5e-4).
@@ -81,9 +83,12 @@ STEP_LOSS_RTOL = 1e-4  # a train step's losses on the card against the CPU
 STEP_GRAD_TOL = 1e-3  # its gradients, relative to each tensor's max |value|
 SPK_BATCH_STATS_TOL = 2e-2  # see train_cross_check: ~6x the CPU float32 run's own distance
 STATS = {"pitch_min": 50.0, "pitch_max": 400.0, "energy_min": 0.1, "energy_max": 50.0}
-# H100 SXM data sheet: float32 outside the tensor cores, and HBM3
+# H100 SXM data sheet: float32 outside the tensor cores, dense TF32 on the
+# tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
+CHUNK_FRAMES = 96  # tts_stream's default chunk; a window adds the receptive-field halo each side
 
 
 def fail(msg: str) -> None:
@@ -106,9 +111,13 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def bound(flop: float, nbytes: float) -> tuple[float, str]:
-    """(least milliseconds the card could take, what bounds it)."""
-    t_ops, t_bytes = flop / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+def bound(flop: float, nbytes: float, method: str = "f32") -> tuple[float, str]:
+    """(least milliseconds the card could take, what bounds it) for a kernel
+    whose products run as `method`: "f32", float32 FMA on the CUDA cores
+    (flop at 67 TFLOP/s), or "3xtf32", three TF32 tensor-core products per
+    product (3 x flop at 495 TFLOP/s)."""
+    t_ops = 3 * flop / PEAK_TF32_FLOPS if method == "3xtf32" else flop / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -120,6 +129,22 @@ def mrf_work(T: int, C: int, kernel_sizes, n_pairs: int) -> tuple[float, float]:
     return flop, weights
 
 
+def halo_recompute(tile: int, kernel_sizes, dils, post_halo: int = 0) -> float:
+    """Rows the MRF convs of one tile compute, weighted by k, over the tile's
+    rows: each conv computes the tile, conv_post's halo and the rows the
+    tower's later convs still need (csrc/mrf_tc.cuh, mrf_tile)."""
+    done = kept = 0
+    for k in kernel_sizes:
+        h = (k - 1) // 2
+        ext = sum(h * d + h for d in dils)
+        for d in dils:
+            for e in (ext - h * d, ext - h * d - h):
+                done += k * (tile + 2 * post_halo + 2 * e)
+                kept += k * tile
+            ext -= h * d + h
+    return done / kept
+
+
 def random_towers(torch, gen, C, kernel_sizes, n_pairs, dev):
     def w(*shape, fan_in):
         return (torch.randn(*shape, generator=gen) / fan_in ** 0.5).to(dev)
@@ -128,9 +153,11 @@ def random_towers(torch, gen, C, kernel_sizes, n_pairs, dev):
              w(n_pairs, k, C, C, fan_in=k * C), w(n_pairs, C, fan_in=4)) for k in kernel_sizes]
 
 
-def measure(torch, rows, name, source, replaces, shape, fn, plain, flop, nbytes) -> None:
+def measure(torch, rows, name, source, replaces, shape, fn, plain, flop, nbytes, method="f32",
+            **extra) -> None:
     """A kernel against its plain version on the same inputs (max abs diff
-    < KERNEL_TOL), then both timed with CUDA events; appends its row."""
+    < KERNEL_TOL), then both timed with CUDA events; appends its row, with
+    the bound of its method (and the float32 bound beside a tensor-core one)."""
     from zerovox_tpu_torch.utils.profiling import cuda_time_ms
 
     got = fn()
@@ -142,63 +169,82 @@ def measure(torch, rows, name, source, replaces, shape, fn, plain, flop, nbytes)
     err = (got - ref).abs().max().item()
     check(err < KERNEL_TOL, f"{name}: max abs diff {err} against the plain version")
     ms, plain_ms = cuda_time_ms(fn, iters=10, warmup=2), cuda_time_ms(plain, iters=5, warmup=1)
-    bound_ms, bound_by = bound(flop, nbytes)
+    bound_ms, bound_by = bound(flop, nbytes, method)
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "gflop": flop / 1e9, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": None}
+           "gflop": flop / 1e9, "method": method, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None, **extra}
+    if method != "f32":
+        row["bound_f32_ms"] = bound(flop, nbytes)[0]
     print(json.dumps(row), flush=True)
     rows.append(row)
 
 
 def kernel_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
-    """Each kernel at the main path's shapes against its plain version."""
-    from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain
-    from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage, upsample_stage_plain
+    """K1 and K2 against their plain versions at the main path's shapes
+    (the mel bucket) and at one streamed window's (CHUNK_FRAMES plus the
+    receptive-field halo each side), with the tile each kernel takes."""
+    from zerovox_tpu_torch.ops import _cuda
+    from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers, tower_args
+    from zerovox_tpu_torch.ops.upsample_stage import (fused_upsample_stage, pack_upsampler,
+                                                       upsample_stage_plain)
 
     ks, dils = tuple(hcfg.resblock_kernel_sizes), tuple(hcfg.resblock_dilation_sizes[0])
     P = len(dils)
     c0, rates, up_ks = hcfg.upsample_initial_channel, hcfg.upsample_rates, hcfg.upsample_kernel_sizes
     gen = torch.Generator().manual_seed(1234)
     rows = []
+    window = CHUNK_FRAMES + 2 * hcfg.receptive_field_frames()
+    for frames in (mel_frames, window):
+        # stage 1 (K1): the MRF at C = c0 / 4 over frames * rates[0] * rates[1] rows
+        C1, T1 = c0 // 4, frames * rates[0] * rates[1]
+        x1 = torch.randn(1, T1, C1, generator=gen).to(dev)
+        tw1 = random_towers(torch, gen, C1, ks, P, dev)
+        mrf1 = pack_towers(tw1)
+        targs = tower_args(tw1, dils, ks)
+        flop, wbytes = mrf_work(T1, C1, ks, P)
+        tile = _cuda.lib("mrf").zv_mrf_tile(1, T1, C1, *targs)
+        measure(torch, rows, "fused_mrf", "zerovox_tpu_torch/csrc/mrf.cu",
+                "zerovox_tpu/ops/pallas/mrf.py:93", f"[1,{T1},{C1}]",
+                lambda: fused_mrf(x1, mrf1, dils, ks), lambda: mrf_plain(x1, tw1, dils),
+                flop, wbytes + 8.0 * T1 * C1, "3xtf32", tile_rows=tile,
+                recompute=halo_recompute(tile, ks, dils))
+        del x1, tw1, mrf1
 
-    # stage 1 (K1): the MRF at C = c0 / 4 over mel_frames * rates[0] * rates[1] rows
-    C1, T1 = c0 // 4, mel_frames * rates[0] * rates[1]
-    x1 = torch.randn(1, T1, C1, generator=gen).to(dev)
-    tw1 = random_towers(torch, gen, C1, ks, P, dev)
-    flop, wbytes = mrf_work(T1, C1, ks, P)
-    measure(torch, rows, "fused_mrf", "zerovox_tpu_torch/csrc/mrf.cu",
-            "zerovox_tpu/ops/pallas/mrf.py:93", f"[1,{T1},{C1}]",
-            lambda: fused_mrf(x1, tw1, dils, ks), lambda: mrf_plain(x1, tw1, dils),
-            flop, wbytes + 8.0 * T1 * C1)
-
-    # stages 2 and 3 (K2): upsample stages, the last with conv_post
-    T_in, C_in = T1, C1
-    for i in (2, 3):
-        C_out, u, k = c0 // 2 ** (i + 1), rates[i], up_ks[i]
-        T_out = T_in * u
-        x = torch.randn(1, T_in, C_in, generator=gen).to(dev)
-        up_w = (torch.randn(k, C_in, C_out, generator=gen) / (k * C_in / u) ** 0.5).to(dev)
-        up_b = (torch.randn(C_out, generator=gen) / 2).to(dev)
-        tw = random_towers(torch, gen, C_out, ks, P, dev)
-        last = i == len(rates) - 1
-        post = ((torch.randn(7, C_out, 1, generator=gen) / (7 * C_out) ** 0.5).to(dev),
-                torch.zeros(1).to(dev)) if last else None
-        flop, wbytes = mrf_work(T_out, C_out, ks, P)
-        flop += 2.0 * T_out * C_in * C_out * k / u  # k / u taps reach each output row
-        wbytes += 4.0 * (k * C_in * C_out + C_out)
-        if last:
-            flop += 2.0 * 7 * C_out * T_out
-            wbytes += 4.0 * (7 * C_out + 1)
-        out_elems = T_out * (1 if last else C_out)
-        args = (x, up_w, up_b, u, (k - u) // 2, tw, dils)
-        measure(torch, rows, "fused_upsample_stage" + ("+post" if last else ""),
-                "zerovox_tpu_torch/csrc/upsample_stage.cu", "zerovox_tpu/ops/pallas/packed.py:249",
-                f"[1,{T_in},{C_in}]->" + (f"[1,{T_out}]" if last else f"[1,{T_out},{C_out}]"),
-                lambda: fused_upsample_stage(*args, ks, post=post),
-                lambda: upsample_stage_plain(*args, post=post),
-                flop, wbytes + 4.0 * (T_in * C_in + out_elems))
-        T_in, C_in = T_out, C_out
+        # stages 2 and 3 (K2): upsample stages, the last with conv_post
+        T_in, C_in = T1, C1
+        for i in (2, 3):
+            C_out, u, k = c0 // 2 ** (i + 1), rates[i], up_ks[i]
+            T_out = T_in * u
+            x = torch.randn(1, T_in, C_in, generator=gen).to(dev)
+            up_w = (torch.randn(k, C_in, C_out, generator=gen) / (k * C_in / u) ** 0.5).to(dev)
+            up_b = (torch.randn(C_out, generator=gen) / 2).to(dev)
+            up = pack_upsampler(up_w, up_b, u)
+            tw = random_towers(torch, gen, C_out, ks, P, dev)
+            mrf = pack_towers(tw)
+            last = i == len(rates) - 1
+            post = ((torch.randn(7, C_out, 1, generator=gen) / (7 * C_out) ** 0.5).to(dev),
+                    torch.zeros(1).to(dev)) if last else None
+            flop, wbytes = mrf_work(T_out, C_out, ks, P)
+            flop += 2.0 * T_out * C_in * C_out * k / u  # k / u taps reach each output row
+            wbytes += 4.0 * (k * C_in * C_out + C_out)
+            if last:
+                flop += 2.0 * 7 * C_out * T_out
+                wbytes += 4.0 * (7 * C_out + 1)
+            out_elems = T_out * (1 if last else C_out)
+            pad = (k - u) // 2
+            tile = _cuda.lib("upsample_stage").zv_upsample_stage_tile(
+                1, T_in, C_in, C_out, k, u, pad, 7 if last else 0, *tower_args(tw, dils, ks))
+            measure(torch, rows, "fused_upsample_stage" + ("+post" if last else ""),
+                    "zerovox_tpu_torch/csrc/upsample_stage.cu",
+                    "zerovox_tpu/ops/pallas/packed.py:249",
+                    f"[1,{T_in},{C_in}]->" + (f"[1,{T_out}]" if last else f"[1,{T_out},{C_out}]"),
+                    lambda: fused_upsample_stage(x, up, pad, mrf, dils, ks, post=post),
+                    lambda: upsample_stage_plain(x, up_w, up_b, u, pad, tw, dils, post=post),
+                    flop, wbytes + 4.0 * (T_in * C_in + out_elems), "3xtf32", tile_rows=tile,
+                    recompute=halo_recompute(tile, ks, dils, 3 if last else 0))
+            T_in, C_in = T_out, C_out
+            del x, up_w, up_b, up, tw, mrf
     return rows
 
 
@@ -272,8 +318,8 @@ def se_conv_phase(torch, dev) -> list[dict]:
         r = {"name": name, "route": "cuda", "source": "zerovox_tpu_torch/csrc/se_conv.cu",
              "replaces": replaces, "shape": f"[{B},{C},{H},{W}]", "max_abs_err": errs[0],
              "max_rel_err_reductions": errs[1], "ms": ms, "plain_ms": plain_ms,
-             "gflop": flop / 1e9, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-             "conv2d_only_ms": conv_ms}
+             "gflop": flop / 1e9, "method": "f32", "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": None, "conv2d_only_ms": conv_ms}
         print(json.dumps(r), flush=True)
         return r
 
@@ -704,7 +750,7 @@ def default_batch_phase(torch, dev, card: str, refwav, sr: int) -> dict:
     import numpy as np
 
     from zerovox_tpu_torch.models.hifigan import HifiGanConfig
-    from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain
+    from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers
     from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
     from zerovox_tpu_torch.synthesize import MEL_BUCKETS, ZeroVoxTTS, pick_bucket
     from zerovox_tpu_torch.utils.profiling import cuda_time_ms
@@ -731,17 +777,21 @@ def default_batch_phase(torch, dev, card: str, refwav, sr: int) -> dict:
     gen = torch.Generator().manual_seed(3456)
     x = torch.randn(len(BATCH_TEXTS), T1, C1, generator=gen).to(dev)
     towers = random_towers(torch, gen, C1, ks, len(dils), dev)
-    err = (fused_mrf(x, towers, dils, ks) - mrf_plain(x, towers, dils)).abs().max().item()
+    mrf = pack_towers(towers)
+    err = (fused_mrf(x, mrf, dils, ks) - mrf_plain(x, towers, dils)).abs().max().item()
     check(err < KERNEL_TOL, f"K1 at B=4: max abs diff {err} against the plain version")
     turns = {"plain": [], "fused_mrf": []}
     for label in ("plain", "fused_mrf", "fused_mrf", "plain"):
         fn = (lambda: mrf_plain(x, towers, dils)) if label == "plain" else \
-            (lambda: fused_mrf(x, towers, dils, ks))
+            (lambda: fused_mrf(x, mrf, dils, ks))
         turns[label].append(cuda_time_ms(fn, iters=5, warmup=1))
     flop, _ = mrf_work(len(BATCH_TEXTS) * T1, C1, ks, len(dils))
+    # the Generator's rule (K1 at batch 1 only) holds while K1 at B=4 is slower than plain
+    rule_holds = min(turns["fused_mrf"]) > max(turns["plain"])
     out = {"launches": counts, "tts_batch_b4_ms": batch_ms, "rows": [r[1] for r in rows],
            "stage1_b4": {"shape": f"[{len(BATCH_TEXTS)},{T1},{C1}]", "max_abs_err": err,
-                         "turns_ms": turns, "gflop": flop / 1e9}, "card": card}
+                         "turns_ms": turns, "gflop": flop / 1e9,
+                         "batch1_rule_holds": rule_holds}, "card": card}
     print(json.dumps({"default_batch": out}), flush=True)
     return out
 
@@ -814,7 +864,7 @@ def main() -> None:
     print(f"build seconds: {info['seconds']:.2f}")
     for name, lines in info["ptxas"].items():
         for ln in lines:
-            if "registers" in ln or "smem" in ln or "spill" in ln:
+            if "entry function" in ln or "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
 
     # ---- 3. kernels at the main path's shapes

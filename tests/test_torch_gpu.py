@@ -12,10 +12,10 @@ import pytest
 import torch
 
 from zerovox_tpu_torch.device import use_full_f32
-from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain
+from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers
 from zerovox_tpu_torch.ops.resblock import fused_resblock1, resblock1_plain
 from zerovox_tpu_torch.ops.upsample_stage import (KERNEL_WIDTHS, fused_upsample_stage,
-                                                   upsample_stage_plain)
+                                                   pack_upsampler, upsample_stage_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -46,13 +46,26 @@ def _to(dev, towers):
     return [tuple(t.to(dev) for t in tw) for tw in towers]
 
 
-@pytest.mark.parametrize("C,T", [(128, 101), (128, 1000), (64, 333), (32, 77)])
-def test_mrf_kernel_matches_plain(cuda, C, T):
-    rng = np.random.default_rng(C + T)
-    x = torch.tensor(rng.normal(size=(1, T, C)).astype(np.float32)).to(cuda)
+def _stage_inputs(rng, dev, B, T_in, C_in, C_out, post):
+    x = torch.tensor(rng.normal(size=(B, T_in, C_in)).astype(np.float32)).to(dev)
+    up = pack_upsampler(_w(rng, 4, C_in, C_out, fan_in=2 * C_in).to(dev),
+                        _w(rng, C_out, fan_in=4).to(dev), 2)
+    towers = _to(dev, _towers(rng, C_out))
+    p = (_w(rng, 7, C_out, 1, fan_in=7 * C_out).to(dev), _w(rng, 1, fan_in=4).to(dev)) if post else None
+    return x, up, towers, p
+
+
+# T below the 60-row halo and below one tile, off the tile grid, and the
+# streaming window's stage-1 length (96 + 2 x 38 frames x 64)
+@pytest.mark.parametrize("C,T", [(128, 5), (128, 37), (128, 101), (128, 1000), (128, 11008),
+                                 (64, 333), (64, 2049), (32, 77), (32, 5000)])
+@pytest.mark.parametrize("B", [1, 2])
+def test_mrf_kernel_matches_plain(cuda, C, T, B):
+    rng = np.random.default_rng(C + T + B)
+    x = torch.tensor(rng.normal(size=(B, T, C)).astype(np.float32)).to(cuda)
     towers = _to(cuda, _towers(rng, C))
     n0 = fused_mrf.launches
-    got = fused_mrf(x, towers, DILS, KS)
+    got = fused_mrf(x, pack_towers(towers), DILS, KS)
     torch.cuda.synchronize()
     assert fused_mrf.launches == n0 + 1
     ref = mrf_plain(x, towers, DILS)
@@ -64,41 +77,82 @@ def test_mrf_kernel_batch(cuda):
     rng = np.random.default_rng(7)
     x = torch.tensor(rng.normal(size=(3, 150, 64)).astype(np.float32)).to(cuda)
     towers = _to(cuda, _towers(rng, 64, ks=(3, 5), dils=(1, 2)))
-    got = fused_mrf(x, towers, (1, 2), (3, 5))
+    got = fused_mrf(x, pack_towers(towers), (1, 2), (3, 5))
     ref = mrf_plain(x, towers, (1, 2))
     assert torch.max(torch.abs(got - ref)).item() < TOL
 
 
 @pytest.mark.parametrize("widths", KERNEL_WIDTHS)
-@pytest.mark.parametrize("T_in", [80, 101, 700])
+@pytest.mark.parametrize("T_in", [3, 29, 80, 101, 700])
 @pytest.mark.parametrize("post", [False, True])
-def test_upsample_stage_kernel_matches_plain(cuda, widths, T_in, post):
+@pytest.mark.parametrize("B", [1, 2])
+def test_upsample_stage_kernel_matches_plain(cuda, widths, T_in, post, B):
     C_in, C_out = widths
-    rng = np.random.default_rng(C_in + T_in + post)
-    x = torch.tensor(rng.normal(size=(1, T_in, C_in)).astype(np.float32)).to(cuda)
-    up_w = _w(rng, 4, C_in, C_out, fan_in=2 * C_in).to(cuda)
-    up_b = _w(rng, C_out, fan_in=4).to(cuda)
-    towers = _to(cuda, _towers(rng, C_out))
-    p = (_w(rng, 7, C_out, 1, fan_in=7 * C_out).to(cuda), _w(rng, 1, fan_in=4).to(cuda)) if post else None
+    rng = np.random.default_rng(C_in + T_in + post + 10 * B)
+    x, up, towers, p = _stage_inputs(rng, cuda, B, T_in, C_in, C_out, post)
     n0 = fused_upsample_stage.launches
-    got = fused_upsample_stage(x, up_w, up_b, 2, 1, towers, DILS, KS, post=p)
+    got = fused_upsample_stage(x, up, 1, pack_towers(towers), DILS, KS, post=p)
     torch.cuda.synchronize()
     assert fused_upsample_stage.launches == n0 + 1
-    ref = upsample_stage_plain(x, up_w, up_b, 2, 1, towers, DILS, post=p)
-    assert got.shape == ref.shape == ((1, 2 * T_in) if post else (1, 2 * T_in, C_out))
+    ref = upsample_stage_plain(x, up.w, up.b, 2, 1, towers, DILS, post=p)
+    assert got.shape == ref.shape == ((B, 2 * T_in) if post else (B, 2 * T_in, C_out))
     assert torch.max(torch.abs(got - ref)).item() < TOL
+
+
+@pytest.mark.parametrize("T_in,C_in,C_out,post", [(11008, 128, 64, False), (22016, 64, 32, True)])
+def test_upsample_stage_kernel_at_the_streaming_window(cuda, T_in, C_in, C_out, post):
+    """Stages 2 and 3 of one streamed window (172 mel frames)."""
+    x, up, towers, p = _stage_inputs(np.random.default_rng(T_in), cuda, 1, T_in, C_in, C_out, post)
+    got = fused_upsample_stage(x, up, 1, pack_towers(towers), DILS, KS, post=p)
+    ref = upsample_stage_plain(x, up.w, up.b, 2, 1, towers, DILS, post=p)
+    assert torch.max(torch.abs(got - ref)).item() < TOL
+
+
+def test_kernels_are_bitwise_repeatable(cuda):
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.normal(size=(2, 3000, 128)).astype(np.float32)).to(cuda)
+    mrf = pack_towers(_to(cuda, _towers(rng, 128)))
+    assert torch.equal(fused_mrf(x, mrf, DILS, KS), fused_mrf(x, mrf, DILS, KS))
+    for C_in, C_out, post in ((128, 64, False), (64, 32, True)):
+        xs, up, towers, p = _stage_inputs(rng, cuda, 2, 1500, C_in, C_out, post)
+        tw = pack_towers(towers)
+        a = fused_upsample_stage(xs, up, 1, tw, DILS, KS, post=p)
+        b = fused_upsample_stage(xs, up, 1, tw, DILS, KS, post=p)
+        assert torch.equal(a, b)
+
+
+def test_kernel_tiles(cuda):
+    """The tiles the kernels take: a window that fits shared memory, and
+    no more than the sequence."""
+    from zerovox_tpu_torch.ops import _cuda
+
+    tower = [3, 3, 7, 11, 3, 1, 3, 5]
+    for B, T, C in ((1, 5, 128), (1, 44096, 128), (1, 11008, 128), (4, 44096, 128), (1, 500, 32)):
+        tt = _cuda.lib("mrf").zv_mrf_tile(B, T, C, *tower)
+        assert 16 <= tt <= max(T, 16) + 3 and tt % 4 == 0
+    for B, T_in, ci, co, post_k in ((1, 44096, 128, 64, 0), (1, 88192, 64, 32, 7), (2, 7, 32, 16, 7)):
+        tt = _cuda.lib("upsample_stage").zv_upsample_stage_tile(B, T_in, ci, co, 4, 2, 1, post_k,
+                                                                *tower)
+        assert 16 <= tt <= max(2 * T_in, 16) + 3 and tt % 4 == 0
+    assert _cuda.lib("mrf").zv_mrf_tile(1, 100, 48, *tower) < 0
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
     rng = np.random.default_rng(0)
     towers = _to(cuda, _towers(rng, 64))
+    mrf = pack_towers(towers)
     x = torch.zeros(1, 50, 64, device=cuda)
     with pytest.raises(TypeError):
-        fused_mrf(x.double(), towers, DILS, KS)
+        fused_mrf(x.double(), mrf, DILS, KS)
     with pytest.raises(ValueError):
-        fused_mrf(torch.zeros(1, 64, 50, device=cuda).transpose(1, 2), towers, DILS, KS)
+        fused_mrf(torch.zeros(1, 64, 50, device=cuda).transpose(1, 2), mrf, DILS, KS)
     with pytest.raises(ValueError):
-        fused_mrf(torch.zeros(1, 50, 48, device=cuda), towers, DILS, KS)
+        fused_mrf(torch.zeros(1, 50, 48, device=cuda), mrf, DILS, KS)
+    with pytest.raises(ValueError):  # weights on the CPU
+        fused_mrf(x, pack_towers([tuple(t.cpu() for t in tw) for tw in towers]), DILS, KS)
+    with pytest.raises(ValueError):  # (C_in, C_out) not instantiated
+        up = pack_upsampler(torch.zeros(4, 64, 64, device=cuda), torch.zeros(64, device=cuda), 2)
+        fused_upsample_stage(x, up, 1, mrf, DILS, KS)
 
 
 @pytest.mark.parametrize("C", [32, 64, 128])

@@ -23,8 +23,9 @@ from zerovox_tpu.ops.pallas.packed import fused_packed_stage
 
 from zerovox_tpu_torch.models import hifigan as port_hifigan
 from zerovox_tpu_torch.models.hifigan import Generator, HifiGanConfig
-from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain
-from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage, upsample_stage_plain
+from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers
+from zerovox_tpu_torch.ops.upsample_stage import (fused_upsample_stage, pack_upsampler,
+                                                   upsample_stage_plain)
 from zerovox_tpu_torch.synthesize import random_init_
 
 KS = (3, 7, 11)
@@ -54,7 +55,7 @@ def test_mrf_plain_matches_jax_kernel_interpret(C, T):
     jt = [tuple(map(jnp.asarray, t)) for t in towers]
     want = jax_fused_mrf(jnp.asarray(x), jt, DILS, KS, tile=64, interpret=True)
     want_ref = mrf_reference(jnp.asarray(x[0]), jt, DILS)[None]
-    got = fused_mrf(torch.from_numpy(x), _torch(towers), DILS, KS)  # CPU tensor: plain version
+    got = fused_mrf(torch.from_numpy(x), pack_towers(_torch(towers)), DILS, KS)  # CPU: plain
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), **TOL)
 
@@ -74,8 +75,9 @@ def test_upsample_stage_plain_matches_jax_kernel_interpret(widths, T_in, post):
         jnp.asarray(x), jnp.asarray(np.flip(up, 0).copy()), jnp.asarray(up_b), 2, 1,
         [tuple(map(jnp.asarray, t)) for t in towers], DILS, KS,
         post=None if p is None else tuple(map(jnp.asarray, p)), tile=64, interpret=True)
-    got = fused_upsample_stage(torch.from_numpy(x), torch.from_numpy(up), torch.from_numpy(up_b),
-                               2, 1, _torch(towers), DILS, KS,
+    got = fused_upsample_stage(torch.from_numpy(x),
+                               pack_upsampler(torch.from_numpy(up), torch.from_numpy(up_b), 2),
+                               1, pack_towers(_torch(towers)), DILS, KS,
                                post=None if p is None else tuple(map(torch.from_numpy, p)))
     assert got.shape == ((1, 2 * T_in) if post else (1, 2 * T_in, C_out))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

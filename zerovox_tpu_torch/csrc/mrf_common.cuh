@@ -1,6 +1,8 @@
-// Shared device code of the fused HiFi-GAN MRF kernels (mrf.cu,
-// upsample_stage.cu): one time tile of a multi-receptive-field stage, all
-// towers, with every intermediate activation in shared memory.
+// Float32 FMA tile of the fused ResBlock1 kernel (resblock.cu): one time
+// tile of a multi-receptive-field stage, all towers, with every
+// intermediate activation in shared memory. The tower parameters and halo
+// helpers are shared with the tensor-core tile of mrf.cu and
+// upsample_stage.cu (mrf_tc.cuh).
 //
 // Layout: activations are rows of C floats (NLC, channels contiguous); in
 // shared memory a row is padded to LD = C + 4 floats so that the row groups
@@ -204,31 +206,6 @@ __device__ void mrf_tile(float* A, float* Bf, const MrfParams& p, int HW, int TT
     wofs += (size_t)2 * p.n_pairs * k * C * C;
     bofs += (size_t)2 * p.n_pairs * C;
   }
-}
-
-// Input rows an upsampling conv (kernel up_k, stride s) reads for W
-// consecutive output rows.
-inline __host__ __device__ int up_rows_in(int W, int up_k, int s) { return (W + up_k - 2) / s + 2; }
-
-// Largest tile (a multiple of 16 rows) whose buffers fit `budget` bytes of
-// shared memory: A and B of W = TT + 2 HW rows (B also holds the staged
-// upsampler input when up_k > 0), and the tower sum of TT + 2 P rows.
-inline int pick_tile(int LD, int HW, int P, int budget, int up_k, int stride, int LDI,
-                     int* smem_bytes) {
-  for (int TT = 1024; TT >= 16; TT -= 16) {
-    const int W = TT + 2 * HW;
-    int bf = W * LD;
-    if (up_k > 0) {
-      const int staged = up_rows_in(W, up_k, stride) * LDI;
-      bf = bf > staged ? bf : staged;
-    }
-    const long bytes = 4L * ((long)W * LD + bf + (long)(TT + 2 * P) * LD);
-    if (bytes <= budget) {
-      *smem_bytes = (int)bytes;
-      return TT;
-    }
-  }
-  return 0;
 }
 
 constexpr int SMEM_BUDGET = 227 * 1024;

@@ -1,36 +1,56 @@
 // Fused HiFi-GAN upsample stage for Hopper (sm_90a): leaky(0.1) ->
 // ConvTranspose1d (stride s, padding p) -> mean of ResBlock1 towers, and on
-// the last stage leaky(0.01) -> conv_post (C_out -> 1) -> tanh, float32.
-// x [B, T_in, C_in] -> [B, T_out, C_out], or the waveform [B, T_out].
+// the last stage leaky(0.01) -> conv_post (C_out -> 1) -> tanh, float32 in
+// and out. x [B, T_in, C_in] -> [B, T_out, C_out], or the waveform
+// [B, T_out].
 //
 // Replaces the TPU kernel zerovox_tpu/ops/pallas/packed.py::
 // fused_packed_stage (_packed_stage_kernel). The TPU kernel's lane packing
 // and banded shift matrices only fill the TPU's 128-wide matrix unit; here
 // the stage is computed directly in its own channel width.
 //
-// What bounds it on an H100: arithmetic. At the main path's shapes the
-// 128 -> 64 stage does ~94 GFLOP and the 64 -> 32 stage with conv_post ~47
-// GFLOP against 45-68 MB of activations: several hundred FLOP per byte,
-// above the card's ~20 FLOP/byte float32 ridge.
+// What bounds it on an H100: tensor-core operations. At the main path's
+// shapes the 128 -> 64 stage does ~94 GFLOP and the 64 -> 32 stage with
+// conv_post ~47 GFLOP, run by 3xTF32 as three times that in TF32 MMAs,
+// against 45-68 MB of activations.
 //
-// Design: as mrf.cu (one 256-thread block per time tile, the window in two
-// shared buffers plus a small tower-sum buffer, float32 FMA with a 4 x 4
-// register tile), with the tower input produced in place: for each tower
-// the tile's input rows (from L2 after the first tower) are staged into
-// buffer B with the leaky relu applied, and the transposed conv writes the
-// upsampled window into A. Recomputing the upsampler per tower costs ~3% of
-// the stage's arithmetic and saves a fourth window buffer. With conv_post
-// the towers' mean is kept in shared memory over the tile plus conv_post's
-// halo, and one warp per output sample reduces conv_post over taps and
-// channels.
-#include "mrf_common.cuh"
+// Design: the tensor-core tile of mrf_tc.cuh (see mrf.cu), with the tower
+// input produced in place: for each tower the tile's input rows (from L2
+// after the first tower) are staged into buffer B with the leaky relu
+// applied, and the transposed conv writes the upsampled window into A.
+// The transposed conv is a polyphase GEMM on the same core: the output rows
+// of phase ph = (t + p) mod s take only the taps ph, ph + s, ..., each a
+// plain shift of the staged input, so each phase is one GEMM over every
+// s-th output row (2 taps a row at the main path's k=4, s=2); the wrapper
+// orders the taps by phase. Recomputing the upsampler per tower costs ~3%
+// of the stage's arithmetic and saves a third window buffer. Without
+// conv_post the tower sum is kept in the output rows the block owns; with
+// it, the towers' mean is kept in shared memory over the tile plus
+// conv_post's halo, and one warp per output sample reduces conv_post over
+// taps and channels on the CUDA cores. The tile comes from the same cost
+// model as mrf.cu's (halo recompute against wave fill), with the
+// upsampler's GEMMs counted in.
+#include "mrf_tc.cuh"
 
 namespace {
 
-__device__ __forceinline__ int floor_div(int a, int b) { return a >= 0 ? a / b : -((-a + b - 1) / b); }
+using zv::tc::NT;
+
+__host__ __device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+// Input rows the transposed conv (kernel up_k, stride s) reads for W
+// consecutive output rows.
+__host__ __device__ inline int up_rows_in(int W, int up_k, int s) { return (W + up_k - 2) / s + 2; }
+
+// Taps of phase ph: ph, ph + s, ... below up_k.
+__host__ __device__ inline int phase_taps(int ph, int up_k, int s) {
+  return ph < up_k ? (up_k - ph + s - 1) / s : 0;
+}
 
 template <int CI, int CO>
-__global__ void __launch_bounds__(zv::NT, 1)
+__global__ void __launch_bounds__(NT, 1)
 stage_kernel(const float* __restrict__ x, float* __restrict__ out, const float* __restrict__ up_w,
              const float* __restrict__ up_b, zv::MrfParams p, const float* __restrict__ post_w,
              const float* __restrict__ post_b, int T_in, int T_out, int up_k, int stride,
@@ -52,7 +72,7 @@ stage_kernel(const float* __restrict__ x, float* __restrict__ out, const float* 
     const int i_min = floor_div(tbase + lo + up_pad - (up_k - 1), stride);
     const int i_max = floor_div(tbase + hi - 1 + up_pad, stride);
     constexpr int C4 = CI / 4;
-    for (int idx = threadIdx.x; idx < (i_max - i_min + 1) * C4; idx += zv::NT) {
+    for (int idx = threadIdx.x; idx < (i_max - i_min + 1) * C4; idx += NT) {
       const int i = i_min + idx / C4, c = (idx % C4) * 4;
       zv::at4(Bf + (i - i_min) * LDI + c) =
           (unsigned)i < (unsigned)T_in ? zv::leaky4(zv::ldg4(xb + (size_t)i * CI + c), 0.1f)
@@ -60,49 +80,33 @@ stage_kernel(const float* __restrict__ x, float* __restrict__ out, const float* 
     }
     __syncthreads();
     // transposed conv, torch semantics: out[t] += x[i] * w[tap] where
-    // t = i * stride - up_pad + tap; rows outside [0, T_out) stay zero
-    constexpr int NCG = CO / 4;
-    constexpr int NRG = zv::NT / NCG;
-    const int co = (threadIdx.x % NCG) * 4;
-    for (int r = lo + threadIdx.x / NCG; r < hi; r += NRG) {
-      const int t = tbase + r;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if ((unsigned)t < (unsigned)T_out) {
-        v = zv::ldg4(up_b + co);
-        for (int tap = 0; tap < up_k; ++tap) {
-          const int m = t + up_pad - tap;
-          if (m < 0 || m % stride) continue;
-          const int i = m / stride;
-          if (i >= T_in) continue;
-          const float* a = Bf + (i - i_min) * LDI;
-          const float* wt = up_w + (size_t)tap * CI * CO + co;
-#pragma unroll 4
-          for (int ci = 0; ci < CI; ci += 4) {
-            const float4 av = *reinterpret_cast<const float4*>(a + ci);
-            const float xs[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const float4 wv = zv::ldg4(wt + (ci + c) * CO);
-              v.x = fmaf(xs[c], wv.x, v.x);
-              v.y = fmaf(xs[c], wv.y, v.y);
-              v.z = fmaf(xs[c], wv.z, v.z);
-              v.w = fmaf(xs[c], wv.w, v.w);
-            }
-          }
-        }
+    // t = i * stride - up_pad + tap. Output row r of phase ph reads staged
+    // row (t + up_pad - ph) / stride - j - i_min for its tap ph + stride j;
+    // rows outside [0, T_out) stay zero
+    const float* wph = up_w;
+    for (int ph = 0; ph < stride; ++ph) {
+      const int nt = phase_taps(ph, up_k, stride);
+      const int r0 = lo + ((ph - (tbase + lo + up_pad)) % stride + stride) % stride;
+      if (r0 < hi) {
+        const zv::tc::Rows rw{(hi - r0 + stride - 1) / stride, r0, stride,
+                              (tbase + r0 + up_pad - ph) / stride - i_min, 0, -1};
+        zv::tc::conv_tc<CI, CO, false>(Bf, wph, up_b, nt, rw, [&](int r, int co, float2 v) {
+          zv::tc::at2(A + r * LD + co) =
+              (unsigned)(tbase + r) < (unsigned)T_out ? v : make_float2(0.f, 0.f);
+        });
       }
-      zv::at4(A + r * LD + co) = v;
+      wph += (size_t)nt * CI * CO;
     }
   };
 
-  zv::mrf_tile<CO, LD>(A, Bf, p, HW, TT, P, tbase, T_out, (size_t)b * T_out,
-                       zv::MrfOut{acc, post_k > 0 ? nullptr : out, 0.01f}, load);
+  zv::tc::mrf_tile<CO>(A, Bf, p, HW, TT, P, tbase, T_out, (size_t)b * T_out,
+                       zv::tc::TileOut{post_k > 0 ? nullptr : out, acc, 0.01f}, load);
   if (post_k == 0) return;
 
   // acc holds leaky(mean, 0.01) for window rows [HW - P, HW + TT + P)
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const float pb = __ldg(post_b);
-  for (int r = HW + warp; r < HW + TT; r += zv::NT / 32) {
+  for (int r = HW + warp; r < HW + TT; r += NT / 32) {
     const int t = tbase + r;
     if ((unsigned)t >= (unsigned)T_out) continue;
     float y = 0.f;
@@ -117,35 +121,78 @@ stage_kernel(const float* __restrict__ x, float* __restrict__ out, const float* 
   }
 }
 
+// A launch's geometry: the tile (zv::tc::choose_tile), the window's halo,
+// the size of buffer B (floats) and the shared memory bytes.
+struct Plan {
+  int TT, HW, bf_floats, smem;
+};
+
 template <int CI, int CO>
-int launch(const float* x, float* out, const float* up_w, const float* up_b,
-           const zv::MrfParams& p, const float* post_w, const float* post_b, int B, int T_in,
-           int up_k, int stride, int up_pad, int post_k, cudaStream_t s) {
+int plan(const zv::MrfParams& p, int B, int T_out, int up_k, int stride, int post_k, Plan* pl) {
   constexpr int LD = CO + 4;
   constexpr int LDI = CI + 4;
   const int P = post_k > 0 ? (post_k - 1) / 2 : 0;
   const int HW = zv::mrf_halo(p) + P;
-  const int T_out = (T_in - 1) * stride + up_k - 2 * up_pad;
-  int smem = 0;
-  const int TT = zv::pick_tile(LD, HW, P, zv::SMEM_BUDGET, up_k, stride, LDI, &smem);
-  if (TT == 0 || T_out <= 0) return (int)cudaErrorInvalidConfiguration;
-  const int W = TT + 2 * HW;
-  const int staged = zv::up_rows_in(W, up_k, stride) * LDI;
-  const int bf_floats = W * LD > staged ? W * LD : staged;
-  cudaError_t e = cudaFuncSetAttribute(stage_kernel<CI, CO>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((T_out + TT - 1) / TT, B);
-  stage_kernel<CI, CO><<<grid, zv::NT, smem, s>>>(x, out, up_w, up_b, p, post_w, post_b, T_in,
-                                                  T_out, up_k, stride, up_pad, post_k, TT, HW,
-                                                  bf_floats);
+  auto bf_floats = [&](int tt) {
+    const int W = tt + 2 * HW;
+    const int staged = up_rows_in(W, up_k, stride) * LDI;
+    return W * LD > staged ? W * LD : staged;
+  };
+  auto smem_of = [&](int tt) {
+    return 4L * ((long)(tt + 2 * HW) * LD + bf_floats(tt) + (P > 0 ? (long)(tt + 2 * P) * LD : 0));
+  };
+  auto cost_of = [&](int tt) {
+    long up = 0;  // the upsampler, once per tower over the rows the tower reads
+    for (int j = 0; j < p.n_towers; ++j) {
+      const int rows = tt + 2 * P + 2 * zv::tower_halo(p.ks[j], p);
+      for (int ph = 0; ph < stride; ++ph)
+        up += zv::tc::gemm_rounds((rows + stride - 1) / stride, CO) * phase_taps(ph, up_k, stride);
+    }
+    return up * (CI / 8) + zv::tc::towers_cost(p, CO, tt, P);
+  };
+  int sms = 0;
+  const int e = zv::tc::sm_count(&sms);
+  if (e != 0) return e;
+  pl->TT = zv::tc::choose_tile(T_out, B, sms, smem_of, cost_of, &pl->smem);
+  if (pl->TT == 0) return (int)cudaErrorInvalidConfiguration;
+  pl->HW = HW;
+  pl->bf_floats = bf_floats(pl->TT);
+  return 0;
+}
+
+template <int CI, int CO>
+int launch(const float* x, float* out, const float* up_w, const float* up_b,
+           const zv::MrfParams& p, const float* post_w, const float* post_b, int B, int T_in,
+           int T_out, int up_k, int stride, int up_pad, int post_k, cudaStream_t s) {
+  Plan pl{};
+  int e = plan<CI, CO>(p, B, T_out, up_k, stride, post_k, &pl);
+  if (e != 0) return e;
+  e = (int)cudaFuncSetAttribute(stage_kernel<CI, CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                pl.smem);
+  if (e != 0) return e;
+  dim3 grid((T_out + pl.TT - 1) / pl.TT, B);
+  stage_kernel<CI, CO><<<grid, NT, pl.smem, s>>>(x, out, up_w, up_b, p, post_w, post_b, T_in,
+                                                 T_out, up_k, stride, up_pad, post_k, pl.TT,
+                                                 pl.HW, pl.bf_floats);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x [B, T_in, C_in]; up_w [up_k][C_in][C_out] (torch taps, not flipped);
-// up_b [C_out]; w, b: flat tower weights (see zv::MrfParams); post_w
+static int check_args(int B, int T_in, int up_k, int stride, int up_pad, int post_k,
+                      int n_towers, int n_pairs, int* T_out) {
+  *T_out = (T_in - 1) * stride + up_k - 2 * up_pad;
+  if (n_towers < 1 || n_towers > zv::MAX_TOWERS || n_pairs < 1 || n_pairs > zv::MAX_PAIRS ||
+      stride < 1 || up_k < 1 || post_k < 0 || (post_k > 0 && post_k % 2 == 0) || B < 1 ||
+      T_in < 1)
+    return (int)cudaErrorInvalidValue;
+  return *T_out > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
+}
+
+// x [B, T_in, C_in]; up_w: the transposed conv's taps (torch's, not
+// flipped) grouped by phase (taps ph, ph + stride, ... for ph = 0, 1, ...),
+// each tap [C_in][C_out] in mma fragment order (mrf_tc.cuh); up_b [C_out];
+// w, b: the towers' weights and biases as zv_mrf_f32 takes them; post_w
 // [post_k][C_out] and post_b [1] when post_k > 0 (else ignored). out is
 // [B, T_out, C_out], or [B, T_out] with post. Returns a cudaError_t;
 // (C_in, C_out) must be (128, 64), (64, 32) or (32, 16).
@@ -155,19 +202,36 @@ extern "C" int zv_upsample_stage_f32(const float* x, float* out, const float* up
                                      int C_in, int C_out, int up_k, int stride, int up_pad,
                                      int post_k, int n_towers, int k0, int k1, int k2,
                                      int n_pairs, int d0, int d1, int d2, void* stream) {
-  if (n_towers < 1 || n_towers > zv::MAX_TOWERS || n_pairs < 1 || n_pairs > zv::MAX_PAIRS ||
-      stride < 1 || up_k < 1 || post_k < 0 || (post_k > 0 && post_k % 2 == 0))
-    return (int)cudaErrorInvalidValue;
+  int T_out = 0;
+  if (int e = check_args(B, T_in, up_k, stride, up_pad, post_k, n_towers, n_pairs, &T_out))
+    return e;
   zv::MrfParams p{n_towers, {k0, k1, k2}, n_pairs, {d0, d1, d2}, w, b};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C_in == 128 && C_out == 64)
-    return launch<128, 64>(x, out, up_w, up_b, p, post_w, post_b, B, T_in, up_k, stride, up_pad,
-                           post_k, s);
+    return launch<128, 64>(x, out, up_w, up_b, p, post_w, post_b, B, T_in, T_out, up_k, stride,
+                           up_pad, post_k, s);
   if (C_in == 64 && C_out == 32)
-    return launch<64, 32>(x, out, up_w, up_b, p, post_w, post_b, B, T_in, up_k, stride, up_pad,
-                          post_k, s);
+    return launch<64, 32>(x, out, up_w, up_b, p, post_w, post_b, B, T_in, T_out, up_k, stride,
+                          up_pad, post_k, s);
   if (C_in == 32 && C_out == 16)
-    return launch<32, 16>(x, out, up_w, up_b, p, post_w, post_b, B, T_in, up_k, stride, up_pad,
-                          post_k, s);
+    return launch<32, 16>(x, out, up_w, up_b, p, post_w, post_b, B, T_in, T_out, up_k, stride,
+                          up_pad, post_k, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The time tile zv_upsample_stage_f32 takes for these arguments (output
+// rows), or minus a cudaError_t.
+extern "C" int zv_upsample_stage_tile(int B, int T_in, int C_in, int C_out, int up_k, int stride,
+                                      int up_pad, int post_k, int n_towers, int k0, int k1,
+                                      int k2, int n_pairs, int d0, int d1, int d2) {
+  int T_out = 0;
+  if (int e = check_args(B, T_in, up_k, stride, up_pad, post_k, n_towers, n_pairs, &T_out))
+    return -e;
+  zv::MrfParams p{n_towers, {k0, k1, k2}, n_pairs, {d0, d1, d2}, nullptr, nullptr};
+  Plan pl{};
+  int e = (int)cudaErrorInvalidValue;
+  if (C_in == 128 && C_out == 64) e = plan<128, 64>(p, B, T_out, up_k, stride, post_k, &pl);
+  if (C_in == 64 && C_out == 32) e = plan<64, 32>(p, B, T_out, up_k, stride, post_k, &pl);
+  if (C_in == 32 && C_out == 16) e = plan<32, 16>(p, B, T_out, up_k, stride, post_k, &pl);
+  return e != 0 ? -e : pl.TT;
 }

@@ -37,9 +37,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from zerovox_tpu_torch.ops.mrf import LRELU_SLOPE, fused_mrf, resblock1_ncl
+from zerovox_tpu_torch.ops.mrf import LRELU_SLOPE, fused_mrf, pack_towers, resblock1_ncl
 from zerovox_tpu_torch.ops.resblock import fused_resblock1
-from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
+from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage, pack_upsampler
 
 
 @dataclass(frozen=True)
@@ -157,8 +157,9 @@ class Generator(nn.Module):
         self._kcache: dict[int, tuple] = {}
 
     def _stage_kernel_params(self, i: int, post: bool):
-        """Kernel-layout weights of stage i, rebuilt only when a parameter
-        was replaced or written to (device move, load_state_dict)."""
+        """Kernel-layout weights of stage i (the plain layouts and the K1/K2
+        kernels' MMA fragment order), rebuilt only when a parameter was
+        replaced or written to (device move, load_state_dict)."""
         nk = len(self.cfg.resblock_kernel_sizes)
         blocks = [self.resblocks[i * nk + j] for j in range(nk)]
         mods = [self.ups[i], *blocks] + ([self.conv_post] if post else [])
@@ -170,8 +171,9 @@ class Generator(nn.Module):
             up = self.ups[i]
             params = {
                 # torch (in, out, k) -> taps (k, in, out), not flipped
-                "up": (up.weight.permute(2, 0, 1).contiguous(), up.bias.detach()),
-                "towers": [b.tower() for b in blocks],
+                "up": pack_upsampler(up.weight.permute(2, 0, 1).contiguous(), up.bias.detach(),
+                                     up.stride[0]),
+                "mrf": pack_towers([b.tower() for b in blocks]),
                 "post": ((self.conv_post.weight.permute(2, 1, 0).contiguous(),
                           self.conv_post.bias.detach()) if post else None),
             }
@@ -195,8 +197,8 @@ class Generator(nn.Module):
                 p = self._stage_kernel_params(i, post=last)
                 if not nlc:
                     x, nlc = x.transpose(1, 2).contiguous(), True
-                x = fused_upsample_stage(x, p["up"][0], p["up"][1], u, (k - u) // 2,
-                                         p["towers"], self._dil0, ksizes, post=p["post"])
+                x = fused_upsample_stage(x, p["up"], (k - u) // 2, p["mrf"], self._dil0, ksizes,
+                                         post=p["post"])
                 if last:
                     return x
                 continue
@@ -205,12 +207,12 @@ class Generator(nn.Module):
                 x, nlc = x.transpose(1, 2), False
             x = self.ups[i](F.leaky_relu(x, LRELU_SLOPE))
             if self._mrf_fusable and ch <= 128 and mel.shape[0] == 1:
-                towers = self._stage_kernel_params(i, post=False)["towers"]
-                x, nlc = fused_mrf(x.transpose(1, 2).contiguous(), towers, self._dil0, ksizes), True
+                mrf = self._stage_kernel_params(i, post=False)["mrf"]
+                x, nlc = fused_mrf(x.transpose(1, 2).contiguous(), mrf, self._dil0, ksizes), True
                 continue
             if cfg.resblock == "1" and ch <= 128 and mel.shape[0] == 1:
                 xn = x.transpose(1, 2).contiguous()
-                towers = self._stage_kernel_params(i, post=False)["towers"]
+                towers = self._stage_kernel_params(i, post=False)["mrf"].towers
                 xs = None
                 for tw, dil in zip(towers, cfg.resblock_dilation_sizes):
                     r = fused_resblock1(xn, *tw, tuple(dil))

@@ -31,9 +31,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the exported functions (every one returns a cudaError_t)
 SIGNATURES = {
-    "mrf": {"zv_mrf_f32": [_P] * 4 + [_I] * 11 + [_P]},
+    "mrf": {"zv_mrf_f32": [_P] * 4 + [_I] * 11 + [_P], "zv_mrf_tile": [_I] * 11},
     "resblock": {"zv_resblock1_f32": [_P] * 4 + [_I] * 8 + [_P]},
-    "upsample_stage": {"zv_upsample_stage_f32": [_P] * 8 + [_I] * 16 + [_P]},
+    "upsample_stage": {"zv_upsample_stage_f32": [_P] * 8 + [_I] * 16 + [_P],
+                       "zv_upsample_stage_tile": [_I] * 16},
     "se_conv": {"zv_se_conv_fwd_tiles": [_I] * 3, "zv_se_conv_bwd_blocks": [_I] * 3,
                 "zv_se_conv_fwd_f32": [_P] * 9 + [_I] * 4 + [_P],
                 "zv_se_conv_bwd_f32": [_P] * 12 + [_I] * 4 + [_P]},
@@ -85,7 +86,8 @@ def build_all() -> dict:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
         os.replace(tmp, out)
-        ptxas[name] = [ln for ln in log.splitlines() if "ptxas" in ln]
+        # ptxas's report: entry functions, registers, and the spill line of each
+        ptxas[name] = [ln for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]
     if errors:
         raise RuntimeError("\n".join(errors))
     return {"seconds": time.perf_counter() - t0, "ptxas": ptxas}

@@ -7,16 +7,20 @@ that mean in one pass over x [B, T, C]:
   * on a CUDA tensor it launches the hand-written Hopper kernel
     `csrc/mrf.cu`, which replaces the TPU kernel
     `zerovox_tpu/ops/pallas/mrf.py::fused_mrf`. On an H100 the stage is
-    bound by arithmetic (252 C^2 FLOP per row, ~3400 FLOP per byte at the
-    main path's C=128), not by memory; the kernel keeps every tower
-    activation of a time tile in shared memory and writes the output once
-    (design notes in the source);
+    bound by arithmetic (252 C^2 FLOP per row at the main path's C=128),
+    not by memory; the kernel keeps every tower activation of a time tile
+    in shared memory and runs each conv as tensor-core GEMMs in 3xTF32
+    (design notes in `csrc/mrf_tc.cuh`);
   * on a CPU tensor it runs `mrf_plain`, the same function in plain PyTorch.
 
-There is no fallback: a CUDA tensor the kernel does not take raises.
+The weights come packed once per weight version (`pack_towers`): the plain
+layout for the CPU, and the kernel's MMA fragment order. There is no
+fallback: a CUDA tensor the kernel does not take raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -52,8 +56,8 @@ def mrf_plain(x, towers, dilations):
 
 
 def flat_towers(towers):
-    """The kernels' flat weight and bias buffers: tower by tower, w1 then w2
-    ([P, k, C, C] taps (k, in, out)), b1 then b2 ([P, C])."""
+    """The ResBlock1 kernel's flat weight and bias buffers: tower by tower,
+    w1 then w2 ([P, k, C, C] taps (k, in, out)), b1 then b2 ([P, C])."""
     w = torch.cat([t.reshape(-1) for w1, _, w2, _ in towers for t in (w1, w2)])
     b = torch.cat([t.reshape(-1) for _, b1, _, b2 in towers for t in (b1, b2)])
     return w, b
@@ -80,24 +84,53 @@ def tower_args(towers, dilations, kernel_sizes):
     return [len(towers), *ks, len(dilations), *ds]
 
 
-def fused_mrf(x, towers, dilations, kernel_sizes):
+class MrfWeights(NamedTuple):
+    """A stage's ResBlock1 towers in both layouts (`pack_towers`)."""
+
+    towers: list  # (w1 [P, k, C, C], b1 [P, C], w2, b2) per tower, taps (k, in, out)
+    w: torch.Tensor | None  # every conv's taps in MMA fragment order, tower by tower
+    b: torch.Tensor  # b1 then b2 of each tower
+
+
+def mma_fragments(w):
+    """Conv taps w [..., k, C_in, C_out] (taps (k, in, out)) -> flat, in the
+    kernels' B-fragment order of mma.m16n8k8 (csrc/mrf_tc.cuh): for each tap,
+    k-step of 8 input channels and block of 8 output channels, lane l of the
+    warp holds w[tap][8 ks + l % 4][8 nf + l // 4] and the same at input
+    channel + 4, side by side."""
+    k, ci, co = w.shape[-3:]
+    f = w.reshape(-1, k, ci // 8, 2, 4, co // 8, 8)  # (.., k, ks, half, lane % 4, nf, lane // 4)
+    return f.permute(0, 1, 2, 5, 6, 4, 3).reshape(-1)
+
+
+def pack_towers(towers) -> MrfWeights:
+    """The towers and the kernels' buffers built from them (no fragment
+    buffer when a width is not a multiple of 8: the kernels do not take it)."""
+    C = towers[0][0].shape[-1]
+    w = (torch.cat([mma_fragments(t) for w1, _, w2, _ in towers for t in (w1, w2)])
+         if C % 8 == 0 else None)
+    b = torch.cat([t.reshape(-1) for _, b1, _, b2 in towers for t in (b1, b2)])
+    return MrfWeights(list(towers), w, b)
+
+
+def fused_mrf(x, weights: MrfWeights, dilations, kernel_sizes):
     """Mean over ResBlock1 towers of x [B, T, C] -> [B, T, C].
 
-    towers: list of (w1 [P, k, C, C], b1 [P, C], w2 [P, k, C, C], b2 [P, C])
-    with conv taps (k, in, out); dilations: the P first-conv dilations,
-    shared by every tower; kernel_sizes: k of each tower."""
+    weights: `pack_towers` of the towers, each (w1 [P, k, C, C], b1 [P, C],
+    w2 [P, k, C, C], b2 [P, C]) with conv taps (k, in, out); dilations: the
+    P first-conv dilations, shared by every tower; kernel_sizes: k of each
+    tower."""
     if x.device.type == "cpu":
-        return mrf_plain(x, towers, dilations)
+        return mrf_plain(x, weights.towers, dilations)
     B, T, C = x.shape
     if C not in (32, 64, 128):
         raise ValueError(f"fused_mrf: the kernel takes C in (32, 64, 128), got {C}")
-    args = tower_args(towers, dilations, kernel_sizes)
-    check_towers("fused_mrf", towers, kernel_sizes, len(dilations), C)
-    w, b = flat_towers(towers)
-    _cuda.require_f32_cuda("fused_mrf", x, w, b)
+    args = tower_args(weights.towers, dilations, kernel_sizes)
+    check_towers("fused_mrf", weights.towers, kernel_sizes, len(dilations), C)
+    _cuda.require_f32_cuda("fused_mrf", x, weights.w, weights.b)
     out = torch.empty_like(x)
     err = _cuda.lib("mrf").zv_mrf_f32(
-        x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), B, T, C, *args,
+        x.data_ptr(), out.data_ptr(), weights.w.data_ptr(), weights.b.data_ptr(), B, T, C, *args,
         torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(err, "fused_mrf")
     fused_mrf.launches += 1

@@ -8,26 +8,54 @@ computes it in one pass over x [B, T_in, C_in]:
   * on a CUDA tensor it launches the hand-written Hopper kernel
     `csrc/upsample_stage.cu`, which replaces the TPU kernel
     `zerovox_tpu/ops/pallas/packed.py::fused_packed_stage`. On an H100 the
-    stage is bound by arithmetic (several hundred FLOP per byte at the main
-    path's shapes); the kernel recomputes the upsampler per tower inside a
-    time tile instead of writing the upsampled activation, and writes only
-    the stage output (design notes in the source);
+    stage is bound by arithmetic; the kernel runs the transposed conv as a
+    polyphase GEMM and every conv on the tensor cores in 3xTF32, recomputes
+    the upsampler per tower inside a time tile instead of writing the
+    upsampled activation, and writes only the stage output (design notes in
+    the source and in `csrc/mrf_tc.cuh`);
   * on a CPU tensor it runs `upsample_stage_plain`, the same function in
     plain PyTorch.
 
-There is no fallback: a CUDA tensor the kernel does not take raises.
+The weights come packed once per weight version (`pack_upsampler`,
+`ops.mrf.pack_towers`). There is no fallback: a CUDA tensor the kernel does
+not take raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from zerovox_tpu_torch.ops import _cuda
-from zerovox_tpu_torch.ops.mrf import (LRELU_SLOPE, check_towers, flat_towers, mrf_plain,
-                                       tower_args)
+from zerovox_tpu_torch.ops.mrf import (LRELU_SLOPE, MrfWeights, check_towers, mma_fragments,
+                                       mrf_plain, tower_args)
 
 KERNEL_WIDTHS = ((128, 64), (64, 32), (32, 16))  # (C_in, C_out) instantiated in the source
+
+
+class UpsamplerWeights(NamedTuple):
+    """A ConvTranspose1d in both layouts (`pack_upsampler`)."""
+
+    w: torch.Tensor  # [k, C_in, C_out]: torch's taps (the weight (in, out, k) permuted, not flipped)
+    b: torch.Tensor  # [C_out]
+    stride: int
+    frag: torch.Tensor | None  # taps grouped by phase, in MMA fragment order
+
+
+def phase_taps(k: int, stride: int) -> list[int]:
+    """The kernel's tap order: phase ph = (t + padding) % stride of an output
+    row t takes the taps ph, ph + stride, ...; phases in order."""
+    return [ph + stride * j for ph in range(stride) for j in range(max(0, -(-(k - ph) // stride)))]
+
+
+def pack_upsampler(w, b, stride: int) -> UpsamplerWeights:
+    """w [k, C_in, C_out] torch taps, b [C_out] -> both layouts (no fragment
+    buffer when a width is not a multiple of 8)."""
+    k, ci, co = w.shape
+    frag = (mma_fragments(w[phase_taps(k, stride)]) if ci % 8 == 0 and co % 8 == 0 else None)
+    return UpsamplerWeights(w, b, stride, frag)
 
 
 def upsample_stage_plain(x, up_w, up_b, stride, up_padding, towers, dilations, post=None):
@@ -44,24 +72,25 @@ def upsample_stage_plain(x, up_w, up_b, stride, up_padding, towers, dilations, p
     return torch.tanh(y)[:, 0, :]
 
 
-def fused_upsample_stage(x, up_w, up_b, stride, up_padding, towers, dilations, kernel_sizes,
-                         post=None):
+def fused_upsample_stage(x, up: UpsamplerWeights, up_padding, mrf: MrfWeights, dilations,
+                         kernel_sizes, post=None):
     """x [B, T_in, C_in] -> [B, T_out, C_out], or the waveform [B, T_out]
     when post = (w [k, C_out, 1], b [1]) is given. T_out = (T_in - 1) *
-    stride + k - 2 * up_padding. Towers as in ops.mrf.fused_mrf."""
+    stride + k - 2 * up_padding. up: `pack_upsampler` of the transposed
+    conv; mrf, dilations, kernel_sizes: the towers as in ops.mrf.fused_mrf."""
     if x.device.type == "cpu":
-        return upsample_stage_plain(x, up_w, up_b, stride, up_padding, towers, dilations, post)
+        return upsample_stage_plain(x, up.w, up.b, up.stride, up_padding, mrf.towers, dilations,
+                                    post)
     B, T_in, C_in = x.shape
-    up_k, _, C_out = up_w.shape
+    up_k, _, C_out = up.w.shape
     if (C_in, C_out) not in KERNEL_WIDTHS:
         raise ValueError(f"fused_upsample_stage: the kernel takes (C_in, C_out) in "
                          f"{KERNEL_WIDTHS}, got {(C_in, C_out)}")
-    if tuple(up_w.shape) != (up_k, C_in, C_out) or tuple(up_b.shape) != (C_out,):
+    if tuple(up.w.shape) != (up_k, C_in, C_out) or tuple(up.b.shape) != (C_out,):
         raise ValueError("fused_upsample_stage: upsampler weight must be [k, C_in, C_out]")
-    T_out = (T_in - 1) * stride + up_k - 2 * up_padding
-    args = tower_args(towers, dilations, kernel_sizes)
-    check_towers("fused_upsample_stage", towers, kernel_sizes, len(dilations), C_out)
-    w, b = flat_towers(towers)
+    T_out = (T_in - 1) * up.stride + up_k - 2 * up_padding
+    args = tower_args(mrf.towers, dilations, kernel_sizes)
+    check_towers("fused_upsample_stage", mrf.towers, kernel_sizes, len(dilations), C_out)
     if post is not None:
         pw, pb = post
         post_k = pw.shape[0]
@@ -70,13 +99,13 @@ def fused_upsample_stage(x, up_w, up_b, stride, up_padding, towers, dilations, k
         pw = pw.reshape(post_k, C_out)
         out = torch.empty(B, T_out, device=x.device, dtype=x.dtype)
     else:
-        pw = pb = up_b  # ignored by the kernel
+        pw = pb = up.b  # ignored by the kernel
         post_k = 0
         out = torch.empty(B, T_out, C_out, device=x.device, dtype=x.dtype)
-    _cuda.require_f32_cuda("fused_upsample_stage", x, up_w, up_b, w, b, pw, pb)
+    _cuda.require_f32_cuda("fused_upsample_stage", x, up.frag, up.b, mrf.w, mrf.b, pw, pb)
     err = _cuda.lib("upsample_stage").zv_upsample_stage_f32(
-        x.data_ptr(), out.data_ptr(), up_w.data_ptr(), up_b.data_ptr(), w.data_ptr(),
-        b.data_ptr(), pw.data_ptr(), pb.data_ptr(), B, T_in, C_in, C_out, up_k, stride,
+        x.data_ptr(), out.data_ptr(), up.frag.data_ptr(), up.b.data_ptr(), mrf.w.data_ptr(),
+        mrf.b.data_ptr(), pw.data_ptr(), pb.data_ptr(), B, T_in, C_in, C_out, up_k, up.stride,
         up_padding, post_k, *args, torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(err, "fused_upsample_stage")
     fused_upsample_stage.launches += 1
