@@ -12,8 +12,8 @@ Phases, in order; any failure exits nonzero:
    register and spill report of each entry function.
 3. Kernels at their paths' shapes, each against its plain PyTorch version on
    the card, timed with CUDA events beside the plain version and the card's
-   bound for the kernel's method (3xTF32 tensor cores for K1 and K2, float32
-   FMA for K3 and K4): K1 and K2 at the serving path's (bucket 689 of
+   bound for the kernel's method (3xTF32 tensor cores for K1, K2 and K4,
+   float32 FMA for K3): K1 and K2 at the serving path's (bucket 689 of
    bench.py's text) and at one streamed window's shapes, with the tile each
    takes (max abs diff < 5e-4); K4 forward and backward (`se_conv`) at the
    training path's [24, 32, 80, 500] (y and dx < 5e-4 absolute, every reduction
@@ -314,12 +314,12 @@ def se_conv_phase(torch, dev) -> list[dict]:
     def row(name, replaces, errs, fn, plain, conv, flop, nbytes) -> dict:
         ms, plain_ms = cuda_time_ms(fn, iters=10, warmup=2), cuda_time_ms(plain, iters=5, warmup=1)
         conv_ms = cuda_time_ms(conv, iters=5, warmup=1)
-        bound_ms, bound_by = bound(flop, nbytes)
+        bound_ms, bound_by = bound(flop, nbytes, "3xtf32")
         r = {"name": name, "route": "cuda", "source": "zerovox_tpu_torch/csrc/se_conv.cu",
              "replaces": replaces, "shape": f"[{B},{C},{H},{W}]", "max_abs_err": errs[0],
              "max_rel_err_reductions": errs[1], "ms": ms, "plain_ms": plain_ms,
-             "gflop": flop / 1e9, "method": "f32", "bound_ms": bound_ms, "bound_by": bound_by,
-             "library_ms": None, "conv2d_only_ms": conv_ms}
+             "gflop": flop / 1e9, "method": "3xtf32", "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_f32_ms": bound(flop, nbytes)[0], "library_ms": None, "conv2d_only_ms": conv_ms}
         print(json.dumps(r), flush=True)
         return r
 

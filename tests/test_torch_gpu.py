@@ -219,7 +219,11 @@ def _close_rel(got, ref, tol):
     return torch.max(torch.abs(got - ref)).item() <= tol * max(torch.max(torch.abs(ref)).item(), 1e-12)
 
 
-@pytest.mark.parametrize("B,H,W", [(2, 20, 64), (3, 13, 45), (1, 80, 500)])
+# off the tile grid, below one tile (H = 1, W = 1-3), and the training shape at B = 1
+SE_SHAPES = [(2, 20, 64), (3, 13, 45), (2, 1, 37), (1, 9, 1), (3, 6, 2), (1, 1, 3)]
+
+
+@pytest.mark.parametrize("B,H,W", SE_SHAPES + [(1, 80, 500)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_se_conv_forward_matches_plain(cuda, B, H, W, relu):
     from zerovox_tpu_torch.ops.se_conv import se_conv, se_conv_fwd, se_conv_plain
@@ -235,30 +239,74 @@ def test_se_conv_forward_matches_plain(cuda, B, H, W, relu):
         assert a.shape == b.shape and _close_rel(a, b, 1e-4)
 
 
-@pytest.mark.parametrize("B,H,W", [(2, 20, 64), (3, 13, 45), (2, 80, 250)])
+def _se_grads(fn, x, w, s, t, cts, relu):
+    leaves = [a.clone().requires_grad_(True) for a in (x, w, s, t)]
+    outs = fn(*leaves, relu)
+    torch.autograd.backward(outs, cts)
+    return [a.grad for a in leaves]
+
+
+def _se_cts(rng, B, H, W, dev):
+    return [torch.tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+            for shape in ((B, 32, H, W), (32,), (32,), (B, 32))]
+
+
+# B = 8 at the training shape: wgrad sums 320k positions, ~2.4k per block
+@pytest.mark.parametrize("B,H,W", SE_SHAPES + [(2, 80, 250), (8, 80, 500)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_se_conv_backward_matches_plain(cuda, B, H, W, relu):
-    from zerovox_tpu_torch.ops.se_conv import se_conv, se_conv_bwd, se_conv_plain
+    """The backward kernel given the plain version's y (one y for both, so
+    relu' agrees where y is within rounding of 0) against autograd's
+    gradients of the plain version."""
+    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd, se_conv_plain
 
     rng = np.random.default_rng(7 * B + H + W + relu)
     x, w, s, t = _se_inputs(rng, B, H, W, cuda)
-    cts = [torch.tensor(rng.normal(size=shape).astype(np.float32), device=cuda)
-           for shape in ((B, 32, H, W), (32,), (32,), (B, 32))]
-
-    def grads(fn):
-        leaves = [a.clone().requires_grad_(True) for a in (x, w, s, t)]
-        outs = fn(*leaves, relu)
-        torch.autograd.backward(outs, cts)
-        return [a.grad for a in leaves]
-
+    cts = _se_cts(rng, B, H, W, cuda)
+    leaves = [a.clone().requires_grad_(True) for a in (x, w, s, t)]
+    outs = se_conv_plain(*leaves, relu)
+    ref = torch.autograd.grad(outs, leaves, cts)
     n0 = se_conv_bwd.launches
-    got = grads(se_conv)
+    got = se_conv_bwd(x, outs[0].detach(), cts[0], w, s, t, *cts[1:], relu)
     torch.cuda.synchronize()
     assert se_conv_bwd.launches == n0 + 1
-    ref = grads(se_conv_plain)
     assert torch.max(torch.abs(got[0] - ref[0])).item() < TOL  # dx
     for a, b in zip(got[1:], ref[1:]):  # dw, ds, dt: reductions over every position
         assert a.shape == b.shape and _close_rel(a, b, 1e-4)
+
+
+def test_se_conv_autograd_runs_both_kernels(cuda):
+    """`se_conv` on CUDA tensors: the forward and the backward kernel, one
+    launch each, gradients as the plain version's (no relu, so no mask can
+    differ between the two forwards)."""
+    from zerovox_tpu_torch.ops.se_conv import se_conv, se_conv_bwd, se_conv_fwd, se_conv_plain
+
+    rng = np.random.default_rng(3)
+    x, w, s, t = _se_inputs(rng, 2, 20, 64, cuda)
+    cts = _se_cts(rng, 2, 20, 64, cuda)
+    n0 = (se_conv_fwd.launches, se_conv_bwd.launches)
+    got = _se_grads(se_conv, x, w, s, t, cts, False)
+    torch.cuda.synchronize()
+    assert (se_conv_fwd.launches, se_conv_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    ref = _se_grads(se_conv_plain, x, w, s, t, cts, False)
+    assert torch.max(torch.abs(got[0] - ref[0])).item() < TOL
+    for a, b in zip(got[1:], ref[1:]):
+        assert _close_rel(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_se_conv_is_bitwise_repeatable(cuda, relu):
+    """y, the sums, dx, dW, ds and dt: fixed-order sums, no atomics."""
+    from zerovox_tpu_torch.ops.se_conv import se_conv
+
+    rng = np.random.default_rng(13 + relu)
+    x, w, s, t = _se_inputs(rng, 4, 80, 500, cuda)
+    cts = _se_cts(rng, 4, 80, 500, cuda)
+    for a, b in zip(se_conv(x, w, s, t, relu), se_conv(x, w, s, t, relu)):
+        assert torch.equal(a, b)
+    for a, b in zip(_se_grads(se_conv, x, w, s, t, cts, relu),
+                    _se_grads(se_conv, x, w, s, t, cts, relu)):
+        assert torch.equal(a, b)
 
 
 def test_se_conv_rejects_what_it_does_not_take(cuda):

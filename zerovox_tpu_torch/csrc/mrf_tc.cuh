@@ -13,11 +13,8 @@
 // hide the latency of the shared-memory A loads and of the MMAs, and the
 // smaller items waste less on a conv's ragged last rows.
 //
-// 3xTF32. Each operand is split as hi = rna_tf32(x), lo = rna_tf32(x - hi)
-// (cvt.rna.tf32's rounding); three MMAs (lo.hi, hi.lo, hi.hi) accumulate
-// in float32, which keeps the products to within float32 rounding of the
-// float32 ones (single-pass TF32 is ~1.5e-3 off at the main path's widths,
-// 3x over the kernels' 5e-4 bound). The weights are split in the kernel
+// 3xTF32 (tc_common.cuh): both operands split hi/lo, three MMAs per
+// product. The weights are split in the kernel
 // too: splitting them once on the host doubles the bytes each B fragment
 // load brings from L2, and measured slower for K1, whose 8.3 MB of weights
 // do not stay in L1 (though faster for K2's narrower towers).
@@ -42,6 +39,7 @@
 #include <cstdint>
 
 #include "mrf_common.cuh"
+#include "tc_common.cuh"
 
 namespace zv {
 namespace tc {
@@ -51,26 +49,6 @@ constexpr int NWARP = NT / 32;
 constexpr int MF = 2;    // 16-row m fragments of a warp's item: 32 rows
 
 __host__ __device__ constexpr int warp_cols(int co) { return co < 32 ? co : 32; }
-
-// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero, 10 mantissa
-// bits) on the integer pipe: add half a TF32 ulp to the bit pattern and
-// clear the 13 low bits. Bitwise the same as the conversion instruction for
-// finite values, and faster on every K1/K2 shape measured.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ float2 leaky2(float2 v, float slope) {
   return make_float2(leaky(v.x, slope), leaky(v.y, slope));

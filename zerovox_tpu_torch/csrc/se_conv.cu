@@ -1,5 +1,6 @@
 // Fused speaker-encoder stage-1 conv pass for Hopper (sm_90a), forward and
-// backward, float32, canonical NCHW layout with C = 32 channels.
+// backward, float32 in and out, canonical NCHW layout with C = 32 channels,
+// every product of the 3x3 conv on the tensor cores in 3xTF32.
 //
 // Replaces the TPU kernels of zerovox_tpu/ops/pallas/se_fused.py::se_conv:
 // _fwd_kernel (pallas_call in _fwd_call) and _bwd_kernel (pallas_call in
@@ -14,349 +15,90 @@
 //             du = conv3x3 of g with the flipped, transposed taps (dgrad)
 //             dx = du*s; ds = S du*x; dt = S du; dW = S g (x) u_shifted
 //
-// What bounds it on an H100: arithmetic. At the training shape
-// [24, 32, 80, 500] the forward does 17.7 GFLOP against 246 MB (72 FLOP per
-// byte, above the card's ~20 FLOP/byte float32 ridge), the backward twice
-// the FLOPs against twice the bytes.
+// What bounds it on an H100: operations. At the training shape
+// [24, 32, 80, 500] the forward does 17.7 GFLOP against 246 MB (72 FLOP a
+// byte, above the ~49 FLOP a byte where 3xTF32 at 495 TFLOP/s meets 3.35
+// TB/s): 3 x 17.7 GFLOP / 495 TFLOP/s = 0.107 ms. The backward does twice
+// the FLOPs against twice the bytes: 0.214 ms.
 //
-// Design, forward: persistent blocks of 256 threads walk tiles of 8 x 32
-// output positions. A tile's input window (10 x 34 per channel, u-space
-// padded) and all 32x32x9 taps sit in shared memory; each thread keeps a
-// 4-row x 8-channel register tile, so a (channel, tap column) step is 6
-// input loads and 6 float4 weight loads (warp-broadcast) for 96 FMAs. The
-// epilogue writes y once and reduces the tile's per-channel sums in a fixed
-// order into a per-tile row; a second one-block pass sums the rows in a
-// fixed order (per sample for m, then over samples), so the BN statistics
-// are the same on every run, with no float atomics.
+// Every conv is an implicit GEMM on mma.sync.m16n8k8 (tc_common.cuh):
+//   forward, dgrad  M = a tile row's 32 positions, N = 32 output channels,
+//                   K = 9 taps x 32 input channels (36 k-steps of 8);
+//   wgrad           M = 32 output channels, N = 9 taps x 32 input channels,
+//                   K = the tile's positions, the u window read at each
+//                   tap's shift (+-1 along h and w). mma.sync is kept for
+//                   that: a fragment load may start at any shared-memory
+//                   position, which wgmma's swizzled layouts do not allow.
 //
-// Design, backward: one persistent pass. Per tile it builds the g window
-// (with halo) and the u window in shared memory, then runs dgrad on the
-// same register tiling as the forward (dx written once, ds/dt accumulated
-// in registers) and wgrad with one thread per (input channel, 4 output
-// channels): a sliding 3x3 window of u in registers, 7 shared loads per 36
-// FMAs. Each block keeps its dW/ds/dt sums in registers across its tiles and
-// writes one partial row; a second pass sums the rows in a fixed order.
+// Windows. A tile of TH x 32 output positions reads a (TH + 2) x 34 window
+// of u (and, backward, of g) with a 1-pixel halo. The affine (and g's
+// cotangent sum and relu mask) is applied on load and the value split once
+// into TF32 hi and lo planes, so that the 9 taps that read each element do
+// not split it again. The taps (w changes at every optimizer step, so
+// nothing is packed on the host) are staged by each block's prologue into
+// shared memory in fragment order, float32, and split at each k-step.
+//
+// Banks. The forward and dgrad A loads take 8 positions x 4 channels a
+// fragment register, wgrad's loads 8 channels x 4 positions. Channel planes
+// at a pitch of 8 mod 32 floats, with the planes of channels 4-7 (mod 8)
+// shifted by 4 more, put both patterns on 32 distinct banks; no single
+// pitch does (an odd pitch conflicts in both, 4 mod 8 in the first, 8 mod 32
+// alone in the second).
+//
+// Sums. Forward: y written once; per-channel S y and S y^2 reduced from the
+// accumulator fragments in a fixed order into one row per tile; a second
+// pass sums each sample's rows (m), one block a sample, and a third the
+// samples. Backward: one persistent block per SM walks its tiles; wgrad's
+// MMA chains span one tile's positions and are then added into float32
+// registers, ds and dt are float32 sums in the dgrad epilogue, and each
+// block writes one partial row that a second pass sums in a fixed order.
+// No float atomics: every run gives the same bits.
+//
+// Tiles: 8 x 32 positions, one warp a row, one block of 8 warps an SM. A
+// window arrives by cp.async straight into shared memory (4 bytes a copy,
+// zero-filled outside the image), all of a tile's copies in flight at once,
+// and is converted and split in place. Forward (173 KB): the next tile's x
+// arrives in a third plane while this tile's MMAs run, and y leaves through
+// shared memory as rows of 32 positions. Backward (219 KB: the taps and the
+// g and u windows in hi and lo) has no room to fetch ahead. Each choice was
+// timed on an H100 at [24, 32, 80, 500] against its alternative: windows
+// loaded through registers (latency-bound), 4-row tiles at
+// 2 blocks an SM, y stored from the fragments, and a warp-per-window-row
+// walk were all slower. scripts/bench_k4_breakdown.py times the MMA phases
+// against the window loads and epilogues (PERF.md).
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "tc_common.cuh"
 
 namespace {
 
+using zv::tc::mma;
+using zv::tc::split;
+
 constexpr int C = 32;
-constexpr int TH = 8, TW = 32;           // output tile
-constexpr int HR = TH + 2, WR = TW + 2;  // tile window with a 1-pixel halo
-constexpr int PL = 341;                  // window plane pitch: >= HR*WR, odd mod 32
-constexpr int NT = 256;
+constexpr int TW = 32;                   // tile columns: one warp row
 constexpr int NTAP = C * C * 9;          // 9216 weights
 constexpr int NPART = NTAP + 2 * C;      // per-block backward partial: dW, ds, dt
+constexpr int TH = 8;                    // tile rows: one warp each
+
+// A tile's window: (TH + 2) x (TW + 2) positions, one plane per channel at
+// pitch PL (8 mod 32, room for the 4-float shift of channels 4-7 mod 8).
+struct Win {
+  static constexpr int HR = TH + 2, WR = TW + 2, NPOS = HR * WR;
+  static constexpr int PL = (NPOS + 4 - 8 + 31) / 32 * 32 + 8;
+  static constexpr int FLOATS = C * PL;
+  static_assert(PL % 32 == 8 && PL >= NPOS + 4, "plane pitch");
+};
+
+__device__ __forceinline__ int chan(int c) {
+  return c * Win::PL + 4 * ((c >> 2) & 1);
+}
 
 struct Shape {
   int B, H, W, nth, ntw, ntiles;
 };
-
-__device__ inline void tile_origin(const Shape& sh, int i, int* b, int* h0, int* w0) {
-  *w0 = (i % sh.ntw) * TW;
-  i /= sh.ntw;
-  *h0 = (i % sh.nth) * TH;
-  *b = i / sh.nth;
-}
-
-// u = x*s + t inside the image, 0 outside, for the tile's window.
-__device__ inline void load_u_window(float* Us, const float* __restrict__ x,
-                                     const float* __restrict__ s, const float* __restrict__ t,
-                                     const Shape& sh, int b, int h0, int w0) {
-  for (int idx = threadIdx.x; idx < C * HR * WR; idx += NT) {
-    const int ci = idx / (HR * WR), rem = idx % (HR * WR);
-    const int r = rem / WR, c = rem % WR;
-    const int h = h0 + r - 1, w = w0 + c - 1;
-    float v = 0.f;
-    if ((unsigned)h < (unsigned)sh.H && (unsigned)w < (unsigned)sh.W)
-      v = __ldg(x + (((size_t)b * C + ci) * sh.H + h) * sh.W + w) * __ldg(s + ci) + __ldg(t + ci);
-    Us[ci * PL + r * WR + c] = v;
-  }
-}
-
-// acc[r][k] = sum over (ci, kh, kw) of In[ci][4*rg + r + kh][lane + kw] *
-// Wt[((ci*3 + kh)*3 + kw)*C + 8*og + k]: a 3x3 cross-correlation of the
-// window for this thread's 4 rows x 8 output channels.
-__device__ inline void conv_tile(const float* In, const float* Wt, int lane, int rg, int og,
-                                 float acc[4][8]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[r][k] = 0.f;
-#pragma unroll 2
-  for (int ci = 0; ci < C; ++ci) {
-    const float* in = In + ci * PL + (4 * rg) * WR + lane;
-#pragma unroll
-    for (int kw = 0; kw < 3; ++kw) {
-      float v[6];
-#pragma unroll
-      for (int j = 0; j < 6; ++j) v[j] = in[j * WR + kw];
-#pragma unroll
-      for (int kh = 0; kh < 3; ++kh) {
-        const float4* wp =
-            reinterpret_cast<const float4*>(Wt + ((ci * 3 + kh) * 3 + kw) * C + 8 * og);
-        const float4 a = wp[0], bq = wp[1];
-        const float wv[8] = {a.x, a.y, a.z, a.w, bq.x, bq.y, bq.z, bq.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int k = 0; k < 8; ++k) acc[r][k] = fmaf(v[r + kh], wv[k], acc[r][k]);
-      }
-    }
-  }
-}
-
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// ------------------------------------------------------------------ forward
-
-__global__ void __launch_bounds__(NT, 2)
-se_conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ s, const float* __restrict__ t,
-                   float* __restrict__ y, float* __restrict__ part, Shape sh, int relu) {
-  extern __shared__ __align__(16) float smem[];
-  float* Ws = smem;           // [ci][kh][kw][co]
-  float* Us = Ws + NTAP;      // [ci][HR][WR] at pitch PL
-  float* red = Us + C * PL;   // [2 row groups][2][C]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int og = warp & 3, rg = warp >> 2;
-
-  for (int i = threadIdx.x; i < NTAP; i += NT) {  // w[co][ci][kh][kw]
-    const int co = i / (C * 9), rem = i % (C * 9);
-    Ws[rem * C + co] = __ldg(w + i);
-  }
-
-  for (int tile = blockIdx.x; tile < sh.ntiles; tile += gridDim.x) {
-    int b, h0, w0;
-    tile_origin(sh, tile, &b, &h0, &w0);
-    __syncthreads();  // the previous tile is done with Us and red
-    load_u_window(Us, x, s, t, sh, b, h0, w0);
-    __syncthreads();
-
-    float acc[4][8];
-    conv_tile(Us, Ws, lane, rg, og, acc);
-
-    const int wq = w0 + lane;
-    float s1[8], s2[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) s1[k] = s2[k] = 0.f;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int h = h0 + 4 * rg + r;
-      if (h < sh.H && wq < sh.W) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float v = relu ? fmaxf(acc[r][k], 0.f) : acc[r][k];
-          y[(((size_t)b * C + 8 * og + k) * sh.H + h) * sh.W + wq] = v;
-          s1[k] += v;
-          s2[k] = fmaf(v, v, s2[k]);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      s1[k] = warp_sum(s1[k]);
-      s2[k] = warp_sum(s2[k]);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        red[(rg * 2 + 0) * C + 8 * og + k] = s1[k];
-        red[(rg * 2 + 1) * C + 8 * og + k] = s2[k];
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < 2 * C) {  // row [tile]: C sums, then C sums of squares
-      const int q = threadIdx.x / C, c = threadIdx.x % C;
-      part[(size_t)tile * 2 * C + threadIdx.x] = red[q * C + c] + red[(2 + q) * C + c];
-    }
-  }
-}
-
-// One block of (32 channels x 32 slices): m[b, c] = sum of sample b's tile
-// rows, sum[c] = S_b m[b, c], sq[c] likewise; every order is fixed.
-__global__ void se_conv_fwd_finish(const float* __restrict__ part, float* __restrict__ ssum,
-                                   float* __restrict__ ssq, float* __restrict__ m, int B,
-                                   int tiles_per_sample) {
-  __shared__ float r1[32][C], r2[32][C];
-  const int c = threadIdx.x, sl = threadIdx.y;
-  float tot1 = 0.f, tot2 = 0.f;
-  for (int b = 0; b < B; ++b) {
-    float a1 = 0.f, a2 = 0.f;
-    for (int j = sl; j < tiles_per_sample; j += 32) {
-      const float* row = part + ((size_t)b * tiles_per_sample + j) * 2 * C;
-      a1 += row[c];
-      a2 += row[C + c];
-    }
-    r1[sl][c] = a1;
-    r2[sl][c] = a2;
-    __syncthreads();
-    if (sl == 0) {
-      float m1 = 0.f, m2 = 0.f;
-      for (int k = 0; k < 32; ++k) {
-        m1 += r1[k][c];
-        m2 += r2[k][c];
-      }
-      m[(size_t)b * C + c] = m1;
-      tot1 += m1;
-      tot2 += m2;
-    }
-    __syncthreads();
-  }
-  if (sl == 0) {
-    ssum[c] = tot1;
-    ssq[c] = tot2;
-  }
-}
-
-// ----------------------------------------------------------------- backward
-
-__global__ void __launch_bounds__(NT, 1)
-se_conv_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                   const float* __restrict__ dy, const float* __restrict__ w,
-                   const float* __restrict__ s, const float* __restrict__ t,
-                   const float* __restrict__ dsum, const float* __restrict__ dsq,
-                   const float* __restrict__ dm, float* __restrict__ dx,
-                   float* __restrict__ part, Shape sh, int relu) {
-  extern __shared__ __align__(16) float smem[];
-  float* Wd = smem;          // dgrad taps [co][kh'][kw'][ci] = w[co][ci][2-kh'][2-kw']
-  float* Gs = Wd + NTAP;     // g window [co][HR][WR] at pitch PL
-  float* Us = Gs + C * PL;   // u window [ci][HR][WR] at pitch PL
-  float* red = Us + C * PL;  // [2 row groups][2][C]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int og = warp & 3, rg = warp >> 2;
-
-  for (int i = threadIdx.x; i < NTAP; i += NT) {
-    const int co = i / (C * 9), ci = (i / 9) % C, kh = (i % 9) / 3, kw = i % 3;
-    Wd[((co * 3 + (2 - kh)) * 3 + (2 - kw)) * C + ci] = __ldg(w + i);
-  }
-
-  // wgrad: this thread owns dW[4*warp + j][lane][kh][kw]
-  float dw[4][9];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int q = 0; q < 9; ++q) dw[j][q] = 0.f;
-  // ds, dt of input channels 8*og + k, over this thread's positions
-  float dsa[8], dta[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) dsa[k] = dta[k] = 0.f;
-
-  for (int tile = blockIdx.x; tile < sh.ntiles; tile += gridDim.x) {
-    int b, h0, w0;
-    tile_origin(sh, tile, &b, &h0, &w0);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < C * HR * WR; idx += NT) {
-      const int co = idx / (HR * WR), rem = idx % (HR * WR);
-      const int r = rem / WR, c = rem % WR;
-      const int h = h0 + r - 1, wc = w0 + c - 1;
-      float g = 0.f;
-      if ((unsigned)h < (unsigned)sh.H && (unsigned)wc < (unsigned)sh.W) {
-        const size_t o = (((size_t)b * C + co) * sh.H + h) * sh.W + wc;
-        const float yv = __ldg(y + o);
-        g = __ldg(dy + o) + __ldg(dsum + co) + 2.f * yv * __ldg(dsq + co) +
-            __ldg(dm + (size_t)b * C + co);
-        if (relu && !(yv > 0.f)) g = 0.f;
-      }
-      Gs[co * PL + r * WR + c] = g;
-    }
-    load_u_window(Us, x, s, t, sh, b, h0, w0);
-    __syncthreads();
-
-    // dgrad: du for input channels 8*og + k at rows 4*rg + r, column lane
-    float acc[4][8];
-    conv_tile(Gs, Wd, lane, rg, og, acc);
-    const int wq = w0 + lane;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int h = h0 + 4 * rg + r;
-      if (h < sh.H && wq < sh.W) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int ci = 8 * og + k;
-          const size_t o = (((size_t)b * C + ci) * sh.H + h) * sh.W + wq;
-          const float du = acc[r][k];
-          dx[o] = du * __ldg(s + ci);
-          dsa[k] = fmaf(du, __ldg(x + o), dsa[k]);
-          dta[k] += du;
-        }
-      }
-    }
-
-    // wgrad over the tile's positions (g is 0 outside the image)
-    const float* ub = Us + lane * PL;
-    const float* gb = Gs + (4 * warp) * PL;
-#pragma unroll 1
-    for (int r = 0; r < TH; ++r) {
-      float u0[3], u1[3], u2[3];  // window columns c, c+1, c+2 of rows r..r+2
-#pragma unroll
-      for (int kh = 0; kh < 3; ++kh) {
-        u0[kh] = ub[(r + kh) * WR + 0];
-        u1[kh] = ub[(r + kh) * WR + 1];
-      }
-#pragma unroll 4
-      for (int c = 0; c < TW; ++c) {
-#pragma unroll
-        for (int kh = 0; kh < 3; ++kh) u2[kh] = ub[(r + kh) * WR + c + 2];
-        const int gp = (r + 1) * WR + c + 1;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float g = gb[j * PL + gp];
-#pragma unroll
-          for (int kh = 0; kh < 3; ++kh) {
-            dw[j][kh * 3 + 0] = fmaf(g, u0[kh], dw[j][kh * 3 + 0]);
-            dw[j][kh * 3 + 1] = fmaf(g, u1[kh], dw[j][kh * 3 + 1]);
-            dw[j][kh * 3 + 2] = fmaf(g, u2[kh], dw[j][kh * 3 + 2]);
-          }
-        }
-#pragma unroll
-        for (int kh = 0; kh < 3; ++kh) {
-          u0[kh] = u1[kh];
-          u1[kh] = u2[kh];
-        }
-      }
-    }
-  }
-
-  // this block's partial row: dW in w's layout [co][ci][kh][kw], then ds, dt
-  float* row = part + (size_t)blockIdx.x * NPART;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int q = 0; q < 9; ++q) row[((4 * warp + j) * C + lane) * 9 + q] = dw[j][q];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    dsa[k] = warp_sum(dsa[k]);
-    dta[k] = warp_sum(dta[k]);
-  }
-  __syncthreads();
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      red[(rg * 2 + 0) * C + 8 * og + k] = dsa[k];
-      red[(rg * 2 + 1) * C + 8 * og + k] = dta[k];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < 2 * C) {
-    const int q = threadIdx.x / C, c = threadIdx.x % C;
-    row[NTAP + threadIdx.x] = red[q * C + c] + red[(2 + q) * C + c];
-  }
-}
-
-// out[i] = S over blocks of part[blk][i], in block order.
-__global__ void se_conv_bwd_finish(const float* __restrict__ part, float* __restrict__ out,
-                                   int nblocks) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= NPART) return;
-  float a = 0.f;
-  for (int k = 0; k < nblocks; ++k) a += part[(size_t)k * NPART + i];
-  out[i] = a;
-}
 
 Shape make_shape(int B, int H, int W) {
   Shape sh;
@@ -369,6 +111,484 @@ Shape make_shape(int B, int H, int W) {
   return sh;
 }
 
+__device__ inline void tile_origin(const Shape& sh, int i, int* b, int* h0, int* w0) {
+  *w0 = (i % sh.ntw) * TW;
+  i /= sh.ntw;
+  *h0 = (i % sh.nth) * TH;
+  *b = i / sh.nth;
+}
+
+// f(c, s, in, o) for every position of a tile's window: channel c, offset s
+// in the planes, whether it lies in the image, and then its global offset
+// o. Thread k of the block's TH warps takes positions k, k + 32 TH, ..., so
+// it always visits the same positions of a window.
+template <class F>
+__device__ __forceinline__ void for_window(const Shape& sh, int b, int h0, int w0, F f) {
+  for (int i = threadIdx.x; i < C * Win::NPOS; i += TH * 32) {
+    const int c = i / Win::NPOS, p = i - c * Win::NPOS;
+    const int r = p / Win::WR, col = p - r * Win::WR;
+    const int h = h0 + r - 1, w = w0 + col - 1;
+    const bool in = (unsigned)h < (unsigned)sh.H && (unsigned)w < (unsigned)sh.W;
+    f(c, chan(c) + p, in, in ? (((size_t)b * C + c) * sh.H + h) * sh.W + w : 0);
+  }
+}
+
+// One float from global into shared memory without a register round trip
+// (cp.async); zero-filled, and src not read, when !valid.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+__device__ __forceinline__ void store_split(float* hi, float* lo, int s, float v) {
+  uint32_t h, l;
+  split(v, h, l);
+  hi[s] = __uint_as_float(h);
+  lo[s] = __uint_as_float(l);
+}
+
+// The taps in fragment order: for tap t, k-step ks (8 k channels) and n
+// block nf (8 n channels), 64 floats in which lane l holds B[8 ks + l%4]
+// [8 nf + l/4] and B[8 ks + l%4 + 4][8 nf + l/4] side by side. Forward:
+// B[t][k = ci][n = co] = w[co][ci][t]. dgrad (flip): B[t][k = co][n = ci] =
+// w[co][ci][8 - t].
+__device__ void stage_taps(float* Bs, const float* __restrict__ w, bool dgrad) {
+  for (int i = threadIdx.x; i < NTAP; i += blockDim.x) {  // w[co][ci][kh][kw]
+    const int co = i / (C * 9), ci = (i / 9) % C, t = i % 9;
+    const int k = dgrad ? co : ci, n = dgrad ? ci : co, tap = dgrad ? 8 - t : t;
+    const int lane = (n % 8) * 4 + k % 4;
+    Bs[((tap * 4 + k / 8) * 4 + n / 8) * 64 + 2 * lane + (k % 8) / 4] = __ldg(w + i);
+  }
+}
+
+// acc[mf][nf][e] (fragment layout of mma) = the 3x3 conv at tile row r,
+// positions 0-31, output channels 0-31: the sum over taps (kh, kw) and
+// input channels ci of A[ci][(r + kh) WR + pos + kw] B[tap][ci][co], A split
+// in the planes Ah, Al, B float32 in fragment order (Bs). The tensor cores
+// truncate as they add into an accumulator, so the hi.hi chain spans one
+// tap (4 MMAs) and is then added into acc in float32; the lo products,
+// 2^-11 of the sum, keep their own chain over all taps. One chain over all
+// 108 MMAs left y 1.76e-5 from plain at the training shape, this 5.2e-6.
+__device__ __forceinline__ void conv_row(const float* Ah, const float* Al, const float* Bs, int r,
+                                         float (&acc)[2][4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  float lo[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = lo[i][j][e] = 0.f;
+  const float2* bf = reinterpret_cast<const float2*>(Bs) + lane;
+  const int c0 = chan(t4), c1 = chan(t4 + 4);  // k channels t4, t4 + 4 of a k-step
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const int kh = tap / 3, kw = tap - 3 * kh;
+    const int p = (r + kh) * Win::WR + kw + g;
+    float hi[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hi[i][j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) {
+        const float2 v = bf[((tap * 4 + ks) * 4 + nf) * 32];
+        split(v.x, bh[nf][0], bl[nf][0]);
+        split(v.y, bh[nf][1], bl[nf][1]);
+      }
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) {
+        const int q = ks * 8 * Win::PL + p + 16 * mf;
+        const uint32_t ah[4] = {__float_as_uint(Ah[q + c0]), __float_as_uint(Ah[q + c0 + 8]),
+                                __float_as_uint(Ah[q + c1]), __float_as_uint(Ah[q + c1 + 8])};
+        const uint32_t al[4] = {__float_as_uint(Al[q + c0]), __float_as_uint(Al[q + c0 + 8]),
+                                __float_as_uint(Al[q + c1]), __float_as_uint(Al[q + c1 + 8])};
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) {
+          mma(lo[mf][nf], al, bh[nf]);
+          mma(lo[mf][nf], ah, bl[nf]);
+          mma(hi[mf][nf], ah, bh[nf]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += hi[i][j][e];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += lo[i][j][e];
+}
+
+// Sum over the 8 lanes that share lane % 4 (the fragment rows g).
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ------------------------------------------------------------------ forward
+
+__global__ void __launch_bounds__(TH * 32, 1)
+se_conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ s, const float* __restrict__ t,
+                   float* __restrict__ y, float* __restrict__ part, Shape sh, int relu) {
+  extern __shared__ __align__(16) float smem[];
+  float* Bs = smem;               // taps in fragment order
+  float* Uh = Bs + NTAP;          // u window, hi and lo planes
+  float* Ul = Uh + Win::FLOATS;
+  float* Xs = Ul + Win::FLOATS;   // the next tile's x window, arriving
+  float* red = Xs + Win::FLOATS;  // [warp][sum, sq][C]
+  float* prm = red + 2 * TH * C;  // s, t
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  auto fetch = [&](int tile) {  // x into Xs, 0 outside the image
+    int b, h0, w0;
+    tile_origin(sh, tile, &b, &h0, &w0);
+    for_window(sh, b, h0, w0, [&](int, int q, bool in, size_t o) {
+      copy_async(Xs + q, x + o, in);
+    });
+  };
+  if (blockIdx.x < sh.ntiles) fetch(blockIdx.x);
+  stage_taps(Bs, w, false);
+  if (threadIdx.x < 2 * C)
+    prm[threadIdx.x] = __ldg(threadIdx.x < C ? s + threadIdx.x : t + threadIdx.x - C);
+
+  for (int tile = blockIdx.x; tile < sh.ntiles; tile += gridDim.x) {
+    int b, h0, w0;
+    tile_origin(sh, tile, &b, &h0, &w0);
+    copy_wait();
+    __syncthreads();  // Xs has arrived; the previous tile is done with U and red
+    // u = x s + t inside the image, split into the planes; then the next
+    // tile's x is fetched during this tile's MMAs
+    for_window(sh, b, h0, w0, [&](int c, int q, bool in, size_t) {
+      store_split(Uh, Ul, q, in ? Xs[q] * prm[c] + prm[C + c] : 0.f);
+    });
+    __syncthreads();
+    if (tile + gridDim.x < sh.ntiles) fetch(tile + gridDim.x);
+
+    float acc[2][4][4];
+    conv_row(Uh, Ul, Bs, warp, acc);
+
+    // per-channel S y, S y^2 of this row from the fragments, co = 8 nf +
+    // 2 t4 + e; y through shared memory ([co][pos], pitch 36: conflict-free
+    // both ways), then out as 32 rows of 32 positions
+    __syncthreads();  // every warp is done with the planes
+    float* Ys = Uh + warp * 32 * 36;
+    const int h = h0 + warp;
+    float s1[4][2], s2[4][2];
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) s1[nf][e] = s2[nf][e] = 0.f;
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int pos = 16 * mf + g + 8 * hh;
+        const bool ok = h < sh.H && w0 + pos < sh.W;
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int co = 8 * nf + 2 * t4 + e;
+            float v = acc[mf][nf][2 * hh + e];
+            if (relu) v = fmaxf(v, 0.f);
+            Ys[co * 36 + pos] = v;
+            if (ok) {
+              s1[nf][e] += v;
+              s2[nf][e] = fmaf(v, v, s2[nf][e]);
+            }
+          }
+      }
+    __syncwarp();
+    if (h < sh.H && w0 + lane < sh.W) {
+      float* yo = y + ((size_t)b * C * sh.H + h) * sh.W + w0 + lane;
+#pragma unroll 8
+      for (int co = 0; co < C; ++co) yo[(size_t)co * sh.H * sh.W] = Ys[co * 36 + lane];
+    }
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s1[nf][e] = row_sum(s1[nf][e]);
+        s2[nf][e] = row_sum(s2[nf][e]);
+        if (g == 0) {
+          red[(warp * 2 + 0) * C + 8 * nf + 2 * t4 + e] = s1[nf][e];
+          red[(warp * 2 + 1) * C + 8 * nf + 2 * t4 + e] = s2[nf][e];
+        }
+      }
+    __syncthreads();
+    if (threadIdx.x < 2 * C) {  // row [tile]: C sums, then C sums of squares
+      float a = 0.f;
+      for (int k = 0; k < TH; ++k) a += red[k * 2 * C + threadIdx.x];
+      part[(size_t)tile * 2 * C + threadIdx.x] = a;
+    }
+  }
+}
+
+// One block per sample b, of 32 channels x 32 slices: m[b, c] = the sum of
+// sample b's tile rows, and their S y^2 likewise, each in a fixed order;
+// both also go to the sample's first row for se_conv_fwd_total.
+__global__ void se_conv_fwd_sample(float* __restrict__ part, float* __restrict__ m,
+                                   int tiles_per_sample) {
+  __shared__ float r1[32][C], r2[32][C];
+  const int c = threadIdx.x, sl = threadIdx.y;
+  float* rows = part + (size_t)blockIdx.x * tiles_per_sample * 2 * C;
+  float a1 = 0.f, a2 = 0.f;
+  for (int j = sl; j < tiles_per_sample; j += 32) {
+    a1 += rows[(size_t)j * 2 * C + c];
+    a2 += rows[(size_t)j * 2 * C + C + c];
+  }
+  r1[sl][c] = a1;
+  r2[sl][c] = a2;
+  __syncthreads();  // every read of the rows is done
+  if (sl == 0) {
+    float m1 = 0.f, m2 = 0.f;
+    for (int k = 0; k < 32; ++k) {
+      m1 += r1[k][c];
+      m2 += r2[k][c];
+    }
+    m[(size_t)blockIdx.x * C + c] = m1;
+    rows[c] = m1;
+    rows[C + c] = m2;
+  }
+}
+
+// sum[c] = S_b m[b, c] and sq[c] likewise, in sample order (2C threads).
+__global__ void se_conv_fwd_total(const float* __restrict__ part, float* __restrict__ ssum,
+                                  float* __restrict__ ssq, int B, int tiles_per_sample) {
+  const int i = threadIdx.x;
+  float a = 0.f;
+  for (int b = 0; b < B; ++b) a += part[(size_t)b * tiles_per_sample * 2 * C + i];
+  if (i < C)
+    ssum[i] = a;
+  else
+    ssq[i - C] = a;
+}
+
+// ----------------------------------------------------------------- backward
+
+__global__ void __launch_bounds__(TH * 32, 1)
+se_conv_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                   const float* __restrict__ dy, const float* __restrict__ w,
+                   const float* __restrict__ s, const float* __restrict__ t,
+                   const float* __restrict__ dsum, const float* __restrict__ dsq,
+                   const float* __restrict__ dm, float* __restrict__ dx,
+                   float* __restrict__ part, Shape sh, int relu) {
+  static_assert(TH == 8, "wgrad gives each of 8 warps one tap and an eighth of tap 8");
+  extern __shared__ __align__(16) float smem[];
+  float* Bs = smem;              // dgrad taps in fragment order
+  float* Gh = Bs + NTAP;         // g window, hi and lo planes
+  float* Gl = Gh + Win::FLOATS;
+  float* Uh = Gl + Win::FLOATS;   // u window, hi and lo planes
+  float* Ul = Uh + Win::FLOATS;
+  float* red = Ul + Win::FLOATS;  // [warp][ds, dt][C]
+  float* prm = red + 2 * TH * C;  // s, t, dsum, dsq
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  stage_taps(Bs, w, true);
+  if (threadIdx.x < 4 * C) {
+    const int k = threadIdx.x / C, c = threadIdx.x % C;
+    prm[threadIdx.x] = __ldg((k == 0 ? s : k == 1 ? t : k == 2 ? dsum : dsq) + c);
+  }
+
+  // wgrad: this warp owns dW[co][ci] of tap `warp` (fragments f < 8: m
+  // block f / 4, n block f % 4) and of tap 8 (f = 8: m block warp / 4, n
+  // block warp % 4); co = 16 mb + g (+8), ci = 8 nb + 2 t4 (+1)
+  float dw[9][4];
+#pragma unroll
+  for (int f = 0; f < 9; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dw[f][e] = 0.f;
+  // ds, dt of input channels 8 nf + 2 t4 + e over this thread's positions
+  float dsa[4][2], dta[4][2];
+#pragma unroll
+  for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) dsa[nf][e] = dta[nf][e] = 0.f;
+  const int kh = warp / 3, kw = warp % 3;
+  const int mb8 = warp >> 2, nb8 = warp & 3;
+
+  for (int tile = blockIdx.x; tile < sh.ntiles; tile += gridDim.x) {
+    int b, h0, w0;
+    tile_origin(sh, tile, &b, &h0, &w0);
+    __syncthreads();
+    // y, dy and x into the Gh, Gl and Ul planes (0 outside the image), every
+    // copy in flight at once; then each thread turns the positions it copied
+    // into g and u, split in place
+    for_window(sh, b, h0, w0, [&](int, int q, bool in, size_t o) {
+      copy_async(Gh + q, y + o, in);
+      copy_async(Gl + q, dy + o, in);
+      copy_async(Ul + q, x + o, in);
+    });
+    copy_wait();
+    const float* dmb = dm + (size_t)b * C;
+    for_window(sh, b, h0, w0, [&](int c, int q, bool in, size_t) {
+      float gv = 0.f, u = 0.f;
+      if (in) {
+        const float yv = Gh[q];
+        gv = Gl[q] + prm[2 * C + c] + 2.f * yv * prm[3 * C + c] + __ldg(dmb + c);
+        if (relu && !(yv > 0.f)) gv = 0.f;
+        u = Ul[q] * prm[c] + prm[C + c];
+      }
+      store_split(Gh, Gl, q, gv);
+      store_split(Uh, Ul, q, u);
+    });
+    __syncthreads();
+
+    // dgrad: du at tile row `warp` for input channels 8 nf + 2 t4 + e
+    {
+      float acc[2][4][4];
+      conv_row(Gh, Gl, Bs, warp, acc);
+      const int h = h0 + warp;
+      if (h < sh.H) {
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int col = w0 + 16 * mf + g + 8 * hh;
+            if (col >= sh.W) continue;
+#pragma unroll
+            for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int ci = 8 * nf + 2 * t4 + e;
+                const size_t o = (((size_t)b * C + ci) * sh.H + h) * sh.W + col;
+                const float du = acc[mf][nf][2 * hh + e];
+                dx[o] = du * prm[ci];
+                dsa[nf][e] = fmaf(du, __ldg(x + o), dsa[nf][e]);
+                dta[nf][e] += du;
+              }
+          }
+      }
+    }
+
+    // wgrad over the tile's positions, 8 a k-step (row r, columns 8 cb..):
+    // A[co][pos] = g at the position, B[pos][ci] = u at the position + the
+    // tap's shift. g is 0 outside the image, so those positions add 0.
+    {
+      float acc[9][4];
+#pragma unroll
+      for (int f = 0; f < 9; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[f][e] = 0.f;
+      const int ga = chan(g), gb = chan(g + 8);  // co = g, g + 8 of an m block
+      const int ub = chan(g);                          // ci = g of an n block
+#pragma unroll 1
+      for (int kstep = 0; kstep < TH * 4; ++kstep) {
+        const int r = kstep >> 2, c8 = (kstep & 3) * 8 + t4;
+        const int pg = (r + 1) * Win::WR + c8 + 1;
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf) {
+          const int q = 16 * mf * Win::PL + pg;
+          const int o[4] = {q + ga, q + gb, q + ga + 4, q + gb + 4};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[mf][e] = __float_as_uint(Gh[o[e]]);
+            al[mf][e] = __float_as_uint(Gl[o[e]]);
+          }
+        }
+        const int pu = (r + kh) * Win::WR + c8 + kw;
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) {
+          const int q = 8 * nf * Win::PL + pu + ub;
+          const uint32_t bh[2] = {__float_as_uint(Uh[q]), __float_as_uint(Uh[q + 4])};
+          const uint32_t bl[2] = {__float_as_uint(Ul[q]), __float_as_uint(Ul[q + 4])};
+#pragma unroll
+          for (int mf = 0; mf < 2; ++mf) {
+            mma(acc[4 * mf + nf], al[mf], bh);
+            mma(acc[4 * mf + nf], ah[mf], bl);
+            mma(acc[4 * mf + nf], ah[mf], bh);
+          }
+        }
+        {  // tap 8 (kh = kw = 2), this warp's fragment
+          const int q = 8 * nb8 * Win::PL + (r + 2) * Win::WR + c8 + 2 + ub;
+          const uint32_t bh[2] = {__float_as_uint(Uh[q]), __float_as_uint(Uh[q + 4])};
+          const uint32_t bl[2] = {__float_as_uint(Ul[q]), __float_as_uint(Ul[q + 4])};
+          uint32_t a8h[4], a8l[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            a8h[e] = mb8 ? ah[1][e] : ah[0][e];
+            a8l[e] = mb8 ? al[1][e] : al[0][e];
+          }
+          mma(acc[8], a8l, bh);
+          mma(acc[8], a8h, bl);
+          mma(acc[8], a8h, bh);
+        }
+      }
+#pragma unroll
+      for (int f = 0; f < 9; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dw[f][e] += acc[f][e];
+    }
+  }
+
+  // this block's partial row: dW in w's layout [co][ci][kh][kw], then ds, dt
+  float* row = part + (size_t)blockIdx.x * NPART;
+#pragma unroll
+  for (int f = 0; f < 9; ++f) {
+    const int tap = f < 8 ? warp : 8;
+    const int mb = f < 8 ? f >> 2 : mb8, nb = f < 8 ? f & 3 : nb8;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int co = 16 * mb + g + 8 * (e >> 1), ci = 8 * nb + 2 * t4 + (e & 1);
+      row[(co * C + ci) * 9 + tap] = dw[f][e];
+    }
+  }
+#pragma unroll
+  for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      dsa[nf][e] = row_sum(dsa[nf][e]);
+      dta[nf][e] = row_sum(dta[nf][e]);
+      if (g == 0) {
+        red[(warp * 2 + 0) * C + 8 * nf + 2 * t4 + e] = dsa[nf][e];
+        red[(warp * 2 + 1) * C + 8 * nf + 2 * t4 + e] = dta[nf][e];
+      }
+    }
+  __syncthreads();
+  if (threadIdx.x < 2 * C) {
+    float a = 0.f;
+    for (int k = 0; k < TH; ++k) a += red[k * 2 * C + threadIdx.x];
+    row[NTAP + threadIdx.x] = a;
+  }
+}
+
+// out[i] = S over blocks of part[blk][i]: 8 slices of the blocks, each
+// summed in block order, then the slices in order; 32 outputs a block.
+__global__ void se_conv_bwd_finish(const float* __restrict__ part, float* __restrict__ out,
+                                   int nblocks) {
+  __shared__ float r[8][32];
+  const int i = blockIdx.x * 32 + threadIdx.x, sl = threadIdx.y;
+  float a = 0.f;
+  if (i < NPART)
+    for (int k = sl; k < nblocks; k += 8) a += part[(size_t)k * NPART + i];
+  r[sl][threadIdx.x] = a;
+  __syncthreads();
+  if (sl == 0 && i < NPART) {
+    float tot = 0.f;
+    for (int k = 0; k < 8; ++k) tot += r[k][threadIdx.x];
+    out[i] = tot;
+  }
+}
+
 int sm_count() {
   int dev = 0, n = 0;
   cudaGetDevice(&dev);
@@ -376,8 +596,13 @@ int sm_count() {
   return n > 0 ? n : 1;
 }
 
-constexpr size_t FWD_SMEM = (size_t)(NTAP + C * PL + 4 * C) * sizeof(float);
-constexpr size_t BWD_SMEM = (size_t)(NTAP + 2 * C * PL + 4 * C) * sizeof(float);
+constexpr size_t FWD_SMEM =
+    (size_t)(NTAP + 3 * Win::FLOATS + 2 * TH * C + 2 * C) * sizeof(float);
+constexpr size_t BWD_SMEM =
+    (size_t)(NTAP + 4 * Win::FLOATS + 2 * TH * C + 4 * C) * sizeof(float);
+static_assert(FWD_SMEM <= 227 * 1024, "forward shared memory");
+static_assert(TH * 32 * 36 <= Win::FLOATS, "y staging fits the hi planes");
+static_assert(BWD_SMEM <= 227 * 1024, "backward shared memory");
 
 }  // namespace
 
@@ -386,7 +611,8 @@ extern "C" {
 // Rows of scratch the forward needs: one per tile, 2*C floats each.
 int zv_se_conv_fwd_tiles(int B, int H, int W) { return make_shape(B, H, W).ntiles; }
 
-// Blocks of the backward pass: its scratch holds NPART floats per block.
+// Blocks of either pass (one an SM, at most one a tile); the backward's
+// scratch holds NPART floats per block.
 int zv_se_conv_bwd_blocks(int B, int H, int W) {
   const int n = make_shape(B, H, W).ntiles, g = sm_count();
   return n < g ? n : g;
@@ -403,12 +629,14 @@ int zv_se_conv_fwd_f32(const float* x, const float* w, const float* s, const flo
   cudaError_t e = cudaFuncSetAttribute(se_conv_fwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
   if (e != cudaSuccess) return (int)e;
-  int grid = 2 * sm_count();
-  if (grid > sh.ntiles) grid = sh.ntiles;
-  se_conv_fwd_kernel<<<grid, NT, FWD_SMEM, st>>>(x, w, s, t, y, part, sh, relu);
+  const int grid = zv_se_conv_bwd_blocks(B, H, W);
+  se_conv_fwd_kernel<<<grid, TH * 32, FWD_SMEM, st>>>(x, w, s, t, y, part, sh, relu);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  se_conv_fwd_finish<<<1, dim3(C, 32), 0, st>>>(part, ssum, ssq, m, B, sh.nth * sh.ntw);
+  se_conv_fwd_sample<<<B, dim3(C, 32), 0, st>>>(part, m, sh.nth * sh.ntw);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  se_conv_fwd_total<<<1, 2 * C, 0, st>>>(part, ssum, ssq, B, sh.nth * sh.ntw);
   return (int)cudaGetLastError();
 }
 
@@ -426,11 +654,11 @@ int zv_se_conv_bwd_f32(const float* x, const float* y, const float* dy, const fl
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
   if (e != cudaSuccess) return (int)e;
   const int grid = zv_se_conv_bwd_blocks(B, H, W);
-  se_conv_bwd_kernel<<<grid, NT, BWD_SMEM, st>>>(x, y, dy, w, s, t, dsum, dsq, dm, dx, part,
-                                                 sh, relu);
+  se_conv_bwd_kernel<<<grid, TH * 32, BWD_SMEM, st>>>(x, y, dy, w, s, t, dsum, dsq, dm, dx,
+                                                          part, sh, relu);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  se_conv_bwd_finish<<<(NPART + 255) / 256, 256, 0, st>>>(part, out, grid);
+  se_conv_bwd_finish<<<(NPART + 31) / 32, dim3(32, 8), 0, st>>>(part, out, grid);
   return (int)cudaGetLastError();
 }
 

@@ -17,8 +17,10 @@ with torch-layout taps w [32, 32, 3, 3]:
     is the fused backward kernel (dgrad, wgrad, the statistics' cotangents
     and the affine's gradients in one pass). They replace the TPU kernels
     `zerovox_tpu/ops/pallas/se_fused.py::se_conv` (`_fwd_call`,
-    `_bwd_call`). On an H100 both are bound by arithmetic (72 FLOP per byte
-    at [24, 32, 80, 500]); design notes are in the source;
+    `_bwd_call`). Every product of the conv runs on the tensor cores in
+    3xTF32 (implicit GEMMs on `mma.sync`); on an H100 both are bound by
+    operations (72 FLOP per byte at [24, 32, 80, 500]); design notes are in
+    the source;
   * on CPU tensors it runs `se_conv_plain`, the same function in plain
     PyTorch, differentiated by autograd.
 
