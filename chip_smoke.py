@@ -12,10 +12,11 @@ Phases, in order; any failure exits nonzero:
    register and spill report of each entry function.
 3. Kernels at their paths' shapes, each against its plain PyTorch version on
    the card, timed with CUDA events beside the plain version and the card's
-   bound for the kernel's method (3xTF32 tensor cores for K1, K2 and K4,
-   float32 FMA for K3): K1 and K2 at the serving path's (bucket 689 of
-   bench.py's text) and at one streamed window's shapes, with the tile each
-   takes (max abs diff < 5e-4); K4 forward and backward (`se_conv`) at the
+   bound for the kernel's method (3xTF32 tensor cores for all four): K1 and
+   K2 at the serving path's (bucket 689 of bench.py's text) and at one
+   streamed window's shapes, with the tile each takes (max abs diff <
+   5e-4); K3 at phase 8's three vocoder stage shapes, with its tile (<
+   5e-4); K4 forward and backward (`se_conv`) at the
    training path's [24, 32, 80, 500] (y and dx < 5e-4 absolute, every reduction
    < 1e-4 x the plain result's max |value|), with F.conv2d alone beside them.
 4. The serving path at full width (default ZeroVoxConfig + HiFi-GAN, random
@@ -35,15 +36,19 @@ Phases, in order; any failure exits nonzero:
 8. The StyleTTS-decoder path at full width (ZeroVoxConfig with the StyleTTS
    decoder, a single-tower HiFi-GAN at V1's widths, random weights from seed
    0): speaker_embed -> tts_ex (3 K3 launches) -> tts_stream -> tts_batch at
-   B=4 with forced durations (no K3 launch), with the launch counts read
-   around that run; RTF, first-chunk p50 and stage times; then the card
-   against the CPU on a short text and on one tts_batch of 2 rows (1e-3).
-9. The default engine's tts_batch at B=4 (2 K2 launches, no K1: K1 is
-   batch-1 only), and stage 1 at B=4 through K1 against its plain version,
-   timed in turns, with whether the batch-1 rule still holds (K1 slower).
-
-Phase 3 also holds K3 (`fused_resblock1`) at phase 8's three vocoder stage
-shapes against its plain version (< 5e-4).
+   B=4 with forced durations (K3 only if the engine's VOCODER_ALL_BATCHES),
+   with the launch counts read around that run; RTF, first-chunk p50 and
+   stage times; then the card against the CPU on a short text and on one
+   tts_batch of 2 rows (1e-3).
+9. The default engine's tts_batch at B=4 (2 K2 launches; K1 only if
+   VOCODER_ALL_BATCHES); then the batch rule: K1 (stage 1 of the default
+   vocoder) and K3 (stages 1-3 of the single-tower one) at B=4 and B=8
+   against their plain stages, timed in turns, and whether each kernel wins
+   at both sizes beside the engine's setting.
+10. The vocoder's gradients on the card: Generator(use_pallas=True) under
+   grad raises (no kernel launched); Generator(use_pallas=False) at V1's
+   widths cut to two stages gives the mel's and every parameter's gradient
+   within 1e-3 x its tensor's max of the CPU's (TF32 off).
 
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -252,6 +257,8 @@ def resblock_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
     """K3 at the StyleTTS path's shapes: one ResBlock1 tower on each stage of
     the single-tower vocoder with C <= 128 (stages 1-3 at V1's widths),
     against its plain version."""
+    from zerovox_tpu_torch.ops import _cuda
+    from zerovox_tpu_torch.ops.mrf import pack_towers
     from zerovox_tpu_torch.ops.resblock import fused_resblock1, resblock1_plain
 
     (k,), (dils,) = hcfg.resblock_kernel_sizes, hcfg.resblock_dilation_sizes
@@ -265,12 +272,15 @@ def resblock_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
             continue
         x = torch.randn(1, T, C, generator=gen).to(dev)
         tower = random_towers(torch, gen, C, (k,), P, dev)[0]
+        packed = pack_towers([tower])
         flop, wbytes = mrf_work(T, C, (k,), P)
+        tile = _cuda.lib("resblock").zv_resblock1_tile(1, T, C, k, P, *dils, *[0] * (3 - P))
         measure(torch, rows, "fused_resblock1", "zerovox_tpu_torch/csrc/resblock.cu",
                 "zerovox_tpu/ops/pallas/resblock.py:106", f"[1,{T},{C}]",
-                lambda x=x, tw=tower: fused_resblock1(x, *tw, dils),
-                lambda x=x, tw=tower: resblock1_plain(x, *tw, dils), flop, wbytes + 8.0 * T * C)
-        del x, tower
+                lambda x=x, tw=tower, pk=packed: fused_resblock1(x, *tw, dils, packed=pk),
+                lambda x=x, tw=tower: resblock1_plain(x, *tw, dils), flop, wbytes + 8.0 * T * C,
+                "3xtf32", tile_rows=tile, recompute=halo_recompute(tile, (k,), dils))
+        del x, tower, packed
     return rows
 
 
@@ -640,7 +650,8 @@ def styletts_phase(torch, card: str, refwav, sr: int, profile_dir) -> dict:
 
     from zerovox_tpu_torch.config import ZeroVoxConfig
     from zerovox_tpu_torch.ops.resblock import fused_resblock1
-    from zerovox_tpu_torch.synthesize import MEL_BUCKETS, ZeroVoxTTS, pick_bucket
+    from zerovox_tpu_torch.synthesize import (MEL_BUCKETS, VOCODER_ALL_BATCHES, ZeroVoxTTS,
+                                              pick_bucket)
     from zerovox_tpu_torch.utils.profiling import RtfStats, cuda_time_ms
 
     base = ZeroVoxConfig()  # configs/tts_medium_styledec.yaml, built in code (no pyyaml here)
@@ -671,7 +682,10 @@ def styletts_phase(torch, card: str, refwav, sr: int, profile_dir) -> dict:
     check(per_tts_ex == 3, f"tts_ex launched K3 {per_tts_ex} times, not 3")
     check(after_stream - per_tts_ex == 3 * len(chunks),
           f"tts_stream launched K3 {after_stream - per_tts_ex} times for {len(chunks)} windows")
-    check(counts["fused_resblock1"] == after_stream, "tts_batch at B=4 launched K3")
+    batch_k3 = 3 if VOCODER_ALL_BATCHES else 0
+    check(counts["fused_resblock1"] - after_stream == batch_k3,
+          f"tts_batch at B=4 launched K3 {counts['fused_resblock1'] - after_stream} times, "
+          f"not {batch_k3}")
     check(all(v == 0 for k, v in counts.items() if k != "fused_resblock1"),
           f"the StyleTTS path launched another kernel: {counts}")
     check(n == n_frames and wav.shape == (n_frames * hop,), f"wav {wav.shape}, {n} frames")
@@ -745,14 +759,14 @@ def styletts_phase(torch, card: str, refwav, sr: int, profile_dir) -> dict:
 
 
 def default_batch_phase(torch, dev, card: str, refwav, sr: int) -> dict:
-    """Phase 9: the default engine's tts_batch at B=4 (K2 twice, K1 never),
-    then stage 1 at B=4 through K1 against its plain version, in turns."""
+    """Phase 9: the default engine's tts_batch at B=4 (K2 twice, K1 as the
+    engine's VOCODER_ALL_BATCHES says), then the batch rule at B=4 and 8."""
     import numpy as np
 
-    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
-    from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers
+    from zerovox_tpu_torch.ops.mrf import fused_mrf
     from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
-    from zerovox_tpu_torch.synthesize import MEL_BUCKETS, ZeroVoxTTS, pick_bucket
+    from zerovox_tpu_torch.synthesize import (MEL_BUCKETS, VOCODER_ALL_BATCHES, ZeroVoxTTS,
+                                              pick_bucket)
     from zerovox_tpu_torch.utils.profiling import cuda_time_ms
 
     engine = ZeroVoxTTS.from_random(seed=0)
@@ -764,35 +778,118 @@ def default_batch_phase(torch, dev, card: str, refwav, sr: int) -> dict:
     torch.cuda.synchronize()
     counts = kernel_counts()
     check_batch(rows, durs, engine.cfg.audio.hop_size, "default tts_batch")
-    check(fused_upsample_stage.launches == 2 and fused_mrf.launches == 0
+    k1 = 1 if VOCODER_ALL_BATCHES else 0
+    check(fused_upsample_stage.launches == 2 and fused_mrf.launches == k1
           and counts["fused_resblock1"] == 0,
-          f"the default engine's tts_batch at B=4 launched {counts}, not K2 twice")
+          f"the default engine's tts_batch at B=4 launched {counts}, not K2 twice and K1 {k1}x")
     batch_ms = cuda_time_ms(lambda: engine.tts_batch(list(BATCH_TEXTS), spks, durations=durs),
                             iters=3, warmup=1)
-
-    hcfg = HifiGanConfig()
-    ks, dils = tuple(hcfg.resblock_kernel_sizes), tuple(hcfg.resblock_dilation_sizes[0])
     T_mel = pick_bucket(max(int(d.sum()) for d in durs), MEL_BUCKETS)
-    C1, T1 = hcfg.upsample_initial_channel // 4, T_mel * hcfg.upsample_rates[0] * hcfg.upsample_rates[1]
-    gen = torch.Generator().manual_seed(3456)
-    x = torch.randn(len(BATCH_TEXTS), T1, C1, generator=gen).to(dev)
-    towers = random_towers(torch, gen, C1, ks, len(dils), dev)
-    mrf = pack_towers(towers)
-    err = (fused_mrf(x, mrf, dils, ks) - mrf_plain(x, towers, dils)).abs().max().item()
-    check(err < KERNEL_TOL, f"K1 at B=4: max abs diff {err} against the plain version")
-    turns = {"plain": [], "fused_mrf": []}
-    for label in ("plain", "fused_mrf", "fused_mrf", "plain"):
-        fn = (lambda: mrf_plain(x, towers, dils)) if label == "plain" else \
-            (lambda: fused_mrf(x, mrf, dils, ks))
-        turns[label].append(cuda_time_ms(fn, iters=5, warmup=1))
-    flop, _ = mrf_work(len(BATCH_TEXTS) * T1, C1, ks, len(dils))
-    # the Generator's rule (K1 at batch 1 only) holds while K1 at B=4 is slower than plain
-    rule_holds = min(turns["fused_mrf"]) > max(turns["plain"])
+    rule = batch_rule(torch, dev, T_mel)
     out = {"launches": counts, "tts_batch_b4_ms": batch_ms, "rows": [r[1] for r in rows],
-           "stage1_b4": {"shape": f"[{len(BATCH_TEXTS)},{T1},{C1}]", "max_abs_err": err,
-                         "turns_ms": turns, "gflop": flop / 1e9,
-                         "batch1_rule_holds": rule_holds}, "card": card}
+           "batch_rule": rule, "engine_all_batches": VOCODER_ALL_BATCHES, "card": card}
     print(json.dumps({"default_batch": out}), flush=True)
+    return out
+
+
+def batch_rule(torch, dev, T_mel: int) -> dict:
+    """K1 (stage 1 of the default vocoder) and K3 (stages 1-3 of the
+    single-tower one, summed) at B = 4 and 8 against their plain stages on
+    the same inputs, each checked (< KERNEL_TOL) and timed in turns (plain,
+    kernel, kernel, plain). The engine's VOCODER_ALL_BATCHES should be on
+    only where both kernels win at both sizes."""
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers
+    from zerovox_tpu_torch.ops.resblock import fused_resblock1, resblock1_plain
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    gen = torch.Generator().manual_seed(3456)
+    res = {}
+    for name, hcfg in (("fused_mrf", HifiGanConfig()), ("fused_resblock1", single_tower_hifigan())):
+        ks, dils = tuple(hcfg.resblock_kernel_sizes), tuple(hcfg.resblock_dilation_sizes[0])
+        c0, T = hcfg.upsample_initial_channel, T_mel
+        stages = []
+        for i, u in enumerate(hcfg.upsample_rates):
+            C, T = c0 // 2 ** (i + 1), T * u
+            if C <= 128 and (name == "fused_resblock1" or i == 1):
+                stages.append((T, C))
+        for B in (4, 8):
+            calls = []
+            for T, C in stages:
+                x = torch.randn(B, T, C, generator=gen).to(dev)
+                towers = random_towers(torch, gen, C, ks, len(dils), dev)
+                packed = pack_towers(towers)
+                if name == "fused_mrf":
+                    kern = lambda x=x, pk=packed: fused_mrf(x, pk, dils, ks)  # noqa: E731
+                    plain = lambda x=x, tw=towers: mrf_plain(x, tw, dils)  # noqa: E731
+                else:
+                    kern = lambda x=x, tw=towers, pk=packed: fused_resblock1(  # noqa: E731
+                        x, *tw[0], dils, packed=pk)
+                    plain = lambda x=x, tw=towers: resblock1_plain(x, *tw[0], dils)  # noqa: E731
+                err = (kern() - plain()).abs().max().item()
+                check(err < KERNEL_TOL, f"{name} at B={B}, [{T},{C}]: max abs diff {err}")
+                calls.append((kern, plain))
+            turns = {"plain": [], "kernel": []}
+            for label in ("plain", "kernel", "kernel", "plain"):
+                i = 0 if label == "kernel" else 1
+                turns[label].append(sum(cuda_time_ms(c[i], iters=5, warmup=1) for c in calls))
+            res[f"{name}_b{B}"] = {"stages": [f"[{B},{T},{C}]" for T, C in stages],
+                                   "turns_ms": turns,
+                                   "kernel_wins": max(turns["kernel"]) < min(turns["plain"])}
+            del calls
+    res["both_win_at_4_and_8"] = all(v["kernel_wins"] for v in res.values())
+    return res
+
+
+def grad_phase(torch, dev, card: str) -> dict:
+    """Phase 10: the kernel route refuses autograd on the card, and the
+    nn.Modules' route gives the CPU's gradients."""
+    import numpy as np
+
+    from zerovox_tpu_torch.models.hifigan import Generator, HifiGanConfig
+    from zerovox_tpu_torch.synthesize import random_init_
+
+    # HiFi-GAN V1's widths and towers, two of its four stages: stage 0 at
+    # C=256 plain, stage 1 at C=128 the MRF kernel's stage
+    cfg = HifiGanConfig(upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16))
+    rng = np.random.default_rng(10)
+    mel = torch.tensor(rng.normal(size=(1, 32, cfg.num_mels)).astype(np.float32))
+    ct = torch.tensor(rng.normal(size=(1, 32 * cfg.total_upsample)).astype(np.float32))
+    n0 = kernel_counts()
+    for hcfg in (cfg, single_tower_hifigan()):
+        gen = Generator(hcfg, use_pallas=True).to(dev)
+        try:
+            gen(mel.to(dev))
+        except RuntimeError as e:
+            check("no backward" in str(e), f"use_pallas=True under grad raised {e}")
+        else:
+            fail("Generator(use_pallas=True) under grad returned instead of raising")
+    check(kernel_counts() == n0, f"the refused calls launched kernels: {kernel_counts()} vs {n0}")
+
+    ref = Generator(cfg)
+    random_init_(ref, torch.Generator().manual_seed(10))
+    with torch.no_grad():
+        for prm in ref.parameters():
+            if prm.dim() == 1:
+                prm.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(prm.numel()))
+
+    def grads(device):
+        g = Generator(cfg).to(device)
+        g.load_state_dict(ref.state_dict())
+        x = mel.to(device).requires_grad_(True)
+        (g(x) * ct.to(device)).sum().backward()
+        out = {n: p.grad.detach().cpu() for n, p in g.named_parameters()}
+        out["mel"] = x.grad.detach().cpu()
+        return out
+
+    card_g, cpu_g = grads(dev), grads("cpu")
+    check(card_g.keys() == cpu_g.keys() and all(v is not None for v in card_g.values()),
+          "the card's Generator gave other gradients")
+    worst = max(((card_g[n] - cpu_g[n]).abs().max().item() / cpu_g[n].abs().max().item(), n)
+                for n in cpu_g)
+    check(worst[0] <= STEP_GRAD_TOL, f"vocoder gradient {worst[1]}: {worst[0]} x its max |value|")
+    out = {"n_grads": len(cpu_g), "worst_grad_rel_err": worst[0], "worst": worst[1], "card": card}
+    print(json.dumps({"vocoder_grads": out}), flush=True)
     return out
 
 
@@ -1016,9 +1113,14 @@ def main() -> None:
             row["launches"] = sty["launches"]["fused_resblock1"]
     torch.cuda.empty_cache()
 
-    # ---- 9. the default engine's tts_batch at B=4, and K1 at B=4
+    # ---- 9. the default engine's tts_batch at B=4, and the batch rule at B=4 and 8
     phase("default batch")
     default_batch_phase(torch, dev, card, refwav, sr)
+    torch.cuda.empty_cache()
+
+    # ---- 10. the vocoder's gradients
+    phase("vocoder gradients")
+    grad_phase(torch, dev, card)
 
     # ---- results
     print(card)

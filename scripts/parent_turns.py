@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""This tree against an earlier checkout of it, on one card, in turns.
+
+    python3 scripts/parent_turns.py PARENT_DIR [--rounds N] [--runs M] [--out FILE]
+
+PARENT_DIR holds the earlier commit's files (`git archive`). Child processes
+run N rounds (default 1) of parent, change, change, parent; each imports the
+`zerovox_tpu_torch` package of its own tree and builds its own kernels. Each
+measures first-chunk latency as `chip_smoke.py` phases 4 and 8 do (p50 of
+`tts_stream` to its first chunk over M calls, default 15, the first 5 not
+counted; bench.py's text with forced durations): on the default engine and
+on the StyleTTS engine with the single-tower vocoder, random weights from
+seed 0. The first parent and change children also save K1, K2 and K4's
+outputs on seeded inputs, and the two sets are compared with `torch.equal`.
+
+Prints the card's name and power limit, then one JSON object (also written
+to FILE when given).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+TEXT = ("The quick brown fox jumps over the lazy dog while the curious cat "
+        "watches from a sunny windowsill in the early morning light.")
+FRAMES_PER_PHONE = 6
+
+
+def kernel_outputs(torch) -> dict:
+    """K1, K2 (plain and with conv_post) and K4 forward and backward on
+    seeded inputs at their paths' widths."""
+    from zerovox_tpu_torch.ops.mrf import fused_mrf, pack_towers
+    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd, se_conv_fwd
+    from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage, pack_upsampler
+
+    gen = torch.Generator().manual_seed(77)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+    def towers(C):
+        return [(rnd(3, k, C, C, scale=(k * C) ** -0.5), rnd(3, C, scale=0.5),
+                 rnd(3, k, C, C, scale=(k * C) ** -0.5), rnd(3, C, scale=0.5)) for k in (3, 7, 11)]
+
+    dils, ks = (1, 3, 5), (3, 7, 11)
+    out = {"k1": fused_mrf(rnd(1, 11008, 128), pack_towers(towers(128)), dils, ks)}
+    for name, (T_in, ci, co, post) in {"k2": (11008, 128, 64, False),
+                                       "k2_post": (22016, 64, 32, True)}.items():
+        up = pack_upsampler(rnd(4, ci, co, scale=(2 * ci) ** -0.5), rnd(co, scale=0.5), 2)
+        p = (rnd(7, co, 1, scale=(7 * co) ** -0.5), rnd(1, scale=0.1)) if post else None
+        out[name] = fused_upsample_stage(rnd(1, T_in, ci), up, 1, pack_towers(towers(co)), dils, ks,
+                                         post=p)
+    x, w = rnd(4, 32, 80, 500), rnd(32, 32, 3, 3, scale=288 ** -0.5)
+    s, t = (torch.rand(32, generator=gen) + 0.5).cuda(), rnd(32, scale=0.3)
+    for relu in (True, False):
+        fwd = se_conv_fwd(x, w, s, t, relu)
+        bwd = se_conv_bwd(x, fwd[0], rnd(4, 32, 80, 500), w, s, t, rnd(32), rnd(32), rnd(4, 32), relu)
+        for i, a in enumerate(fwd):
+            out[f"k4_fwd_{relu}_{i}"] = a
+        for i, a in enumerate(bwd):
+            out[f"k4_bwd_{relu}_{i}"] = a
+    torch.cuda.synchronize()
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def first_chunk_p50(torch, engine, refwav, runs: int) -> float:
+    import numpy as np
+
+    from zerovox_tpu_torch.utils.profiling import RtfStats
+
+    spk = engine.speaker_embed(refwav)
+    dur = np.full(len(engine.text2phonemeids(TEXT)[0]), FRAMES_PER_PHONE, np.int32)
+    lat = RtfStats(warmup=4)
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        gen = engine.tts_stream(TEXT, spk, duration=dur)
+        next(gen)
+        first = time.perf_counter() - t0
+        for _ in gen:
+            pass
+        lat.add(1.0, time.perf_counter() - t0, first_chunk_s=first)
+    return lat.p50_first_chunk_ms
+
+
+def child(root: Path, out: Path, dump: Path | None, runs: int) -> None:
+    sys.path.insert(0, str(root))
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    import zerovox_tpu_torch
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+    from zerovox_tpu_torch.device import use_full_f32
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.synthesize import ZeroVoxTTS
+
+    if Path(zerovox_tpu_torch.__file__).resolve().parent != (root / "zerovox_tpu_torch").resolve():
+        sys.exit(f"imported {zerovox_tpu_torch.__file__}, not {root}'s package")
+    use_full_f32()
+    if dump is not None:
+        torch.save(kernel_outputs(torch), dump)
+    refwav = np.random.default_rng(0).normal(size=2 * 22050).astype(np.float32) * 0.1
+    res = {"main": first_chunk_p50(torch, ZeroVoxTTS.from_random(seed=0), refwav, runs)}
+    base = ZeroVoxConfig()
+    cfg = dc.replace(base, model=dc.replace(
+        base.model, decoder=dc.replace(base.model.decoder, kind="styletts")))
+    hcfg = HifiGanConfig(resblock="1", upsample_initial_channel=512, upsample_rates=(8, 8, 2, 2),
+                         upsample_kernel_sizes=(16, 16, 4, 4), resblock_kernel_sizes=(3,),
+                         resblock_dilation_sizes=((1, 3, 5),))
+    res["styletts"] = first_chunk_p50(torch, ZeroVoxTTS.from_random(cfg, hcfg, seed=0), refwav,
+                                      runs)
+    out.write_text(json.dumps(res))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("parent", nargs="?", type=Path)
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--runs", type=int, default=15)
+    ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--child", type=Path, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--result", type=Path, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dump", type=Path, default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child is not None:
+        child(args.child, args.result, args.dump, args.runs)
+        return
+    if args.parent is None:
+        ap.error("give the parent checkout's directory")
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("parent_turns: needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    turns = {"parent": [], "change": []}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        dumps = {}
+        for i, label in enumerate(("parent", "change", "change", "parent") * args.rounds):
+            root = args.parent.resolve() if label == "parent" else ROOT
+            res = tmp / f"{i}.json"
+            cmd = [sys.executable, str(Path(__file__).resolve()), "--child", str(root),
+                   "--result", str(res), "--runs", str(args.runs)]
+            if label not in dumps:
+                dumps[label] = tmp / f"{label}.pt"
+                cmd += ["--dump", str(dumps[label])]
+            proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True)
+            if proc.returncode != 0:
+                sys.exit(f"parent_turns: the {label} child failed:\n{proc.stdout}\n{proc.stderr}")
+            turns[label].append(json.loads(res.read_text()))
+        a, b = torch.load(dumps["parent"]), torch.load(dumps["change"])
+        bitwise = {k: a[k].shape == b[k].shape and torch.equal(a[k], b[k]) for k in a}
+    medians = {label: {k: statistics.median(t[k] for t in ts) for k in ts[0]}
+               for label, ts in turns.items()}
+    result = {"first_chunk_p50_ms": turns, "median_of_p50s_ms": medians, "runs": args.runs,
+              "kernels_bitwise_as_parent": bitwise,
+              "all_bitwise": all(bitwise.values()) and a.keys() == b.keys(), "card": card}
+    print(card)
+    print(json.dumps(result))
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(result) + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -92,7 +92,7 @@ DIFFERING = dict(upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
 @pytest.mark.parametrize("hcfg", [SINGLE, DIFFERING], ids=["single_tower", "differing_dilations"])
 def test_generator_with_resblock_towers_matches_jax_generator(hcfg):
     cfg = HifiGanConfig(**hcfg)
-    gen = Generator(cfg)
+    gen = Generator(cfg, use_pallas=True)
     random_init_(gen, torch.Generator().manual_seed(3))
     with torch.no_grad():
         for p in gen.parameters():
@@ -125,7 +125,8 @@ def test_resblock_towers_route_like_the_jax_package(monkeypatch):
     for attr, name in (("fused_resblock1", "resblock"), ("fused_mrf", "mrf"),
                        ("fused_upsample_stage", "stage")):
         monkeypatch.setattr(port_hifigan, attr, _spy(calls, name, getattr(port_hifigan, attr)))
-    gen = Generator(HifiGanConfig(**{**SINGLE, "upsample_initial_channel": 512}))
+    gen = Generator(HifiGanConfig(**{**SINGLE, "upsample_initial_channel": 512}),
+                    use_pallas=True)
     with torch.no_grad():
         wav = gen(torch.zeros(1, 3, 80))
     assert wav.shape == (1, 3 * 256)
@@ -134,10 +135,36 @@ def test_resblock_towers_route_like_the_jax_package(monkeypatch):
                      ("resblock", (1, 3 * 256, 32), (1, 3, 5))]
     calls.clear()
     with torch.no_grad():
-        Generator(HifiGanConfig(**DIFFERING))(torch.zeros(1, 3, 80))
+        Generator(HifiGanConfig(**DIFFERING), use_pallas=True)(torch.zeros(1, 3, 80))
     assert calls == [("resblock", (1, 12, 32), (1, 3, 5)), ("resblock", (1, 12, 32), (1, 2)),
                      ("resblock", (1, 48, 16), (1, 3, 5)), ("resblock", (1, 48, 16), (1, 2))]
     calls.clear()
     with torch.no_grad():
         gen(torch.zeros(2, 3, 80))
     assert calls == []
+
+
+def test_switches_route_like_the_jax_package(monkeypatch):
+    """use_pallas off (the default): no stage takes a kernel, at any batch.
+    pallas_all_batches: batch 2 takes K1 and K3 as batch 1 does (K2 takes
+    every batch either way), as the JAX Generator's switch does."""
+    calls = []
+    for attr, name in (("fused_resblock1", "resblock"), ("fused_mrf", "mrf"),
+                       ("fused_upsample_stage", "stage")):
+        monkeypatch.setattr(port_hifigan, attr, _spy(calls, name, getattr(port_hifigan, attr)))
+    single = HifiGanConfig(**{**SINGLE, "upsample_initial_channel": 512})
+    default = HifiGanConfig()
+    for cfg in (single, default):
+        for B in (1, 2):
+            with torch.no_grad():
+                Generator(cfg)(torch.zeros(B, 3, 80))
+    assert calls == []
+    with torch.no_grad():
+        Generator(single, use_pallas=True, pallas_all_batches=True)(torch.zeros(2, 3, 80))
+    assert calls == [("resblock", (2, 3 * 64, 128), (1, 3, 5)),
+                     ("resblock", (2, 3 * 128, 64), (1, 3, 5)),
+                     ("resblock", (2, 3 * 256, 32), (1, 3, 5))]
+    calls.clear()
+    with torch.no_grad():
+        Generator(default, use_pallas=True, pallas_all_batches=True)(torch.zeros(2, 3, 80))
+    assert [(c[0], c[1][0]) for c in calls] == [("mrf", 2), ("stage", 2), ("stage", 2)]

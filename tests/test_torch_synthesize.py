@@ -84,6 +84,35 @@ def test_stream_matches_full_render_and_jax_stream(engines):
     np.testing.assert_allclose(streamed, jax_streamed, atol=1e-3 * np.max(np.abs(wav)), rtol=0)
 
 
+def test_streamer_windows_carry_their_chunks(engines):
+    """ChunkStreamer itself: each dispatched window carries its chunk's
+    samples (on the CPU with no copy in flight), an interior window's chunk
+    equals that stretch of the full render, and a stream handed its first
+    window equals the full render and the JAX stream."""
+    from zerovox_tpu_torch.streaming import ChunkStreamer
+    from zerovox_tpu_torch.synthesize import MEL_BUCKETS, pick_bucket
+
+    jax_tts, port, _, spk, dur = engines
+    wav, _, n = port.tts(TEXT, spk, duration=dur)
+    ids, puncts = port.text2phonemeids(TEXT)
+    enc, _, d = port._encode(ids, puncts, spk, dur)
+    mel = port._decode(enc, spk, pick_bucket(n, MEL_BUCKETS))
+    up = port._meldec_cfg.total_upsample
+    streamer = ChunkStreamer(port._meldec, port._meldec_cfg, mel, CHUNK)
+    first = streamer.dispatch(0)
+    assert first.ready is None and first.samples.shape == (CHUNK * up,)
+    inner = streamer.dispatch(CHUNK)
+    np.testing.assert_allclose(ChunkStreamer.trim(inner, CHUNK, up),
+                               wav[CHUNK * up:2 * CHUNK * up], atol=1e-6, rtol=0)
+    chunks = list(streamer.chunks(n, first_wav=first))
+    assert [len(c) for c in chunks[:-1]] == [CHUNK * up] * (len(chunks) - 1)
+    streamed = np.concatenate(chunks)
+    np.testing.assert_allclose(streamed, wav, atol=1e-6, rtol=0)
+    jax_streamed = np.concatenate(
+        [np.asarray(c) for c in jax_tts.tts_stream(TEXT, spk, duration=dur, chunk_frames=CHUNK)])
+    np.testing.assert_allclose(streamed, jax_streamed, atol=1e-3 * np.max(np.abs(wav)), rtol=0)
+
+
 def test_predicted_durations_match_jax(engines):
     """No forced durations: both engines predict the lengths, pick the
     speculative mel bucket from the phone count, and read the duration sum

@@ -1,6 +1,7 @@
-"""The arithmetic of kernels K1 (fused MRF) and K2 (fused upsample stage),
-emulated on the CPU: 3xTF32 tensor-core products against the plain float32
-versions and the JAX kernels in interpret mode.
+"""The arithmetic of kernels K1 (fused MRF), K2 (fused upsample stage) and
+K3 (one fused ResBlock1 tower), emulated on the CPU: 3xTF32 tensor-core
+products against the plain float32 versions and the JAX kernels in
+interpret mode.
 
 The CUDA kernels split each operand as hi = rna_tf32(x), lo = rna_tf32(x -
 hi) (round to nearest, ties away, 10 mantissa bits) and sum three products
@@ -20,8 +21,10 @@ import torch.nn.functional as F
 
 from zerovox_tpu.ops.pallas.mrf import fused_mrf as jax_fused_mrf
 from zerovox_tpu.ops.pallas.packed import fused_packed_stage
+from zerovox_tpu.ops.pallas.resblock import fused_resblock1 as jax_fused_resblock1
 
 from zerovox_tpu_torch.ops.mrf import LRELU_SLOPE, mrf_plain, pack_towers
+from zerovox_tpu_torch.ops.resblock import resblock1_plain
 from zerovox_tpu_torch.ops.upsample_stage import pack_upsampler, upsample_stage_plain
 
 KS = (3, 7, 11)
@@ -189,6 +192,27 @@ def test_emulated_mrf_batch_and_other_towers():
               for k in (3, 5)]
     got = mrf_tc(x, pack_towers(towers), 64, (1, 2), (3, 5))
     assert torch.max(torch.abs(got - mrf_plain(x, towers, (1, 2)))).item() < TOL
+
+
+@pytest.mark.parametrize("C,k,dils,T", [(128, 3, DILS, 37), (64, 3, DILS, 80), (32, 3, DILS, 101),
+                                       (64, 5, DILS, 50), (32, 5, (1, 3), 40)])
+def test_emulated_resblock_matches_plain_and_jax(C, k, dils, T):
+    """K3: one tower's convs in 3xTF32, the weights read back from the
+    one-tower fragment buffer (`pack_towers([tower])`) by the kernel's
+    offsets. The kernel takes the same hi/lo halves whether it stages them
+    split in shared memory (C=32) or splits them at each k-step."""
+    rng = np.random.default_rng(C + k + T)
+    x = _r(rng, 1, T, C, scale=1.0)
+    P = len(dils)
+    tower = (_r(rng, P, k, C, C, scale=1 / np.sqrt(k * C)), _r(rng, P, C, scale=0.5),
+             _r(rng, P, k, C, C, scale=1 / np.sqrt(k * C)), _r(rng, P, C, scale=0.5))
+    got = mrf_tc(x, pack_towers([tower]), C, dils, (k,))
+    plain = resblock1_plain(x, *tower, dils)
+    want = jax_fused_resblock1(jnp.asarray(x.numpy()), *(jnp.asarray(a.numpy()) for a in tower),
+                               dils, tile=64, interpret=True)
+    assert got.shape == plain.shape == (1, T, C)
+    assert torch.max(torch.abs(got - plain)).item() < TOL
+    assert np.max(np.abs(got.numpy() - np.asarray(want))) < TOL
 
 
 @pytest.mark.parametrize("widths", [(128, 64), (64, 32), (32, 16)])

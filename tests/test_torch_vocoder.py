@@ -94,7 +94,7 @@ def test_generator_matches_jax_generator(init_ch):
     32->16 the upsample-stage path (all plain on the CPU); init 64: the
     narrow stages take both paths at other widths."""
     cfg = HifiGanConfig(upsample_initial_channel=init_ch)
-    gen = Generator(cfg)
+    gen = Generator(cfg, use_pallas=True)
     random_init_(gen, torch.Generator().manual_seed(init_ch))
     with torch.no_grad():
         for p in gen.parameters():
@@ -125,7 +125,7 @@ def test_default_generator_routes_stages_like_the_jax_package(monkeypatch):
 
     monkeypatch.setattr(port_hifigan, "fused_mrf", spy("mrf", fused_mrf))
     monkeypatch.setattr(port_hifigan, "fused_upsample_stage", spy("stage", fused_upsample_stage))
-    gen = Generator(HifiGanConfig())
+    gen = Generator(HifiGanConfig(), use_pallas=True)
     with torch.no_grad():
         wav = gen(torch.zeros(1, 4, 80))
     assert wav.shape == (1, 4 * 256)

@@ -1,7 +1,8 @@
-// Tensor-core tile of the fused HiFi-GAN MRF kernels (mrf.cu,
-// upsample_stage.cu): one time tile of a multi-receptive-field stage, all
-// towers, with every intermediate activation in shared memory, and every
-// convolution a sum over taps of GEMMs on the tensor cores in 3xTF32.
+// Tensor-core tile of the fused HiFi-GAN kernels (mrf.cu, upsample_stage.cu,
+// resblock.cu): one time tile of a multi-receptive-field stage, all towers
+// (one for resblock.cu), with every intermediate activation in shared
+// memory, and every convolution a sum over taps of GEMMs on the tensor cores
+// in 3xTF32.
 //
 // Convolution as GEMM. For tap t of a conv with dilation d, output row r
 // takes the shared-memory row r + (t - half) d as its A row (C_in wide) and
@@ -25,10 +26,13 @@
 // wrapper): for each tap, each k-step ks of 8 input channels and each block
 // nf of 8 output channels, 64 floats in which lane l holds w[ks*8 + l%4]
 // [nf*8 + l/4] and w[ks*8 + l%4 + 4][nf*8 + l/4] side by side, so that a
-// warp's B fragment is one coalesced 256-byte load. The B fragments are
-// read straight from L2 (through L1, one k-step ahead) instead of being
-// staged in shared memory: at C = 128 one tap is 64 KB, and every byte of
-// shared memory is spent on the tile's rows, which set the halo recompute.
+// warp's B fragment is one coalesced 256-byte load. K1 and K2 read the B
+// fragments straight from L2 (through L1, one k-step ahead) instead of
+// staging them in shared memory: at C = 128 one tap is 64 KB, and every byte
+// of shared memory is spent on the tile's rows, which set the halo
+// recompute. A kernel may instead stage each conv's fragments, split once,
+// in shared memory (BShared; resblock.cu at C <= 64, whose one-tower halo is
+// small).
 //
 // The tower sum goes to the output rows the block owns (tower 1 stores,
 // later towers load, add and store, the last divides), or, with conv_post,
@@ -44,7 +48,7 @@
 namespace zv {
 namespace tc {
 
-constexpr int NT = 512;  // threads per block
+constexpr int NT = 512;  // threads per block (K1, K2)
 constexpr int NWARP = NT / 32;
 constexpr int MF = 2;    // 16-row m fragments of a warp's item: 32 rows
 
@@ -58,6 +62,42 @@ __device__ __forceinline__ float2& at2(float* p) { return *reinterpret_cast<floa
 
 __device__ __forceinline__ float2 add2(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
 
+// Where a conv's B fragments come from: `fetch(i)` reads lane-fragment i
+// (fragment order, 32 a warp), `frag` gives its hi and lo TF32 halves.
+// BGlobal: the float32 buffer through L1 from L2, split at each k-step.
+struct BGlobal {
+  const float2* w;
+  __device__ __forceinline__ float2 fetch(size_t i) const { return __ldg(w + i); }
+  __device__ __forceinline__ static void frag(float2 f, uint32_t (&h)[2], uint32_t (&l)[2]) {
+    split(f.x, h[0], l[0]);
+    split(f.y, h[1], l[1]);
+  }
+};
+
+// BShared: staged in shared memory already split, {hi.x, hi.y, lo.x, lo.y}
+// a lane-fragment.
+struct BShared {
+  const uint4* w;
+  __device__ __forceinline__ uint4 fetch(size_t i) const { return w[i]; }
+  __device__ __forceinline__ static void frag(uint4 f, uint32_t (&h)[2], uint32_t (&l)[2]) {
+    h[0] = f.x;
+    h[1] = f.y;
+    l[0] = f.z;
+    l[1] = f.w;
+  }
+};
+
+__device__ __forceinline__ BGlobal l2_weights(const float* w) {
+  return BGlobal{reinterpret_cast<const float2*>(w)};
+}
+
+// The weights of mrf_tile's convs, read from L2 (K1, K2).
+struct L2Weights {
+  __device__ __forceinline__ BGlobal operator()(const float* w, int /*k*/) const {
+    return l2_weights(w);
+  }
+};
+
 // The rows of one GEMM: output m (0 <= m < M) is window row o0 + os * m and
 // reads, for tap t, shared row a0 + m + (t - half) * dil.
 struct Rows {
@@ -66,11 +106,12 @@ struct Rows {
 
 // out[m][co] = bias[co] + sum_t sum_ci f(src[a0 + m + (t - half) dil][ci]) *
 // w[t][ci][co] over `ntaps` taps, f the leaky relu (slope 0.1) when
-// LEAKY_IN; src has CI + 4 floats a row, wf is in fragment order.
-// epi(row, co, value) takes two finished neighbouring channels.
-template <int CI, int CO, bool LEAKY_IN, class Epi>
-__device__ void conv_tc(const float* src, const float* __restrict__ wf,
-                        const float* __restrict__ bias, int ntaps, Rows rw, Epi epi) {
+// LEAKY_IN; src has CI + 4 floats a row, ws holds w in fragment order.
+// epi(row, co, value) takes two finished neighbouring channels. NW warps
+// take the items in turn.
+template <int CI, int CO, bool LEAKY_IN, int NW = NWARP, class BSrc, class Epi>
+__device__ void conv_tc(const float* src, BSrc ws, const float* __restrict__ bias, int ntaps,
+                        Rows rw, Epi epi) {
   constexpr int LDI = CI + 4;
   constexpr int KS = CI / 8, NF = CO / 8;
   constexpr int NFW = warp_cols(CO) / 8;  // n fragments of a warp's item
@@ -79,7 +120,7 @@ __device__ void conv_tc(const float* src, const float* __restrict__ wf,
   const int g = lane >> 2, t4 = lane & 3;
   const int nk = ntaps * KS;
   const int n_items = (rw.M + 16 * MF - 1) / (16 * MF) * NSL;
-  for (int item = warp; item < n_items; item += NWARP) {
+  for (int item = warp; item < n_items; item += NW) {
     const int m0 = item / NSL * 16 * MF;
     const int nf0 = item % NSL * NFW;
     float acc[MF][NFW][4];
@@ -97,20 +138,18 @@ __device__ void conv_tc(const float* src, const float* __restrict__ wf,
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         ra[i][h] = (rw.a0 + min(m0 + i * 16 + g + 8 * h, rw.M - 1)) * LDI + t4;
-    const float2* wl = reinterpret_cast<const float2*>(wf) + nf0 * 32 + lane;
-    float2 bn[NFW];  // B of the next k-step, loaded one step ahead
+    const size_t wl = (size_t)nf0 * 32 + lane;
+    using Frag = decltype(ws.fetch(0));
+    Frag bn[NFW];  // B of the next k-step, loaded one step ahead
 #pragma unroll
-    for (int j = 0; j < NFW; ++j) bn[j] = nk > 0 ? __ldg(wl + j * 32) : make_float2(0.f, 0.f);
+    for (int j = 0; j < NFW; ++j) bn[j] = nk > 0 ? ws.fetch(wl + j * 32) : Frag{};
     for (int kk = 0; kk < nk; ++kk) {
       uint32_t bh[NFW][2], bl[NFW][2];
 #pragma unroll
-      for (int j = 0; j < NFW; ++j) {
-        split(bn[j].x, bh[j][0], bl[j][0]);
-        split(bn[j].y, bh[j][1], bl[j][1]);
-      }
+      for (int j = 0; j < NFW; ++j) BSrc::frag(bn[j], bh[j], bl[j]);
       if (kk + 1 < nk) {
 #pragma unroll
-        for (int j = 0; j < NFW; ++j) bn[j] = __ldg(wl + ((size_t)(kk + 1) * NF + j) * 32);
+        for (int j = 0; j < NFW; ++j) bn[j] = ws.fetch(wl + ((size_t)(kk + 1) * NF + j) * 32);
       }
       const int tap = kk / KS, ks = kk - tap * KS;
       const float* at = src + (tap - rw.half) * rw.dil * LDI + ks * 8;
@@ -162,10 +201,13 @@ struct TileOut {
 // leave Bf free; the mean over towers of rows [HW - P, HW + TT + P) goes to
 // `o`. A and Bf hold W = TT + 2 HW rows of C + 4 floats. Weights: tower by
 // tower, w1 [P][k] then w2 [P][k] taps in fragment order; biases b1 [P][C]
-// then b2 [P][C].
-template <int C, class Load>
+// then b2 [P][C]. `weights(w, k)`, called by every thread between convs
+// (after the block's barrier), gives the B source of the conv whose k taps
+// start at w.
+template <int C, int NW = NWARP, class Load, class Weights = L2Weights>
 __device__ void mrf_tile(float* A, float* Bf, const MrfParams& p, int HW, int TT, int P,
-                         int tbase, int T, size_t gout_row0, const TileOut& o, Load load) {
+                         int tbase, int T, size_t gout_row0, const TileOut& o, Load load,
+                         Weights weights = {}) {
   constexpr int LD = C + 4;
   const int f_lo = HW - P, f_hi = HW + TT + P;
   auto valid = [&](int r) { return (unsigned)(tbase + r) < (unsigned)T; };
@@ -183,7 +225,7 @@ __device__ void mrf_tile(float* A, float* Bf, const MrfParams& p, int HW, int TT
     const float* b2 = b1 + (size_t)p.n_pairs * C;
     for (int q = 0; q < p.n_pairs; ++q) {
       const int e1 = ext - half * p.dils[q];
-      conv_tc<C, C, true>(A, w1 + q * conv_w, b1 + q * C, k,
+      conv_tc<C, C, true, NW>(A, weights(w1 + q * conv_w, k), b1 + q * C, k,
                           same_rows(f_lo - e1, f_hi + e1, k, p.dils[q]),
                           [&](int r, int co, float2 v) {
                             if (!valid(r)) v = make_float2(0.f, 0.f);
@@ -192,8 +234,8 @@ __device__ void mrf_tile(float* A, float* Bf, const MrfParams& p, int HW, int TT
       __syncthreads();
       const int e2 = e1 - half;
       if (q + 1 < p.n_pairs) {
-        conv_tc<C, C, false>(Bf, w2 + q * conv_w, b2 + q * C, k,
-                             same_rows(f_lo - e2, f_hi + e2, k, 1),
+        conv_tc<C, C, false, NW>(Bf, weights(w2 + q * conv_w, k), b2 + q * C, k,
+                                 same_rows(f_lo - e2, f_hi + e2, k, 1),
                              [&](int r, int co, float2 v) {
                                float2& d = at2(A + r * LD + co);
                                d = valid(r) ? add2(d, v) : make_float2(0.f, 0.f);
@@ -201,7 +243,8 @@ __device__ void mrf_tile(float* A, float* Bf, const MrfParams& p, int HW, int TT
       } else {
         const bool first = j == 0, last = j + 1 == p.n_towers;
         const float n = (float)p.n_towers;
-        conv_tc<C, C, false>(Bf, w2 + q * conv_w, b2 + q * C, k, same_rows(f_lo, f_hi, k, 1),
+        conv_tc<C, C, false, NW>(Bf, weights(w2 + q * conv_w, k), b2 + q * C, k,
+                                 same_rows(f_lo, f_hi, k, 1),
                              [&](int r, int co, float2 v) {
           float2 t = valid(r) ? add2(at2(A + r * LD + co), v) : make_float2(0.f, 0.f);
           if (o.gout != nullptr) {
@@ -226,23 +269,23 @@ __device__ void mrf_tile(float* A, float* Bf, const MrfParams& p, int HW, int TT
 
 // ---- host: the tile size
 
-// Rounds of warp items (all 8 warps busy) of one GEMM of `rows` output rows.
-inline long gemm_rounds(int rows, int co) {
+// Rounds of warp items (all nw warps busy) of one GEMM of `rows` output rows.
+inline long gemm_rounds(int rows, int co, int nw = NWARP) {
   const long items = (long)((rows + 16 * MF - 1) / (16 * MF)) * (co / warp_cols(co));
-  return (items + NWARP - 1) / NWARP;
+  return (items + nw - 1) / nw;
 }
 
 // The MMA work of one tile's towers, in warp-item k-steps: every conv over
 // the rows it computes (the tile, conv_post's halo P and what later convs
-// still need), rounded up to whole rounds of items.
-inline long towers_cost(const MrfParams& p, int C, int TT, int P) {
+// still need), rounded up to whole rounds of items of nw warps.
+inline long towers_cost(const MrfParams& p, int C, int TT, int P, int nw = NWARP) {
   long cost = 0;
   for (int j = 0; j < p.n_towers; ++j) {
     const int k = p.ks[j], half = (k - 1) / 2;
     int ext = tower_halo(k, p);
     for (int q = 0; q < p.n_pairs; ++q) {
       const int e1 = ext - half * p.dils[q], e2 = e1 - half;
-      cost += (gemm_rounds(TT + 2 * P + 2 * e1, C) + gemm_rounds(TT + 2 * P + 2 * e2, C)) * k;
+      cost += (gemm_rounds(TT + 2 * P + 2 * e1, C, nw) + gemm_rounds(TT + 2 * P + 2 * e2, C, nw)) * k;
       ext = e2;
     }
   }
@@ -250,17 +293,19 @@ inline long towers_cost(const MrfParams& p, int C, int TT, int P) {
 }
 
 // The tile (rows, a multiple of 4) that minimises waves x per-block cost
-// among those whose shared memory, smem_of(TT) bytes, fits; the waves are
-// of one block per SM over B x ceil(T / TT) blocks. Returns 0 if none fits.
+// among those whose shared memory, smem_of(TT) bytes, fits the budget; the
+// waves are of `slots` blocks at a time (one per SM, or more where they fit
+// together) over B x ceil(T / TT) blocks. Returns 0 if none fits.
 template <class SmemOf, class CostOf>
-inline int choose_tile(int T, int B, int sms, SmemOf smem_of, CostOf cost_of, int* smem_bytes) {
+inline int choose_tile(int T, int B, int slots, SmemOf smem_of, CostOf cost_of, int* smem_bytes,
+                       long budget = SMEM_BUDGET) {
   int best = 0;
   double best_cost = 0.0;
   for (int TT = 16; TT <= 4096; TT += 4) {
     const long bytes = smem_of(TT);
-    if (bytes > SMEM_BUDGET) break;
+    if (bytes > budget) break;
     const long blocks = (long)B * ((T + TT - 1) / TT);
-    const double c = (double)((blocks + sms - 1) / sms) * (double)cost_of(TT);
+    const double c = (double)((blocks + slots - 1) / slots) * (double)cost_of(TT);
     if (best == 0 || c < best_cost) {
       best = TT;
       best_cost = c;

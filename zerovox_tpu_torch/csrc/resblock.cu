@@ -1,30 +1,70 @@
 // Fused HiFi-GAN ResBlock1 for Hopper (sm_90a): one tower of P pairs of
 // leaky(0.1) -> dilated conv(k, d_p) -> leaky -> conv(k, 1) -> + residual,
-// x [B, T, C] -> [B, T, C], float32.
+// x [B, T, C] -> [B, T, C], float32 in and out.
 //
 // Replaces the TPU kernel zerovox_tpu/ops/pallas/resblock.py::fused_resblock1
 // (_resblock_kernel). The vocoder runs it per tower when the towers cannot
 // share one MRF kernel (a single tower, or towers whose dilations differ).
 //
-// What bounds it on an H100: arithmetic. A k=3, P=3 tower does 36 C^2 FLOP
-// per row: 26 GFLOP at [1, 44096, 128] against 45 MB of input and output,
-// ~580 FLOP per byte, far above the card's ~20 FLOP/byte float32 ridge.
+// What bounds it on an H100: tensor-core operations. A k=3, P=3 tower does
+// 36 C^2 FLOP per row: 26 GFLOP at [1, 44096, 128], which 3xTF32 runs as
+// 78 GFLOP of TF32 MMAs, against 45 MB of input and output.
 //
-// Design: the one-tower case of the MRF kernel's tile (mrf_common.cuh). One
-// block of 256 threads per (time tile, batch row); the tile's window (TT
-// rows + the tower's own halo, 12 rows a side at k=3, dilations 1,3,5) sits
-// in shared memory in two buffers, conv1 reading the tower state A and
-// writing B, conv2 reading B and adding into A; every conv computes only the
-// rows later convs still need, and rows outside [0, T) are zeroed after each
-// conv. The finished rows go straight to the output: with one tower there is
-// no tower sum to keep. The tile is the largest that fits shared memory,
-// then shrunk so the blocks fill whole waves of the card's SMs.
-#include "mrf_common.cuh"
+// Design: the one-tower case of the tensor-core tile of mrf_tc.cuh (K1's and
+// K2's), one block per (time tile, batch row). The window (TT rows + the
+// tower's halo, 12 rows a side at k=3, dilations 1,3,5) sits in shared
+// memory in two buffers: conv1 reads the tower state A and writes B, conv2
+// reads B and adds into A; every conv is a sum over taps of mma.sync GEMMs
+// in 3xTF32 and computes only the rows later convs still need. The finished
+// rows go straight to the output. The halo is a fifth of K1's, so the tile
+// recomputes ~1.1x (K1 1.5x).
+//
+// What one tower changes against K1, decided on an H100 by
+// scripts/bench_k3_variants.py (times in PERF.md):
+//   * at C <= STAGE_MAX_C each conv's weights (12 KB at C=32 for 3 taps)
+//     are copied into shared memory before the conv and split there once
+//     into hi/lo TF32 halves, instead of every warp reading its B fragments
+//     from L2 and splitting them at each k-step: 3 % faster at C=32. At
+//     C=64 the staged 98 KB cut the tile from 224 to 168 rows and it was
+//     4 % slower; C=128's 196 KB a conv do not fit beside a tile. Those
+//     widths read B from L2 as K1 does;
+//   * at C=32 a block has WARPS_C32 = 8 warps, 2 blocks an SM (16 warps an
+//     SM either way): a 32-row item has only 12 k-steps at k=3, and smaller
+//     blocks leave fewer warps idle in a conv's last round (4 % faster than
+//     16; 4 warps, 4 blocks an SM, was 27 % slower).
+// The tile is zv::tc::choose_tile's, with towers_cost over one tower.
+#include "mrf_tc.cuh"
 
 namespace {
 
-template <int C>
-__global__ void __launch_bounds__(zv::NT, 1)
+constexpr int STAGE_MAX_C = 32;  // widths whose conv weights are staged in shared memory
+constexpr int WARPS_C32 = 8;     // warps of a block at C = 32 (16 at C = 64, 128)
+
+using KernelFn = void (*)(const float*, float*, zv::MrfParams, int, int, int);
+
+// A conv's k taps of B fragments copied into shared memory, split once into
+// {hi.x, hi.y, lo.x, lo.y} a lane-fragment; the barrier makes them visible.
+template <int C, int NW>
+struct Staged {
+  uint4* ws;
+  __device__ zv::tc::BShared operator()(const float* w, int k) const {
+    const float2* src = reinterpret_cast<const float2*>(w);
+    const int n = k * C * C / 2;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n; i += NW * 32) {
+      const float2 v = __ldg(src + i);
+      uint4 f;
+      zv::tc::split(v.x, f.x, f.z);
+      zv::tc::split(v.y, f.y, f.w);
+      ws[i] = f;
+    }
+    __syncthreads();
+    return zv::tc::BShared{ws};
+  }
+};
+
+template <int C, int NW, bool STAGE>
+__global__ void __launch_bounds__(NW * 32, 16 / NW)
 resblock_kernel(const float* __restrict__ x, float* __restrict__ out, zv::MrfParams p, int T,
                 int TT, int HW) {
   constexpr int LD = C + 4;
@@ -37,7 +77,7 @@ resblock_kernel(const float* __restrict__ x, float* __restrict__ out, zv::MrfPar
   const float* xb = x + (size_t)b * T * C;
   auto load = [&](int lo, int hi) {
     constexpr int C4 = C / 4;
-    for (int idx = threadIdx.x; idx < (hi - lo) * C4; idx += zv::NT) {
+    for (int idx = threadIdx.x; idx < (hi - lo) * C4; idx += NW * 32) {
       const int r = lo + idx / C4, c = (idx % C4) * 4;
       const int t = tbase + r;
       zv::at4(A + r * LD + c) = (unsigned)t < (unsigned)T
@@ -45,56 +85,93 @@ resblock_kernel(const float* __restrict__ x, float* __restrict__ out, zv::MrfPar
                                     : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   };
-  // one tower: mrf_tile writes each finished row to `out` and never reads or
-  // writes the tower-sum buffer, so it is given Bf's address and no space
-  zv::mrf_tile<C, LD>(A, Bf, p, HW, TT, 0, tbase, T, (size_t)b * T, zv::MrfOut{Bf, out, 0.f},
-                      load);
+  const zv::tc::TileOut o{out, nullptr, 0.f};
+  if constexpr (STAGE) {
+    zv::tc::mrf_tile<C, NW>(A, Bf, p, HW, TT, 0, tbase, T, (size_t)b * T, o, load,
+                            Staged<C, NW>{reinterpret_cast<uint4*>(Bf + W * LD)});
+  } else {
+    zv::tc::mrf_tile<C, NW>(A, Bf, p, HW, TT, 0, tbase, T, (size_t)b * T, o, load);
+  }
 }
 
-template <int C>
-int launch(const float* x, float* out, const zv::MrfParams& p, int B, int T,
-           cudaStream_t stream) {
-  constexpr int LD = C + 4;
-  constexpr int ROW_BYTES = 2 * LD * 4;  // A and B
+struct Plan {
+  KernelFn kernel;
+  int threads, TT, smem;
+};
+
+// The tile of one layout: blocks of NW warps, 16 / NW of them an SM, each
+// with A and B over the window and, when STAGE, one conv's split weights.
+template <int C, int NW, bool STAGE>
+int plan_as(const zv::MrfParams& p, int B, int T, Plan* pl) {
+  constexpr int LD = C + 4, BPS = 16 / NW;
   const int HW = zv::mrf_halo(p);
-  int tt_max = (zv::SMEM_BUDGET / ROW_BYTES - 2 * HW) / 16 * 16;
-  if (tt_max > 1024) tt_max = 1024;
-  if (tt_max < 16) return (int)cudaErrorInvalidConfiguration;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  // one block per SM at a time (shared memory, registers): spread the rows
-  // over whole waves instead of leaving a ragged last wave
-  const long slots = (long)sms * ((B * (long)((T + tt_max - 1) / tt_max) + sms - 1) / sms);
-  const long per_row = (slots + B - 1) / B;
-  int TT = (int)(((T + per_row - 1) / per_row + 15) / 16 * 16);
-  if (TT > tt_max) TT = tt_max;
-  if (TT < 16) TT = 16;
-  const int smem = (TT + 2 * HW) * ROW_BYTES;
-  e = cudaFuncSetAttribute(resblock_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((T + TT - 1) / TT, B);
-  resblock_kernel<C><<<grid, zv::NT, smem, stream>>>(x, out, p, T, TT, HW);
-  return (int)cudaGetLastError();
+  const long wbytes = STAGE ? 8L * p.ks[0] * C * C : 0;
+  int sms = 0;
+  const int e = zv::tc::sm_count(&sms);
+  if (e != 0) return e;
+  pl->kernel = resblock_kernel<C, NW, STAGE>;
+  pl->threads = NW * 32;
+  pl->TT = zv::tc::choose_tile(
+      T, B, sms * BPS, [&](int tt) { return 8L * (tt + 2 * HW) * LD + wbytes; },
+      [&](int tt) { return zv::tc::towers_cost(p, C, tt, 0, NW); }, &pl->smem,
+      (zv::SMEM_BUDGET + 1024L) / BPS - 1024);
+  return pl->TT == 0 ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
+// The layout K3 takes at C: staged weights where they fit in half of a
+// block's shared memory, else B from L2.
+template <int C>
+int plan(const zv::MrfParams& p, int B, int T, Plan* pl) {
+  constexpr int NW = C == 32 ? WARPS_C32 : 16;
+  if constexpr (C <= STAGE_MAX_C) {
+    const long budget = (zv::SMEM_BUDGET + 1024L) / (16 / NW) - 1024;
+    if (2 * 8L * p.ks[0] * C * C <= budget) return plan_as<C, NW, true>(p, B, T, pl);
+  }
+  return plan_as<C, NW, false>(p, B, T, pl);
+}
+
+int plan_for(int C, const zv::MrfParams& p, int B, int T, Plan* pl) {
+  switch (C) {
+    case 32: return plan<32>(p, B, T, pl);
+    case 64: return plan<64>(p, B, T, pl);
+    case 128: return plan<128>(p, B, T, pl);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int check_args(int B, int T, int k, int n_pairs) {
+  return n_pairs < 1 || n_pairs > zv::MAX_PAIRS || k < 1 || k % 2 == 0 || B < 1 || T < 1
+             ? (int)cudaErrorInvalidValue
+             : 0;
 }
 
 }  // namespace
 
-// x, out [B, T, C]; w: w1 [P][k][C][C] then w2 [P][k][C][C] (taps (k, in,
-// out)); b: b1 [P][C] then b2 [P][C]; d0..d2: the P first-conv dilations.
-// Returns a cudaError_t; C must be 32, 64 or 128, P 1-3, k odd.
+// x, out [B, T, C]; w: w1 [P][k] then w2 [P][k] conv taps in mma fragment
+// order (mrf_tc.cuh); b: b1 [P][C] then b2 [P][C]; d0..d2: the P first-conv
+// dilations. Returns a cudaError_t; C must be 32, 64 or 128, P 1-3, k odd.
 extern "C" int zv_resblock1_f32(const float* x, float* out, const float* w, const float* b,
                                 int B, int T, int C, int k, int n_pairs, int d0, int d1, int d2,
                                 void* stream) {
-  if (n_pairs < 1 || n_pairs > zv::MAX_PAIRS || k < 1 || k % 2 == 0 || B < 1 || T < 1)
-    return (int)cudaErrorInvalidValue;
-  zv::MrfParams p{1, {k, 0, 0}, n_pairs, {d0, d1, d2}, w, b};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 32: return launch<32>(x, out, p, B, T, s);
-    case 64: return launch<64>(x, out, p, B, T, s);
-    case 128: return launch<128>(x, out, p, B, T, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (int e = check_args(B, T, k, n_pairs)) return e;
+  const zv::MrfParams p{1, {k, 0, 0}, n_pairs, {d0, d1, d2}, w, b};
+  Plan pl{};
+  int e = plan_for(C, p, B, T, &pl);
+  if (e != 0) return e;
+  e = (int)cudaFuncSetAttribute(pl.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (e != 0) return e;
+  dim3 grid((T + pl.TT - 1) / pl.TT, B);
+  pl.kernel<<<grid, pl.threads, pl.smem, static_cast<cudaStream_t>(stream)>>>(
+      x, out, p, T, pl.TT, zv::mrf_halo(p));
+  return (int)cudaGetLastError();
+}
+
+// The time tile zv_resblock1_f32 takes for these arguments (rows), or minus
+// a cudaError_t.
+extern "C" int zv_resblock1_tile(int B, int T, int C, int k, int n_pairs, int d0, int d1, int d2) {
+  if (int e = check_args(B, T, k, n_pairs)) return -e;
+  const zv::MrfParams p{1, {k, 0, 0}, n_pairs, {d0, d1, d2}, nullptr, nullptr};
+  Plan pl{};
+  const int e = plan_for(C, p, B, T, &pl);
+  return e != 0 ? -e : pl.TT;
 }

@@ -90,7 +90,8 @@ stage_kernel(const float* __restrict__ x, float* __restrict__ out, const float* 
       if (r0 < hi) {
         const zv::tc::Rows rw{(hi - r0 + stride - 1) / stride, r0, stride,
                               (tbase + r0 + up_pad - ph) / stride - i_min, 0, -1};
-        zv::tc::conv_tc<CI, CO, false>(Bf, wph, up_b, nt, rw, [&](int r, int co, float2 v) {
+        zv::tc::conv_tc<CI, CO, false>(Bf, zv::tc::l2_weights(wph), up_b, nt, rw,
+                                       [&](int r, int co, float2 v) {
           zv::tc::at2(A + r * LD + co) =
               (unsigned)(tbase + r) < (unsigned)T_out ? v : make_float2(0.f, 0.f);
         });

@@ -1,4 +1,4 @@
-"""HiFi-GAN vocoder ("meldec") generator, inference only.
+"""HiFi-GAN vocoder ("meldec") generator.
 
 The PyTorch counterpart of the JAX package's `models/hifigan.py`: conv_pre
 -> per stage [leaky-relu, ConvTranspose1d upsample, multi-receptive-field
@@ -6,17 +6,20 @@ The PyTorch counterpart of the JAX package's `models/hifigan.py`: conv_pre
 Module names follow the upstream generator state_dict (`conv_pre`, `ups.i`,
 `resblocks.n.convs1.c`, `conv_post`), with weight norm already folded.
 
-Stage routing keeps the JAX Generator's rules, so both packages send the
-same stage to the same kernel:
+`Generator(cfg)` runs its `nn.Module`s (differentiable on both devices; on
+the card, cuDNN). `Generator(cfg, use_pallas=True)`, the reference's switch,
+routes stages to the fused kernels by the JAX Generator's rules, so both
+packages send the same stage to the same kernel:
 
   * a stage whose channels satisfy the lane-packing condition (C_out <= 64,
     128 % C_in == 0, stride * (128 // C_in) * C_out == 128) runs as one
     fused upsample stage (ops/upsample_stage.py); the last stage also folds
     in leaky(0.01) + conv_post + tanh;
-  * else a stage with C <= 128 at batch 1 runs its MRF as one fused kernel
-    (ops/mrf.py);
-  * else, for ResBlock1 towers at C <= 128 and batch 1, each tower is one
-    fused ResBlock1 kernel (ops/resblock.py) and the stage averages them;
+  * else a stage with C <= 128 at batch 1 (any batch with
+    `pallas_all_batches`) runs its MRF as one fused kernel (ops/mrf.py);
+  * else, for ResBlock1 towers at C <= 128 under the same batch rule, each
+    tower is one fused ResBlock1 kernel (ops/resblock.py) and the stage
+    averages them;
   * else plain convolutions.
 
 The two MRF-wide paths need identical dilation schedules across several
@@ -24,7 +27,8 @@ towers (`mrf_fusable`). With the default config (512 channels, rates
 8,8,2,2) stage 0 is plain, stage 1 takes the MRF kernel and stages 2-3 the
 upsample-stage kernel. A single-tower vocoder (or one whose towers'
 dilations differ) runs stages of C <= 128 tower by tower through the
-ResBlock1 kernel at batch 1, and plain at batch > 1.
+ResBlock1 kernel. The kernels have no backward: their route raises when
+grad is enabled and the stage's input or a parameter requires grad.
 """
 
 from __future__ import annotations
@@ -133,11 +137,20 @@ class ResBlock2(nn.Module):
 
 
 class Generator(nn.Module):
-    """mel [B, T, n_mels] (NLC) -> waveform [B, T * prod(upsample_rates)]."""
+    """mel [B, T, n_mels] (NLC) -> waveform [B, T * prod(upsample_rates)].
 
-    def __init__(self, cfg: HifiGanConfig):
+    `use_pallas` and `pallas_all_batches` keep the JAX Generator's names:
+    here they route stages to the port's CUDA kernels (on a CPU tensor, to
+    the kernels' plain versions), at batch 1 or, with `pallas_all_batches`,
+    at every batch size. Off (the default), every stage runs the
+    nn.Modules."""
+
+    def __init__(self, cfg: HifiGanConfig, use_pallas: bool = False,
+                 pallas_all_batches: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.use_pallas = use_pallas
+        self.pallas_all_batches = pallas_all_batches
         nk = len(cfg.resblock_kernel_sizes)
         c0 = cfg.upsample_initial_channel
         self.conv_pre = nn.Conv1d(cfg.num_mels, c0, 7, padding=3)
@@ -156,24 +169,34 @@ class Generator(nn.Module):
                              and all(tuple(d) == dil0 for d in cfg.resblock_dilation_sizes))
         self._kcache: dict[int, tuple] = {}
 
-    def _stage_kernel_params(self, i: int, post: bool):
-        """Kernel-layout weights of stage i (the plain layouts and the K1/K2
-        kernels' MMA fragment order), rebuilt only when a parameter was
-        replaced or written to (device move, load_state_dict)."""
+    def _stage_kernel_params(self, i: int, post: bool, x: torch.Tensor):
+        """Kernel-layout weights of stage i (the plain layouts and the
+        kernels' MMA fragment order: all towers for K1/K2, each tower for
+        K3), rebuilt only when a parameter was replaced or written to (device
+        move, load_state_dict). Raises when autograd would need the stage's
+        gradients: the kernels have none."""
         nk = len(self.cfg.resblock_kernel_sizes)
         blocks = [self.resblocks[i * nk + j] for j in range(nk)]
         mods = [self.ups[i], *blocks] + ([self.conv_post] if post else [])
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                p.requires_grad for m in mods for p in m.parameters())):
+            raise RuntimeError(
+                f"Generator(use_pallas=True): stage {i} runs a fused kernel, which has no "
+                "backward; run it under torch.no_grad() or inference_mode, or build the "
+                "Generator with use_pallas=False to train")
         key = tuple((p.data_ptr(), p._version) for m in mods for p in m.parameters())
         hit = self._kcache.get(i)
         if hit is not None and hit[0] == key:
             return hit[1]
         with torch.no_grad():
             up = self.ups[i]
+            towers = [b.tower() for b in blocks]
             params = {
                 # torch (in, out, k) -> taps (k, in, out), not flipped
                 "up": pack_upsampler(up.weight.permute(2, 0, 1).contiguous(), up.bias.detach(),
                                      up.stride[0]),
-                "mrf": pack_towers([b.tower() for b in blocks]),
+                "mrf": pack_towers(towers) if self._mrf_fusable else None,
+                "towers": [pack_towers([t]) for t in towers] if not self._mrf_fusable else None,
                 "post": ((self.conv_post.weight.permute(2, 1, 0).contiguous(),
                           self.conv_post.bias.detach()) if post else None),
             }
@@ -190,11 +213,11 @@ class Generator(nn.Module):
         for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
             in_ch = x.shape[-1] if nlc else x.shape[1]
             ch = cfg.upsample_initial_channel // 2 ** (i + 1)
-            packed_ok = (self._mrf_fusable and ch <= 64 and 128 % in_ch == 0
-                         and u * (128 // in_ch) * ch == 128)
+            packed_ok = (self.use_pallas and self._mrf_fusable and ch <= 64
+                         and 128 % in_ch == 0 and u * (128 // in_ch) * ch == 128)
             if packed_ok:
                 last = i == n_stages - 1
-                p = self._stage_kernel_params(i, post=last)
+                p = self._stage_kernel_params(i, last, x)
                 if not nlc:
                     x, nlc = x.transpose(1, 2).contiguous(), True
                 x = fused_upsample_stage(x, p["up"], (k - u) // 2, p["mrf"], self._dil0, ksizes,
@@ -206,16 +229,18 @@ class Generator(nn.Module):
             if nlc:
                 x, nlc = x.transpose(1, 2), False
             x = self.ups[i](F.leaky_relu(x, LRELU_SLOPE))
-            if self._mrf_fusable and ch <= 128 and mel.shape[0] == 1:
-                mrf = self._stage_kernel_params(i, post=False)["mrf"]
+            pallas_ok = (self.use_pallas and ch <= 128
+                         and (mel.shape[0] == 1 or self.pallas_all_batches))
+            if pallas_ok and self._mrf_fusable:
+                mrf = self._stage_kernel_params(i, False, x)["mrf"]
                 x, nlc = fused_mrf(x.transpose(1, 2).contiguous(), mrf, self._dil0, ksizes), True
                 continue
-            if cfg.resblock == "1" and ch <= 128 and mel.shape[0] == 1:
+            if pallas_ok and cfg.resblock == "1":
                 xn = x.transpose(1, 2).contiguous()
-                towers = self._stage_kernel_params(i, post=False)["mrf"].towers
                 xs = None
-                for tw, dil in zip(towers, cfg.resblock_dilation_sizes):
-                    r = fused_resblock1(xn, *tw, tuple(dil))
+                for pk, dil in zip(self._stage_kernel_params(i, False, x)["towers"],
+                                   cfg.resblock_dilation_sizes):
+                    r = fused_resblock1(xn, *pk.towers[0], tuple(dil), packed=pk)
                     xs = r if xs is None else xs + r
                 x, nlc = xs / nk, True
                 continue
@@ -227,19 +252,21 @@ class Generator(nn.Module):
 
         if nlc:
             x = x.transpose(1, 2)
-        x = F.conv1d(F.leaky_relu(x, 0.01), self.conv_post.weight, self.conv_post.bias, padding=3)
+        x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x)[:, 0, :]
 
 
 class MelDec(nn.Module):
     """Vocoder wrapper carrying the mel normalization stats some upstream
     checkpoints embed (`mean`, `scale`; identity by default). The synthesis
-    path calls it with normalize_before=False, as the JAX package does."""
+    path calls it with normalize_before=False, as the JAX package does.
+    `use_pallas`, `pallas_all_batches`: the Generator's kernel route."""
 
-    def __init__(self, cfg: HifiGanConfig):
+    def __init__(self, cfg: HifiGanConfig, use_pallas: bool = False,
+                 pallas_all_batches: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.generator = Generator(cfg)
+        self.generator = Generator(cfg, use_pallas, pallas_all_batches)
         self.register_buffer("mean", torch.zeros(cfg.num_mels))
         self.register_buffer("scale", torch.ones(cfg.num_mels))
 

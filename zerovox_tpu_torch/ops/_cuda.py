@@ -32,7 +32,7 @@ _I = ctypes.c_int
 # C signatures of the exported functions (every one returns a cudaError_t)
 SIGNATURES = {
     "mrf": {"zv_mrf_f32": [_P] * 4 + [_I] * 11 + [_P], "zv_mrf_tile": [_I] * 11},
-    "resblock": {"zv_resblock1_f32": [_P] * 4 + [_I] * 8 + [_P]},
+    "resblock": {"zv_resblock1_f32": [_P] * 4 + [_I] * 8 + [_P], "zv_resblock1_tile": [_I] * 8},
     "upsample_stage": {"zv_upsample_stage_f32": [_P] * 8 + [_I] * 16 + [_P],
                        "zv_upsample_stage_tile": [_I] * 16},
     "se_conv": {"zv_se_conv_fwd_tiles": [_I] * 3, "zv_se_conv_bwd_blocks": [_I] * 3,

@@ -15,7 +15,9 @@ that mean in one pass over x [B, T, C]:
 
 The weights come packed once per weight version (`pack_towers`): the plain
 layout for the CPU, and the kernel's MMA fragment order. There is no
-fallback: a CUDA tensor the kernel does not take raises.
+fallback: a CUDA tensor the kernel does not take raises, and so does a
+tensor that requires grad while grad is enabled (the kernels have no
+backward), on either device.
 """
 
 from __future__ import annotations
@@ -55,22 +57,30 @@ def mrf_plain(x, towers, dilations):
     return (sum(outs) / len(outs)).transpose(1, 2)
 
 
-def flat_towers(towers):
-    """The ResBlock1 kernel's flat weight and bias buffers: tower by tower,
-    w1 then w2 ([P, k, C, C] taps (k, in, out)), b1 then b2 ([P, C])."""
-    w = torch.cat([t.reshape(-1) for w1, _, w2, _ in towers for t in (w1, w2)])
-    b = torch.cat([t.reshape(-1) for _, b1, _, b2 in towers for t in (b1, b2)])
-    return w, b
+def refuse_grad(name, *tensors):
+    """Raise when grad is enabled and a tensor requires it: a fused kernel
+    has no backward, and its route (the plain version too, on weights packed
+    under no_grad) would return a result autograd cannot differentiate."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the fused kernel has no backward; call it under "
+                           "torch.no_grad() or inference_mode, or train through the "
+                           "nn.Modules (Generator(use_pallas=False))")
 
 
-def check_towers(name, towers, kernel_sizes, n_pairs, C):
-    """Raise unless every tower is (w1, b1, w2, b2) of shapes [P, k, C, C],
-    [P, C], [P, k, C, C], [P, C]: the kernels read the flat buffers by them."""
-    for (w1, b1, w2, b2), k in zip(towers, kernel_sizes):
+def check_towers(name, weights, kernel_sizes, n_pairs, C):
+    """Raise unless every tower of `weights` (`pack_towers`) is (w1, b1, w2,
+    b2) of shapes [P, k, C, C], [P, C], [P, k, C, C], [P, C], and the flat
+    buffers hold them all: the kernels read the buffers by these shapes."""
+    for (w1, b1, w2, b2), k in zip(weights.towers, kernel_sizes):
         if (tuple(w1.shape) != (n_pairs, k, C, C) or tuple(w2.shape) != (n_pairs, k, C, C)
                 or tuple(b1.shape) != (n_pairs, C) or tuple(b2.shape) != (n_pairs, C)):
             raise ValueError(f"{name}: tower weights {[tuple(t.shape) for t in (w1, b1, w2, b2)]} "
                              f"do not match C={C}, k={k}, {n_pairs} pairs")
+    n_w = sum(2 * n_pairs * k * C * C for k in kernel_sizes)
+    if (len(weights.towers) != len(kernel_sizes) or weights.w is None or weights.w.numel() != n_w
+            or weights.b.numel() != 2 * n_pairs * C * len(kernel_sizes)):
+        raise ValueError(f"{name}: packed buffers do not hold {len(kernel_sizes)} towers of "
+                         f"C={C}, kernel sizes {tuple(kernel_sizes)}, {n_pairs} pairs")
 
 
 def tower_args(towers, dilations, kernel_sizes):
@@ -120,13 +130,14 @@ def fused_mrf(x, weights: MrfWeights, dilations, kernel_sizes):
     w2 [P, k, C, C], b2 [P, C]) with conv taps (k, in, out); dilations: the
     P first-conv dilations, shared by every tower; kernel_sizes: k of each
     tower."""
+    refuse_grad("fused_mrf", x, weights.w, weights.b, *[t for tw in weights.towers for t in tw])
     if x.device.type == "cpu":
         return mrf_plain(x, weights.towers, dilations)
     B, T, C = x.shape
     if C not in (32, 64, 128):
         raise ValueError(f"fused_mrf: the kernel takes C in (32, 64, 128), got {C}")
     args = tower_args(weights.towers, dilations, kernel_sizes)
-    check_towers("fused_mrf", weights.towers, kernel_sizes, len(dilations), C)
+    check_towers("fused_mrf", weights, kernel_sizes, len(dilations), C)
     _cuda.require_f32_cuda("fused_mrf", x, weights.w, weights.b)
     out = torch.empty_like(x)
     err = _cuda.lib("mrf").zv_mrf_f32(

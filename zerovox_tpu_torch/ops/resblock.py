@@ -9,11 +9,18 @@ x [B, T, C]:
     `zerovox_tpu/ops/pallas/resblock.py::fused_resblock1`. On an H100 the
     tower is bound by arithmetic (36 C^2 FLOP per row at k=3, P=3); the
     kernel keeps a time tile and the tower's halo in shared memory across
-    all 2P convs and writes the output once (design notes in the source);
+    all 2P convs, runs each conv as tensor-core GEMMs in 3xTF32 on K1's
+    tile (`csrc/mrf_tc.cuh`) and writes the output once (design notes in
+    the source);
   * on a CPU tensor it runs `resblock1_plain`, the same function in plain
     PyTorch.
 
-There is no fallback: a CUDA tensor the kernel does not take raises.
+The kernel reads the tower's weights in MMA fragment order,
+`ops.mrf.pack_towers([tower])`: a caller that runs one weight version many
+times (the vocoder) packs once and passes `packed=`. There is no fallback:
+a CUDA tensor the kernel does not take raises, and so does a tensor that
+requires grad while grad is enabled (the kernel has no backward), on either
+device.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from zerovox_tpu_torch.ops import _cuda
-from zerovox_tpu_torch.ops.mrf import _torch_convs, check_towers, flat_towers, resblock1_ncl
+from zerovox_tpu_torch.ops.mrf import (MrfWeights, _torch_convs, check_towers, pack_towers,
+                                       refuse_grad, resblock1_ncl)
 
 
 def resblock1_plain(x, w1, b1, w2, b2, dilations):
@@ -31,11 +39,14 @@ def resblock1_plain(x, w1, b1, w2, b2, dilations):
     return y.transpose(1, 2)
 
 
-def fused_resblock1(x, w1, b1, w2, b2, dilations):
+def fused_resblock1(x, w1, b1, w2, b2, dilations, packed: MrfWeights | None = None):
     """One ResBlock1 tower of x [B, T, C] -> [B, T, C].
 
     w1, w2: [P, k, C, C] conv taps (k, in, out) of the dilated and the plain
-    convs; b1, b2: [P, C]; dilations: the P first-conv dilations."""
+    convs; b1, b2: [P, C]; dilations: the P first-conv dilations; packed:
+    `pack_towers([(w1, b1, w2, b2)])`, built here when not given."""
+    refuse_grad("fused_resblock1", x, w1, b1, w2, b2,
+                *((packed.w, packed.b) if packed is not None else ()))
     if x.device.type == "cpu":
         return resblock1_plain(x, w1, b1, w2, b2, dilations)
     if x.dim() != 3:
@@ -49,14 +60,15 @@ def fused_resblock1(x, w1, b1, w2, b2, dilations):
                          f"got {P} pairs and dilations {tuple(dilations)}")
     if k % 2 == 0:
         raise ValueError(f"fused_resblock1: the kernel takes an odd kernel size, got {k}")
-    check_towers("fused_resblock1", [(w1, b1, w2, b2)], (k,), P, C)
-    w, b = flat_towers([(w1, b1, w2, b2)])
-    _cuda.require_f32_cuda("fused_resblock1", x, w, b)
+    if packed is None:
+        packed = pack_towers([(w1, b1, w2, b2)])
+    check_towers("fused_resblock1", packed, (k,), P, C)
+    _cuda.require_f32_cuda("fused_resblock1", x, packed.w, packed.b)
     ds = list(dilations) + [0] * (3 - P)
     out = torch.empty_like(x)
     err = _cuda.lib("resblock").zv_resblock1_f32(
-        x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), B, T, C, k, P, *ds,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), out.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(), B, T, C, k, P,
+        *ds, torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(err, "fused_resblock1")
     fused_resblock1.launches += 1
     return out

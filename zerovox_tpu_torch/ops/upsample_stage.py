@@ -18,7 +18,8 @@ computes it in one pass over x [B, T_in, C_in]:
 
 The weights come packed once per weight version (`pack_upsampler`,
 `ops.mrf.pack_towers`). There is no fallback: a CUDA tensor the kernel does
-not take raises.
+not take raises, and so does a tensor that requires grad while grad is
+enabled (the kernel has no backward), on either device.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 
 from zerovox_tpu_torch.ops import _cuda
 from zerovox_tpu_torch.ops.mrf import (LRELU_SLOPE, MrfWeights, check_towers, mma_fragments,
-                                       mrf_plain, tower_args)
+                                       mrf_plain, refuse_grad, tower_args)
 
 KERNEL_WIDTHS = ((128, 64), (64, 32), (32, 16))  # (C_in, C_out) instantiated in the source
 
@@ -78,6 +79,8 @@ def fused_upsample_stage(x, up: UpsamplerWeights, up_padding, mrf: MrfWeights, d
     when post = (w [k, C_out, 1], b [1]) is given. T_out = (T_in - 1) *
     stride + k - 2 * up_padding. up: `pack_upsampler` of the transposed
     conv; mrf, dilations, kernel_sizes: the towers as in ops.mrf.fused_mrf."""
+    refuse_grad("fused_upsample_stage", x, up.w, up.b, up.frag, mrf.w, mrf.b,
+                *[t for tw in mrf.towers for t in tw], *(post or ()))
     if x.device.type == "cpu":
         return upsample_stage_plain(x, up.w, up.b, up.stride, up_padding, mrf.towers, dilations,
                                     post)
@@ -90,7 +93,7 @@ def fused_upsample_stage(x, up: UpsamplerWeights, up_padding, mrf: MrfWeights, d
         raise ValueError("fused_upsample_stage: upsampler weight must be [k, C_in, C_out]")
     T_out = (T_in - 1) * up.stride + up_k - 2 * up_padding
     args = tower_args(mrf.towers, dilations, kernel_sizes)
-    check_towers("fused_upsample_stage", mrf.towers, kernel_sizes, len(dilations), C_out)
+    check_towers("fused_upsample_stage", mrf, kernel_sizes, len(dilations), C_out)
     if post is not None:
         pw, pb = post
         post_k = pw.shape[0]

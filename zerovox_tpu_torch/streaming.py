@@ -14,16 +14,27 @@ bucket tail), so the right edge is exact except within one receptive field
 of the bucket's end.
 
 The window is sliced out of the decoder's mel on the device; only audio
-chunks come back to the host.
+chunks come back to the host. On the card each window's chunk is copied
+into pinned host memory as soon as the window is queued, with an event
+after it, so the host waits for that window alone and not for the next one,
+which is queued before the current chunk is read.
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+class Window(NamedTuple):
+    """A dispatched window's chunk samples: on the card, a pinned host copy
+    in flight and the event recorded after it; on the CPU, the samples."""
+
+    samples: torch.Tensor
+    ready: torch.cuda.Event | None
 
 
 class ChunkStreamer:
@@ -41,29 +52,43 @@ class ChunkStreamer:
         # left halo zeros + right padding so any window start is in range
         self._mel_padded = F.pad(mel, (0, 0, self.halo, self.window))
 
-    def dispatch(self, pos: int) -> torch.Tensor:
-        """Start vocoding the window of the chunk at mel position `pos`
-        (asynchronous on the card). pos == 0 anchors the window at mel[0]
-        with no left halo (module docstring)."""
+    def dispatch(self, pos: int) -> Window:
+        """Start vocoding the window of the chunk at mel position `pos` and,
+        on the card, copying its chunk to the host (both asynchronous).
+        pos == 0 anchors the window at mel[0] with no left halo (module
+        docstring)."""
         start = self.halo if pos == 0 else pos
-        with torch.inference_mode():
-            return self._meldec(self._mel_padded[:, start:start + self.window])
-
-    def trim(self, wav: torch.Tensor, n_frames: int, pos: int | None = None) -> np.ndarray:
-        """Samples of the chunk at `pos` (an interior chunk by default)."""
         start_s = 0 if pos == 0 else self.halo * self.up
-        return wav[0, start_s:start_s + n_frames * self.up].cpu().numpy()
+        with torch.inference_mode():
+            wav = self._meldec(self._mel_padded[:, start:start + self.window])
+            samples = wav[0, start_s:start_s + self.chunk * self.up]
+            if samples.device.type != "cuda":
+                return Window(samples, None)
+            host = torch.empty(samples.shape, dtype=samples.dtype, pin_memory=True)
+            host.copy_(samples, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return Window(host, ready)
 
-    def chunks(self, mel_len: int, pos: int = 0, first_wav=None) -> Iterator[np.ndarray]:
+    @staticmethod
+    def trim(window: Window, n_frames: int, up: int) -> np.ndarray:
+        """The first n_frames frames (up samples each) of a window's chunk,
+        once its copy has landed."""
+        if window.ready is not None:
+            window.ready.synchronize()
+        return window.samples[:n_frames * up].numpy()
+
+    def chunks(self, mel_len: int, pos: int = 0, first_wav: Window | None = None
+               ) -> Iterator[np.ndarray]:
         """Yield chunks covering mel[pos:mel_len]. The next window is
-        dispatched before the current one is fetched, so the card computes
-        while the host copies and yields."""
+        dispatched before the current one is read, so the card computes
+        while the host waits for the current copy and yields."""
         pending_pos = pos
         pending = first_wav if first_wav is not None else self.dispatch(pos)
         while pending_pos < mel_len:
             end = min(pending_pos + self.chunk, mel_len)
             nxt = self.dispatch(end) if end < mel_len else None
-            yield self.trim(pending, end - pending_pos, pos=pending_pos)
+            yield self.trim(pending, end - pending_pos, self.up)
             pending, pending_pos = nxt, end
 
 

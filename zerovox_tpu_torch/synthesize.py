@@ -49,6 +49,13 @@ from zerovox_tpu_torch.utils.profiling import StageTimer
 TEXT_BUCKETS = (16, 32, 64, 96, 128, 192, 256, 384, 512)
 MEL_BUCKETS = (96, 176, 344, 512, 689, 1024, 1408, 1750)
 
+# Whether the vocoder sends batches of more than one row through K1 and K3
+# too (Generator's `pallas_all_batches`); K2 takes every batch size either
+# way. On: on an H100 both kernels beat their plain stages at B=4 and B=8
+# (chip_smoke.py phase 9; times in PERF.md), unlike on the TPU, where the JAX
+# package keeps them to batch 1.
+VOCODER_ALL_BATCHES = True
+
 _SENTENCE_SPLIT = re.compile(r"(?<=[.!?;:])\s+")
 
 
@@ -104,7 +111,9 @@ class ZeroVoxTTS:
         self._model.load_state_dict(state_dict)
         self._model.eval().to(self.device)
         self._meldec_cfg = meldec_cfg
-        self._meldec = MelDec(meldec_cfg)
+        # the vocoder's stages go to the fused kernels (on the CPU, to their
+        # plain versions), K1 and K3 at every batch size: VOCODER_ALL_BATCHES
+        self._meldec = MelDec(meldec_cfg, use_pallas=True, pallas_all_batches=VOCODER_ALL_BATCHES)
         self._meldec.load_state_dict(meldec_state_dict)
         self._meldec.eval().to(self.device)
 
