@@ -45,10 +45,28 @@ Phases, in order; any failure exits nonzero:
    vocoder) and K3 (stages 1-3 of the single-tower one) at B=4 and B=8
    against their plain stages, timed in turns, and whether each kernel wins
    at both sizes beside the engine's setting.
-10. The vocoder's gradients on the card: Generator(use_pallas=True) under
+10. Serving: the main-path engine at full width (seed 0, the five bundled
+   voices, warmup at batch 1, 4 and 8) behind make_server (max batch 8,
+   20 ms window) over localhost HTTP, by scripts/bench_http.py's method:
+   15 lone POST /tts against the direct tts, 15 streams' first audio byte
+   against the direct tts_stream's first chunk (p50s), 5 rounds of 8
+   concurrent POSTs (BATCH_TEXTS x 2 voices; requests/s, batches a round).
+   Every HTTP row within one int16 step + 1e-3 of a direct tts_batch of its
+   window; a stream within one int16 step of tts_stream_text; K1 and K2
+   launched by the dispatch thread; /health without errors.
+11. The vocoder's gradients on the card: Generator(use_pallas=True) under
    grad raises (no kernel launched); Generator(use_pallas=False) at V1's
    widths cut to two stages gives the mel's and every parameter's gradient
    within 1e-3 x its tensor's max of the CPU's (TF32 off).
+12. Checkpoints on the training config cut to one FFT layer a side (K4 on):
+   Trainer.fit for 2 epochs of 2 steps writes checkpoints/0000 and
+   0001.msgpack with their .json; the file read back equals the trained
+   weights bitwise; restore_train_state + one step gives the uninterrupted
+   run's losses (1e-5 relative); an engine on the checkpoint through
+   ZeroVoxTTS.from_checkpoint synthesizes the main-path text on the card
+   within 1e-3 of the CPU.
+13. The demo CLI (`python3 -m zerovox_tpu_torch.cli.demo --random-model`)
+   in its own process: exit 0 and a WAV of the length it prints.
 
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -57,11 +75,19 @@ The last three lines are the card's name and power limit, a JSON object
 
 from __future__ import annotations
 
+import http.client
+import io
 import json
+import os
+import re
+import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+import wave
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -94,6 +120,10 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 CHUNK_FRAMES = 96  # tts_stream's default chunk; a window adds the receptive-field halo each side
+# serving: bench_http.py's 15 runs of each lone measure, rounds of 8 concurrent clients
+SERVE_ITERS, SERVE_ROUNDS, SERVE_BATCH = 15, 5, 8
+WAV_HEADER_BYTES = 44  # the streaming WAV header before the first PCM byte
+RESUME_RTOL = 1e-5  # a resumed step's losses against the uninterrupted run's
 
 
 def fail(msg: str) -> None:
@@ -435,7 +465,8 @@ def train_phase(torch, corpus_root: Path) -> dict:
     dm = SpeechDataModule([{"path": {"preprocessed_path": "train"}}], cfg.symbols(), STATS,
                           batch_size=TRAIN_BATCH, num_workers=4, seed=0, base_path=str(corpus_root))
     dm.prepare_data()
-    tcfg = TrainerConfig(max_epochs=TRAIN_EPOCHS, warmup_epochs=1, log_every_n_steps=2, seed=0)
+    tcfg = TrainerConfig(max_epochs=TRAIN_EPOCHS, warmup_epochs=1, log_every_n_steps=2, seed=0,
+                         out_folder=str(corpus_root / "model"))
     trainer = Trainer(cfg, tcfg, steps_per_epoch=dm.steps_per_epoch())
     state = trainer.init_state()
 
@@ -842,7 +873,7 @@ def batch_rule(torch, dev, T_mel: int) -> dict:
 
 
 def grad_phase(torch, dev, card: str) -> dict:
-    """Phase 10: the kernel route refuses autograd on the card, and the
+    """Phase 11: the kernel route refuses autograd on the card, and the
     nn.Modules' route gives the CPU's gradients."""
     import numpy as np
 
@@ -890,6 +921,331 @@ def grad_phase(torch, dev, card: str) -> dict:
     check(worst[0] <= STEP_GRAD_TOL, f"vocoder gradient {worst[1]}: {worst[0]} x its max |value|")
     out = {"n_grads": len(cpu_g), "worst_grad_rel_err": worst[0], "worst": worst[1], "card": card}
     print(json.dumps({"vocoder_grads": out}), flush=True)
+    return out
+
+
+def _post(host: str, port: int, payload: dict) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    try:
+        conn.request("POST", "/tts", json.dumps(payload), headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _stream(host: str, port: int, payload: dict) -> tuple[float, bytes]:
+    """POST a streaming /tts: (seconds to the first PCM byte, whole body)."""
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/tts", json.dumps({**payload, "stream": True}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            fail(f"streaming /tts answered {resp.status}: {resp.read()[:200]}")
+        got, first = b"", None
+        while True:
+            piece = resp.read1(65536)
+            if not piece:
+                check(first is not None, f"the stream carried no audio: {len(got)} bytes")
+                return first, got
+            got += piece
+            if first is None and len(got) > WAV_HEADER_BYTES:
+                first = time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _wav_pcm(body: bytes):
+    import numpy as np
+
+    with wave.open(io.BytesIO(body)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+class _RecordingEngine:
+    """The engine as the server sees it, recording each tts_batch window the
+    dispatch thread forms (the calling thread, a label the caller sets, the
+    texts and embeddings, the kernels launched and the call's wall ms) and
+    each stream's wall ms to its first chunk on the dispatch thread."""
+
+    def __init__(self, engine):
+        self.engine, self.cfg, self.windows, self.label = engine, engine.cfg, [], None
+        self.stream_first_ms = []
+
+    def tts_batch(self, texts, spkembs):
+        import numpy as np
+
+        n0, t0 = kernel_counts(), time.perf_counter()
+        outs = self.engine.tts_batch(texts, spkembs)
+        ms, n1 = 1e3 * (time.perf_counter() - t0), kernel_counts()
+        self.windows.append({"thread": threading.current_thread().name, "label": self.label,
+                             "texts": list(texts), "spk": np.array(spkembs), "ms": ms,
+                             "launches": {k: n1[k] - n0[k] for k in n1}})
+        return outs
+
+    def tts_stream_text(self, text, spkemb, chunk_frames: int = 96):
+        t0 = time.perf_counter()
+        for i, chunk in enumerate(self.engine.tts_stream_text(text, spkemb, chunk_frames)):
+            if i == 0:
+                self.stream_first_ms.append(1e3 * (time.perf_counter() - t0))
+            yield chunk
+
+
+def serving_phase(torch, card: str) -> dict:
+    """Phase 10: the main-path engine at full width behind make_server over
+    localhost HTTP, by scripts/bench_http.py's method: lone POST /tts
+    against the direct tts (p50 of each), streaming time to the first audio
+    byte against the direct tts_stream's first chunk (p50 of each), and
+    rounds of 8 concurrent POSTs (BATCH_TEXTS x 2 voices). Every HTTP row
+    within one int16 step + 1e-3 of a direct tts_batch of the window the
+    batcher formed; one stream within one int16 step of tts_stream_text;
+    K1 and K2 launched from the dispatch thread; no error in /health."""
+    import numpy as np
+
+    from zerovox_tpu_torch.serving import VoiceRegistry, make_server, serve_in_thread
+    from zerovox_tpu_torch.serving.server import _pcm16_bytes
+    from zerovox_tpu_torch.synthesize import VOCODER_ALL_BATCHES, ZeroVoxTTS
+
+    engine = ZeroVoxTTS.from_random(seed=0)  # ZeroVoxConfig() and the 512-channel HiFi-GAN
+    sr = engine.cfg.audio.sampling_rate
+    voices = VoiceRegistry()
+    for ref in ZeroVoxTTS.available_speakerrefs():
+        voices.add_from_wav(ref.removesuffix(".wav"), engine, ZeroVoxTTS.get_speakerref(ref, sr))
+    names = voices.names()
+    check(len(names) == 5, f"bundled voices {names}")
+    engine.warmup(spkemb=voices.get(None), batch_sizes=(1, 4, 8))
+    for _ in engine.tts_stream(TEXT, voices.get(None)):
+        pass
+    rec = _RecordingEngine(engine)
+    srv = make_server(rec, voices, port=0, max_batch=SERVE_BATCH, max_delay_ms=20)
+    serve_in_thread(srv)
+    host, port = srv.server_address[:2]
+    responses = {}  # (label, text, voice) -> int16 samples
+    try:
+        zero_counts()
+        lone_ms = []
+        for i in range(SERVE_ITERS):
+            rec.label = ("lone", i)
+            t0 = time.perf_counter()
+            status, body = _post(host, port, {"text": TEXT, "voice": names[0]})
+            lone_ms.append(1e3 * (time.perf_counter() - t0))
+            check(status == 200, f"/tts answered {status}: {body[:200]}")
+            responses[rec.label, TEXT, names[0]] = _wav_pcm(body)
+        ttfb_ms = []
+        for _ in range(SERVE_ITERS):
+            first, stream_body = _stream(host, port, {"text": TEXT, "voice": names[0]})
+            ttfb_ms.append(1e3 * first)
+        round_ms = []
+        for r in range(SERVE_ROUNDS):
+            rec.label = ("round", r)
+            jobs = [(t, v) for v in names[:2] for t in BATCH_TEXTS]
+            out = [None] * len(jobs)
+
+            def hit(i):
+                out[i] = _post(host, port, {"text": jobs[i][0], "voice": jobs[i][1]})
+
+            threads = [threading.Thread(target=hit, args=(i,)) for i in range(len(jobs))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            round_ms.append(1e3 * (time.perf_counter() - t0))
+            for (text, voice), res in zip(jobs, out):
+                check(res is not None and res[0] == 200, f"concurrent /tts failed: {res and res[:1]}")
+                responses[rec.label, text, voice] = _wav_pcm(res[1])
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        with urllib.request.urlopen(f"http://{host}:{port}/health", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.shutdown_serving()
+    check(health["errors"] == 0, f"/health reports errors: {health}")
+
+    # every HTTP row against a direct tts_batch of the window it rode in
+    row_err, matched = 0.0, 0
+    k1 = 1 if VOCODER_ALL_BATCHES else 0
+    for w in rec.windows:
+        check(w["thread"] == "zerovox-batcher", f"tts_batch ran on thread {w['thread']}")
+        check(w["launches"]["fused_upsample_stage"] >= 2 and w["launches"]["fused_mrf"] >= k1,
+              f"a window of {len(w['texts'])} launched {w['launches']}")
+        direct = engine.tts_batch(w["texts"], w["spk"])
+        for text, spk, (wav, n) in zip(w["texts"], w["spk"], direct):
+            voice = [v for v in names if np.array_equal(voices.get(v)[0], spk)]
+            pcm = responses.pop((w["label"], text, voice[0]))
+            check(pcm.shape == wav.shape, f"HTTP row {pcm.shape}, direct {wav.shape}")
+            err = float(np.max(np.abs(pcm / 32767.0 - np.clip(wav, -1, 1)), initial=0.0))
+            check(err <= WAV_TOL + 1.0 / 32767, f"HTTP row of {text!r} differs by {err}")
+            row_err, matched = max(row_err, err), matched + 1
+    check(not responses, f"{len(responses)} HTTP rows came from no recorded window")
+    streamed = np.frombuffer(stream_body[WAV_HEADER_BYTES:], np.int16).astype(np.int32)
+    direct = np.frombuffer(b"".join(_pcm16_bytes(c) for c in engine.tts_stream_text(
+        TEXT, voices.get(names[0]))), np.int16).astype(np.int32)
+    check(streamed.shape == direct.shape, f"stream {streamed.shape}, direct {direct.shape}")
+    stream_steps = int(np.max(np.abs(streamed - direct), initial=0))
+    check(stream_steps <= 1, f"the HTTP stream differs from tts_stream_text by {stream_steps} steps")
+
+    # the direct calls the HTTP numbers stand beside, on the same text and voice
+    spk = voices.get(names[0])
+    direct_ms, batch1_ms, first_ms = [], [], []
+    for _ in range(SERVE_ITERS):
+        t0 = time.perf_counter()
+        engine.tts(TEXT, spk)
+        direct_ms.append(1e3 * (time.perf_counter() - t0))
+    for _ in range(SERVE_ITERS):
+        t0 = time.perf_counter()
+        engine.tts_batch([TEXT], spk)
+        batch1_ms.append(1e3 * (time.perf_counter() - t0))
+    for _ in range(SERVE_ITERS):
+        t0 = time.perf_counter()
+        gen = engine.tts_stream(TEXT, spk)
+        next(gen)
+        first_ms.append(1e3 * (time.perf_counter() - t0))
+        for _ in gen:
+            pass
+    p50 = statistics.median
+    rounds = [w for w in rec.windows if w["label"][0] == "round"]
+    out = {
+        "lone": {"http_p50_ms": p50(lone_ms), "direct_tts_p50_ms": p50(direct_ms),
+                 "overhead_p50_ms": p50(lone_ms) - p50(direct_ms),
+                 "direct_tts_batch_b1_p50_ms": p50(batch1_ms),
+                 "dispatch_tts_batch_p50_ms": p50([w["ms"] for w in rec.windows
+                                                   if w["label"][0] == "lone"])},
+        "stream": {"http_first_byte_p50_ms": p50(ttfb_ms),
+                   "direct_first_chunk_p50_ms": p50(first_ms),
+                   "overhead_p50_ms": p50(ttfb_ms) - p50(first_ms),
+                   "dispatch_first_chunk_p50_ms": p50(rec.stream_first_ms)},
+        "concurrent": {"clients": 2 * len(BATCH_TEXTS), "rounds": SERVE_ROUNDS,
+                       "round_p50_ms": p50(round_ms),
+                       "requests_per_s": 2 * len(BATCH_TEXTS) / (p50(round_ms) / 1e3),
+                       "batches_per_round": len(rounds) / SERVE_ROUNDS,
+                       "mean_batch_size": health.get("mean_batch_size"),
+                       "max_batch_seen": health["max_batch_seen"]},
+        "windows": len(rec.windows), "rows_checked": matched, "max_row_err": row_err,
+        "stream_max_step_diff": stream_steps, "launches": launches,
+        "health": {k: health[k] for k in ("requests", "batches", "streams", "stream_chunks",
+                                          "errors")}, "card": card}
+    print(json.dumps({"serving": out}), flush=True)
+    return out
+
+
+def checkpoint_phase(torch, dev, card: str, refwav) -> dict:
+    """Phase 12: Trainer.fit on train_config(fused=True, shallow=True) over
+    the training phase's synthetic corpus, 2 epochs of 2 steps, writing
+    checkpoints/0000 and 0001.msgpack (+ .json); the last read back by
+    load_native_checkpoint -> from_jax_variables equals the trained
+    state_dict bitwise; save_train_state, the uninterrupted run's next step
+    against restore_train_state + that step (losses 1e-5 relative); an
+    engine on the checkpoint through ZeroVoxTTS.from_checkpoint (a native
+    generator.msgpack vocoder dir) on the card against the CPU, main-path
+    text and durations (1e-3)."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig, MelDec
+    from zerovox_tpu_torch.synthesize import ZeroVoxTTS, random_init_
+    from zerovox_tpu_torch.training.checkpointing import (load_checkpoint_meta,
+                                                          load_native_checkpoint,
+                                                          save_native_checkpoint)
+    from zerovox_tpu_torch.training.data import SpeechDataModule
+    from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig, device_batch
+    from zerovox_tpu_torch.weights import from_jax_variables, meldec_to_jax_variables
+
+    cfg = train_config(fused=True, shallow=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        root = Path(tmp)
+        write_corpus(root, "train", cfg.symbols(), cfg.audio.num_mels, TRAIN_UTTS, (80, 100),
+                     seed=0)
+        dm = SpeechDataModule([{"path": {"preprocessed_path": "train"}}], cfg.symbols(), STATS,
+                              batch_size=TRAIN_BATCH, num_workers=4, seed=0, base_path=str(root))
+        dm.prepare_data()
+        tcfg = TrainerConfig(max_epochs=2, warmup_epochs=1, log_every_n_steps=2, seed=0,
+                             out_folder=str(root / "model"))
+        trainer = Trainer(cfg, tcfg, steps_per_epoch=dm.steps_per_epoch())
+        zero_counts()
+        state = trainer.fit(dm.train_dataloader, trainer.init_state())
+        k4 = k4_counts()
+        check(state.step == 4 and k4 == (24, 24), f"fit took {state.step} steps, K4 {k4}")
+        ckpts = root / "model" / "checkpoints"
+        files = sorted(os.listdir(ckpts))
+        check(files == ["0000.msgpack", "0000.msgpack.json", "0001.msgpack", "0001.msgpack.json"],
+              f"checkpoints written: {files}")
+        meta = load_checkpoint_meta(ckpts / "0001.msgpack")
+        check(meta["epoch"] == 1 and meta["step"] == 4 and np.isfinite(meta["loss"]),
+              f"checkpoint meta {meta}")
+        sd = from_jax_variables(load_native_checkpoint(ckpts / "0001.msgpack"), cfg)
+        trained = state.model.state_dict()
+        differ = [k for k, v in trained.items() if not k.endswith("num_batches_tracked")
+                  and not torch.equal(sd[k], v.cpu())]
+        check(sd.keys() == trained.keys() and not differ,
+              f"the checkpoint differs from the trained weights: {differ[:3]}")
+
+        trainer.save_train_state(state, root / "state.pt", epoch=1)
+        batch = device_batch(next(iter(dm.train_dataloader(2))), dev)
+        want = {k: v.item() for k, v in trainer.train_step(state, batch).items()}
+        del state, trainer
+        fresh = Trainer(cfg, tcfg, steps_per_epoch=dm.steps_per_epoch())
+        resumed = fresh.init_state()
+        check(fresh.restore_train_state(resumed, root / "state.pt") == 2, "resume epoch")
+        got = {k: v.item() for k, v in fresh.train_step(resumed, batch).items()}
+        resume_err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want)
+        check(resume_err <= RESUME_RTOL, f"the resumed step's losses {got}, uninterrupted {want}")
+        del fresh, resumed, batch
+        torch.cuda.empty_cache()
+
+        hcfg = HifiGanConfig()
+        md = MelDec(hcfg)
+        random_init_(md, torch.Generator().manual_seed(12))
+        meldec_dir = root / "meldec"
+        meldec_dir.mkdir()
+        (meldec_dir / "config.json").write_text(json.dumps(dc.asdict(hcfg)))
+        save_native_checkpoint(meldec_dir / "generator.msgpack",
+                               {"params": meldec_to_jax_variables(md.state_dict(), hcfg)["params"]["generator"]})
+        card_engine = ZeroVoxTTS.from_checkpoint(cfg, ckpts / "0001.msgpack", meldec_dir)
+        cpu_engine = ZeroVoxTTS.from_checkpoint(cfg, ckpts / "0001.msgpack", meldec_dir,
+                                                device="cpu")
+    spk = card_engine.speaker_embed(refwav)
+    dur = np.full(len(card_engine.text2phonemeids(TEXT)[0]), FRAMES_PER_PHONE, np.int32)
+    n0 = kernel_counts()
+    w_card, _, n_card = card_engine.tts(TEXT, spk, duration=dur)
+    n1 = kernel_counts()
+    w_cpu, _, n_cpu = cpu_engine.tts(TEXT, spk.cpu(), duration=dur)
+    check(n_card == n_cpu == int(dur.sum()) and w_card.shape == w_cpu.shape,
+          f"card {w_card.shape}, cpu {w_cpu.shape}")
+    err, peak = float(np.max(np.abs(w_card - w_cpu))), float(np.max(np.abs(w_cpu)))
+    check(peak > 0 and err < WAV_TOL * min(peak, 1.0),
+          f"the checkpoint's engine on the card differs from the CPU by {err} (peak {peak})")
+    out = {"steps": 4, "k4_launches": list(k4), "losses_uninterrupted": want,
+           "losses_resumed": got, "resume_max_rel_err": resume_err,
+           "engine_launches": {k: n1[k] - n0[k] for k in n1}, "cpu_err": err, "cpu_peak": peak,
+           "card": card}
+    print(json.dumps({"checkpoints": out}), flush=True)
+    return out
+
+
+def demo_phase(card: str) -> dict:
+    """Phase 13: `python3 -m zerovox_tpu_torch.cli.demo --random-model` in
+    its own process on the card: exit 0 and a WAV of the length it states."""
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        path = Path(tmp) / "demo.wav"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "zerovox_tpu_torch.cli.demo", "--random-model",
+                               "--refaudio", "en_kevin.wav", "--wav-filename", str(path), TEXT],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the demo CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        m = re.search(r"voice length: ([0-9.]+) sec", proc.stdout)
+        check(m is not None and path.is_file(), f"the demo CLI wrote no wav: {proc.stdout[-1000:]}")
+        with wave.open(str(path)) as w:
+            seconds, rate = w.getnframes() / w.getframerate(), w.getframerate()
+    check(rate == 22050 and abs(seconds - float(m.group(1))) <= 0.005,
+          f"the demo wrote {seconds} s at {rate} Hz, stated {m.group(1)} s")
+    out = {"wav_seconds": seconds, "stated_seconds": float(m.group(1)), "process_s": wall,
+           "card": card}
+    print(json.dumps({"demo_cli": out}), flush=True)
     return out
 
 
@@ -1118,9 +1474,23 @@ def main() -> None:
     default_batch_phase(torch, dev, card, refwav, sr)
     torch.cuda.empty_cache()
 
-    # ---- 10. the vocoder's gradients
+    # ---- 10. the main path behind the HTTP server
+    phase("serving")
+    serving_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    # ---- 11. the vocoder's gradients
     phase("vocoder gradients")
     grad_phase(torch, dev, card)
+
+    # ---- 12. checkpoints: fit writes them, resume, an engine on one
+    phase("checkpoints")
+    checkpoint_phase(torch, dev, card, refwav)
+    torch.cuda.empty_cache()
+
+    # ---- 13. the demo CLI in its own process
+    phase("demo cli")
+    demo_phase(card)
 
     # ---- results
     print(card)

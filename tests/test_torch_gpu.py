@@ -484,3 +484,69 @@ def test_styletts_single_tower_engine_on_card_matches_cpu(cuda):
 def _sd_pair(engine):
     sd, msd = engine.state_dicts()
     return sd, engine._meldec_cfg, msd
+
+
+def test_server_on_card_matches_direct_tts_batch(cuda):
+    """Two concurrent POST /tts through make_server on the card: one batch
+    of 2 formed on the dispatch thread, which launches K1 and K2 there;
+    each row, decoded from int16, within 1e-3 of the direct tts_batch (and
+    one int16 step), and /health reports no error."""
+    import http.client
+    import io
+    import json
+    import threading
+    import wave
+
+    from zerovox_tpu_torch.config import (DecoderConfig, EncoderConfig, ModelConfig,
+                                          ResNetConfig, ZeroVoxConfig)
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.serving import VoiceRegistry, make_server, serve_in_thread
+    from zerovox_tpu_torch.synthesize import VOCODER_ALL_BATCHES, ZeroVoxTTS
+
+    cfg = ZeroVoxConfig(model=ModelConfig(
+        max_txt_len=64, max_mel_len=256, emb_dim=48, punct_emb_dim=16,
+        encoder=EncoderConfig(fs2_layer=1, vp_filter_size=16, ve_n_bins=16),
+        decoder=DecoderConfig(n_layers=1, conv_filter_size=64),
+        resnet=ResNetConfig(layers=(1, 1, 1, 1), num_filters=(8, 16, 16, 16))))
+    engine = ZeroVoxTTS.from_random(cfg, HifiGanConfig(upsample_initial_channel=256), seed=3)
+    # random weights predict durations near zero, and HTTP cannot force
+    # them: a duration bias of 1.5 (exp(1.5) - 1 ~ 3.5 frames a phone) gives
+    # rows to compare
+    with torch.no_grad():
+        engine._model._phoneme_encoder._variance_adaptor.duration_predictor.linear_layer.bias.fill_(1.5)
+    voices = VoiceRegistry()
+    voices.add("v", engine.speaker_embed(
+        np.random.default_rng(1).normal(size=22050).astype(np.float32) * 0.1))
+    texts = ["Hello there, general test.", "A second request."]
+    srv = make_server(engine, voices, port=0, max_batch=2, max_delay_ms=2000)
+    serve_in_thread(srv)
+    host, port = srv.server_address[:2]
+    rows = [None, None]
+
+    def post(i):
+        conn = http.client.HTTPConnection(host, port, timeout=300)
+        conn.request("POST", "/tts", json.dumps({"text": texts[i], "voice": "v"}))
+        resp = conn.getresponse()
+        rows[i] = (resp.status, resp.read())
+        conn.close()
+
+    try:
+        k1, k2 = fused_mrf.launches, fused_upsample_stage.launches
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        assert fused_upsample_stage.launches - k2 == 2
+        assert fused_mrf.launches - k1 == (2 if VOCODER_ALL_BATCHES else 0)
+        assert srv.batcher.stats.max_batch_seen == 2 and srv.batcher.stats.errors == 0
+        direct = engine.tts_batch(texts, np.concatenate([voices.get("v")] * 2))
+        for (status, body), (wav, n) in zip(rows, direct):
+            assert status == 200
+            with wave.open(io.BytesIO(body)) as w:
+                pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+            assert pcm.shape == wav.shape == (n * cfg.audio.hop_size,) and n > 0
+            assert np.max(np.abs(pcm / 32767.0 - wav)) <= 1e-3 + 1.0 / 32767
+    finally:
+        srv.shutdown_serving()

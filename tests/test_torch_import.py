@@ -27,7 +27,10 @@ def test_imports_with_jax_and_jax_package_blocked():
         "import zerovox_tpu_torch.ops.se_conv, zerovox_tpu_torch.training.trainer\n"
         "import zerovox_tpu_torch.ops.resblock, zerovox_tpu_torch.models.styletts\n"
         "import zerovox_tpu_torch.models.layers, zerovox_tpu_torch.models.zerovox\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))\n"
+        "import zerovox_tpu_torch.serving, zerovox_tpu_torch.hub\n"
+        "import zerovox_tpu_torch.cli.serve, zerovox_tpu_torch.cli.demo\n"
+        "import zerovox_tpu_torch.training.checkpointing, zerovox_tpu_torch.utils.msgpack_codec\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'msgpack', 'yaml'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -37,7 +40,7 @@ def test_imports_with_jax_and_jax_package_blocked():
 
 
 def test_no_file_imports_jax_or_the_jax_package():
-    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|zerovox_tpu)\b(?!_torch)",
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|msgpack|zerovox_tpu)\b(?!_torch)",
                          re.M)
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20

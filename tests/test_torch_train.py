@@ -320,17 +320,22 @@ def test_five_train_steps_match_the_jax_trainer(corpus_dir, monkeypatch, tmp_pat
                                    atol=2 * LR * 5, err_msg=name)
 
 
-def test_fit_runs_epochs_and_says_it_saves_nothing(corpus_dir, capsys):
+def test_fit_runs_epochs_and_says_it_saves_nothing(corpus_dir, capsys, tmp_path):
+    """fit runs its epochs and, since checkpoints are ported, no longer says
+    it saved nothing: it writes one native checkpoint an epoch."""
     port_dm, _ = _modules(corpus_dir)
     trainer = Trainer(pc.ZeroVoxConfig.from_dict(cfg_dict(False)),
-                      TrainerConfig(max_epochs=2, warmup_epochs=1, log_every_n_steps=2, seed=0),
+                      TrainerConfig(max_epochs=2, warmup_epochs=1, log_every_n_steps=2, seed=0,
+                                    out_folder=str(tmp_path)),
                       steps_per_epoch=port_dm.steps_per_epoch(), device="cpu")
     state = trainer.fit(port_dm.train_dataloader, trainer.init_state())
     out = capsys.readouterr().out
     assert state.step == 6
     assert "epoch 0: loss=" in out and "epoch 1: loss=" in out
     assert "invalid loss" not in out
-    assert out.count("checkpoints are not ported yet") == 1
+    assert "saved nothing" not in out
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == [
+        "0000.msgpack", "0000.msgpack.json", "0001.msgpack", "0001.msgpack.json"]
 
 
 def test_decoder_only_steps_only_the_decoder(corpus_dir):

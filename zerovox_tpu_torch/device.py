@@ -6,13 +6,13 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` means the CUDA card. Without one that raises: the port never
-    falls back to the CPU unless the caller passes device="cpu"."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """`None` means the CUDA card. Without one, that and any CUDA device
+    raise: the port never falls back to the CPU unless the caller passes
+    device="cpu"."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return device
 
 
 def use_full_f32() -> None:

@@ -12,7 +12,11 @@ The counterpart of the JAX package's `synthesize.py`, on PyTorch and CUDA:
     exact bucket is redone;
   * `tts_stream` yields audio chunk by chunk (streaming.py);
   * `tts_batch` synthesizes several utterances, one speaker each, padded to
-    shared buckets.
+    shared buckets (the serving layer's call, `serving/`);
+  * `load_model` reads a model directory (`modelcfg.yaml` and the newest
+    upstream `.ckpt` or native `.msgpack` checkpoint) or a hub name from
+    the local hub cache (`hub.py`); `from_checkpoint` does everything after
+    the YAML parse, so it runs where pyyaml is not installed.
 
 The StyleTTS decoder's InstanceNorms see the whole mel bucket, so its mel
 depends on the bucket: every path picks the same bucket as the JAX package
@@ -34,9 +38,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from zerovox_tpu_torch import hub
 from zerovox_tpu_torch.config import ZeroVoxConfig
 from zerovox_tpu_torch.device import resolve_device, use_full_f32
-from zerovox_tpu_torch.dsp.audio import trim_silence
+from zerovox_tpu_torch.dsp.audio import load_wav, trim_silence
 from zerovox_tpu_torch.dsp.mels import MelFrontend
 from zerovox_tpu_torch.models.hifigan import HifiGanConfig, MelDec
 from zerovox_tpu_torch.models.zerovox import ZeroVox
@@ -45,6 +50,8 @@ from zerovox_tpu_torch.symbols import Symbols
 from zerovox_tpu_torch.text.normalize import ZeroVoxNormalizer
 from zerovox_tpu_torch.text.tokenizer import transcript2phonemids
 from zerovox_tpu_torch.utils.profiling import StageTimer
+
+DEFAULT_REFAUDIO = "en_kevin.wav"
 
 TEXT_BUCKETS = (16, 32, 64, 96, 128, 192, 256, 384, 512)
 MEL_BUCKETS = (96, 176, 344, 512, 689, 1024, 1408, 1750)
@@ -140,6 +147,36 @@ class ZeroVoxTTS:
     @property
     def meldec_model(self) -> str:
         return self._meldec_model
+
+    @staticmethod
+    def available_speakerrefs() -> list[str]:
+        """Speaker reference wavs: the *.wav files of the bundled refaudio
+        directory and of `ZEROVOX_REFAUDIO_DIR`."""
+        speakers = []
+        for d in ZeroVoxTTS._refaudio_dirs():
+            if os.path.isdir(d):
+                speakers.extend(f for f in os.listdir(d) if f.endswith(".wav"))
+        return sorted(set(speakers), key=str.casefold)
+
+    @staticmethod
+    def _refaudio_dirs() -> list[str]:
+        dirs = []
+        if os.getenv("ZEROVOX_REFAUDIO_DIR"):
+            dirs.append(os.getenv("ZEROVOX_REFAUDIO_DIR"))
+        dirs.append(str(Path(__file__).parent / "refaudio"))
+        return dirs
+
+    @staticmethod
+    def get_speakerref(speakerref: str, sampling_rate: int) -> np.ndarray:
+        """A reference wav by path, or by name from the refaudio directories,
+        resampled to `sampling_rate`."""
+        if os.path.isfile(speakerref):
+            return load_wav(speakerref, target_sr=sampling_rate)[0]
+        for d in ZeroVoxTTS._refaudio_dirs():
+            p = os.path.join(d, speakerref)
+            if os.path.isfile(p):
+                return load_wav(p, target_sr=sampling_rate)[0]
+        raise FileNotFoundError(f"speaker reference wav not found: {speakerref}")
 
     def state_dicts(self) -> tuple[dict, dict]:
         """(acoustic model, vocoder) state_dicts on the CPU."""
@@ -360,10 +397,12 @@ class ZeroVoxTTS:
         for piece in pieces:
             yield from self.tts_stream(piece, spkemb, chunk_frames=chunk_frames)
 
-    def warmup(self, texts=("This is a warmup utterance.",), spkemb=None, mel_buckets=None):
+    def warmup(self, texts=("This is a warmup utterance.",), spkemb=None, mel_buckets=None,
+               batch_sizes=()):
         """Run the given texts (and, with `mel_buckets`, every such bucket
-        through forced durations) once, so first requests find the kernels
-        built and cuDNN's algorithm choices made."""
+        through forced durations; with `batch_sizes`, `tts_batch` at each
+        such size) once, so first requests find the kernels built and
+        cuDNN's algorithm choices made for those shapes."""
         if spkemb is None:
             spkemb = torch.zeros((1, 1, self.cfg.model.emb_size), device=self.device)
         for t in texts:
@@ -377,6 +416,23 @@ class ZeroVoxTTS:
                 dur = np.full(n, max(1, T // n), dtype=np.int32)
                 dur[-1] += T - int(dur.sum())
                 self.tts(texts[0], spkemb, duration=dur)
+        spk = self._spk(spkemb)
+        for B in batch_sizes:
+            self.tts_batch([texts[0]] * B, spk.expand(B, -1, -1))
+
+    def summary(self, depth: int = 1) -> int:
+        """Parameter counts of the acoustic model (total and, at depth 1,
+        per top-level module) and of the vocoder; returns the total. The
+        counts are the JAX package's: parameters, not BatchNorm statistics;
+        the vocoder's mel mean and scale included."""
+        total = sum(p.numel() for p in self._model.parameters())
+        print(f"ZeroVox acoustic model parameters: {total:,}")
+        if depth >= 1:
+            for name, sub in self._model.named_children():
+                print(f"  {name.lstrip('_')}: {sum(p.numel() for p in sub.parameters()):,}")
+        vocoder = sum(v.numel() for v in self._meldec.state_dict().values())
+        print(f"meldec (vocoder) parameters: {vocoder:,}")
+        return total
 
     # ------------------------------------------------------------- loaders
 
@@ -408,44 +464,97 @@ class ZeroVoxTTS:
 
     @classmethod
     def load_model(cls, modelpath, meldec_model=None, verbose: bool = False, device=None):
-        """Load `modelcfg.yaml` + the newest `checkpoints/*.ckpt` (upstream
-        Lightning format) from a local directory. The vocoder comes from
-        `meldec_model`, a directory holding `config.json` + `generator.ckpt`,
-        or else from `_meldec.*` weights embedded in the checkpoint. Returns
-        (modelcfg dict, engine)."""
+        """`modelcfg.yaml` + the newest (by ctime) `checkpoints/*.ckpt`
+        (upstream Lightning) or `checkpoints/*.msgpack` (native) of a local
+        directory, or `modelcfg.yaml` + `checkpoint.pkl` of a hub model
+        (`hub.download_model_file`). The vocoder is `meldec_model` (see
+        `from_checkpoint`). Returns (modelcfg dict, engine)."""
         import yaml  # only YAML loading needs it
 
-        from zerovox_tpu_torch.weights import upstream_generator_state_dict, upstream_state_dict
-
         device = resolve_device(device)
-        if not os.path.isdir(str(modelpath)):
-            raise FileNotFoundError(f"model directory not found: {modelpath}")
-        ckpts = glob.glob(os.path.join(str(modelpath), "checkpoints", "*.ckpt"))
-        if not ckpts:
-            raise FileNotFoundError(f"no checkpoints/*.ckpt under {modelpath}")
-        checkpoint = max(ckpts, key=os.path.getctime)
-        with open(Path(modelpath) / "modelcfg.yaml") as f:
+        if os.path.isdir(str(modelpath)):
+            config_path = Path(modelpath) / "modelcfg.yaml"
+            ckpts = glob.glob(os.path.join(str(modelpath), "checkpoints", "*.ckpt"))
+            ckpts += glob.glob(os.path.join(str(modelpath), "checkpoints", "*.msgpack"))
+            if not ckpts:
+                raise FileNotFoundError(f"no checkpoints/*.ckpt or *.msgpack under {modelpath}")
+            checkpoint = max(ckpts, key=os.path.getctime)
+        else:
+            config_path = hub.download_model_file(model=str(modelpath), relpath="modelcfg.yaml")
+            checkpoint = hub.download_model_file(model=str(modelpath), relpath="checkpoint.pkl")
+        if verbose:
+            print("synthesize: using config    : ", config_path)
+            print("synthesize: using checkpoint: ", checkpoint)
+        with open(config_path) as f:
             modelcfg = yaml.load(f, Loader=yaml.FullLoader)
         cfg = ZeroVoxConfig.from_dict(modelcfg)
-        if verbose:
-            print("synthesize: using checkpoint: ", checkpoint)
+        return modelcfg, cls.from_checkpoint(cfg, checkpoint, meldec_model, verbose=verbose,
+                                             device=device)
 
-        sd = _torch_state_dict(checkpoint)
-        state_dict = upstream_state_dict(sd, ZeroVox(cfg))
-        embedded = {k[len("_meldec."):]: v for k, v in sd.items() if k.startswith("_meldec.")}
-        if meldec_model:
-            with open(Path(meldec_model) / "config.json") as f:
-                meldec_cfg = HifiGanConfig.from_dict(json.load(f))
-            gen_sd = _torch_state_dict(Path(meldec_model) / "generator.ckpt")
-        elif embedded:
-            meldec_cfg, gen_sd = HifiGanConfig(), embedded
+    @classmethod
+    def from_checkpoint(cls, cfg: ZeroVoxConfig, checkpoint, meldec_model=None,
+                        verbose: bool = False, device=None):
+        """Engine on a checkpoint file: a native `.msgpack` (the JAX package's
+        variable tree) or an upstream torch checkpoint. The vocoder comes
+        from `meldec_model`: a directory holding `config.json` and either
+        `generator.msgpack` (native; identity mel normalization) or an
+        upstream `generator.ckpt`, or a hub model name; else from the
+        `_meldec.*` weights the checkpoint embeds. A checkpoint's embedded
+        `_meldec.mean`/`_meldec.scale` are taken beside an upstream
+        generator, as the JAX package takes them."""
+        from zerovox_tpu_torch.training.checkpointing import load_native_checkpoint
+        from zerovox_tpu_torch.weights import from_jax_variables, upstream_state_dict
+
+        device = resolve_device(device)
+        if str(checkpoint).endswith(".msgpack"):
+            state_dict = from_jax_variables(load_native_checkpoint(checkpoint), cfg)
+            embedded = {}
         else:
-            raise ValueError("no meldec model given and none embedded in the checkpoint")
-        md = MelDec(meldec_cfg).state_dict()
-        md.update(upstream_generator_state_dict(gen_sd))
-        engine = cls(cfg, state_dict, meldec_cfg, md, language=cfg.langs[0], verbose=verbose,
-                     meldec_model=str(meldec_model or ""), device=device)
-        return modelcfg, engine
+            sd = _torch_state_dict(checkpoint)
+            state_dict = upstream_state_dict(sd, ZeroVox(cfg))
+            embedded = {k[len("_meldec."):]: v for k, v in sd.items() if k.startswith("_meldec.")}
+        meldec_cfg, md = _load_meldec(meldec_model, embedded, verbose)
+        return cls(cfg, state_dict, meldec_cfg, md, language=cfg.langs[0], verbose=verbose,
+                   meldec_model=str(meldec_model or ""), device=device)
+
+
+def _load_meldec(meldec_model, embedded: dict, verbose: bool) -> tuple[HifiGanConfig, dict]:
+    """(config, MelDec state_dict) of `ZeroVoxTTS.from_checkpoint`'s vocoder."""
+    from zerovox_tpu_torch.training.checkpointing import load_native_checkpoint
+    from zerovox_tpu_torch.weights import meldec_from_jax_variables, upstream_generator_state_dict
+
+    local = bool(meldec_model) and os.path.isdir(str(meldec_model))
+    if local and (Path(meldec_model) / "generator.msgpack").exists():
+        with open(Path(meldec_model) / "config.json") as f:
+            meldec_cfg = HifiGanConfig.from_dict(json.load(f))
+        if verbose:
+            print("meldec: native checkpoint: ", Path(meldec_model) / "generator.msgpack")
+        gen = load_native_checkpoint(Path(meldec_model) / "generator.msgpack")["params"]
+        return meldec_cfg, meldec_from_jax_variables({"params": {"generator": gen}}, meldec_cfg)
+
+    if meldec_model:
+        if local:
+            config_path = Path(meldec_model) / "config.json"
+            gen_path = Path(meldec_model) / "generator.ckpt"
+        else:
+            config_path = hub.download_model_file(model=str(meldec_model), relpath="config.json")
+            gen_path = hub.download_model_file(model=str(meldec_model), relpath="generator.ckpt")
+        if verbose:
+            print("meldec: using config    : ", config_path)
+            print("meldec: using checkpoint: ", gen_path)
+        with open(config_path) as f:
+            meldec_cfg = HifiGanConfig.from_dict(json.load(f))
+        gen_sd = _torch_state_dict(gen_path)
+    elif embedded:
+        meldec_cfg, gen_sd = HifiGanConfig(), embedded
+    else:
+        raise ValueError("no meldec model given and none embedded in the checkpoint")
+    md = MelDec(meldec_cfg).state_dict()
+    md.update(upstream_generator_state_dict(gen_sd))
+    if "mean" in embedded:
+        md["mean"] = torch.as_tensor(embedded["mean"], dtype=torch.float32)
+        md["scale"] = torch.as_tensor(embedded["scale"], dtype=torch.float32)
+    return meldec_cfg, md
 
 
 def _torch_state_dict(path) -> dict:

@@ -12,10 +12,17 @@ The PyTorch counterpart of the JAX package's `training/trainer.py`:
     encoder's BatchNorms on their running statistics;
   * `fit` keeps the per-step losses on the card and fetches them every
     `log_every_n_steps` steps (and at epoch end) for the NaN check and the
-    epoch average.
+    epoch average;
+  * at the end of every `checkpoint_every_n_epochs`-th epoch (and of the
+    last) `fit` writes `checkpoints/NNNN.msgpack`, the JAX package's native
+    format, with `{"epoch", "loss", "step"}` in its `.json`, and keeps the
+    newest `keep_checkpoints` of them;
+  * `save_train_state` / `restore_train_state` write and read the whole
+    train state (weights, optimizer moments, step, epoch, the dropout
+    generator) with torch.save, to resume a run.
 
-Float32 only. Checkpoint writing and resume, TensorBoard logging, the
-profiler and bf16-mixed are not ported yet.
+Float32 only. TensorBoard logging, the profiler and bf16-mixed are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +41,9 @@ from zerovox_tpu_torch.config import ZeroVoxConfig
 from zerovox_tpu_torch.device import resolve_device, use_full_f32
 from zerovox_tpu_torch.models.layers import set_dropout_generator
 from zerovox_tpu_torch.models.zerovox import ZeroVox, zerovox_loss
+from zerovox_tpu_torch.training.checkpointing import save_native_checkpoint
 from zerovox_tpu_torch.training.optim import AdamW, warmup_cosine_epoch_schedule
+from zerovox_tpu_torch.weights import to_jax_variables
 
 _DEVICE_KEYS = ("phoneme", "puncts", "phoneme_mask", "pitch", "energy",
                 "duration", "mel_mask", "ref_mel", "mel")
@@ -63,6 +72,9 @@ class TrainerConfig:
     warmup_epochs: int = 2
     # losses stay on the card and are fetched every N steps for the NaN check
     log_every_n_steps: int = 50
+    out_folder: str = "mymodel1"
+    keep_checkpoints: int = 0  # 0 keeps all
+    checkpoint_every_n_epochs: int = 1  # the last epoch is always saved
     train_decoder_only: bool = False
     precision: str = "32"  # only float32 is ported
     seed: int = 42
@@ -144,6 +156,39 @@ class Trainer:
         state.step += 1
         return losses
 
+    # ----------------------------------------------------------- checkpoints
+
+    def checkpoint_root(self) -> str:
+        return os.path.join(self.tcfg.out_folder, "checkpoints")
+
+    def save_train_state(self, state: TrainState, path, epoch: int) -> None:
+        """The whole train state after `epoch`: weights (BatchNorm running
+        statistics included), the optimizer's moments and count, the step
+        and the dropout generator's state."""
+        opt = state.optimizer
+        blob = {"model": state.model.state_dict(), "step": state.step, "epoch": epoch,
+                "optimizer": {"count": opt.count, "nu": opt.nu, "mu": opt.mu},
+                "dropout_generator": self._gen.get_state()}
+        tmp = str(path) + ".tmp"
+        torch.save(blob, tmp)
+        os.replace(tmp, path)
+
+    def restore_train_state(self, state: TrainState, path) -> int:
+        """Load `save_train_state`'s file into `state` (from `init_state`);
+        returns the epoch `fit` continues at."""
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        state.model.load_state_dict(blob["model"])
+        opt, saved = state.optimizer, blob["optimizer"]
+        if len(saved["nu"]) != len(opt.nu) or (saved["mu"] is None) != (opt.mu is None):
+            raise ValueError(f"{path}: optimizer state of another parameter set")
+        with torch.no_grad():
+            for mine, theirs in zip(opt.nu + (opt.mu or []), saved["nu"] + (saved["mu"] or [])):
+                mine.copy_(theirs)
+        opt.count = saved["count"]
+        state.step = blob["step"]
+        self._gen.set_state(blob["dropout_generator"])
+        return blob["epoch"] + 1
+
     # ---------------------------------------------------------------- epochs
 
     def fit(self, batches_per_epoch: Callable[..., Any], state: TrainState,
@@ -154,6 +199,8 @@ class Trainer:
             takes_epoch = bool(inspect.signature(batches_per_epoch).parameters)
         except (TypeError, ValueError):
             takes_epoch = False
+        ckpt_root = self.checkpoint_root()
+        os.makedirs(ckpt_root, exist_ok=True)
         for epoch in range(start_epoch, self.tcfg.max_epochs):
             t0 = time.time()
             pending: list[dict] = []
@@ -165,8 +212,7 @@ class Trainer:
                     checked = len(pending)
             epoch_losses = self._fetch(pending)
             self._check_finite(epoch_losses[checked:], state.step)
-            self._on_epoch_end(epoch, epoch_losses, t0)
-        print("checkpoints are not ported yet: fit saved nothing")
+            self._on_epoch_end(epoch, epoch_losses, state, ckpt_root, t0)
         return state
 
     @staticmethod
@@ -187,7 +233,8 @@ class Trainer:
                 print(f"*** error: invalid loss detected at step {step}: "
                       + ", ".join(f"{k}={d[k]}" for k in bad))
 
-    def _on_epoch_end(self, epoch: int, epoch_losses: list[dict], t0: float) -> None:
+    def _on_epoch_end(self, epoch: int, epoch_losses: list[dict], state: TrainState,
+                      ckpt_root: str, t0: float) -> None:
         gc.collect()
         try:
             import psutil
@@ -200,3 +247,15 @@ class Trainer:
             avg = {k: float(np.mean([d[k] for d in epoch_losses])) for k in epoch_losses[0]}
             print(f"epoch {epoch}: loss={avg['loss']:.4f} mel={avg['mel_loss']:.4f} "
                   f"({time.time() - t0:.1f}s)")
+            every = max(1, self.tcfg.checkpoint_every_n_epochs)
+            if epoch % every != every - 1 and epoch != self.tcfg.max_epochs - 1:
+                return
+            path = os.path.join(ckpt_root, f"{epoch:04d}.msgpack")
+            save_native_checkpoint(path, to_jax_variables(state.model.state_dict(), self.cfg),
+                                   meta={"epoch": epoch, "loss": avg["loss"], "step": state.step})
+            if self.tcfg.keep_checkpoints > 0:
+                ckpts = sorted(f for f in os.listdir(ckpt_root) if f.endswith(".msgpack"))
+                for old in ckpts[: -self.tcfg.keep_checkpoints]:
+                    for stale in (old, old + ".json"):
+                        if os.path.exists(os.path.join(ckpt_root, stale)):
+                            os.remove(os.path.join(ckpt_root, stale))

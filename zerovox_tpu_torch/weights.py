@@ -2,8 +2,10 @@
 
 * `from_jax_variables` / `meldec_from_jax_variables` carry the JAX package's
   variable trees (nested dicts of numpy arrays) over to this package's
-  state_dicts, so both packages can run the same weights. The layout
-  changes are the inverse of the JAX package's torch importer:
+  state_dicts, so both packages can run the same weights, and
+  `to_jax_variables` / `meldec_to_jax_variables` carry them back (one walk
+  of the modules serves both directions). The layout changes are the
+  inverse of the JAX package's torch importer:
 
     Dense (in, out)                 -> Linear (out, in)
     Conv1d (k, in, out)             -> (out, in, k)
@@ -33,168 +35,245 @@ def _t(a) -> torch.Tensor:
     return torch.tensor(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
 
 
-def _dense(p, prefix: str, out: dict, bias: bool = True) -> None:
-    out[prefix + "weight"] = _t(np.asarray(p["kernel"]).T)
+# layouts: (JAX array -> torch tensor, torch tensor -> JAX array), on numpy
+_SAME = (lambda a: a, lambda w: w)
+_DENSE = (lambda a: a.T, lambda w: w.T)
+_CONV1D = (lambda a: a.transpose(2, 1, 0), lambda w: w.transpose(2, 1, 0))
+_CONV2D = (lambda a: a.transpose(3, 2, 0, 1), lambda w: w.transpose(2, 3, 1, 0))
+_WN_G = (lambda a: a.reshape(-1, 1, 1), lambda w: w.reshape(-1))
+_ATT = (lambda a: a.T[:, :, None], lambda w: w[:, :, 0].T)  # Dense <-> Conv1d(k=1)
+_UPS = (lambda a: np.flip(a, 0).transpose(1, 2, 0), lambda w: np.flip(w.transpose(2, 0, 1), 0))
+
+
+class _ToTorch:
+    """Walks a JAX variable tree into a state_dict."""
+
+    def __init__(self, variables: dict):
+        self.tree, self.out = variables, {}
+
+    def _node(self, path):
+        node = self.tree
+        for p in path:
+            if not isinstance(node, dict) or p not in node:
+                return None
+            node = node[p]
+        return node
+
+    def has(self, path, key) -> bool:
+        return self._node(path) is not None
+
+    def put(self, path, key, layout) -> None:
+        self.out[key] = _t(layout[0](np.asarray(self._node(path))))
+
+    def torch_only(self, key, value) -> None:
+        self.out[key] = value
+
+
+class _ToJax:
+    """Walks a state_dict into a JAX variable tree of float32 numpy arrays."""
+
+    def __init__(self, sd: dict):
+        self.sd, self.tree = sd, {}
+
+    def has(self, path, key) -> bool:
+        return key in self.sd
+
+    def put(self, path, key, layout) -> None:
+        node = self.tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        w = self.sd[key].detach().cpu().numpy().astype(np.float32)
+        node[path[-1]] = np.ascontiguousarray(layout[1](w))
+
+    def torch_only(self, key, value) -> None:
+        pass
+
+
+def _dense(m, path, prefix: str, bias: bool = True) -> None:
+    m.put(path + ("kernel",), prefix + "weight", _DENSE)
     if bias:
-        out[prefix + "bias"] = _t(p["bias"])
+        m.put(path + ("bias",), prefix + "bias", _SAME)
 
 
-def _conv1d(p, prefix: str, out: dict) -> None:
-    out[prefix + "weight"] = _t(np.transpose(p["kernel"], (2, 1, 0)))
-    if "bias" in p:
-        out[prefix + "bias"] = _t(p["bias"])
+def _conv(m, path, prefix: str, layout) -> None:
+    m.put(path + ("kernel",), prefix + "weight", layout)
+    if m.has(path + ("bias",), prefix + "bias"):
+        m.put(path + ("bias",), prefix + "bias", _SAME)
 
 
-def _conv2d(p, prefix: str, out: dict) -> None:
-    out[prefix + "weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
-    if "bias" in p:
-        out[prefix + "bias"] = _t(p["bias"])
+def _norm(m, path, prefix: str) -> None:
+    m.put(path + ("scale",), prefix + "weight", _SAME)
+    m.put(path + ("bias",), prefix + "bias", _SAME)
 
 
-def _norm(p, prefix: str, out: dict) -> None:
-    out[prefix + "weight"] = _t(p["scale"])
-    out[prefix + "bias"] = _t(p["bias"])
+def _bn(m, path, stats, prefix: str) -> None:
+    _norm(m, path, prefix)
+    m.put(stats + ("mean",), prefix + "running_mean", _SAME)
+    m.put(stats + ("var",), prefix + "running_var", _SAME)
+    m.torch_only(prefix + "num_batches_tracked", torch.tensor(0))
 
 
-def _bn(p, s, prefix: str, out: dict) -> None:
-    _norm(p, prefix, out)
-    out[prefix + "running_mean"] = _t(s["mean"])
-    out[prefix + "running_var"] = _t(s["var"])
-    out[prefix + "num_batches_tracked"] = torch.tensor(0)
-
-
-def _fft_block(p, prefix: str, scln: bool, out: dict) -> None:
-    a = p["slf_attn"]
+def _fft_block(m, path, prefix: str, scln: bool) -> None:
+    a = path + ("slf_attn",)
     for name in ("w_qs", "w_ks", "w_vs", "fc"):
-        _dense(a[name], f"{prefix}slf_attn.{name}.", out)
-    f = p["pos_ffn"]
-    _conv1d(f["w_1"], prefix + "pos_ffn.w_1.", out)
-    _conv1d(f["w_2"], prefix + "pos_ffn.w_2.", out)
-    for ln, sub in ((a["layer_norm"], "slf_attn"), (f["layer_norm"], "pos_ffn")):
+        _dense(m, a + (name,), f"{prefix}slf_attn.{name}.")
+    f = path + ("pos_ffn",)
+    _conv(m, f + ("w_1",), prefix + "pos_ffn.w_1.", _CONV1D)
+    _conv(m, f + ("w_2",), prefix + "pos_ffn.w_2.", _CONV1D)
+    for ln, sub in ((a + ("layer_norm",), "slf_attn"), (f + ("layer_norm",), "pos_ffn")):
         if scln:
-            _dense(ln["affine_layer"], f"{prefix}{sub}.layer_norm.affine_layer.linear.", out,
+            _dense(m, ln + ("affine_layer",), f"{prefix}{sub}.layer_norm.affine_layer.linear.",
                    bias=False)
         else:
-            _norm(ln, f"{prefix}{sub}.layer_norm.", out)
+            _norm(m, ln, f"{prefix}{sub}.layer_norm.")
 
 
-def _variance_predictor(p, prefix: str, out: dict) -> None:
-    _conv1d(p["conv1d_1"], prefix + "conv_layer.conv1d_1.conv.", out)
-    _norm(p["layer_norm_1"], prefix + "conv_layer.layer_norm_1.", out)
-    _conv1d(p["conv1d_2"], prefix + "conv_layer.conv1d_2.conv.", out)
-    _norm(p["layer_norm_2"], prefix + "conv_layer.layer_norm_2.", out)
-    _dense(p["linear_layer"], prefix + "linear_layer.", out)
+def _variance_predictor(m, path, prefix: str) -> None:
+    _conv(m, path + ("conv1d_1",), prefix + "conv_layer.conv1d_1.conv.", _CONV1D)
+    _norm(m, path + ("layer_norm_1",), prefix + "conv_layer.layer_norm_1.")
+    _conv(m, path + ("conv1d_2",), prefix + "conv_layer.conv1d_2.conv.", _CONV1D)
+    _norm(m, path + ("layer_norm_2",), prefix + "conv_layer.layer_norm_2.")
+    _dense(m, path + ("linear_layer",), prefix + "linear_layer.")
 
 
-def _resnetse(p, s, prefix: str, layers, out: dict) -> None:
-    _conv2d(p["conv1"], prefix + "conv1.", out)
-    _bn(p["bn1"], s["bn1"], prefix + "bn1.", out)
+def _resnetse(m, p, s, prefix: str, layers) -> None:
+    _conv(m, p + ("conv1",), prefix + "conv1.", _CONV2D)
+    _bn(m, p + ("bn1",), s + ("bn1",), prefix + "bn1.")
     for stage, blocks in enumerate(layers):
         for b in range(blocks):
             name = f"layer{stage + 1}_{b}"
-            bp, bs, pre = p[name], s[name], f"{prefix}layer{stage + 1}.{b}."
-            _conv2d(bp["conv1"], pre + "conv1.", out)
-            _bn(bp["bn1"], bs["bn1"], pre + "bn1.", out)
-            _conv2d(bp["conv2"], pre + "conv2.", out)
-            _bn(bp["bn2"], bs["bn2"], pre + "bn2.", out)
-            _dense(bp["se"]["fc1"], pre + "se.fc.0.", out)
-            _dense(bp["se"]["fc2"], pre + "se.fc.2.", out)
-            if "downsample_conv" in bp:
-                _conv2d(bp["downsample_conv"], pre + "downsample.0.", out)
-                _bn(bp["downsample_bn"], bs["downsample_bn"], pre + "downsample.1.", out)
+            bp, bs, pre = p + (name,), s + (name,), f"{prefix}layer{stage + 1}.{b}."
+            _conv(m, bp + ("conv1",), pre + "conv1.", _CONV2D)
+            _bn(m, bp + ("bn1",), bs + ("bn1",), pre + "bn1.")
+            _conv(m, bp + ("conv2",), pre + "conv2.", _CONV2D)
+            _bn(m, bp + ("bn2",), bs + ("bn2",), pre + "bn2.")
+            _dense(m, bp + ("se", "fc1"), pre + "se.fc.0.")
+            _dense(m, bp + ("se", "fc2"), pre + "se.fc.2.")
+            if m.has(bp + ("downsample_conv",), pre + "downsample.0.weight"):
+                _conv(m, bp + ("downsample_conv",), pre + "downsample.0.", _CONV2D)
+                _bn(m, bp + ("downsample_bn",), bs + ("downsample_bn",), pre + "downsample.1.")
     # attention: Dense pair around BatchNorm -> Conv1d(k=1) pair
     for name, key in (("att_conv1", "attention.0."), ("att_conv2", "attention.3.")):
-        out[prefix + key + "weight"] = _t(np.asarray(p[name]["kernel"]).T[:, :, None])
-        out[prefix + key + "bias"] = _t(p[name]["bias"])
-    _bn(p["att_bn"], s["att_bn"], prefix + "attention.2.", out)
-    _dense(p["fc"], prefix + "fc.", out)
+        m.put(p + (name, "kernel"), prefix + key + "weight", _ATT)
+        m.put(p + (name, "bias"), prefix + key + "bias", _SAME)
+    _bn(m, p + ("att_bn",), s + ("att_bn",), prefix + "attention.2.")
+    _dense(m, p + ("fc",), prefix + "fc.")
 
 
-def _wn_conv(p, prefix: str, out: dict) -> None:
-    """WeightNormConv1d {v (k, in, out), g (out,), bias} -> weight_v
+def _wn_conv(m, path, prefix: str) -> None:
+    """WeightNormConv1d {v (k, in, out), g (out,), bias} <-> weight_v
     (out, in, k), weight_g (out, 1, 1), bias."""
-    out[prefix + "weight_v"] = _t(np.transpose(p["v"], (2, 1, 0)))
-    out[prefix + "weight_g"] = _t(np.asarray(p["g"]).reshape(-1, 1, 1))
-    if "bias" in p:
-        out[prefix + "bias"] = _t(p["bias"])
+    m.put(path + ("v",), prefix + "weight_v", _CONV1D)
+    m.put(path + ("g",), prefix + "weight_g", _WN_G)
+    if m.has(path + ("bias",), prefix + "bias"):
+        m.put(path + ("bias",), prefix + "bias", _SAME)
 
 
-def _resblk1d(p, prefix: str, out: dict) -> None:
+def _resblk1d(m, path, prefix: str) -> None:
     """ResBlk1d or AdainResBlk1d (whose norms are AdaIN1d with a Dense `fc`)."""
     for name in ("conv1", "conv2", "conv1x1"):
-        if name in p:
-            _wn_conv(p[name], f"{prefix}{name}.", out)
+        if m.has(path + (name,), f"{prefix}{name}.weight_v"):
+            _wn_conv(m, path + (name,), f"{prefix}{name}.")
     for name in ("norm1", "norm2"):
-        if name in p and "fc" in p[name]:
-            _dense(p[name]["fc"], f"{prefix}{name}.fc.", out)
-        elif name in p:
-            _norm(p[name], f"{prefix}{name}.", out)
+        if m.has(path + (name, "fc"), f"{prefix}{name}.fc.weight"):
+            _dense(m, path + (name, "fc"), f"{prefix}{name}.fc.")
+        elif m.has(path + (name,), f"{prefix}{name}.weight"):
+            _norm(m, path + (name,), f"{prefix}{name}.")
 
 
-def _styletts_decoder(p, prefix: str, out: dict) -> None:
+def _styletts_decoder(m, path, prefix: str) -> None:
     for i in range(2):
-        _resblk1d(p[f"encode_{i}"], f"{prefix}encode.{i}.", out)
-    _wn_conv(p["asr_res_conv"], prefix + "asr_res.0.", out)
-    _norm(p["asr_res_norm"], prefix + "asr_res.1.", out)
+        _resblk1d(m, path + (f"encode_{i}",), f"{prefix}encode.{i}.")
+    _wn_conv(m, path + ("asr_res_conv",), prefix + "asr_res.0.")
+    _norm(m, path + ("asr_res_norm",), prefix + "asr_res.1.")
     for i in range(5):
-        _resblk1d(p[f"decode_{i}"], f"{prefix}decode.{i}.", out)
-    _wn_conv(p["to_out"], prefix + "to_out.0.", out)
+        _resblk1d(m, path + (f"decode_{i}",), f"{prefix}decode.{i}.")
+    _wn_conv(m, path + ("to_out",), prefix + "to_out.0.")
+
+
+def _zerovox(m, cfg: ZeroVoxConfig) -> None:
+    md = cfg.model
+    enc = ("params", "phoneme_encoder", "encoder")
+    va = ("params", "phoneme_encoder", "variance_adaptor")
+    m.put(enc + ("src_word_emb", "embedding"), "_phoneme_encoder._encoder.src_word_emb.weight", _SAME)
+    m.put(enc + ("punct_embed", "embedding"), "_phoneme_encoder._encoder.punct_embed.weight", _SAME)
+    for i in range(md.encoder.fs2_layer):
+        _fft_block(m, enc + (f"layer_{i}",), f"_phoneme_encoder._encoder.layer_stack.{i}.", False)
+    for name in ("duration_predictor", "pitch_predictor", "energy_predictor"):
+        _variance_predictor(m, va + (name,), f"_phoneme_encoder._variance_adaptor.{name}.")
+    for name in ("pitch_embedding", "energy_embedding"):
+        m.put(va + (name, "embedding"), f"_phoneme_encoder._variance_adaptor.{name}.weight", _SAME)
+
+    _resnetse(m, ("params", "spkemb"), ("batch_stats", "spkemb"), "_spkemb.",
+              tuple(md.resnet.layers))
+
+    dec = ("params", "mel_decoder")
+    if md.decoder.kind == "styletts":
+        _styletts_decoder(m, dec, "_mel_decoder.")
+        return
+    for i in range(md.decoder.n_layers):
+        _fft_block(m, dec + (f"layer_{i}",), f"_mel_decoder.layer_stack.{i}.", md.decoder.scln)
+    _dense(m, dec + ("mel_linear",), "_mel_decoder.mel_linear.")
+
+
+def _meldec(m, cfg) -> None:
+    g = ("params", "generator")
+    _conv(m, g + ("conv_pre",), "generator.conv_pre.", _CONV1D)
+    _conv(m, g + ("conv_post",), "generator.conv_post.", _CONV1D)
+    nk = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        m.put(g + (f"ups_{i}", "kernel"), f"generator.ups.{i}.weight", _UPS)
+        m.put(g + (f"ups_{i}", "bias"), f"generator.ups.{i}.bias", _SAME)
+        for j in range(nk):
+            n = i * nk + j
+            blk = g + (f"resblocks_{n}",)
+            for c in range(len(cfg.resblock_dilation_sizes[j])):
+                pre = f"generator.resblocks.{n}."
+                if cfg.resblock == "1":
+                    _conv(m, blk + (f"convs1_{c}",), f"{pre}convs1.{c}.", _CONV1D)
+                    _conv(m, blk + (f"convs2_{c}",), f"{pre}convs2.{c}.", _CONV1D)
+                else:
+                    _conv(m, blk + (f"convs_{c}",), f"{pre}convs.{c}.", _CONV1D)
+    for name, fill in (("mean", np.zeros), ("scale", np.ones)):
+        if m.has(("params", name), name):
+            m.put(("params", name), name, _SAME)
+        else:
+            m.torch_only(name, _t(fill(cfg.num_mels)))
 
 
 def from_jax_variables(variables: dict, cfg: ZeroVoxConfig) -> dict[str, torch.Tensor]:
     """JAX `ZeroVox` variables {"params", "batch_stats"} -> state_dict of
     models.zerovox.ZeroVox."""
-    m = cfg.model
-    params, stats = variables["params"], variables["batch_stats"]
-    out: dict[str, torch.Tensor] = {}
+    m = _ToTorch(variables)
+    _zerovox(m, cfg)
+    return m.out
 
-    pe = params["phoneme_encoder"]
-    enc, va = pe["encoder"], pe["variance_adaptor"]
-    out["_phoneme_encoder._encoder.src_word_emb.weight"] = _t(enc["src_word_emb"]["embedding"])
-    out["_phoneme_encoder._encoder.punct_embed.weight"] = _t(enc["punct_embed"]["embedding"])
-    for i in range(m.encoder.fs2_layer):
-        _fft_block(enc[f"layer_{i}"], f"_phoneme_encoder._encoder.layer_stack.{i}.", False, out)
-    for name in ("duration_predictor", "pitch_predictor", "energy_predictor"):
-        _variance_predictor(va[name], f"_phoneme_encoder._variance_adaptor.{name}.", out)
-    for name in ("pitch_embedding", "energy_embedding"):
-        out[f"_phoneme_encoder._variance_adaptor.{name}.weight"] = _t(va[name]["embedding"])
 
-    _resnetse(params["spkemb"], stats["spkemb"], "_spkemb.", tuple(m.resnet.layers), out)
-
-    dec = params["mel_decoder"]
-    if m.decoder.kind == "styletts":
-        _styletts_decoder(dec, "_mel_decoder.", out)
-        return out
-    for i in range(m.decoder.n_layers):
-        _fft_block(dec[f"layer_{i}"], f"_mel_decoder.layer_stack.{i}.", m.decoder.scln, out)
-    _dense(dec["mel_linear"], "_mel_decoder.mel_linear.", out)
-    return out
+def to_jax_variables(state_dict: dict, cfg: ZeroVoxConfig) -> dict:
+    """The inverse of `from_jax_variables`: a models.zerovox.ZeroVox
+    state_dict -> JAX `ZeroVox` variables {"params", "batch_stats"} of
+    float32 numpy arrays (BatchNorm's `num_batches_tracked` has no JAX
+    counterpart and is dropped)."""
+    m = _ToJax(state_dict)
+    _zerovox(m, cfg)
+    return {"params": m.tree["params"], "batch_stats": m.tree["batch_stats"]}
 
 
 def meldec_from_jax_variables(variables: dict, cfg) -> dict[str, torch.Tensor]:
-    """JAX `MelDec` variables -> state_dict of models.hifigan.MelDec."""
-    params = variables["params"]
-    g = params["generator"]
-    out: dict[str, torch.Tensor] = {}
-    _conv1d(g["conv_pre"], "generator.conv_pre.", out)
-    _conv1d(g["conv_post"], "generator.conv_post.", out)
-    nk = len(cfg.resblock_kernel_sizes)
-    for i in range(len(cfg.upsample_rates)):
-        up = g[f"ups_{i}"]
-        out[f"generator.ups.{i}.weight"] = _t(np.transpose(np.flip(up["kernel"], 0), (1, 2, 0)))
-        out[f"generator.ups.{i}.bias"] = _t(up["bias"])
-        for j in range(nk):
-            n = i * nk + j
-            blk = g[f"resblocks_{n}"]
-            for c in range(len(cfg.resblock_dilation_sizes[j])):
-                if cfg.resblock == "1":
-                    _conv1d(blk[f"convs1_{c}"], f"generator.resblocks.{n}.convs1.{c}.", out)
-                    _conv1d(blk[f"convs2_{c}"], f"generator.resblocks.{n}.convs2.{c}.", out)
-                else:
-                    _conv1d(blk[f"convs_{c}"], f"generator.resblocks.{n}.convs.{c}.", out)
-    out["mean"] = _t(params.get("mean", np.zeros(cfg.num_mels)))
-    out["scale"] = _t(params.get("scale", np.ones(cfg.num_mels)))
-    return out
+    """JAX `MelDec` variables -> state_dict of models.hifigan.MelDec
+    (identity mel normalization where the tree has no `mean`/`scale`)."""
+    m = _ToTorch(variables)
+    _meldec(m, cfg)
+    return m.out
+
+
+def meldec_to_jax_variables(state_dict: dict, cfg) -> dict:
+    """The inverse of `meldec_from_jax_variables`: a models.hifigan.MelDec
+    state_dict -> JAX `MelDec` variables {"params": {"generator", "mean",
+    "scale"}}."""
+    m = _ToJax(state_dict)
+    _meldec(m, cfg)
+    return m.tree
 
 
 def fold_weight_norm(sd: dict) -> dict[str, torch.Tensor]:
