@@ -18,7 +18,10 @@ Phases, in order; any failure exits nonzero:
    5e-4); K3 at phase 8's three vocoder stage shapes, with its tile (<
    5e-4); K4 forward and backward (`se_conv`) at the
    training path's [24, 32, 80, 500] (y and dx < 5e-4 absolute, every reduction
-   < 1e-4 x the plain result's max |value|), with F.conv2d alone beside them.
+   < 1e-4 x the plain result's max |value|), with F.conv2d alone beside them;
+   and K4's bf16 forward and backward on those inputs in bf16 (y and dx
+   within 2^-8 x the plain result's max, the float32 sums and gradients
+   within 1e-3 x theirs), with F.conv2d in bf16 beside them.
 4. The serving path at full width (default ZeroVoxConfig + HiFi-GAN, random
    weights from seed 0): speaker_embed -> tts_ex -> tts_stream, with the
    kernels' launch counts read around that run; then RTF and first-chunk
@@ -67,6 +70,14 @@ Phases, in order; any failure exits nonzero:
    within 1e-3 of the CPU.
 13. The demo CLI (`python3 -m zerovox_tpu_torch.cli.demo --random-model`)
    in its own process: exit 0 and a WAV of the length it prints.
+14. The training CLI (`zerovox_tpu_torch.cli.train.run`, what `main` runs
+   after reading its YAML) at tts_medium full width, batch 24, bf16-mixed
+   with the fused stage 1 (bf16 K4, 6 + 6 launches a step, no float32 one),
+   bf16 second moments, the device corpus cache, a run name, pruning, a
+   profile of 2 steps (its device split printed), then --resume; the
+   bf16-mixed step beside the float32 step of phase 6's configuration from
+   the same weights (epoch 0's losses within 5e-2 relative; device time in
+   turns).
 
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -118,7 +129,11 @@ STATS = {"pitch_min": 50.0, "pitch_max": 400.0, "energy_min": 0.1, "energy_max":
 # tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
+BF16_ULP = 2.0 ** -8  # bf16 K4's y and dx, relative to the plain result's max |value|
+BF16_RED_TOL = 1e-3  # bf16 K4's float32 sums and gradients, likewise
+MIXED_LOSS_RTOL = 5e-2  # bf16-mixed epoch-0 loss against float32's (docs/PERFORMANCE.md:130-133)
 CHUNK_FRAMES = 96  # tts_stream's default chunk; a window adds the receptive-field halo each side
 # serving: bench_http.py's 15 runs of each lone measure, rounds of 8 concurrent clients
 SERVE_ITERS, SERVE_ROUNDS, SERVE_BATCH = 15, 5, 8
@@ -149,9 +164,11 @@ def card_line() -> str:
 def bound(flop: float, nbytes: float, method: str = "f32") -> tuple[float, str]:
     """(least milliseconds the card could take, what bounds it) for a kernel
     whose products run as `method`: "f32", float32 FMA on the CUDA cores
-    (flop at 67 TFLOP/s), or "3xtf32", three TF32 tensor-core products per
-    product (3 x flop at 495 TFLOP/s)."""
-    t_ops = 3 * flop / PEAK_TF32_FLOPS if method == "3xtf32" else flop / PEAK_F32_FLOPS
+    (flop at 67 TFLOP/s), "3xtf32", three TF32 tensor-core products per
+    product (3 x flop at 495 TFLOP/s), or "bf16", one bf16 tensor-core
+    product (flop at 989 TFLOP/s)."""
+    t_ops = {"3xtf32": 3 * flop / PEAK_TF32_FLOPS,
+             "bf16": flop / PEAK_BF16_FLOPS}.get(method, flop / PEAK_F32_FLOPS)
     t_bytes = nbytes / PEAK_HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -400,6 +417,82 @@ def se_conv_phase(torch, dev) -> list[dict]:
                             2 * conv_flop, 4 * act_bytes + 2 * w_bytes))
             del u, wc, conv_out
         del outs, leaves, y
+    rows += se_conv_bf16_rows(torch, x, w, s, t, cts, conv_flop)
+    return rows
+
+
+def se_conv_bf16_rows(torch, x, w, s, t, cts, conv_flop) -> list[dict]:
+    """The bf16 K4 forward and backward (bf16-mixed training) on the same
+    inputs rounded to bf16, against se_conv_plain / se_conv_bwd_plain: y and
+    dx within BF16_ULP of the plain result's max, the float32 sums and
+    gradients within BF16_RED_TOL of theirs; F.conv2d in bf16 alone beside
+    each. Bound: one bf16 tensor-core product a product, against the bytes
+    of x and y (forward) or x, y, dy and dx (backward), each once."""
+    import torch.nn.functional as F
+    from zerovox_tpu_torch.ops.se_conv import (se_conv_bwd_bf16, se_conv_bwd_plain,
+                                               se_conv_fwd_bf16, se_conv_plain)
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    B, C, H, W = SE_SHAPE
+    xb, wb, dyb = x.bfloat16(), w.bfloat16(), cts[0].bfloat16()
+    act_bytes = 2.0 * xb.numel()
+    fixed = 2.0 * wb.numel() + 4.0 * (2 * C)  # w in bf16, s and t (and sums) in float32
+
+    def compare(name, keys, got, ref) -> tuple[float, float]:
+        first, rel = 0.0, 0.0
+        for i, (key, a, b) in enumerate(zip(keys, got, ref)):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"{name} {key}: {tuple(a.shape)} {a.dtype} != {tuple(b.shape)} {b.dtype}")
+            a, b = a.float(), b.float()
+            check(bool(torch.isfinite(a).all()), f"{name} {key}: non-finite")
+            err, scale = (a - b).abs().max().item(), max(b.abs().max().item(), 1e-30)
+            tol = BF16_ULP if i == 0 else BF16_RED_TOL
+            check(err <= tol * scale, f"{name} {key}: max abs diff {err}, plain max {scale}")
+            if i == 0:
+                first = err
+            else:
+                rel = max(rel, err / scale)
+        return first, rel
+
+    def row(name, replaces, errs, fn, plain, conv, flop, nbytes) -> dict:
+        ms, plain_ms = cuda_time_ms(fn, iters=10, warmup=2), cuda_time_ms(plain, iters=5, warmup=1)
+        conv_ms = cuda_time_ms(conv, iters=5, warmup=1)
+        bound_ms, bound_by = bound(flop, nbytes, "bf16")
+        r = {"name": name, "route": "cuda", "source": "zerovox_tpu_torch/csrc/se_conv.cu",
+             "replaces": replaces, "shape": f"[{B},{C},{H},{W}] bf16", "max_abs_err": errs[0],
+             "max_rel_err_reductions": errs[1], "ms": ms, "plain_ms": plain_ms,
+             "gflop": flop / 1e9, "method": "bf16", "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": None, "conv2d_only_ms": conv_ms}
+        print(json.dumps(r), flush=True)
+        return r
+
+    rows = []
+    for relu in (True, False):
+        got = se_conv_fwd_bf16(xb, wb, s, t, relu)
+        torch.cuda.synchronize()
+        ref = se_conv_plain(xb, wb, s, t, relu)
+        errs = compare(f"se_conv_fwd_bf16(relu={relu})", ("y", "sum", "sq", "m"), got, ref)
+        if relu:
+            rows.append(row("se_conv_fwd_bf16", "zerovox_tpu/ops/pallas/se_fused.py:375", errs,
+                            lambda: se_conv_fwd_bf16(xb, wb, s, t, True),
+                            lambda: se_conv_plain(xb, wb, s, t, True),
+                            lambda: F.conv2d(xb, wb, padding=1),
+                            conv_flop, 2 * act_bytes + fixed))
+        args = (xb, ref[0], dyb, wb, s, t, *cts[1:], relu)  # plain's y, so relu' agrees
+        got_b = se_conv_bwd_bf16(*args)
+        torch.cuda.synchronize()
+        errs = compare(f"se_conv_bwd_bf16(relu={relu})", ("dx", "dw", "ds", "dt"), got_b,
+                       se_conv_bwd_plain(*args))
+        if relu:
+            u = xb.clone().requires_grad_(True)
+            wc = wb.clone().requires_grad_(True)
+            conv_out = F.conv2d(u, wc, padding=1)
+            rows.append(row("se_conv_bwd_bf16", "zerovox_tpu/ops/pallas/se_fused.py:439", errs,
+                            lambda: se_conv_bwd_bf16(*args), lambda: se_conv_bwd_plain(*args),
+                            lambda: torch.autograd.grad(conv_out, (u, wc), dyb, retain_graph=True),
+                            2 * conv_flop, 4 * act_bytes + fixed))
+            del u, wc, conv_out
+        del got, ref, got_b
     return rows
 
 
@@ -631,11 +724,18 @@ def single_tower_hifigan():
 def kernel_counts() -> dict:
     from zerovox_tpu_torch.ops.mrf import fused_mrf
     from zerovox_tpu_torch.ops.resblock import fused_resblock1
-    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd, se_conv_fwd
+    from zerovox_tpu_torch.ops.se_conv import (se_conv_bwd, se_conv_bwd_bf16, se_conv_fwd,
+                                               se_conv_fwd_bf16)
     from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
 
     return {f.__name__: f.launches for f in (fused_mrf, fused_upsample_stage, fused_resblock1,
-                                             se_conv_fwd, se_conv_bwd)}
+                                             se_conv_fwd, se_conv_bwd, se_conv_fwd_bf16,
+                                             se_conv_bwd_bf16)}
+
+
+def k4_bf16_counts():
+    n = kernel_counts()
+    return n["se_conv_fwd_bf16"], n["se_conv_bwd_bf16"]
 
 
 def zero_counts() -> None:
@@ -646,6 +746,7 @@ def zero_counts() -> None:
 
     a.fused_mrf.launches = b.fused_resblock1.launches = d.fused_upsample_stage.launches = 0
     c.se_conv_fwd.launches = c.se_conv_bwd.launches = 0
+    c.se_conv_fwd_bf16.launches = c.se_conv_bwd_bf16.launches = 0
 
 
 def batch_inputs(engine, spk_wavs):
@@ -1249,6 +1350,185 @@ def demo_phase(card: str) -> dict:
     return out
 
 
+def kernel_family(name: str) -> str:
+    """The family of a device kernel by its (demangled or mangled) name."""
+    n = name.lower()
+    if "bf::fwd_kernel" in n or "bf::bwd_kernel" in n or "bf10fwd_kernel" in n or "bf10bwd_kernel" in n:
+        return "K4 bf16"  # se_conv.cu's namespace bf
+    if "se_conv" in n:
+        return "K4 float32 and sum passes"
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    if any(k in n for k in ("conv", "cudnn", "implicit", "wgrad", "dgrad", "fprop")):
+        return "cuDNN convolutions"
+    if any(k in n for k in ("gemm", "cutlass", "sm90_xmma", "ampere")):
+        return "matmuls"
+    if any(k in n for k in ("reduce", "norm", "softmax")):
+        return "reductions and norms"
+    return "elementwise and other"
+
+
+def trace_split(trace_dir: Path) -> dict:
+    """Device time of the Chrome trace in trace_dir (`--profile`'s), by
+    kernel family, with the device's busy share of the traced window."""
+    [path] = [p for p in trace_dir.iterdir() if p.suffix == ".json"]
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(bool(kernels), f"{path.name}: no device activity in the trace")
+    t0 = min(e["ts"] for e in events if "ts" in e and e.get("ph") == "X")
+    t1 = max(e["ts"] + e.get("dur", 0) for e in events if "ts" in e and e.get("ph") == "X")
+
+    split: dict[str, float] = {}
+    top: dict[str, float] = {}
+    for e in kernels:
+        fam = "copies" if e.get("cat") != "kernel" else kernel_family(e["name"])
+        split[fam] = split.get(fam, 0.0) + e["dur"] / 1e3
+        top[e["name"][:90]] = top.get(e["name"][:90], 0.0) + e["dur"] / 1e3
+    busy = sum(split.values())
+    return {"window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy,
+            "device_busy_share": busy / max((t1 - t0) / 1e3, 1e-9),
+            "by_family_ms": dict(sorted(split.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:8])}
+
+
+def cli_phase(torch, dev, card: str) -> dict:
+    """Phase 14: the training CLI's `run` (what `main` runs after reading
+    its YAML; the card's machine has no pyyaml) at tts_medium full width,
+    batch 24, on a synthetic corpus of 48 utterances with its stats.json:
+    --precision bf16-mixed --optim-dtype auto --packed-speaker 1
+    --fused-speaker --data-device-cache auto --name smoke --keep-checkpoints
+    1 --checkpoint-format state --profile DIR --profile-steps 2 for 2 epochs
+    of 2 steps, then --resume for a third. Checks 6 + 6 bf16 K4 launches a
+    step and no float32 one, finite losses, float32 master weights and
+    running statistics, bf16 second moments, the device cache on, only
+    checkpoints/smoke/0001 left after pruning, a trace in DIR, and the
+    resumed run starting at epoch 2 at the saved step. Then the bf16-mixed
+    step against the float32 step of phase 6's configuration from the same
+    weights: epoch 0's losses on the same batches (MIXED_LOSS_RTOL) and the
+    step's device time, in turns."""
+    import numpy as np
+
+    from zerovox_tpu_torch.cli import train as cli
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+    from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig, device_batch
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    base = ZeroVoxConfig()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        root = Path(tmp)
+        write_corpus(root, "cli", base.symbols(), base.audio.num_mels, TRAIN_UTTS, (80, 100),
+                     seed=0)
+        (root / "cli" / "stats.json").write_text(json.dumps(
+            {"pitch": [STATS["pitch_min"], STATS["pitch_max"]],
+             "energy": [STATS["energy_min"], STATS["energy_max"]]}))
+        os.environ["ZEROVOX_PREPROCESSED_DATA_PATH"] = str(root)
+        corpora = [{"language": "en", "path": {"preprocessed_path": "cli"}}]
+        modelcfg = cli.merge_stats(base.to_dict(), corpora, str(root))
+        out_folder, prof = root / "model", root / "profile"
+        argv = ["-c", "modelcfg.yaml", "corpus.yaml", "--batch-size", str(TRAIN_BATCH),
+                "--precision", "bf16-mixed", "--optim-dtype", "auto", "--packed-speaker", "1",
+                "--fused-speaker", "--data-device-cache", "auto", "--name", "smoke",
+                "--keep-checkpoints", "1", "--checkpoint-format", "state", "--profile",
+                str(prof), "--profile-steps", "2", "--max-epochs", "2", "--warmup-epochs", "1",
+                "--out-folder", str(out_folder)]
+
+        steps = []
+        inner = Trainer.train_step
+
+        def counted_step(self, st, batch):
+            n0, f0 = k4_bf16_counts(), k4_counts()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            losses = inner(self, st, batch)
+            b.record()
+            n1, f1 = k4_bf16_counts(), k4_counts()
+            steps.append({"events": (a, b), "losses": losses, "step_before": st.step - 1,
+                          "bf16": (n1[0] - n0[0], n1[1] - n0[1]),
+                          "f32": (f1[0] - f0[0], f1[1] - f0[1])})
+            return losses
+
+        Trainer.train_step = counted_step
+        try:
+            zero_counts()
+            out = cli.run(cli.get_args(argv), modelcfg, corpora)
+            torch.cuda.synchronize()
+            launches = dict(zip(("se_conv_fwd_bf16", "se_conv_bwd_bf16"), k4_bf16_counts()))
+            first = list(steps)
+            steps.clear()
+            ckpts = out_folder / "checkpoints" / "smoke"
+            kept = (sorted(os.listdir(ckpts)), sorted(os.listdir(ckpts / "state")))
+            check(kept == (["0001.msgpack", "0001.msgpack.json", "state"], ["0001.pt"]),
+                  f"checkpoints left after pruning: {kept}")
+            split = trace_split(prof)  # the first run's trace (the resumed run adds its own)
+            resumed = cli.run(cli.get_args(argv + ["--resume", "--max-epochs", "3"]), modelcfg,
+                              corpora)
+            torch.cuda.synchronize()
+        finally:
+            Trainer.train_step = inner
+
+        state, dm = out["state"], out["datamodule"]
+        check(len(first) == 4 and state.step == 4, f"the CLI took {len(first)} steps, not 4")
+        check(all(r["bf16"] == (6, 6) and r["f32"] == (0, 0) for r in first + steps),
+              f"K4 launches a step (bf16, f32): {[(r['bf16'], r['f32']) for r in first + steps]}")
+        losses = [{k: float(v) for k, v in r["losses"].items()} for r in first + steps]
+        check(all(np.isfinite(v) for d in losses for v in d.values()), f"non-finite loss {losses}")
+        check(out["trainer"].mixed and all(p.dtype == torch.float32 for p in state.model.parameters()),
+              "master weights not float32")
+        check(all(b.dtype == torch.float32 for n, b in state.model.named_buffers()
+                  if n.endswith(("running_mean", "running_var"))), "running statistics not float32")
+        check(all(n.dtype == torch.bfloat16 for n in state.optimizer.nu), "nu not bf16")
+        check(dm.device_cache and dm._cache is not None and dm._cache.data["mel"].is_cuda,
+              "the device corpus cache is off")
+        check(len(steps) == 2 and steps[0]["step_before"] == 4 and resumed["state"].step == 6,
+              f"the resumed run: {len(steps)} steps from step {steps[0]['step_before'] if steps else None}")
+        meta = json.loads((ckpts / "0002.msgpack.json").read_text())
+        check(meta["epoch"] == 2 and meta["step"] == 6, f"resumed checkpoint meta {meta}")
+        res = {"steps": len(first), "launches": launches,
+               "k4_per_step": [list(r["bf16"]) for r in first],
+               "step_ms": [r["events"][0].elapsed_time(r["events"][1]) for r in first],
+               "resumed_step_ms": [r["events"][0].elapsed_time(r["events"][1]) for r in steps],
+               "losses": losses, "device_cache_mb": dm._cache.nbytes / 1e6,
+               "checkpoints_after_first_run": kept[0] + kept[1], "profile": split,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+        res["median_step_ms"] = float(np.median(res["step_ms"][1:]))
+        del out, resumed, state
+        torch.cuda.empty_cache()
+
+        # the bf16-mixed step beside phase 6's float32 step, from the same weights
+        cfg = cli.model_config(cli.get_args(argv), modelcfg)
+        f32 = Trainer(cfg, TrainerConfig(max_epochs=2, warmup_epochs=1, seed=0,
+                                         out_folder=str(root / "f32")), 2)
+        mixed = Trainer(cfg, TrainerConfig(max_epochs=2, warmup_epochs=1, seed=0,
+                                           precision="bf16-mixed", optim_dtype="bf16",
+                                           out_folder=str(root / "bf16")), 2)
+        st32 = f32.init_state()
+        st16 = mixed.init_state(st32.model.state_dict())
+        batches = [device_batch(b, dev) for b in dm.train_dataloader(0)]
+        res["mel_buckets"] = [b["mel"].shape[1] for b in batches]
+        loss0 = {"32": [], "bf16-mixed": []}
+        for tr, st, key in ((f32, st32, "32"), (mixed, st16, "bf16-mixed")):
+            for b in batches:
+                loss0[key].append(float(tr.train_step(st, b)["loss"]))
+        m32, m16 = float(np.mean(loss0["32"])), float(np.mean(loss0["bf16-mixed"]))
+        check(abs(m16 - m32) <= MIXED_LOSS_RTOL * abs(m32),
+              f"epoch 0 loss: bf16-mixed {m16}, float32 {m32}")
+        times = {"32": [], "bf16-mixed": []}
+        for tr, st, key in ((f32, st32, "32"), (mixed, st16, "bf16-mixed"),
+                            (mixed, st16, "bf16-mixed"), (f32, st32, "32")):
+            times[key].append(cuda_time_ms(lambda: tr.train_step(st, batches[0]), iters=3, warmup=1))
+        res.update(epoch0_loss={"32": m32, "bf16-mixed": m16, "rel_diff": abs(m16 - m32) / abs(m32)},
+                   turns_ms=times, f32_step_ms=float(np.mean(times["32"])),
+                   bf16_step_ms=float(np.mean(times["bf16-mixed"])))
+        res["speedup"] = res["f32_step_ms"] / res["bf16_step_ms"]
+        # two steps of each under torch.profiler (no epoch-end work in the window)
+        res["step_profiles"] = {
+            key: profile_calls(torch, lambda: tr.train_step(st, batches[0]), 2,
+                               BUILD / "profiles", f"train_step_{key}")
+            for tr, st, key in ((f32, st32, "f32"), (mixed, st16, "bf16_mixed"))}
+    print(json.dumps({"train_cli": res}), flush=True)
+    return res
+
+
 def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
     """torch.profiler over `calls` calls of fn: device time by kernel, the
     device's busy share of the window and K4's device time, the table
@@ -1269,12 +1549,18 @@ def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
     dev_events = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
                   and not e.is_user_annotation]
     busy_s = sum(e.self_device_time_total for e in dev_events) / 1e6
-    k4_s = sum(e.self_device_time_total for e in dev_events if "se_conv" in e.key) / 1e6
+    k4_s = sum(e.self_device_time_total for e in dev_events
+               if kernel_family(e.key).startswith("K4")) / 1e6
+    families: dict[str, float] = {}
+    for e in dev_events:
+        fam = kernel_family(e.key)
+        families[fam] = families.get(fam, 0.0) + e.self_device_time_total / 1e3 / calls
     out.mkdir(parents=True, exist_ok=True)
     table = avgs.table(sort_by="self_cuda_time_total", row_limit=40)
     (out / f"profile_{label}.txt").write_text(f"{card_line()}\n{table}\n")
     res = {"label": label, "calls": calls, "wall_ms": 1e3 * wall, "device_busy_ms": 1e3 * busy_s,
-           "device_busy_share": busy_s / wall, "k4_device_ms": 1e3 * k4_s}
+           "device_busy_share": busy_s / wall, "k4_device_ms": 1e3 * k4_s,
+           "device_ms_per_call_by_family": dict(sorted(families.items(), key=lambda kv: -kv[1]))}
     print(json.dumps({"profile": res}), flush=True)
     return res
 
@@ -1491,6 +1777,13 @@ def main() -> None:
     # ---- 13. the demo CLI in its own process
     phase("demo cli")
     demo_phase(card)
+
+    # ---- 14. the training CLI at its defaults: bf16-mixed with the bf16 K4
+    phase("training cli")
+    tc = cli_phase(torch, dev, card)
+    for row in rows:
+        if row["name"] in tc["launches"]:
+            row["launches"] = tc["launches"][row["name"]]
 
     # ---- results
     print(card)

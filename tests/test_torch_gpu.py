@@ -4,7 +4,9 @@ Marked `gpu`: on a machine without a CUDA device every test skips (decided
 in the `cuda` fixture, so every pytest worker collects the same tests). On
 the card: `python -m pytest -m gpu tests/test_torch_gpu.py`. TF32 is off,
 so the plain versions run in full float32; the bound is the fused-vs-unfused
-tolerance the JAX package holds its own kernels to (5e-4).
+tolerance the JAX package holds its own kernels to (5e-4). The bf16 K4 is
+held to its plain version's rounding: y and dx within one bf16 step of the
+largest value (2^-8 x max), the float32 sums and gradients 1e-3 x max.
 """
 
 import numpy as np
@@ -401,6 +403,126 @@ def test_se_conv_rejects_what_it_does_not_take(cuda):
         se_conv(x.double(), w, s, t, True)
     with pytest.raises(ValueError):
         se_conv(x[:, :16].contiguous(), w, s, t, True)
+
+
+BF16_ULP = 2.0 ** -8  # one bf16 step at the top of [1, 2): y and dx against max |plain|
+BF16_RED_TOL = 1e-3  # the float32 sums and gradients, relative to max |plain|
+
+
+def _bf16_inputs(rng, B, H, W, dev):
+    x, w, s, t = _se_inputs(rng, B, H, W, dev)
+    return x.bfloat16(), w.bfloat16(), s, t
+
+
+@pytest.mark.parametrize("B,H,W", SE_SHAPES + [(24, 80, 500)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_se_conv_bf16_forward_matches_plain(cuda, B, H, W, relu):
+    from zerovox_tpu_torch.ops.se_conv import se_conv_fwd, se_conv_fwd_bf16, se_conv_plain
+
+    x, w, s, t = _bf16_inputs(np.random.default_rng(B * H + W + relu), B, H, W, cuda)
+    n0, n32 = se_conv_fwd_bf16.launches, se_conv_fwd.launches
+    got = se_conv_fwd_bf16(x, w, s, t, relu)
+    torch.cuda.synchronize()
+    assert (se_conv_fwd_bf16.launches, se_conv_fwd.launches) == (n0 + 1, n32)
+    ref = se_conv_plain(x, w, s, t, relu)
+    assert got[0].dtype == torch.bfloat16 and all(a.dtype == torch.float32 for a in got[1:])
+    assert _close_rel(got[0].float(), ref[0].float(), BF16_ULP)
+    for a, b in zip(got[1:], ref[1:]):
+        assert a.shape == b.shape and _close_rel(a, b, BF16_RED_TOL)
+
+
+@pytest.mark.parametrize("B,H,W", SE_SHAPES + [(24, 80, 500)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_se_conv_bf16_backward_matches_plain(cuda, B, H, W, relu):
+    """The bf16 backward kernel against se_conv_bwd_plain on the plain
+    version's bf16 y (one y for both, so relu' agrees)."""
+    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd_bf16, se_conv_bwd_plain, se_conv_plain
+
+    rng = np.random.default_rng(7 * B + H + W + relu)
+    x, w, s, t = _bf16_inputs(rng, B, H, W, cuda)
+    cts = _se_cts(rng, B, H, W, cuda)
+    y = se_conv_plain(x, w, s, t, relu)[0]
+    args = (x, y, cts[0].bfloat16(), w, s, t, *cts[1:], relu)
+    n0 = se_conv_bwd_bf16.launches
+    got = se_conv_bwd_bf16(*args)
+    torch.cuda.synchronize()
+    assert se_conv_bwd_bf16.launches == n0 + 1
+    ref = se_conv_bwd_plain(*args)
+    assert got[0].dtype == torch.bfloat16 and _close_rel(got[0].float(), ref[0].float(), BF16_ULP)
+    for a, b in zip(got[1:], ref[1:]):
+        assert a.dtype == torch.float32 and a.shape == b.shape and _close_rel(a, b, BF16_RED_TOL)
+
+
+def test_se_conv_bf16_autograd_runs_both_bf16_kernels(cuda):
+    """`se_conv` on bf16 CUDA tensors: one bf16 forward and one bf16
+    backward launch, no float32 launch; dw comes back in w's dtype."""
+    from zerovox_tpu_torch.ops import se_conv as m
+
+    rng = np.random.default_rng(5)
+    x, w, s, t = _bf16_inputs(rng, 2, 20, 64, cuda)
+    cts = _se_cts(rng, 2, 20, 64, cuda)
+    cts[0] = cts[0].bfloat16()
+    before = (m.se_conv_fwd_bf16.launches, m.se_conv_bwd_bf16.launches,
+              m.se_conv_fwd.launches, m.se_conv_bwd.launches)
+    grads = _se_grads(m.se_conv, x, w, s, t, cts, True)
+    torch.cuda.synchronize()
+    after = (m.se_conv_fwd_bf16.launches, m.se_conv_bwd_bf16.launches,
+             m.se_conv_fwd.launches, m.se_conv_bwd.launches)
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 0, 0]
+    assert [g.dtype for g in grads] == [torch.bfloat16, torch.bfloat16, torch.float32,
+                                        torch.float32]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_se_conv_bf16_is_bitwise_repeatable(cuda, relu):
+    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd_bf16, se_conv_fwd_bf16
+
+    rng = np.random.default_rng(17 + relu)
+    x, w, s, t = _bf16_inputs(rng, 4, 80, 500, cuda)
+    cts = _se_cts(rng, 4, 80, 500, cuda)
+    a, b = se_conv_fwd_bf16(x, w, s, t, relu), se_conv_fwd_bf16(x, w, s, t, relu)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    args = (x, a[0], cts[0].bfloat16(), w, s, t, *cts[1:], relu)
+    assert all(torch.equal(p, q) for p, q in zip(se_conv_bwd_bf16(*args), se_conv_bwd_bf16(*args)))
+
+
+def test_se_conv_bf16_rejects_mixed_types(cuda):
+    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd_bf16, se_conv_fwd_bf16
+
+    x, w, s, t = _bf16_inputs(np.random.default_rng(0), 1, 8, 8, cuda)
+    with pytest.raises(TypeError):
+        se_conv_fwd_bf16(x, w.float(), s, t, True)
+    with pytest.raises(TypeError):
+        se_conv_fwd_bf16(x, w, s.bfloat16(), t, True)
+    with pytest.raises(TypeError):
+        se_conv_bwd_bf16(x, x.float(), x, w, s, t, s, s, s[None].expand(1, 32).contiguous(), True)
+
+
+def k4_f32_digest(dev) -> str:
+    """sha256 of K4's float32 forward and backward outputs on seeded inputs
+    at [2, 32, 80, 500], both relu settings."""
+    import hashlib
+
+    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd, se_conv_fwd
+
+    h = hashlib.sha256()
+    for relu in (True, False):
+        rng = np.random.default_rng(101 + relu)
+        x, w, s, t = _se_inputs(rng, 2, 80, 500, dev)
+        cts = _se_cts(rng, 2, 80, 500, dev)
+        fwd = se_conv_fwd(x, w, s, t, relu)
+        for out in (*fwd, *se_conv_bwd(x, fwd[0], cts[0], w, s, t, *cts[1:], relu)):
+            h.update(out.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# k4_f32_digest on an H100 (sm_90a) from the float32 kernels as they were
+# before the bf16 kernels joined their source
+K4_F32_DIGEST = "cd0c61fb7081a5ddbe95edc4df2ecd9b4e1ec11af4aa4df0a1c3d30ebf2d33bc"
+
+
+def test_se_conv_f32_bits_unchanged(cuda):
+    assert k4_f32_digest(cuda) == K4_F32_DIGEST
 
 
 def test_engine_on_card_matches_cpu(cuda):

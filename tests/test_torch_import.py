@@ -30,6 +30,7 @@ def test_imports_with_jax_and_jax_package_blocked():
         "import zerovox_tpu_torch.serving, zerovox_tpu_torch.hub\n"
         "import zerovox_tpu_torch.cli.serve, zerovox_tpu_torch.cli.demo\n"
         "import zerovox_tpu_torch.training.checkpointing, zerovox_tpu_torch.utils.msgpack_codec\n"
+        "import zerovox_tpu_torch.cli.train, zerovox_tpu_torch.training.data\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'msgpack', 'yaml'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")

@@ -70,12 +70,13 @@ class ModelConfig:
     emb_reduction: int = 1
     punct_emb_dim: int = 16
     dpe_emb_dim: int = 32
-    # Training and TPU-layout options of the JAX package. They are parsed so
-    # that one modelcfg.yaml serves both packages; inference in this package
-    # computes the same function whatever they say. `fused_speaker` (which
-    # needs packed_speaker >= 1, as in the JAX package) runs the speaker
-    # encoder's stage 1 through kernel K4 (ops/se_conv.py); the packing
-    # itself has no counterpart in the port's NCHW layout.
+    # Training and TPU-layout options of the JAX package; the model computes
+    # the same function whatever they say. `remat` / `remat_speaker`
+    # recompute the FFT blocks / the unfused speaker-encoder blocks in the
+    # backward (models/layers.py `remat`). `fused_speaker` (which needs
+    # packed_speaker >= 1, as in the JAX package) runs the speaker encoder's
+    # stage 1 through kernel K4 (ops/se_conv.py); the packing itself has no
+    # counterpart in the port's NCHW layout.
     remat: bool = False
     remat_speaker: bool = False
     packed_speaker: int = 0

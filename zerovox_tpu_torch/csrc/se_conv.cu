@@ -1,6 +1,8 @@
 // Fused speaker-encoder stage-1 conv pass for Hopper (sm_90a), forward and
 // backward, float32 in and out, canonical NCHW layout with C = 32 channels,
-// every product of the 3x3 conv on the tensor cores in 3xTF32.
+// every product of the 3x3 conv on the tensor cores in 3xTF32; and the same
+// pass on bfloat16 tensors (namespace bf, at the end) for bf16-mixed
+// training, on bf16 tensor-core MMAs.
 //
 // Replaces the TPU kernels of zerovox_tpu/ops/pallas/se_fused.py::se_conv:
 // _fwd_kernel (pallas_call in _fwd_call) and _bwd_kernel (pallas_call in
@@ -66,6 +68,7 @@
 // 2 blocks an SM, y stored from the fragments, and a warp-per-window-row
 // walk were all slower. scripts/bench_k4_breakdown.py times the MMA phases
 // against the window loads and epilogues (PERF.md).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -604,6 +607,400 @@ static_assert(FWD_SMEM <= 227 * 1024, "forward shared memory");
 static_assert(TH * 32 * 36 <= Win::FLOATS, "y staging fits the hi planes");
 static_assert(BWD_SMEM <= 227 * 1024, "backward shared memory");
 
+// ------------------------------------------------------------ bfloat16 pass
+//
+// The same pass on bf16 x, w, y, dy and dx (the bf16-mixed train step), with
+// the JAX kernel's rounding points: u = bf16(x s + t) from float32 s and t;
+// y accumulated in float32 and stored as bf16, its sums taken from the
+// float32 y before rounding; backward g = bf16((dy + dsum + 2 y dsq + dm)
+// relu'(y)) from the bf16 y, du and dW accumulated in float32, dx =
+// bf16(du s), ds = S du x and dt = S du in float32.
+//
+// Products run on mma.sync.m16n8k16 with bf16 operands and float32
+// accumulators, one MMA a product. At [24, 32, 80, 500] the forward's 17.7
+// GFLOP take 0.018 ms at 989 TFLOP/s against 0.037 ms for its 123 MB (x in,
+// y out) at 3.35 TB/s: bound by bytes, as is the backward (x, y, dy in, dx
+// out: 0.073 ms).
+//
+// Windows hold bf16 in position-major rows of 32 channels at a pitch of 40
+// (80 bytes: eight consecutive rows land on eight distinct 16-byte bank
+// groups), so every fragment is one ldmatrix: the forward's and dgrad's A
+// (positions x channels) as stored, wgrad's A (channels x positions) and B
+// (positions x channels, shifted by the tap) transposed. Each lane gives one
+// position's row address, so the tap's one-position shift needs no
+// alignment. The taps sit in shared memory in fragment order (8 bytes a
+// lane). A simple first version: synchronous window loads, no fetch-ahead,
+// as many blocks an SM as fit, each walking tiles.
+
+namespace bf {
+
+constexpr int PB = 40;                    // window pitch, bf16 a position
+constexpr int WIN = Win::NPOS * PB;       // bf16 of one window
+constexpr int TAPS = NTAP;                // bf16 of the staged taps
+constexpr int PY = 40;                    // y staging pitch, bf16 a channel row
+static_assert(TH * C * PY <= WIN, "y staging fits the u window");
+static_assert((TAPS * 2) % 16 == 0 && (WIN * 2) % 16 == 0 && (PB * 2) % 16 == 0,
+              "ldmatrix rows are 16-byte aligned");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row) . b (16x8, col), bf16 in, float32 accumulate. With g =
+// lane / 4 and t = lane % 4: a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..],
+// A[g+8][2t+8..]}, b = {B[2t..][g], B[2t+8..][g]}, two bf16 a register, the
+// lower index in the low half; d as in zv::tc::mma.
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The taps in fragment order: for tap t, k-step ks (16 k channels) and n
+// block nf (8 n channels), lane l = 4 g + q holds B[16 ks + 2q + {0, 1}]
+// [8 nf + g], then B[16 ks + 2q + 8 + {0, 1}][8 nf + g]. Forward: B[t][k =
+// ci][n = co] = w[co][ci][t]; dgrad: B[t][k = co][n = ci] = w[co][ci][8 - t].
+__device__ void stage_taps(__nv_bfloat16* Bs, const __nv_bfloat16* __restrict__ w, bool dgrad) {
+  for (int i = threadIdx.x; i < NTAP; i += blockDim.x) {  // w[co][ci][kh][kw]
+    const int co = i / (C * 9), ci = (i / 9) % C, t = i % 9;
+    const int k = dgrad ? co : ci, n = dgrad ? ci : co, tap = dgrad ? 8 - t : t;
+    const int kk = k % 16, lane = (n % 8) * 4 + (kk % 8) / 2;
+    Bs[(((tap * 2 + k / 16) * 4 + n / 8) * 32 + lane) * 4 + (kk / 8) * 2 + kk % 2] = w[i];
+  }
+}
+
+// acc[mf][nf][e] (fragment layout of mma16) = the 3x3 conv at tile row r,
+// positions 16 mf + g (+8), channels 8 nf + 2t (+1), from the window A
+// (position-major, pitch PB) and the staged taps Bs. One float32 chain over
+// the 18 k-steps: the bf16 products are exact in float32.
+__device__ __forceinline__ void conv_row(const __nv_bfloat16* A, const __nv_bfloat16* Bs, int r,
+                                         float (&acc)[2][4][4]) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, ri = lane & 7;
+  const int prow = (mi & 1) * 8 + ri, pch = (mi >> 1) * 8;  // this lane's ldmatrix row
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const uint2* bf = reinterpret_cast<const uint2*>(Bs) + lane;
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const int kh = tap / 3, kw = tap - 3 * kh;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t b[4][2];
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) {
+        const uint2 v = bf[((tap * 2 + ks) * 4 + nf) * 32];
+        b[nf][0] = v.x;
+        b[nf][1] = v.y;
+      }
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) {
+        uint32_t a[4];
+        ldsm_x4(a, A + ((r + kh) * Win::WR + kw + 16 * mf + prow) * PB + 16 * ks + pch);
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) mma16(acc[mf][nf], a, b[nf]);
+      }
+    }
+  }
+}
+
+// u = bf16(x s + t), rounded after the multiply and after the add as the
+// plain version computes it, at every position of a tile's window (0
+// outside the image).
+__device__ __forceinline__ float affine(float x, float s, float t) {
+  return __fadd_rn(__fmul_rn(x, s), t);
+}
+
+__global__ void __launch_bounds__(TH * 32)
+fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+           const float* __restrict__ s, const float* __restrict__ t,
+           __nv_bfloat16* __restrict__ y, float* __restrict__ part, Shape sh, int relu) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* U = Bs + TAPS;
+  float* red = reinterpret_cast<float*>(U + WIN);  // [warp][sum, sq][C]
+  float* prm = red + 2 * TH * C;                   // s, t
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  stage_taps(Bs, w, false);
+  if (threadIdx.x < 2 * C) prm[threadIdx.x] = threadIdx.x < C ? s[threadIdx.x] : t[threadIdx.x - C];
+  __syncthreads();
+
+  for (int tile = blockIdx.x; tile < sh.ntiles; tile += gridDim.x) {
+    int b, h0, w0;
+    tile_origin(sh, tile, &b, &h0, &w0);
+    for_window(sh, b, h0, w0, [&](int c, int q, bool in, size_t o) {
+      const float u = in ? affine(__bfloat162float(x[o]), prm[c], prm[C + c]) : 0.f;
+      U[(q - chan(c)) * PB + c] = __float2bfloat16_rn(u);
+    });
+    __syncthreads();
+    float acc[2][4][4];
+    conv_row(U, Bs, warp, acc);
+    __syncthreads();  // every warp is done with the window
+    // per-channel S y, S y^2 from the float32 y; y as bf16 through shared
+    // memory ([co][pos]), then out as 32 rows of 32 positions
+    __nv_bfloat16* Ys = U + warp * C * PY;
+    const int h = h0 + warp;
+    float s1[4][2], s2[4][2];
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) s1[nf][e] = s2[nf][e] = 0.f;
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int pos = 16 * mf + g + 8 * hh;
+        const bool ok = h < sh.H && w0 + pos < sh.W;
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int co = 8 * nf + 2 * t4 + e;
+            float v = acc[mf][nf][2 * hh + e];
+            if (relu) v = fmaxf(v, 0.f);
+            Ys[co * PY + pos] = __float2bfloat16_rn(v);
+            if (ok) {
+              s1[nf][e] += v;
+              s2[nf][e] = fmaf(v, v, s2[nf][e]);
+            }
+          }
+      }
+    __syncwarp();
+    if (h < sh.H && w0 + lane < sh.W) {
+      __nv_bfloat16* yo = y + ((size_t)b * C * sh.H + h) * sh.W + w0 + lane;
+#pragma unroll 8
+      for (int co = 0; co < C; ++co) yo[(size_t)co * sh.H * sh.W] = Ys[co * PY + lane];
+    }
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s1[nf][e] = row_sum(s1[nf][e]);
+        s2[nf][e] = row_sum(s2[nf][e]);
+        if (g == 0) {
+          red[(warp * 2 + 0) * C + 8 * nf + 2 * t4 + e] = s1[nf][e];
+          red[(warp * 2 + 1) * C + 8 * nf + 2 * t4 + e] = s2[nf][e];
+        }
+      }
+    __syncthreads();
+    if (threadIdx.x < 2 * C) {  // row [tile]: C sums, then C sums of squares
+      float a = 0.f;
+      for (int k = 0; k < TH; ++k) a += red[k * 2 * C + threadIdx.x];
+      part[(size_t)tile * 2 * C + threadIdx.x] = a;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TH * 32)
+bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
+           const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ w,
+           const float* __restrict__ s, const float* __restrict__ t,
+           const float* __restrict__ dsum, const float* __restrict__ dsq,
+           const float* __restrict__ dm, __nv_bfloat16* __restrict__ dx,
+           float* __restrict__ part, Shape sh, int relu) {
+  static_assert(TH == 8, "wgrad gives each of 8 warps one tap and an eighth of tap 8");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // dgrad taps
+  __nv_bfloat16* G = Bs + TAPS;                                      // g window
+  __nv_bfloat16* U = G + WIN;                                        // u window
+  float* red = reinterpret_cast<float*>(U + WIN);  // [warp][ds, dt][C]
+  float* prm = red + 2 * TH * C;                   // s, t, dsum, dsq
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, ri = lane & 7;
+  stage_taps(Bs, w, true);
+  if (threadIdx.x < 4 * C) {
+    const int k = threadIdx.x / C, c = threadIdx.x % C;
+    prm[threadIdx.x] = (k == 0 ? s : k == 1 ? t : k == 2 ? dsum : dsq)[c];
+  }
+
+  // wgrad: this warp owns dW of tap `warp` (fragments f < 8: m block f / 4,
+  // n block f % 4) and of tap 8 (f = 8: m block warp / 4, n block warp % 4);
+  // co = 16 mb + g (+8), ci = 8 nb + 2 t4 (+1)
+  float dw[9][4];
+#pragma unroll
+  for (int f = 0; f < 9; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dw[f][e] = 0.f;
+  float dsa[4][2], dta[4][2];
+#pragma unroll
+  for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) dsa[nf][e] = dta[nf][e] = 0.f;
+  const int kh = warp / 3, kw = warp % 3;
+  const int mb8 = warp >> 2, nb8 = warp & 3;
+  // ldmatrix rows of wgrad's fragments: A's matrices step co by 8, then
+  // positions by 8; B's step positions by 8, then ci by 8
+  const int apos = (mi >> 1) * 8 + ri, ach = (mi & 1) * 8;
+  const int bpos = (mi & 1) * 8 + ri, bch = (mi >> 1) * 8;
+  __syncthreads();
+
+  for (int tile = blockIdx.x; tile < sh.ntiles; tile += gridDim.x) {
+    int b, h0, w0;
+    tile_origin(sh, tile, &b, &h0, &w0);
+    const float* dmb = dm + (size_t)b * C;
+    for_window(sh, b, h0, w0, [&](int c, int q, bool in, size_t o) {
+      float gv = 0.f, u = 0.f;
+      if (in) {
+        const float yv = __bfloat162float(y[o]);
+        gv = __fadd_rn(__fadd_rn(__fadd_rn(__bfloat162float(dy[o]), prm[2 * C + c]),
+                                 __fmul_rn(__fmul_rn(2.f, yv), prm[3 * C + c])),
+                       __ldg(dmb + c));
+        if (relu && !(yv > 0.f)) gv = 0.f;
+        u = affine(__bfloat162float(x[o]), prm[c], prm[C + c]);
+      }
+      const int p = q - chan(c);
+      G[p * PB + c] = __float2bfloat16_rn(gv);
+      U[p * PB + c] = __float2bfloat16_rn(u);
+    });
+    __syncthreads();
+
+    // dgrad: du at tile row `warp` for input channels 8 nf + 2 t4 + e
+    {
+      float acc[2][4][4];
+      conv_row(G, Bs, warp, acc);
+      const int h = h0 + warp;
+      if (h < sh.H) {
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int col = w0 + 16 * mf + g + 8 * hh;
+            if (col >= sh.W) continue;
+#pragma unroll
+            for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int ci = 8 * nf + 2 * t4 + e;
+                const size_t o = (((size_t)b * C + ci) * sh.H + h) * sh.W + col;
+                const float du = acc[mf][nf][2 * hh + e];
+                dx[o] = __float2bfloat16_rn(__fmul_rn(du, prm[ci]));
+                dsa[nf][e] = fmaf(du, __bfloat162float(x[o]), dsa[nf][e]);
+                dta[nf][e] += du;
+              }
+          }
+      }
+    }
+
+    // wgrad over the tile's positions, 16 a k-step (row r, columns c16..):
+    // A[co][pos] = g at the position, B[pos][ci] = u at the position + the
+    // tap's shift. g is 0 outside the image, so those positions add 0.
+    {
+      float acc[9][4];
+#pragma unroll
+      for (int f = 0; f < 9; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[f][e] = 0.f;
+#pragma unroll 1
+      for (int kstep = 0; kstep < TH * 2; ++kstep) {
+        const int r = kstep >> 1, c16 = (kstep & 1) * 16;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf)
+          ldsm_x4_t(a[mf], G + ((r + 1) * Win::WR + 1 + c16 + apos) * PB + 16 * mf + ach);
+        const __nv_bfloat16* ub = U + ((r + kh) * Win::WR + kw + c16 + bpos) * PB + bch;
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {  // n blocks 2 np and 2 np + 1
+          uint32_t bb[4];
+          ldsm_x4_t(bb, ub + 16 * np);
+          const uint32_t b0[2] = {bb[0], bb[1]}, b1[2] = {bb[2], bb[3]};
+#pragma unroll
+          for (int mf = 0; mf < 2; ++mf) {
+            mma16(acc[4 * mf + 2 * np], a[mf], b0);
+            mma16(acc[4 * mf + 2 * np + 1], a[mf], b1);
+          }
+        }
+        {  // tap 8 (kh = kw = 2), this warp's fragment; lanes 0-15 give the rows
+          uint32_t b8[2];
+          ldsm_x2_t(b8, U + ((r + 2) * Win::WR + 2 + c16 + bpos) * PB + 8 * nb8);
+          mma16(acc[8], mb8 ? a[1] : a[0], b8);
+        }
+      }
+#pragma unroll
+      for (int f = 0; f < 9; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dw[f][e] += acc[f][e];
+    }
+    __syncthreads();  // every warp is done with the windows
+  }
+
+  // this block's partial row: dW in w's layout [co][ci][kh][kw], then ds, dt
+  float* row = part + (size_t)blockIdx.x * NPART;
+#pragma unroll
+  for (int f = 0; f < 9; ++f) {
+    const int tap = f < 8 ? warp : 8;
+    const int mb = f < 8 ? f >> 2 : mb8, nb = f < 8 ? f & 3 : nb8;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int co = 16 * mb + g + 8 * (e >> 1), ci = 8 * nb + 2 * t4 + (e & 1);
+      row[(co * C + ci) * 9 + tap] = dw[f][e];
+    }
+  }
+#pragma unroll
+  for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      dsa[nf][e] = row_sum(dsa[nf][e]);
+      dta[nf][e] = row_sum(dta[nf][e]);
+      if (g == 0) {
+        red[(warp * 2 + 0) * C + 8 * nf + 2 * t4 + e] = dsa[nf][e];
+        red[(warp * 2 + 1) * C + 8 * nf + 2 * t4 + e] = dta[nf][e];
+      }
+    }
+  __syncthreads();
+  if (threadIdx.x < 2 * C) {
+    float a = 0.f;
+    for (int k = 0; k < TH; ++k) a += red[k * 2 * C + threadIdx.x];
+    row[NTAP + threadIdx.x] = a;
+  }
+}
+
+constexpr size_t FWD_SMEM = (size_t)(TAPS + WIN) * 2 + (2 * TH * C + 2 * C) * sizeof(float);
+constexpr size_t BWD_SMEM = (size_t)(TAPS + 2 * WIN) * 2 + (2 * TH * C + 4 * C) * sizeof(float);
+
+cudaError_t set_smem() {
+  cudaError_t e = cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       FWD_SMEM);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+}
+
+// Blocks of a pass: as many an SM as fit, at most one a tile (after set_smem).
+int blocks(const Shape& sh, bool bwd) {
+  int per_sm = 0;
+  const cudaError_t e =
+      bwd ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bwd_kernel, TH * 32, BWD_SMEM)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fwd_kernel, TH * 32, FWD_SMEM);
+  if (e != cudaSuccess || per_sm < 1) per_sm = 1;
+  const int n = sm_count() * per_sm;
+  return sh.ntiles < n ? sh.ntiles : n;
+}
+
+}  // namespace bf
+
 }  // namespace
 
 extern "C" {
@@ -656,6 +1053,58 @@ int zv_se_conv_bwd_f32(const float* x, const float* y, const float* dy, const fl
   const int grid = zv_se_conv_bwd_blocks(B, H, W);
   se_conv_bwd_kernel<<<grid, TH * 32, BWD_SMEM, st>>>(x, y, dy, w, s, t, dsum, dsq, dm, dx,
                                                           part, sh, relu);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  se_conv_bwd_finish<<<(NPART + 31) / 32, dim3(32, 8), 0, st>>>(part, out, grid);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+
+// The bfloat16 pass. x, y, dy, dx and w are bf16; s, t, the sums, m, dsum,
+// dsq, dm and out float32. Scratch as for the float32 pass, with the
+// backward's blocks from zv_se_conv_bf16_blocks(B, H, W, 1).
+extern "C" {
+
+int zv_se_conv_bf16_blocks(int B, int H, int W, int bwd) {
+  if (bf::set_smem() != cudaSuccess) return 1;
+  return bf::blocks(make_shape(B, H, W), bwd != 0);
+}
+
+int zv_se_conv_fwd_bf16(const void* x, const void* w, const float* s, const float* t, void* y,
+                        float* ssum, float* ssq, float* m, float* part, int B, int H, int W,
+                        int relu, void* stream) {
+  if (B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const Shape sh = make_shape(B, H, W);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = bf::set_smem();
+  if (e != cudaSuccess) return (int)e;
+  bf::fwd_kernel<<<bf::blocks(sh, false), TH * 32, bf::FWD_SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), s, t,
+      static_cast<__nv_bfloat16*>(y), part, sh, relu);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  se_conv_fwd_sample<<<B, dim3(C, 32), 0, st>>>(part, m, sh.nth * sh.ntw);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  se_conv_fwd_total<<<1, 2 * C, 0, st>>>(part, ssum, ssq, B, sh.nth * sh.ntw);
+  return (int)cudaGetLastError();
+}
+
+int zv_se_conv_bwd_bf16(const void* x, const void* y, const void* dy, const void* w,
+                        const float* s, const float* t, const float* dsum, const float* dsq,
+                        const float* dm, void* dx, float* out, float* part, int B, int H, int W,
+                        int relu, void* stream) {
+  if (B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const Shape sh = make_shape(B, H, W);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = bf::set_smem();
+  if (e != cudaSuccess) return (int)e;
+  const int grid = bf::blocks(sh, true);
+  bf::bwd_kernel<<<grid, TH * 32, bf::BWD_SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
+      static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(w), s, t, dsum,
+      dsq, dm, static_cast<__nv_bfloat16*>(dx), part, sh, relu);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   se_conv_bwd_finish<<<(NPART + 31) / 32, dim3(32, 8), 0, st>>>(part, out, grid);

@@ -4,7 +4,11 @@ speaker-conditional LayerNorm.
 
 The PyTorch counterpart of the JAX package's `models/fs2.py` with
 its training forward: dropout (flax's rule, `layers.Dropout`, active in
-train mode) and teacher pitch, energy and duration. Module names follow the
+train mode), teacher pitch, energy and duration, and `remat` (each FFT
+block recomputed in the backward, `layers.remat`). It runs in the dtype of
+its parameters and inputs (bf16 in bf16-mixed training): the position
+tables are cast to the activations' dtype, as the JAX module does, and the
+pitch/energy bins come from the targets in that dtype. Module names follow the
 upstream state_dict keys (`_phoneme_encoder._encoder.layer_stack.0.slf_attn.w_qs.weight`,
 ...). Attention is the plain einsum path: -inf key mask, softmax in float32.
 Padded positions are zeroed after every block.
@@ -16,7 +20,7 @@ import torch
 import torch.nn as nn
 
 from zerovox_tpu_torch.config import DecoderConfig, ModelConfig
-from zerovox_tpu_torch.models.layers import SCLN, Conv, Dropout, NLCConv1d, position_table
+from zerovox_tpu_torch.models.layers import SCLN, Conv, Dropout, NLCConv1d, position_table, remat
 from zerovox_tpu_torch.ops.length_regulator import length_regulate
 from zerovox_tpu_torch.symbols import Symbols
 
@@ -65,6 +69,15 @@ class PositionwiseFeedForward(nn.Module):
         return self.layer_norm(out, spk_emb) if self.scln else self.layer_norm(out)
 
 
+def run_blocks(layers, x, spk_emb, pad_mask, attn_mask, checkpointed: bool):
+    for layer in layers:
+        if checkpointed:
+            x = remat(layer, x, spk_emb, pad_mask, attn_mask)
+        else:
+            x = layer(x, spk_emb, pad_mask, attn_mask)
+    return x
+
+
 class FFTBlock(nn.Module):
     def __init__(self, d_model, n_head, d_k, d_v, d_inner, kernel_size, scln, dropout=0.0):
         super().__init__()
@@ -80,8 +93,10 @@ class Encoder(nn.Module):
     """Phone + punctuation embedding -> positions -> FFT blocks (no SCLN)."""
 
     def __init__(self, num_phones, num_puncts, embed_dim, punct_embed_dim, n_layers,
-                 n_head, conv_filter_size, conv_kernel_size, dropout: float = 0.0):
+                 n_head, conv_filter_size, conv_kernel_size, dropout: float = 0.0,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.d_model = embed_dim + punct_embed_dim
         self.punct_embed_dim = punct_embed_dim
         d_k = self.d_model // n_head
@@ -101,9 +116,8 @@ class Encoder(nn.Module):
         x = torch.cat([emb, pemb], dim=-1) if self.punct_embed_dim > 0 else emb + pemb
         x = x + position_table(L, self.d_model, x.device, x.dtype)[None]
         attn_mask = pad_mask[:, None, :].expand(B, L, L)
-        for layer in self.layer_stack:
-            x = layer(x, None, pad_mask, attn_mask)
-        return x
+        return run_blocks(self.layer_stack, x, None, pad_mask, attn_mask,
+                          self.remat and torch.is_grad_enabled())
 
 
 class _ConvLayer(nn.Module):
@@ -195,7 +209,7 @@ class FS2Encoder(nn.Module):
         enc = m.encoder
         self._encoder = Encoder(syms.num_phones, syms.num_puncts, m.emb_dim, m.punct_emb_dim,
                                 enc.fs2_layer, enc.fs2_head, m.decoder.conv_filter_size,
-                                m.decoder.conv_kernel_size, enc.fs2_dropout)
+                                m.decoder.conv_kernel_size, enc.fs2_dropout, remat=m.remat)
         self._variance_adaptor = VarianceAdaptor(m.emb_size, enc.vp_filter_size,
                                                  enc.vp_kernel_size, enc.ve_n_bins,
                                                  enc.vp_dropout)
@@ -219,8 +233,9 @@ class FS2Encoder(nn.Module):
 class FS2Decoder(nn.Module):
     """`_mel_decoder`: positions + FFT blocks with SCLN + linear head."""
 
-    def __init__(self, dec: DecoderConfig, d_model: int, n_mels: int):
+    def __init__(self, dec: DecoderConfig, d_model: int, n_mels: int, remat: bool = False):
         super().__init__()
+        self.remat = remat
         d_k = d_model // dec.n_head
         self.layer_stack = nn.ModuleList(
             FFTBlock(d_model, dec.n_head, d_k, d_k, dec.conv_filter_size,
@@ -232,6 +247,6 @@ class FS2Decoder(nn.Module):
         B, T, d_model = x.shape
         x = x + position_table(T, d_model, x.device, x.dtype)[None]
         attn_mask = mel_mask[:, None, :].expand(B, T, T)
-        for layer in self.layer_stack:
-            x = layer(x, spk_emb, mel_mask, attn_mask)
+        x = run_blocks(self.layer_stack, x, spk_emb, mel_mask, attn_mask,
+                       self.remat and torch.is_grad_enabled())
         return self.mel_linear(x)

@@ -9,6 +9,7 @@ ConvTranspose1d weight (in, out, k).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -112,6 +113,44 @@ def set_dropout_generator(module: nn.Module, generator: torch.Generator | None) 
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def remat(module: nn.Module, *args):
+    """module(*args) under torch.utils.checkpoint (non-reentrant): the
+    backward recomputes the module's activations instead of keeping them,
+    as the JAX package's `nn.remat`. checkpoint restores only the default
+    generators, so the recomputation here also puts the Dropouts' own
+    generators back to their state at the forward (the same masks) and
+    leaves the module's buffers (BatchNorm running statistics) as the
+    forward left them (one update a step)."""
+    from torch.utils.checkpoint import checkpoint
+
+    gens = list({id(m.generator): m.generator for m in module.modules()
+                 if isinstance(m, Dropout) and m.generator is not None}.values())
+    at_forward = []
+
+    @contextlib.contextmanager
+    def forward_ctx():
+        at_forward[:] = [g.get_state() for g in gens]
+        yield
+
+    @contextlib.contextmanager
+    def recompute_ctx():
+        now = [g.get_state() for g in gens]
+        buffers = [b.clone() for b in module.buffers()]
+        for g, state in zip(gens, at_forward):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+            with torch.no_grad():
+                for b, saved in zip(module.buffers(), buffers):
+                    b.copy_(saved)
+
+    return checkpoint(module, *args, use_reentrant=False,
+                      context_fn=lambda: (forward_ctx(), recompute_ctx()))
 
 
 def instance_norm_time(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -18,6 +18,13 @@ With `fused_stage1`, stage 1 runs as six passes of kernel K4
 prologue, its batch statistics come from the previous conv's sums, and the
 SE squeeze is the per-sample sum of conv2's output. The parameters and
 running statistics are the unfused module's.
+
+In bf16 (bf16-mixed training) the running statistics stay float32 and the
+fused path computes in the JAX package's types: float32 BatchNorm affines
+and SE gate, bf16 conv outputs, the block boundary in float32 rounded to
+bf16. `remat` recomputes each unfused SEBasicBlock in the backward
+(`layers.remat`); the fused stage 1 is not recomputed, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -26,15 +33,39 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from zerovox_tpu_torch.models.layers import instance_norm_time
+from zerovox_tpu_torch.models.layers import instance_norm_time, remat
 from zerovox_tpu_torch.ops.se_conv import CHANNELS, se_conv
 
 
 def batch_norm(bn: nn.BatchNorm2d | nn.BatchNorm1d, x, train: bool):
     """`bn` over x with batch statistics (updating the running ones) in
-    train mode, with its running statistics otherwise."""
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, train,
-                        bn.momentum, bn.eps)
+    train mode, with its running statistics otherwise. On a bf16 x it
+    computes as the JAX package's BatchNorm does: batch statistics in x's
+    dtype, float32 running statistics, the result in x's dtype."""
+    if x.dtype == bn.running_mean.dtype:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, train,
+                            bn.momentum, bn.eps)
+    dims = (0,) + tuple(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    if train:
+        mean = x.mean(dim=dims)
+        var = ((x - mean.view(shape)) ** 2).mean(dim=dims)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1 - m).add_(mean.float(), alpha=m)
+            bn.running_var.mul_(1 - m).add_(var.float() * (n / max(n - 1, 1)), alpha=m)
+    else:
+        mean, var = bn.running_mean.to(x.dtype), bn.running_var.to(x.dtype)
+    inv = torch.rsqrt(var + bn.eps)
+    return ((x - mean.view(shape)) * inv.view(shape) * bn.weight.view(shape)
+            + bn.bias.view(shape))
+
+
+def linear(layer: nn.Linear, x):
+    """`layer` on x in x's dtype (the JAX package's Dense promotes a bf16
+    kernel to a float32 input's type)."""
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
 def fused_bn_affine(bn: nn.BatchNorm2d, ssum, ssq, n: int, train: bool):
@@ -102,18 +133,22 @@ class SEBasicBlock(nn.Module):
         s1, tt1 = fused_bn_affine(self.bn1, ssum, ssq, n, train)
         t2, ssum2, ssq2, m = se_conv(t1, self.conv2.weight, s1, tt1, relu_out=False)
         s2, tt2 = fused_bn_affine(self.bn2, ssum2, ssq2, n, train)
-        # SE squeeze by linearity: mean_hw(bn2(t2)) = bn2(mean_hw(t2))
-        gate = self.se.fc(m / (H * W) * s2 + tt2)
-        # residual: the block input as its convs see it (pending affine applied)
+        # SE squeeze by linearity: mean_hw(bn2(t2)) = bn2(mean_hw(t2)), in float32
+        fc = self.se.fc
+        gate = torch.sigmoid(linear(fc[2], torch.relu(linear(fc[0], m / (H * W) * s2 + tt2))))
+        # residual: the block input as its convs see it (pending affine applied);
+        # float32, rounded to x's dtype
         out = ((t2 * s2[:, None, None] + tt2[:, None, None]) * gate[:, :, None, None]
                + x * s_in[:, None, None] + t_in[:, None, None])
-        return torch.relu(out)
+        return torch.relu(out).to(x.dtype)
 
 
 class ResNetSE34V2(nn.Module):
     def __init__(self, layers=(3, 4, 6, 3), num_filters=(32, 64, 128, 256), n_out: int = 528,
-                 encoder_type: str = "ASP", n_mels: int = 80, fused_stage1: bool = False):
+                 encoder_type: str = "ASP", n_mels: int = 80, fused_stage1: bool = False,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         if encoder_type not in ("ASP", "SAP"):
             raise ValueError(f"undefined encoder type {encoder_type!r}")
         if fused_stage1 and (num_filters[0] != CHANNELS or layers[0] < 1):
@@ -146,8 +181,9 @@ class ResNetSE34V2(nn.Module):
         one reduction over the stem output, its affine rides block 0's conv1."""
         B, _, H, W = x.shape
         n = B * H * W
-        s_in, t_in = fused_bn_affine(self.bn1, x.sum(dim=(0, 2, 3)),
-                                     (x * x).sum(dim=(0, 2, 3)), n, train)
+        xf = x.float()  # the stem BN's sums in float32 whatever x's dtype
+        s_in, t_in = fused_bn_affine(self.bn1, xf.sum(dim=(0, 2, 3)),
+                                     (xf * xf).sum(dim=(0, 2, 3)), n, train)
         ones, zeros = torch.ones_like(s_in), torch.zeros_like(t_in)
         for block in self.layer1:
             x = block.fused_forward(x, s_in, t_in, train)
@@ -163,9 +199,10 @@ class ResNetSE34V2(nn.Module):
             x = self._stage1_fused(x, train)
         else:
             x = batch_norm(self.bn1, x, train)
+        checkpointed = self.remat and torch.is_grad_enabled()
         for stage in range(1 if self.fused_stage1 else 0, self.n_stages):
             for block in getattr(self, f"layer{stage + 1}"):
-                x = block(x, train)
+                x = remat(block, x, train) if checkpointed else block(x, train)
 
         B, C, H, W = x.shape
         x = x.reshape(B, C * H, W)

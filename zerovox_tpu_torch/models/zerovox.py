@@ -38,9 +38,11 @@ class ZeroVox(nn.Module):
         self._phoneme_encoder = FS2Encoder(m)
         self._spkemb = ResNetSE34V2(tuple(m.resnet.layers), tuple(m.resnet.num_filters),
                                     n_out=m.emb_size, encoder_type=m.resnet.encoder_type,
-                                    n_mels=cfg.audio.num_mels, fused_stage1=m.fused_speaker)
+                                    n_mels=cfg.audio.num_mels, fused_stage1=m.fused_speaker,
+                                    remat=m.remat_speaker)
         if m.decoder.kind == "fastspeech2":
-            self._mel_decoder = FS2Decoder(m.decoder, m.emb_size, cfg.audio.num_mels)
+            self._mel_decoder = FS2Decoder(m.decoder, m.emb_size, cfg.audio.num_mels,
+                                           remat=m.remat)
         elif m.decoder.kind == "styletts":
             self._mel_decoder = StyleTTSDecoder(m.emb_size, m.emb_size, residual_dim=64,
                                                 dim_out=cfg.audio.num_mels)

@@ -37,7 +37,10 @@ SIGNATURES = {
                        "zv_upsample_stage_tile": [_I] * 16},
     "se_conv": {"zv_se_conv_fwd_tiles": [_I] * 3, "zv_se_conv_bwd_blocks": [_I] * 3,
                 "zv_se_conv_fwd_f32": [_P] * 9 + [_I] * 4 + [_P],
-                "zv_se_conv_bwd_f32": [_P] * 12 + [_I] * 4 + [_P]},
+                "zv_se_conv_bwd_f32": [_P] * 12 + [_I] * 4 + [_P],
+                "zv_se_conv_bf16_blocks": [_I] * 4,
+                "zv_se_conv_fwd_bf16": [_P] * 9 + [_I] * 4 + [_P],
+                "zv_se_conv_bwd_bf16": [_P] * 12 + [_I] * 4 + [_P]},
 }
 
 _lock = threading.Lock()
@@ -120,13 +123,18 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def require_f32_cuda(name: str, *tensors) -> None:
-    """Raise unless every tensor is a contiguous float32 CUDA tensor on one device."""
-    dev = tensors[0].device
+def require_cuda(name: str, device, dtype, *tensors) -> None:
+    """Raise unless every tensor is a contiguous `dtype` tensor on the CUDA
+    device `device`."""
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if t.device != device or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA device (got {t.device})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: the kernel takes {dtype} here, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def require_f32_cuda(name: str, *tensors) -> None:
+    """Raise unless every tensor is a contiguous float32 CUDA tensor on one device."""
+    require_cuda(name, tensors[0].device, torch.float32, *tensors)

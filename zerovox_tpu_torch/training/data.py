@@ -13,9 +13,17 @@ the same seed:
     when the item is shorter than the crop);
   * `SpeechDataModule.train_dataloader(epoch)` shuffles with an rng seeded
     by (seed, epoch), groups similar lengths, and loads and collates in a
-    thread pool while yielding batches strictly in order.
+    thread pool while yielding batches strictly in order;
+  * with `device_cache`, the whole bucket-padded corpus is uploaded to the
+    device once (`_DeviceCorpusCache`, the JAX package's counterpart) and
+    each batch is gathered there from its index and crop-offset vectors,
+    drawn from the same rng streams as the host path, so the batches are
+    the host path's bit for bit. A corpus over DEVICE_CACHE_BYTE_LIMIT
+    (checked on the host arrays' sizes, before anything is allocated)
+    falls back to host loading.
 
-Batches are numpy; `training.trainer.device_batch` moves them to the card.
+Host batches are numpy; `training.trainer.device_batch` moves them to the
+card. Cached batches are tensors on the device already.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import threading
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from zerovox_tpu_torch.symbols import Symbols
 
@@ -179,12 +188,72 @@ def collate(items: list[dict], rng: np.random.Generator, ref_mel_len: int = MAX_
     return x, {"mel": mels}
 
 
+# A device-resident corpus pays only while the whole padded feature store fits
+# comfortably beside the parameters and activations (the JAX package's budget).
+DEVICE_CACHE_BYTE_LIMIT = 2 << 30
+
+
+class _DeviceCorpusCache:
+    """Every item's features, bucket-padded, resident on `device`; a batch
+    is an on-device gather by its index and reference-crop-offset vectors,
+    so a step moves tens of bytes from the host instead of megabytes."""
+
+    FIELDS = ("phoneme", "puncts", "pitch", "energy", "duration")
+
+    def __init__(self, items: list[dict]):
+        self.items = items
+        self.n = len(items)
+        self.lmax = _bucket(max(len(it["phoneme"]) for it in items), PHONEME_BUCKETS)
+        self.tmax = _bucket(max(it["mel"].shape[0] for it in items), MEL_BUCKETS)
+        self.n_mels = items[0]["mel"].shape[1]
+        # the padded host arrays' bytes, known before any of them exists
+        self.nbytes = 4 * self.n * (5 * self.lmax + self.tmax * self.n_mels + 2)
+        self.phoneme_len = np.asarray([len(it["phoneme"]) for it in items], np.int32)
+        self.mel_len = np.asarray([it["mel"].shape[0] for it in items], np.int32)
+
+    def upload(self, device) -> None:
+        n, lmax = self.n, self.lmax
+        host = {k: np.zeros((n, lmax), np.float32 if k in ("pitch", "energy") else np.int32)
+                for k in self.FIELDS}
+        host["mel"] = np.zeros((n, self.tmax, self.n_mels), np.float32)
+        for i, it in enumerate(self.items):
+            ln, t = self.phoneme_len[i], self.mel_len[i]
+            for k in self.FIELDS:
+                host[k][i, :ln] = it[k][:ln]
+            host["mel"][i, :t] = it["mel"]
+        host["phoneme_len"], host["mel_len"] = self.phoneme_len, self.mel_len
+        self.data = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        self.items = None
+
+    def gather(self, bidx: np.ndarray, ref_off: np.ndarray, L: int, T: int,
+               ref_len: int) -> tuple[dict, dict]:
+        d = self.data
+        dev = d["mel"].device
+        idx = torch.as_tensor(np.asarray(bidx, np.int64), device=dev)
+        off = torch.as_tensor(np.asarray(ref_off, np.int64), device=dev)
+        plen, mlen = d["phoneme_len"][idx], d["mel_len"][idx]
+        mel_full = d["mel"][idx]  # [B, Tmax, M]
+        # as the host collate: a crop at the offset when the item is long
+        # enough, the item tiled from its start otherwise
+        r = torch.arange(ref_len, device=dev)[None, :]
+        rows = torch.where(mlen[:, None] >= ref_len, off[:, None] + r,
+                           r % torch.clamp(mlen, min=1)[:, None].long())
+        ref = torch.gather(mel_full, 1, rows[..., None].expand(-1, -1, mel_full.shape[2]))
+        x = {k: d[k][idx, :L] for k in self.FIELDS}
+        x.update(phoneme_len=plen, mel_len=mlen, ref_mel=ref,
+                 phoneme_mask=torch.arange(L, device=dev)[None, :] >= plen[:, None],
+                 mel_mask=torch.arange(T, device=dev)[None, :] >= mlen[:, None])
+        return x, {"mel": mel_full[:, :T]}
+
+
 class SpeechDataModule:
-    """Shuffled, length-bucketed, prefetching batch iterator."""
+    """Shuffled, length-bucketed, prefetching batch iterator. With
+    `device_cache`, batches are gathered on `device` (None: the card)."""
 
     def __init__(self, corpora, symbols: Symbols, stats: dict, batch_size: int = 64,
                  num_workers: int = 4, seed: int = 0, ref_mel_len: int = MAX_REF_LEN,
-                 base_path: str | None = None, drop_last: bool = True):
+                 base_path: str | None = None, drop_last: bool = True,
+                 device_cache: bool = False, device=None):
         self.corpora = corpora
         self._symbols = symbols
         self._stats = stats
@@ -197,6 +266,9 @@ class SpeechDataModule:
         # drop_last=False pads the tail batch with wrap-around duplicates
         # (x["pad_items"] counts them, at the end of the batch)
         self.drop_last = drop_last
+        self.device_cache = device_cache
+        self._device = device
+        self._cache: _DeviceCorpusCache | None = None
         self.train_dataset: SpeechDataset | None = None
 
     def prepare_data(self):
@@ -240,6 +312,11 @@ class SpeechDataModule:
         child seeds are drawn up front and batches are yielded in position
         order, so the worker count changes nothing."""
         assert self.train_dataset is not None, "call prepare_data() first"
+        if self.device_cache and self._cache is None:
+            self._build_cache()
+        if self.device_cache:
+            yield from self._device_dataloader(epoch)
+            return
         ds = self.train_dataset
         rng = np.random.default_rng((self._seed, epoch)) if epoch is not None else self._rng
         batches = self._batch_indices(rng)
@@ -265,3 +342,39 @@ class SpeechDataModule:
                 pos, item = q.get()
                 pending[pos] = item
             yield pending.pop(next_pos)
+
+    def _build_cache(self) -> None:
+        from zerovox_tpu_torch.device import resolve_device
+
+        ds = self.train_dataset
+        cache = _DeviceCorpusCache([ds.load_item(i) for i in range(len(ds))])
+        if cache.nbytes > DEVICE_CACHE_BYTE_LIMIT:
+            print(f"device corpus cache disabled: corpus {cache.nbytes / 1e6:.0f} MB exceeds the "
+                  f"{DEVICE_CACHE_BYTE_LIMIT / 1e6:.0f} MB HBM budget")
+            self.device_cache = False
+            return
+        cache.upload(resolve_device(self._device))
+        self._cache = cache
+        print(f"device corpus cache: {len(ds)} items, {cache.nbytes / 1e6:.1f} MB resident on device")
+
+    def _device_dataloader(self, epoch: int | None = None):
+        """The host path's batches (same rng streams: batch order and crop
+        offsets), gathered on the device."""
+        rng = np.random.default_rng((self._seed, epoch)) if epoch is not None else self._rng
+        batches = self._batch_indices(rng)
+        seeds = rng.integers(np.iinfo(np.int64).max, size=len(batches))
+        cache, ref_len = self._cache, self._ref_mel_len
+        for pos, (bidx, n_pad) in enumerate(batches):
+            crng = np.random.default_rng(seeds[pos])
+            bidx = np.asarray(bidx)
+            mlen = cache.mel_len[bidx]
+            L = _bucket(int(cache.phoneme_len[bidx].max()), PHONEME_BUCKETS)
+            T = _bucket(int(mlen.max()), MEL_BUCKETS)
+            # collate's draws: one per item long enough for a crop, in item order
+            offs = np.zeros(len(bidx), np.int64)
+            for i, t in enumerate(mlen):
+                if t >= ref_len:
+                    offs[i] = crng.integers(0, int(t) - ref_len + 1)
+            x, y = cache.gather(bidx, offs, L, T, ref_len)
+            x["pad_items"] = n_pad
+            yield x, y

@@ -10,9 +10,13 @@ weight decay, then the learning rate:
     p   <- p - lr(t - 1) * (u + weight_decay * p)
 
 With b1 == 0 (the production configs' betas (0.0, 0.99)) the first moment is
-the gradient itself and is not stored. The schedule is the epoch warmup +
-cosine decay with its floor at 0.1 of the base rate. Updates run on whole
-parameter lists with torch's multi-tensor (`_foreach`) ops.
+the gradient itself and is not stored. `state_dtype="bf16"` then stores nu
+in bf16, as the JAX package's `_scale_by_adam_no_mu(state_dtype=...)`: the
+moment update runs in float32 from the stored value, the step uses the
+unrounded float32 moment, and only the stored nu is rounded. The schedule
+is the epoch warmup + cosine decay with its floor at 0.1 of the base rate.
+Updates run on whole parameter lists with torch's multi-tensor (`_foreach`)
+ops.
 """
 
 from __future__ import annotations
@@ -43,15 +47,25 @@ def warmup_cosine_epoch_schedule(base_lr: float, warmup_epochs: int, total_epoch
 
 class AdamW:
     """Clip + Adam (mu-free when b1 == 0) + decoupled weight decay + lr over
-    a fixed list of float32 parameters. `step(lr)` reads their `.grad`."""
+    a fixed list of float32 parameters. `step(lr)` reads their `.grad`.
+    `state_dtype`: "f32", or "bf16" second moments (b1 == 0 only; with
+    b1 != 0 it warns and keeps float32, as the JAX `make_optimizer`)."""
 
     def __init__(self, params, betas=(0.0, 0.99), eps: float = 1e-9,
-                 weight_decay: float = 0.0, grad_clip: float = 1.0):
+                 weight_decay: float = 0.0, grad_clip: float = 1.0, state_dtype: str = "f32"):
+        if state_dtype not in ("f32", "bf16"):
+            raise ValueError(f"state_dtype must be 'f32' or 'bf16', got {state_dtype!r}")
         self.params = [p for p in params if p.requires_grad]
         self.b1, self.b2 = float(betas[0]), float(betas[1])
         self.eps, self.weight_decay, self.grad_clip = eps, weight_decay, grad_clip
+        if state_dtype == "bf16" and self.b1 != 0.0:
+            print("*** warning: --optim-dtype bf16 requires betas[0] == 0 "
+                  "(mu-free path); using full-precision adamw")
+            state_dtype = "f32"
+        self.state_dtype = state_dtype
         self.count = 0
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        nu_dtype = torch.bfloat16 if state_dtype == "bf16" else None
+        self.nu = [torch.zeros_like(p, dtype=nu_dtype) for p in self.params]
         self.mu = [torch.zeros_like(p) for p in self.params] if self.b1 != 0.0 else None
 
     @torch.no_grad()
@@ -63,11 +77,22 @@ class AdamW:
         grads = torch._foreach_mul(grads, scale)
 
         self.count += 1
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
+        if self.state_dtype == "bf16":
+            # nu32 = b2 nu + (1 - b2) g^2 in float32; the step reads nu32,
+            # the stored nu is its bf16 rounding
+            nu = [n.float() for n in self.nu]
+            torch._foreach_mul_(nu, self.b2)
+            gg = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(gg, 1.0 - self.b2)
+            torch._foreach_add_(nu, gg)
+            torch._foreach_copy_(self.nu, nu)
+        else:
+            nu = self.nu
+            torch._foreach_mul_(nu, self.b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
         # bias corrections in float32, as optax computes them
         bc2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32) ** self.count
-        denom = torch._foreach_div(self.nu, bc2.item())
+        denom = torch._foreach_div(nu, bc2.item())
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         if self.mu is None:

@@ -6,27 +6,39 @@ The PyTorch counterpart of the JAX package's `training/trainer.py`:
     BatchNorm batch statistics) + `zerovox_loss` + backward + the AdamW
     update of `training/optim.py` at the epoch warmup-cosine rate; the
     speaker encoder's running statistics update inside the forward;
+  * `precision="bf16-mixed"` is the JAX `make_train_step`'s mixed branch:
+    float32 master weights, the forward and backward on bf16 copies of the
+    parameters and of the batch's float32 inputs (gradients flow back
+    through the casts into the float32 `.grad`), the model's outputs cast
+    back to float32 before the loss, the BatchNorm running statistics kept
+    in float32. Not torch.autocast: that keeps ops in float32 that the JAX
+    package computes in bf16. `optim_dtype="bf16"` stores Adam's second
+    moments in bf16;
   * dropout draws from a `torch.Generator` re-seeded each step from
     (seed + 1, step), as the JAX trainer folds the step into its key;
   * `train_decoder_only` steps only the mel decoder and keeps the speaker
     encoder's BatchNorms on their running statistics;
   * `fit` keeps the per-step losses on the card and fetches them every
-    `log_every_n_steps` steps (and at epoch end) for the NaN check and the
-    epoch average;
+    `log_every_n_steps` steps (and at epoch end) for the NaN check, the
+    TensorBoard scalars (through an optional `tensorboardX`, under
+    `out_folder/lightning_logs[/name]`; off without the package) and the
+    epoch average; with `profile_dir` it traces `profile_steps` steps with
+    torch.profiler, starting after the run's first step;
   * at the end of every `checkpoint_every_n_epochs`-th epoch (and of the
-    last) `fit` writes `checkpoints/NNNN.msgpack`, the JAX package's native
-    format, with `{"epoch", "loss", "step"}` in its `.json`, and keeps the
-    newest `keep_checkpoints` of them;
+    last) `fit` writes `checkpoints[/name]/NNNN.msgpack`, the JAX package's
+    native format, with `{"epoch", "loss", "step"}` in its `.json`; with
+    `checkpoint_format="state"` also `state/NNNN.pt`, the whole train state
+    (the port's counterpart of the JAX package's orbax checkpoints), from
+    which `resume_from` continues; `keep_checkpoints` keeps the newest N of
+    each;
   * `save_train_state` / `restore_train_state` write and read the whole
     train state (weights, optimizer moments, step, epoch, the dropout
-    generator) with torch.save, to resume a run.
-
-Float32 only. TensorBoard logging, the profiler and bf16-mixed are not
-ported yet.
+    generator) with torch.save.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import inspect
 import os
@@ -36,6 +48,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from zerovox_tpu_torch.config import ZeroVoxConfig
 from zerovox_tpu_torch.device import resolve_device, use_full_f32
@@ -43,6 +56,7 @@ from zerovox_tpu_torch.models.layers import set_dropout_generator
 from zerovox_tpu_torch.models.zerovox import ZeroVox, zerovox_loss
 from zerovox_tpu_torch.training.checkpointing import save_native_checkpoint
 from zerovox_tpu_torch.training.optim import AdamW, warmup_cosine_epoch_schedule
+from zerovox_tpu_torch.utils.profiling import device_trace
 from zerovox_tpu_torch.weights import to_jax_variables
 
 _DEVICE_KEYS = ("phoneme", "puncts", "phoneme_mask", "pitch", "energy",
@@ -51,7 +65,8 @@ _DEVICE_KEYS = ("phoneme", "puncts", "phoneme_mask", "pitch", "energy",
 
 def device_batch(batch, device) -> dict[str, torch.Tensor]:
     """A data-module batch ((x, y) tuple or dict) -> the flat dict of tensors
-    the train step consumes, on `device`."""
+    the train step consumes, on `device` (tensors already there, as the
+    device cache gives them, are kept)."""
     if isinstance(batch, tuple):
         x, y = batch
         batch = {**x, **y}
@@ -59,7 +74,11 @@ def device_batch(batch, device) -> dict[str, torch.Tensor]:
     out = {}
     for k in _DEVICE_KEYS:
         if k in batch:
-            t = torch.as_tensor(np.asarray(batch[k]))
+            v = batch[k]
+            if isinstance(v, torch.Tensor) and v.device.type == device.type:
+                out[k] = v
+                continue
+            t = torch.as_tensor(np.asarray(v))
             if device.type == "cuda":
                 t = t.pin_memory()
             out[k] = t.to(device, non_blocking=True)
@@ -70,14 +89,21 @@ def device_batch(batch, device) -> dict[str, torch.Tensor]:
 class TrainerConfig:
     max_epochs: int = 40
     warmup_epochs: int = 2
+    out_folder: str = "mymodel1"
+    name: str | None = None  # run name: checkpoints/<name>, lightning_logs/<name>
     # losses stay on the card and are fetched every N steps for the NaN check
     log_every_n_steps: int = 50
-    out_folder: str = "mymodel1"
     keep_checkpoints: int = 0  # 0 keeps all
     checkpoint_every_n_epochs: int = 1  # the last epoch is always saved
     train_decoder_only: bool = False
-    precision: str = "32"  # only float32 is ported
+    precision: str = "32"  # "32" | "bf16-mixed"
+    checkpoint_format: str = "msgpack"  # "msgpack" | "state" (msgpack + state/NNNN.pt)
     seed: int = 42
+    # torch.profiler trace of `profile_steps` steps, starting after the
+    # run's first step, written to profile_dir
+    profile_dir: str | None = None
+    profile_steps: int = 10
+    optim_dtype: str = "f32"  # Adam's second moments: "f32" | "bf16"
 
 
 @dataclass
@@ -87,15 +113,40 @@ class TrainState:
     step: int = 0
 
 
+class _LossBackward(nn.Module):
+    """Forward + loss + backward as one module call, so that the bf16
+    parameters `torch.func.functional_call` puts in place stay in place
+    through the backward (where `remat` recomputes blocks)."""
+
+    def __init__(self, model: ZeroVox):
+        super().__init__()
+        self.model = model
+
+    def forward(self, inputs: dict, batch: dict, spkemb_train: bool) -> dict:
+        pred = self.model(inputs, train=True, spkemb_train=spkemb_train)
+        pred = {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in pred.items()}
+        losses = zerovox_loss(pred, batch)
+        losses["loss"].backward()
+        return {k: v.detach() for k, v in losses.items()}
+
+
+def _to_bf16(tensors: dict) -> dict:
+    return {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
+            for k, v in tensors.items()}
+
+
 class Trainer:
     """Epoch-driven trainer over an iterable of host batches."""
 
     def __init__(self, cfg: ZeroVoxConfig, tcfg: TrainerConfig, steps_per_epoch: int,
                  device=None):
-        if tcfg.precision != "32":
-            raise NotImplementedError(f"precision {tcfg.precision!r} is not ported yet ('32' only)")
+        if tcfg.precision not in ("32", "bf16-mixed"):
+            raise ValueError(f"precision {tcfg.precision!r}: '32' or 'bf16-mixed'")
+        if tcfg.checkpoint_format not in ("msgpack", "state"):
+            raise ValueError(f"checkpoint_format {tcfg.checkpoint_format!r}: 'msgpack' or 'state'")
         self.cfg = cfg
         self.tcfg = tcfg
+        self.mixed = tcfg.precision == "bf16-mixed"
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_full_f32()
@@ -103,6 +154,7 @@ class Trainer:
             base_lr=cfg.training.learning_rate, warmup_epochs=tcfg.warmup_epochs,
             total_epochs=tcfg.max_epochs, steps_per_epoch=steps_per_epoch)
         self._gen = torch.Generator(device=self.device)
+        self._writer = None
 
     # ------------------------------------------------------------- lifecycle
 
@@ -123,7 +175,8 @@ class Trainer:
                 p.requires_grad_(name.startswith("_mel_decoder."))
         t = self.cfg.training
         opt = AdamW(model.parameters(), betas=tuple(t.betas), eps=t.eps,
-                    weight_decay=t.weight_decay, grad_clip=t.grad_clip)
+                    weight_decay=t.weight_decay, grad_clip=t.grad_clip,
+                    state_dtype=self.tcfg.optim_dtype)
         return TrainState(model=model, optimizer=opt)
 
     def restore_into(self, state: TrainState, state_dict: dict,
@@ -145,10 +198,12 @@ class Trainer:
         seed = np.random.SeedSequence([self.tcfg.seed + 1, state.step]).generate_state(1)[0]
         self._gen.manual_seed(int(seed))
         state.optimizer.zero_grad()
-        pred = model(batch, train=True, spkemb_train=not self.tcfg.train_decoder_only)
-        losses = zerovox_loss(pred, batch)
-        losses["loss"].backward()
-        return {k: v.detach() for k, v in losses.items()}
+        step = _LossBackward(model)
+        spk = not self.tcfg.train_decoder_only
+        if not self.mixed:
+            return step(batch, batch, spk)
+        half = {f"model.{n}": p.to(torch.bfloat16) for n, p in model.named_parameters()}
+        return torch.func.functional_call(step, half, (_to_bf16(batch), batch, spk))
 
     def train_step(self, state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         losses = self.forward_backward(state, batch)
@@ -159,12 +214,13 @@ class Trainer:
     # ----------------------------------------------------------- checkpoints
 
     def checkpoint_root(self) -> str:
-        return os.path.join(self.tcfg.out_folder, "checkpoints")
+        root = os.path.join(self.tcfg.out_folder, "checkpoints")
+        return os.path.join(root, self.tcfg.name) if self.tcfg.name else root
 
     def save_train_state(self, state: TrainState, path, epoch: int) -> None:
         """The whole train state after `epoch`: weights (BatchNorm running
-        statistics included), the optimizer's moments and count, the step
-        and the dropout generator's state."""
+        statistics included), the optimizer's moments (in their dtype) and
+        count, the step and the dropout generator's state."""
         opt = state.optimizer
         blob = {"model": state.model.state_dict(), "step": state.step, "epoch": epoch,
                 "optimizer": {"count": opt.count, "nu": opt.nu, "mu": opt.mu},
@@ -189,11 +245,48 @@ class Trainer:
         self._gen.set_state(blob["dropout_generator"])
         return blob["epoch"] + 1
 
+    def resume_from(self, state: TrainState, ckpt_root: str | None = None
+                    ) -> tuple[TrainState, int]:
+        """Restore the whole train state from the newest `state/NNNN.pt`
+        under `ckpt_root` (default `checkpoint_root()`); returns (state,
+        start_epoch) for `fit`."""
+        state_dir = os.path.join(ckpt_root or self.checkpoint_root(), "state")
+        files = sorted(f for f in os.listdir(state_dir) if f.endswith(".pt")) \
+            if os.path.isdir(state_dir) else []
+        if not files:
+            raise FileNotFoundError(f"no train-state checkpoints under {state_dir}")
+        path = os.path.join(state_dir, files[-1])
+        start = self.restore_train_state(state, path)
+        print(f"resumed from {path} at epoch {start - 1} (step {state.step}); "
+              f"continuing at epoch {start}")
+        return state, start
+
+    # --------------------------------------------------------------- logging
+
+    def _get_writer(self):
+        if self._writer is None:
+            try:
+                from tensorboardX import SummaryWriter
+
+                logdir = os.path.join(self.tcfg.out_folder, "lightning_logs")
+                if self.tcfg.name:
+                    logdir = os.path.join(logdir, self.tcfg.name)
+                self._writer = SummaryWriter(logdir)
+            except Exception:
+                self._writer = False
+        return self._writer
+
+    def _log_scalars(self, scalars: dict, step: int) -> None:
+        w = self._get_writer()
+        if w:
+            for k, v in scalars.items():
+                w.add_scalar(k, float(v), step)
+
     # ---------------------------------------------------------------- epochs
 
     def fit(self, batches_per_epoch: Callable[..., Any], state: TrainState,
             start_epoch: int = 0) -> TrainState:
-        """`batches_per_epoch(epoch)` (or `batches_per_epoch()`) yields host
+        """`batches_per_epoch(epoch)` (or `batches_per_epoch()`) yields
         batches for one epoch."""
         try:
             takes_epoch = bool(inspect.signature(batches_per_epoch).parameters)
@@ -201,18 +294,37 @@ class Trainer:
             takes_epoch = False
         ckpt_root = self.checkpoint_root()
         os.makedirs(ckpt_root, exist_ok=True)
-        for epoch in range(start_epoch, self.tcfg.max_epochs):
-            t0 = time.time()
-            pending: list[dict] = []
-            checked = 0
-            for batch in batches_per_epoch(epoch) if takes_epoch else batches_per_epoch():
-                pending.append(self.train_step(state, device_batch(batch, self.device)))
-                if state.step % self.tcfg.log_every_n_steps == 0:
-                    self._check_finite(self._fetch(pending[checked:]), state.step)
-                    checked = len(pending)
-            epoch_losses = self._fetch(pending)
-            self._check_finite(epoch_losses[checked:], state.step)
-            self._on_epoch_end(epoch, epoch_losses, state, ckpt_root, t0)
+        profile_after = state.step + 1 if self.tcfg.profile_dir else None
+        with contextlib.ExitStack() as tracing:
+            for epoch in range(start_epoch, self.tcfg.max_epochs):
+                t0 = time.time()
+                pending: list[dict] = []
+                checked = 0
+                for batch in batches_per_epoch(epoch) if takes_epoch else batches_per_epoch():
+                    if profile_after is not None and state.step == profile_after:
+                        tracing.enter_context(device_trace(self.tcfg.profile_dir))
+                    pending.append(self.train_step(state, device_batch(batch, self.device)))
+                    if (profile_after is not None
+                            and state.step >= profile_after + self.tcfg.profile_steps):
+                        tracing.close()
+                        profile_after = None
+                        print(f"profiler trace ({self.tcfg.profile_steps} steps) "
+                              f"written to {self.tcfg.profile_dir}")
+                    if state.step % self.tcfg.log_every_n_steps == 0:
+                        window = self._fetch(pending[checked:])
+                        checked = len(pending)
+                        self._check_finite(window, state.step)
+                        last = window[-1]
+                        self._log_scalars({"loss": last["loss"], "mel": last["mel_loss"],
+                                           "pitch": last["pitch_loss"],
+                                           "energy": last["energy_loss"],
+                                           "dur": last["duration_loss"]}, state.step)
+                epoch_losses = self._fetch(pending)
+                self._check_finite(epoch_losses[checked:], state.step)
+                self._on_epoch_end(epoch, epoch_losses, state, ckpt_root, t0)
+        if self._writer:  # close drains tensorboardX's queue of pending events
+            self._writer.close()
+            self._writer = None
         return state
 
     @staticmethod
@@ -243,19 +355,33 @@ class Trainer:
             print(f"on_train_epoch_end: resident size = {rss} MB")
         except Exception:
             pass
-        if epoch_losses:
-            avg = {k: float(np.mean([d[k] for d in epoch_losses])) for k in epoch_losses[0]}
-            print(f"epoch {epoch}: loss={avg['loss']:.4f} mel={avg['mel_loss']:.4f} "
-                  f"({time.time() - t0:.1f}s)")
-            every = max(1, self.tcfg.checkpoint_every_n_epochs)
-            if epoch % every != every - 1 and epoch != self.tcfg.max_epochs - 1:
-                return
-            path = os.path.join(ckpt_root, f"{epoch:04d}.msgpack")
-            save_native_checkpoint(path, to_jax_variables(state.model.state_dict(), self.cfg),
-                                   meta={"epoch": epoch, "loss": avg["loss"], "step": state.step})
-            if self.tcfg.keep_checkpoints > 0:
-                ckpts = sorted(f for f in os.listdir(ckpt_root) if f.endswith(".msgpack"))
-                for old in ckpts[: -self.tcfg.keep_checkpoints]:
-                    for stale in (old, old + ".json"):
-                        if os.path.exists(os.path.join(ckpt_root, stale)):
-                            os.remove(os.path.join(ckpt_root, stale))
+        if not epoch_losses:
+            return
+        avg = {k: float(np.mean([d[k] for d in epoch_losses])) for k in epoch_losses[0]}
+        self._log_scalars({"aloss": avg["loss"], "amel": avg["mel_loss"],
+                           "apitch": avg["pitch_loss"], "aenergy": avg["energy_loss"],
+                           "adur": avg["duration_loss"], "lr": self.schedule(state.step)},
+                          state.step)
+        if self._writer:
+            self._writer.flush()
+        print(f"epoch {epoch}: loss={avg['loss']:.4f} mel={avg['mel_loss']:.4f} "
+              f"({time.time() - t0:.1f}s)")
+        every = max(1, self.tcfg.checkpoint_every_n_epochs)
+        if epoch % every != every - 1 and epoch != self.tcfg.max_epochs - 1:
+            return
+        path = os.path.join(ckpt_root, f"{epoch:04d}.msgpack")
+        save_native_checkpoint(path, to_jax_variables(state.model.state_dict(), self.cfg),
+                               meta={"epoch": epoch, "loss": avg["loss"], "step": state.step})
+        state_dir = os.path.join(ckpt_root, "state")
+        if self.tcfg.checkpoint_format == "state":
+            os.makedirs(state_dir, exist_ok=True)
+            self.save_train_state(state, os.path.join(state_dir, f"{epoch:04d}.pt"), epoch)
+        if self.tcfg.keep_checkpoints > 0:
+            keep = self.tcfg.keep_checkpoints
+            for folder, ext, extra in ((ckpt_root, ".msgpack", (".json",)), (state_dir, ".pt", ())):
+                if not os.path.isdir(folder):
+                    continue
+                for old in sorted(f for f in os.listdir(folder) if f.endswith(ext))[:-keep]:
+                    for stale in (old,) + tuple(old + e for e in extra):
+                        if os.path.exists(os.path.join(folder, stale)):
+                            os.remove(os.path.join(folder, stale))

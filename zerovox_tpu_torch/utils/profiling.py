@@ -1,13 +1,17 @@
-"""Per-stage timing and RTF measurement.
+"""Per-stage timing, RTF measurement and device traces.
 
 `RtfStats` keeps the JAX package's method (mean RTF after a warm-up; p50 of
 the first-chunk latency). `StageTimer` marks host wall-clock stages and, on
 a CUDA device, synchronizes before each mark so a stage's time includes its
 device work. `cuda_time_ms` times device work with CUDA events.
+`device_trace(logdir)` is the torch.profiler counterpart of the JAX
+package's `jax.profiler` trace context.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -82,3 +86,27 @@ def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """torch.profiler over the block (host ops, and CUDA kernels when a card
+    is present). On exit, after a device synchronize, writes the Chrome
+    trace `trace-<pid>-<ms>.json` (view in chrome://tracing or Perfetto) and
+    the table of ops by device time `trace-<pid>-<ms>.txt` into `logdir`.
+    Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    stem = os.path.join(logdir, f"trace-{os.getpid()}-{int(time.time() * 1000)}")
+    with profile(activities=acts) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(stem + ".json")
+    sort = "self_cuda_time_total" if torch.cuda.is_available() else "self_cpu_time_total"
+    with open(stem + ".txt", "w") as f:
+        f.write(prof.key_averages().table(sort_by=sort, row_limit=40) + "\n")
