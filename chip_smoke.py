@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (`zerovox_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py              # the whole check; exits 0 only if every phase passed
-    python3 chip_smoke.py --profile DIR   # also torch.profiler breakdowns of tts_ex and of
-                                          # a train step, written to DIR/profile_*.txt
+    python3 chip_smoke.py --profile DIR   # also torch.profiler breakdowns of tts_ex (float32
+                                          # and bf16) and of a train step, in DIR/profile_*.txt
 
 Phases, in order; any failure exits nonzero:
 
@@ -21,7 +21,12 @@ Phases, in order; any failure exits nonzero:
    < 1e-4 x the plain result's max |value|), with F.conv2d alone beside them;
    and K4's bf16 forward and backward on those inputs in bf16 (y and dx
    within 2^-8 x the plain result's max, the float32 sums and gradients
-   within 1e-3 x theirs), with F.conv2d in bf16 beside them.
+   within 1e-3 x theirs), with F.conv2d in bf16 beside them. Beside each
+   K1, K2 and K3 row its bf16 variant (bf16 inference) on the same inputs
+   rounded to bf16: bitwise the float32 kernel on the widened inputs rounded
+   to bf16, within one bf16 step of the largest output of its plain
+   version, timed beside the plain version and the float32 kernel, against
+   its two-MMA bound.
 4. The serving path at full width (default ZeroVoxConfig + HiFi-GAN, random
    weights from seed 0): speaker_embed -> tts_ex -> tts_stream, with the
    kernels' launch counts read around that run; then RTF and first-chunk
@@ -78,6 +83,24 @@ Phases, in order; any failure exits nonzero:
    bf16-mixed step beside the float32 step of phase 6's configuration from
    the same weights (epoch 0's losses within 5e-2 relative; device time in
    turns).
+15. bf16 inference (`precision="bf16"`) on the main path (bucket 689) and on
+   the StyleTTS path with the single-tower vocoder, random weights from seed
+   0, bench.py's text with forced durations: speaker_embed -> tts_ex ->
+   tts_stream -> tts_batch at B=4 with the launch counts read around it
+   (the bf16 K1 once and K2 twice a tts_ex, the bf16 K3 three times on the
+   StyleTTS path; no float32 kernel); float32 waveforms within
+   min(5e-2, 5e-2 x peak) of the card's float32 engine and, on a short
+   text, of a CPU bf16 run (the StyleTTS path: within half the peak, its
+   decoder amplifying bf16 rounding as the JAX package's does); on the
+   short text, the engine's stages card against CPU, each on the card's
+   input, the vocoder within min(5e-2, 5e-2 x peak); streamed chunks within
+   four bf16 steps of the full render's peak, with what a window changes
+   (cuDNN's convolutions, reported; the bf16 kernel, bitwise none);
+   RTF, first-chunk p50, stage times and tts_batch
+   at B=4 of the bf16 and float32 engines in turns; the bf16 K1 at B=4
+   against its plain stage in turns; a fused-speaker model's speaker_embed
+   through the bf16 K4; one POST /tts to a bf16 engine, its row within one
+   int16 step + 1e-3 of the direct tts_batch.
 
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -89,6 +112,7 @@ from __future__ import annotations
 import http.client
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -134,6 +158,10 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 BF16_ULP = 2.0 ** -8  # bf16 K4's y and dx, relative to the plain result's max |value|
 BF16_RED_TOL = 1e-3  # bf16 K4's float32 sums and gradients, likewise
 MIXED_LOSS_RTOL = 5e-2  # bf16-mixed epoch-0 loss against float32's (docs/PERFORMANCE.md:130-133)
+BF16_WAV_TOL = 5e-2  # bf16 inference's waveform (docs/PERFORMANCE.md:130-133)
+BF16_WAV_REL = 5e-2  # ... and 5e-2 of its peak (these random-weight waveforms are quiet)
+STYLETTS_BF16_REL = 0.5  # the StyleTTS path's whole engine: half the peak (see bf16_path)
+BF16_STREAM_STEPS = 4  # bf16 stream against the full render: bf16 steps of the peak
 CHUNK_FRAMES = 96  # tts_stream's default chunk; a window adds the receptive-field halo each side
 # serving: bench_http.py's 15 runs of each lone measure, rounds of 8 concurrent clients
 SERVE_ITERS, SERVE_ROUNDS, SERVE_BATCH = 15, 5, 8
@@ -165,9 +193,10 @@ def bound(flop: float, nbytes: float, method: str = "f32") -> tuple[float, str]:
     """(least milliseconds the card could take, what bounds it) for a kernel
     whose products run as `method`: "f32", float32 FMA on the CUDA cores
     (flop at 67 TFLOP/s), "3xtf32", three TF32 tensor-core products per
-    product (3 x flop at 495 TFLOP/s), or "bf16", one bf16 tensor-core
-    product (flop at 989 TFLOP/s)."""
-    t_ops = {"3xtf32": 3 * flop / PEAK_TF32_FLOPS,
+    product (3 x flop at 495 TFLOP/s), "2xtf32", two (the bf16 variants of
+    K1-K3, whose weights' lo halves are zero: 2 x flop at 495 TFLOP/s), or
+    "bf16", one bf16 tensor-core product (flop at 989 TFLOP/s)."""
+    t_ops = {"3xtf32": 3 * flop / PEAK_TF32_FLOPS, "2xtf32": 2 * flop / PEAK_TF32_FLOPS,
              "bf16": flop / PEAK_BF16_FLOPS}.get(method, flop / PEAK_F32_FLOPS)
     t_bytes = nbytes / PEAK_HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -232,14 +261,57 @@ def measure(torch, rows, name, source, replaces, shape, fn, plain, flop, nbytes,
     rows.append(row)
 
 
+def bf16_step(t) -> float:
+    """One bf16 step at the largest magnitude of t (a tensor)."""
+    m = t.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def measure_bf16(torch, rows, name, source, replaces, shape, fn, f32_fn, plain, flop, nbytes,
+                 **extra) -> None:
+    """A bf16 variant of K1-K3 (bf16 inference): bitwise its float32 kernel
+    on the widened inputs, rounded to bf16 (f32_fn), and within one bf16
+    step of the largest output of its plain version (float32 on the widened
+    inputs, rounded once); timed beside the plain version and the float32
+    kernel. Bound: two TF32 products a product; bytes at bf16 widths."""
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    got, f32 = fn(), f32_fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    check(got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape,
+          f"{name}: {got.dtype} {tuple(got.shape)} against plain {ref.dtype} {tuple(ref.shape)}")
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
+    off = (got.float() - f32.bfloat16().float()).abs().max().item()
+    check(torch.equal(got, f32.bfloat16()),
+          f"{name}: not bitwise the float32 kernel rounded to bf16 ({off} apart)")
+    err, step = (got.float() - ref.float()).abs().max().item(), bf16_step(ref)
+    check(err <= step, f"{name}: max abs diff {err} against the plain version, one step {step}")
+    del got, f32, ref
+    ms, plain_ms = cuda_time_ms(fn, iters=10, warmup=2), cuda_time_ms(plain, iters=5, warmup=1)
+    f32_ms = cuda_time_ms(f32_fn, iters=10, warmup=2)
+    bound_ms, bound_by = bound(flop, nbytes, "2xtf32")
+    row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "shape": shape, "max_abs_err": err, "bf16_step": step, "bitwise_f32_kernel": True,
+           "ms": ms, "plain_ms": plain_ms, "f32_kernel_ms": f32_ms, "gflop": flop / 1e9,
+           "method": "2xtf32", "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           **extra}
+    print(json.dumps(row), flush=True)
+    rows.append(row)
+
+
 def kernel_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
     """K1 and K2 against their plain versions at the main path's shapes
     (the mel bucket) and at one streamed window's (CHUNK_FRAMES plus the
     receptive-field halo each side), with the tile each kernel takes."""
     from zerovox_tpu_torch.ops import _cuda
-    from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers, tower_args
+    from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers, tower_args, widen
     from zerovox_tpu_torch.ops.upsample_stage import (fused_upsample_stage, pack_upsampler,
                                                        upsample_stage_plain)
+
+    def bf(towers):
+        return [tuple(t.bfloat16() for t in tw) for tw in towers]
 
     ks, dils = tuple(hcfg.resblock_kernel_sizes), tuple(hcfg.resblock_dilation_sizes[0])
     P = len(dils)
@@ -261,7 +333,15 @@ def kernel_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
                 lambda: fused_mrf(x1, mrf1, dils, ks), lambda: mrf_plain(x1, tw1, dils),
                 flop, wbytes + 8.0 * T1 * C1, "3xtf32", tile_rows=tile,
                 recompute=halo_recompute(tile, ks, dils))
-        del x1, tw1, mrf1
+        xb, twb = x1.bfloat16(), bf(tw1)
+        xw, mrfb, mrfw = xb.float(), pack_towers(twb), pack_towers(widen(twb))
+        measure_bf16(torch, rows, "fused_mrf_bf16", "zerovox_tpu_torch/csrc/mrf.cu",
+                     "zerovox_tpu/ops/pallas/mrf.py:93", f"[1,{T1},{C1}] bf16",
+                     lambda: fused_mrf(xb, mrfb, dils, ks),
+                     lambda: fused_mrf(xw, mrfw, dils, ks),
+                     lambda: mrf_plain(xb, twb, dils), flop, wbytes / 2 + 4.0 * T1 * C1,
+                     tile_rows=tile)
+        del x1, tw1, mrf1, xb, xw, twb, mrfb, mrfw
 
         # stages 2 and 3 (K2): upsample stages, the last with conv_post
         T_in, C_in = T1, C1
@@ -295,8 +375,25 @@ def kernel_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
                     lambda: upsample_stage_plain(x, up_w, up_b, u, pad, tw, dils, post=post),
                     flop, wbytes + 4.0 * (T_in * C_in + out_elems), "3xtf32", tile_rows=tile,
                     recompute=halo_recompute(tile, ks, dils, 3 if last else 0))
+            xb, twb = x.bfloat16(), bf(tw)
+            xw = xb.float()
+            upb = pack_upsampler(up_w.bfloat16(), up_b.bfloat16(), u)
+            upw = pack_upsampler(upb.w.float(), upb.b.float(), u)
+            mrfb, mrfw = pack_towers(twb), pack_towers(widen(twb))
+            postb = tuple(t.bfloat16() for t in post) if last else None
+            postw = tuple(t.float() for t in postb) if last else None
+            measure_bf16(torch, rows, "fused_upsample_stage_bf16" + ("+post" if last else ""),
+                         "zerovox_tpu_torch/csrc/upsample_stage.cu",
+                         "zerovox_tpu/ops/pallas/packed.py:249",
+                         f"[1,{T_in},{C_in}]->" + (f"[1,{T_out}]" if last else f"[1,{T_out},{C_out}]")
+                         + " bf16",
+                         lambda: fused_upsample_stage(xb, upb, pad, mrfb, dils, ks, post=postb),
+                         lambda: fused_upsample_stage(xw, upw, pad, mrfw, dils, ks, post=postw),
+                         lambda: upsample_stage_plain(xb, upb.w, upb.b, u, pad, twb, dils,
+                                                      post=postb),
+                         flop, wbytes / 2 + 2.0 * (T_in * C_in + out_elems), tile_rows=tile)
             T_in, C_in = T_out, C_out
-            del x, up_w, up_b, up, tw, mrf
+            del x, up_w, up_b, up, tw, mrf, xb, xw, twb, upb, upw, mrfb, mrfw
     return rows
 
 
@@ -305,7 +402,7 @@ def resblock_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
     the single-tower vocoder with C <= 128 (stages 1-3 at V1's widths),
     against its plain version."""
     from zerovox_tpu_torch.ops import _cuda
-    from zerovox_tpu_torch.ops.mrf import pack_towers
+    from zerovox_tpu_torch.ops.mrf import pack_towers, widen
     from zerovox_tpu_torch.ops.resblock import fused_resblock1, resblock1_plain
 
     (k,), (dils,) = hcfg.resblock_kernel_sizes, hcfg.resblock_dilation_sizes
@@ -327,7 +424,17 @@ def resblock_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
                 lambda x=x, tw=tower, pk=packed: fused_resblock1(x, *tw, dils, packed=pk),
                 lambda x=x, tw=tower: resblock1_plain(x, *tw, dils), flop, wbytes + 8.0 * T * C,
                 "3xtf32", tile_rows=tile, recompute=halo_recompute(tile, (k,), dils))
-        del x, tower, packed
+        xb, twb = x.bfloat16(), tuple(t.bfloat16() for t in tower)
+        pkb, pkw = pack_towers([twb]), pack_towers(widen([twb]))
+        tile = _cuda.lib("resblock").zv_resblock1_bf16_tile(1, T, C, k, P, *dils, *[0] * (3 - P))
+        measure_bf16(torch, rows, "fused_resblock1_bf16", "zerovox_tpu_torch/csrc/resblock.cu",
+                     "zerovox_tpu/ops/pallas/resblock.py:106", f"[1,{T},{C}] bf16",
+                     lambda xb=xb, tw=twb, pk=pkb: fused_resblock1(xb, *tw, dils, packed=pk),
+                     lambda xw=xb.float(), pk=pkw: fused_resblock1(xw, *pk.towers[0], dils,
+                                                                   packed=pk),
+                     lambda xb=xb, tw=twb: resblock1_plain(xb, *tw, dils), flop,
+                     wbytes / 2 + 4.0 * T * C, tile_rows=tile)
+        del x, tower, packed, xb, twb, pkb, pkw
     return rows
 
 
@@ -728,9 +835,12 @@ def kernel_counts() -> dict:
                                                se_conv_fwd_bf16)
     from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
 
-    return {f.__name__: f.launches for f in (fused_mrf, fused_upsample_stage, fused_resblock1,
-                                             se_conv_fwd, se_conv_bwd, se_conv_fwd_bf16,
-                                             se_conv_bwd_bf16)}
+    counts = {f.__name__: f.launches for f in (fused_mrf, fused_upsample_stage, fused_resblock1,
+                                               se_conv_fwd, se_conv_bwd, se_conv_fwd_bf16,
+                                               se_conv_bwd_bf16)}
+    counts.update({f"{f.__name__}_bf16": f.launches_bf16
+                   for f in (fused_mrf, fused_upsample_stage, fused_resblock1)})
+    return counts
 
 
 def k4_bf16_counts():
@@ -745,6 +855,8 @@ def zero_counts() -> None:
     import zerovox_tpu_torch.ops.upsample_stage as d
 
     a.fused_mrf.launches = b.fused_resblock1.launches = d.fused_upsample_stage.launches = 0
+    a.fused_mrf.launches_bf16 = b.fused_resblock1.launches_bf16 = 0
+    d.fused_upsample_stage.launches_bf16 = 0
     c.se_conv_fwd.launches = c.se_conv_bwd.launches = 0
     c.se_conv_fwd_bf16.launches = c.se_conv_bwd_bf16.launches = 0
 
@@ -1357,6 +1469,9 @@ def kernel_family(name: str) -> str:
         return "K4 bf16"  # se_conv.cu's namespace bf
     if "se_conv" in n:
         return "K4 float32 and sum passes"
+    for key, fam in (("mrf_kernel", "K1"), ("stage_kernel", "K2"), ("resblock_kernel", "K3")):
+        if key in n:  # mrf.cu, upsample_stage.cu, resblock.cu
+            return fam + (" bf16" if "bfloat16" in n else " float32")
     if "memcpy" in n or "memset" in n:
         return "copies"
     if any(k in n for k in ("conv", "cudnn", "implicit", "wgrad", "dgrad", "fprop")):
@@ -1529,6 +1644,377 @@ def cli_phase(torch, dev, card: str) -> dict:
     return res
 
 
+def bf16_stages(torch, name, e16, cpu16, spk, dur) -> dict:
+    """The bf16 engine on the card against the same engine on the CPU, stage
+    by stage on the short text, each stage fed the card's own input: the
+    encoder's output, the decoder's mel and the vocoder's waveform (max abs
+    diff beside the CPU output's peak). The vocoder (the bf16 kernels and
+    cuDNN in bf16) is held to 5e-2 of its peak; the encoder and the decoder
+    are reported."""
+    import numpy as np
+
+    from zerovox_tpu_torch.synthesize import MEL_BUCKETS, pick_bucket
+
+    ids, puncts = e16.text2phonemeids(SHORT_TEXT)
+    T = pick_bucket(int(dur.sum()), MEL_BUCKETS)
+    enc = e16._encode(ids, puncts, spk, dur)[0]
+    enc_cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in enc.items()}
+    mel = e16._decode(enc, spk, T)
+
+    def diff(card, cpu) -> dict:
+        card, cpu = card.float().cpu(), cpu.float()
+        return {"max_abs_diff": (card - cpu).abs().max().item(), "cpu_peak": cpu.abs().max().item()}
+
+    out = {"encoder": diff(enc["x"], cpu16._encode(ids, puncts, spk.cpu(), dur)[0]["x"]),
+           "decoder": diff(mel, cpu16._decode(enc_cpu, spk.cpu(), T)),
+           "vocoder": diff(e16._vocode(mel), cpu16._vocode(mel.cpu()))}
+    voc = out["vocoder"]
+    tol = min(BF16_WAV_TOL, BF16_WAV_REL * voc["cpu_peak"])
+    print(f"{name}: bf16 stages, card - CPU on the card's inputs: {out} (vocoder bound {tol:.6g})")
+    check(voc["cpu_peak"] > 0 and voc["max_abs_diff"] <= tol,
+          f"{name}: the bf16 vocoder on the card is {voc['max_abs_diff']} from the CPU's, over {tol}")
+    return out
+
+
+def window_dependence(torch, name, e16, e32, hcfg, bucket: int) -> dict:
+    """What a streamed window changes, on the card: an op over rows [a, a+W)
+    of its input against over the whole (bucket frames of seeded input), on
+    the output rows whose inputs lie in the window (elements that differ,
+    of how many, max abs diff). cuDNN's plain convolutions of the vocoder
+    (conv_pre, the first upsampler, stage 0's first conv), bf16 and float32,
+    are reported; the path's bf16 kernel at its first stage's width (K1, or
+    K3 on the StyleTTS path) must give the window bitwise the whole's rows."""
+    from zerovox_tpu_torch.ops.mrf import fused_mrf, pack_towers
+    from zerovox_tpu_torch.ops.resblock import fused_resblock1
+
+    gen = torch.Generator().manual_seed(1515)
+    dev = next(e16._meldec.parameters()).device
+    k0, s0 = hcfg.upsample_kernel_sizes[0], hcfg.upsample_rates[0]
+    a, W = 101, CHUNK_FRAMES + 2 * 40  # a window's first frame and length (frames)
+
+    def rows(fn, x, axis, scale, margin) -> dict:
+        """fn over frames [a, a+W) of x (time on `axis`, `scale` output rows
+        an input row) against over all of x, away from the window's edges by
+        `margin` output rows."""
+        full, win = fn(x), fn(x.narrow(axis, a, W).contiguous())
+        lo, n = margin, W * scale - 2 * margin
+        f, w = full.narrow(axis, a * scale + lo, n), win.narrow(axis, lo, n)
+        return {"differ": int((f != w).sum()), "of": f.numel(),
+                "max_abs_diff": (f.float() - w.float()).abs().max().item()}
+
+    out = {}
+    with torch.inference_mode():
+        for prec, eng in (("bf16", e16), ("f32", e32)):
+            g = eng._meldec.generator
+            dt = next(g.parameters()).dtype
+            mel = torch.randn(1, g.conv_pre.in_channels, bucket, generator=gen).to(dev, dt)
+            c0 = g.ups[0].in_channels
+            h = torch.randn(1, c0, bucket, generator=gen).to(dev, dt)
+            h0 = torch.randn(1, c0 // 2, bucket * s0, generator=gen).to(dev, dt)
+            out[f"cudnn_{prec}"] = {
+                "conv_pre": rows(g.conv_pre, mel, 2, 1, 8),
+                "ups0": rows(g.ups[0], h, 2, s0, 2 * k0),
+                "stage0_conv": rows(g.resblocks[0].convs1[0], h0, 2, 1, 8)}
+        C = hcfg.upsample_initial_channel // 4
+        T1 = bucket * s0 * hcfg.upsample_rates[1]
+        x = torch.randn(1, T1, C, generator=gen).to(dev).bfloat16()
+        ks, dils = tuple(hcfg.resblock_kernel_sizes), tuple(hcfg.resblock_dilation_sizes[0])
+        towers = [tuple(t.bfloat16() for t in tw)
+                  for tw in random_towers(torch, gen, C, ks, len(dils), dev)]
+        halo = max((k - 1) // 2 * sum(d + 1 for d in dils) for k in ks)
+        scale = T1 // bucket
+        packed = pack_towers(towers)
+        label = "fused_mrf_bf16" if len(ks) > 1 else "fused_resblock1_bf16"
+
+        def kernel(frames):
+            """The kernel over rows of x grouped `scale` to a frame."""
+            t = frames.reshape(1, -1, C)
+            y = (fused_mrf(t, packed, dils, ks) if len(ks) > 1
+                 else fused_resblock1(t, *towers[0], dils, packed=packed))
+            return y.reshape(1, -1, scale * C)
+
+        # one frame of margin a side: more rows than the receptive field's halo
+        check(halo <= scale, f"{name}: kernel halo {halo} rows over one frame ({scale} rows)")
+        kern = rows(kernel, x.reshape(1, bucket, scale * C), 1, 1, 1)
+        del x, towers, packed
+    out[label] = kern
+    print(f"{name}: window against whole, on the card: {out}")
+    check(kern["differ"] == 0, f"{name}: {label} over a window differs from over the whole: {kern}")
+    return out
+
+
+def time_engine(torch, engine, spk, dur, spks, durs, sr: int) -> dict:
+    """Stage times at the path's bucket (CUDA events), RTF over 25 tts_ex
+    after 10 warm-up, first-chunk p50 over 15 tts_stream after 4, and
+    tts_batch at B=4 (forced durations)."""
+    from zerovox_tpu_torch.synthesize import MEL_BUCKETS, pick_bucket
+    from zerovox_tpu_torch.utils.profiling import RtfStats, cuda_time_ms
+
+    ids, puncts = engine.text2phonemeids(TEXT)
+    bucket = pick_bucket(int(dur.sum()), MEL_BUCKETS)
+    enc, _, _ = engine._encode(ids, puncts, spk, dur)
+    mel_b = engine._decode(enc, spk, bucket)
+    stages = {
+        "encode": cuda_time_ms(lambda: engine._encode(ids, puncts, spk, dur), iters=10),
+        "decode": cuda_time_ms(lambda: engine._decode(enc, spk, bucket), iters=10),
+        "vocode": cuda_time_ms(lambda: engine._vocode(mel_b), iters=10),
+    }
+    batch_ms = cuda_time_ms(lambda: engine.tts_batch(list(BATCH_TEXTS), spks, durations=durs),
+                            iters=3, warmup=1)
+    stats = RtfStats(warmup=10)
+    for _ in range(25):
+        t0 = time.perf_counter()
+        w, _, _, _ = engine.tts_ex(TEXT, spk, duration=dur)
+        stats.add(w.shape[0] / sr, time.perf_counter() - t0)
+    lat = RtfStats(warmup=4)
+    for _ in range(15):
+        t0 = time.perf_counter()
+        gen = engine.tts_stream(TEXT, spk, duration=dur)
+        next(gen)
+        first = time.perf_counter() - t0
+        for _ in gen:
+            pass
+        lat.add(w.shape[0] / sr, time.perf_counter() - t0, first_chunk_s=first)
+    return {"rtf": stats.mean_rtf, "first_chunk_p50_ms": lat.p50_first_chunk_ms,
+            "stage_ms": stages, "tts_batch_b4_ms": batch_ms}
+
+
+def bf16_path(torch, name, cfg, hcfg, per_call: dict, refwav, sr: int, card: str,
+              profile_dir) -> dict:
+    """One path of phase 15 (see the module docstring); per_call: the bf16
+    kernels' launches a tts_ex. With profile_dir, torch.profiler splits of
+    the float32 and the bf16 tts_ex."""
+    import numpy as np
+
+    from zerovox_tpu_torch.synthesize import (MEL_BUCKETS, VOCODER_ALL_BATCHES, ZeroVoxTTS,
+                                              pick_bucket)
+
+    engines = {p: ZeroVoxTTS.from_random(cfg, hcfg, seed=0, precision=p) for p in ("f32", "bf16")}
+    e16, e32 = engines["bf16"], engines["f32"]
+    hop = cfg.audio.hop_size
+    ids = e16.text2phonemeids(TEXT)[0]
+    dur = np.full(len(ids), FRAMES_PER_PHONE, dtype=np.int32)
+    n_frames = int(dur.sum())
+    rng = np.random.default_rng(15)
+    spk_wavs = [refwav] + [rng.normal(size=2 * sr).astype(np.float32) * s for s in (0.05, 0.2, 0.3)]
+
+    zero_counts()
+    spk = e16.speaker_embed(refwav)
+    wav, _, n, mel = e16.tts_ex(TEXT, spk, duration=dur)
+    torch.cuda.synchronize()
+    after_ex = kernel_counts()
+    chunks = list(e16.tts_stream(TEXT, spk, duration=dur))
+    torch.cuda.synchronize()
+    after_stream = kernel_counts()
+    durs, spks = batch_inputs(e16, spk_wavs)
+    batch = e16.tts_batch(list(BATCH_TEXTS), spks, durations=durs)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    want_batch = {k: v if VOCODER_ALL_BATCHES or k.startswith("fused_upsample") else 0
+                  for k, v in per_call.items()}
+    print(f"{name} bf16 launches: tts_ex {after_ex}; speaker_embed + tts_ex + tts_stream "
+          f"({len(chunks)} chunks) + tts_batch (B={len(batch)}) {counts}")
+    for k in counts:
+        check(after_ex[k] == per_call.get(k, 0),
+              f"{name}: bf16 tts_ex launched {after_ex}, not {per_call}")
+        check(after_stream[k] - after_ex[k] == len(chunks) * per_call.get(k, 0),
+              f"{name}: bf16 tts_stream of {len(chunks)} windows launched {after_stream}")
+        check(counts[k] - after_stream[k] == want_batch.get(k, 0),
+              f"{name}: bf16 tts_batch at B=4 launched {counts}, not {want_batch}")
+    check(spk.dtype == torch.bfloat16 and bool(torch.isfinite(spk.float()).all()),
+          f"{name}: bf16 speaker embedding {spk.dtype}")
+    check(n == n_frames and wav.shape == (n_frames * hop,) and wav.dtype == np.float32,
+          f"{name}: bf16 wav {wav.shape} {wav.dtype}, {n} frames")
+    check(bool(np.isfinite(wav).all()) and mel.dtype == np.float32 and bool(np.isfinite(mel).all()),
+          f"{name}: non-finite bf16 wav or mel")
+    streamed = np.concatenate(chunks)
+    peak = float(np.max(np.abs(wav)))
+    stream_err = float(np.max(np.abs(streamed - wav))) if streamed.shape == wav.shape else math.inf
+    # a few bf16 steps of the peak, not 1e-4: cuDNN's bf16 convolutions (the
+    # upsamplers, stage 0) give a few of a window's elements other bits than
+    # the whole's, one bf16 step each, and later stages carry them; the bf16
+    # kernels give none (window_dependence below; on the CPU the bf16 stream
+    # is under one step of the peak, tests/test_torch_bf16_infer.py)
+    stream_tol = max(STREAM_TOL * min(peak, 1.0),
+                     BF16_STREAM_STEPS * bf16_step(torch.from_numpy(wav)))
+    print(f"{name}: bf16 stream max abs diff {stream_err:.6g} (bound {stream_tol:.6g})")
+    check(streamed.dtype == np.float32 and stream_err <= stream_tol,
+          f"{name}: bf16 stream {streamed.shape} {streamed.dtype} differs from tts by {stream_err}")
+    check_batch(batch, durs, hop, f"{name} bf16 tts_batch")
+    windows = window_dependence(torch, name, e16, e32, hcfg, pick_bucket(n_frames, MEL_BUCKETS))
+
+    # the card's float32 engine on the same weights (its own speaker embedding)
+    spk32 = e32.speaker_embed(refwav)
+    w32, _, _, _ = e32.tts_ex(TEXT, spk32, duration=dur)
+    f32_err, peak32 = float(np.max(np.abs(wav - w32))), float(np.max(np.abs(w32)))
+    # the short text on the card and on the CPU (plain versions), bf16 and float32
+    sd, msd = e32.state_dicts()
+    cpu16 = ZeroVoxTTS(cfg, sd, hcfg, msd, device="cpu", precision="bf16")
+    d_short = np.full(len(e16.text2phonemeids(SHORT_TEXT)[0]), FRAMES_PER_PHONE, np.int32)
+    short = {}
+    for where, eng, s in (("card_bf16", e16, spk), ("card_f32", e32, spk32),
+                          ("cpu_bf16", cpu16, spk.cpu()),
+                          ("cpu_f32", ZeroVoxTTS(cfg, sd, hcfg, msd, device="cpu"), spk32.cpu())):
+        short[where] = eng.tts(SHORT_TEXT, s, duration=d_short)[0]
+        del eng
+    check(len({w.shape for w in short.values()}) == 1,
+          f"{name}: short-text shapes {[w.shape for w in short.values()]}")
+
+    def gap(a, b):
+        return float(np.max(np.abs(short[a] - short[b])))
+
+    gaps = {"card_bf16-card_f32": gap("card_bf16", "card_f32"),
+            "card_bf16-cpu_bf16": gap("card_bf16", "cpu_bf16"),
+            "cpu_bf16-cpu_f32": gap("cpu_bf16", "cpu_f32"),
+            "card_f32-cpu_f32": gap("card_f32", "cpu_f32")}
+    peak_short = float(np.max(np.abs(short["cpu_f32"])))
+    parts = bf16_stages(torch, name, e16, cpu16, spk, d_short)
+    del cpu16
+    # the whole engine: 5e-2 of the peak on the main path; on the StyleTTS
+    # path half the peak (a silent or unrelated waveform fails), since its
+    # decoder's bf16 InstanceNorms amplify rounding, in the JAX package too
+    # (tests/test_torch_bf16_infer.py prints the JAX package's own bf16 -
+    # float32 distance beside the port's); bf16_stages holds each stage
+    check(peak32 > 0 and peak_short > 0, f"{name}: silent float32 waveform")
+    if name == "main":
+        tol_text, tol_short = (min(BF16_WAV_TOL, BF16_WAV_REL * p) for p in (peak32, peak_short))
+    else:
+        tol_text, tol_short = STYLETTS_BF16_REL * peak32, STYLETTS_BF16_REL * peak_short
+    print(f"{name}: bf16 peak {peak:.6g}, stream diff {stream_err:.3g}; {TEXT[:20]}...: card bf16 "
+          f"- card f32 {f32_err:.6g} (peak {peak32:.6g}, bound {tol_text:.6g}); "
+          f"{SHORT_TEXT!r}: {gaps} (peak {peak_short:.6g}, bound {tol_short:.6g})")
+    check(f32_err < tol_text, f"{name}: bf16 waveform {f32_err} from float32's, over {tol_text}")
+    check(gaps["card_bf16-card_f32"] < tol_short and gaps["card_bf16-cpu_bf16"] < tol_short,
+          f"{name}: short-text gaps {gaps} over {tol_short}")
+    check(gaps["card_f32-cpu_f32"] < WAV_TOL * min(peak_short, 1.0),
+          f"{name}: float32 card - cpu {gaps['card_f32-cpu_f32']} (peak {peak_short})")
+
+    # bf16 and float32 in turns
+    _, spks32 = batch_inputs(e32, spk_wavs)
+    args = {"bf16": (spk, spks), "f32": (spk32, spks32)}
+    turns = {"f32": [], "bf16": []}
+    for prec in ("f32", "bf16", "bf16", "f32"):
+        s, ss = args[prec]
+        turns[prec].append(time_engine(torch, engines[prec], s, dur, ss, durs, sr))
+    if profile_dir is not None:
+        for prec in ("f32", "bf16"):
+            s = args[prec][0]
+            profile_calls(torch, lambda e=engines[prec], s=s: e.tts_ex(TEXT, s, duration=dur), 3,
+                          profile_dir, f"{name}_path_{prec}")
+    out = {"launches": counts, "per_tts_ex": after_ex, "wav_peak": peak,
+           "card_bf16_minus_card_f32": f32_err, "card_f32_peak": peak32,
+           "text_bound": tol_text, "short_text_gaps": gaps, "short_text_peak": peak_short,
+           "short_text_bound": tol_short, "stages": parts, "stream_max_diff": stream_err,
+           "stream_bound": stream_tol, "windows": windows, "turns": turns, "card": card}
+    print(json.dumps({f"bf16_{name}": out}), flush=True)
+    out["engine"], out["spk"] = e16, spk
+    return out
+
+
+def bf16_phase(torch, dev, card: str, refwav, sr: int, bucket: int, profile_dir) -> dict:
+    """Phase 15: bf16 inference (see the module docstring); bucket: the main
+    path's mel bucket."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers
+    from zerovox_tpu_torch.ops.se_conv import se_conv_fwd, se_conv_fwd_bf16
+    from zerovox_tpu_torch.serving import VoiceRegistry, make_server, serve_in_thread
+    from zerovox_tpu_torch.synthesize import ZeroVoxTTS
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    base = ZeroVoxConfig()
+    sty = dc.replace(base, model=dc.replace(
+        base.model, decoder=dc.replace(base.model.decoder, kind="styletts")))
+    res = {"styletts": bf16_path(torch, "styletts", sty, single_tower_hifigan(),
+                                 {"fused_resblock1_bf16": 3}, refwav, sr, card, profile_dir)}
+    res["styletts"].pop("engine"), res["styletts"].pop("spk")
+    torch.cuda.empty_cache()
+    main = bf16_path(torch, "main", base, HifiGanConfig(),
+                     {"fused_mrf_bf16": 1, "fused_upsample_stage_bf16": 2}, refwav, sr, card,
+                     profile_dir)
+    res["main"] = main
+    e16, spk = main.pop("engine"), main.pop("spk")
+
+    # one POST /tts to the bf16 engine: random weights predict ~0 frames a
+    # phone, so a duration bias of 1.5 (exp(1.5) - 1 ~ 3.5 frames) makes the
+    # row audible; the direct tts_batch after it runs the same weights
+    with torch.no_grad():
+        e16._model._phoneme_encoder._variance_adaptor.duration_predictor.linear_layer.bias.fill_(1.5)
+    voices = VoiceRegistry()
+    voices.add("ref", spk)
+    srv = make_server(e16, voices, port=0, max_batch=SERVE_BATCH, max_delay_ms=20)
+    serve_in_thread(srv)
+    host, port = srv.server_address[:2]
+    try:
+        zero_counts()
+        status, body = _post(host, port, {"text": TEXT, "voice": "ref"})
+        torch.cuda.synchronize()
+        http_counts = kernel_counts()
+    finally:
+        srv.shutdown_serving()
+    check(status == 200, f"bf16 /tts answered {status}: {body[:200]}")
+    pcm = _wav_pcm(body)
+    (direct, n), = e16.tts_batch([TEXT], voices.get("ref"))
+    check(direct.dtype == np.float32 and n > 0 and pcm.shape == direct.shape,
+          f"bf16 HTTP row {pcm.shape}, direct {direct.shape} {direct.dtype}, {n} frames")
+    http_err = float(np.max(np.abs(pcm / 32767.0 - np.clip(direct, -1, 1))))
+    check(http_err <= WAV_TOL + 1.0 / 32767, f"bf16 HTTP row differs by {http_err}")
+    check(http_counts["fused_mrf_bf16"] >= 1 and http_counts["fused_upsample_stage_bf16"] >= 2
+          and http_counts["fused_mrf"] == http_counts["fused_upsample_stage"] == 0,
+          f"the bf16 server launched {http_counts}")
+    res["http"] = {"frames": n, "max_row_err": http_err, "launches": http_counts}
+    del e16, spk, main
+    torch.cuda.empty_cache()
+
+    # the bf16 K1 at B=4 (stage 1 at the main path's bucket) against its plain
+    # stage, in turns; the route (VOCODER_ALL_BATCHES) is not changed here
+    gen = torch.Generator().manual_seed(5678)
+    hcfg = HifiGanConfig()
+    ks, dils = tuple(hcfg.resblock_kernel_sizes), tuple(hcfg.resblock_dilation_sizes[0])
+    T = bucket * hcfg.upsample_rates[0] * hcfg.upsample_rates[1]
+    C = hcfg.upsample_initial_channel // 4
+    x = torch.randn(4, T, C, generator=gen).to(dev).bfloat16()
+    towers = [tuple(t.bfloat16() for t in tw) for tw in random_towers(torch, gen, C, ks, len(dils), dev)]
+    packed = pack_towers(towers)
+    ref = mrf_plain(x, towers, dils)
+    err, step = (fused_mrf(x, packed, dils, ks).float() - ref.float()).abs().max(), bf16_step(ref)
+    check(err.item() <= step, f"bf16 K1 at B=4: {err.item()} from plain, one step {step}")
+    del ref
+    turns = {"plain": [], "kernel": []}
+    for label in ("plain", "kernel", "kernel", "plain"):
+        fn = ((lambda: fused_mrf(x, packed, dils, ks)) if label == "kernel"
+              else (lambda: mrf_plain(x, towers, dils)))
+        turns[label].append(cuda_time_ms(fn, iters=5, warmup=1))
+    res["k1_bf16_b4"] = {"shape": f"[4,{T},{C}]", "ms": turns, "max_abs_err": err.item()}
+    del x, towers, packed
+
+    # a fused-speaker model in bf16: stage 1 of the speaker encoder on the bf16 K4
+    cfg = train_config(fused=True)
+    spk_e = {p: ZeroVoxTTS.from_random(cfg, single_tower_hifigan(), seed=0, precision=p)
+             for p in ("f32", "bf16")}
+    zero_counts()
+    s16 = spk_e["bf16"].speaker_embed(refwav)
+    torch.cuda.synchronize()
+    n16, n32 = se_conv_fwd_bf16.launches, se_conv_fwd.launches
+    s32 = spk_e["f32"].speaker_embed(refwav)
+    blocks = cfg.model.resnet.layers[0]
+    spk_err = (s16.float() - s32).abs().max().item()
+    check(n16 == 2 * blocks and n32 == 0,
+          f"bf16 speaker_embed launched the bf16 K4 {n16}x and the float32 one {n32}x")
+    check(bool(torch.isfinite(s16.float()).all()) and spk_err < BF16_WAV_TOL,
+          f"bf16 fused speaker embedding {spk_err} from float32's")
+    res["fused_speaker"] = {"k4_bf16_launches": n16, "max_abs_diff_f32": spk_err}
+    del spk_e
+    res["card"] = card
+    print(json.dumps({"bf16_phase": {k: v for k, v in res.items() if k not in ("main", "styletts")}}),
+          flush=True)
+    return res
+
+
 def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
     """torch.profiler over `calls` calls of fn: device time by kernel, the
     device's busy share of the window and K4's device time, the table
@@ -1648,7 +2134,7 @@ def main() -> None:
     print(f"wav: {wav.shape[0]} samples, peak {np.max(np.abs(wav)):.6g}; "
           f"stream max abs diff {stream_err:.3g}")
     for row in rows:
-        if row["name"] in launches or row["name"].endswith("+post"):
+        if row["name"].removesuffix("+post") in launches:
             row["launches"] = launches[row["name"].removesuffix("+post")]
 
     # device time of each stage of tts_ex at this bucket (CUDA events)
@@ -1784,6 +2270,16 @@ def main() -> None:
     for row in rows:
         if row["name"] in tc["launches"]:
             row["launches"] = tc["launches"][row["name"]]
+
+    # ---- 15. bf16 inference on both paths
+    phase("bf16 inference")
+    bf = bf16_phase(torch, dev, card, refwav, sr, bucket, profile_dir)
+    for row in rows:
+        key = row["name"].removesuffix("+post")
+        if key in ("fused_mrf_bf16", "fused_upsample_stage_bf16"):
+            row["launches"] = bf["main"]["launches"][key]
+        elif key == "fused_resblock1_bf16":
+            row["launches"] = bf["styletts"]["launches"][key]
 
     # ---- results
     print(card)

@@ -10,8 +10,9 @@ measures first-chunk latency as `chip_smoke.py` phases 4 and 8 do (p50 of
 `tts_stream` to its first chunk over M calls, default 15, the first 5 not
 counted; bench.py's text with forced durations): on the default engine and
 on the StyleTTS engine with the single-tower vocoder, random weights from
-seed 0. The first parent and change children also save K1, K2 and K4's
-outputs on seeded inputs, and the two sets are compared with `torch.equal`.
+seed 0. The first parent and change children also save the float32 K1, K2,
+K3 and K4's outputs on seeded inputs, and the two sets are compared with
+`torch.equal`.
 
 Prints the card's name and power limit, then one JSON object (also written
 to FILE when given).
@@ -35,9 +36,10 @@ FRAMES_PER_PHONE = 6
 
 
 def kernel_outputs(torch) -> dict:
-    """K1, K2 (plain and with conv_post) and K4 forward and backward on
+    """K1, K2 (plain and with conv_post), K3 and K4 forward and backward on
     seeded inputs at their paths' widths."""
     from zerovox_tpu_torch.ops.mrf import fused_mrf, pack_towers
+    from zerovox_tpu_torch.ops.resblock import fused_resblock1
     from zerovox_tpu_torch.ops.se_conv import se_conv_bwd, se_conv_fwd
     from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage, pack_upsampler
 
@@ -58,6 +60,8 @@ def kernel_outputs(torch) -> dict:
         p = (rnd(7, co, 1, scale=(7 * co) ** -0.5), rnd(1, scale=0.1)) if post else None
         out[name] = fused_upsample_stage(rnd(1, T_in, ci), up, 1, pack_towers(towers(co)), dils, ks,
                                          post=p)
+    for C, T in ((128, 11008), (64, 22016), (32, 44032)):
+        out[f"k3_{C}"] = fused_resblock1(rnd(1, T, C), *towers(C)[0], dils)
     x, w = rnd(4, 32, 80, 500), rnd(32, 32, 3, 3, scale=288 ** -0.5)
     s, t = (torch.rand(32, generator=gen) + 0.5).cuda(), rnd(32, scale=0.3)
     for relu in (True, False):

@@ -6,7 +6,10 @@ the card: `python -m pytest -m gpu tests/test_torch_gpu.py`. TF32 is off,
 so the plain versions run in full float32; the bound is the fused-vs-unfused
 tolerance the JAX package holds its own kernels to (5e-4). The bf16 K4 is
 held to its plain version's rounding: y and dx within one bf16 step of the
-largest value (2^-8 x max), the float32 sums and gradients 1e-3 x max.
+largest value (2^-8 x max), the float32 sums and gradients 1e-3 x max. The
+bf16 K1, K2 and K3 (bf16 inference) equal their float32 kernels on the
+widened inputs, rounded to bf16, bit for bit, and are within one bf16 step
+of the largest output (2^(floor(log2 max) - 7)) of their plain versions.
 """
 
 import numpy as np
@@ -14,7 +17,7 @@ import pytest
 import torch
 
 from zerovox_tpu_torch.device import use_full_f32
-from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers
+from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers, widen
 from zerovox_tpu_torch.ops.resblock import fused_resblock1, resblock1_plain
 from zerovox_tpu_torch.ops.upsample_stage import (KERNEL_WIDTHS, fused_upsample_stage,
                                                    pack_upsampler, upsample_stage_plain)
@@ -601,6 +604,241 @@ def test_styletts_single_tower_engine_on_card_matches_cpu(cuda):
     for (w_g, n_g), (w_c, n_c) in zip(rows, cpu.tts_batch(texts, spks.cpu(), durations=durs)):
         assert n_g == n_c and w_g.shape == w_c.shape
         assert np.max(np.abs(w_g - w_c)) < 1e-3
+
+
+# ------------------------------------------------------- bf16 K1, K2, K3
+
+def bf16_step(t) -> float:
+    """One bf16 step at the largest magnitude of t."""
+    m = t.abs().max().item()
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _bf(towers):
+    return [tuple(t.bfloat16() for t in tw) for tw in towers]
+
+
+def _check_bf16(got, f32, ref):
+    """got: the bf16 kernel; f32: the float32 kernel on the widened inputs;
+    ref: the bf16 plain version."""
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert torch.equal(got, f32.bfloat16())
+    assert torch.max(torch.abs(got.float() - ref.float())).item() <= bf16_step(ref.float())
+
+
+@pytest.mark.parametrize("C,T", [(128, 37), (128, 11008), (64, 2049), (32, 5000)])
+@pytest.mark.parametrize("B", [1, 2])
+def test_mrf_bf16_kernel_is_the_f32_kernel_rounded(cuda, C, T, B):
+    rng = np.random.default_rng(C + T + B + 1)
+    x = torch.tensor(rng.normal(size=(B, T, C)).astype(np.float32)).to(cuda).bfloat16()
+    towers = _bf(_to(cuda, _towers(rng, C)))
+    n0, f0 = fused_mrf.launches_bf16, fused_mrf.launches
+    got = fused_mrf(x, pack_towers(towers), DILS, KS)
+    torch.cuda.synchronize()
+    assert (fused_mrf.launches_bf16, fused_mrf.launches) == (n0 + 1, f0)
+    f32 = fused_mrf(x.float(), pack_towers(widen(towers)), DILS, KS)
+    _check_bf16(got, f32, mrf_plain(x, towers, DILS))
+
+
+def test_mrf_bf16_kernel_one_tower(cuda):
+    """One tower: no float32 sums are kept (the scratch is not passed)."""
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.normal(size=(1, 300, 64)).astype(np.float32)).to(cuda).bfloat16()
+    towers = _bf(_to(cuda, _towers(rng, 64, ks=(5,))))
+    got = fused_mrf(x, pack_towers(towers), DILS, (5,))
+    f32 = fused_mrf(x.float(), pack_towers(widen(towers)), DILS, (5,))
+    _check_bf16(got, f32, mrf_plain(x, towers, DILS))
+
+
+@pytest.mark.parametrize("widths", KERNEL_WIDTHS)
+@pytest.mark.parametrize("T_in", [29, 700, 11008])
+@pytest.mark.parametrize("post", [False, True])
+def test_upsample_stage_bf16_kernel_is_the_f32_kernel_rounded(cuda, widths, T_in, post):
+    C_in, C_out = widths
+    rng = np.random.default_rng(C_in + T_in + post + 1)
+    x, up, towers, p = _stage_inputs(rng, cuda, 1, T_in, C_in, C_out, post)
+    xb, towers = x.bfloat16(), _bf(towers)
+    upb = pack_upsampler(up.w.bfloat16(), up.b.bfloat16(), 2)
+    pb = tuple(t.bfloat16() for t in p) if post else None
+    n0 = fused_upsample_stage.launches_bf16
+    got = fused_upsample_stage(xb, upb, 1, pack_towers(towers), DILS, KS, post=pb)
+    torch.cuda.synchronize()
+    assert fused_upsample_stage.launches_bf16 == n0 + 1
+    f32 = fused_upsample_stage(xb.float(), pack_upsampler(upb.w.float(), upb.b.float(), 2), 1,
+                               pack_towers(widen(towers)), DILS, KS,
+                               post=tuple(t.float() for t in pb) if post else None)
+    ref = upsample_stage_plain(xb, upb.w, upb.b, 2, 1, towers, DILS, post=pb)
+    _check_bf16(got, f32, ref)
+
+
+@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("B,T", [(1, 23), (1, 44096), (2, 1001), (4, 176)])
+def test_resblock_bf16_kernel_is_the_f32_kernel_rounded(cuda, C, B, T):
+    rng = np.random.default_rng(C + B + T + 1)
+    x = torch.tensor(rng.normal(size=(B, T, C)).astype(np.float32)).to(cuda).bfloat16()
+    tower = _bf(_to(cuda, _towers(rng, C, ks=(3,))))[0]
+    n0 = fused_resblock1.launches_bf16
+    got = fused_resblock1(x, *tower, DILS)
+    torch.cuda.synchronize()
+    assert fused_resblock1.launches_bf16 == n0 + 1
+    f32 = fused_resblock1(x.float(), *widen([tower])[0], DILS)
+    _check_bf16(got, f32, resblock1_plain(x, *tower, DILS))
+
+
+def test_bf16_kernels_reject_what_they_do_not_take(cuda):
+    rng = np.random.default_rng(0)
+    towers = _bf(_to(cuda, _towers(rng, 64)))
+    mrf = pack_towers(towers)
+    x = torch.zeros(1, 50, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # float16
+        fused_mrf(x.half(), pack_towers([tuple(t.half() for t in tw) for tw in towers]), DILS, KS)
+    with pytest.raises(TypeError):  # bf16 x, float32 weights
+        fused_mrf(x, pack_towers(widen(towers)), DILS, KS)
+    with pytest.raises(ValueError):  # not contiguous
+        fused_mrf(torch.zeros(1, 64, 50, device=cuda, dtype=torch.bfloat16).transpose(1, 2), mrf,
+                  DILS, KS)
+    up = pack_upsampler(torch.zeros(4, 64, 32, device=cuda, dtype=torch.bfloat16),
+                        torch.zeros(32, device=cuda, dtype=torch.bfloat16), 2)
+    tw32 = pack_towers(_bf(_to(cuda, _towers(rng, 32))))
+    with pytest.raises(TypeError):
+        fused_upsample_stage(x.half(), up, 1, tw32, DILS, KS)
+    with pytest.raises(ValueError):
+        fused_upsample_stage(torch.zeros(1, 64, 50, device=cuda, dtype=torch.bfloat16)
+                             .transpose(1, 2), up, 1, tw32, DILS, KS)
+    tower = towers[0]
+    with pytest.raises(TypeError):
+        fused_resblock1(x.half(), *(t.half() for t in tower), DILS)
+    with pytest.raises(ValueError):
+        fused_resblock1(torch.zeros(1, 64, 50, device=cuda, dtype=torch.bfloat16).transpose(1, 2),
+                        *tower, DILS)
+    from zerovox_tpu_torch.ops import _cuda
+
+    for C in (32, 64, 128):
+        tt = _cuda.lib("resblock").zv_resblock1_bf16_tile(1, 44096, C, 3, 3, *DILS)
+        assert 16 <= tt and tt % 4 == 0
+
+
+def k123_f32_digest(dev) -> str:
+    """sha256 of the float32 K1, K2 (without and with conv_post) and K3
+    outputs on seeded inputs at the streamed window's widths."""
+    import hashlib
+
+    h = hashlib.sha256()
+    rng = np.random.default_rng(909)
+    x = torch.tensor(rng.normal(size=(2, 3001, 128)).astype(np.float32)).to(dev)
+    outs = [fused_mrf(x, pack_towers(_to(dev, _towers(rng, 128))), DILS, KS)]
+    for C_in, C_out, post in ((128, 64, False), (64, 32, True)):
+        xs, up, towers, p = _stage_inputs(rng, dev, 2, 1500, C_in, C_out, post)
+        outs.append(fused_upsample_stage(xs, up, 1, pack_towers(towers), DILS, KS, post=p))
+    for C in (32, 64, 128):
+        xr = torch.tensor(rng.normal(size=(2, 2001, C)).astype(np.float32)).to(dev)
+        outs.append(fused_resblock1(xr, *_to(dev, _towers(rng, C, ks=(3,)))[0], DILS))
+    for out in outs:
+        h.update(out.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# k123_f32_digest on an H100 (sm_90a) from the float32 kernels as they were
+# before the bf16 variants joined their sources
+K123_F32_DIGEST = "0a9cca97802cf89e933fe614924237ffe0ecd2736332ba4fa6f1a4eebc19ed9c"
+
+
+def test_mrf_kernels_f32_bits_unchanged(cuda):
+    assert k123_f32_digest(cuda) == K123_F32_DIGEST
+
+
+def _small_cfg(kind="fastspeech2"):
+    from zerovox_tpu_torch.config import (DecoderConfig, EncoderConfig, ModelConfig,
+                                          ResNetConfig, ZeroVoxConfig)
+
+    return ZeroVoxConfig(model=ModelConfig(
+        max_txt_len=64, max_mel_len=256, emb_dim=48, punct_emb_dim=16,
+        encoder=EncoderConfig(fs2_layer=1, vp_filter_size=16, ve_n_bins=16),
+        decoder=DecoderConfig(kind=kind, n_layers=1, conv_filter_size=64),
+        resnet=ResNetConfig(layers=(1, 1, 1, 1), num_filters=(8, 16, 16, 16))))
+
+
+@pytest.mark.parametrize("kind", ["fastspeech2", "styletts"])
+def test_bf16_engine_on_card_matches_cpu(cuda, kind):
+    """A bf16 engine (`precision="bf16"`) whose vocoder stages take the bf16
+    kernels (FastSpeech2: K1 on 128 and 64, K2 on 64->32 and 32->16;
+    StyleTTS with one tower: stage 0 at 256 plain, K3 on 128, 64, 32):
+    launches of the bf16 kernels only; the vocoder on the card's mel within
+    5e-2 of its peak of the CPU's bf16 vocoder; the float32 waveforms within
+    5e-2 of the peak of the CPU's bf16 run (FastSpeech2), a quarter of it
+    (StyleTTS, whose decoder amplifies bf16 rounding, as
+    tests/test_torch_bf16_infer.py bounds it on the CPU); streamed chunks
+    within 1e-4 of the full render or four bf16 steps of its peak (cuDNN's
+    bf16 convolutions give a few of a window's elements other bits than the
+    whole's; chip_smoke.py's bound and its window_dependence)."""
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.synthesize import ZeroVoxTTS
+
+    hcfg = (HifiGanConfig(upsample_initial_channel=256) if kind == "fastspeech2" else
+            HifiGanConfig(upsample_initial_channel=512, resblock_kernel_sizes=(3,),
+                          resblock_dilation_sizes=((1, 3, 5),)))
+    gpu = ZeroVoxTTS.from_random(_small_cfg(kind), hcfg, seed=3, precision="bf16")
+    cpu = ZeroVoxTTS.from_random(_small_cfg(kind), hcfg, seed=3, precision="bf16", device="cpu")
+    wav = np.random.default_rng(1).normal(size=22050).astype(np.float32) * 0.1
+    spk = gpu.speaker_embed(wav)
+    assert spk.dtype == torch.bfloat16
+    text = "Hello there, general test."
+    dur = np.full(len(gpu.text2phonemeids(text)[0]), 4, np.int32)
+    kernels = (fused_mrf, fused_upsample_stage, fused_resblock1)
+    before = [(k.launches, k.launches_bf16) for k in kernels]
+    w_gpu, _, n, mel = gpu.tts_ex(text, spk, duration=dur)
+    after = [(k.launches, k.launches_bf16) for k in kernels]
+    f32_launches = [a[0] - b[0] for a, b in zip(after, before)]
+    bf16_launches = [a[1] - b[1] for a, b in zip(after, before)]
+    assert f32_launches == [0, 0, 0]
+    assert bf16_launches == ([2, 2, 0] if kind == "fastspeech2" else [0, 0, 3])
+    assert w_gpu.dtype == np.float32 and np.all(np.isfinite(w_gpu))
+    # the vocoder alone, on the card's bf16 mel (exact in float32)
+    mel16 = torch.from_numpy(mel.T[None]).bfloat16()
+    v_gpu, v_cpu = gpu._vocode(mel16.to(cuda)).cpu(), cpu._vocode(mel16)
+    v_peak = torch.max(torch.abs(v_cpu)).item()
+    v_err = torch.max(torch.abs(v_gpu - v_cpu)).item()
+    print(f"{kind}: bf16 vocoder card - cpu {v_err} (peak {v_peak})")
+    assert v_peak > 0 and v_err <= min(5e-2, 5e-2 * v_peak)
+    w_cpu, _, n_cpu = cpu.tts(text, spk.cpu(), duration=dur)
+    assert n == n_cpu == 4 * len(dur)
+    peak = np.max(np.abs(w_cpu))
+    err = np.max(np.abs(w_gpu - w_cpu))
+    print(f"{kind}: bf16 engine card - cpu {err} (peak {peak})")
+    assert peak > 0 and err < min(5e-2, (5e-2 if kind == "fastspeech2" else 0.25) * peak)
+    streamed = np.concatenate(list(gpu.tts_stream(text, spk, duration=dur, chunk_frames=24)))
+    assert streamed.dtype == np.float32 and streamed.shape == w_gpu.shape
+    tol = max(1e-4, 4 * bf16_step(torch.from_numpy(w_gpu)))
+    err = np.max(np.abs(streamed - w_gpu))
+    print(f"{kind}: bf16 stream max abs diff {err} (bound {tol})")
+    assert err <= tol
+
+
+def test_bf16_fused_speaker_routes_to_the_bf16_k4(cuda):
+    """`fused_speaker` models in bf16 inference: stage 1 of the speaker
+    encoder runs the bf16 K4 forward (float32 affines, as the JAX package's
+    affine_packed gives them), near the float32 engine's embedding."""
+    import dataclasses as dc
+
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.ops.se_conv import se_conv_fwd, se_conv_fwd_bf16
+    from zerovox_tpu_torch.synthesize import ZeroVoxTTS
+
+    base = _small_cfg()
+    cfg = dc.replace(base, model=dc.replace(
+        base.model, packed_speaker=1, fused_speaker=True,
+        resnet=dc.replace(base.model.resnet, num_filters=(32, 16, 16, 16))))
+    hcfg = HifiGanConfig(upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+                         resblock_dilation_sizes=((1, 3, 5),))
+    e16 = ZeroVoxTTS.from_random(cfg, hcfg, seed=4, precision="bf16")
+    e32 = ZeroVoxTTS.from_random(cfg, hcfg, seed=4)
+    wav = np.random.default_rng(2).normal(size=22050).astype(np.float32) * 0.1
+    n0, f0 = se_conv_fwd_bf16.launches, se_conv_fwd.launches
+    spk = e16.speaker_embed(wav)
+    torch.cuda.synchronize()
+    assert se_conv_fwd_bf16.launches - n0 == 2 and se_conv_fwd.launches == f0
+    assert spk.dtype == torch.bfloat16 and torch.all(torch.isfinite(spk.float()))
+    assert torch.max(torch.abs(spk.float() - e32.speaker_embed(wav))).item() < 5e-2
 
 
 def _sd_pair(engine):

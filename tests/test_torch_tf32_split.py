@@ -164,6 +164,28 @@ def test_rna_tf32_rounds_to_nearest_ties_away():
     assert torch.all((v - h - lo).abs() <= v.abs() * 2.0 ** -21)
 
 
+def test_bf16_values_are_their_own_tf32_hi():
+    """The bf16 variants of K1-K3 run two MMAs a product: a bf16 weight
+    splits into hi = itself and lo = 0 exactly, so the hi.lo product they
+    drop adds only zeros. Their B fragments are the bf16 buffer's 32-bit
+    words, each two bf16 widened by `<< 16` and `& 0xFFFF0000`: the float32
+    buffer's values in the same order."""
+    from zerovox_tpu_torch.ops.mrf import widen
+
+    rng = np.random.default_rng(1)
+    w = _r(rng, 100000, scale=1.0).bfloat16().float()
+    hi, lo = split(w)
+    assert torch.equal(hi, w) and torch.all(lo == 0)
+    tower = tuple(t.bfloat16() for t in _towers(rng, 32)[1])
+    frag = pack_towers([tower]).w
+    assert frag.dtype == torch.bfloat16
+    words = frag.view(torch.int32)
+    first = (words << 16).view(torch.float32)
+    second = (words & -0x10000).view(torch.float32)
+    want = pack_towers(widen([tower])).w
+    assert torch.equal(first, want[0::2]) and torch.equal(second, want[1::2])
+
+
 @pytest.mark.parametrize("k,ci,co", [(3, 128, 128), (4, 128, 64), (11, 32, 32), (4, 32, 16)])
 def test_fragment_order_reads_back_the_taps(k, ci, co):
     from zerovox_tpu_torch.ops.mrf import mma_fragments

@@ -1,5 +1,6 @@
 // Fused HiFi-GAN MRF stage for Hopper (sm_90a): the mean of ResBlock1
-// towers over one input, x [B, T, C] -> [B, T, C], float32 in and out.
+// towers over one input, x [B, T, C] -> [B, T, C], float32 in and out, or
+// bf16 in and out with float32 inside (zv_mrf_bf16, bf16 inference).
 //
 // Replaces the TPU kernel zerovox_tpu/ops/pallas/mrf.py::fused_mrf
 // (_mrf_kernel). Each tower is P pairs of leaky(0.1) -> dilated conv(k, d)
@@ -23,16 +24,25 @@
 // of blocks (one per SM) x each block's MMA work, halo rows and ragged
 // 32-row items included. The input is re-read per tower (from L2 after the
 // first); the output is written once per tower.
+//
+// bf16 (zv_mrf_bf16): the same tile on bf16 x and weights (mrf_tc.cuh): x
+// widened at the load, B fragments of two bf16 from L2 and two MMAs a
+// product instead of three, the tower sum kept in a float32 scratch of the
+// output's shape (the caller's), and only the mean rounded to bf16: bitwise
+// the float32 kernel on the widened inputs, rounded. The bound is the same
+// operations (two thirds of the MMAs) and half the bytes.
 #include "mrf_tc.cuh"
 
 namespace {
 
 using zv::tc::NT;
 
-template <int C>
+// E: the element type of x, out and the weights; sum: the float32 tower
+// sums (out itself when E is float, so neither is __restrict__).
+template <int C, class E>
 __global__ void __launch_bounds__(NT, 1)
-mrf_kernel(const float* __restrict__ x, float* __restrict__ out, zv::MrfParams p, int T,
-           int TT, int HW) {
+mrf_kernel(const E* __restrict__ x, E* out, float* sum,
+           zv::MrfParamsT<E> p, int T, int TT, int HW) {
   constexpr int LD = C + 4;
   extern __shared__ __align__(16) float smem[];
   const int W = TT + 2 * HW;
@@ -40,7 +50,7 @@ mrf_kernel(const float* __restrict__ x, float* __restrict__ out, zv::MrfParams p
   float* Bf = A + W * LD;
   const int b = blockIdx.y;
   const int tbase = blockIdx.x * TT - HW;
-  const float* xb = x + (size_t)b * T * C;
+  const E* xb = x + (size_t)b * T * C;
   auto load = [&](int lo, int hi) {
     constexpr int C4 = C / 4;
     for (int idx = threadIdx.x; idx < (hi - lo) * C4; idx += NT) {
@@ -52,12 +62,13 @@ mrf_kernel(const float* __restrict__ x, float* __restrict__ out, zv::MrfParams p
     }
   };
   zv::tc::mrf_tile<C>(A, Bf, p, HW, TT, 0, tbase, T, (size_t)b * T,
-                      zv::tc::TileOut{out, nullptr, 0.f}, load);
+                      zv::tc::TileOut<E>{out, nullptr, 0.f, sum}, load);
 }
 
-// The tile of a launch (zv::tc::choose_tile) and its shared memory bytes.
-template <int C>
-int plan(const zv::MrfParams& p, int B, int T, int* TT, int* smem) {
+// The tile of a launch (zv::tc::choose_tile) and its shared memory bytes;
+// the same for both element types (the window is float32 either way).
+template <int C, class E>
+int plan(const zv::MrfParamsT<E>& p, int B, int T, int* TT, int* smem) {
   constexpr int LD = C + 4;
   const int HW = zv::mrf_halo(p);
   int sms = 0;
@@ -69,17 +80,29 @@ int plan(const zv::MrfParams& p, int B, int T, int* TT, int* smem) {
   return *TT == 0 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
-template <int C>
-int launch(const float* x, float* out, const zv::MrfParams& p, int B, int T,
+template <int C, class E>
+int launch(const E* x, E* out, float* sum, const zv::MrfParamsT<E>& p, int B, int T,
            cudaStream_t stream) {
   int TT = 0, smem = 0;
   int e = plan<C>(p, B, T, &TT, &smem);
   if (e != 0) return e;
-  e = (int)cudaFuncSetAttribute(mrf_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  e = (int)cudaFuncSetAttribute(mrf_kernel<C, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
   if (e != 0) return e;
   dim3 grid((T + TT - 1) / TT, B);
-  mrf_kernel<C><<<grid, NT, smem, stream>>>(x, out, p, T, TT, zv::mrf_halo(p));
+  mrf_kernel<C, E><<<grid, NT, smem, stream>>>(x, out, sum, p, T, TT, zv::mrf_halo(p));
   return (int)cudaGetLastError();
+}
+
+template <class E>
+int launch_c(const E* x, E* out, float* sum, const zv::MrfParamsT<E>& p, int B, int T, int C,
+             cudaStream_t s) {
+  switch (C) {
+    case 32: return launch<32>(x, out, sum, p, B, T, s);
+    case 64: return launch<64>(x, out, sum, p, B, T, s);
+    case 128: return launch<128>(x, out, sum, p, B, T, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -99,17 +122,23 @@ extern "C" int zv_mrf_f32(const float* x, float* out, const float* w, const floa
                           int d0, int d1, int d2, void* stream) {
   if (int e = check_args(n_towers, n_pairs, B, T)) return e;
   zv::MrfParams p{n_towers, {k0, k1, k2}, n_pairs, {d0, d1, d2}, w, b};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 32: return launch<32>(x, out, p, B, T, s);
-    case 64: return launch<64>(x, out, p, B, T, s);
-    case 128: return launch<128>(x, out, p, B, T, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_c(x, out, out, p, B, T, C, static_cast<cudaStream_t>(stream));
 }
 
-// The time tile zv_mrf_f32 takes for these arguments (rows), or minus a
-// cudaError_t.
+// zv_mrf_f32 on bf16 x, out, w and b (w in the same fragment order); sum:
+// float32 scratch [B, T, C] for the tower sums (may be null with one
+// tower).
+extern "C" int zv_mrf_bf16(const zv::bf16* x, zv::bf16* out, float* sum, const zv::bf16* w,
+                           const zv::bf16* b, int B, int T, int C, int n_towers, int k0, int k1,
+                           int k2, int n_pairs, int d0, int d1, int d2, void* stream) {
+  if (int e = check_args(n_towers, n_pairs, B, T)) return e;
+  if (n_towers > 1 && sum == nullptr) return (int)cudaErrorInvalidValue;
+  zv::MrfParamsT<zv::bf16> p{n_towers, {k0, k1, k2}, n_pairs, {d0, d1, d2}, w, b};
+  return launch_c(x, out, sum, p, B, T, C, static_cast<cudaStream_t>(stream));
+}
+
+// The time tile zv_mrf_f32 and zv_mrf_bf16 take for these arguments
+// (rows), or minus a cudaError_t.
 extern "C" int zv_mrf_tile(int B, int T, int C, int n_towers, int k0, int k1, int k2,
                            int n_pairs, int d0, int d1, int d2) {
   if (int e = check_args(n_towers, n_pairs, B, T)) return -e;

@@ -34,10 +34,22 @@
 // in shared memory (BShared; resblock.cu at C <= 64, whose one-tower halo is
 // small).
 //
-// The tower sum goes to the output rows the block owns (tower 1 stores,
-// later towers load, add and store, the last divides), or, with conv_post,
-// to a shared buffer over the tile plus conv_post's halo. Every row is
-// written by one thread of one block: no atomics, bitwise repeatable.
+// The tower sum goes to float32 rows in global memory the block owns
+// (tower 1 stores, later towers load, add and store; for a float32 output
+// these are the output rows themselves), the last tower's mean to the
+// output, or, with conv_post, to a shared buffer over the tile plus
+// conv_post's halo. Every row is written by one thread of one block: no
+// atomics, bitwise repeatable.
+//
+// bf16 (bf16 inference, the TPU kernels' bf16 contract): x, weights, biases
+// and the output are bf16, every intermediate is float32 (the activations in
+// shared memory, the conv outputs, the tower sum), and the output is rounded
+// once. A bf16 weight is exactly a TF32 value (7 mantissa bits of TF32's
+// 10), so its split has lo == 0 and the hi.lo MMA adds only zeros: the bf16
+// B source (BGlobalBf16) drops it, two MMAs a product, and streams half the
+// bytes of the float32 fragments from L2. The activations keep their hi/lo
+// split, so the result is bitwise the float32 kernel's on the widened
+// inputs, rounded to bf16.
 #pragma once
 
 #include <cstdint>
@@ -66,6 +78,7 @@ __device__ __forceinline__ float2 add2(float2 a, float2 b) { return make_float2(
 // (fragment order, 32 a warp), `frag` gives its hi and lo TF32 halves.
 // BGlobal: the float32 buffer through L1 from L2, split at each k-step.
 struct BGlobal {
+  static constexpr bool kLoZero = false;  // the lo halves may be nonzero
   const float2* w;
   __device__ __forceinline__ float2 fetch(size_t i) const { return __ldg(w + i); }
   __device__ __forceinline__ static void frag(float2 f, uint32_t (&h)[2], uint32_t (&l)[2]) {
@@ -77,6 +90,7 @@ struct BGlobal {
 // BShared: staged in shared memory already split, {hi.x, hi.y, lo.x, lo.y}
 // a lane-fragment.
 struct BShared {
+  static constexpr bool kLoZero = false;
   const uint4* w;
   __device__ __forceinline__ uint4 fetch(size_t i) const { return w[i]; }
   __device__ __forceinline__ static void frag(uint4 f, uint32_t (&h)[2], uint32_t (&l)[2]) {
@@ -87,13 +101,32 @@ struct BShared {
   }
 };
 
+// BGlobalBf16: the bf16 buffer (same fragment order, two bf16 a
+// lane-fragment) through L1 from L2; a bf16 value is its own TF32 hi, and
+// its lo is zero.
+struct BGlobalBf16 {
+  static constexpr bool kLoZero = true;
+  const uint32_t* w;
+  __device__ __forceinline__ uint32_t fetch(size_t i) const { return __ldg(w + i); }
+  __device__ __forceinline__ static void frag(uint32_t f, uint32_t (&h)[2], uint32_t (&l)[2]) {
+    h[0] = f << 16;
+    h[1] = f & 0xFFFF0000u;
+    l[0] = l[1] = 0u;
+  }
+};
+
 __device__ __forceinline__ BGlobal l2_weights(const float* w) {
   return BGlobal{reinterpret_cast<const float2*>(w)};
 }
 
+__device__ __forceinline__ BGlobalBf16 l2_weights(const bf16* w) {
+  return BGlobalBf16{reinterpret_cast<const uint32_t*>(w)};
+}
+
 // The weights of mrf_tile's convs, read from L2 (K1, K2).
 struct L2Weights {
-  __device__ __forceinline__ BGlobal operator()(const float* w, int /*k*/) const {
+  template <class E>
+  __device__ __forceinline__ auto operator()(const E* w, int /*k*/) const {
     return l2_weights(w);
   }
 };
@@ -106,11 +139,11 @@ struct Rows {
 
 // out[m][co] = bias[co] + sum_t sum_ci f(src[a0 + m + (t - half) dil][ci]) *
 // w[t][ci][co] over `ntaps` taps, f the leaky relu (slope 0.1) when
-// LEAKY_IN; src has CI + 4 floats a row, ws holds w in fragment order.
-// epi(row, co, value) takes two finished neighbouring channels. NW warps
-// take the items in turn.
-template <int CI, int CO, bool LEAKY_IN, int NW = NWARP, class BSrc, class Epi>
-__device__ void conv_tc(const float* src, BSrc ws, const float* __restrict__ bias, int ntaps,
+// LEAKY_IN; src has CI + 4 floats a row, ws holds w in fragment order,
+// bias is float or bf16. epi(row, co, value) takes two finished
+// neighbouring channels. NW warps take the items in turn.
+template <int CI, int CO, bool LEAKY_IN, int NW = NWARP, class BSrc, class TB, class Epi>
+__device__ void conv_tc(const float* src, BSrc ws, const TB* __restrict__ bias, int ntaps,
                         Rows rw, Epi epi) {
   constexpr int LDI = CI + 4;
   constexpr int KS = CI / 8, NF = CO / 8;
@@ -162,7 +195,7 @@ __device__ void conv_tc(const float* src, BSrc ws, const float* __restrict__ bia
 #pragma unroll
         for (int j = 0; j < NFW; ++j) {
           mma(acc[i][j], al, bh[j]);
-          mma(acc[i][j], ah, bl[j]);
+          if constexpr (!BSrc::kLoZero) mma(acc[i][j], ah, bl[j]);
           mma(acc[i][j], ah, bh[j]);
         }
       }
@@ -170,7 +203,7 @@ __device__ void conv_tc(const float* src, BSrc ws, const float* __restrict__ bia
 #pragma unroll
     for (int j = 0; j < NFW; ++j) {
       const int co = (nf0 + j) * 8 + 2 * t4;
-      const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + co));
+      const float2 bv = ldg2(bias + co);
 #pragma unroll
       for (int i = 0; i < MF; ++i)
 #pragma unroll
@@ -189,11 +222,15 @@ inline __device__ Rows same_rows(int lo, int hi, int k, int dil) {
   return Rows{hi - lo, lo, 1, lo, (k - 1) / 2, dil};
 }
 
-// Where the finished MRF mean of a window row goes.
+// Where the finished MRF mean of a window row goes. TO: the output's
+// element type (float or bf16).
+template <class TO>
 struct TileOut {
-  float* gout;       // global [B][T][C] output, accumulating the tower sum; or
+  TO* gout;          // global [B][T][C] output, the mean over towers; or
   float* acc;        // (gout == nullptr) shared rows [HW - P, HW + TT + P)
   float post_slope;  // leaky slope applied to the mean kept in acc
+  float* gsum;       // global float32 [B][T][C] partial tower sums (gout itself for a
+                     // float output; unused with one tower)
 };
 
 // All towers of one MRF stage over one tile. `load(lo, hi)` fills window
@@ -204,9 +241,9 @@ struct TileOut {
 // then b2 [P][C]. `weights(w, k)`, called by every thread between convs
 // (after the block's barrier), gives the B source of the conv whose k taps
 // start at w.
-template <int C, int NW = NWARP, class Load, class Weights = L2Weights>
-__device__ void mrf_tile(float* A, float* Bf, const MrfParams& p, int HW, int TT, int P,
-                         int tbase, int T, size_t gout_row0, const TileOut& o, Load load,
+template <int C, int NW = NWARP, class E, class TO, class Load, class Weights = L2Weights>
+__device__ void mrf_tile(float* A, float* Bf, const MrfParamsT<E>& p, int HW, int TT, int P,
+                         int tbase, int T, size_t gout_row0, const TileOut<TO>& o, Load load,
                          Weights weights = {}) {
   constexpr int LD = C + 4;
   const int f_lo = HW - P, f_hi = HW + TT + P;
@@ -219,10 +256,10 @@ __device__ void mrf_tile(float* A, float* Bf, const MrfParams& p, int HW, int TT
     int ext = tower_halo(k, p);
     load(f_lo - ext, f_hi + ext);
     __syncthreads();
-    const float* w1 = p.w + wofs;
-    const float* w2 = w1 + p.n_pairs * conv_w;
-    const float* b1 = p.b + bofs;
-    const float* b2 = b1 + (size_t)p.n_pairs * C;
+    const E* w1 = p.w + wofs;
+    const E* w2 = w1 + p.n_pairs * conv_w;
+    const E* b1 = p.b + bofs;
+    const E* b2 = b1 + (size_t)p.n_pairs * C;
     for (int q = 0; q < p.n_pairs; ++q) {
       const int e1 = ext - half * p.dils[q];
       conv_tc<C, C, true, NW>(A, weights(w1 + q * conv_w, k), b1 + q * C, k,
@@ -249,9 +286,12 @@ __device__ void mrf_tile(float* A, float* Bf, const MrfParams& p, int HW, int TT
           float2 t = valid(r) ? add2(at2(A + r * LD + co), v) : make_float2(0.f, 0.f);
           if (o.gout != nullptr) {
             if (!valid(r)) return;
-            float2& s = at2(o.gout + (gout_row0 + (size_t)(tbase + r)) * C + co);
-            if (!first) t = add2(s, t);
-            s = last ? make_float2(t.x / n, t.y / n) : t;
+            const size_t at = (gout_row0 + (size_t)(tbase + r)) * C + co;
+            if (!first) t = add2(at2(o.gsum + at), t);
+            if (last)
+              store2(o.gout + at, make_float2(t.x / n, t.y / n));
+            else
+              at2(o.gsum + at) = t;
             return;
           }
           float2& s = at2(o.acc + (r - f_lo) * LD + co);
@@ -278,7 +318,8 @@ inline long gemm_rounds(int rows, int co, int nw = NWARP) {
 // The MMA work of one tile's towers, in warp-item k-steps: every conv over
 // the rows it computes (the tile, conv_post's halo P and what later convs
 // still need), rounded up to whole rounds of items of nw warps.
-inline long towers_cost(const MrfParams& p, int C, int TT, int P, int nw = NWARP) {
+template <class E>
+inline long towers_cost(const MrfParamsT<E>& p, int C, int TT, int P, int nw = NWARP) {
   long cost = 0;
   for (int j = 0; j < p.n_towers; ++j) {
     const int k = p.ks[j], half = (k - 1) / 2;

@@ -1,6 +1,7 @@
 // Fused HiFi-GAN ResBlock1 for Hopper (sm_90a): one tower of P pairs of
 // leaky(0.1) -> dilated conv(k, d_p) -> leaky -> conv(k, 1) -> + residual,
-// x [B, T, C] -> [B, T, C], float32 in and out.
+// x [B, T, C] -> [B, T, C], float32 in and out, or bf16 in and out with
+// float32 inside (zv_resblock1_bf16, bf16 inference).
 //
 // Replaces the TPU kernel zerovox_tpu/ops/pallas/resblock.py::fused_resblock1
 // (_resblock_kernel). The vocoder runs it per tower when the towers cannot
@@ -33,14 +34,24 @@
 //     blocks leave fewer warps idle in a conv's last round (4 % faster than
 //     16; 4 warps, 4 blocks an SM, was 27 % slower).
 // The tile is zv::tc::choose_tile's, with towers_cost over one tower.
+//
+// bf16 (zv_resblock1_bf16): the same tile on bf16 x and weights (x widened
+// at the load, B fragments of two bf16 read from L2 at every width, two MMAs
+// a product), the tower's output rounded to bf16 when it is stored: bitwise
+// the float32 kernel on the widened inputs, rounded. Staging bf16 weights
+// at C=32 is not done yet (the layout bench_k3_variants.py measured is the
+// float32 one).
+#include <type_traits>
+
 #include "mrf_tc.cuh"
 
 namespace {
 
-constexpr int STAGE_MAX_C = 32;  // widths whose conv weights are staged in shared memory
+constexpr int STAGE_MAX_C = 32;  // widths whose conv weights are staged in shared memory (float32)
 constexpr int WARPS_C32 = 8;     // warps of a block at C = 32 (16 at C = 64, 128)
 
-using KernelFn = void (*)(const float*, float*, zv::MrfParams, int, int, int);
+template <class E>
+using KernelFn = void (*)(const E*, E*, zv::MrfParamsT<E>, int, int, int);
 
 // A conv's k taps of B fragments copied into shared memory, split once into
 // {hi.x, hi.y, lo.x, lo.y} a lane-fragment; the barrier makes them visible.
@@ -63,9 +74,9 @@ struct Staged {
   }
 };
 
-template <int C, int NW, bool STAGE>
+template <int C, int NW, bool STAGE, class E>
 __global__ void __launch_bounds__(NW * 32, 16 / NW)
-resblock_kernel(const float* __restrict__ x, float* __restrict__ out, zv::MrfParams p, int T,
+resblock_kernel(const E* __restrict__ x, E* __restrict__ out, zv::MrfParamsT<E> p, int T,
                 int TT, int HW) {
   constexpr int LD = C + 4;
   extern __shared__ __align__(16) float smem[];
@@ -74,7 +85,7 @@ resblock_kernel(const float* __restrict__ x, float* __restrict__ out, zv::MrfPar
   float* Bf = A + W * LD;
   const int b = blockIdx.y;
   const int tbase = blockIdx.x * TT - HW;
-  const float* xb = x + (size_t)b * T * C;
+  const E* xb = x + (size_t)b * T * C;
   auto load = [&](int lo, int hi) {
     constexpr int C4 = C / 4;
     for (int idx = threadIdx.x; idx < (hi - lo) * C4; idx += NW * 32) {
@@ -85,8 +96,10 @@ resblock_kernel(const float* __restrict__ x, float* __restrict__ out, zv::MrfPar
                                     : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   };
-  const zv::tc::TileOut o{out, nullptr, 0.f};
+  // one tower: the output is the tower, no sums are kept
+  const zv::tc::TileOut<E> o{out, nullptr, 0.f, nullptr};
   if constexpr (STAGE) {
+    static_assert(std::is_same_v<E, float>, "only float32 weights are staged");
     zv::tc::mrf_tile<C, NW>(A, Bf, p, HW, TT, 0, tbase, T, (size_t)b * T, o, load,
                             Staged<C, NW>{reinterpret_cast<uint4*>(Bf + W * LD)});
   } else {
@@ -94,22 +107,23 @@ resblock_kernel(const float* __restrict__ x, float* __restrict__ out, zv::MrfPar
   }
 }
 
+template <class E>
 struct Plan {
-  KernelFn kernel;
+  KernelFn<E> kernel;
   int threads, TT, smem;
 };
 
 // The tile of one layout: blocks of NW warps, 16 / NW of them an SM, each
 // with A and B over the window and, when STAGE, one conv's split weights.
-template <int C, int NW, bool STAGE>
-int plan_as(const zv::MrfParams& p, int B, int T, Plan* pl) {
+template <int C, int NW, bool STAGE, class E>
+int plan_as(const zv::MrfParamsT<E>& p, int B, int T, Plan<E>* pl) {
   constexpr int LD = C + 4, BPS = 16 / NW;
   const int HW = zv::mrf_halo(p);
   const long wbytes = STAGE ? 8L * p.ks[0] * C * C : 0;
   int sms = 0;
   const int e = zv::tc::sm_count(&sms);
   if (e != 0) return e;
-  pl->kernel = resblock_kernel<C, NW, STAGE>;
+  pl->kernel = resblock_kernel<C, NW, STAGE, E>;
   pl->threads = NW * 32;
   pl->TT = zv::tc::choose_tile(
       T, B, sms * BPS, [&](int tt) { return 8L * (tt + 2 * HW) * LD + wbytes; },
@@ -118,19 +132,20 @@ int plan_as(const zv::MrfParams& p, int B, int T, Plan* pl) {
   return pl->TT == 0 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
-// The layout K3 takes at C: staged weights where they fit in half of a
-// block's shared memory, else B from L2.
-template <int C>
-int plan(const zv::MrfParams& p, int B, int T, Plan* pl) {
+// The layout K3 takes at C: float32 weights staged where they fit in half
+// of a block's shared memory, else B from L2.
+template <int C, class E>
+int plan(const zv::MrfParamsT<E>& p, int B, int T, Plan<E>* pl) {
   constexpr int NW = C == 32 ? WARPS_C32 : 16;
-  if constexpr (C <= STAGE_MAX_C) {
+  if constexpr (C <= STAGE_MAX_C && std::is_same_v<E, float>) {
     const long budget = (zv::SMEM_BUDGET + 1024L) / (16 / NW) - 1024;
     if (2 * 8L * p.ks[0] * C * C <= budget) return plan_as<C, NW, true>(p, B, T, pl);
   }
   return plan_as<C, NW, false>(p, B, T, pl);
 }
 
-int plan_for(int C, const zv::MrfParams& p, int B, int T, Plan* pl) {
+template <class E>
+int plan_for(int C, const zv::MrfParamsT<E>& p, int B, int T, Plan<E>* pl) {
   switch (C) {
     case 32: return plan<32>(p, B, T, pl);
     case 64: return plan<64>(p, B, T, pl);
@@ -145,17 +160,12 @@ int check_args(int B, int T, int k, int n_pairs) {
              : 0;
 }
 
-}  // namespace
-
-// x, out [B, T, C]; w: w1 [P][k] then w2 [P][k] conv taps in mma fragment
-// order (mrf_tc.cuh); b: b1 [P][C] then b2 [P][C]; d0..d2: the P first-conv
-// dilations. Returns a cudaError_t; C must be 32, 64 or 128, P 1-3, k odd.
-extern "C" int zv_resblock1_f32(const float* x, float* out, const float* w, const float* b,
-                                int B, int T, int C, int k, int n_pairs, int d0, int d1, int d2,
-                                void* stream) {
+template <class E>
+int launch(const E* x, E* out, const E* w, const E* b, int B, int T, int C, int k, int n_pairs,
+           int d0, int d1, int d2, void* stream) {
   if (int e = check_args(B, T, k, n_pairs)) return e;
-  const zv::MrfParams p{1, {k, 0, 0}, n_pairs, {d0, d1, d2}, w, b};
-  Plan pl{};
+  const zv::MrfParamsT<E> p{1, {k, 0, 0}, n_pairs, {d0, d1, d2}, w, b};
+  Plan<E> pl{};
   int e = plan_for(C, p, B, T, &pl);
   if (e != 0) return e;
   e = (int)cudaFuncSetAttribute(pl.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
@@ -166,12 +176,42 @@ extern "C" int zv_resblock1_f32(const float* x, float* out, const float* w, cons
   return (int)cudaGetLastError();
 }
 
+template <class E>
+int tile(int B, int T, int C, int k, int n_pairs, int d0, int d1, int d2) {
+  if (int e = check_args(B, T, k, n_pairs)) return -e;
+  const zv::MrfParamsT<E> p{1, {k, 0, 0}, n_pairs, {d0, d1, d2}, nullptr, nullptr};
+  Plan<E> pl{};
+  const int e = plan_for(C, p, B, T, &pl);
+  return e != 0 ? -e : pl.TT;
+}
+
+}  // namespace
+
+// x, out [B, T, C]; w: w1 [P][k] then w2 [P][k] conv taps in mma fragment
+// order (mrf_tc.cuh); b: b1 [P][C] then b2 [P][C]; d0..d2: the P first-conv
+// dilations. Returns a cudaError_t; C must be 32, 64 or 128, P 1-3, k odd.
+extern "C" int zv_resblock1_f32(const float* x, float* out, const float* w, const float* b,
+                                int B, int T, int C, int k, int n_pairs, int d0, int d1, int d2,
+                                void* stream) {
+  return launch(x, out, w, b, B, T, C, k, n_pairs, d0, d1, d2, stream);
+}
+
+// zv_resblock1_f32 on bf16 x, out, w and b (the same layouts).
+extern "C" int zv_resblock1_bf16(const zv::bf16* x, zv::bf16* out, const zv::bf16* w,
+                                 const zv::bf16* b, int B, int T, int C, int k, int n_pairs,
+                                 int d0, int d1, int d2, void* stream) {
+  return launch(x, out, w, b, B, T, C, k, n_pairs, d0, d1, d2, stream);
+}
+
 // The time tile zv_resblock1_f32 takes for these arguments (rows), or minus
 // a cudaError_t.
 extern "C" int zv_resblock1_tile(int B, int T, int C, int k, int n_pairs, int d0, int d1, int d2) {
-  if (int e = check_args(B, T, k, n_pairs)) return -e;
-  const zv::MrfParams p{1, {k, 0, 0}, n_pairs, {d0, d1, d2}, nullptr, nullptr};
-  Plan pl{};
-  const int e = plan_for(C, p, B, T, &pl);
-  return e != 0 ? -e : pl.TT;
+  return tile<float>(B, T, C, k, n_pairs, d0, d1, d2);
+}
+
+// The time tile zv_resblock1_bf16 takes (it stages no weights, so at C=32
+// it can differ from zv_resblock1_tile's).
+extern "C" int zv_resblock1_bf16_tile(int B, int T, int C, int k, int n_pairs, int d0, int d1,
+                                      int d2) {
+  return tile<zv::bf16>(B, T, C, k, n_pairs, d0, d1, d2);
 }

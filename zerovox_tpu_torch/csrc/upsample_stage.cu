@@ -1,7 +1,8 @@
 // Fused HiFi-GAN upsample stage for Hopper (sm_90a): leaky(0.1) ->
 // ConvTranspose1d (stride s, padding p) -> mean of ResBlock1 towers, and on
 // the last stage leaky(0.01) -> conv_post (C_out -> 1) -> tanh, float32 in
-// and out. x [B, T_in, C_in] -> [B, T_out, C_out], or the waveform
+// and out, or bf16 in and out with float32 inside (zv_upsample_stage_bf16,
+// bf16 inference). x [B, T_in, C_in] -> [B, T_out, C_out], or the waveform
 // [B, T_out].
 //
 // Replaces the TPU kernel zerovox_tpu/ops/pallas/packed.py::
@@ -30,6 +31,12 @@
 // taps and channels on the CUDA cores. The tile comes from the same cost
 // model as mrf.cu's (halo recompute against wave fill), with the
 // upsampler's GEMMs counted in.
+//
+// bf16 (zv_upsample_stage_bf16): as mrf.cu's bf16 variant, x widened when
+// it is staged, the transposed conv's and the towers' B fragments two bf16
+// and two MMAs a product, the tower sum float32 (a scratch of the output's
+// shape, or the shared buffer with conv_post), conv_post's weights widened,
+// and only the stage's output rounded to bf16.
 #include "mrf_tc.cuh"
 
 namespace {
@@ -49,11 +56,14 @@ __host__ __device__ inline int phase_taps(int ph, int up_k, int s) {
   return ph < up_k ? (up_k - ph + s - 1) / s : 0;
 }
 
-template <int CI, int CO>
+// E: the element type of x, out and every weight; sum: the float32 tower
+// sums without conv_post (out itself when E is float, so neither is
+// __restrict__).
+template <int CI, int CO, class E>
 __global__ void __launch_bounds__(NT, 1)
-stage_kernel(const float* __restrict__ x, float* __restrict__ out, const float* __restrict__ up_w,
-             const float* __restrict__ up_b, zv::MrfParams p, const float* __restrict__ post_w,
-             const float* __restrict__ post_b, int T_in, int T_out, int up_k, int stride,
+stage_kernel(const E* __restrict__ x, E* out, float* sum, const E* __restrict__ up_w,
+             const E* __restrict__ up_b, zv::MrfParamsT<E> p, const E* __restrict__ post_w,
+             const E* __restrict__ post_b, int T_in, int T_out, int up_k, int stride,
              int up_pad, int post_k, int TT, int HW, int bf_floats) {
   constexpr int LD = CO + 4;
   constexpr int LDI = CI + 4;
@@ -65,7 +75,7 @@ stage_kernel(const float* __restrict__ x, float* __restrict__ out, const float* 
   float* acc = Bf + bf_floats;
   const int b = blockIdx.y;
   const int tbase = blockIdx.x * TT - HW;
-  const float* xb = x + (size_t)b * T_in * CI;
+  const E* xb = x + (size_t)b * T_in * CI;
 
   auto load = [&](int lo, int hi) {
     // stage leaky(x) rows [i_min, i_max] into B
@@ -83,7 +93,7 @@ stage_kernel(const float* __restrict__ x, float* __restrict__ out, const float* 
     // t = i * stride - up_pad + tap. Output row r of phase ph reads staged
     // row (t + up_pad - ph) / stride - j - i_min for its tap ph + stride j;
     // rows outside [0, T_out) stay zero
-    const float* wph = up_w;
+    const E* wph = up_w;
     for (int ph = 0; ph < stride; ++ph) {
       const int nt = phase_taps(ph, up_k, stride);
       const int r0 = lo + ((ph - (tbase + lo + up_pad)) % stride + stride) % stride;
@@ -101,24 +111,24 @@ stage_kernel(const float* __restrict__ x, float* __restrict__ out, const float* 
   };
 
   zv::tc::mrf_tile<CO>(A, Bf, p, HW, TT, P, tbase, T_out, (size_t)b * T_out,
-                       zv::tc::TileOut{post_k > 0 ? nullptr : out, acc, 0.01f}, load);
+                       zv::tc::TileOut<E>{post_k > 0 ? nullptr : out, acc, 0.01f, sum}, load);
   if (post_k == 0) return;
 
   // acc holds leaky(mean, 0.01) for window rows [HW - P, HW + TT + P)
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const float pb = __ldg(post_b);
+  const float pb = zv::ldg1(post_b);
   for (int r = HW + warp; r < HW + TT; r += NT / 32) {
     const int t = tbase + r;
     if ((unsigned)t >= (unsigned)T_out) continue;
     float y = 0.f;
     for (int tap = 0; tap < post_k; ++tap) {
       const float* a = acc + (r - HW + tap) * LD;
-      const float* wt = post_w + tap * CO;
-      for (int ci = lane; ci < CO; ci += 32) y = fmaf(a[ci], __ldg(wt + ci), y);
+      const E* wt = post_w + tap * CO;
+      for (int ci = lane; ci < CO; ci += 32) y = fmaf(a[ci], zv::ldg1(wt + ci), y);
     }
 #pragma unroll
     for (int s = 16; s > 0; s >>= 1) y += __shfl_xor_sync(0xffffffffu, y, s);
-    if (lane == 0) out[(size_t)b * T_out + t] = tanhf(y + pb);
+    if (lane == 0) zv::store1(out + (size_t)b * T_out + t, tanhf(y + pb));
   }
 }
 
@@ -128,8 +138,10 @@ struct Plan {
   int TT, HW, bf_floats, smem;
 };
 
-template <int CI, int CO>
-int plan(const zv::MrfParams& p, int B, int T_out, int up_k, int stride, int post_k, Plan* pl) {
+// The same for both element types (the window is float32 either way).
+template <int CI, int CO, class E>
+int plan(const zv::MrfParamsT<E>& p, int B, int T_out, int up_k, int stride, int post_k,
+         Plan* pl) {
   constexpr int LD = CO + 4;
   constexpr int LDI = CI + 4;
   const int P = post_k > 0 ? (post_k - 1) / 2 : 0;
@@ -161,21 +173,38 @@ int plan(const zv::MrfParams& p, int B, int T_out, int up_k, int stride, int pos
   return 0;
 }
 
-template <int CI, int CO>
-int launch(const float* x, float* out, const float* up_w, const float* up_b,
-           const zv::MrfParams& p, const float* post_w, const float* post_b, int B, int T_in,
+template <int CI, int CO, class E>
+int launch(const E* x, E* out, float* sum, const E* up_w, const E* up_b,
+           const zv::MrfParamsT<E>& p, const E* post_w, const E* post_b, int B, int T_in,
            int T_out, int up_k, int stride, int up_pad, int post_k, cudaStream_t s) {
   Plan pl{};
   int e = plan<CI, CO>(p, B, T_out, up_k, stride, post_k, &pl);
   if (e != 0) return e;
-  e = (int)cudaFuncSetAttribute(stage_kernel<CI, CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                pl.smem);
+  e = (int)cudaFuncSetAttribute(stage_kernel<CI, CO, E>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
   if (e != 0) return e;
   dim3 grid((T_out + pl.TT - 1) / pl.TT, B);
-  stage_kernel<CI, CO><<<grid, NT, pl.smem, s>>>(x, out, up_w, up_b, p, post_w, post_b, T_in,
-                                                 T_out, up_k, stride, up_pad, post_k, pl.TT,
-                                                 pl.HW, pl.bf_floats);
+  stage_kernel<CI, CO, E><<<grid, NT, pl.smem, s>>>(x, out, sum, up_w, up_b, p, post_w, post_b,
+                                                    T_in, T_out, up_k, stride, up_pad, post_k,
+                                                    pl.TT, pl.HW, pl.bf_floats);
   return (int)cudaGetLastError();
+}
+
+template <class E>
+int launch_widths(const E* x, E* out, float* sum, const E* up_w, const E* up_b,
+                  const zv::MrfParamsT<E>& p, const E* post_w, const E* post_b, int B, int T_in,
+                  int C_in, int C_out, int T_out, int up_k, int stride, int up_pad, int post_k,
+                  cudaStream_t s) {
+  if (C_in == 128 && C_out == 64)
+    return launch<128, 64>(x, out, sum, up_w, up_b, p, post_w, post_b, B, T_in, T_out, up_k,
+                           stride, up_pad, post_k, s);
+  if (C_in == 64 && C_out == 32)
+    return launch<64, 32>(x, out, sum, up_w, up_b, p, post_w, post_b, B, T_in, T_out, up_k,
+                          stride, up_pad, post_k, s);
+  if (C_in == 32 && C_out == 16)
+    return launch<32, 16>(x, out, sum, up_w, up_b, p, post_w, post_b, B, T_in, T_out, up_k,
+                          stride, up_pad, post_k, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -207,21 +236,32 @@ extern "C" int zv_upsample_stage_f32(const float* x, float* out, const float* up
   if (int e = check_args(B, T_in, up_k, stride, up_pad, post_k, n_towers, n_pairs, &T_out))
     return e;
   zv::MrfParams p{n_towers, {k0, k1, k2}, n_pairs, {d0, d1, d2}, w, b};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C_in == 128 && C_out == 64)
-    return launch<128, 64>(x, out, up_w, up_b, p, post_w, post_b, B, T_in, T_out, up_k, stride,
-                           up_pad, post_k, s);
-  if (C_in == 64 && C_out == 32)
-    return launch<64, 32>(x, out, up_w, up_b, p, post_w, post_b, B, T_in, T_out, up_k, stride,
-                          up_pad, post_k, s);
-  if (C_in == 32 && C_out == 16)
-    return launch<32, 16>(x, out, up_w, up_b, p, post_w, post_b, B, T_in, T_out, up_k, stride,
-                          up_pad, post_k, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_widths(x, out, out, up_w, up_b, p, post_w, post_b, B, T_in, C_in, C_out, T_out,
+                       up_k, stride, up_pad, post_k, static_cast<cudaStream_t>(stream));
 }
 
-// The time tile zv_upsample_stage_f32 takes for these arguments (output
-// rows), or minus a cudaError_t.
+// zv_upsample_stage_f32 on bf16 x, out and weights (the same layouts); sum:
+// float32 scratch [B, T_out, C_out] for the tower sums, used only without
+// post and with more than one tower (may be null otherwise).
+extern "C" int zv_upsample_stage_bf16(const zv::bf16* x, zv::bf16* out, float* sum,
+                                      const zv::bf16* up_w, const zv::bf16* up_b,
+                                      const zv::bf16* w, const zv::bf16* b,
+                                      const zv::bf16* post_w, const zv::bf16* post_b, int B,
+                                      int T_in, int C_in, int C_out, int up_k, int stride,
+                                      int up_pad, int post_k, int n_towers, int k0, int k1,
+                                      int k2, int n_pairs, int d0, int d1, int d2,
+                                      void* stream) {
+  int T_out = 0;
+  if (int e = check_args(B, T_in, up_k, stride, up_pad, post_k, n_towers, n_pairs, &T_out))
+    return e;
+  if (post_k == 0 && n_towers > 1 && sum == nullptr) return (int)cudaErrorInvalidValue;
+  zv::MrfParamsT<zv::bf16> p{n_towers, {k0, k1, k2}, n_pairs, {d0, d1, d2}, w, b};
+  return launch_widths(x, out, sum, up_w, up_b, p, post_w, post_b, B, T_in, C_in, C_out, T_out,
+                       up_k, stride, up_pad, post_k, static_cast<cudaStream_t>(stream));
+}
+
+// The time tile zv_upsample_stage_f32 and zv_upsample_stage_bf16 take for
+// these arguments (output rows), or minus a cudaError_t.
 extern "C" int zv_upsample_stage_tile(int B, int T_in, int C_in, int C_out, int up_k, int stride,
                                       int up_pad, int post_k, int n_towers, int k0, int k1,
                                       int k2, int n_pairs, int d0, int d1, int d2) {

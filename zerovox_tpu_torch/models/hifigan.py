@@ -29,6 +29,11 @@ upsample-stage kernel. A single-tower vocoder (or one whose towers'
 dilations differ) runs stages of C <= 128 tower by tower through the
 ResBlock1 kernel. The kernels have no backward: their route raises when
 grad is enabled and the stage's input or a parameter requires grad.
+
+The Generator runs in the dtype of its parameters: cast to bf16 (the
+engine's bf16 inference), the plain stages run torch's bf16 convolutions and
+the kernels their bf16 variants (float32 inside, each stage's output rounded
+to bf16), as the JAX Generator does under bf16 variables.
 """
 
 from __future__ import annotations
@@ -172,9 +177,10 @@ class Generator(nn.Module):
     def _stage_kernel_params(self, i: int, post: bool, x: torch.Tensor):
         """Kernel-layout weights of stage i (the plain layouts and the
         kernels' MMA fragment order: all towers for K1/K2, each tower for
-        K3), rebuilt only when a parameter was replaced or written to (device
-        move, load_state_dict). Raises when autograd would need the stage's
-        gradients: the kernels have none."""
+        K3, in the parameters' dtype), rebuilt only when a parameter was
+        replaced or written to (device move, dtype cast, load_state_dict).
+        Raises when autograd would need the stage's gradients: the kernels
+        have none."""
         nk = len(self.cfg.resblock_kernel_sizes)
         blocks = [self.resblocks[i * nk + j] for j in range(nk)]
         mods = [self.ups[i], *blocks] + ([self.conv_post] if post else [])
@@ -184,7 +190,7 @@ class Generator(nn.Module):
                 f"Generator(use_pallas=True): stage {i} runs a fused kernel, which has no "
                 "backward; run it under torch.no_grad() or inference_mode, or build the "
                 "Generator with use_pallas=False to train")
-        key = tuple((p.data_ptr(), p._version) for m in mods for p in m.parameters())
+        key = tuple((p.data_ptr(), p._version, p.dtype) for m in mods for p in m.parameters())
         hit = self._kcache.get(i)
         if hit is not None and hit[0] == key:
             return hit[1]

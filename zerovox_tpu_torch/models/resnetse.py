@@ -84,7 +84,9 @@ def fused_bn_affine(bn: nn.BatchNorm2d, ssum, ssq, n: int, train: bool):
     else:
         mean, var = bn.running_mean, bn.running_var
     scale = bn.weight * torch.rsqrt(var + bn.eps)
-    return scale, bn.bias - mean * scale
+    # float32 for K4, as the JAX package's affine_packed (computed in the
+    # statistics' dtype: bf16 under bf16 inference)
+    return scale.float(), (bn.bias - mean * scale).float()
 
 
 class SELayer(nn.Module):

@@ -31,10 +31,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the exported functions (every one returns a cudaError_t)
 SIGNATURES = {
-    "mrf": {"zv_mrf_f32": [_P] * 4 + [_I] * 11 + [_P], "zv_mrf_tile": [_I] * 11},
-    "resblock": {"zv_resblock1_f32": [_P] * 4 + [_I] * 8 + [_P], "zv_resblock1_tile": [_I] * 8},
+    "mrf": {"zv_mrf_f32": [_P] * 4 + [_I] * 11 + [_P], "zv_mrf_tile": [_I] * 11,
+            "zv_mrf_bf16": [_P] * 5 + [_I] * 11 + [_P]},
+    "resblock": {"zv_resblock1_f32": [_P] * 4 + [_I] * 8 + [_P], "zv_resblock1_tile": [_I] * 8,
+                 "zv_resblock1_bf16": [_P] * 4 + [_I] * 8 + [_P],
+                 "zv_resblock1_bf16_tile": [_I] * 8},
     "upsample_stage": {"zv_upsample_stage_f32": [_P] * 8 + [_I] * 16 + [_P],
-                       "zv_upsample_stage_tile": [_I] * 16},
+                       "zv_upsample_stage_tile": [_I] * 16,
+                       "zv_upsample_stage_bf16": [_P] * 9 + [_I] * 16 + [_P]},
     "se_conv": {"zv_se_conv_fwd_tiles": [_I] * 3, "zv_se_conv_bwd_blocks": [_I] * 3,
                 "zv_se_conv_fwd_f32": [_P] * 9 + [_I] * 4 + [_P],
                 "zv_se_conv_bwd_f32": [_P] * 12 + [_I] * 4 + [_P],
@@ -135,6 +139,10 @@ def require_cuda(name: str, device, dtype, *tensors) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def require_f32_cuda(name: str, *tensors) -> None:
-    """Raise unless every tensor is a contiguous float32 CUDA tensor on one device."""
-    require_cuda(name, tensors[0].device, torch.float32, *tensors)
+def float_kind(name: str, x) -> torch.dtype:
+    """x's dtype when a kernel with float32 and bf16 variants takes it (K1,
+    K2, K3); raises for any other."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {x.dtype}")
+    return x.dtype
+

@@ -13,6 +13,11 @@ that mean in one pass over x [B, T, C]:
     (design notes in `csrc/mrf_tc.cuh`);
   * on a CPU tensor it runs `mrf_plain`, the same function in plain PyTorch.
 
+Float32 or bf16 (bf16 inference): on bf16 x and weights the kernel (and the
+plain version) keeps every intermediate in float32 and rounds the stage's
+output to bf16 once, as the TPU kernel does. The bf16 launches are counted
+apart (`fused_mrf.launches_bf16`).
+
 The weights come packed once per weight version (`pack_towers`): the plain
 layout for the CPU, and the kernel's MMA fragment order. There is no
 fallback: a CUDA tensor the kernel does not take raises, and so does a
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 from zerovox_tpu_torch.ops import _cuda
 
 LRELU_SLOPE = 0.1
+KERNEL_CHANNELS = (32, 64, 128)  # the widths K1 and K3 are instantiated for in their sources
 
 
 def resblock1_ncl(x, convs1, convs2, dilations):
@@ -48,9 +54,18 @@ def _torch_convs(w, b):
     return [(w[p].permute(2, 1, 0), b[p]) for p in range(w.shape[0])]
 
 
+def widen(towers):
+    """Every tensor of the towers as float32."""
+    return [tuple(t.float() for t in tw) for tw in towers]
+
+
 def mrf_plain(x, towers, dilations):
     """Plain PyTorch MRF: mean over towers (w1 [P,k,C,C], b1 [P,C], w2, b2)
-    of ResBlock1 over NLC x [B, T, C]."""
+    of ResBlock1 over NLC x [B, T, C]. On bf16 x and towers: computed in
+    float32 on the widened inputs and rounded to bf16 once (torch's bf16
+    conv1d would round every conv output)."""
+    if x.dtype == torch.bfloat16:
+        return mrf_plain(x.float(), widen(towers), dilations).to(torch.bfloat16)
     xc = x.transpose(1, 2)
     outs = [resblock1_ncl(xc, _torch_convs(w1, b1), _torch_convs(w2, b2), dilations)
             for w1, b1, w2, b2 in towers]
@@ -134,18 +149,29 @@ def fused_mrf(x, weights: MrfWeights, dilations, kernel_sizes):
     if x.device.type == "cpu":
         return mrf_plain(x, weights.towers, dilations)
     B, T, C = x.shape
-    if C not in (32, 64, 128):
-        raise ValueError(f"fused_mrf: the kernel takes C in (32, 64, 128), got {C}")
+    if C not in KERNEL_CHANNELS:
+        raise ValueError(f"fused_mrf: the kernel takes C in {KERNEL_CHANNELS}, got {C}")
     args = tower_args(weights.towers, dilations, kernel_sizes)
     check_towers("fused_mrf", weights, kernel_sizes, len(dilations), C)
-    _cuda.require_f32_cuda("fused_mrf", x, weights.w, weights.b)
+    dtype = _cuda.float_kind("fused_mrf", x)
+    _cuda.require_cuda("fused_mrf", x.device, dtype, x, weights.w, weights.b)
     out = torch.empty_like(x)
-    err = _cuda.lib("mrf").zv_mrf_f32(
-        x.data_ptr(), out.data_ptr(), weights.w.data_ptr(), weights.b.data_ptr(), B, T, C, *args,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _cuda.lib("mrf")
+    if dtype == torch.bfloat16:
+        # the towers' float32 sums (the last tower's mean goes to out)
+        sums = torch.empty(x.shape, device=x.device) if len(weights.towers) > 1 else None
+        err = lib.zv_mrf_bf16(x.data_ptr(), out.data_ptr(),
+                              None if sums is None else sums.data_ptr(), weights.w.data_ptr(),
+                              weights.b.data_ptr(), B, T, C, *args, stream)
+        _cuda.check(err, "fused_mrf")
+        fused_mrf.launches_bf16 += 1
+        return out
+    err = lib.zv_mrf_f32(x.data_ptr(), out.data_ptr(), weights.w.data_ptr(),
+                         weights.b.data_ptr(), B, T, C, *args, stream)
     _cuda.check(err, "fused_mrf")
     fused_mrf.launches += 1
     return out
 
 
-fused_mrf.launches = 0
+fused_mrf.launches = fused_mrf.launches_bf16 = 0

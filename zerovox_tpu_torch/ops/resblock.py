@@ -15,6 +15,10 @@ x [B, T, C]:
   * on a CPU tensor it runs `resblock1_plain`, the same function in plain
     PyTorch.
 
+Float32 or bf16 (bf16 inference): on bf16 x and weights every intermediate
+stays float32 and the tower's output is rounded to bf16 once, as the TPU
+kernel does; bf16 launches are counted apart (`fused_resblock1.launches_bf16`).
+
 The kernel reads the tower's weights in MMA fragment order,
 `ops.mrf.pack_towers([tower])`: a caller that runs one weight version many
 times (the vocoder) packs once and passes `packed=`. There is no fallback:
@@ -28,13 +32,17 @@ from __future__ import annotations
 import torch
 
 from zerovox_tpu_torch.ops import _cuda
-from zerovox_tpu_torch.ops.mrf import (MrfWeights, _torch_convs, check_towers, pack_towers,
-                                       refuse_grad, resblock1_ncl)
+from zerovox_tpu_torch.ops.mrf import (KERNEL_CHANNELS, MrfWeights, _torch_convs, check_towers,
+                                       pack_towers, refuse_grad, resblock1_ncl)
 
 
 def resblock1_plain(x, w1, b1, w2, b2, dilations):
     """Plain PyTorch ResBlock1 over NLC x [B, T, C]; w1/w2 [P, k, C, C]
-    taps (k, in, out), b1/b2 [P, C]."""
+    taps (k, in, out), b1/b2 [P, C]. On bf16 inputs: computed in float32 on
+    the widened inputs and rounded to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        return resblock1_plain(x.float(), w1.float(), b1.float(), w2.float(), b2.float(),
+                               dilations).to(torch.bfloat16)
     y = resblock1_ncl(x.transpose(1, 2), _torch_convs(w1, b1), _torch_convs(w2, b2), dilations)
     return y.transpose(1, 2)
 
@@ -52,8 +60,8 @@ def fused_resblock1(x, w1, b1, w2, b2, dilations, packed: MrfWeights | None = No
     if x.dim() != 3:
         raise ValueError(f"fused_resblock1: x must be [B, T, C], got {tuple(x.shape)}")
     B, T, C = x.shape
-    if C not in (32, 64, 128):
-        raise ValueError(f"fused_resblock1: the kernel takes C in (32, 64, 128), got {C}")
+    if C not in KERNEL_CHANNELS:
+        raise ValueError(f"fused_resblock1: the kernel takes C in {KERNEL_CHANNELS}, got {C}")
     P, k = w1.shape[0], w1.shape[1]
     if not 1 <= P <= 3 or len(dilations) != P:
         raise ValueError(f"fused_resblock1: need 1-3 conv pairs and one dilation each, "
@@ -63,15 +71,20 @@ def fused_resblock1(x, w1, b1, w2, b2, dilations, packed: MrfWeights | None = No
     if packed is None:
         packed = pack_towers([(w1, b1, w2, b2)])
     check_towers("fused_resblock1", packed, (k,), P, C)
-    _cuda.require_f32_cuda("fused_resblock1", x, packed.w, packed.b)
+    dtype = _cuda.float_kind("fused_resblock1", x)
+    _cuda.require_cuda("fused_resblock1", x.device, dtype, x, packed.w, packed.b)
     ds = list(dilations) + [0] * (3 - P)
     out = torch.empty_like(x)
-    err = _cuda.lib("resblock").zv_resblock1_f32(
-        x.data_ptr(), out.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(), B, T, C, k, P,
-        *ds, torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _cuda.lib("resblock")
+    fn = lib.zv_resblock1_bf16 if dtype == torch.bfloat16 else lib.zv_resblock1_f32
+    err = fn(x.data_ptr(), out.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(), B, T, C, k,
+             P, *ds, torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(err, "fused_resblock1")
-    fused_resblock1.launches += 1
+    if dtype == torch.bfloat16:
+        fused_resblock1.launches_bf16 += 1
+    else:
+        fused_resblock1.launches += 1
     return out
 
 
-fused_resblock1.launches = 0
+fused_resblock1.launches = fused_resblock1.launches_bf16 = 0

@@ -16,6 +16,11 @@ computes it in one pass over x [B, T_in, C_in]:
   * on a CPU tensor it runs `upsample_stage_plain`, the same function in
     plain PyTorch.
 
+Float32 or bf16 (bf16 inference): on bf16 x and weights every intermediate
+stays float32 and the stage's output (or waveform) is rounded to bf16 once,
+as the TPU kernel does; bf16 launches are counted apart
+(`fused_upsample_stage.launches_bf16`).
+
 The weights come packed once per weight version (`pack_upsampler`,
 `ops.mrf.pack_towers`). There is no fallback: a CUDA tensor the kernel does
 not take raises, and so does a tensor that requires grad while grad is
@@ -31,7 +36,7 @@ import torch.nn.functional as F
 
 from zerovox_tpu_torch.ops import _cuda
 from zerovox_tpu_torch.ops.mrf import (LRELU_SLOPE, MrfWeights, check_towers, mma_fragments,
-                                       mrf_plain, refuse_grad, tower_args)
+                                       mrf_plain, refuse_grad, tower_args, widen)
 
 KERNEL_WIDTHS = ((128, 64), (64, 32), (32, 16))  # (C_in, C_out) instantiated in the source
 
@@ -61,7 +66,14 @@ def pack_upsampler(w, b, stride: int) -> UpsamplerWeights:
 
 def upsample_stage_plain(x, up_w, up_b, stride, up_padding, towers, dilations, post=None):
     """Plain PyTorch stage. up_w [k, C_in, C_out] holds torch's taps (the
-    weight (in, out, k) permuted, not flipped); post = (w [k, C_out, 1], b [1])."""
+    weight (in, out, k) permuted, not flipped); post = (w [k, C_out, 1], b [1]).
+    On bf16 inputs: computed in float32 on the widened inputs and rounded to
+    bf16 once."""
+    if x.dtype == torch.bfloat16:
+        y = upsample_stage_plain(x.float(), up_w.float(), up_b.float(), stride, up_padding,
+                                 widen(towers), dilations,
+                                 None if post is None else tuple(t.float() for t in post))
+        return y.to(torch.bfloat16)
     y = F.conv_transpose1d(F.leaky_relu(x, LRELU_SLOPE).transpose(1, 2), up_w.permute(1, 2, 0), up_b,
                            stride=stride, padding=up_padding)
     y = mrf_plain(y.transpose(1, 2), towers, dilations)
@@ -105,14 +117,26 @@ def fused_upsample_stage(x, up: UpsamplerWeights, up_padding, mrf: MrfWeights, d
         pw = pb = up.b  # ignored by the kernel
         post_k = 0
         out = torch.empty(B, T_out, C_out, device=x.device, dtype=x.dtype)
-    _cuda.require_f32_cuda("fused_upsample_stage", x, up.frag, up.b, mrf.w, mrf.b, pw, pb)
-    err = _cuda.lib("upsample_stage").zv_upsample_stage_f32(
-        x.data_ptr(), out.data_ptr(), up.frag.data_ptr(), up.b.data_ptr(), mrf.w.data_ptr(),
-        mrf.b.data_ptr(), pw.data_ptr(), pb.data_ptr(), B, T_in, C_in, C_out, up_k, up.stride,
-        up_padding, post_k, *args, torch.cuda.current_stream(x.device).cuda_stream)
+    dtype = _cuda.float_kind("fused_upsample_stage", x)
+    _cuda.require_cuda("fused_upsample_stage", x.device, dtype, x, up.frag, up.b, mrf.w, mrf.b,
+                       pw, pb)
+    lib = _cuda.lib("upsample_stage")
+    ptrs = (up.frag.data_ptr(), up.b.data_ptr(), mrf.w.data_ptr(), mrf.b.data_ptr(),
+            pw.data_ptr(), pb.data_ptr(), B, T_in, C_in, C_out, up_k, up.stride, up_padding,
+            post_k, *args, torch.cuda.current_stream(x.device).cuda_stream)
+    if dtype == torch.bfloat16:
+        # the towers' float32 sums, without post (with it they stay in shared memory)
+        sums = (torch.empty(B, T_out, C_out, device=x.device)
+                if post is None and len(mrf.towers) > 1 else None)
+        err = lib.zv_upsample_stage_bf16(x.data_ptr(), out.data_ptr(),
+                                         None if sums is None else sums.data_ptr(), *ptrs)
+        _cuda.check(err, "fused_upsample_stage")
+        fused_upsample_stage.launches_bf16 += 1
+        return out
+    err = lib.zv_upsample_stage_f32(x.data_ptr(), out.data_ptr(), *ptrs)
     _cuda.check(err, "fused_upsample_stage")
     fused_upsample_stage.launches += 1
     return out
 
 
-fused_upsample_stage.launches = 0
+fused_upsample_stage.launches = fused_upsample_stage.launches_bf16 = 0

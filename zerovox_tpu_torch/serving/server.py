@@ -42,7 +42,7 @@ class VoiceRegistry:
 
     def add(self, name: str, spkemb) -> None:
         if isinstance(spkemb, torch.Tensor):
-            spkemb = spkemb.detach().cpu()
+            spkemb = spkemb.detach().float().cpu()
         emb = np.asarray(spkemb, np.float32)
         if emb.ndim != 3 or emb.shape[0] != 1:
             raise ValueError(f"expected a [1, 1, emb] speaker embedding, got {emb.shape}")

@@ -60,7 +60,8 @@ class ChunkStreamer:
         start = self.halo if pos == 0 else pos
         start_s = 0 if pos == 0 else self.halo * self.up
         with torch.inference_mode():
-            wav = self._meldec(self._mel_padded[:, start:start + self.window])
+            # float32 chunks whatever the vocoder's dtype (bf16 inference)
+            wav = self._meldec(self._mel_padded[:, start:start + self.window]).float()
             samples = wav[0, start_s:start_s + self.chunk * self.up]
             if samples.device.type != "cuda":
                 return Window(samples, None)

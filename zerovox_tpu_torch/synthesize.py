@@ -23,7 +23,12 @@ depends on the bucket: every path picks the same bucket as the JAX package
 (a `tts_batch` row is decoded at the batch's bucket, not at its own).
 
 Entry points run on the CUDA card unless the caller passes device="cpu";
-without a card they raise. The engine runs float32 with TF32 off.
+without a card they raise. The engine runs float32 with TF32 off, or, with
+`precision="bf16"` (or `ZEROVOX_PRECISION=bf16` when `precision` is None),
+the JAX package's bf16 inference: every floating parameter and buffer of
+both models in bf16, bf16 inputs to the speaker encoder, encode, decode and
+the vocoder (whose kernels take their bf16 variants), and float32 out of
+the vocoder; mels and waveforms reach the host as float32.
 """
 
 from __future__ import annotations
@@ -62,6 +67,8 @@ MEL_BUCKETS = (96, 176, 344, 512, 689, 1024, 1408, 1750)
 # (chip_smoke.py phase 9; times in PERF.md), unlike on the TPU, where the JAX
 # package keeps them to batch 1.
 VOCODER_ALL_BATCHES = True
+
+PRECISIONS = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 _SENTENCE_SPLIT = re.compile(r"(?<=[.!?;:])\s+")
 
@@ -102,9 +109,14 @@ class ZeroVoxTTS:
 
     def __init__(self, cfg: ZeroVoxConfig, state_dict: dict, meldec_cfg: HifiGanConfig,
                  meldec_state_dict: dict, language: str | None = None, verbose: bool = False,
-                 meldec_model: str = "", device=None):
+                 meldec_model: str = "", device=None, precision: str | None = None):
         """`state_dict`: models.zerovox.ZeroVox weights (upstream key names);
-        `meldec_state_dict`: models.hifigan.MelDec weights."""
+        `meldec_state_dict`: models.hifigan.MelDec weights; `precision`:
+        "f32" or "bf16" (None: `ZEROVOX_PRECISION`, default "f32")."""
+        self.precision = precision or os.environ.get("ZEROVOX_PRECISION", "f32")
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {tuple(PRECISIONS)}, got {self.precision!r}")
+        self._dtype = PRECISIONS[self.precision]
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_full_f32()
@@ -114,15 +126,18 @@ class ZeroVoxTTS:
         self._symbols = Symbols(phones=cfg.model.phones, puncts=cfg.model.puncts)
         self._normalizer = ZeroVoxNormalizer(language or cfg.langs[0])
 
+        # bf16: every floating parameter and buffer (BatchNorm statistics and
+        # the vocoder's mean/scale included) cast after the float32 load,
+        # integer buffers left as they are, as the JAX package casts
         self._model = ZeroVox(cfg)
         self._model.load_state_dict(state_dict)
-        self._model.eval().to(self.device)
+        self._model.eval().to(self.device, self._dtype)
         self._meldec_cfg = meldec_cfg
         # the vocoder's stages go to the fused kernels (on the CPU, to their
         # plain versions), K1 and K3 at every batch size: VOCODER_ALL_BATCHES
         self._meldec = MelDec(meldec_cfg, use_pallas=True, pallas_all_batches=VOCODER_ALL_BATCHES)
         self._meldec.load_state_dict(meldec_state_dict)
-        self._meldec.eval().to(self.device)
+        self._meldec.eval().to(self.device, self._dtype)
 
         a = cfg.audio
         self._hop_length = a.hop_size
@@ -179,17 +194,20 @@ class ZeroVoxTTS:
         raise FileNotFoundError(f"speaker reference wav not found: {speakerref}")
 
     def state_dicts(self) -> tuple[dict, dict]:
-        """(acoustic model, vocoder) state_dicts on the CPU."""
+        """(acoustic model, vocoder) state_dicts on the CPU, floating
+        tensors as float32 (a bf16 engine's bf16 values, widened)."""
         def cpu(sd):
-            return {k: v.detach().cpu() for k, v in sd.items()}
+            return {k: v.detach().cpu().float() if v.is_floating_point() else v.detach().cpu()
+                    for k, v in sd.items()}
         return cpu(self._model.state_dict()), cpu(self._meldec.state_dict())
 
     def speaker_embed(self, wav: np.ndarray) -> torch.Tensor:
-        """Reference wav -> [1, 1, emb] on the engine's device."""
+        """Reference wav -> [1, 1, emb] on the engine's device, in the
+        engine's dtype (the mel is cast to it, as the JAX package casts)."""
         wav, _ = trim_silence(wav, top_db=40.0)
         mel, _ = self._frontend(wav)  # [n_mels, T]
         with torch.inference_mode():
-            return self._model.speaker_embed(mel.T[None].contiguous())
+            return self._model.speaker_embed(mel.T[None].contiguous().to(self._dtype))
 
     def text2phonemeids(self, text: str) -> tuple[list[int], list[int]]:
         transcript_uroman, _ = self._normalizer.normalize(text)
@@ -204,9 +222,10 @@ class ZeroVoxTTS:
     # ------------------------------------------------------- synthesis core
 
     def _spk(self, spkemb) -> torch.Tensor:
-        if isinstance(spkemb, torch.Tensor):
-            return spkemb.to(device=self.device, dtype=torch.float32)
-        return torch.tensor(np.asarray(spkemb, np.float32), device=self.device)
+        """A speaker embedding (tensor or array) on the device in the engine's dtype."""
+        if not isinstance(spkemb, torch.Tensor):
+            spkemb = torch.tensor(np.asarray(spkemb, np.float32))
+        return spkemb.to(device=self.device, dtype=self._dtype)
 
     @staticmethod
     def _text_rows(ids):
@@ -250,8 +269,9 @@ class ZeroVoxTTS:
         return mel
 
     def _vocode(self, mel: torch.Tensor) -> torch.Tensor:
+        """The waveform of mel, float32 on the device."""
         with torch.inference_mode():
-            return self._meldec(mel)
+            return self._meldec(mel).float()
 
     def _mel_len(self, enc, dur) -> int:
         # forced durations are known on the host; otherwise one device sync
@@ -276,8 +296,8 @@ class ZeroVoxTTS:
         if timer:
             timer.mark("dec+meldec")
         wav_np = wav[0, : mel_len * self._hop_length].cpu().numpy()
-        mel_np = mel[0, :mel_len, :].T.cpu().numpy() if want_mel else None
-        return wav_np, mel_len, enc["log_duration"], mel_np
+        mel_np = mel[0, :mel_len, :].T.float().cpu().numpy() if want_mel else None
+        return wav_np, mel_len, enc["log_duration"].float(), mel_np
 
     def tts_ex(self, text: str, spkemb, duration=None, want_mel: bool = True):
         text = text.strip()
@@ -351,7 +371,7 @@ class ZeroVoxTTS:
         return self._batch_postprocess(self._vocode(self._decode(enc, spk, T)), mel_lens)
 
     def _batch_postprocess(self, wav: torch.Tensor, mel_lens) -> list[tuple[np.ndarray, int]]:
-        wav = wav.float().cpu().numpy()
+        wav = wav.cpu().numpy()
         out = []
         for i in range(wav.shape[0]):
             n = int(min(mel_lens[i], self.cfg.model.max_mel_len))
@@ -404,7 +424,8 @@ class ZeroVoxTTS:
         such size) once, so first requests find the kernels built and
         cuDNN's algorithm choices made for those shapes."""
         if spkemb is None:
-            spkemb = torch.zeros((1, 1, self.cfg.model.emb_size), device=self.device)
+            spkemb = torch.zeros((1, 1, self.cfg.model.emb_size), device=self.device,
+                                 dtype=self._dtype)
         for t in texts:
             self.tts(t, spkemb)
         if mel_buckets:
@@ -439,8 +460,10 @@ class ZeroVoxTTS:
     @classmethod
     def from_random(cls, cfg: ZeroVoxConfig | None = None,
                     meldec_cfg: HifiGanConfig | None = None, seed: int = 0,
-                    language: str = "en", verbose: bool = False, device=None):
-        """Engine with seeded random weights (benchmarks, tests, offline)."""
+                    language: str = "en", verbose: bool = False, device=None,
+                    precision: str | None = None):
+        """Engine with seeded random weights (benchmarks, tests, offline);
+        the float32 weights, cast when `precision` is "bf16"."""
         device = resolve_device(device)
         cfg = cfg or ZeroVoxConfig()
         meldec_cfg = meldec_cfg or HifiGanConfig(num_mels=cfg.audio.num_mels,
@@ -450,17 +473,19 @@ class ZeroVoxTTS:
         random_init_(model, gen)
         random_init_(meldec, gen)
         return cls(cfg, model.state_dict(), meldec_cfg, meldec.state_dict(), language=language,
-                   verbose=verbose, device=device)
+                   verbose=verbose, device=device, precision=precision)
 
     @classmethod
     def from_jax_variables(cls, cfg: ZeroVoxConfig, variables: dict, meldec_cfg: HifiGanConfig,
-                           meldec_variables: dict, language: str = "en", device=None):
-        """Engine on the JAX package's weights (variable trees of numpy arrays)."""
+                           meldec_variables: dict, language: str = "en", device=None,
+                           precision: str | None = None):
+        """Engine on the JAX package's float32 weights (variable trees of
+        numpy arrays), cast when `precision` is "bf16"."""
         from zerovox_tpu_torch.weights import from_jax_variables, meldec_from_jax_variables
 
         return cls(cfg, from_jax_variables(variables, cfg), meldec_cfg,
                    meldec_from_jax_variables(meldec_variables, meldec_cfg),
-                   language=language, device=device)
+                   language=language, device=device, precision=precision)
 
     @classmethod
     def load_model(cls, modelpath, meldec_model=None, verbose: bool = False, device=None):
