@@ -16,7 +16,8 @@ Phases, in order; any failure exits nonzero:
    K2 at the serving path's (bucket 689 of bench.py's text) and at one
    streamed window's shapes, with the tile each takes (max abs diff <
    5e-4); K3 at phase 8's three vocoder stage shapes, with its tile (<
-   5e-4); K4 forward and backward (`se_conv`) at the
+   5e-4); K1 and K3 at the narrow widths C = 16 and 8 and K2 at (16, 8)
+   with conv_post (phase 16's shapes, < 5e-4); K4 forward and backward (`se_conv`) at the
    training path's [24, 32, 80, 500] (y and dx < 5e-4 absolute, every reduction
    < 1e-4 x the plain result's max |value|), with F.conv2d alone beside them;
    and K4's bf16 forward and backward on those inputs in bf16 (y and dx
@@ -102,6 +103,39 @@ Phases, in order; any failure exits nonzero:
    through the bf16 K4; one POST /tts to a bf16 engine, its row within one
    int16 step + 1e-3 of the direct tts_batch.
 
+16. Narrow vocoders on the main path: the default acoustic model at full
+   width with HiFi-GAN V2 (128 initial channels: K1 at C = 64 and 32, K2 at
+   (32, 16) and at (16, 8) with conv_post), then with a 256-channel
+   single-tower vocoder (K3 at C = 128, 64, 32, 16), random weights from seed
+   0, bench.py's text with forced durations (bucket 689): speaker_embed ->
+   tts_ex -> tts_stream with each kernel's launches by width read around it
+   (each width once a tts_ex and once a streamed window, no other kernel);
+   the engine's vocoder within 1e-3 of the same weights' nn.Modules on the
+   card, the engine within 1e-3 of the CPU on the short text; RTF and
+   first-chunk p50; the same engine in bf16 launching only the bf16
+   kernels at the same widths, its waveform within min(5e-2, 5e-2 x peak)
+   of the float32 engine's (phase 15's main-path bound). Phase 3's narrow-width rows (`@` and the
+   width in their names: K1 and K3 at [1, 88192, 16] and [1, 176384, 8], K2
+   at (16, 8) with conv_post on [1, 88192, 16]) take their launches from
+   this phase (K1 and K2 from V2, K3 from the single tower).
+17. Vocoder GAN training: a synthetic preprocess dir of 48 one-second
+   harmonic-plus-noise items (mels by the port's MelFrontend) in build/;
+   `cli.train_vocoder.main` at its defaults (HiFi-GAN V1, MPD 2,3,5,7,11,
+   MSD x 3, batch 16, 32-frame segments, float32, device cache, fused) for 2
+   epochs of 3 steps with a checkpoint each, no fused kernel launched,
+   finite losses; `--checkpoint` of epoch 0 gives epoch 1's losses within
+   1e-5 relative; the first split round within 1e-5 of the fused one (both
+   with cuDNN's deterministic algorithms); bf16-mixed for 3 steps, finite,
+   its first loss within 5e-2 of float32's; the step's device time in
+   float32 and bf16-mixed in turns and `--bench`'s rows; one round at small
+   widths (32 initial channels, MPD 2,3, MSD x 2) card against a float64
+   CPU run (losses 1e-4 relative, gradients 1e-3 x each tensor's max); PQMF (1e-5 of the max)
+   and Griffin-Lim at 2 rounds (1e-4) card against CPU, 32 rounds timed; the
+   trained `generator.msgpack` as the vocoder of a ZeroVoxTTS through
+   `from_checkpoint(meldec_model=...)`: its tts_ex launches K1 once and K2
+   twice and stays within 1e-3 of the same generator's nn.Modules.
+   `--profile` adds the device's busy share over two GAN steps.
+
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
@@ -167,6 +201,8 @@ CHUNK_FRAMES = 96  # tts_stream's default chunk; a window adds the receptive-fie
 SERVE_ITERS, SERVE_ROUNDS, SERVE_BATCH = 15, 5, 8
 WAV_HEADER_BYTES = 44  # the streaming WAV header before the first PCM byte
 RESUME_RTOL = 1e-5  # a resumed step's losses against the uninterrupted run's
+# vocoder GAN training: the CLI's batch, 2 epochs of 3 steps over 1-second items
+GAN_BATCH, GAN_ITEMS, GAN_SECONDS = 16, 48, 1.0
 
 
 def fail(msg: str) -> None:
@@ -301,20 +337,125 @@ def measure_bf16(torch, rows, name, source, replaces, shape, fn, f32_fn, plain, 
     rows.append(row)
 
 
+def _bf(towers):
+    return [tuple(t.bfloat16() for t in tw) for tw in towers]
+
+
+def k1_rows(torch, rows, gen, dev, T: int, C: int, ks, dils, suffix: str = "") -> None:
+    """K1 over [1, T, C] against plain, float32 and bf16 (row names carry
+    `suffix`)."""
+    from zerovox_tpu_torch.ops import _cuda
+    from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers, tower_args, widen
+
+    P = len(dils)
+    x1 = torch.randn(1, T, C, generator=gen).to(dev)
+    tw1 = random_towers(torch, gen, C, ks, P, dev)
+    mrf1 = pack_towers(tw1)
+    targs = tower_args(tw1, dils, ks)
+    flop, wbytes = mrf_work(T, C, ks, P)
+    tile = _cuda.lib("mrf").zv_mrf_tile(1, T, C, *targs)
+    measure(torch, rows, "fused_mrf" + suffix, "zerovox_tpu_torch/csrc/mrf.cu",
+            "zerovox_tpu/ops/pallas/mrf.py:93", f"[1,{T},{C}]",
+            lambda: fused_mrf(x1, mrf1, dils, ks), lambda: mrf_plain(x1, tw1, dils),
+            flop, wbytes + 8.0 * T * C, "3xtf32", tile_rows=tile,
+            recompute=halo_recompute(tile, ks, dils))
+    xb, twb = x1.bfloat16(), _bf(tw1)
+    xw, mrfb, mrfw = xb.float(), pack_towers(twb), pack_towers(widen(twb))
+    measure_bf16(torch, rows, "fused_mrf_bf16" + suffix, "zerovox_tpu_torch/csrc/mrf.cu",
+                 "zerovox_tpu/ops/pallas/mrf.py:93", f"[1,{T},{C}] bf16",
+                 lambda: fused_mrf(xb, mrfb, dils, ks),
+                 lambda: fused_mrf(xw, mrfw, dils, ks),
+                 lambda: mrf_plain(xb, twb, dils), flop, wbytes / 2 + 4.0 * T * C,
+                 tile_rows=tile)
+
+
+def k2_rows(torch, rows, gen, dev, T_in: int, C_in: int, C_out: int, u: int, k: int, last: bool,
+            ks, dils, suffix: str = "") -> None:
+    """K2 (with conv_post when `last`) over [1, T_in, C_in] against plain,
+    float32 and bf16."""
+    from zerovox_tpu_torch.ops import _cuda
+    from zerovox_tpu_torch.ops.mrf import pack_towers, tower_args, widen
+    from zerovox_tpu_torch.ops.upsample_stage import (fused_upsample_stage, pack_upsampler,
+                                                       upsample_stage_plain)
+
+    P = len(dils)
+    T_out = T_in * u
+    x = torch.randn(1, T_in, C_in, generator=gen).to(dev)
+    up_w = (torch.randn(k, C_in, C_out, generator=gen) / (k * C_in / u) ** 0.5).to(dev)
+    up_b = (torch.randn(C_out, generator=gen) / 2).to(dev)
+    up = pack_upsampler(up_w, up_b, u)
+    tw = random_towers(torch, gen, C_out, ks, P, dev)
+    mrf = pack_towers(tw)
+    post = ((torch.randn(7, C_out, 1, generator=gen) / (7 * C_out) ** 0.5).to(dev),
+            torch.zeros(1).to(dev)) if last else None
+    flop, wbytes = mrf_work(T_out, C_out, ks, P)
+    flop += 2.0 * T_out * C_in * C_out * k / u  # k / u taps reach each output row
+    wbytes += 4.0 * (k * C_in * C_out + C_out)
+    if last:
+        flop += 2.0 * 7 * C_out * T_out
+        wbytes += 4.0 * (7 * C_out + 1)
+    out_elems = T_out * (1 if last else C_out)
+    pad = (k - u) // 2
+    tile = _cuda.lib("upsample_stage").zv_upsample_stage_tile(
+        1, T_in, C_in, C_out, k, u, pad, 7 if last else 0, *tower_args(tw, dils, ks))
+    shape = f"[1,{T_in},{C_in}]->" + (f"[1,{T_out}]" if last else f"[1,{T_out},{C_out}]")
+    name = "fused_upsample_stage" + ("+post" if last else "")
+    measure(torch, rows, name + suffix, "zerovox_tpu_torch/csrc/upsample_stage.cu",
+            "zerovox_tpu/ops/pallas/packed.py:249", shape,
+            lambda: fused_upsample_stage(x, up, pad, mrf, dils, ks, post=post),
+            lambda: upsample_stage_plain(x, up_w, up_b, u, pad, tw, dils, post=post),
+            flop, wbytes + 4.0 * (T_in * C_in + out_elems), "3xtf32", tile_rows=tile,
+            recompute=halo_recompute(tile, ks, dils, 3 if last else 0))
+    xb, twb = x.bfloat16(), _bf(tw)
+    xw = xb.float()
+    upb = pack_upsampler(up_w.bfloat16(), up_b.bfloat16(), u)
+    upw = pack_upsampler(upb.w.float(), upb.b.float(), u)
+    mrfb, mrfw = pack_towers(twb), pack_towers(widen(twb))
+    postb = tuple(t.bfloat16() for t in post) if last else None
+    postw = tuple(t.float() for t in postb) if last else None
+    measure_bf16(torch, rows, "fused_upsample_stage_bf16" + ("+post" if last else "") + suffix,
+                 "zerovox_tpu_torch/csrc/upsample_stage.cu",
+                 "zerovox_tpu/ops/pallas/packed.py:249", shape + " bf16",
+                 lambda: fused_upsample_stage(xb, upb, pad, mrfb, dils, ks, post=postb),
+                 lambda: fused_upsample_stage(xw, upw, pad, mrfw, dils, ks, post=postw),
+                 lambda: upsample_stage_plain(xb, upb.w, upb.b, u, pad, twb, dils,
+                                              post=postb),
+                 flop, wbytes / 2 + 2.0 * (T_in * C_in + out_elems), tile_rows=tile)
+
+
+def k3_rows(torch, rows, gen, dev, T: int, C: int, k: int, dils, suffix: str = "") -> None:
+    """K3 (one tower) over [1, T, C] against plain, float32 and bf16."""
+    from zerovox_tpu_torch.ops import _cuda
+    from zerovox_tpu_torch.ops.mrf import pack_towers, widen
+    from zerovox_tpu_torch.ops.resblock import fused_resblock1, resblock1_plain
+
+    P = len(dils)
+    x = torch.randn(1, T, C, generator=gen).to(dev)
+    tower = random_towers(torch, gen, C, (k,), P, dev)[0]
+    packed = pack_towers([tower])
+    flop, wbytes = mrf_work(T, C, (k,), P)
+    tile = _cuda.lib("resblock").zv_resblock1_tile(1, T, C, k, P, *dils, *[0] * (3 - P))
+    measure(torch, rows, "fused_resblock1" + suffix, "zerovox_tpu_torch/csrc/resblock.cu",
+            "zerovox_tpu/ops/pallas/resblock.py:106", f"[1,{T},{C}]",
+            lambda: fused_resblock1(x, *tower, dils, packed=packed),
+            lambda: resblock1_plain(x, *tower, dils), flop, wbytes + 8.0 * T * C,
+            "3xtf32", tile_rows=tile, recompute=halo_recompute(tile, (k,), dils))
+    xb, twb = x.bfloat16(), tuple(t.bfloat16() for t in tower)
+    xw, pkb, pkw = xb.float(), pack_towers([twb]), pack_towers(widen([twb]))
+    tile = _cuda.lib("resblock").zv_resblock1_bf16_tile(1, T, C, k, P, *dils, *[0] * (3 - P))
+    measure_bf16(torch, rows, "fused_resblock1_bf16" + suffix, "zerovox_tpu_torch/csrc/resblock.cu",
+                 "zerovox_tpu/ops/pallas/resblock.py:106", f"[1,{T},{C}] bf16",
+                 lambda: fused_resblock1(xb, *twb, dils, packed=pkb),
+                 lambda: fused_resblock1(xw, *pkw.towers[0], dils, packed=pkw),
+                 lambda: resblock1_plain(xb, *twb, dils), flop,
+                 wbytes / 2 + 4.0 * T * C, tile_rows=tile)
+
+
 def kernel_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
     """K1 and K2 against their plain versions at the main path's shapes
     (the mel bucket) and at one streamed window's (CHUNK_FRAMES plus the
     receptive-field halo each side), with the tile each kernel takes."""
-    from zerovox_tpu_torch.ops import _cuda
-    from zerovox_tpu_torch.ops.mrf import fused_mrf, mrf_plain, pack_towers, tower_args, widen
-    from zerovox_tpu_torch.ops.upsample_stage import (fused_upsample_stage, pack_upsampler,
-                                                       upsample_stage_plain)
-
-    def bf(towers):
-        return [tuple(t.bfloat16() for t in tw) for tw in towers]
-
     ks, dils = tuple(hcfg.resblock_kernel_sizes), tuple(hcfg.resblock_dilation_sizes[0])
-    P = len(dils)
     c0, rates, up_ks = hcfg.upsample_initial_channel, hcfg.upsample_rates, hcfg.upsample_kernel_sizes
     gen = torch.Generator().manual_seed(1234)
     rows = []
@@ -322,78 +463,14 @@ def kernel_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
     for frames in (mel_frames, window):
         # stage 1 (K1): the MRF at C = c0 / 4 over frames * rates[0] * rates[1] rows
         C1, T1 = c0 // 4, frames * rates[0] * rates[1]
-        x1 = torch.randn(1, T1, C1, generator=gen).to(dev)
-        tw1 = random_towers(torch, gen, C1, ks, P, dev)
-        mrf1 = pack_towers(tw1)
-        targs = tower_args(tw1, dils, ks)
-        flop, wbytes = mrf_work(T1, C1, ks, P)
-        tile = _cuda.lib("mrf").zv_mrf_tile(1, T1, C1, *targs)
-        measure(torch, rows, "fused_mrf", "zerovox_tpu_torch/csrc/mrf.cu",
-                "zerovox_tpu/ops/pallas/mrf.py:93", f"[1,{T1},{C1}]",
-                lambda: fused_mrf(x1, mrf1, dils, ks), lambda: mrf_plain(x1, tw1, dils),
-                flop, wbytes + 8.0 * T1 * C1, "3xtf32", tile_rows=tile,
-                recompute=halo_recompute(tile, ks, dils))
-        xb, twb = x1.bfloat16(), bf(tw1)
-        xw, mrfb, mrfw = xb.float(), pack_towers(twb), pack_towers(widen(twb))
-        measure_bf16(torch, rows, "fused_mrf_bf16", "zerovox_tpu_torch/csrc/mrf.cu",
-                     "zerovox_tpu/ops/pallas/mrf.py:93", f"[1,{T1},{C1}] bf16",
-                     lambda: fused_mrf(xb, mrfb, dils, ks),
-                     lambda: fused_mrf(xw, mrfw, dils, ks),
-                     lambda: mrf_plain(xb, twb, dils), flop, wbytes / 2 + 4.0 * T1 * C1,
-                     tile_rows=tile)
-        del x1, tw1, mrf1, xb, xw, twb, mrfb, mrfw
-
+        k1_rows(torch, rows, gen, dev, T1, C1, ks, dils)
         # stages 2 and 3 (K2): upsample stages, the last with conv_post
         T_in, C_in = T1, C1
         for i in (2, 3):
-            C_out, u, k = c0 // 2 ** (i + 1), rates[i], up_ks[i]
-            T_out = T_in * u
-            x = torch.randn(1, T_in, C_in, generator=gen).to(dev)
-            up_w = (torch.randn(k, C_in, C_out, generator=gen) / (k * C_in / u) ** 0.5).to(dev)
-            up_b = (torch.randn(C_out, generator=gen) / 2).to(dev)
-            up = pack_upsampler(up_w, up_b, u)
-            tw = random_towers(torch, gen, C_out, ks, P, dev)
-            mrf = pack_towers(tw)
-            last = i == len(rates) - 1
-            post = ((torch.randn(7, C_out, 1, generator=gen) / (7 * C_out) ** 0.5).to(dev),
-                    torch.zeros(1).to(dev)) if last else None
-            flop, wbytes = mrf_work(T_out, C_out, ks, P)
-            flop += 2.0 * T_out * C_in * C_out * k / u  # k / u taps reach each output row
-            wbytes += 4.0 * (k * C_in * C_out + C_out)
-            if last:
-                flop += 2.0 * 7 * C_out * T_out
-                wbytes += 4.0 * (7 * C_out + 1)
-            out_elems = T_out * (1 if last else C_out)
-            pad = (k - u) // 2
-            tile = _cuda.lib("upsample_stage").zv_upsample_stage_tile(
-                1, T_in, C_in, C_out, k, u, pad, 7 if last else 0, *tower_args(tw, dils, ks))
-            measure(torch, rows, "fused_upsample_stage" + ("+post" if last else ""),
-                    "zerovox_tpu_torch/csrc/upsample_stage.cu",
-                    "zerovox_tpu/ops/pallas/packed.py:249",
-                    f"[1,{T_in},{C_in}]->" + (f"[1,{T_out}]" if last else f"[1,{T_out},{C_out}]"),
-                    lambda: fused_upsample_stage(x, up, pad, mrf, dils, ks, post=post),
-                    lambda: upsample_stage_plain(x, up_w, up_b, u, pad, tw, dils, post=post),
-                    flop, wbytes + 4.0 * (T_in * C_in + out_elems), "3xtf32", tile_rows=tile,
-                    recompute=halo_recompute(tile, ks, dils, 3 if last else 0))
-            xb, twb = x.bfloat16(), bf(tw)
-            xw = xb.float()
-            upb = pack_upsampler(up_w.bfloat16(), up_b.bfloat16(), u)
-            upw = pack_upsampler(upb.w.float(), upb.b.float(), u)
-            mrfb, mrfw = pack_towers(twb), pack_towers(widen(twb))
-            postb = tuple(t.bfloat16() for t in post) if last else None
-            postw = tuple(t.float() for t in postb) if last else None
-            measure_bf16(torch, rows, "fused_upsample_stage_bf16" + ("+post" if last else ""),
-                         "zerovox_tpu_torch/csrc/upsample_stage.cu",
-                         "zerovox_tpu/ops/pallas/packed.py:249",
-                         f"[1,{T_in},{C_in}]->" + (f"[1,{T_out}]" if last else f"[1,{T_out},{C_out}]")
-                         + " bf16",
-                         lambda: fused_upsample_stage(xb, upb, pad, mrfb, dils, ks, post=postb),
-                         lambda: fused_upsample_stage(xw, upw, pad, mrfw, dils, ks, post=postw),
-                         lambda: upsample_stage_plain(xb, upb.w, upb.b, u, pad, twb, dils,
-                                                      post=postb),
-                         flop, wbytes / 2 + 2.0 * (T_in * C_in + out_elems), tile_rows=tile)
-            T_in, C_in = T_out, C_out
-            del x, up_w, up_b, up, tw, mrf, xb, xw, twb, upb, upw, mrfb, mrfw
+            C_out = c0 // 2 ** (i + 1)
+            k2_rows(torch, rows, gen, dev, T_in, C_in, C_out, rates[i], up_ks[i],
+                    i == len(rates) - 1, ks, dils)
+            T_in, C_in = T_in * rates[i], C_out
     return rows
 
 
@@ -401,40 +478,32 @@ def resblock_phase(torch, dev, hcfg, mel_frames: int) -> list[dict]:
     """K3 at the StyleTTS path's shapes: one ResBlock1 tower on each stage of
     the single-tower vocoder with C <= 128 (stages 1-3 at V1's widths),
     against its plain version."""
-    from zerovox_tpu_torch.ops import _cuda
-    from zerovox_tpu_torch.ops.mrf import pack_towers, widen
-    from zerovox_tpu_torch.ops.resblock import fused_resblock1, resblock1_plain
-
     (k,), (dils,) = hcfg.resblock_kernel_sizes, hcfg.resblock_dilation_sizes
-    P, c0 = len(dils), hcfg.upsample_initial_channel
+    c0 = hcfg.upsample_initial_channel
     gen = torch.Generator().manual_seed(2345)
     rows = []
     T = mel_frames
     for i, u in enumerate(hcfg.upsample_rates):
         C, T = c0 // 2 ** (i + 1), T * u
-        if C > 128:
-            continue
-        x = torch.randn(1, T, C, generator=gen).to(dev)
-        tower = random_towers(torch, gen, C, (k,), P, dev)[0]
-        packed = pack_towers([tower])
-        flop, wbytes = mrf_work(T, C, (k,), P)
-        tile = _cuda.lib("resblock").zv_resblock1_tile(1, T, C, k, P, *dils, *[0] * (3 - P))
-        measure(torch, rows, "fused_resblock1", "zerovox_tpu_torch/csrc/resblock.cu",
-                "zerovox_tpu/ops/pallas/resblock.py:106", f"[1,{T},{C}]",
-                lambda x=x, tw=tower, pk=packed: fused_resblock1(x, *tw, dils, packed=pk),
-                lambda x=x, tw=tower: resblock1_plain(x, *tw, dils), flop, wbytes + 8.0 * T * C,
-                "3xtf32", tile_rows=tile, recompute=halo_recompute(tile, (k,), dils))
-        xb, twb = x.bfloat16(), tuple(t.bfloat16() for t in tower)
-        pkb, pkw = pack_towers([twb]), pack_towers(widen([twb]))
-        tile = _cuda.lib("resblock").zv_resblock1_bf16_tile(1, T, C, k, P, *dils, *[0] * (3 - P))
-        measure_bf16(torch, rows, "fused_resblock1_bf16", "zerovox_tpu_torch/csrc/resblock.cu",
-                     "zerovox_tpu/ops/pallas/resblock.py:106", f"[1,{T},{C}] bf16",
-                     lambda xb=xb, tw=twb, pk=pkb: fused_resblock1(xb, *tw, dils, packed=pk),
-                     lambda xw=xb.float(), pk=pkw: fused_resblock1(xw, *pk.towers[0], dils,
-                                                                   packed=pk),
-                     lambda xb=xb, tw=twb: resblock1_plain(xb, *tw, dils), flop,
-                     wbytes / 2 + 4.0 * T * C, tile_rows=tile)
-        del x, tower, packed, xb, twb, pkb, pkw
+        if C <= 128:
+            k3_rows(torch, rows, gen, dev, T, C, k, tuple(dils))
+    return rows
+
+
+def narrow_kernel_rows(torch, dev, mel_frames: int) -> list[dict]:
+    """The narrow widths (HiFi-GAN V2's last stages, a 256-channel
+    single-tower vocoder's last): K1 and K3 at [1, 88192, 16] and
+    [1, 176384, 8], and K2 at (16, 8) with conv_post on [1, 88192, 16] ->
+    [1, 176384] (V2's last stage), at mel bucket 689, float32 and bf16.
+    Row names carry `@` and the width."""
+    ks, dils = (3, 7, 11), (1, 3, 5)
+    gen = torch.Generator().manual_seed(3456)
+    rows: list[dict] = []
+    T16 = mel_frames * 8 * 8 * 2
+    for C, T in ((16, T16), (8, 2 * T16)):
+        k1_rows(torch, rows, gen, dev, T, C, ks, dils, f"@{C}")
+        k3_rows(torch, rows, gen, dev, T, C, 3, dils, f"@{C}")
+    k2_rows(torch, rows, gen, dev, T16, 16, 8, 2, 4, True, ks, dils, "@16x8")
     return rows
 
 
@@ -859,6 +928,8 @@ def zero_counts() -> None:
     d.fused_upsample_stage.launches_bf16 = 0
     c.se_conv_fwd.launches = c.se_conv_bwd.launches = 0
     c.se_conv_fwd_bf16.launches = c.se_conv_bwd_bf16.launches = 0
+    for f in (a.fused_mrf, b.fused_resblock1, d.fused_upsample_stage):
+        f.launches_at.clear()
 
 
 def batch_inputs(engine, spk_wavs):
@@ -2015,10 +2086,388 @@ def bf16_phase(torch, dev, card: str, refwav, sr: int, bucket: int, profile_dir)
     return res
 
 
+def hifigan_v2():
+    """HiFi-GAN V2 (jik876/hifi-gan config_v2.json): 128 initial channels,
+    rates 8,8,2,2, upsample kernels 16,16,4,4, ResBlock1 towers 3/7/11 x
+    dilations 1,3,5. K1 runs stages 0 and 1 (C = 64, 32), K2 stages 2 and 3
+    ((32, 16), and (16, 8) with conv_post)."""
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+
+    return HifiGanConfig(resblock="1", upsample_rates=(8, 8, 2, 2),
+                         upsample_kernel_sizes=(16, 16, 4, 4), upsample_initial_channel=128,
+                         resblock_kernel_sizes=(3, 7, 11),
+                         resblock_dilation_sizes=((1, 3, 5),) * 3)
+
+
+def single_tower_256():
+    """One ResBlock1 tower (k 3, dilations 1,3,5) at 256 initial channels,
+    rates 8,8,2,2: K3 runs all four stages (C = 128, 64, 32, 16)."""
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+
+    return HifiGanConfig(resblock="1", upsample_initial_channel=256, upsample_rates=(8, 8, 2, 2),
+                         upsample_kernel_sizes=(16, 16, 4, 4), resblock_kernel_sizes=(3,),
+                         resblock_dilation_sizes=((1, 3, 5),))
+
+
+def widths_launched() -> dict:
+    """Each of K1, K2, K3's launches (both dtypes) by the width it ran at
+    (K2's as "CinxCout")."""
+    from zerovox_tpu_torch.ops.mrf import fused_mrf
+    from zerovox_tpu_torch.ops.resblock import fused_resblock1
+    from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
+
+    return {f.__name__: {"x".join(map(str, w)) if isinstance(w, tuple) else w: n
+                         for w, n in f.launches_at.items()}
+            for f in (fused_mrf, fused_upsample_stage, fused_resblock1)}
+
+
+def narrow_path(torch, card: str, name: str, hcfg, want: dict, refwav, sr: int,
+                profile_dir) -> dict:
+    """One vocoder of phase 16 behind the default acoustic model at full
+    width (seed 0, bench.py's text with forced durations, bucket 689):
+    speaker_embed -> tts_ex -> tts_stream with the launches by width read
+    around it (`want`: each kernel's widths a tts_ex, once each); the
+    engine's vocoder on the card against the same weights' nn.Modules on the
+    card and the whole engine against the CPU (1e-3); RTF and first-chunk
+    p50; then the same engine in bf16: its bf16 launches a tts_ex, and its
+    waveform within min(5e-2, 5e-2 x peak) of the float32 engine's."""
+    import numpy as np
+
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+    from zerovox_tpu_torch.synthesize import MEL_BUCKETS, ZeroVoxTTS, pick_bucket
+    from zerovox_tpu_torch.utils.profiling import RtfStats, cuda_time_ms
+
+    cfg = ZeroVoxConfig()
+    engine = ZeroVoxTTS.from_random(cfg, hcfg, seed=0)
+    hop = cfg.audio.hop_size
+    ids, puncts = engine.text2phonemeids(TEXT)
+    dur = np.full(len(ids), FRAMES_PER_PHONE, dtype=np.int32)
+    n_frames = int(dur.sum())
+    bucket = pick_bucket(n_frames, MEL_BUCKETS)
+    zero_counts()
+    spk = engine.speaker_embed(refwav)
+    wav, _, n, _ = engine.tts_ex(TEXT, spk, duration=dur)
+    torch.cuda.synchronize()
+    per_call = widths_launched()
+    chunks = list(engine.tts_stream(TEXT, spk, duration=dur))
+    torch.cuda.synchronize()
+    counts, at = kernel_counts(), widths_launched()
+    print(f"{name}: launches by width: tts_ex {per_call}; + tts_stream ({len(chunks)} windows) "
+          f"{at}")
+    check({k: v for k, v in per_call.items() if v} == want,
+          f"{name}: tts_ex launched {per_call}, not {want}")
+    check(all(at[k] == {w: (1 + len(chunks)) * c for w, c in ws.items()} for k, ws in want.items()),
+          f"{name}: tts_stream's {len(chunks)} windows launched {at}")
+    check(all(v == 0 for k, v in counts.items() if k not in want),
+          f"{name}: another kernel launched: {counts}")
+    check(n == n_frames and wav.shape == (n_frames * hop,) and bool(np.isfinite(wav).all()),
+          f"{name}: wav {wav.shape}, {n} frames, finite {bool(np.isfinite(wav).all())}")
+    streamed = np.concatenate(chunks)
+    stream_err = float(np.max(np.abs(streamed - wav)))
+    peak = float(np.max(np.abs(wav)))
+    check(streamed.shape == wav.shape and stream_err < STREAM_TOL * min(peak, 1.0),
+          f"{name}: stream {streamed.shape} differs from tts by {stream_err}")
+
+    # the vocoder's kernels against the same weights' nn.Modules, on the card
+    enc, _, _ = engine._encode(ids, puncts, spk, dur)
+    mel_b = engine._decode(enc, spk, bucket)
+    gen = engine._meldec.generator
+    w_kernels = engine._vocode(mel_b)
+    gen.use_pallas = False
+    try:
+        w_modules = engine._vocode(mel_b)
+        modules_ms = cuda_time_ms(lambda: engine._vocode(mel_b), iters=10)
+    finally:
+        gen.use_pallas = True
+    vocode_ms = cuda_time_ms(lambda: engine._vocode(mel_b), iters=10)
+    mod_err = (w_kernels - w_modules).abs().max().item()
+    mod_peak = w_modules.abs().max().item()
+    check(mod_err < WAV_TOL * min(mod_peak, 1.0),
+          f"{name}: the kernels' waveform differs from the nn.Modules' by {mod_err}")
+
+    # the same weights on the CPU (plain versions), on the short text
+    sd, meldec_sd = engine.state_dicts()
+    cpu = ZeroVoxTTS(cfg, sd, hcfg, meldec_sd, device="cpu")
+    d_short = np.full(len(engine.text2phonemeids(SHORT_TEXT)[0]), FRAMES_PER_PHONE, np.int32)
+    w_card, _, _ = engine.tts(SHORT_TEXT, spk, duration=d_short)
+    w_cpu, _, _ = cpu.tts(SHORT_TEXT, spk.cpu(), duration=d_short)
+    cpu_err, cpu_peak = float(np.max(np.abs(w_card - w_cpu))), float(np.max(np.abs(w_cpu)))
+    check(w_card.shape == w_cpu.shape and cpu_peak > 0 and cpu_err < WAV_TOL * min(cpu_peak, 1.0),
+          f"{name}: card differs from the CPU run by {cpu_err} (peak {cpu_peak})")
+    del cpu
+
+    stats = RtfStats(warmup=10)
+    for _ in range(25):
+        t0 = time.perf_counter()
+        w, _, _, _ = engine.tts_ex(TEXT, spk, duration=dur)
+        stats.add(w.shape[0] / sr, time.perf_counter() - t0)
+    lat = RtfStats(warmup=4)
+    for _ in range(15):
+        t0 = time.perf_counter()
+        g = engine.tts_stream(TEXT, spk, duration=dur)
+        next(g)
+        first = time.perf_counter() - t0
+        for _ in g:
+            pass
+        lat.add(wav.shape[0] / sr, time.perf_counter() - t0, first_chunk_s=first)
+    if profile_dir is not None:
+        profile_calls(torch, lambda: engine.tts_ex(TEXT, spk, duration=dur), 3, profile_dir,
+                      f"narrow_{name}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # bf16 inference on the same weights: the bf16 kernels at the same widths
+    e16 = ZeroVoxTTS.from_random(cfg, hcfg, seed=0, precision="bf16")
+    spk16 = e16.speaker_embed(refwav)
+    zero_counts()
+    w16, _, _, _ = e16.tts_ex(TEXT, spk16, duration=dur)
+    torch.cuda.synchronize()
+    counts16, at16 = kernel_counts(), widths_launched()
+    check({k: v for k, v in at16.items() if v} == want and all(counts16[k] == 0 for k in want)
+          and bool(np.isfinite(w16).all()) and w16.shape == wav.shape,
+          f"{name} bf16: launches {counts16} {at16}, wav {w16.shape}")
+    # held to the float32 engine of the same seed at phase 15's main-path
+    # bound: the bf16 weights packed and padded at these widths, end to end
+    bf16_err = float(np.max(np.abs(w16 - wav)))
+    bf16_tol = min(BF16_WAV_TOL, BF16_WAV_REL * peak)
+    print(f"{name} bf16: - float32 {bf16_err:.6g} (peak {peak:.6g}, bound {bf16_tol:.6g})")
+    check(bf16_err < bf16_tol, f"{name} bf16: waveform {bf16_err} from float32's, over {bf16_tol}")
+    del e16
+    torch.cuda.empty_cache()
+    out = {"vocoder": name, "bucket": bucket, "launches_per_tts_ex": per_call,
+           "launches": counts, "launches_at": at, "stream_windows": len(chunks),
+           "bf16_launches_per_tts_ex": counts16, "bf16_err": bf16_err, "bf16_bound": bf16_tol,
+           "modules_err": mod_err, "modules_peak": mod_peak,
+           "cpu_err": cpu_err, "cpu_peak": cpu_peak, "stream_err": stream_err,
+           "vocode_ms": vocode_ms, "vocode_modules_ms": modules_ms, "rtf": stats.mean_rtf,
+           "first_chunk_p50_ms": lat.p50_first_chunk_ms, "voice_s": wav.shape[0] / sr,
+           "card": card}
+    print(json.dumps({"narrow_path": out}), flush=True)
+    return out
+
+
+def narrow_phase(torch, card: str, refwav, sr: int, profile_dir) -> dict:
+    """Phase 16: HiFi-GAN V2, then the 256-channel single-tower vocoder."""
+    v2 = narrow_path(torch, card, "hifigan_v2", hifigan_v2(),
+                     {"fused_mrf": {64: 1, 32: 1},
+                      "fused_upsample_stage": {"32x16": 1, "16x8": 1}}, refwav, sr, profile_dir)
+    single = narrow_path(torch, card, "single_tower_256", single_tower_256(),
+                         {"fused_resblock1": {128: 1, 64: 1, 32: 1, 16: 1}}, refwav, sr,
+                         profile_dir)
+    return {"hifigan_v2": v2, "single_tower_256": single}
+
+
+def write_vocoder_corpus(root: Path, n_items: int, seconds: float, seed: int = 0) -> None:
+    """A preprocess dir for the vocoder trainer (`train.txt`, `wavs/`,
+    `mel/`): harmonic tones with a glide, an envelope and noise, their mels
+    by the port's MelFrontend (22050 Hz, hop 256, 80 bins), from `seed`."""
+    import numpy as np
+
+    from zerovox_tpu_torch.dsp.audio import save_wav
+    from zerovox_tpu_torch.dsp.mels import MelFrontend
+
+    rng = np.random.default_rng(seed)
+    frontend = MelFrontend(device="cpu")
+    (root / "wavs").mkdir(parents=True)
+    (root / "mel").mkdir()
+    sr, lines = 22050, []
+    for i in range(n_items):
+        n = int(seconds * sr) // 256 * 256
+        t = np.arange(n) / sr
+        f0 = rng.uniform(90.0, 250.0) * (1.0 + 0.1 * t / seconds)
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        wav = sum(np.sin(h * phase + rng.uniform(0, 2 * np.pi)) / h for h in range(1, 9))
+        wav = wav * np.sin(np.pi * t / seconds) ** 2 + 0.05 * rng.normal(size=n)
+        wav = (0.5 * wav / np.max(np.abs(wav))).astype(np.float32)
+        save_wav(root / "wavs" / f"v{i:03d}.wav", wav, sr)
+        mel, _ = frontend(wav)
+        np.save(root / "mel" / f"mel-v{i:03d}.npy", mel.T.numpy())
+        lines.append(f"v{i:03d}.wav|x")
+    (root / "train.txt").write_text("\n".join(lines) + "\n")
+
+
+def gan_phase(torch, dev, card: str, refwav, profile_dir) -> dict:
+    """Phase 17: vocoder GAN training (see the module docstring)."""
+    import numpy as np
+
+    from zerovox_tpu_torch.cli import train_vocoder
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+    from zerovox_tpu_torch.dsp.griffinlim import GriffinLim
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.ops.pqmf import PQMF
+    from zerovox_tpu_torch.synthesize import MEL_BUCKETS, ZeroVoxTTS, pick_bucket
+    from zerovox_tpu_torch.training.checkpointing import save_native_checkpoint
+    from zerovox_tpu_torch.training.vocoder import (VocoderDataConfig, VocoderDataset,
+                                                    VocoderTrainer, VocoderTrainerConfig,
+                                                    card_round_gap, to_device_batch)
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+    from zerovox_tpu_torch.weights import to_jax_variables
+
+    res: dict = {"card": card}
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        root = Path(tmp)
+        pp = root / "pp"
+        write_vocoder_corpus(pp, GAN_ITEMS, GAN_SECONDS)
+        common = ["--data", str(pp), "--checkpoint-every-n-epochs", "1"]
+        # resume and split are held to 1e-5: cuDNN picks deterministic algorithms
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            train_vocoder.main(common + ["--out-folder", str(root / "run"), "--max-epochs", "2"])
+            torch.cuda.synchronize()
+            res["fit_2_epochs_s"] = time.perf_counter() - t0
+            check(all(v == 0 for v in kernel_counts().values()),
+                  f"the GAN trainer launched a fused kernel: {kernel_counts()}")
+            full = json.loads((root / "run" / "losses.json").read_text())
+            check([r["epoch"] for r in full] == [0, 1]
+                  and all(np.isfinite(v) for r in full for v in r.values()),
+                  f"losses.json: {full}")
+            ckpts = sorted(p.name for p in (root / "run" / "checkpoints").glob("*.pt"))
+            check(ckpts == ["vocoder-0000.pt", "vocoder-0001.pt"]
+                  and (root / "run" / "generator.msgpack").exists(), f"checkpoints {ckpts}")
+            train_vocoder.main(common + ["--out-folder", str(root / "resumed"), "--max-epochs", "2",
+                                         "--checkpoint",
+                                         str(root / "run" / "checkpoints" / "vocoder-0000.pt")])
+            again = json.loads((root / "resumed" / "losses.json").read_text())
+            check([r["epoch"] for r in again] == [1], f"resumed losses.json: {again}")
+            resume_rel = max(abs(again[0][k] - v) / max(abs(v), 1e-12)
+                             for k, v in full[1].items() if k != "epoch")
+            check(resume_rel < RESUME_RTOL,
+                  f"resumed epoch 1 {again[0]} against the uninterrupted {full[1]}")
+            res.update(losses=full, resume_max_rel=resume_rel)
+            print(f"gan: 2 epochs x {GAN_ITEMS // GAN_BATCH} steps at batch {GAN_BATCH} in "
+                  f"{res['fit_2_epochs_s']:.1f} s; losses {full}; resume max rel {resume_rel:.3g}")
+
+            # the first round, fused against split and float32 against bf16-mixed
+            gcfg, dcfg = HifiGanConfig(), VocoderDataConfig()
+            batch = to_device_batch(next(VocoderDataset([str(pp)], dcfg, seed=1)
+                                         .batches(GAN_BATCH)), dev)
+            spe = GAN_ITEMS // GAN_BATCH
+
+            def trainer(split=False, precision="32"):
+                tr = VocoderTrainer(gcfg, dcfg, VocoderTrainerConfig(
+                    batch_size=GAN_BATCH, split_step=split, precision=precision), spe)
+                return tr, tr.init_state()
+
+            firsts = {}
+            for key, kw in (("fused", {}), ("split", {"split": True})):
+                tr, st = trainer(**kw)
+                firsts[key] = {k: float(v) for k, v in tr.train_step(st, batch).items()}
+                del tr, st
+            split_rel = max(abs(firsts["split"][k] - v) / max(abs(v), 1e-12)
+                            for k, v in firsts["fused"].items())
+            check(split_rel < RESUME_RTOL, f"split round {firsts['split']} against fused "
+                  f"{firsts['fused']}")
+            res.update(first_round=firsts["fused"], split_max_rel=split_rel)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+
+        tr32, st32 = trainer()
+        tr16, st16 = trainer(precision="bf16-mixed")
+        l32 = {k: float(v) for k, v in tr32.train_step(st32, batch).items()}
+        l16 = [{k: float(v) for k, v in tr16.train_step(st16, batch).items()} for _ in range(3)]
+        check(all(np.isfinite(v) for d in l16 for v in d.values()), f"bf16-mixed losses {l16}")
+        mixed_rel = abs(l16[0]["g_total"] - l32["g_total"]) / abs(l32["g_total"])
+        check(mixed_rel < MIXED_LOSS_RTOL,
+              f"bf16-mixed first loss {l16[0]['g_total']} against float32 {l32['g_total']}")
+        turns = {"32": [], "bf16-mixed": []}
+        for _ in range(3):
+            turns["32"].append(cuda_time_ms(lambda: tr32.train_step(st32, batch), iters=3,
+                                            warmup=1))
+            turns["bf16-mixed"].append(cuda_time_ms(lambda: tr16.train_step(st16, batch), iters=3,
+                                                    warmup=1))
+        res.update(bf16_losses=l16, bf16_first_rel=mixed_rel,
+                   step_ms_turns=turns,
+                   step_ms_median={k: statistics.median(v) for k, v in turns.items()})
+        print(json.dumps({"gan_step_ms": res["step_ms_median"], "turns": turns,
+                          "batch": GAN_BATCH, "card": card}), flush=True)
+        if profile_dir is not None:
+            res["profile"] = profile_calls(torch, lambda: tr32.train_step(st32, batch), 2,
+                                           profile_dir, "gan_step")
+        del tr32, st32, tr16, st16
+        torch.cuda.empty_cache()
+        res["bench"] = {p: train_vocoder.main(common + ["--out-folder", str(root / "bench"),
+                                                        "--bench", "--bench-steps", "8",
+                                                        "--precision", p])
+                        for p in ("32", "bf16-mixed")}
+
+        # one GAN round at small widths, the card against the CPU in float64
+        # (card_round_gap; tests/test_torch_gpu.py holds it at other data)
+        small = HifiGanConfig(upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+                              resblock_dilation_sizes=((1, 3),))
+        sdcfg = VocoderDataConfig(segment_frames=8)
+        sb = next(VocoderDataset([str(pp)], sdcfg, seed=2).batches(2))
+        loss_rel, grad_rel = card_round_gap(
+            small, sdcfg, VocoderTrainerConfig(batch_size=2, mpd_periods=(2, 3), msd_scales=2),
+            sb, seed=7, device=dev)
+        check(loss_rel < STEP_LOSS_RTOL and grad_rel < STEP_GRAD_TOL,
+              f"small GAN round: card against CPU losses {loss_rel}, gradients {grad_rel}")
+        res.update(small_round_loss_rel=loss_rel, small_round_grad_rel=grad_rel)
+
+        # PQMF and Griffin-Lim, the card against the CPU
+        t = np.arange(22050) / 22050
+        x = np.stack([np.sin(2 * np.pi * 440 * t), 0.3 * np.sin(2 * np.pi * 3100 * t)])
+        x = torch.tensor(x, dtype=torch.float32)
+        pq = PQMF(4)
+        bands_cpu, bands_card = pq.analysis(x), pq.analysis(x.to(dev))
+        syn_cpu, syn_card = pq.synthesis(bands_cpu), pq.synthesis(bands_card)
+        pqmf_err = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                       for a, b in ((bands_card, bands_cpu), (syn_card, syn_cpu)))
+        check(pqmf_err < 1e-5, f"PQMF card against CPU: {pqmf_err} of the max")
+        frontend_mel = VocoderDataset([str(pp)], dcfg).items[0][0]  # [T, 80]
+        gl_err = float(np.max(np.abs(GriffinLim(n_iter=2, device=dev)(frontend_mel)
+                                     - GriffinLim(n_iter=2, device="cpu")(frontend_mel))))
+        check(gl_err < 1e-4, f"Griffin-Lim (2 rounds) card against CPU: {gl_err}")
+        gl32 = GriffinLim(n_iter=32)  # the card by default
+        check(gl32.device.type == "cuda", f"GriffinLim's default device is {gl32.device}")
+        mel_dev = torch.tensor(frontend_mel, device=dev)
+        res.update(pqmf_rel=pqmf_err, griffinlim_2_err=gl_err,
+                   griffinlim_32_ms=cuda_time_ms(lambda: gl32.invert(mel_dev), iters=5),
+                   griffinlim_frames=frontend_mel.shape[0])
+        t0 = time.perf_counter()
+        GriffinLim(n_iter=32, device="cpu")(frontend_mel)
+        res["griffinlim_32_cpu_ms"] = 1e3 * (time.perf_counter() - t0)
+
+        # the trained generator as an engine's vocoder: K1 and K2 on the card
+        cfg = ZeroVoxConfig()
+        ckpt = root / "acoustic.msgpack"
+        save_native_checkpoint(ckpt, to_jax_variables(
+            ZeroVoxTTS.from_random(cfg, seed=0, device="cpu").state_dicts()[0], cfg))
+        engine = ZeroVoxTTS.from_checkpoint(cfg, ckpt, meldec_model=str(root / "run"))
+        ids, puncts = engine.text2phonemeids(TEXT)
+        dur = np.full(len(ids), FRAMES_PER_PHONE, dtype=np.int32)
+        zero_counts()
+        spk = engine.speaker_embed(refwav)
+        wav, _, n, _ = engine.tts_ex(TEXT, spk, duration=dur)
+        torch.cuda.synchronize()
+        at = widths_launched()
+        want = {"fused_mrf": {128: 1}, "fused_upsample_stage": {"128x64": 1, "64x32": 1},
+                "fused_resblock1": {}}
+        check(at == want and bool(np.isfinite(wav).all()),
+              f"trained vocoder's tts_ex launched {at}; finite {bool(np.isfinite(wav).all())}")
+        mel_b = engine._decode(engine._encode(ids, puncts, spk, dur)[0], spk,
+                               pick_bucket(int(dur.sum()), MEL_BUCKETS))
+        w_k = engine._vocode(mel_b)
+        engine._meldec.generator.use_pallas = False
+        w_m = engine._vocode(mel_b)
+        trained_err, trained_peak = (w_k - w_m).abs().max().item(), w_m.abs().max().item()
+        check(trained_err < WAV_TOL * min(trained_peak, 1.0),
+              f"trained vocoder: kernels against nn.Modules {trained_err} (peak {trained_peak})")
+        res.update(trained_launches=at, trained_err=trained_err, trained_peak=trained_peak)
+        del engine
+    torch.cuda.empty_cache()
+    print(json.dumps({"gan_phase": {k: v for k, v in res.items() if k != "losses"}}), flush=True)
+    return res
+
+
 def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
     """torch.profiler over `calls` calls of fn: device time by kernel, the
-    device's busy share of the window and K4's device time, the table
-    written to out/profile_<label>.txt."""
+    device's busy share of the window (the union of the kernels' and
+    copies' intervals) and K4's device time, the table written to
+    out/profile_<label>.txt."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2031,21 +2480,34 @@ def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
 
-    # device activity (kernels and copies; one stream, so they do not overlap)
+    # device activity (kernels and copies); the busy time is the union of
+    # their intervals in the trace (cuDNN's training convolutions overlap)
     dev_events = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
                   and not e.is_user_annotation]
-    busy_s = sum(e.self_device_time_total for e in dev_events) / 1e6
+    summed_s = sum(e.self_device_time_total for e in dev_events) / 1e6
+    out.mkdir(parents=True, exist_ok=True)
+    trace = out / f"trace_{label}.json"
+    prof.export_chrome_trace(str(trace))
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0))
+                   for e in json.loads(trace.read_text())["traceEvents"]
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    trace.unlink()
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy_s = busy_us / 1e6
     k4_s = sum(e.self_device_time_total for e in dev_events
                if kernel_family(e.key).startswith("K4")) / 1e6
     families: dict[str, float] = {}
     for e in dev_events:
         fam = kernel_family(e.key)
         families[fam] = families.get(fam, 0.0) + e.self_device_time_total / 1e3 / calls
-    out.mkdir(parents=True, exist_ok=True)
     table = avgs.table(sort_by="self_cuda_time_total", row_limit=40)
     (out / f"profile_{label}.txt").write_text(f"{card_line()}\n{table}\n")
     res = {"label": label, "calls": calls, "wall_ms": 1e3 * wall, "device_busy_ms": 1e3 * busy_s,
-           "device_busy_share": busy_s / wall, "k4_device_ms": 1e3 * k4_s,
+           "device_busy_share": busy_s / wall, "device_kernel_ms_summed": 1e3 * summed_s,
+           "k4_device_ms": 1e3 * k4_s,
            "device_ms_per_call_by_family": dict(sorted(families.items(), key=lambda kv: -kv[1]))}
     print(json.dumps({"profile": res}), flush=True)
     return res
@@ -2103,6 +2565,7 @@ def main() -> None:
     print(f"text: {n_phones} phones x {FRAMES_PER_PHONE} = {n_frames} frames, mel bucket {bucket}")
     rows = kernel_phase(torch, dev, hcfg, bucket)
     rows += resblock_phase(torch, dev, single_tower_hifigan(), bucket)
+    rows += narrow_kernel_rows(torch, dev, bucket)
     rows += se_conv_phase(torch, dev)
 
     # ---- 4. the main path at full width
@@ -2280,6 +2743,25 @@ def main() -> None:
             row["launches"] = bf["main"]["launches"][key]
         elif key == "fused_resblock1_bf16":
             row["launches"] = bf["styletts"]["launches"][key]
+
+    # ---- 16. narrow vocoders on the main path: HiFi-GAN V2, a 256-channel single tower
+    phase("narrow vocoders")
+    nar = narrow_phase(torch, card, refwav, sr, profile_dir)
+    for row in rows:
+        if "@" not in row["name"]:
+            continue
+        base, width = row["name"].split("@")
+        kernel = base.removesuffix("+post").removesuffix("_bf16")
+        path = nar["single_tower_256" if kernel == "fused_resblock1" else "hifigan_v2"]
+        counts = path["bf16_launches_per_tts_ex"] if "_bf16" in base else path["launches"]
+        row["launches"] = counts[kernel + ("_bf16" if "_bf16" in base else "")]
+        key = width if "x" in width else int(width)
+        row["launches_at_width"] = path["launches_at"][kernel].get(key, 0) \
+            if "_bf16" not in base else None
+
+    # ---- 17. vocoder GAN training at full width; PQMF, Griffin-Lim; the trained vocoder served
+    phase("vocoder training")
+    gan_phase(torch, dev, card, refwav, profile_dir)
 
     # ---- results
     print(card)

@@ -2,21 +2,25 @@
 """Kernel K3's layout choices on the card: `zerovox_tpu_torch/csrc/resblock.cu`
 built with its two layout constants set to each candidate, checked against
 `resblock1_plain` and timed in turns (CUDA events) at the single-tower
-vocoder's three stage shapes (mel bucket 689; k 3, dilations 1,3,5).
+vocoder's three stage shapes (mel bucket 689; k 3, dilations 1,3,5) and at
+the narrow widths C = 16 and 8 (a 256-channel single-tower vocoder's last
+stage, HiFi-GAN V2's).
 
     python3 scripts/bench_k3_variants.py [--parent DIR]
 
-Variants (STAGE_MAX_C, WARPS_C32):
+Variants (STAGE_MAX_C, the warps of a block at C <= 32: WARPS_C32, WARPS_C16 and
+WARPS_C8 all set to it):
 
-  source      (32, 8)   the layout the source takes
+  source      (32, *)   the layouts the source takes (8, 16 and 4 warps at C = 32, 16, 8)
   l2          (0, 16)   B fragments from L2 at every width, as K1 reads them
   staged      (64, 16)  each conv's weights split once into shared memory at C <= 64
-  staged_w8   (64, 8)   as staged, C=32 in blocks of 8 warps, 2 an SM
-  staged_w4   (64, 4)   as staged, C=32 in blocks of 4 warps, 4 an SM
-  l2_w8       (0, 8)    as l2, C=32 in blocks of 8 warps
+  staged_w8   (64, 8)   as staged, C <= 32 in blocks of 8 warps, 2 an SM
+  staged_w4   (64, 4)   as staged, C <= 32 in blocks of 4 warps, 4 an SM
+  l2_w8       (0, 8)    as l2, C <= 32 in blocks of 8 warps
 
 `--parent DIR` also builds DIR's resblock.cu (a checkout of an earlier
-commit) and times it beside them on its own weight layout. Every
+commit) and times it beside them on its own weight layout, at the widths
+it was built for (`--parent-widths`, default 32 64 128). Every
 tensor-core variant must give the same bits (they differ only in where B
 comes from and which warp runs an item); each is held within 5e-4 of the
 plain version. Prints the card's name and power limit, ptxas's register
@@ -35,9 +39,10 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-VARIANTS = {"source": (32, 8), "l2": (0, 16), "staged": (64, 16), "staged_w8": (64, 8),
+VARIANTS = {"source": None, "l2": (0, 16), "staged": (64, 16), "staged_w8": (64, 8),
             "staged_w4": (64, 4), "l2_w8": (0, 8)}
-SHAPES = ((44096, 128), (88192, 64), (176384, 32))  # stages 1-3 at mel bucket 689
+# stages 1-3 at mel bucket 689, then C = 16 and 8 at bucket 689's last two stage lengths
+SHAPES = ((44096, 128), (88192, 64), (176384, 32), (88192, 16), (176384, 8))
 DILS = (1, 3, 5)
 TOL = 5e-4
 
@@ -45,11 +50,16 @@ TOL = 5e-4
 def build(tmp: Path, _cuda, parent: Path | None) -> tuple[dict, dict]:
     src = (_cuda.CSRC / "resblock.cu").read_text()
     sources = {}
-    for name, (stage_max_c, warps) in VARIANTS.items():
+    for name, layout in VARIANTS.items():
+        if layout is None:
+            sources[name] = (src, _cuda.CSRC)
+            continue
+        stage_max_c, warps = layout
         text, n1 = re.subn(r"constexpr int STAGE_MAX_C = \d+;", f"constexpr int STAGE_MAX_C = {stage_max_c};", src)
-        text, n2 = re.subn(r"constexpr int WARPS_C32 = \d+;", f"constexpr int WARPS_C32 = {warps};", text)
-        if n1 != 1 or n2 != 1:
-            raise RuntimeError("resblock.cu no longer holds STAGE_MAX_C and WARPS_C32 once each")
+        text, n2 = re.subn(r"constexpr int (WARPS_C32|WARPS_C16|WARPS_C8) = \d+;",
+                           rf"constexpr int \1 = {warps};", text)
+        if n1 != 1 or n2 != 3:
+            raise RuntimeError("resblock.cu no longer holds STAGE_MAX_C and WARPS_C32/C16/C8 once each")
         sources[name] = (text, _cuda.CSRC)
     if parent is not None:
         csrc = parent / "zerovox_tpu_torch" / "csrc"
@@ -82,6 +92,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--parent-widths", type=int, nargs="+", default=[32, 64, 128])
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -118,6 +129,7 @@ def main() -> None:
         flat_b = torch.cat([tw[1].reshape(-1), tw[3].reshape(-1)])
         ref = resblock1_plain(x, *tw, DILS)
         outs = {}
+        names = [n for n in libs if n != "parent" or C in args.parent_widths]
 
         def call(name, out):
             w, b = (flat_w, flat_b) if name == "parent" else (packed.w, packed.b)
@@ -126,7 +138,7 @@ def main() -> None:
             if err != 0:
                 raise RuntimeError(f"{name}: CUDA error {err} at [1,{T},{C}]")
 
-        for name in libs:
+        for name in names:
             out = torch.empty_like(x)
             call(name, out)
             torch.cuda.synchronize()
@@ -134,9 +146,9 @@ def main() -> None:
         errs = {name: (o - ref).abs().max().item() for name, o in outs.items()}
         bitwise = {name: torch.equal(o, outs["source"]) for name, o in outs.items() if name != "parent"}
         tiles = {name: libs[name].zv_resblock1_tile(1, T, C, k, P, *DILS)
-                 for name in libs if name != "parent"}
-        order = list(libs) + list(libs)[::-1]
-        times = {name: [] for name in libs}
+                 for name in names if name != "parent"}
+        order = names + names[::-1]
+        times = {name: [] for name in names}
         for name in order:
             out = outs[name]
             times[name].append(cuda_time_ms(lambda: call(name, out), iters=args.iters, warmup=2))

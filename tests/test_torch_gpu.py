@@ -61,9 +61,11 @@ def _stage_inputs(rng, dev, B, T_in, C_in, C_out, post):
 
 
 # T below the 60-row halo and below one tile, off the tile grid, and the
-# streaming window's stage-1 length (96 + 2 x 38 frames x 64)
+# streaming window's stage-1 length (96 + 2 x 38 frames x 64); C = 16 and 8
+# are the narrow widths (HiFi-GAN V2's last stages)
 @pytest.mark.parametrize("C,T", [(128, 5), (128, 37), (128, 101), (128, 1000), (128, 11008),
-                                 (64, 333), (64, 2049), (32, 77), (32, 5000)])
+                                 (64, 333), (64, 2049), (32, 77), (32, 5000), (16, 41),
+                                 (16, 9000), (8, 7), (8, 20000)])
 @pytest.mark.parametrize("B", [1, 2])
 def test_mrf_kernel_matches_plain(cuda, C, T, B):
     rng = np.random.default_rng(C + T + B)
@@ -155,12 +157,14 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         fused_mrf(torch.zeros(1, 50, 48, device=cuda), mrf, DILS, KS)
     with pytest.raises(ValueError):  # weights on the CPU
         fused_mrf(x, pack_towers([tuple(t.cpu() for t in tw) for tw in towers]), DILS, KS)
-    with pytest.raises(ValueError):  # (C_in, C_out) not instantiated
-        up = pack_upsampler(torch.zeros(4, 64, 64, device=cuda), torch.zeros(64, device=cuda), 2)
-        fused_upsample_stage(x, up, 1, mrf, DILS, KS)
+    with pytest.raises(ValueError):  # (C_in, C_out) wider than every instantiated pair
+        up = pack_upsampler(torch.zeros(4, 64, 128, device=cuda), torch.zeros(128, device=cuda), 2)
+        fused_upsample_stage(x, up, 1, pack_towers(_to(cuda, _towers(rng, 128))), DILS, KS)
+    with pytest.raises(ValueError):  # C wider than every instantiated width
+        fused_mrf(torch.zeros(1, 50, 256, device=cuda), mrf, DILS, KS)
 
 
-@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("C", [8, 16, 32, 64, 128])
 @pytest.mark.parametrize("B", [1, 2, 4, 8])
 @pytest.mark.parametrize("T", [5, 23, 176, 1001, 44096])  # below the halo (12) up to stage 1's length
 def test_resblock_kernel_matches_plain(cuda, C, B, T):
@@ -195,7 +199,7 @@ def test_resblock_kernel_takes_packed_weights(cuda):
     assert torch.equal(got, fused_resblock1(x, *tower, DILS))
 
 
-@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("C", [8, 16, 32, 64, 128])
 def test_resblock_kernel_is_bitwise_repeatable(cuda, C):
     rng = np.random.default_rng(C)
     x = torch.tensor(rng.normal(size=(2, 5000, C)).astype(np.float32)).to(cuda)
@@ -212,7 +216,7 @@ def test_resblock_kernel_tiles(cuda):
 
     tile = _cuda.lib("resblock").zv_resblock1_tile
     for B, T, C in ((1, 44096, 128), (1, 88192, 64), (1, 176384, 32), (8, 44096, 128), (1, 5, 32),
-                    (4, 176384, 32)):
+                    (4, 176384, 32), (1, 88192, 16), (1, 176384, 8), (4, 5, 8)):
         for k, dils in ((3, (1, 3, 5)), (5, (1, 3, 5)), (7, (2, 0, 0))):
             tt = tile(B, T, C, k, sum(d > 0 for d in dils), *dils)
             assert 16 <= tt <= max(T, 16) + 3 and tt % 4 == 0, (B, T, C, k, tt)
@@ -229,8 +233,11 @@ def test_resblock_kernel_rejects_what_it_does_not_take(cuda):
         fused_resblock1(x.double(), *tower, DILS)
     with pytest.raises(ValueError):  # not contiguous
         fused_resblock1(torch.zeros(1, 64, 50, device=cuda).transpose(1, 2), *tower, DILS)
-    with pytest.raises(ValueError):  # C not 32, 64 or 128
+    with pytest.raises(ValueError):  # x of another width than the tower's weights
         fused_resblock1(torch.zeros(1, 50, 48, device=cuda), *tower, DILS)
+    wide = _to(cuda, _towers(rng, 256, ks=(3,)))[0]
+    with pytest.raises(ValueError):  # C wider than every instantiated width
+        fused_resblock1(torch.zeros(1, 50, 256, device=cuda), *wide, DILS)
     with pytest.raises(ValueError):  # one dilation per pair
         fused_resblock1(x, *tower, (1, 3))
     even = _to(cuda, _towers(rng, 64, ks=(4,)))[0]
@@ -245,6 +252,83 @@ def test_resblock_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # packed buffers of a tower of another width
         fused_resblock1(x, *tower, DILS, packed=pack_towers([other]))
     assert fused_resblock1.launches == n0
+
+
+def test_kernel_tiles_at_the_narrow_widths(cuda):
+    """K1 at C = 16 and 8 and K2 at (16, 8) with and without conv_post take
+    a tile like the wider widths; the bf16 K3 too."""
+    from zerovox_tpu_torch.ops import _cuda
+
+    tower = [3, 3, 7, 11, 3, 1, 3, 5]
+    for B, T, C in ((1, 88192, 16), (1, 176384, 8), (4, 9, 8), (2, 44096, 16)):
+        tt = _cuda.lib("mrf").zv_mrf_tile(B, T, C, *tower)
+        assert 16 <= tt <= max(T, 16) + 3 and tt % 4 == 0, (B, T, C, tt)
+    for B, T_in, post_k in ((1, 88192, 7), (1, 88192, 0), (2, 7, 7)):
+        tt = _cuda.lib("upsample_stage").zv_upsample_stage_tile(B, T_in, 16, 8, 4, 2, 1, post_k,
+                                                                *tower)
+        assert 16 <= tt <= max(2 * T_in, 16) + 3 and tt % 4 == 0, (B, T_in, post_k, tt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_padded_widths(cuda, dtype):
+    """A width between the instantiated ones runs zero-padded to the next:
+    K1 at C = 24 and 48, K3 at 24 and 12, K2 at (24, 12) with and without
+    conv_post and at (8, 4) with it, each against its plain version (5e-4
+    in float32, one bf16 step in bf16), the output cut back to C."""
+    rng = np.random.default_rng(24)
+    bf = dtype == torch.bfloat16
+
+    def close(got, ref):
+        assert got.shape == ref.shape and got.dtype == ref.dtype and got.is_contiguous()
+        bound = bf16_step(ref.float()) if bf else TOL
+        assert torch.max(torch.abs(got.float() - ref.float())).item() <= bound
+
+    for C in (24, 48):
+        x = torch.tensor(rng.normal(size=(1, 1111, C)).astype(np.float32)).to(cuda).to(dtype)
+        towers = [tuple(t.to(dtype) for t in tw) for tw in _to(cuda, _towers(rng, C))]
+        n0 = fused_mrf.launches_at.get(32 if C == 24 else 64, 0)
+        close(fused_mrf(x, pack_towers(towers), DILS, KS), mrf_plain(x, towers, DILS))
+        assert fused_mrf.launches_at[32 if C == 24 else 64] == n0 + 1
+    for C in (24, 12):
+        x = torch.tensor(rng.normal(size=(2, 999, C)).astype(np.float32)).to(cuda).to(dtype)
+        tower = tuple(t.to(dtype) for t in _to(cuda, _towers(rng, C, ks=(3,)))[0])
+        close(fused_resblock1(x, *tower, DILS), resblock1_plain(x, *tower, DILS))
+    for C_in, C_out, post in ((24, 12, False), (24, 12, True), (8, 4, True)):
+        x, up, towers, p = _stage_inputs(rng, cuda, 1, 333, C_in, C_out, post)
+        x, towers = x.to(dtype), [tuple(t.to(dtype) for t in tw) for tw in towers]
+        up = pack_upsampler(up.w.to(dtype), up.b.to(dtype), 2)
+        p = tuple(t.to(dtype) for t in p) if post else None
+        close(fused_upsample_stage(x, up, 1, pack_towers(towers), DILS, KS, post=p),
+              upsample_stage_plain(x, up.w, up.b, 2, 1, towers, DILS, post=p))
+
+
+def test_narrow_vocoders_on_card_match_cpu(cuda):
+    """HiFi-GAN V2's widths (128 initial channels, rates 8,8,2,2: K1 at 64
+    and 32, K2 at (32, 16) and (16, 8) with conv_post) and a 256-channel
+    single-tower vocoder (K3 at 128, 64, 32 and 16) run every stage on its
+    kernel, within 1e-3 of the same weights' nn.Modules on the CPU."""
+    from zerovox_tpu_torch.models.hifigan import Generator, HifiGanConfig
+
+    v2 = HifiGanConfig(upsample_initial_channel=128, upsample_kernel_sizes=(16, 16, 4, 4))
+    single = HifiGanConfig(upsample_initial_channel=256, resblock_kernel_sizes=(3,),
+                           resblock_dilation_sizes=((1, 3, 5),))
+    mel = torch.tensor(np.random.default_rng(9).normal(size=(1, 40, 80)).astype(np.float32))
+    for cfg, want in ((v2, {"mrf": {64: 1, 32: 1}, "up": {(32, 16): 1, (16, 8): 1}}),
+                      (single, {"res": {128: 1, 64: 1, 32: 1, 16: 1}})):
+        torch.manual_seed(0)
+        plain = Generator(cfg).eval()
+        gen = Generator(cfg, use_pallas=True).to(cuda).eval()
+        gen.load_state_dict(plain.state_dict())
+        before = [dict(f.launches_at) for f in (fused_mrf, fused_upsample_stage, fused_resblock1)]
+        with torch.inference_mode():
+            got = gen(mel.to(cuda)).cpu()
+            ref = plain(mel)
+        after = [f.launches_at for f in (fused_mrf, fused_upsample_stage, fused_resblock1)]
+        ran = {name: {w: n - b.get(w, 0) for w, n in a.items() if n != b.get(w, 0)}
+               for name, b, a in zip(("mrf", "up", "res"), before, after)}
+        assert {k: v for k, v in ran.items() if v} == want
+        assert got.shape == ref.shape == (1, 40 * 256)
+        assert torch.max(torch.abs(got - ref)).item() < 1e-3
 
 
 def test_kernel_routes_refuse_autograd_on_the_card(cuda):
@@ -626,7 +710,8 @@ def _check_bf16(got, f32, ref):
     assert torch.max(torch.abs(got.float() - ref.float())).item() <= bf16_step(ref.float())
 
 
-@pytest.mark.parametrize("C,T", [(128, 37), (128, 11008), (64, 2049), (32, 5000)])
+@pytest.mark.parametrize("C,T", [(128, 37), (128, 11008), (64, 2049), (32, 5000), (16, 9000),
+                                 (8, 20000)])
 @pytest.mark.parametrize("B", [1, 2])
 def test_mrf_bf16_kernel_is_the_f32_kernel_rounded(cuda, C, T, B):
     rng = np.random.default_rng(C + T + B + 1)
@@ -671,7 +756,7 @@ def test_upsample_stage_bf16_kernel_is_the_f32_kernel_rounded(cuda, widths, T_in
     _check_bf16(got, f32, ref)
 
 
-@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("C", [8, 16, 32, 64, 128])
 @pytest.mark.parametrize("B,T", [(1, 23), (1, 44096), (2, 1001), (4, 176)])
 def test_resblock_bf16_kernel_is_the_f32_kernel_rounded(cuda, C, B, T):
     rng = np.random.default_rng(C + B + T + 1)
@@ -713,7 +798,7 @@ def test_bf16_kernels_reject_what_they_do_not_take(cuda):
                         *tower, DILS)
     from zerovox_tpu_torch.ops import _cuda
 
-    for C in (32, 64, 128):
+    for C in (8, 16, 32, 64, 128):
         tt = _cuda.lib("resblock").zv_resblock1_bf16_tile(1, 44096, C, 3, 3, *DILS)
         assert 16 <= tt and tt % 4 == 0
 
@@ -910,3 +995,40 @@ def test_server_on_card_matches_direct_tts_batch(cuda):
             assert np.max(np.abs(pcm / 32767.0 - wav)) <= 1e-3 + 1.0 / 32767
     finally:
         srv.shutdown_serving()
+
+
+# ------------------------------------------------------ vocoder GAN training
+
+def test_gan_round_on_card_matches_cpu(cuda, tmp_path):
+    """One GAN round at tiny widths (32 initial channels, MPD 2,3, MSD x 2,
+    batch 2, 8-frame segments) from the same weights and batch: losses
+    within 1e-4 relative of a float64 run on the CPU, the discriminators'
+    and generator's gradients within 1e-3 x each tensor's max; no fused
+    kernel launched. The reference is float64 because torch's float32 CPU
+    convolutions are the less accurate side here: on this batch they put
+    the weight gradient of MSD's last conv 2.0e-3 x its max from float64,
+    the card's cuDNN 2.5e-6 (measured on an H100)."""
+    from zerovox_tpu_torch.dsp.audio import save_wav
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.training.vocoder import (VocoderDataConfig, VocoderDataset,
+                                                    VocoderTrainerConfig, card_round_gap)
+
+    rng = np.random.default_rng(12)
+    (tmp_path / "wavs").mkdir()
+    (tmp_path / "mel").mkdir()
+    for i in range(2):
+        wav = (0.3 * np.sin(2 * np.pi * (150 + 60 * i) * np.arange(20 * 256) / 22050)
+               + 0.02 * rng.normal(size=20 * 256)).astype(np.float32)
+        save_wav(tmp_path / "wavs" / f"u{i}.wav", wav, 22050)
+        np.save(tmp_path / "mel" / f"mel-u{i}.npy", rng.normal(size=(20, 80)).astype(np.float32))
+    (tmp_path / "train.txt").write_text("u0.wav|x\nu1.wav|x\n")
+    gcfg = HifiGanConfig(upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+                         resblock_dilation_sizes=((1, 3),))
+    dcfg = VocoderDataConfig(segment_frames=8)
+    batch = next(VocoderDataset([str(tmp_path)], dcfg, seed=0).batches(2))
+    n0 = (fused_mrf.launches, fused_upsample_stage.launches, fused_resblock1.launches)
+    loss_rel, grad_rel = card_round_gap(
+        gcfg, dcfg, VocoderTrainerConfig(batch_size=2, mpd_periods=(2, 3), msd_scales=2), batch,
+        seed=3, device="cuda")
+    assert (fused_mrf.launches, fused_upsample_stage.launches, fused_resblock1.launches) == n0
+    assert loss_rel <= 1e-4 and grad_rel <= 1e-3, (loss_rel, grad_rel)

@@ -31,6 +31,8 @@ def test_imports_with_jax_and_jax_package_blocked():
         "import zerovox_tpu_torch.cli.serve, zerovox_tpu_torch.cli.demo\n"
         "import zerovox_tpu_torch.training.checkpointing, zerovox_tpu_torch.utils.msgpack_codec\n"
         "import zerovox_tpu_torch.cli.train, zerovox_tpu_torch.training.data\n"
+        "import zerovox_tpu_torch.training.vocoder, zerovox_tpu_torch.cli.train_vocoder\n"
+        "import zerovox_tpu_torch.ops.pqmf, zerovox_tpu_torch.dsp.griffinlim\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'msgpack', 'yaml'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
@@ -68,3 +70,15 @@ def test_trainer_needs_a_card_unless_told_cpu(monkeypatch):
         Trainer(ZeroVoxConfig(), TrainerConfig(), steps_per_epoch=1)
     assert Trainer(ZeroVoxConfig(), TrainerConfig(), steps_per_epoch=1,
                    device="cpu").device.type == "cpu"
+
+
+def test_vocoder_trainer_needs_a_card_unless_told_cpu(monkeypatch):
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.training.vocoder import (VocoderDataConfig, VocoderTrainer,
+                                                    VocoderTrainerConfig)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = (HifiGanConfig(), VocoderDataConfig(), VocoderTrainerConfig(), 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VocoderTrainer(*args)
+    assert VocoderTrainer(*args, device="cpu").device.type == "cpu"

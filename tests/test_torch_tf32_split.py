@@ -186,7 +186,8 @@ def test_bf16_values_are_their_own_tf32_hi():
     assert torch.equal(first, want[0::2]) and torch.equal(second, want[1::2])
 
 
-@pytest.mark.parametrize("k,ci,co", [(3, 128, 128), (4, 128, 64), (11, 32, 32), (4, 32, 16)])
+@pytest.mark.parametrize("k,ci,co", [(3, 128, 128), (4, 128, 64), (11, 32, 32), (4, 32, 16),
+                                     (7, 16, 16), (3, 8, 8), (4, 16, 8)])
 def test_fragment_order_reads_back_the_taps(k, ci, co):
     from zerovox_tpu_torch.ops.mrf import mma_fragments
 
@@ -194,7 +195,7 @@ def test_fragment_order_reads_back_the_taps(k, ci, co):
     assert torch.equal(unfragment(mma_fragments(w), k, ci, co), w)
 
 
-@pytest.mark.parametrize("C,T", [(128, 37), (64, 80), (32, 101)])
+@pytest.mark.parametrize("C,T", [(128, 37), (64, 80), (32, 101), (16, 90), (8, 130)])
 def test_emulated_mrf_matches_plain_and_jax(C, T):
     rng = np.random.default_rng(C + T)
     x = _r(rng, 1, T, C, scale=1.0)
@@ -217,7 +218,8 @@ def test_emulated_mrf_batch_and_other_towers():
 
 
 @pytest.mark.parametrize("C,k,dils,T", [(128, 3, DILS, 37), (64, 3, DILS, 80), (32, 3, DILS, 101),
-                                       (64, 5, DILS, 50), (32, 5, (1, 3), 40)])
+                                       (64, 5, DILS, 50), (32, 5, (1, 3), 40), (16, 3, DILS, 77),
+                                       (8, 3, DILS, 120)])
 def test_emulated_resblock_matches_plain_and_jax(C, k, dils, T):
     """K3: one tower's convs in 3xTF32, the weights read back from the
     one-tower fragment buffer (`pack_towers([tower])`) by the kernel's
@@ -237,7 +239,7 @@ def test_emulated_resblock_matches_plain_and_jax(C, k, dils, T):
     assert np.max(np.abs(got.numpy() - np.asarray(want))) < TOL
 
 
-@pytest.mark.parametrize("widths", [(128, 64), (64, 32), (32, 16)])
+@pytest.mark.parametrize("widths", [(128, 64), (64, 32), (32, 16), (16, 8)])
 @pytest.mark.parametrize("post", [False, True])
 def test_emulated_upsample_stage_matches_plain_and_jax(widths, post):
     C_in, C_out = widths
@@ -289,3 +291,45 @@ def test_single_pass_tf32_is_outside_the_bound():
     f32 = (mrf_plain(x, towers, DILS).double() - ref).abs().max().item()
     assert three < 10 * f32 + 1e-6 and three < TOL / 10
     assert one > TOL
+
+
+@pytest.mark.parametrize("C,post_widths", [(24, (24, 12)), (12, (8, 4)), (48, (48, 24))])
+def test_emulated_padded_widths_match_plain(C, post_widths):
+    """A width between the instantiated ones: the wrappers zero-pad x and
+    the packers the weights to the next instantiated width (K1/K3: 24 ->
+    32, 12 -> 16, 48 -> 64; K2: (24, 12) -> (32, 16), (8, 4) -> (16, 8),
+    (48, 24) -> (64, 32)). The kernels' arithmetic on the padded buffers,
+    cut back to C, is the plain stage on the unpadded ones."""
+    from zerovox_tpu_torch.ops.mrf import kernel_channels, pad_to
+    from zerovox_tpu_torch.ops.upsample_stage import kernel_widths
+
+    rng = np.random.default_rng(C)
+    Ck = kernel_channels(C)
+    x = _r(rng, 1, 60, C, scale=1.0)
+    towers = _towers(rng, C)
+    packed = pack_towers(towers)
+    assert packed.width == Ck and packed.w.numel() == 2 * 3 * sum(KS) * Ck * Ck
+    got = mrf_tc(pad_to(x, (*x.shape[:-1], Ck)), packed, Ck, DILS, KS)
+    assert torch.all(got[..., C:] == 0)
+    assert torch.max(torch.abs(got[..., :C] - mrf_plain(x, towers, DILS))).item() < TOL
+    one = pack_towers([towers[0]])
+    got = mrf_tc(pad_to(x, (*x.shape[:-1], Ck)), one, Ck, DILS, (3,))[..., :C]
+    assert torch.max(torch.abs(got - resblock1_plain(x, *towers[0], DILS))).item() < TOL
+
+    ci, co = post_widths
+    Ci, Co = kernel_widths(ci, co)
+    xs = _r(rng, 1, 41, ci, scale=1.0)
+    up_w = _r(rng, 4, ci, co, scale=1 / np.sqrt(2 * ci))
+    up_b = _r(rng, co, scale=0.5)
+    tw = _towers(rng, co)
+    p = (_r(rng, 7, co, 1, scale=1 / np.sqrt(7 * co)), _r(rng, 1, scale=0.1))
+    up = pack_upsampler(up_w, up_b, 2)
+    assert up.widths == (Ci, Co) and pack_towers(tw).width == Co
+    up_k = up._replace(w=torch.zeros(4, Ci, Co))  # the emulation reads the taps from up.frag
+    y = upsample_tc(pad_to(xs, (*xs.shape[:-1], Ci)), up_k._replace(b=up.frag_b), 1)
+    got = stage_tc(pad_to(xs, (*xs.shape[:-1], Ci)), up_k._replace(b=up.frag_b), 1, pack_towers(tw), Co,
+                   (torch.nn.functional.pad(p[0], (0, 0, 0, Co - co)), p[1]))
+    plain = upsample_stage_plain(xs, up_w, up_b, 2, 1, tw, DILS, post=p)
+    assert torch.all(y[..., co:] == 0)
+    assert got.shape == plain.shape
+    assert torch.max(torch.abs(got - plain)).item() < TOL

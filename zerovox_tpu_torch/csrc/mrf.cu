@@ -98,6 +98,8 @@ template <class E>
 int launch_c(const E* x, E* out, float* sum, const zv::MrfParamsT<E>& p, int B, int T, int C,
              cudaStream_t s) {
   switch (C) {
+    case 8: return launch<8>(x, out, sum, p, B, T, s);
+    case 16: return launch<16>(x, out, sum, p, B, T, s);
     case 32: return launch<32>(x, out, sum, p, B, T, s);
     case 64: return launch<64>(x, out, sum, p, B, T, s);
     case 128: return launch<128>(x, out, sum, p, B, T, s);
@@ -116,7 +118,7 @@ static int check_args(int n_towers, int n_pairs, int B, int T) {
 
 // x, out [B, T, C]; w: every tower's conv taps in mma fragment order (see
 // mrf_tc.cuh and zv::MrfParams for the order of convs); b: the biases.
-// Returns a cudaError_t; C must be 32, 64 or 128.
+// Returns a cudaError_t; C must be 8, 16, 32, 64 or 128.
 extern "C" int zv_mrf_f32(const float* x, float* out, const float* w, const float* b, int B,
                           int T, int C, int n_towers, int k0, int k1, int k2, int n_pairs,
                           int d0, int d1, int d2, void* stream) {
@@ -145,6 +147,8 @@ extern "C" int zv_mrf_tile(int B, int T, int C, int n_towers, int k0, int k1, in
   zv::MrfParams p{n_towers, {k0, k1, k2}, n_pairs, {d0, d1, d2}, nullptr, nullptr};
   int TT = 0, smem = 0, e = (int)cudaErrorInvalidValue;
   switch (C) {
+    case 8: e = plan<8>(p, B, T, &TT, &smem); break;
+    case 16: e = plan<16>(p, B, T, &TT, &smem); break;
     case 32: e = plan<32>(p, B, T, &TT, &smem); break;
     case 64: e = plan<64>(p, B, T, &TT, &smem); break;
     case 128: e = plan<128>(p, B, T, &TT, &smem); break;

@@ -29,17 +29,26 @@
 //     C=64 the staged 98 KB cut the tile from 224 to 168 rows and it was
 //     4 % slower; C=128's 196 KB a conv do not fit beside a tile. Those
 //     widths read B from L2 as K1 does;
-//   * at C=32 a block has WARPS_C32 = 8 warps, 2 blocks an SM (16 warps an
-//     SM either way): a 32-row item has only 12 k-steps at k=3, and smaller
-//     blocks leave fewer warps idle in a conv's last round (4 % faster than
-//     16; 4 warps, 4 blocks an SM, was 27 % slower).
-// The tile is zv::tc::choose_tile's, with towers_cost over one tower.
+//   * at C=32 a block has WARPS_C32 = 8 warps, 2 blocks an SM (16 warps
+//     an SM either way): a 32-row item has only 12 k-steps at k=3, and
+//     smaller blocks leave fewer warps idle in a conv's last round (4 %
+//     faster than 16; 4 warps, 4 blocks an SM, was 27 % slower).
+//   * C = 16 and 8 (a 256-channel single-tower vocoder's last stage, and
+//     narrower) stage their weights too (3 KB and 0.8 KB a conv at k=3). At
+//     C=16 blocks of WARPS_C16 = 16 warps were 11 % faster than 8; at C=8
+//     blocks of WARPS_C8 = 4 warps, 4 an SM, 20 % faster than 8 (its 224-
+//     row tile has 7 items a conv: 4-warp blocks leave fewer warps idle).
+//     Measured at bucket 689's [1, 88192, 16] and [1, 176384, 8] by
+//     bench_k3_variants.py (PERF.md).
+// Every instantiated width names its layout in `Layout` below; a width
+// without one does not compile. The tile is zv::tc::choose_tile's, with
+// towers_cost over one tower.
 //
 // bf16 (zv_resblock1_bf16): the same tile on bf16 x and weights (x widened
 // at the load, B fragments of two bf16 read from L2 at every width, two MMAs
 // a product), the tower's output rounded to bf16 when it is stored: bitwise
 // the float32 kernel on the widened inputs, rounded. Staging bf16 weights
-// at C=32 is not done yet (the layout bench_k3_variants.py measured is the
+// at C <= 32 is not done yet (the layout bench_k3_variants.py measured is the
 // float32 one).
 #include <type_traits>
 
@@ -48,7 +57,19 @@
 namespace {
 
 constexpr int STAGE_MAX_C = 32;  // widths whose conv weights are staged in shared memory (float32)
-constexpr int WARPS_C32 = 8;     // warps of a block at C = 32 (16 at C = 64, 128)
+constexpr int WARPS_C32 = 8;     // warps of a block at C = 32
+constexpr int WARPS_C16 = 16;    // at C = 16
+constexpr int WARPS_C8 = 4;      // at C = 8 (16 at C = 64, 128)
+
+// K3's layout at each instantiated width: warps a block, and whether the
+// float32 weights are staged (where they fit in half of a block's share).
+template <int C>
+struct Layout {
+  static_assert(C == 8 || C == 16 || C == 32 || C == 64 || C == 128,
+                "K3 has no layout for this width");
+  static constexpr int warps = C == 8 ? WARPS_C8 : C == 16 ? WARPS_C16 : C == 32 ? WARPS_C32 : 16;
+  static constexpr bool stage = C <= STAGE_MAX_C;
+};
 
 template <class E>
 using KernelFn = void (*)(const E*, E*, zv::MrfParamsT<E>, int, int, int);
@@ -132,12 +153,12 @@ int plan_as(const zv::MrfParamsT<E>& p, int B, int T, Plan<E>* pl) {
   return pl->TT == 0 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
-// The layout K3 takes at C: float32 weights staged where they fit in half
-// of a block's shared memory, else B from L2.
+// The layout K3 takes at C (Layout<C>): float32 weights staged where they
+// fit in half of a block's shared memory, else B from L2.
 template <int C, class E>
 int plan(const zv::MrfParamsT<E>& p, int B, int T, Plan<E>* pl) {
-  constexpr int NW = C == 32 ? WARPS_C32 : 16;
-  if constexpr (C <= STAGE_MAX_C && std::is_same_v<E, float>) {
+  constexpr int NW = Layout<C>::warps;
+  if constexpr (Layout<C>::stage && std::is_same_v<E, float>) {
     const long budget = (zv::SMEM_BUDGET + 1024L) / (16 / NW) - 1024;
     if (2 * 8L * p.ks[0] * C * C <= budget) return plan_as<C, NW, true>(p, B, T, pl);
   }
@@ -147,6 +168,8 @@ int plan(const zv::MrfParamsT<E>& p, int B, int T, Plan<E>* pl) {
 template <class E>
 int plan_for(int C, const zv::MrfParamsT<E>& p, int B, int T, Plan<E>* pl) {
   switch (C) {
+    case 8: return plan<8>(p, B, T, pl);
+    case 16: return plan<16>(p, B, T, pl);
     case 32: return plan<32>(p, B, T, pl);
     case 64: return plan<64>(p, B, T, pl);
     case 128: return plan<128>(p, B, T, pl);
@@ -189,7 +212,7 @@ int tile(int B, int T, int C, int k, int n_pairs, int d0, int d1, int d2) {
 
 // x, out [B, T, C]; w: w1 [P][k] then w2 [P][k] conv taps in mma fragment
 // order (mrf_tc.cuh); b: b1 [P][C] then b2 [P][C]; d0..d2: the P first-conv
-// dilations. Returns a cudaError_t; C must be 32, 64 or 128, P 1-3, k odd.
+// dilations. Returns a cudaError_t; C must be 8, 16, 32, 64 or 128, P 1-3, k odd.
 extern "C" int zv_resblock1_f32(const float* x, float* out, const float* w, const float* b,
                                 int B, int T, int C, int k, int n_pairs, int d0, int d1, int d2,
                                 void* stream) {
@@ -209,8 +232,8 @@ extern "C" int zv_resblock1_tile(int B, int T, int C, int k, int n_pairs, int d0
   return tile<float>(B, T, C, k, n_pairs, d0, d1, d2);
 }
 
-// The time tile zv_resblock1_bf16 takes (it stages no weights, so at C=32
-// it can differ from zv_resblock1_tile's).
+// The time tile zv_resblock1_bf16 takes (it stages no weights, so at C <=
+// 32 it can differ from zv_resblock1_tile's).
 extern "C" int zv_resblock1_bf16_tile(int B, int T, int C, int k, int n_pairs, int d0, int d1,
                                       int d2) {
   return tile<zv::bf16>(B, T, C, k, n_pairs, d0, d1, d2);

@@ -114,7 +114,9 @@ stage_kernel(const E* __restrict__ x, E* out, float* sum, const E* __restrict__ 
                        zv::tc::TileOut<E>{post_k > 0 ? nullptr : out, acc, 0.01f, sum}, load);
   if (post_k == 0) return;
 
-  // acc holds leaky(mean, 0.01) for window rows [HW - P, HW + TT + P)
+  // acc holds leaky(mean, 0.01) for window rows [HW - P, HW + TT + P); a
+  // warp reduces one sample, lane l over channels l, l + 32, ... (at C_out
+  // of 8 and 16 the lanes past C_out add nothing)
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const float pb = zv::ldg1(post_b);
   for (int r = HW + warp; r < HW + TT; r += NT / 32) {
@@ -204,6 +206,9 @@ int launch_widths(const E* x, E* out, float* sum, const E* up_w, const E* up_b,
   if (C_in == 32 && C_out == 16)
     return launch<32, 16>(x, out, sum, up_w, up_b, p, post_w, post_b, B, T_in, T_out, up_k,
                           stride, up_pad, post_k, s);
+  if (C_in == 16 && C_out == 8)
+    return launch<16, 8>(x, out, sum, up_w, up_b, p, post_w, post_b, B, T_in, T_out, up_k,
+                         stride, up_pad, post_k, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -225,7 +230,7 @@ static int check_args(int B, int T_in, int up_k, int stride, int up_pad, int pos
 // w, b: the towers' weights and biases as zv_mrf_f32 takes them; post_w
 // [post_k][C_out] and post_b [1] when post_k > 0 (else ignored). out is
 // [B, T_out, C_out], or [B, T_out] with post. Returns a cudaError_t;
-// (C_in, C_out) must be (128, 64), (64, 32) or (32, 16).
+// (C_in, C_out) must be (128, 64), (64, 32), (32, 16) or (16, 8).
 extern "C" int zv_upsample_stage_f32(const float* x, float* out, const float* up_w,
                                      const float* up_b, const float* w, const float* b,
                                      const float* post_w, const float* post_b, int B, int T_in,
@@ -274,5 +279,6 @@ extern "C" int zv_upsample_stage_tile(int B, int T_in, int C_in, int C_out, int 
   if (C_in == 128 && C_out == 64) e = plan<128, 64>(p, B, T_out, up_k, stride, post_k, &pl);
   if (C_in == 64 && C_out == 32) e = plan<64, 32>(p, B, T_out, up_k, stride, post_k, &pl);
   if (C_in == 32 && C_out == 16) e = plan<32, 16>(p, B, T_out, up_k, stride, post_k, &pl);
+  if (C_in == 16 && C_out == 8) e = plan<16, 8>(p, B, T_out, up_k, stride, post_k, &pl);
   return e != 0 ? -e : pl.TT;
 }

@@ -1,4 +1,5 @@
-"""HiFi-GAN vocoder ("meldec") generator.
+"""HiFi-GAN vocoder ("meldec"): the generator, and the discriminators and
+GAN losses its training uses.
 
 The PyTorch counterpart of the JAX package's `models/hifigan.py`: conv_pre
 -> per stage [leaky-relu, ConvTranspose1d upsample, multi-receptive-field
@@ -22,6 +23,13 @@ packages send the same stage to the same kernel:
     averages them;
   * else plain convolutions.
 
+Every stage these rules send to a kernel runs on it, at any width: the
+kernels are built for C of 8, 16, 32, 64 and 128 (K1, K3) and (16, 8) to
+(128, 64) (K2), and a stage between them runs zero-padded to the next, as
+the JAX kernels pad to their 128 lanes (the weights once, in
+`_stage_kernel_params`' cache; the activations per call). HiFi-GAN V2
+(128 channels) takes K1 at 64 and 32 and K2 at (32, 16) and (16, 8).
+
 The two MRF-wide paths need identical dilation schedules across several
 towers (`mrf_fusable`). With the default config (512 channels, rates
 8,8,2,2) stage 0 is plain, stage 1 takes the MRF kernel and stages 2-3 the
@@ -29,6 +37,12 @@ upsample-stage kernel. A single-tower vocoder (or one whose towers'
 dilations differ) runs stages of C <= 128 tower by tower through the
 ResBlock1 kernel. The kernels have no backward: their route raises when
 grad is enabled and the stage's input or a parameter requires grad.
+
+`MultiPeriodDiscriminator`, `MultiScaleDiscriminator` and the LSGAN
+losses are the upstream HiFi-GAN ones, keyed as its state_dict
+(`discriminators.{i}.convs.{j}`, `conv_post`; Conv2d for the period
+discriminators, grouped Conv1d for the scale ones), for
+`training/vocoder.py`.
 
 The Generator runs in the dtype of its parameters: cast to bf16 (the
 engine's bf16 inference), the plain stages run torch's bf16 convolutions and
@@ -176,8 +190,9 @@ class Generator(nn.Module):
 
     def _stage_kernel_params(self, i: int, post: bool, x: torch.Tensor):
         """Kernel-layout weights of stage i (the plain layouts and the
-        kernels' MMA fragment order: all towers for K1/K2, each tower for
-        K3, in the parameters' dtype), rebuilt only when a parameter was
+        kernels' MMA fragment order, zero-padded to the kernel's width: all
+        towers for K1/K2, each tower for K3, in the parameters' dtype),
+        rebuilt only when a parameter was
         replaced or written to (device move, dtype cast, load_state_dict).
         Raises when autograd would need the stage's gradients: the kernels
         have none."""
@@ -266,17 +281,180 @@ class MelDec(nn.Module):
     """Vocoder wrapper carrying the mel normalization stats some upstream
     checkpoints embed (`mean`, `scale`; identity by default). The synthesis
     path calls it with normalize_before=False, as the JAX package does.
-    `use_pallas`, `pallas_all_batches`: the Generator's kernel route."""
+    `use_pallas`, `pallas_all_batches`: the Generator's kernel route.
+    `subbands` > 1: the generator emits that many stacked subband signals,
+    which PQMF synthesis (ops/pqmf.py) recombines into the full-band
+    waveform, as legacy multi-band MelGAN-family vocoders do."""
 
     def __init__(self, cfg: HifiGanConfig, use_pallas: bool = False,
-                 pallas_all_batches: bool = False):
+                 pallas_all_batches: bool = False, subbands: int = 1):
         super().__init__()
         self.cfg = cfg
+        self.subbands = subbands
         self.generator = Generator(cfg, use_pallas, pallas_all_batches)
         self.register_buffer("mean", torch.zeros(cfg.num_mels))
         self.register_buffer("scale", torch.ones(cfg.num_mels))
+        self._pqmf = None
 
     def forward(self, mel, normalize_before: bool = False):
         if normalize_before:
             mel = (mel - self.mean) / self.scale
-        return self.generator(mel)
+        wav = self.generator(mel)
+        if self.subbands > 1:
+            from zerovox_tpu_torch.ops.pqmf import PQMF
+
+            if self._pqmf is None:
+                self._pqmf = PQMF(self.subbands)
+            # stacked subband signals [B, T * S] -> [B, T, S]
+            B, N = wav.shape
+            wav = self._pqmf.synthesis(wav.reshape(B, N // self.subbands, self.subbands))
+        return wav
+
+
+# --------------------------------------------------------------- discriminators
+
+
+class DiscriminatorP(nn.Module):
+    """Period discriminator (upstream HiFi-GAN): the waveform [B, T] folded
+    into [B, 1, T / period, period] (reflect-padded to a multiple of the
+    period), five Conv2d over time and a 3-tap conv_post. Returns (logits
+    [B, -1], the six feature maps in NCHW)."""
+
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3):
+        super().__init__()
+        self.period = period
+        chans = (1, 32, 128, 512, 1024)
+        self.convs = nn.ModuleList(
+            nn.Conv2d(ci, co, (kernel_size, 1), (stride, 1), padding=(get_padding(5, 1), 0))
+            for ci, co in zip(chans, chans[1:]))
+        self.convs.append(nn.Conv2d(1024, 1024, (kernel_size, 1), 1, padding=(2, 0)))
+        self.conv_post = nn.Conv2d(1024, 1, (3, 1), 1, padding=(1, 0))
+
+    def forward(self, x):
+        fmap = []
+        B, t = x.shape
+        if t % self.period != 0:
+            n_pad = self.period - t % self.period
+            x = F.pad(x[:, None], (0, n_pad), mode="reflect")[:, 0]
+            t += n_pad
+        x = x.reshape(B, 1, t // self.period, self.period)
+        for conv in self.convs:
+            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post(x)
+        fmap.append(x)
+        return x.reshape(B, -1), fmap
+
+
+class DiscriminatorS(nn.Module):
+    """Scale discriminator (upstream HiFi-GAN): seven (grouped) Conv1d over
+    the waveform [B, T] and a 3-tap conv_post. Returns (logits [B, -1], the
+    eight feature maps in NCL)."""
+
+    # (out channels, kernel, stride, groups, padding) of each conv
+    SPECS = ((128, 15, 1, 1, 7), (128, 41, 2, 4, 20), (256, 41, 2, 16, 20),
+             (512, 41, 4, 16, 20), (1024, 41, 4, 16, 20), (1024, 41, 1, 16, 20),
+             (1024, 5, 1, 1, 2))
+
+    def __init__(self):
+        super().__init__()
+        ins = (1,) + tuple(sp[0] for sp in self.SPECS[:-1])
+        self.convs = nn.ModuleList(nn.Conv1d(ci, co, k, s, groups=g, padding=p)
+                                   for ci, (co, k, s, g, p) in zip(ins, self.SPECS))
+        self.conv_post = nn.Conv1d(1024, 1, 3, 1, padding=1)
+
+    def forward(self, x):
+        fmap = []
+        y = x[:, None]
+        for conv in self.convs:
+            y = F.leaky_relu(conv(y), LRELU_SLOPE)
+            fmap.append(y)
+        y = self.conv_post(y)
+        fmap.append(y)
+        return y.reshape(y.shape[0], -1), fmap
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    """One DiscriminatorP per period over the real y and the generated
+    y_hat [B, T]: (real logits, fake logits, real fmaps, fake fmaps), one
+    entry per period."""
+
+    def __init__(self, periods: tuple[int, ...] = (2, 3, 5, 7, 11)):
+        super().__init__()
+        self.periods = tuple(periods)
+        self.discriminators = nn.ModuleList(DiscriminatorP(p) for p in self.periods)
+
+    def forward(self, y, y_hat):
+        y_d_rs, y_d_gs, fmap_rs, fmap_gs = [], [], [], []
+        for d in self.discriminators:
+            r, fr = d(y)
+            g, fg = d(y_hat)
+            y_d_rs.append(r)
+            y_d_gs.append(g)
+            fmap_rs.append(fr)
+            fmap_gs.append(fg)
+        return y_d_rs, y_d_gs, fmap_rs, fmap_gs
+
+
+def _avg_pool1d(x):
+    """torch AvgPool1d(4, 2, padding=2) with count_include_pad=True over [B, T]."""
+    return F.avg_pool1d(x[:, None], 4, 2, padding=2, count_include_pad=True)[:, 0]
+
+
+class MultiScaleDiscriminator(nn.Module):
+    """One DiscriminatorS per scale, scale i on the waveforms average-pooled
+    i times; outputs as MultiPeriodDiscriminator's."""
+
+    def __init__(self, num_scales: int = 3):
+        super().__init__()
+        self.discriminators = nn.ModuleList(DiscriminatorS() for _ in range(num_scales))
+
+    def forward(self, y, y_hat):
+        y_d_rs, y_d_gs, fmap_rs, fmap_gs = [], [], [], []
+        for i, d in enumerate(self.discriminators):
+            if i != 0:
+                y, y_hat = _avg_pool1d(y), _avg_pool1d(y_hat)
+            r, fr = d(y)
+            g, fg = d(y_hat)
+            y_d_rs.append(r)
+            y_d_gs.append(g)
+            fmap_rs.append(fr)
+            fmap_gs.append(fg)
+        return y_d_rs, y_d_gs, fmap_rs, fmap_gs
+
+
+# --------------------------------------------------------------------- losses
+
+
+def feature_loss(fmap_r, fmap_g):
+    """2 x the sum over discriminators and layers of mean |real - fake|."""
+    loss = 0.0
+    for dr, dg in zip(fmap_r, fmap_g):
+        for rl, gl in zip(dr, dg):
+            loss = loss + torch.mean(torch.abs(rl - gl))
+    return loss * 2
+
+
+def discriminator_loss(disc_real_outputs, disc_generated_outputs):
+    """LSGAN discriminator loss: sum of mean (1 - real)^2 + mean fake^2;
+    returns (loss, real terms, fake terms)."""
+    loss = 0.0
+    r_losses, g_losses = [], []
+    for dr, dg in zip(disc_real_outputs, disc_generated_outputs):
+        r_loss = torch.mean((1 - dr) ** 2)
+        g_loss = torch.mean(dg ** 2)
+        loss = loss + r_loss + g_loss
+        r_losses.append(r_loss)
+        g_losses.append(g_loss)
+    return loss, r_losses, g_losses
+
+
+def generator_loss(disc_outputs):
+    """LSGAN generator loss: sum of mean (1 - fake)^2; returns (loss, terms)."""
+    loss = 0.0
+    gen_losses = []
+    for dg in disc_outputs:
+        term = torch.mean((1 - dg) ** 2)
+        gen_losses.append(term)
+        loss = loss + term
+    return loss, gen_losses

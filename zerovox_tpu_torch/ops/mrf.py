@@ -19,7 +19,12 @@ output to bf16 once, as the TPU kernel does. The bf16 launches are counted
 apart (`fused_mrf.launches_bf16`).
 
 The weights come packed once per weight version (`pack_towers`): the plain
-layout for the CPU, and the kernel's MMA fragment order. There is no
+layout for the CPU, and the kernel's MMA fragment order. The kernel is
+built for C of 8, 16, 32, 64 and 128 (`KERNEL_CHANNELS`); a stage of
+another width up to 128 runs zero-padded to the next one, as the TPU kernel
+pads to its 128 lanes: `pack_towers` pads the weights once, the wrapper
+pads x per call and cuts the output back (zero channels stay zero through
+every conv, leaky relu and residual). There is no
 fallback: a CUDA tensor the kernel does not take raises, and so does a
 tensor that requires grad while grad is enabled (the kernels have no
 backward), on either device.
@@ -35,7 +40,21 @@ import torch.nn.functional as F
 from zerovox_tpu_torch.ops import _cuda
 
 LRELU_SLOPE = 0.1
-KERNEL_CHANNELS = (32, 64, 128)  # the widths K1 and K3 are instantiated for in their sources
+KERNEL_CHANNELS = (8, 16, 32, 64, 128)  # the widths K1 and K3 are instantiated for in their sources
+
+
+def kernel_channels(C: int) -> int | None:
+    """The width K1 and K3 run a C-channel stage at: the narrowest
+    instantiated width >= C (the stage zero-padded up to it); None past 128."""
+    return next((k for k in KERNEL_CHANNELS if k >= C), None)
+
+
+def pad_to(t, shape):
+    """t zero-padded at the end of each dim up to `shape` (t itself when
+    it has that shape)."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    return F.pad(t, [p for n, m in zip(reversed(shape), reversed(t.shape)) for p in (0, n - m)])
 
 
 def resblock1_ncl(x, convs1, convs2, dilations):
@@ -82,20 +101,23 @@ def refuse_grad(name, *tensors):
                            "nn.Modules (Generator(use_pallas=False))")
 
 
-def check_towers(name, weights, kernel_sizes, n_pairs, C):
+def check_towers(name, weights, kernel_sizes, n_pairs, C, width):
     """Raise unless every tower of `weights` (`pack_towers`) is (w1, b1, w2,
     b2) of shapes [P, k, C, C], [P, C], [P, k, C, C], [P, C], and the flat
-    buffers hold them all: the kernels read the buffers by these shapes."""
+    buffers hold them all padded to `width` channels: the kernels read the
+    buffers by these shapes."""
     for (w1, b1, w2, b2), k in zip(weights.towers, kernel_sizes):
         if (tuple(w1.shape) != (n_pairs, k, C, C) or tuple(w2.shape) != (n_pairs, k, C, C)
                 or tuple(b1.shape) != (n_pairs, C) or tuple(b2.shape) != (n_pairs, C)):
             raise ValueError(f"{name}: tower weights {[tuple(t.shape) for t in (w1, b1, w2, b2)]} "
                              f"do not match C={C}, k={k}, {n_pairs} pairs")
-    n_w = sum(2 * n_pairs * k * C * C for k in kernel_sizes)
-    if (len(weights.towers) != len(kernel_sizes) or weights.w is None or weights.w.numel() != n_w
-            or weights.b.numel() != 2 * n_pairs * C * len(kernel_sizes)):
+    n_w = sum(2 * n_pairs * k * width * width for k in kernel_sizes)
+    if (len(weights.towers) != len(kernel_sizes) or weights.w is None or weights.width != width
+            or weights.w.numel() != n_w
+            or weights.b.numel() != 2 * n_pairs * width * len(kernel_sizes)):
         raise ValueError(f"{name}: packed buffers do not hold {len(kernel_sizes)} towers of "
-                         f"C={C}, kernel sizes {tuple(kernel_sizes)}, {n_pairs} pairs")
+                         f"C={C} at width {width}, kernel sizes {tuple(kernel_sizes)}, "
+                         f"{n_pairs} pairs")
 
 
 def tower_args(towers, dilations, kernel_sizes):
@@ -115,6 +137,7 @@ class MrfWeights(NamedTuple):
     towers: list  # (w1 [P, k, C, C], b1 [P, C], w2, b2) per tower, taps (k, in, out)
     w: torch.Tensor | None  # every conv's taps in MMA fragment order, tower by tower
     b: torch.Tensor  # b1 then b2 of each tower
+    width: int | None = None  # the channels w and b are padded to (None: no kernel buffers)
 
 
 def mma_fragments(w):
@@ -129,13 +152,18 @@ def mma_fragments(w):
 
 
 def pack_towers(towers) -> MrfWeights:
-    """The towers and the kernels' buffers built from them (no fragment
-    buffer when a width is not a multiple of 8: the kernels do not take it)."""
-    C = towers[0][0].shape[-1]
-    w = (torch.cat([mma_fragments(t) for w1, _, w2, _ in towers for t in (w1, w2)])
-         if C % 8 == 0 else None)
-    b = torch.cat([t.reshape(-1) for _, b1, _, b2 in towers for t in (b1, b2)])
-    return MrfWeights(list(towers), w, b)
+    """The towers and the kernels' buffers built from them, zero-padded to
+    `kernel_channels(C)`; no fragment buffer past C = 128, where no kernel
+    takes the stage."""
+    width = kernel_channels(towers[0][0].shape[-1])
+    if width is None:
+        b = torch.cat([t.reshape(-1) for _, b1, _, b2 in towers for t in (b1, b2)])
+        return MrfWeights(list(towers), None, b)
+    P = towers[0][0].shape[0]
+    w = torch.cat([mma_fragments(pad_to(t, (P, t.shape[1], width, width)))
+                   for w1, _, w2, _ in towers for t in (w1, w2)])
+    b = torch.cat([pad_to(t, (P, width)).reshape(-1) for _, b1, _, b2 in towers for t in (b1, b2)])
+    return MrfWeights(list(towers), w, b, width)
 
 
 def fused_mrf(x, weights: MrfWeights, dilations, kernel_sizes):
@@ -149,29 +177,33 @@ def fused_mrf(x, weights: MrfWeights, dilations, kernel_sizes):
     if x.device.type == "cpu":
         return mrf_plain(x, weights.towers, dilations)
     B, T, C = x.shape
-    if C not in KERNEL_CHANNELS:
-        raise ValueError(f"fused_mrf: the kernel takes C in {KERNEL_CHANNELS}, got {C}")
+    Ck = kernel_channels(C)
+    if Ck is None:
+        raise ValueError(f"fused_mrf: the kernel takes C <= {KERNEL_CHANNELS[-1]}, got {C}")
     args = tower_args(weights.towers, dilations, kernel_sizes)
-    check_towers("fused_mrf", weights, kernel_sizes, len(dilations), C)
+    check_towers("fused_mrf", weights, kernel_sizes, len(dilations), C, Ck)
     dtype = _cuda.float_kind("fused_mrf", x)
-    _cuda.require_cuda("fused_mrf", x.device, dtype, x, weights.w, weights.b)
-    out = torch.empty_like(x)
+    xk = pad_to(x, (*x.shape[:-1], Ck))
+    _cuda.require_cuda("fused_mrf", x.device, dtype, xk, weights.w, weights.b)
+    out = torch.empty_like(xk)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _cuda.lib("mrf")
     if dtype == torch.bfloat16:
         # the towers' float32 sums (the last tower's mean goes to out)
-        sums = torch.empty(x.shape, device=x.device) if len(weights.towers) > 1 else None
-        err = lib.zv_mrf_bf16(x.data_ptr(), out.data_ptr(),
+        sums = torch.empty(xk.shape, device=x.device) if len(weights.towers) > 1 else None
+        err = lib.zv_mrf_bf16(xk.data_ptr(), out.data_ptr(),
                               None if sums is None else sums.data_ptr(), weights.w.data_ptr(),
-                              weights.b.data_ptr(), B, T, C, *args, stream)
+                              weights.b.data_ptr(), B, T, Ck, *args, stream)
         _cuda.check(err, "fused_mrf")
         fused_mrf.launches_bf16 += 1
-        return out
-    err = lib.zv_mrf_f32(x.data_ptr(), out.data_ptr(), weights.w.data_ptr(),
-                         weights.b.data_ptr(), B, T, C, *args, stream)
-    _cuda.check(err, "fused_mrf")
-    fused_mrf.launches += 1
-    return out
+    else:
+        err = lib.zv_mrf_f32(xk.data_ptr(), out.data_ptr(), weights.w.data_ptr(),
+                             weights.b.data_ptr(), B, T, Ck, *args, stream)
+        _cuda.check(err, "fused_mrf")
+        fused_mrf.launches += 1
+    fused_mrf.launches_at[Ck] = fused_mrf.launches_at.get(Ck, 0) + 1
+    return out if Ck == C else out[..., :C].contiguous()
 
 
 fused_mrf.launches = fused_mrf.launches_bf16 = 0
+fused_mrf.launches_at = {}  # launches (both dtypes) by the width the kernel ran at

@@ -21,7 +21,10 @@ kernel does; bf16 launches are counted apart (`fused_resblock1.launches_bf16`).
 
 The kernel reads the tower's weights in MMA fragment order,
 `ops.mrf.pack_towers([tower])`: a caller that runs one weight version many
-times (the vocoder) packs once and passes `packed=`. There is no fallback:
+times (the vocoder) packs once and passes `packed=`. Like K1 the kernel is
+built for C of 8, 16, 32, 64 and 128; other widths up to 128 run
+zero-padded to the next (weights padded by `pack_towers`, x per call, the
+output cut back). There is no fallback:
 a CUDA tensor the kernel does not take raises, and so does a tensor that
 requires grad while grad is enabled (the kernel has no backward), on either
 device.
@@ -33,7 +36,8 @@ import torch
 
 from zerovox_tpu_torch.ops import _cuda
 from zerovox_tpu_torch.ops.mrf import (KERNEL_CHANNELS, MrfWeights, _torch_convs, check_towers,
-                                       pack_towers, refuse_grad, resblock1_ncl)
+                                       kernel_channels, pack_towers, pad_to,
+                                       refuse_grad, resblock1_ncl)
 
 
 def resblock1_plain(x, w1, b1, w2, b2, dilations):
@@ -60,8 +64,9 @@ def fused_resblock1(x, w1, b1, w2, b2, dilations, packed: MrfWeights | None = No
     if x.dim() != 3:
         raise ValueError(f"fused_resblock1: x must be [B, T, C], got {tuple(x.shape)}")
     B, T, C = x.shape
-    if C not in KERNEL_CHANNELS:
-        raise ValueError(f"fused_resblock1: the kernel takes C in {KERNEL_CHANNELS}, got {C}")
+    Ck = kernel_channels(C)
+    if Ck is None:
+        raise ValueError(f"fused_resblock1: the kernel takes C <= {KERNEL_CHANNELS[-1]}, got {C}")
     P, k = w1.shape[0], w1.shape[1]
     if not 1 <= P <= 3 or len(dilations) != P:
         raise ValueError(f"fused_resblock1: need 1-3 conv pairs and one dilation each, "
@@ -70,21 +75,24 @@ def fused_resblock1(x, w1, b1, w2, b2, dilations, packed: MrfWeights | None = No
         raise ValueError(f"fused_resblock1: the kernel takes an odd kernel size, got {k}")
     if packed is None:
         packed = pack_towers([(w1, b1, w2, b2)])
-    check_towers("fused_resblock1", packed, (k,), P, C)
+    check_towers("fused_resblock1", packed, (k,), P, C, Ck)
     dtype = _cuda.float_kind("fused_resblock1", x)
-    _cuda.require_cuda("fused_resblock1", x.device, dtype, x, packed.w, packed.b)
+    xk = pad_to(x, (*x.shape[:-1], Ck))
+    _cuda.require_cuda("fused_resblock1", x.device, dtype, xk, packed.w, packed.b)
     ds = list(dilations) + [0] * (3 - P)
-    out = torch.empty_like(x)
+    out = torch.empty_like(xk)
     lib = _cuda.lib("resblock")
     fn = lib.zv_resblock1_bf16 if dtype == torch.bfloat16 else lib.zv_resblock1_f32
-    err = fn(x.data_ptr(), out.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(), B, T, C, k,
+    err = fn(xk.data_ptr(), out.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(), B, T, Ck, k,
              P, *ds, torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(err, "fused_resblock1")
     if dtype == torch.bfloat16:
         fused_resblock1.launches_bf16 += 1
     else:
         fused_resblock1.launches += 1
-    return out
+    fused_resblock1.launches_at[Ck] = fused_resblock1.launches_at.get(Ck, 0) + 1
+    return out if Ck == C else out[..., :C].contiguous()
 
 
 fused_resblock1.launches = fused_resblock1.launches_bf16 = 0
+fused_resblock1.launches_at = {}  # launches (both dtypes) by the width the kernel ran at

@@ -22,7 +22,12 @@ as the TPU kernel does; bf16 launches are counted apart
 (`fused_upsample_stage.launches_bf16`).
 
 The weights come packed once per weight version (`pack_upsampler`,
-`ops.mrf.pack_towers`). There is no fallback: a CUDA tensor the kernel does
+`ops.mrf.pack_towers`). The kernel is built for (C_in, C_out) of (128, 64),
+(64, 32), (32, 16) and (16, 8) (`KERNEL_WIDTHS`); a stage of other widths
+within them runs zero-padded to the narrowest pair that holds it, as the
+TPU kernel pads to its 128 lanes (the packers pad the weights once, the
+wrapper pads x and conv_post's taps per call and cuts the output back).
+There is no fallback: a CUDA tensor the kernel does
 not take raises, and so does a tensor that requires grad while grad is
 enabled (the kernel has no backward), on either device.
 """
@@ -36,9 +41,18 @@ import torch.nn.functional as F
 
 from zerovox_tpu_torch.ops import _cuda
 from zerovox_tpu_torch.ops.mrf import (LRELU_SLOPE, MrfWeights, check_towers, mma_fragments,
-                                       mrf_plain, refuse_grad, tower_args, widen)
+                                       mrf_plain, pad_to, refuse_grad, tower_args,
+                                       widen)
 
-KERNEL_WIDTHS = ((128, 64), (64, 32), (32, 16))  # (C_in, C_out) instantiated in the source
+# (C_in, C_out) instantiated in the source, narrowest first
+KERNEL_WIDTHS = ((16, 8), (32, 16), (64, 32), (128, 64))
+
+
+def kernel_widths(C_in: int, C_out: int) -> tuple[int, int] | None:
+    """The widths K2 runs a (C_in, C_out) stage at: the narrowest
+    instantiated pair that holds both (the stage zero-padded up to it);
+    None when none does."""
+    return next(((a, b) for a, b in KERNEL_WIDTHS if a >= C_in and b >= C_out), None)
 
 
 class UpsamplerWeights(NamedTuple):
@@ -47,7 +61,9 @@ class UpsamplerWeights(NamedTuple):
     w: torch.Tensor  # [k, C_in, C_out]: torch's taps (the weight (in, out, k) permuted, not flipped)
     b: torch.Tensor  # [C_out]
     stride: int
-    frag: torch.Tensor | None  # taps grouped by phase, in MMA fragment order
+    frag: torch.Tensor | None  # taps grouped by phase, padded to `widths`, in MMA fragment order
+    frag_b: torch.Tensor | None = None  # b padded to widths[1]
+    widths: tuple[int, int] | None = None  # kernel_widths(C_in, C_out)
 
 
 def phase_taps(k: int, stride: int) -> list[int]:
@@ -57,11 +73,15 @@ def phase_taps(k: int, stride: int) -> list[int]:
 
 
 def pack_upsampler(w, b, stride: int) -> UpsamplerWeights:
-    """w [k, C_in, C_out] torch taps, b [C_out] -> both layouts (no fragment
-    buffer when a width is not a multiple of 8)."""
+    """w [k, C_in, C_out] torch taps, b [C_out] -> both layouts, the
+    kernel's padded to `kernel_widths` (no fragment buffer when no kernel
+    width holds the stage)."""
     k, ci, co = w.shape
-    frag = (mma_fragments(w[phase_taps(k, stride)]) if ci % 8 == 0 and co % 8 == 0 else None)
-    return UpsamplerWeights(w, b, stride, frag)
+    widths = kernel_widths(ci, co)
+    if widths is None:
+        return UpsamplerWeights(w, b, stride, None)
+    frag = mma_fragments(pad_to(w, (k, *widths))[phase_taps(k, stride)])
+    return UpsamplerWeights(w, b, stride, frag, pad_to(b, (widths[1],)), widths)
 
 
 def upsample_stage_plain(x, up_w, up_b, stride, up_padding, towers, dilations, post=None):
@@ -98,45 +118,52 @@ def fused_upsample_stage(x, up: UpsamplerWeights, up_padding, mrf: MrfWeights, d
                                     post)
     B, T_in, C_in = x.shape
     up_k, _, C_out = up.w.shape
-    if (C_in, C_out) not in KERNEL_WIDTHS:
-        raise ValueError(f"fused_upsample_stage: the kernel takes (C_in, C_out) in "
-                         f"{KERNEL_WIDTHS}, got {(C_in, C_out)}")
+    widths = kernel_widths(C_in, C_out)
+    if widths is None:
+        raise ValueError(f"fused_upsample_stage: the kernel takes (C_in, C_out) within "
+                         f"{KERNEL_WIDTHS[-1]}, got {(C_in, C_out)}")
     if tuple(up.w.shape) != (up_k, C_in, C_out) or tuple(up.b.shape) != (C_out,):
         raise ValueError("fused_upsample_stage: upsampler weight must be [k, C_in, C_out]")
+    if up.widths != widths:
+        raise ValueError(f"fused_upsample_stage: upsampler packed at {up.widths}, not {widths}")
+    Ci, Co = widths
     T_out = (T_in - 1) * up.stride + up_k - 2 * up_padding
     args = tower_args(mrf.towers, dilations, kernel_sizes)
-    check_towers("fused_upsample_stage", mrf, kernel_sizes, len(dilations), C_out)
+    check_towers("fused_upsample_stage", mrf, kernel_sizes, len(dilations), C_out, Co)
     if post is not None:
         pw, pb = post
         post_k = pw.shape[0]
         if tuple(pw.shape) != (post_k, C_out, 1) or post_k % 2 == 0:
             raise ValueError("fused_upsample_stage: post weight must be [odd k, C_out, 1]")
-        pw = pw.reshape(post_k, C_out)
+        pw = pad_to(pw.reshape(post_k, C_out), (post_k, Co))
         out = torch.empty(B, T_out, device=x.device, dtype=x.dtype)
     else:
-        pw = pb = up.b  # ignored by the kernel
+        pw = pb = up.frag_b  # ignored by the kernel
         post_k = 0
-        out = torch.empty(B, T_out, C_out, device=x.device, dtype=x.dtype)
+        out = torch.empty(B, T_out, Co, device=x.device, dtype=x.dtype)
     dtype = _cuda.float_kind("fused_upsample_stage", x)
-    _cuda.require_cuda("fused_upsample_stage", x.device, dtype, x, up.frag, up.b, mrf.w, mrf.b,
-                       pw, pb)
+    xk = pad_to(x, (*x.shape[:-1], Ci))
+    _cuda.require_cuda("fused_upsample_stage", x.device, dtype, xk, up.frag, up.frag_b, mrf.w,
+                       mrf.b, pw, pb)
     lib = _cuda.lib("upsample_stage")
-    ptrs = (up.frag.data_ptr(), up.b.data_ptr(), mrf.w.data_ptr(), mrf.b.data_ptr(),
-            pw.data_ptr(), pb.data_ptr(), B, T_in, C_in, C_out, up_k, up.stride, up_padding,
+    ptrs = (up.frag.data_ptr(), up.frag_b.data_ptr(), mrf.w.data_ptr(), mrf.b.data_ptr(),
+            pw.data_ptr(), pb.data_ptr(), B, T_in, Ci, Co, up_k, up.stride, up_padding,
             post_k, *args, torch.cuda.current_stream(x.device).cuda_stream)
     if dtype == torch.bfloat16:
         # the towers' float32 sums, without post (with it they stay in shared memory)
-        sums = (torch.empty(B, T_out, C_out, device=x.device)
+        sums = (torch.empty(B, T_out, Co, device=x.device)
                 if post is None and len(mrf.towers) > 1 else None)
-        err = lib.zv_upsample_stage_bf16(x.data_ptr(), out.data_ptr(),
+        err = lib.zv_upsample_stage_bf16(xk.data_ptr(), out.data_ptr(),
                                          None if sums is None else sums.data_ptr(), *ptrs)
         _cuda.check(err, "fused_upsample_stage")
         fused_upsample_stage.launches_bf16 += 1
-        return out
-    err = lib.zv_upsample_stage_f32(x.data_ptr(), out.data_ptr(), *ptrs)
-    _cuda.check(err, "fused_upsample_stage")
-    fused_upsample_stage.launches += 1
-    return out
+    else:
+        err = lib.zv_upsample_stage_f32(xk.data_ptr(), out.data_ptr(), *ptrs)
+        _cuda.check(err, "fused_upsample_stage")
+        fused_upsample_stage.launches += 1
+    fused_upsample_stage.launches_at[widths] = fused_upsample_stage.launches_at.get(widths, 0) + 1
+    return out if post is not None or Co == C_out else out[..., :C_out].contiguous()
 
 
 fused_upsample_stage.launches = fused_upsample_stage.launches_bf16 = 0
+fused_upsample_stage.launches_at = {}  # launches (both dtypes) by the (C_in, C_out) run at

@@ -1,8 +1,9 @@
-"""Optimizer and learning-rate schedule of the acoustic-model trainer.
+"""Optimizers and learning-rate schedules of the trainers.
 
-The PyTorch counterpart of the JAX package's `training/optim.py`, in optax's
-order: global-norm gradient clipping, then Adam's scaling, then decoupled
-weight decay, then the learning rate:
+The PyTorch counterpart of the JAX package's `training/optim.py` (and of
+the vocoder trainer's `optax.adamw`), in optax's order: global-norm
+gradient clipping (optional), then Adam's scaling, then decoupled weight
+decay, then the learning rate:
 
     g   <- g * min(1, clip / ||g||)
     nu  <- b2 nu + (1 - b2) g^2                      (mu likewise when b1 != 0)
@@ -13,8 +14,9 @@ With b1 == 0 (the production configs' betas (0.0, 0.99)) the first moment is
 the gradient itself and is not stored. `state_dtype="bf16"` then stores nu
 in bf16, as the JAX package's `_scale_by_adam_no_mu(state_dtype=...)`: the
 moment update runs in float32 from the stored value, the step uses the
-unrounded float32 moment, and only the stored nu is rounded. The schedule
-is the epoch warmup + cosine decay with its floor at 0.1 of the base rate.
+unrounded float32 moment, and only the stored nu is rounded. The acoustic
+model's schedule is the epoch warmup + cosine decay with its floor at 0.1
+of the base rate; the vocoder's is optax's staircase `exponential_decay`.
 Updates run on whole parameter lists with torch's multi-tensor (`_foreach`)
 ops.
 """
@@ -25,6 +27,19 @@ import math
 from typing import Callable
 
 import torch
+
+
+def exponential_decay_schedule(base_lr: float, steps_per_epoch: int,
+                               decay: float) -> Callable[[int], float]:
+    """optax.exponential_decay(base_lr, transition_steps=steps_per_epoch,
+    decay_rate=decay, staircase=True): lr(count) = base_lr *
+    decay^floor(count / steps_per_epoch), count taken before the update."""
+    every = max(steps_per_epoch, 1)
+
+    def schedule(count: int) -> float:
+        return base_lr * decay ** (count // every)
+
+    return schedule
 
 
 def warmup_cosine_epoch_schedule(base_lr: float, warmup_epochs: int, total_epochs: int,
@@ -48,11 +63,13 @@ def warmup_cosine_epoch_schedule(base_lr: float, warmup_epochs: int, total_epoch
 class AdamW:
     """Clip + Adam (mu-free when b1 == 0) + decoupled weight decay + lr over
     a fixed list of float32 parameters. `step(lr)` reads their `.grad`.
+    `grad_clip=None` takes no clipping step (optax.adamw alone).
     `state_dtype`: "f32", or "bf16" second moments (b1 == 0 only; with
     b1 != 0 it warns and keeps float32, as the JAX `make_optimizer`)."""
 
     def __init__(self, params, betas=(0.0, 0.99), eps: float = 1e-9,
-                 weight_decay: float = 0.0, grad_clip: float = 1.0, state_dtype: str = "f32"):
+                 weight_decay: float = 0.0, grad_clip: float | None = 1.0,
+                 state_dtype: str = "f32"):
         if state_dtype not in ("f32", "bf16"):
             raise ValueError(f"state_dtype must be 'f32' or 'bf16', got {state_dtype!r}")
         self.params = [p for p in params if p.requires_grad]
@@ -71,10 +88,12 @@ class AdamW:
     @torch.no_grad()
     def step(self, lr: float) -> None:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        # global-norm clip: g * clip / ||g|| when ||g|| >= clip
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
-        grads = torch._foreach_mul(grads, scale)
+        if self.grad_clip is not None:
+            # global-norm clip: g * clip / ||g|| when ||g|| >= clip
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
+                                self.grad_clip / norm)
+            grads = torch._foreach_mul(grads, scale)
 
         self.count += 1
         if self.state_dtype == "bf16":

@@ -17,6 +17,11 @@
       stored flipped on the taps    -> flip taps, then (in, out, k)
     BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_*
 
+* `generator_*`, `mpd_*` and `msd_*` carry the vocoder trainer's three
+  nets both ways (the bare Generator's params, and the discriminators'
+  params, whose upstream keys the JAX package's `convert_hifigan_mpd` /
+  `convert_hifigan_msd` read).
+
 * `upstream_state_dict` / `upstream_generator_state_dict` take the
   upstream gooofy/zerovox torch checkpoints, whose keys the modules already
   use, and fold HiFi-GAN weight norm (w = g * v / ||v||, dim 0); the
@@ -68,6 +73,10 @@ class _ToTorch:
     def torch_only(self, key, value) -> None:
         self.out[key] = value
 
+    def walk(self, fn, *args) -> dict:
+        fn(self, *args)
+        return self.out
+
 
 class _ToJax:
     """Walks a state_dict into a JAX variable tree of float32 numpy arrays."""
@@ -87,6 +96,10 @@ class _ToJax:
 
     def torch_only(self, key, value) -> None:
         pass
+
+    def walk(self, fn, *args) -> dict:
+        fn(self, *args)
+        return self.tree
 
 
 def _dense(m, path, prefix: str, bias: bool = True) -> None:
@@ -274,6 +287,55 @@ def meldec_to_jax_variables(state_dict: dict, cfg) -> dict:
     m = _ToJax(state_dict)
     _meldec(m, cfg)
     return m.tree
+
+
+def generator_from_jax_params(params: dict, cfg) -> dict[str, torch.Tensor]:
+    """The JAX `Generator`'s params (the vocoder trainer's `g_params`) ->
+    state_dict of models.hifigan.Generator."""
+    sd = meldec_from_jax_variables({"params": {"generator": params}}, cfg)
+    return {k[len("generator."):]: v for k, v in sd.items() if k.startswith("generator.")}
+
+
+def generator_to_jax_params(state_dict: dict, cfg) -> dict:
+    """The inverse of `generator_from_jax_params`."""
+    sd = {"generator." + k: v for k, v in state_dict.items()}
+    return _ToJax(sd).walk(_meldec, cfg)["params"]["generator"]
+
+
+def _mpd(m, periods) -> None:
+    for i, p in enumerate(periods):
+        for j in range(5):
+            _conv(m, (f"disc_p{p}", f"convs_{j}"), f"discriminators.{i}.convs.{j}.", _CONV2D)
+        _conv(m, (f"disc_p{p}", "conv_post"), f"discriminators.{i}.conv_post.", _CONV2D)
+
+
+def _msd(m, num_scales: int) -> None:
+    for i in range(num_scales):
+        for j in range(7):
+            _conv(m, (f"disc_s{i}", f"convs_{j}"), f"discriminators.{i}.convs.{j}.", _CONV1D)
+        _conv(m, (f"disc_s{i}", "conv_post"), f"discriminators.{i}.conv_post.", _CONV1D)
+
+
+def mpd_from_jax_variables(params: dict, periods=(2, 3, 5, 7, 11)) -> dict[str, torch.Tensor]:
+    """The JAX `MultiPeriodDiscriminator`'s params ({"disc_p2": ...}) ->
+    state_dict of models.hifigan.MultiPeriodDiscriminator(periods)."""
+    return _ToTorch(params).walk(_mpd, periods)
+
+
+def mpd_to_jax_variables(state_dict: dict, periods=(2, 3, 5, 7, 11)) -> dict:
+    """The inverse of `mpd_from_jax_variables`."""
+    return _ToJax(state_dict).walk(_mpd, periods)
+
+
+def msd_from_jax_variables(params: dict, num_scales: int = 3) -> dict[str, torch.Tensor]:
+    """The JAX `MultiScaleDiscriminator`'s params ({"disc_s0": ...}) ->
+    state_dict of models.hifigan.MultiScaleDiscriminator(num_scales)."""
+    return _ToTorch(params).walk(_msd, num_scales)
+
+
+def msd_to_jax_variables(state_dict: dict, num_scales: int = 3) -> dict:
+    """The inverse of `msd_from_jax_variables`."""
+    return _ToJax(state_dict).walk(_msd, num_scales)
 
 
 def fold_weight_norm(sd: dict) -> dict[str, torch.Tensor]:
