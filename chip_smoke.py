@@ -4,6 +4,11 @@
     python3 chip_smoke.py              # the whole check; exits 0 only if every phase passed
     python3 chip_smoke.py --profile DIR   # also torch.profiler breakdowns of tts_ex (float32
                                           # and bf16) and of a train step, in DIR/profile_*.txt
+    python3 chip_smoke.py --only 12 --repeat 20 [--dump DIR]
+                                          # phases 1-2, then phase 12 (or 18) alone, 20 times:
+                                          # each repeat's failure is recorded and the run goes
+                                          # on; exits nonzero if any repeat failed. --dump
+                                          # writes phase 12's variance predictions per repeat
 
 Phases, in order; any failure exits nonzero:
 
@@ -135,6 +140,25 @@ Phases, in order; any failure exits nonzero:
    `from_checkpoint(meldec_model=...)`: its tts_ex launches K1 once and K2
    twice and stays within 1e-3 of the same generator's nn.Modules.
    `--profile` adds the device's busy share over two GAN steps.
+18. Preprocessing and the tools: the native CTC library built with g++ (its
+   path printed); a tone-speak corpus of 32 utterances (`make_corpus`,
+   22050 Hz, seed 0) in build/; `cli.preprocess.run` with tts_medium's
+   audio and model limits and `--aligner tone` on the card, then with
+   `--device cpu` and on the card again (its set-up paid): train.txt,
+   labels, durations, startstop and pitch equal, mels within 1e-4 (float64
+   STFT, TF32 off), energies and stats.json's
+   within 1e-5 relative; the durations within 3 hops of the synthesizer's
+   on average; the tone CTC emissions card against CPU within 1e-4;
+   `forced_align_torch` on the card gives the native Viterbi's tokens on
+   every utterance; `cli.stats.run`; Trainer.fit for 2 steps at batch 8 on
+   phase 6's configuration over the corpus (6 + 6 K4 launches a step,
+   finite losses); `export_items` with that checkpoint's engine
+   (`from_checkpoint`, HiFi-GAN V1 from seed 12) at batch 8, K1 once and
+   K2 twice a batch, two items against a CPU engine's `export_batch` of
+   the same rows (1e-3); `edit_meldec` add then remove gives back the
+   checkpoint's bytes, `dump_ckpt` lists the converter's names; utterances/s
+   and per-stage ms of preprocessing on the card and on the CPU, and the
+   export's items/s.
 
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -149,6 +173,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -203,11 +228,25 @@ WAV_HEADER_BYTES = 44  # the streaming WAV header before the first PCM byte
 RESUME_RTOL = 1e-5  # a resumed step's losses against the uninterrupted run's
 # vocoder GAN training: the CLI's batch, 2 epochs of 3 steps over 1-second items
 GAN_BATCH, GAN_ITEMS, GAN_SECONDS = 16, 48, 1.0
+# preprocessing (phase 18): a tone-speak corpus, the CLI's alignment batch, the export's batch
+PP_UTTS, PP_BATCH, EXPORT_BATCH = 32, 4, 8
+PP_WORDS = ("the quick brown fox jumps over a lazy dog while curious cats watch from sunny "
+            "windows in early morning light zebras hum quietly beside vivid jade boxes").split()
+ALIGN_MAE_HOPS = 3.0  # tone-aligned durations against the synthesizer's (tests/test_aligner.py)
+PP_EMIT_TOL, PP_MEL_TOL, PP_ENERGY_RTOL = 1e-4, 1e-4, 1e-5  # card against CPU
+
+
+class PhaseFailed(SystemExit):
+    """A failed check: exits 1 unless a repeated run (--repeat) records it."""
+
+    def __init__(self, msg: str):
+        super().__init__(1)
+        self.msg = msg
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
-    sys.exit(1)
+    raise PhaseFailed(msg)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1415,7 +1454,44 @@ def serving_phase(torch, card: str) -> dict:
     return out
 
 
-def checkpoint_phase(torch, dev, card: str, refwav) -> dict:
+def variance_bins(card_engine, cpu_engine, spk, dur, n_bins: int, dump: Path | None) -> dict:
+    """Phase 12's diagnostics: the variance adaptor's pitch and energy
+    predictions for TEXT on the card and on the CPU, and the bins they
+    fall in (round(v x (n_bins - 1)), as both packages bucketize). A bin
+    that differs flips an embedding, so the waveforms part by more than
+    rounding. For each differing bin: the value's place between two bin
+    centres (0.5 is the edge). `dump` receives both engines' arrays."""
+    import numpy as np
+
+    ids, puncts = card_engine.text2phonemeids(TEXT)
+    n = len(ids)
+    enc_card, _, _ = card_engine._encode(ids, puncts, spk, dur)
+    enc_cpu, _, _ = cpu_engine._encode(ids, puncts, spk.cpu(), dur)
+    out, arrays = {}, {}
+    for key in ("pitch", "energy"):
+        a = enc_card[key][0, :n].float().cpu().numpy()
+        b = enc_cpu[key][0, :n].float().cpu().numpy()
+        ba = np.clip(np.round(a * (n_bins - 1)), 0, n_bins - 1)
+        bb = np.clip(np.round(b * (n_bins - 1)), 0, n_bins - 1)
+        differ = np.flatnonzero(ba != bb)
+        out[f"{key}_max_abs_diff"] = float(np.max(np.abs(a - b)))
+        out[f"{key}_bins_differ"] = [
+            {"phone": int(i), "card": float(a[i]), "cpu": float(b[i]),
+             "card_bin": int(ba[i]), "cpu_bin": int(bb[i]),
+             "place": float(b[i] * (n_bins - 1) - np.floor(b[i] * (n_bins - 1)))}
+            for i in differ]
+        # how close the nearest value came to a bin edge, in bin widths
+        frac = b * (n_bins - 1) - np.floor(b * (n_bins - 1))
+        out[f"{key}_nearest_edge"] = float(np.min(np.abs(frac - 0.5)))
+        arrays[f"{key}_card"], arrays[f"{key}_cpu"] = a, b
+    if dump is not None:
+        dump.mkdir(parents=True, exist_ok=True)
+        k = len(list(dump.glob("phase12_*.npz")))
+        np.savez(dump / f"phase12_{k:02d}.npz", n_bins=n_bins, **arrays)
+    return out
+
+
+def checkpoint_phase(torch, dev, card: str, refwav, dump: Path | None = None) -> dict:
     """Phase 12: Trainer.fit on train_config(fused=True, shallow=True) over
     the training phase's synthetic corpus, 2 epochs of 2 steps, writing
     checkpoints/0000 and 0001.msgpack (+ .json); the last read back by
@@ -1500,8 +1576,14 @@ def checkpoint_phase(torch, dev, card: str, refwav) -> dict:
     check(n_card == n_cpu == int(dur.sum()) and w_card.shape == w_cpu.shape,
           f"card {w_card.shape}, cpu {w_cpu.shape}")
     err, peak = float(np.max(np.abs(w_card - w_cpu))), float(np.max(np.abs(w_cpu)))
+    bins = variance_bins(card_engine, cpu_engine, spk, dur, cfg.model.encoder.ve_n_bins, dump)
+    print(json.dumps({"checkpoint_engine": {"cpu_err": err, "cpu_peak": peak,
+                                            "bound": WAV_TOL * min(peak, 1.0), **bins}}),
+          flush=True)
     check(peak > 0 and err < WAV_TOL * min(peak, 1.0),
-          f"the checkpoint's engine on the card differs from the CPU by {err} (peak {peak})")
+          f"the checkpoint's engine on the card differs from the CPU by {err} (peak {peak}; "
+          f"pitch bins differing {bins['pitch_bins_differ']}, energy "
+          f"{bins['energy_bins_differ']})")
     out = {"steps": 4, "k4_launches": list(k4), "losses_uninterrupted": want,
            "losses_resumed": got, "resume_max_rel_err": resume_err,
            "engine_launches": {k: n1[k] - n0[k] for k in n1}, "cpu_err": err, "cpu_peak": peak,
@@ -2463,6 +2545,277 @@ def gan_phase(torch, dev, card: str, refwav, profile_dir) -> dict:
     return res
 
 
+def tone_texts(n: int, seed: int) -> list[str]:
+    """n tone-speak transcripts of 3-5 words, drawn from a seeded rng."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(PP_WORDS, size=int(rng.integers(3, 6)))) for _ in range(n)]
+
+
+def take_rows(batch: dict, k: int) -> dict:
+    """The first k rows of a data-module batch dict (arrays and lists)."""
+    return {key: (v[:k] if hasattr(v, "__len__") and not isinstance(v, str) else 0)
+            for key, v in batch.items()}
+
+
+def flat_paths(tree, prefix: str = "") -> list[str]:
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [p for k in tree for p in flat_paths(tree[k], prefix + ("." if prefix else "") + str(k))]
+
+
+def preprocess_phase(torch, dev, card: str) -> dict:
+    """Phase 18: the native CTC library built with g++; a tone-speak corpus
+    of PP_UTTS utterances (22050 Hz, seed 0); `cli.preprocess.run` with
+    tts_medium's audio and model limits and --aligner tone on the card and
+    again with --device cpu (the files equal, the floats within their
+    bounds); durations against the synthesizer's; forced_align_torch on the
+    card against the native Viterbi; `cli.stats.run`; Trainer.fit for 2
+    steps at batch EXPORT_BATCH on phase 6's configuration over the corpus;
+    `export_items` with the trained checkpoint's engine (V1, random weights
+    from seed 12) and its K1/K2 launches, two items against a CPU engine's
+    `export_batch`; `edit_meldec` add and remove (bitwise), `dump_ckpt`'s
+    names against the converter's; stage times card and CPU."""
+    import contextlib
+    import dataclasses as dc
+    import itertools
+
+    import numpy as np
+
+    from zerovox_tpu_torch import native
+    from zerovox_tpu_torch.cli import dump_ckpt, edit_meldec
+    from zerovox_tpu_torch.cli import preprocess as pcli
+    from zerovox_tpu_torch.cli import stats as pstats
+    from zerovox_tpu_torch.cli.export_hifigan import export_batch, export_items
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+    from zerovox_tpu_torch.dsp.audio import load_wav
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig, MelDec
+    from zerovox_tpu_torch.preprocess.ctc_align import forced_align, forced_align_torch
+    from zerovox_tpu_torch.preprocess.tone_ctc import ToneCTCAligner
+    from zerovox_tpu_torch.synthesize import ZeroVoxTTS, random_init_
+    from zerovox_tpu_torch.text.normalize import zerovox_normalize
+    from zerovox_tpu_torch.training.checkpointing import (load_native_checkpoint,
+                                                          save_native_checkpoint)
+    from zerovox_tpu_torch.training.data import SpeechDataModule
+    from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from zerovox_tpu_torch.utils.synthvoice import char_duration, make_corpus
+    from zerovox_tpu_torch.weights import (from_jax_variables, meldec_to_jax_variables,
+                                           to_jax_variables)
+
+    t_phase = time.perf_counter()
+    found = native.lib_path("ctc_align").exists()
+    t0 = time.perf_counter()
+    lib = native.build("ctc_align")
+    print(f"native ctc_align: {lib} "
+          f"({'found built' if found else f'g++ {time.perf_counter() - t0:.2f} s'})")
+
+    base = ZeroVoxConfig()  # configs/tts_medium.yaml
+    modelcfg = {"audio": dc.asdict(base.audio),
+                "model": {k: getattr(base.model, k) for k in
+                          ("max_txt_len", "min_mel_len", "max_mel_len", "phones", "puncts")}}
+    sr, hop = base.audio.sampling_rate, base.audio.hop_size
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        root = Path(tmp)
+        texts = tone_texts(PP_UTTS, 0)
+        make_corpus(root / "corpus", texts, sample_rate=sr, seed=0)
+        cc = {"dataset": "LJSpeech", "language": "en",
+              "path": {"corpus_path": str(root / "corpus"), "preprocessed_path": "tone"}}
+
+        # ---- preprocessing on the card, then on the CPU, then on the card again:
+        # the first run in the process pays cuDNN's and cuFFT's set-up and a cuFFT
+        # plan per new length, the second finds them made
+        runs, dirs = {}, {}
+        for run in ("cuda", "cpu", "cuda_again"):
+            device = run.removesuffix("_again")
+            args = pcli.get_args(["modelcfg", "corpus", "--aligner", "tone", "-m", "0.5",
+                                  "-b", str(PP_BATCH), "--device", device])
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs[run] = pcli.run(args, modelcfg, [cc], base_path=str(root / run))
+            dirs[run] = root / run / "tone"
+            r = runs[run]
+            out[f"preprocess_{run}"] = {
+                "jobs": r["jobs"], "kept": r["kept"], "seconds": r["seconds"],
+                "utterances_per_s": r["jobs"] / r["seconds"],
+                "stage_ms_per_utterance": {k: 1e3 * v / r["jobs"]
+                                           for k, v in r["stage_seconds"].items()}}
+        card_dir, cpu_dir = dirs["cuda"], dirs["cpu"]
+        kept = runs["cuda"]["kept"]
+        check(kept >= PP_UTTS // 2 and kept == runs["cpu"]["kept"],
+              f"kept {kept} of {PP_UTTS} on the card, {runs['cpu']['kept']} on the CPU")
+        train_txt = (card_dir / "train.txt").read_text()
+        check(train_txt == (cpu_dir / "train.txt").read_text(), "train.txt differs card vs CPU")
+        check(train_txt == (dirs["cuda_again"] / "train.txt").read_text(),
+              "train.txt differs between the card's two runs")
+        bases = [os.path.splitext(ln.split("|")[0])[0] for ln in train_txt.splitlines() if ln]
+        mel_err = energy_err = 0.0
+        errors, per_utt = [], []
+        for line, b in zip(train_txt.splitlines(), bases):
+            for rel in (f"wavs/{b}.wav.txt", f"mel/startstop-{b}.json"):
+                check((card_dir / rel).read_bytes() == (cpu_dir / rel).read_bytes(),
+                      f"{rel} differs card vs CPU")
+            for rel in (f"duration/duration-{b}.npy", f"pitch/pitch-{b}.npy"):
+                check(np.array_equal(np.load(card_dir / rel), np.load(cpu_dir / rel)),
+                      f"{rel} differs card vs CPU")
+            m_card, m_cpu = (np.load(d / "mel" / f"mel-{b}.npy") for d in (card_dir, cpu_dir))
+            check(m_card.shape == m_cpu.shape, f"mel-{b}: {m_card.shape} vs {m_cpu.shape}")
+            mel_err = max(mel_err, float(np.max(np.abs(m_card - m_cpu))))
+            e_card, e_cpu = (np.load(d / "energy" / f"energy-{b}.npy") for d in (card_dir, cpu_dir))
+            energy_err = max(energy_err, float(np.max(np.abs(e_card - e_cpu) / np.abs(e_cpu))))
+            dur = np.load(card_dir / "duration" / f"duration-{b}.npy")
+            chars = [modelcfg["model"]["phones"][int(i)] for i in line.split("|")[1].split(",")]
+            e = [abs(float(d) - char_duration(c) * sr / hop) for c, d in zip(chars[1:-1], dur[1:-1])]
+            errors += e
+            per_utt.append(float(np.mean(e)))
+        check(mel_err <= PP_MEL_TOL, f"mels card vs CPU {mel_err} > {PP_MEL_TOL}")
+        check(energy_err <= PP_ENERGY_RTOL, f"energies card vs CPU {energy_err} relative")
+        align_mae = float(np.mean(errors))
+        check(align_mae <= ALIGN_MAE_HOPS,
+              f"durations off the synthesizer's by {align_mae} hops on average")
+        s_card, s_cpu = (json.loads((d / "stats.json").read_text()) for d in (card_dir, cpu_dir))
+        check(s_card["pitch"] == s_cpu["pitch"] and np.allclose(s_card["energy"], s_cpu["energy"],
+                                                                 rtol=PP_ENERGY_RTOL, atol=0),
+              f"stats.json card {s_card} vs CPU {s_cpu}")
+        out.update({"kept": kept, "mel_max_abs_diff": mel_err,
+                    "energy_max_rel_diff": energy_err, "duration_mae_hops": align_mae,
+                    "duration_mae_hops_per_utterance_max": max(per_utt)})
+
+        # ---- the tone CTC emissions card vs CPU, and the Viterbi on the card
+        al_card, al_cpu = ToneCTCAligner(device=dev), ToneCTCAligner(device="cpu")
+        wavs = [load_wav(root / "corpus" / "wavs" / f"tone{i:03d}.wav", target_sr=16000)[0]
+                for i in range(PP_UTTS)]
+        n = max(len(w) for w in wavs[:PP_BATCH])
+        batch = np.stack([np.pad(w, (0, n - len(w))) for w in wavs[:PP_BATCH]])
+        emit_err = float(np.max(np.abs(al_card.emissions(batch) - al_cpu.emissions(batch))))
+        check(emit_err <= PP_EMIT_TOL, f"tone CTC emissions card vs CPU {emit_err}")
+        d = al_card.dictionary
+        differ, ms = 0, []
+        for w, text in zip(wavs, texts):
+            em = al_card.emissions_device(w[None])[0]
+            targets = np.asarray([d[c] for word in zerovox_normalize(text, "en")[1].split(" ")
+                                  for c in word], np.int64)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, _ = forced_align_torch(em, targets)
+            tok = tok.cpu().numpy()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            want, _ = forced_align(em.cpu().numpy(), targets)
+            differ += int(not np.array_equal(tok, want))
+        check(differ == 0, f"forced_align_torch on the card differs from the native path on "
+                           f"{differ} of {len(wavs)} utterances")
+        out.update({"emissions_max_abs_diff": emit_err,
+                    "forced_align_torch_ms_per_utterance": float(np.median(ms))})
+
+        # ---- stats
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            [st] = pstats.run(modelcfg, [("tone", [cc])], base=str(root / "cuda"))
+        check(st["speakers"] == 1 and st["hours"] > 0, f"stats {st}")
+        print(buf.getvalue().splitlines()[-1])
+        out["stats"] = st
+
+        # ---- 2 train steps at batch EXPORT_BATCH on phase 6's configuration
+        stats = {"pitch_min": s_card["pitch"][0], "pitch_max": s_card["pitch"][1],
+                 "energy_min": s_card["energy"][0], "energy_max": s_card["energy"][1]}
+        cfg = train_config(fused=True)
+        dm = SpeechDataModule([cc], cfg.symbols(), stats, batch_size=EXPORT_BATCH,
+                              num_workers=4, seed=0, base_path=str(root / "cuda"))
+        dm.prepare_data()
+        tcfg = TrainerConfig(max_epochs=1, warmup_epochs=1, log_every_n_steps=1, seed=0,
+                             out_folder=str(root / "model"))
+        trainer = Trainer(cfg, tcfg, steps_per_epoch=2)
+        losses = []
+        inner = trainer.train_step
+        trainer.train_step = lambda st, b: losses.append(inner(st, b)) or losses[-1]
+        zero_counts()
+        state = trainer.fit(lambda epoch: itertools.islice(dm.train_dataloader(epoch), 2),
+                            trainer.init_state())
+        k4 = k4_counts()
+        losses = [{k: float(v) for k, v in step.items()} for step in losses]
+        check(state.step == 2 and k4 == (12, 12), f"fit took {state.step} steps, K4 {k4}")
+        check(all(np.isfinite(v) for step in losses for v in step.values()),
+              f"non-finite losses {losses}")
+        out.update({"train_losses": [step["loss"] for step in losses], "train_k4": list(k4)})
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # ---- export on the card with the trained checkpoint, two items against the CPU
+        ckpt = root / "model" / "checkpoints" / "0000.msgpack"
+        hcfg = HifiGanConfig()
+        md = MelDec(hcfg)
+        random_init_(md, torch.Generator().manual_seed(12))
+        meldec_dir = root / "meldec"
+        meldec_dir.mkdir()
+        (meldec_dir / "config.json").write_text(json.dumps(dc.asdict(hcfg)))
+        save_native_checkpoint(meldec_dir / "generator.msgpack",
+                               {"params": meldec_to_jax_variables(md.state_dict(), hcfg)["params"]["generator"]})
+        gen = {k[len("generator."):]: v for k, v in md.state_dict().items()
+               if k.startswith("generator.")}
+        torch.save({"generator": gen}, meldec_dir / "generator.ckpt")
+        engine = ZeroVoxTTS.from_checkpoint(cfg, ckpt, meldec_dir)
+        exp_cfg = {**modelcfg, "stats": stats}
+        n0 = kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        items = list(export_items([cc], exp_cfg, engine, batch_size=EXPORT_BATCH,
+                                  num_workers=4, base_path=str(root / "cuda")))
+        export_s = time.perf_counter() - t0
+        n1 = kernel_counts()
+        launched = {k: n1[k] - n0[k] for k in ("fused_mrf", "fused_upsample_stage")}
+        n_batches = -(-kept // EXPORT_BATCH)
+        check(len(items) == kept and {it.basename for it in items} == set(bases),
+              f"exported {len(items)} items of {kept}")
+        check(launched["fused_mrf"] == n_batches and launched["fused_upsample_stage"] == 2 * n_batches,
+              f"the export launched {launched} over {n_batches} batches of {EXPORT_BATCH}")
+        check(all(np.isfinite(it.synth_wav).all() and len(it.synth_wav) == it.mel.shape[0] * hop
+                  for it in items), "non-finite or misshapen exported waveforms")
+
+        cpu_engine = ZeroVoxTTS.from_checkpoint(cfg, ckpt, meldec_dir, device="cpu")
+        dm_cpu = SpeechDataModule([cc], cfg.symbols(), stats, batch_size=EXPORT_BATCH,
+                                  num_workers=4, base_path=str(root / "cuda"), drop_last=False)
+        dm_cpu.prepare_data()
+        x, y = next(iter(dm_cpu.train_dataloader()))
+        by_name = {it.basename: it for it in items}
+        wav_err = 0.0
+        for it in export_batch(cpu_engine, take_rows(x, 2), take_rows(y, 2), hop):
+            card_it = by_name[it.basename]
+            check(card_it.synth_wav.shape == it.synth_wav.shape, f"{it.basename}: shapes differ")
+            check(np.array_equal(card_it.orig_wav, it.orig_wav), f"{it.basename}: original wav")
+            wav_err = max(wav_err, float(np.max(np.abs(card_it.synth_wav - it.synth_wav))))
+        check(wav_err <= WAV_TOL, f"exported waveforms card vs CPU {wav_err}")
+        out.update({"export_items": len(items), "export_s": export_s,
+                    "export_items_per_s": len(items) / export_s, "export_launches": launched,
+                    "export_cpu_max_abs_diff": wav_err})
+        del engine, cpu_engine
+        torch.cuda.empty_cache()
+
+        # ---- checkpoint tools on the trained checkpoint
+        edited = root / "edited.msgpack"
+        shutil.copy(ckpt, edited)
+        with contextlib.redirect_stdout(io.StringIO()):
+            edit_meldec.main([str(edited), "--meldec", str(meldec_dir)])
+        tree = load_native_checkpoint(edited)
+        check("meldec" in tree and len(flat_paths(tree["meldec"])) > 10,
+              "edit_meldec added no vocoder")
+        with contextlib.redirect_stdout(io.StringIO()):
+            edit_meldec.main([str(edited)])
+        check(edited.read_bytes() == ckpt.read_bytes(),
+              "edit_meldec add + remove did not give back the original bytes")
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            dump_ckpt.main([str(ckpt)])
+        dumped = [ln.split("  ")[0] for ln in buf.getvalue().splitlines()]
+        sd = from_jax_variables(load_native_checkpoint(ckpt), cfg)
+        want = flat_paths(to_jax_variables(sd, cfg))
+        n_sd = len([k for k in sd if not k.endswith("num_batches_tracked")])
+        check(sorted(dumped) == sorted(want) and len(dumped) == n_sd,
+              f"dump_ckpt lists {len(dumped)} names, the converter {len(want)} ({n_sd} tensors)")
+        out["dump_ckpt_names"] = len(dumped)
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"preprocessing": out}), flush=True)
+    return out
+
+
 def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
     """torch.profiler over `calls` calls of fn: device time by kernel, the
     device's busy share of the window (the union of the kernels' and
@@ -2513,6 +2866,44 @@ def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
     return res
 
 
+def arg_value(flag: str, default=None):
+    return sys.argv[sys.argv.index(flag) + 1] if flag in sys.argv else default
+
+
+def only_phases(torch, dev, card: str, kind: str, count: int) -> None:
+    """`--only N[,M] --repeat R [--dump DIR]`: after phases 1-2, run phase 12
+    and/or 18 alone, R times each. A repeat's failed check is recorded with
+    its message and the run goes on; a summary line lists them, and the
+    exit code is 1 if any repeat failed."""
+    import numpy as np
+
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+
+    BUILD.mkdir(exist_ok=True)
+    sr = ZeroVoxConfig().audio.sampling_rate
+    refwav = np.random.default_rng(0).normal(size=2 * sr).astype(np.float32) * 0.1
+    dump = Path(arg_value("--dump")) if "--dump" in sys.argv else None
+    runs = {12: ("checkpoints", lambda: checkpoint_phase(torch, dev, card, refwav, dump)),
+            18: ("preprocessing and tools", lambda: preprocess_phase(torch, dev, card))}
+    wanted = [int(v) for v in arg_value("--only").split(",")]
+    check(all(n in runs for n in wanted), f"--only takes phases {sorted(runs)}")
+    repeat = int(arg_value("--repeat", 1))
+    failures = []
+    for n in wanted:
+        for i in range(repeat):
+            phase(f"{runs[n][0]} (phase {n}, repeat {i + 1} of {repeat})")
+            try:
+                runs[n][1]()
+            except PhaseFailed as e:
+                failures.append({"phase": n, "repeat": i + 1, "check": e.msg})
+            torch.cuda.empty_cache()
+    print(json.dumps({"only": wanted, "repeat": repeat, "failures": failures, "card": card}))
+    if failures:
+        sys.exit(1)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+
+
 def main() -> None:
     if not (ROOT / "zerovox_tpu_torch" / "__init__.py").is_file():
         fail("the zerovox_tpu_torch package is not beside this script; run it from a checkout")
@@ -2553,6 +2944,10 @@ def main() -> None:
         for ln in lines:
             if "entry function" in ln or "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
+
+    if "--only" in sys.argv:
+        only_phases(torch, dev, card, kind, count)
+        return
 
     # ---- 3. kernels at the main path's shapes
     phase("kernels")
@@ -2762,6 +3157,10 @@ def main() -> None:
     # ---- 17. vocoder GAN training at full width; PQMF, Griffin-Lim; the trained vocoder served
     phase("vocoder training")
     gan_phase(torch, dev, card, refwav, profile_dir)
+
+    # ---- 18. preprocessing on the card, the corpus and checkpoint tools
+    phase("preprocessing and tools")
+    preprocess_phase(torch, dev, card)
 
     # ---- results
     print(card)

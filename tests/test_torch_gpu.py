@@ -1032,3 +1032,48 @@ def test_gan_round_on_card_matches_cpu(cuda, tmp_path):
         seed=3, device="cuda")
     assert (fused_mrf.launches, fused_upsample_stage.launches, fused_resblock1.launches) == n0
     assert loss_rel <= 1e-4 and grad_rel <= 1e-3, (loss_rel, grad_rel)
+
+
+# ---------------------------------------------------------------- preprocessing
+
+
+def test_tone_ctc_emissions_on_card_match_cpu(cuda):
+    from zerovox_tpu_torch.preprocess.tone_ctc import ToneCTCAligner
+    from zerovox_tpu_torch.utils.synthvoice import render_text
+
+    wavs = [render_text(t, 16000, seed=i) for i, t in enumerate(("hello world", "jumpy vixen"))]
+    n = max(len(w) for w in wavs)
+    batch = np.stack([np.pad(w, (0, n - len(w))) for w in wavs])
+    got = ToneCTCAligner(device=cuda).emissions(batch)
+    want = ToneCTCAligner(device="cpu").emissions(batch)
+    assert got.shape == want.shape
+    assert np.max(np.abs(got - want)) <= 1e-4
+
+
+@pytest.mark.parametrize("n", [9999, 88200])
+def test_get_mel_from_wav_on_card_matches_cpu(cuda, n):
+    from zerovox_tpu_torch.dsp.mels import get_mel_from_wav
+
+    rng = np.random.default_rng(n)
+    wav = (np.sin(np.arange(n) * 0.05) * 0.3 + rng.normal(size=n) * 0.05).astype(np.float32)
+    args = (22050, 1024, 256, 1024, 80, 0, 8000)
+    mel, en = get_mel_from_wav(wav, *args, device=cuda)
+    mel_c, en_c = get_mel_from_wav(wav, *args, device="cpu")
+    assert mel.shape == mel_c.shape and mel.dtype == np.float32
+    assert np.max(np.abs(mel - mel_c)) <= 1e-4
+    assert np.max(np.abs(en - en_c) / np.abs(en_c)) <= 1e-5
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_forced_align_torch_on_card_matches_native(cuda, seed):
+    from zerovox_tpu_torch.preprocess.ctc_align import forced_align, forced_align_torch
+
+    rng = np.random.default_rng(seed)
+    T, C = int(rng.integers(100, 400)), 28
+    logits = rng.normal(size=(T, C))
+    em = (logits - np.log(np.exp(logits).sum(-1, keepdims=True))).astype(np.float32)
+    targets = rng.integers(1, C, size=int(rng.integers(5, T // 4)))
+    tok, scores = forced_align_torch(torch.from_numpy(em).to(cuda), targets)
+    want, want_scores = forced_align(em, targets)
+    np.testing.assert_array_equal(tok.cpu().numpy(), want)
+    np.testing.assert_array_equal(scores.cpu().numpy(), want_scores)

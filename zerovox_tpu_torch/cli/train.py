@@ -123,25 +123,6 @@ def check_args(args) -> None:
         raise NotImplementedError("--devices > 1 and --distributed are not ported yet (ROADMAP P14)")
 
 
-def collect_corpora(paths) -> list[dict]:
-    import yaml  # only YAML reading needs it
-
-    corpora = []
-    for cfgfn in paths:
-        if os.path.isdir(cfgfn):
-            for cfn in sorted(os.listdir(cfgfn)):
-                if os.path.splitext(cfn)[1] != ".yaml":
-                    continue
-                with open(os.path.join(cfgfn, cfn)) as f:
-                    corpora.append(yaml.load(f, Loader=yaml.FullLoader))
-        else:
-            with open(cfgfn) as f:
-                corpora.append(yaml.load(f, Loader=yaml.FullLoader))
-    if not corpora:
-        raise Exception("*** error: no .yaml files found!")
-    return corpora
-
-
 def merge_stats(modelcfg: dict, corpora, base_path: str) -> dict:
     """Merge per-corpus stats.json into global min/max + langs."""
     modelcfg["stats"] = {
@@ -244,12 +225,13 @@ def run(args, modelcfg: dict, corpora: list[dict]) -> dict:
 def main(argv=None):
     import yaml  # the card's machine has none: only main reads and writes YAML
 
+    from zerovox_tpu_torch.cli.preprocess import collect_corpus_configs
     from zerovox_tpu_torch.training.data import preprocessed_data_path
 
     args = get_args(argv)
     check_args(args)
     print("collecting .yaml files from specified paths...")
-    corpora = collect_corpora(args.corpora)
+    corpora = collect_corpus_configs(args.corpora)
     print(f"{len(corpora)} corpus .yaml files found.")
     with open(args.model_config) as f:
         modelcfg = yaml.load(f, Loader=yaml.FullLoader)

@@ -22,6 +22,10 @@
   params, whose upstream keys the JAX package's `convert_hifigan_mpd` /
   `convert_hifigan_msd` read).
 
+* `tone_ctc_from_flax` / `tone_ctc_to_flax` carry the bundled tone-speak
+  CTC aligner's flax params ({"Conv1d_0": ..., "Dense_0": ...}, the layout
+  of `preprocess/tone_ctc_weights.npz`) both ways.
+
 * `upstream_state_dict` / `upstream_generator_state_dict` take the
   upstream gooofy/zerovox torch checkpoints, whose keys the modules already
   use, and fold HiFi-GAN weight norm (w = g * v / ||v||, dim 0); the
@@ -336,6 +340,23 @@ def msd_from_jax_variables(params: dict, num_scales: int = 3) -> dict[str, torch
 def msd_to_jax_variables(state_dict: dict, num_scales: int = 3) -> dict:
     """The inverse of `msd_from_jax_variables`."""
     return _ToJax(state_dict).walk(_msd, num_scales)
+
+
+def _tone_ctc(m) -> None:
+    for i in range(2):
+        _conv(m, (f"Conv1d_{i}",), f"convs.{i}.", _CONV1D)
+    _dense(m, ("Dense_0",), "dense.")
+
+
+def tone_ctc_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """The flax `ToneCTCNet`'s params -> state_dict of
+    preprocess.tone_ctc.ToneCTCNet."""
+    return _ToTorch(params).walk(_tone_ctc)
+
+
+def tone_ctc_to_flax(state_dict: dict) -> dict:
+    """The inverse of `tone_ctc_from_flax`."""
+    return _ToJax(state_dict).walk(_tone_ctc)
 
 
 def fold_weight_norm(sd: dict) -> dict[str, torch.Tensor]:
