@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile DIR   # also torch.profiler breakdowns of tts_ex (float32
                                           # and bf16) and of a train step, in DIR/profile_*.txt
     python3 chip_smoke.py --only 12 --repeat 20 [--dump DIR]
-                                          # phases 1-2, then phase 12 (or 18) alone, 20 times:
+                                          # phases 1-2, then phase 12 (18, 19) alone, 20 times:
                                           # each repeat's failure is recorded and the run goes
                                           # on; exits nonzero if any repeat failed. --dump
                                           # writes phase 12's variance predictions per repeat
@@ -159,6 +159,27 @@ Phases, in order; any failure exits nonzero:
    checkpoint's bytes, `dump_ckpt` lists the converter's names; utterances/s
    and per-stage ms of preprocessing on the card and on the CPU, and the
    export's items/s.
+19. Data parallelism on the one card, the serving mesh, the JAX vocoder
+   resume and the kernel build cache, with cuDNN's deterministic
+   algorithms: (a) phase 6's configuration (tts_medium, packed_speaker=1,
+   fused_speaker=True, batch 24 of a synthetic corpus) through a world-1
+   NCCL process group formed through a file store: 2 steps in float32 and 2
+   in bf16-mixed, each against the same trainer's steps without a group and
+   that run against itself (losses and every gradient bitwise, or within
+   1e-6 relative where the ungrouped run differs from itself), 6 + 6 K4
+   launches a grouped step (bf16 K4 in bf16-mixed), the step's ms without
+   and with the group in turns; and two ungrouped runs with the trainers'
+   default algorithms (atomics allowed), each step's largest gradient and
+   weight gaps printed by leaf; (b) tts_batch at B=4 through a one-device
+   serving mesh, bitwise the engine without one, K2 twice and K1 once (as
+   phase 9), both timed in turns; (c) the vocoder trainer (V1's rates at 32
+   initial channels, MPD 2,3, MSD x 2, batch 4) after one round, written as
+   the JAX trainer's vocoder-0000.msgpack (`save_jax_state`) and as the
+   port's .pt, each restored and run one more round: losses and weights
+   bitwise; (d) two child processes building and loading the kernels with
+   ZEROVOX_COMPILE_CACHE on one fresh directory: 4 misses with build
+   seconds, then 4 hits with saved seconds, both `format_cache_stats()`
+   lines printed. `--profile` adds (a)'s and (b)'s device splits.
 
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -167,6 +188,7 @@ The last three lines are the card's name and power limit, a JSON object
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import io
 import json
@@ -234,6 +256,10 @@ PP_WORDS = ("the quick brown fox jumps over a lazy dog while curious cats watch 
             "windows in early morning light zebras hum quietly beside vivid jade boxes").split()
 ALIGN_MAE_HOPS = 3.0  # tone-aligned durations against the synthesizer's (tests/test_aligner.py)
 PP_EMIT_TOL, PP_MEL_TOL, PP_ENERGY_RTOL = 1e-4, 1e-4, 1e-5  # card against CPU
+# data parallel (phase 19): steps a precision; the grouped step against the
+# ungrouped one where the bits differ (relative to a loss, or to the model's
+# largest gradient)
+DP_STEPS, DP_REL_TOL, DP_TIME_ROUNDS = 2, 1e-6, 3
 
 
 class PhaseFailed(SystemExit):
@@ -2816,6 +2842,297 @@ def preprocess_phase(torch, dev, card: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def deterministic_algorithms(torch, on: bool):
+    """Run-to-run bits (`on`), as K4's: cuDNN's deterministic algorithms and
+    torch's (index_put_'s and the scatters' backward without atomics); off,
+    the defaults the trainers run with."""
+    before = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before[0]
+        torch.use_deterministic_algorithms(before[1], warn_only=True)
+
+
+def nondeterminism_trace(torch, cfg, tcfg, batch, names: list) -> dict:
+    """Two ungrouped trainers from one seed, DP_STEPS steps each, with the
+    defaults the trainers run with (atomics allowed): for every step the
+    losses' gap, the leaves whose gradients differ most (each gap over the
+    model's largest gradient and over the leaf's own; and the leaves whose
+    gap is largest against their own largest gradient), and after each
+    optimizer step the leaves whose weights differ most, in units of the
+    step's learning rate. Where two runs part, this names the leaf."""
+    from zerovox_tpu_torch.training.trainer import Trainer
+
+    runs = []
+    for _ in range(2):
+        tr = Trainer(cfg, tcfg, steps_per_epoch=1)
+        st = tr.init_state()
+        steps = []
+        for _ in range(DP_STEPS):
+            lr = tr.schedule(st.step)
+            losses = tr.train_step(st, batch)
+            steps.append(({k: float(v) for k, v in losses.items()},
+                          [p.grad.clone() for p in st.model.parameters()],
+                          [p.detach().clone() for p in st.model.parameters()], lr))
+        runs.append(steps)
+        del tr, st
+    out = []
+    for (la, ga, wa, lr), (lb, gb, wb, _) in zip(*runs):
+        top = max(g.abs().max().item() for g in gb)
+        gaps = [(n, (x - y).abs().max().item(), y.abs().max().item())
+                for n, x, y in zip(names, ga, gb)]
+        grad = sorted(gaps, key=lambda r: -r[1])[:5]
+        by_leaf = sorted(gaps, key=lambda r: -r[1] / max(r[2], 1e-30))[:3]
+        weight = sorted(((n, (x - y).abs().max().item()) for n, x, y in zip(names, wa, wb)),
+                        key=lambda r: -r[1])[:5]
+        out.append({
+            "loss_rel": {k: abs(la[k] - v) / max(abs(v), 1e-30) for k, v in lb.items()},
+            "grad_leaves_differing": sum(not torch.equal(x, y) for x, y in zip(ga, gb)),
+            "grad_top": top,
+            "grad_worst": [{"leaf": n, "gap_over_top": d / max(top, 1e-30),
+                            "gap_over_leaf": d / max(m, 1e-30), "leaf_max": m}
+                           for n, d, m in grad],
+            "grad_worst_over_leaf": [{"leaf": n, "gap_over_leaf": d / max(m, 1e-30),
+                                      "leaf_max": m, "gap_over_top": d / max(top, 1e-30)}
+                                     for n, d, m in by_leaf],
+            "weight_leaves_differing": sum(not torch.equal(x, y) for x, y in zip(wa, wb)),
+            "lr": lr,
+            "weight_worst_in_lr": [{"leaf": n, "gap": d / lr if lr else None} for n, d in weight]})
+    del runs
+    torch.cuda.empty_cache()
+    return {"steps": out}
+
+
+def dp_step_check(torch, cfg, mesh, batch, precision: str, profile_dir=None) -> dict:
+    """Phase 19a for one precision: 2 steps of the trainer without a group,
+    with the world-1 NCCL group (K4's launches read around them) and without
+    again, each from the same seed's weights; every step's losses and
+    gradients compared; then the step's time without and with the group,
+    DP_TIME_ROUNDS rounds of turns (medians), and with `profile_dir` a
+    device split of each."""
+    from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    mixed = precision == "bf16-mixed"
+    tcfg = TrainerConfig(max_epochs=1, warmup_epochs=1, seed=0, precision=precision,
+                         optim_dtype="bf16" if mixed else "f32")
+    fwd, bwd = ("se_conv_fwd_bf16", "se_conv_bwd_bf16") if mixed else ("se_conv_fwd", "se_conv_bwd")
+    runs, k4 = {}, []
+    for label, m in (("plain", None), ("group", mesh), ("plain_again", None)):
+        tr = Trainer(cfg, tcfg, steps_per_epoch=1, mesh=m)
+        st = tr.init_state()
+        steps = []
+        for _ in range(DP_STEPS):
+            if label == "group":
+                zero_counts()
+            losses = tr.train_step(st, batch)
+            steps.append(({k: v.clone() for k, v in losses.items()},
+                          [p.grad.clone() for p in st.model.parameters()]))
+            if label == "group":
+                torch.cuda.synchronize()
+                n = kernel_counts()
+                k4.append([n[fwd], n[bwd]])
+        runs[label] = (tr, st, steps)
+    check(k4 == [[6, 6]] * DP_STEPS, f"{precision}: the grouped steps launched K4 {k4}, not 6 + 6 a step")
+
+    names = [n for n, _ in runs["plain"][1].model.named_parameters()]
+
+    def gaps(a, b) -> dict:
+        """Losses relative to each; gradients relative to the model's
+        largest (a per-tensor ratio is noise on the gradients that are zero
+        up to rounding, such as the attention key biases')."""
+        loss = max(abs(float(a[0][k]) - float(b[0][k])) / max(abs(float(b[0][k])), 1e-30)
+                   for k in b[0])
+        diffs = [(x - y).abs().max().item() for x, y in zip(a[1], b[1])]
+        top = max(y.abs().max().item() for y in b[1])
+        same = all(torch.equal(a[0][k], b[0][k]) for k in b[0]) and all(
+            torch.equal(x, y) for x, y in zip(a[1], b[1]))
+        worst = max(range(len(diffs)), key=diffs.__getitem__)
+        return {"bitwise": same, "loss_rel": loss, "grad_rel": max(diffs) / max(top, 1e-30),
+                "worst": names[worst] if diffs[worst] else None}
+
+    plain = runs["plain"][2]
+    group_gap = [gaps(g, p) for g, p in zip(runs["group"][2], plain)]
+    control = [gaps(g, p) for g, p in zip(runs["plain_again"][2], plain)]
+    print(json.dumps({"dp_step_gaps": {"precision": precision, "group_vs_plain": group_gap,
+                                       "plain_vs_plain": control}}), flush=True)
+    for i, (g, c) in enumerate(zip(group_gap, control)):
+        check(g["bitwise"] or max(g["loss_rel"], g["grad_rel"]) <= DP_REL_TOL,
+              f"{precision} step {i}: the grouped step differs from the ungrouped one by {g} "
+              f"(the ungrouped step from itself: {c})")
+    with deterministic_algorithms(torch, False):
+        nondet = nondeterminism_trace(torch, cfg, tcfg, batch, names)
+    print(json.dumps({"dp_nondeterministic": {"precision": precision, **nondet}}), flush=True)
+    times = {"plain": [], "group": []}
+    profiles = {}
+    with deterministic_algorithms(torch, False):  # timed as the trainers run by default
+        for label in ("plain", "group", "group", "plain") * DP_TIME_ROUNDS:
+            tr, st, _ = runs[label]
+            times[label].append(cuda_time_ms(lambda: tr.train_step(st, batch), iters=3,
+                                             warmup=1))
+        if profile_dir is not None:
+            for label in ("plain", "group"):
+                tr, st, _ = runs[label]
+                profiles[label] = profile_calls(torch, lambda: tr.train_step(st, batch), 3,
+                                                profile_dir, f"dp_step_{precision}_{label}")
+    del runs
+    torch.cuda.empty_cache()
+    return {"k4_per_step": k4, "group_vs_plain": group_gap, "plain_vs_plain": control,
+            "nondeterministic": nondet,
+            "losses": [{k: float(v) for k, v in s[0].items()} for s in plain],
+            "step_ms": times, "plain_ms": statistics.median(times["plain"]),
+            "group_ms": statistics.median(times["group"]), "profiles": profiles}
+
+
+def parallel_phase(torch, dev, card: str, refwav, sr: int, profile_dir=None) -> dict:
+    """Phase 19: data parallelism on the card's one H100 (a world-1 NCCL
+    group through a file store), tts_batch through a one-device serving
+    mesh, the vocoder trainer's resume from the JAX trainer's .msgpack
+    layout, and the kernel build cache in two child processes."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.ops.mrf import fused_mrf
+    from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
+    from zerovox_tpu_torch.parallel.mesh import MeshConfig, initialize_distributed, make_mesh
+    from zerovox_tpu_torch.synthesize import VOCODER_ALL_BATCHES, ZeroVoxTTS
+    from zerovox_tpu_torch.training.data import SpeechDataModule
+    from zerovox_tpu_torch.training.trainer import device_batch
+    from zerovox_tpu_torch.training.vocoder import (VocoderDataConfig, VocoderTrainer,
+                                                    VocoderTrainerConfig)
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    out = {"card": card}
+    BUILD.mkdir(exist_ok=True)
+    with deterministic_algorithms(torch, True):
+        with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+            tmp = Path(tmp)
+            # (a) the data-parallel step at phase 6's configuration, batch 24
+            cfg = train_config(fused=True)
+            write_corpus(tmp, "train", cfg.symbols(), cfg.audio.num_mels, TRAIN_BATCH, (80, 100),
+                         seed=0)
+            dm = SpeechDataModule([{"path": {"preprocessed_path": "train"}}], cfg.symbols(), STATS,
+                                  batch_size=TRAIN_BATCH, num_workers=4, seed=0,
+                                  base_path=str(tmp))
+            dm.prepare_data()
+            batch = device_batch(next(iter(dm.train_dataloader(0))), dev)
+            initialize_distributed(coordinator_address=f"file://{tmp}/store", num_processes=1,
+                                   process_id=0, device=dev)
+            try:
+                mesh = make_mesh(MeshConfig(data=1))
+                check(mesh.group is not None and mesh.world == 1 and dist.get_backend() == "nccl",
+                      f"the group: {dist.get_backend()}, world {mesh.world}")
+                out["dp_step"] = {p: dp_step_check(torch, cfg, mesh, batch, p, profile_dir)
+                                  for p in ("32", "bf16-mixed")}
+            finally:
+                dist.destroy_process_group()
+            del batch, dm
+
+            # (b) tts_batch at B=4 through a one-device serving mesh
+            engine = ZeroVoxTTS.from_random(seed=0)
+            sd, md = engine.state_dicts()
+            meshed = ZeroVoxTTS(engine.cfg, sd, engine._meldec_cfg, md,
+                                mesh=make_mesh(MeshConfig(data=1), devices=[dev]))
+            rng = np.random.default_rng(9)
+            spk_wavs = [refwav] + [rng.normal(size=2 * sr).astype(np.float32) * s
+                                   for s in (0.05, 0.2, 0.3)]
+            durs, spks = batch_inputs(engine, spk_wavs)
+            zero_counts()
+            rows = meshed.tts_batch(list(BATCH_TEXTS), spks, durations=durs)
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            check_batch(rows, durs, engine.cfg.audio.hop_size, "mesh tts_batch")
+            k1 = 1 if VOCODER_ALL_BATCHES else 0
+            check(fused_upsample_stage.launches == 2 and fused_mrf.launches == k1
+                  and counts["fused_resblock1"] == 0,
+                  f"the mesh's tts_batch at B=4 launched {counts}, not K2 twice and K1 {k1}x")
+            ref = engine.tts_batch(list(BATCH_TEXTS), spks, durations=durs)
+            same = [n == m and np.array_equal(w, r) for (w, n), (r, m) in zip(rows, ref)]
+            check(all(same), f"the mesh's rows differ from the engine's: bitwise {same}, max diff "
+                             f"{max(float(np.abs(w - r).max()) for (w, _), (r, _) in zip(rows, ref))}")
+            ms = {"engine": [], "mesh": []}
+            with deterministic_algorithms(torch, False):
+                for label, e in (("engine", engine), ("mesh", meshed), ("mesh", meshed),
+                                 ("engine", engine)):
+                    ms[label].append(cuda_time_ms(
+                        lambda: e.tts_batch(list(BATCH_TEXTS), spks, durations=durs), iters=3,
+                        warmup=1))
+            if profile_dir is not None:
+                for label, e in (("engine", engine), ("mesh", meshed)):
+                    profile_calls(torch, lambda: e.tts_batch(list(BATCH_TEXTS), spks,
+                                                             durations=durs),
+                                  3, profile_dir, f"tts_batch_b4_{label}")
+            out["serving_mesh"] = {"launches": {"fused_mrf": counts["fused_mrf"],
+                                                "fused_upsample_stage":
+                                                    counts["fused_upsample_stage"]},
+                                   "bitwise_rows": same, "tts_batch_b4_ms": ms}
+            del engine, meshed
+            torch.cuda.empty_cache()
+
+            # (c) the vocoder trainer resumed from the JAX trainer's .msgpack and from its .pt
+            gcfg = HifiGanConfig(upsample_initial_channel=32)
+            tcfg = VocoderTrainerConfig(batch_size=4, mpd_periods=(2, 3), msd_scales=2,
+                                        out_folder=str(tmp / "voc"))
+            vt = VocoderTrainer(gcfg, VocoderDataConfig(), tcfg, steps_per_epoch=1)
+            g = torch.Generator().manual_seed(0)
+            vbatch = {"mel": (torch.randn(4, 32, 80, generator=g) - 4.0).to(dev),
+                      "wav": (torch.randn(4, 32 * 256, generator=g) * 0.1).to(dev)}
+            st = vt.init_state()
+            vt.train_step(st, vbatch)
+            files = {"pt": vt.save_state(st, tcfg.out_folder, 0),
+                     "msgpack": vt.save_jax_state(st, tcfg.out_folder, 0)}
+            rounds = {}
+            for kind, path in files.items():
+                st2 = vt.init_state(torch.Generator().manual_seed(1))  # other weights, replaced
+                check(vt.restore_state(st2, path) == 1, f"{kind}: not resumed at epoch 1")
+                losses = vt.train_step(st2, vbatch)
+                rounds[kind] = ({k: v.clone() for k, v in losses.items()},
+                                [p.detach().clone() for net in (st2.gen, st2.mpd, st2.msd)
+                                 for p in net.parameters()])
+            (la, pa), (lb, pb) = rounds["msgpack"], rounds["pt"]
+            resume_same = (all(torch.equal(la[k], lb[k]) for k in lb)
+                           and all(torch.equal(a, b) for a, b in zip(pa, pb)))
+            check(resume_same, "the .msgpack resume's round differs from the .pt resume's")
+            out["vocoder_resume"] = {
+                "bitwise": resume_same, "losses": {k: float(v) for k, v in la.items()},
+                "msgpack_mb": os.path.getsize(files["msgpack"]) / 1e6,
+                "pt_mb": os.path.getsize(files["pt"]) / 1e6}
+            del vt, st, st2, rounds
+            torch.cuda.empty_cache()
+
+            # (d) the kernel build cache: two processes on one fresh directory
+            code = ("import json; from zerovox_tpu_torch.ops import _cuda; "
+                    "from zerovox_tpu_torch.utils import compile_cache as cc; "
+                    "_cuda.ensure_built(); print(cc.format_cache_stats()); "
+                    "print(json.dumps(cc.cache_stats()))")
+            env = {**os.environ, "ZEROVOX_COMPILE_CACHE": str(tmp / "kernel_cache")}
+            runs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                                      capture_output=True, text=True, timeout=900)
+                check(proc.returncode == 0, f"the compile-cache child failed: {proc.stderr[-2000:]}")
+                line, stats = proc.stdout.strip().splitlines()[-2:]
+                print(f"compile cache child {len(runs) + 1}: {line}", flush=True)
+                runs.append({"line": line, "stats": json.loads(stats),
+                             "wall_s": time.perf_counter() - t0})
+            n = 4
+            first, second = runs[0]["stats"], runs[1]["stats"]
+            check(first["misses"] == n and first["hits"] == 0 and first["backend_compile_sec"] > 0,
+                  f"the first process: {runs[0]['line']}")
+            check(second["hits"] == n and second["misses"] == 0 and second["saved_sec"] > 0,
+                  f"the second process: {runs[1]['line']}")
+            out["compile_cache"] = runs
+    print(json.dumps({"parallel": out}), flush=True)
+    return out
+
+
 def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
     """torch.profiler over `calls` calls of fn: device time by kernel, the
     device's busy share of the window (the union of the kernels' and
@@ -2883,8 +3200,11 @@ def only_phases(torch, dev, card: str, kind: str, count: int) -> None:
     sr = ZeroVoxConfig().audio.sampling_rate
     refwav = np.random.default_rng(0).normal(size=2 * sr).astype(np.float32) * 0.1
     dump = Path(arg_value("--dump")) if "--dump" in sys.argv else None
+    profile_dir = Path(arg_value("--profile")) if "--profile" in sys.argv else None
     runs = {12: ("checkpoints", lambda: checkpoint_phase(torch, dev, card, refwav, dump)),
-            18: ("preprocessing and tools", lambda: preprocess_phase(torch, dev, card))}
+            18: ("preprocessing and tools", lambda: preprocess_phase(torch, dev, card)),
+            19: ("data parallel, serving mesh, resume, compile cache",
+                 lambda: parallel_phase(torch, dev, card, refwav, sr, profile_dir))}
     wanted = [int(v) for v in arg_value("--only").split(",")]
     check(all(n in runs for n in wanted), f"--only takes phases {sorted(runs)}")
     repeat = int(arg_value("--repeat", 1))
@@ -3161,6 +3481,11 @@ def main() -> None:
     # ---- 18. preprocessing on the card, the corpus and checkpoint tools
     phase("preprocessing and tools")
     preprocess_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 19. data parallel (world-1 NCCL), the serving mesh, the JAX vocoder resume, the cache
+    phase("data parallel, serving mesh, resume, compile cache")
+    parallel_phase(torch, dev, card, refwav, sr, profile_dir)
 
     # ---- results
     print(card)

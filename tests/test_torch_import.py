@@ -39,6 +39,7 @@ def test_imports_with_jax_and_jax_package_blocked():
         "import zerovox_tpu_torch.utils.synthvoice, zerovox_tpu_torch.cli.preprocess\n"
         "import zerovox_tpu_torch.cli.stats, zerovox_tpu_torch.cli.dump_ckpt\n"
         "import zerovox_tpu_torch.cli.edit_meldec, zerovox_tpu_torch.cli.export_hifigan\n"
+        "import zerovox_tpu_torch.parallel, zerovox_tpu_torch.utils.compile_cache\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'msgpack', 'yaml', 'h5py',\n"
         "                                             'transformers'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"

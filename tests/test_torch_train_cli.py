@@ -170,9 +170,14 @@ def test_cli_defaults_and_what_is_not_ported(cli_files, monkeypatch, tmp_path):
     assert port_cli.resolve_optim_dtype("auto", "cuda") == "bf16"
     assert port_cli.resolve_optim_dtype("auto", "cpu") == "f32"
     assert port_cli.resolve_optim_dtype("f32", "cuda") == "f32"
-    for extra in (["--devices", "2"], ["--distributed"], ["--coordinator-address", "h:1"],
+    # data parallelism is ported (tests/test_torch_parallel.py); what remains
+    # refused is a mesh the machine cannot hold and flags that contradict
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="--devices 2: only 1 CUDA device"):
+        port_cli.main(["-c", str(cfg_path), str(corpus_path), "--devices", "2"])
+    for extra in (["--distributed", "--devices", "2"], ["--coordinator-address", "h:1"],
                   ["--num-processes", "2"], ["--process-id", "0"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP P14"):
+        with pytest.raises(ValueError, match="--distributed"):
             port_cli.main(["-c", str(cfg_path), str(corpus_path), "--accelerator", "cpu"] + extra)
     with pytest.raises(SystemExit, match="requires --packed-speaker"):
         port_cli.main(["-c", str(cfg_path), str(corpus_path), "--accelerator", "cpu",
@@ -390,3 +395,93 @@ def test_cli_namespace_fields_match_the_jax_cli():
     differ = {k for k in jax_args if jax_args[k] != port_args[k]}
     assert differ == {"accelerator"}
     assert isinstance(port_cli.get_args(["-c", "m", "c", "--packed-speaker"]), Namespace)
+
+
+def test_devices_2_on_cpu_ranks_trains_as_one_process(pp_root, tmp_path, monkeypatch):
+    """`--devices 2 --accelerator cpu` spawns two gloo ranks, each on its
+    half of every batch of 4, rank 0 writing the checkpoints: the run's
+    epoch loss within 1e-4 relative of the one-process run's (float32,
+    dropout 0, the fused stage 1, remat: the global BatchNorm statistics and
+    masked means make the two runs one computation up to rounding, and the
+    ranks replay the recomputed blocks' all-reduces alike) and its weights
+    within 2 x lr x steps (tests/test_torch_train.py's bound: Adam turns a
+    gradient that is zero up to rounding, as the attention key biases' is,
+    into a +-lr step)."""
+    monkeypatch.setenv("ZEROVOX_PREPROCESSED_DATA_PATH", str(pp_root))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the ranks' torch: one thread each
+    cfg = port_cli.merge_stats(modelcfg(fused=True), [CORPUS], str(pp_root))
+    common = ["-c", "unused.yaml", "unused", "--accelerator", "cpu", "--precision", "32",
+              "--batch-size", "4", "--max-epochs", "1", "--warmup-epochs", "1",
+              "--packed-speaker", "1", "--fused-speaker", "--remat", "--remat-speaker",
+              "--num_workers", "1"]
+    runs = {}
+    for devices in ("1", "2"):
+        out = tmp_path / f"devices{devices}"
+        args = port_cli.get_args(common + ["--devices", devices, "--out-folder", str(out)])
+        got = port_cli.run(args, cfg, [CORPUS])
+        assert (got is None) == (devices == "2")  # the spawned ranks return nothing
+        ckpts = out / "checkpoints"
+        assert sorted(os.listdir(ckpts)) == ["0000.msgpack", "0000.msgpack.json"]
+        runs[devices] = (json.loads((ckpts / "0000.msgpack.json").read_text()),
+                         jax_load(ckpts / "0000.msgpack"))
+    (meta1, w1), (meta2, w2) = runs["1"], runs["2"]
+    assert meta2["step"] == meta1["step"] == 3
+    assert abs(meta2["loss"] - meta1["loss"]) <= 1e-4 * abs(meta1["loss"])
+    got = dict(jax.tree_util.tree_leaves_with_path(w2))
+    for path, w in jax.tree_util.tree_leaves_with_path(w1):
+        assert np.abs(np.asarray(got[path]) - np.asarray(w)).max() <= 2 * 1e-5 * 3, path
+
+
+def test_distributed_needs_the_card_unless_told_cpu(tmp_path, monkeypatch):
+    """`--distributed` at the default `--accelerator cuda` resolves to the
+    card and raises without one, before any group is formed: a run never
+    quietly trains on the CPU."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = port_cli.get_args(["-c", "m", "c", "--distributed", "--coordinator-address",
+                              f"file://{tmp_path}/store", "--num-processes", "1",
+                              "--process-id", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_cli.run(args, {}, [])
+    assert not dist.is_initialized()
+
+
+def test_distributed_on_two_cpu_processes(pp_root, tmp_path, monkeypatch):
+    """`--distributed --accelerator cpu` in two processes that join one gloo
+    group through a file store: each loads its own batches of `--batch-size`
+    rows (not a block of a global batch), shuffled with its rank as the
+    seed; the gradients are all-reduced, so both end with the same weights;
+    rank 0 alone writes the checkpoint."""
+    import torch.multiprocessing as mp
+    import torch_parallel_ranks as ranks
+
+    monkeypatch.setenv("ZEROVOX_PREPROCESSED_DATA_PATH", str(pp_root))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    cfg = port_cli.merge_stats(modelcfg(), [CORPUS], str(pp_root))
+    out = tmp_path / "out"
+    argv = ["-c", "unused.yaml", "unused", "--accelerator", "cpu", "--precision", "32",
+            "--batch-size", "4", "--max-epochs", "1", "--warmup-epochs", "1",
+            "--num_workers", "1", "--out-folder", str(out), "--distributed",
+            "--coordinator-address", f"file://{tmp_path}/store", "--num-processes", "2"]
+    mp.start_processes(ranks.distributed_cli, args=(argv, cfg, [CORPUS], str(tmp_path)),
+                       nprocs=2, start_method="spawn")
+    got = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    symbols = Symbols(PHONES, PUNCTS)
+    for r, g in enumerate(got):
+        assert (g["rank"], g["world"], g["device"], g["backend"]) == (r, 2, "cpu", "gloo")
+        assert g["process_local"]
+        dm = pdata.SpeechDataModule([CORPUS], symbols, cfg["stats"], batch_size=4,
+                                    num_workers=1, seed=r, device="cpu")
+        dm.prepare_data()
+        want = [x["mel_len"].tolist() for x, _ in dm.train_dataloader(0)]
+        assert len(want) == 3 and all(len(b) == 4 for b in want)
+        assert g["seen"] == want, r
+    assert got[0]["seen"] != got[1]["seen"]
+    for n, p in got[0]["params"].items():
+        assert torch.equal(p, got[1]["params"][n]), n
+    ckpts = out / "checkpoints"
+    assert sorted(os.listdir(ckpts)) == ["0000.msgpack", "0000.msgpack.json"]
+    assert json.loads((ckpts / "0000.msgpack.json").read_text())["step"] == 3
+    for path, w in jax.tree_util.tree_leaves_with_path(jax_load(ckpts / "0000.msgpack")):
+        assert np.all(np.isfinite(np.asarray(w))), path

@@ -12,7 +12,11 @@ Tolerances: feature maps and mels 1e-5 x the tensor's max; a round's losses
 1e-4 relative and gradients 1e-3 x each tensor's max (the float32 sums of
 the nets' convolutions reassociate differently in XLA and in torch); the
 3-step trajectory 1e-3 relative; bf16-mixed 5e-2 (docs/PERFORMANCE.md's
-bf16 bound).
+bf16 bound). The JAX trainer's `vocoder-NNNN.msgpack` (P13a): the restored
+weights, moments and counts equal the file's bitwise, the next round's
+losses 1e-3 relative (the trajectory's bound) and its weights 2 x lr (one
+Adam step turns a gradient that is zero up to rounding into +-lr); the
+port's writer gives flax's bytes.
 """
 
 import json
@@ -435,3 +439,103 @@ def test_cli_bench_row(tmp_path):
     assert train_vocoder.PEAK_FLOPS == {"32": 67e12, "bf16-mixed": 989e12}
     assert row["peak_flops"] is None and row["mfu_pct"] is None
     assert state.step == 1 + 1 + 2  # the counted step, then chains of 1 and 2
+
+
+# --------------------------------------------- the JAX trainer's resume file
+
+
+@pytest.fixture(scope="module")
+def jax_resume(tmp_path_factory):
+    """The JAX trainer after one round with its real optimizers and its
+    `vocoder-0000.msgpack`, then its next round; the port's trainer and the
+    batch. One discriminator of each kind keeps the file small; the JAX
+    trainer runs on one CPU device and starts from the port's initial
+    weights (flax's init of the discriminators takes ~30 s op by op)."""
+    from zerovox_tpu.parallel import mesh as jmesh
+
+    tmp = tmp_path_factory.mktemp("resume")
+    root = str(tmp / "pp")
+    _write_pp_dir(root, n_items=4, n_frames=24)
+    batch = next(pv.VocoderDataset([root], port_dcfg(8), seed=0).batches(4))
+    trainer = pv.VocoderTrainer(port_gcfg(), port_dcfg(8), pv.VocoderTrainerConfig(
+        learning_rate=1e-3, lr_decay=0.9, mpd_periods=(2,), msd_scales=1,
+        out_folder=str(tmp / "port")), 1, device="cpu")
+    init = trainer.init_state(torch.Generator().manual_seed(5))
+    jt = jv.VocoderTrainer(tiny_gcfg(), tiny_dcfg(8), jv.VocoderTrainerConfig(
+        learning_rate=1e-3, lr_decay=0.9, mpd_periods=(2,), msd_scales=1), steps_per_epoch=1,
+        mesh=jmesh.make_mesh(jmesh.MeshConfig(data=1), devices=jax.devices()[:1]))
+    jparams = {"g": generator_to_jax_params(init.gen.state_dict(), port_gcfg()),
+               "d": {"mpd": mpd_to_jax_variables(init.mpd.state_dict(), (2,)),
+                     "msd": msd_to_jax_variables(init.msd.state_dict(), 1)}}
+    jstate, _ = jt._step(_jax_state(jparams, jt.tx_g, jt.tx_d), batch)
+    path = jt.save_state(jstate, str(tmp / "jax"), 0)
+    saved = jax.tree.map(np.array, jax.device_get(jstate))  # copies: the step donates its input
+    jstate, want = jt._step(jstate, batch)
+    return {"jt": jt, "path": path, "saved": saved, "next": jax.device_get(jstate),
+            "want": {k: float(v) for k, v in want.items()}, "trainer": trainer, "batch": batch,
+            "tmp": tmp}
+
+
+def test_jax_msgpack_resume_continues_the_jax_run(jax_resume):
+    from flax import serialization
+
+    r = jax_resume
+    trainer, host = r["trainer"], r["saved"]
+    state = trainer.init_state()
+    assert trainer.restore_state(state, r["path"]) == 1  # the epoch after the file's
+    assert state.step == state.g_opt.count == state.d_opt.count == 1
+    g = generator_from_jax_params(host.g_params, port_gcfg())
+    for n, p in state.gen.named_parameters():
+        assert torch.equal(p.detach(), g[n]), n
+    mu = generator_from_jax_params(host.g_opt[0].mu, port_gcfg())
+    nu = msd_from_jax_variables(host.d_opt[0].nu["msd"], 1)
+    k = sum(1 for _ in state.mpd.parameters())
+    for (n, _), m in zip(state.gen.named_parameters(), state.g_opt.mu):
+        assert torch.equal(m, mu[n]), n
+    for (n, _), v in zip(state.msd.named_parameters(), state.d_opt.nu[k:]):
+        assert torch.equal(v, nu[n]), n
+
+    # the next round, against the JAX package's
+    got = trainer.train_step(state, r["batch"])
+    for key, v in r["want"].items():
+        np.testing.assert_allclose(float(got[key]), v, rtol=1e-3, err_msg=key)
+    g = generator_from_jax_params(r["next"].g_params, port_gcfg())
+    for n, p in state.gen.named_parameters():
+        assert (p.detach() - g[n]).abs().max() <= 2 * 1e-3 * 0.9, n
+
+    # the port's file of this state is flax's bytes of it, as the JAX trainer reads it
+    out = trainer.save_jax_state(state, str(r["tmp"] / "port"), 1)
+    with open(out, "rb") as f:
+        blob = f.read()
+    restored = jax.device_get(r["jt"].restore_state(r["next"], out))
+    assert serialization.to_bytes(restored) == blob
+    with open(out + ".json") as f:
+        assert int(restored.step) == 2 and json.load(f) == {"epoch": 1}
+    g = generator_from_jax_params(restored.g_params, port_gcfg())
+    for n, p in state.gen.named_parameters():
+        assert torch.equal(p.detach(), g[n]), n
+
+
+def test_inverse_writer_gives_the_jax_files_bytes(jax_resume, tmp_path):
+    trainer, path = jax_resume["trainer"], jax_resume["path"]
+    state = trainer.init_state()
+    trainer.restore_state(state, path)
+    out = trainer.save_jax_state(state, str(tmp_path / "port"), 0)
+    with open(path, "rb") as a, open(out, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_count_mismatch_raises(jax_resume, tmp_path):
+    from zerovox_tpu_torch.utils.msgpack_codec import packb, unpackb
+
+    trainer, path = jax_resume["trainer"], jax_resume["path"]
+    with open(path, "rb") as f:
+        tree = unpackb(f.read())
+    tree["d_opt"]["2"]["count"] = np.asarray(5, np.int32)
+    bad = str(tmp_path / "bad.msgpack")
+    with open(bad, "wb") as f:
+        f.write(packb(tree, sort_keys=False))
+    with open(bad + ".json", "w") as f:
+        json.dump({"epoch": 0}, f)
+    with pytest.raises(ValueError, match="d_opt's Adam count 1 is not its schedule's 5"):
+        trainer.restore_state(trainer.init_state(), bad)

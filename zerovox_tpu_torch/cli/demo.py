@@ -80,6 +80,12 @@ def main(argv=None):
     if args.threads > 0:
         torch.set_num_threads(args.threads)
 
+    # the kernel build cache: the first run on a machine builds the kernels,
+    # later processes load them (ZEROVOX_COMPILE_CACHE=0 builds each time)
+    from zerovox_tpu_torch.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     if args.random_model:
         synth = ZeroVoxTTS.from_random(verbose=args.verbose, device=args.infer_device)
         modelcfg = synth.cfg.to_dict()
@@ -138,6 +144,10 @@ def main(argv=None):
             _play(wav, sr)
         if rtf:
             print("Average RTF: {:.2f}".format(np.mean(rtf)))
+        if args.verbose:
+            from zerovox_tpu_torch.utils.compile_cache import format_cache_stats
+
+            print(format_cache_stats())
         return
 
     if args.interactive:

@@ -74,6 +74,9 @@ def main(argv=None):
 
     from zerovox_tpu_torch.serving import make_server
     from zerovox_tpu_torch.synthesize import ZeroVoxTTS
+    from zerovox_tpu_torch.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.random_model:
         synth = ZeroVoxTTS.from_random(verbose=args.verbose, device=args.infer_device)

@@ -1,4 +1,4 @@
-"""`zerovox-torch-train`: the acoustic-model training CLI on one CUDA card.
+"""`zerovox-torch-train`: the acoustic-model training CLI on CUDA cards.
 
 The JAX package's `zerovox-train` with the same arguments and defaults:
 collects the corpus YAMLs (files or directories), merges their
@@ -17,8 +17,18 @@ Defaults as the JAX CLI's: `--precision bf16-mixed`, `--optim-dtype auto`
 auto` (on for one-process runs on the card), `--packed-speaker` 0 off the
 TPU (in the port it only gates `--fused-speaker`, whose stage 1 runs K4).
 It runs on the CUDA card; `--accelerator cpu` runs it on the CPU; without a
-card the default raises. `--devices > 1` and `--distributed` are not
-ported yet (ROADMAP P14).
+card the default raises. Data parallel, one process a device
+(`parallel/mesh.py`): `--devices N` spawns N ranks on `cuda:0..N-1` (or N
+CPU ranks with `--accelerator cpu`), each on its block of every global
+batch of `--batch-size` rows, with the device corpus cache per rank;
+`--devices -1`, the default, takes every visible card, which on a machine
+with one card is the single-process run. `--distributed` joins a
+multi-host job (one process a card; `--coordinator-address host:port`,
+`--num-processes`, `--process-id`, or torchrun's variables): each process
+loads its own batches of `--batch-size` rows, shuffled with its rank as the
+seed, without the device cache unless asked. Rank 0 writes the
+checkpoints and logs. The kernel build cache is `ZEROVOX_COMPILE_CACHE`'s
+(`utils/compile_cache.py`); its counters are printed at the end.
 
 YAML is read and written only by `main`; `run(args, modelcfg, corpora)`
 takes the parsed dicts, so it runs where pyyaml is missing.
@@ -52,7 +62,8 @@ def get_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--accelerator", type=str, default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--devices", type=int, default=-1,
-                        help="number of devices (-1: all; more than one is not ported yet)")
+                        help="data-parallel processes, one a card (-1: every visible card; "
+                             "with --accelerator cpu, CPU ranks)")
     parser.add_argument("--threads", type=int, default=24)
     parser.add_argument("--precision", default="bf16-mixed",
                         help="bf16-mixed (forward and backward in bf16) or 32")
@@ -109,7 +120,10 @@ def get_args(argv=None):
     parser.add_argument("--checkpoint-format", default="msgpack", choices=["msgpack", "state"],
                         help="state = the native msgpack plus the whole train state "
                              "(state/NNNN.pt), which --resume reads")
-    parser.add_argument("--distributed", action="store_true", help="not ported yet (ROADMAP P14)")
+    parser.add_argument("--distributed", action="store_true",
+                        help="join a multi-host data-parallel job: one process a card, each "
+                             "loading its own batches (coordinator from --coordinator-address "
+                             "or torchrun's environment)")
     parser.add_argument("--coordinator-address", type=str, default=None)
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
@@ -117,10 +131,19 @@ def get_args(argv=None):
 
 
 def check_args(args) -> None:
-    """Raise on what the port does not run: several devices, multi-host."""
-    if (args.devices > 1 or args.distributed or args.coordinator_address is not None
-            or args.num_processes is not None or args.process_id is not None):
-        raise NotImplementedError("--devices > 1 and --distributed are not ported yet (ROADMAP P14)")
+    """Raise on flags that contradict each other, and on more `--devices`
+    than the machine has."""
+    from zerovox_tpu_torch.parallel.mesh import device_count
+
+    device_count(args.devices, args.accelerator)
+    if args.distributed and args.devices > 1:
+        raise ValueError("--distributed runs one process a card: start one process per card "
+                         "instead of --devices > 1")
+    if not args.distributed and (args.coordinator_address is not None
+                                 or args.num_processes is not None
+                                 or args.process_id is not None):
+        raise ValueError("--coordinator-address, --num-processes and --process-id go with "
+                         "--distributed")
 
 
 def merge_stats(modelcfg: dict, corpora, base_path: str) -> dict:
@@ -166,25 +189,55 @@ def model_config(args, modelcfg: dict) -> ZeroVoxConfig:
     return dataclasses.replace(cfg, model=mcfg)
 
 
-def run(args, modelcfg: dict, corpora: list[dict]) -> dict:
+def run(args, modelcfg: dict, corpora: list[dict]) -> dict | None:
     """Train on the merged `modelcfg` (after `merge_stats`) and the parsed
-    corpora. Returns {"trainer", "state", "datamodule", "cfg"}."""
+    corpora. Returns {"trainer", "state", "datamodule", "cfg"} of this
+    process; None where it spawned the ranks (`--devices N`), which return
+    when training has ended."""
+    from zerovox_tpu_torch.parallel.mesh import (device_count, initialize_distributed,
+                                                 make_mesh, spawn_data_parallel)
+    from zerovox_tpu_torch.utils.compile_cache import enable_compile_cache
+
+    check_args(args)
+    enable_compile_cache()
+    if args.distributed:
+        # the card (cuda:LOCAL_RANK, raising without one) unless --accelerator cpu
+        device = "cpu" if args.accelerator == "cpu" else None
+        initialize_distributed(strict=True, coordinator_address=args.coordinator_address,
+                               num_processes=args.num_processes, process_id=args.process_id,
+                               device=device)
+        mesh = make_mesh(devices=[device] if device else None, process_local=True)
+        print(f"distributed: process {mesh.rank}/{mesh.world} on {mesh.devices[0]}")
+        return _train(args, modelcfg, corpora, mesh)
+    n = device_count(args.devices, args.accelerator)
+    if n > 1:
+        spawn_data_parallel(_train, n, args.accelerator, args, modelcfg, corpora)
+        return None
+    return _train(args, modelcfg, corpora, None)
+
+
+def _train(args, modelcfg: dict, corpora: list[dict], mesh) -> dict:
+    """The run of one process: alone (mesh None) or one rank of `mesh`."""
+    from zerovox_tpu_torch.device import resolve_device
     from zerovox_tpu_torch.training.checkpointing import load_native_checkpoint
     from zerovox_tpu_torch.training.data import SpeechDataModule
     from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from zerovox_tpu_torch.utils.compile_cache import format_cache_stats
 
-    check_args(args)
     cfg = model_config(args, modelcfg)
     symbols = Symbols(modelcfg["model"]["phones"], modelcfg["model"]["puncts"])
-    device = args.accelerator
+    device = mesh.devices[0] if mesh is not None else resolve_device(args.accelerator)
+    process_local = mesh is not None and mesh.process_local
+    rank = mesh.rank if mesh is not None else 0
     if args.data_device_cache == "auto":
-        # one process on the card: ship the corpus once, gather batches there
-        use_device_cache = device == "cuda"
+        # one host's process a card: ship the corpus once, gather batches there;
+        # a multi-host job's processes each load their own batches
+        use_device_cache = device.type == "cuda" and not process_local
     else:
         use_device_cache = args.data_device_cache == "on"
     datamodule = SpeechDataModule(
         corpora=corpora, symbols=symbols, stats=modelcfg["stats"], batch_size=args.batch_size,
-        num_workers=args.num_workers * max(1, args.devices), seed=0,
+        num_workers=args.num_workers, seed=rank if process_local else 0,
         device_cache=use_device_cache, device=device)
     datamodule.prepare_data()
     print(f"{len(datamodule.train_dataset)} training samples")
@@ -198,8 +251,9 @@ def run(args, modelcfg: dict, corpora: list[dict]) -> dict:
         keep_checkpoints=args.keep_checkpoints,
         checkpoint_every_n_epochs=args.checkpoint_every_n_epochs,
         profile_dir=args.profile, profile_steps=args.profile_steps,
-        optim_dtype=resolve_optim_dtype(args.optim_dtype, device))
-    trainer = Trainer(cfg, tcfg, steps_per_epoch=datamodule.steps_per_epoch(), device=device)
+        optim_dtype=resolve_optim_dtype(args.optim_dtype, device.type))
+    trainer = Trainer(cfg, tcfg, steps_per_epoch=datamodule.steps_per_epoch(), device=device,
+                      mesh=mesh)
     state = trainer.init_state()
 
     start_epoch = 0
@@ -219,6 +273,8 @@ def run(args, modelcfg: dict, corpora: list[dict]) -> dict:
         state = trainer.restore_into(state, state_dict, reinit_decoder=args.train_decoder_only)
 
     trainer.fit(datamodule.train_dataloader, state, start_epoch=start_epoch)
+    if rank == 0:
+        print(format_cache_stats())
     return {"trainer": trainer, "state": state, "datamodule": datamodule, "cfg": cfg}
 
 

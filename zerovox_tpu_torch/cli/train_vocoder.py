@@ -1,4 +1,4 @@
-"""`zerovox-torch-train-vocoder`: HiFi-GAN GAN training on one CUDA card.
+"""`zerovox-torch-train-vocoder`: HiFi-GAN GAN training on CUDA cards.
 
 The JAX package's `zerovox-train-vocoder` with the same arguments and
 defaults (`training/vocoder.py`): it trains on preprocess output dirs
@@ -10,9 +10,15 @@ packages' engines load as a meldec dir.
         --max-epochs 200 --batch-size 16
 
 It runs on the CUDA card; `--accelerator cpu` runs it on the CPU, and
-without a card the default raises. `--checkpoint` resumes the whole GAN
-state from a `checkpoints/vocoder-NNNN.pt` this CLI wrote and continues at
-the next epoch. `--bench` prints one JSON row instead of training: the
+without a card the default raises. `--devices N` trains data parallel, one
+process a card on `cuda:0..N-1` (N CPU ranks with `--accelerator cpu`),
+each on its block of every batch of `--batch-size` rows; -1, the default,
+takes every visible card, as the JAX trainer's mesh does. `--checkpoint`
+resumes the whole GAN state from a `checkpoints/vocoder-NNNN.pt` this CLI
+wrote or a `vocoder-NNNN.msgpack` the JAX package's trainer wrote, and
+continues at the epoch after the file's (the JAX CLI counts its epochs from
+0 again after a resume). The kernel build cache is `ZEROVOX_COMPILE_CACHE`'s
+(`utils/compile_cache.py`). `--bench` prints one JSON row instead of training: the
 step's device milliseconds (CUDA events, the marginal cost between two
 chain lengths), its FLOP (counted over one step by
 torch.utils.flop_counter) and the MFU against the H100's dense peak for
@@ -34,6 +40,9 @@ def get_args(argv=None):
                    help="preprocess output dir(s) and/or h5 export dir(s)")
     p.add_argument("--out-folder", type=str, default="myvocoder1")
     p.add_argument("--accelerator", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--devices", type=int, default=-1,
+                   help="data-parallel processes, one a card (-1: every visible card; with "
+                        "--accelerator cpu, CPU ranks)")
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--max-epochs", type=int, default=200)
     p.add_argument("--segment-frames", type=int, default=32,
@@ -45,7 +54,9 @@ def get_args(argv=None):
     p.add_argument("--generator-config", type=str, default=None,
                    help="HiFi-GAN config.json (default: V1 80-mel 22k)")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="resume the full GAN state from a checkpoints/vocoder-NNNN.pt")
+                   help="resume the full GAN state from a checkpoints/vocoder-NNNN.pt, or from "
+                        "the JAX trainer's vocoder-NNNN.msgpack; training continues at the "
+                        "epoch after the file's (the JAX CLI restarts its count at 0)")
     p.add_argument("--checkpoint-every-n-epochs", type=int, default=25)
     p.add_argument("--log-every-n-epochs", type=int, default=1)
     p.add_argument("--mel-weight", type=float, default=45.0)
@@ -67,12 +78,27 @@ def get_args(argv=None):
 def main(argv=None):
     args = get_args(argv)
 
+    from zerovox_tpu_torch.parallel.mesh import device_count, spawn_data_parallel
+    from zerovox_tpu_torch.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    n = device_count(args.devices, args.accelerator)
+    if n > 1:
+        if args.bench:
+            raise ValueError("--bench measures one process: run it with --devices 1")
+        spawn_data_parallel(_train, n, args.accelerator, args)
+        return None
+    return _train(args, None)
+
+
+def _train(args, mesh):
+    """The run of one process: alone (mesh None) or one rank of `mesh`."""
     from zerovox_tpu_torch.device import resolve_device
     from zerovox_tpu_torch.models.hifigan import HifiGanConfig
     from zerovox_tpu_torch.training.vocoder import (VocoderDataConfig, VocoderDataset,
                                                     VocoderTrainer, VocoderTrainerConfig)
 
-    device = resolve_device(args.accelerator)
+    device = None if mesh is not None else resolve_device(args.accelerator)
     if args.generator_config:
         with open(args.generator_config) as f:
             gcfg = HifiGanConfig.from_dict(json.load(f))
@@ -94,7 +120,7 @@ def main(argv=None):
         checkpoint_every_n_epochs=args.checkpoint_every_n_epochs,
         log_every_n_epochs=args.log_every_n_epochs, seed=args.seed,
         device_cache=args.data_device_cache == "on", split_step=args.gan_step == "split")
-    trainer = VocoderTrainer(gcfg, dcfg, tcfg, steps_per_epoch, device=device)
+    trainer = VocoderTrainer(gcfg, dcfg, tcfg, steps_per_epoch, device=device, mesh=mesh)
     state = trainer.init_state()
     start_epoch = 0
     if args.checkpoint:
@@ -106,8 +132,9 @@ def main(argv=None):
         return bench_step(args, trainer, dataset, state)
 
     state = trainer.fit(dataset, state, start_epoch=start_epoch)
-    gen_path = trainer.save_generator(state, args.out_folder)
-    print(f"wrote {gen_path} (+ config.json): ready for --meldec-model {args.out_folder}")
+    if trainer.rank == 0:
+        gen_path = trainer.save_generator(state, args.out_folder)
+        print(f"wrote {gen_path} (+ config.json): ready for --meldec-model {args.out_folder}")
     return None
 
 

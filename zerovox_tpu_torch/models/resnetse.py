@@ -25,23 +25,62 @@ and SE gate, bf16 conv outputs, the block boundary in float32 rounded to
 bf16. `remat` recomputes each unfused SEBasicBlock in the backward
 (`layers.remat`); the fused stage 1 is not recomputed, as in the JAX
 package.
+
+Under data parallelism (`group`, a process group whose ranks hold equal
+shards of one batch) the train-mode statistics are the global batch's, as
+the JAX package's over a `data`-sharded batch: K4's and the stem's sums are
+all-reduced before each affine is formed, and the unfused BatchNorms (the
+attention pool's too) all-reduce their sums when the group has more than
+one rank. Each all-reduce is differentiable, so K4's backward receives the
+global statistics' cotangents; under `remat` every rank replays them in the
+same order, and the running statistics still move once a step.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from zerovox_tpu_torch.models.layers import instance_norm_time, remat
 from zerovox_tpu_torch.ops.se_conv import CHANNELS, se_conv
+from zerovox_tpu_torch.parallel.mesh import all_reduce_sum
 
 
-def batch_norm(bn: nn.BatchNorm2d | nn.BatchNorm1d, x, train: bool):
+def _update_running(bn, mean, var, n) -> None:
+    """torch's train-mode update of the running statistics from a batch's
+    mean and biased variance over n positions."""
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean.float(), alpha=m)
+        bn.running_var.mul_(1 - m).add_(var.float() * (n / max(n - 1, 1)), alpha=m)
+
+
+def _global_batch_norm(bn, x, group):
+    """Train-mode `bn` over the group's global batch: the JAX package's
+    two-pass statistics (mean, then the mean of squared deviations), each
+    from float32 sums all-reduced over the ranks, rounded to x's dtype."""
+    dims = (0,) + tuple(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    n = x.numel() // x.shape[1] * dist.get_world_size(group)
+    mean = (all_reduce_sum(x.sum(dim=dims, dtype=torch.float32), group) / n).to(x.dtype)
+    d = x - mean.view(shape)
+    var = (all_reduce_sum((d * d).sum(dim=dims, dtype=torch.float32), group) / n).to(x.dtype)
+    _update_running(bn, mean, var, n)
+    inv = torch.rsqrt(var + bn.eps)
+    return d * inv.view(shape) * bn.weight.view(shape).to(x.dtype) + bn.bias.view(shape).to(x.dtype)
+
+
+def batch_norm(bn: nn.BatchNorm2d | nn.BatchNorm1d, x, train: bool, group=None):
     """`bn` over x with batch statistics (updating the running ones) in
     train mode, with its running statistics otherwise. On a bf16 x it
     computes as the JAX package's BatchNorm does: batch statistics in x's
-    dtype, float32 running statistics, the result in x's dtype."""
+    dtype, float32 running statistics, the result in x's dtype. With a
+    `group` of more than one rank the batch statistics are the global
+    batch's (one rank's batch is the global one)."""
+    if train and group is not None and dist.get_world_size(group) > 1:
+        return _global_batch_norm(bn, x, group)
     if x.dtype == bn.running_mean.dtype:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, train,
                             bn.momentum, bn.eps)
@@ -50,11 +89,7 @@ def batch_norm(bn: nn.BatchNorm2d | nn.BatchNorm1d, x, train: bool):
     if train:
         mean = x.mean(dim=dims)
         var = ((x - mean.view(shape)) ** 2).mean(dim=dims)
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            m = bn.momentum
-            bn.running_mean.mul_(1 - m).add_(mean.float(), alpha=m)
-            bn.running_var.mul_(1 - m).add_(var.float() * (n / max(n - 1, 1)), alpha=m)
+        _update_running(bn, mean, var, x.numel() // x.shape[1])
     else:
         mean, var = bn.running_mean.to(x.dtype), bn.running_var.to(x.dtype)
     inv = torch.rsqrt(var + bn.eps)
@@ -68,19 +103,22 @@ def linear(layer: nn.Linear, x):
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
-def fused_bn_affine(bn: nn.BatchNorm2d, ssum, ssq, n: int, train: bool):
+def fused_bn_affine(bn: nn.BatchNorm2d, ssum, ssq, n: int, train: bool, group=None):
     """(scale, shift) [C] of `bn` for a conv output whose per-channel sum and
     sum of squares over its n positions are ssum, ssq. In train mode the
     batch statistics are the single-pass mean and E[y^2] - mean^2 of the
     JAX package's fused path, and the running statistics take torch's
-    update; gradients flow through the sums."""
+    update; gradients flow through the sums. Under a `group` the sums are
+    all-reduced first (every rank holding n positions), the arithmetic
+    after them unchanged."""
     if train:
+        if group is not None:
+            C = ssum.shape[0]
+            both = all_reduce_sum(torch.cat([ssum, ssq]), group)
+            ssum, ssq, n = both[:C], both[C:], n * dist.get_world_size(group)
         mean = ssum / n
         var = ssq / n - mean * mean
-        with torch.no_grad():
-            m = bn.momentum
-            bn.running_mean.mul_(1 - m).add_(mean, alpha=m)
-            bn.running_var.mul_(1 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+        _update_running(bn, mean, var, n)
     else:
         mean, var = bn.running_mean, bn.running_var
     scale = bn.weight * torch.rsqrt(var + bn.eps)
@@ -116,25 +154,25 @@ class SEBasicBlock(nn.Module):
                                          nn.BatchNorm2d(planes))
                            if downsample else None)
 
-    def forward(self, x, train: bool = False):
-        out = batch_norm(self.bn1, torch.relu(self.conv1(x)), train)
-        out = self.se(batch_norm(self.bn2, self.conv2(out), train))
+    def forward(self, x, train: bool = False, group=None):
+        out = batch_norm(self.bn1, torch.relu(self.conv1(x)), train, group)
+        out = self.se(batch_norm(self.bn2, self.conv2(out), train, group))
         if self.downsample is not None:
-            residual = batch_norm(self.downsample[1], self.downsample[0](x), train)
+            residual = batch_norm(self.downsample[1], self.downsample[0](x), train, group)
         else:
             residual = x
         return torch.relu(out + residual)
 
-    def fused_forward(self, x, s_in, t_in, train: bool):
+    def fused_forward(self, x, s_in, t_in, train: bool, group=None):
         """The block as two K4 passes plus one elementwise boundary. x is the
         block input before its pending affine (s_in, t_in) [C]: the stem BN
         on block 0, the identity after."""
         B, _, H, W = x.shape
         n = B * H * W
         t1, ssum, ssq, _ = se_conv(x, self.conv1.weight, s_in, t_in, relu_out=True)
-        s1, tt1 = fused_bn_affine(self.bn1, ssum, ssq, n, train)
+        s1, tt1 = fused_bn_affine(self.bn1, ssum, ssq, n, train, group)
         t2, ssum2, ssq2, m = se_conv(t1, self.conv2.weight, s1, tt1, relu_out=False)
-        s2, tt2 = fused_bn_affine(self.bn2, ssum2, ssq2, n, train)
+        s2, tt2 = fused_bn_affine(self.bn2, ssum2, ssq2, n, train, group)
         # SE squeeze by linearity: mean_hw(bn2(t2)) = bn2(mean_hw(t2)), in float32
         fc = self.se.fc
         gate = torch.sigmoid(linear(fc[2], torch.relu(linear(fc[0], m / (H * W) * s2 + tt2))))
@@ -178,38 +216,39 @@ class ResNetSE34V2(nn.Module):
             nn.Conv1d(128, outmap, 1), nn.Softmax(dim=2))
         self.fc = nn.Linear(outmap * (2 if encoder_type == "ASP" else 1), n_out)
 
-    def _stage1_fused(self, x, train: bool):
+    def _stage1_fused(self, x, train: bool, group=None):
         """Stem BN + stage 1 through K4: the stem BN's statistics come from
         one reduction over the stem output, its affine rides block 0's conv1."""
         B, _, H, W = x.shape
         n = B * H * W
         xf = x.float()  # the stem BN's sums in float32 whatever x's dtype
         s_in, t_in = fused_bn_affine(self.bn1, xf.sum(dim=(0, 2, 3)),
-                                     (xf * xf).sum(dim=(0, 2, 3)), n, train)
+                                     (xf * xf).sum(dim=(0, 2, 3)), n, train, group)
         ones, zeros = torch.ones_like(s_in), torch.zeros_like(t_in)
         for block in self.layer1:
-            x = block.fused_forward(x, s_in, t_in, train)
+            x = block.fused_forward(x, s_in, t_in, train, group)
             s_in, t_in = ones, zeros
         return x
 
-    def forward(self, x, train: bool = False):
-        """x [B, T, n_mels] log-mel -> [B, 1, n_out]."""
+    def forward(self, x, train: bool = False, group=None):
+        """x [B, T, n_mels] log-mel -> [B, 1, n_out]; `group`: the data-parallel
+        process group whose global batch the train-mode statistics cover."""
         x = instance_norm_time(x).transpose(1, 2)[:, None]  # [B, 1, n_mels, T]
 
         x = torch.relu(self.conv1(x))
         if self.fused_stage1:
-            x = self._stage1_fused(x, train)
+            x = self._stage1_fused(x, train, group)
         else:
-            x = batch_norm(self.bn1, x, train)
+            x = batch_norm(self.bn1, x, train, group)
         checkpointed = self.remat and torch.is_grad_enabled()
         for stage in range(1 if self.fused_stage1 else 0, self.n_stages):
             for block in getattr(self, f"layer{stage + 1}"):
-                x = remat(block, x, train) if checkpointed else block(x, train)
+                x = remat(block, x, train, group) if checkpointed else block(x, train, group)
 
         B, C, H, W = x.shape
         x = x.reshape(B, C * H, W)
         att = self.attention
-        w = att[4](att[3](batch_norm(att[2], att[1](att[0](x)), train)))
+        w = att[4](att[3](batch_norm(att[2], att[1](att[0](x)), train, group)))
         if self.encoder_type == "SAP":
             pooled = torch.sum(x * w, dim=2)
         else:

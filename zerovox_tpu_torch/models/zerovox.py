@@ -27,6 +27,7 @@ from zerovox_tpu_torch.models.fs2 import FS2Decoder, FS2Encoder
 from zerovox_tpu_torch.models.resnetse import ResNetSE34V2
 from zerovox_tpu_torch.models.styletts import StyleTTSDecoder
 from zerovox_tpu_torch.ops.length_regulator import length_regulate
+from zerovox_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class ZeroVox(nn.Module):
@@ -65,15 +66,16 @@ class ZeroVox(nn.Module):
         return mel.masked_fill(mel_mask[..., None], 0.0), mel_len, mel_mask
 
     def forward(self, batch: dict, train: bool = True, force_duration: bool = False,
-                spkemb_train: bool | None = None):
+                spkemb_train: bool | None = None, group=None):
         """Training/teacher forward over a collated batch (phoneme, puncts,
         phoneme_mask, pitch, energy, duration, mel_mask, ref_mel). `train`
         feeds the teacher targets and gives the speaker encoder's BatchNorms
         batch statistics (`spkemb_train=False` keeps them on their running
         statistics, the decoder-only finetune); dropout follows the module's
-        own train mode."""
+        own train mode. `group`: the data-parallel process group, whose
+        global batch those statistics cover."""
         spk_train = train if spkemb_train is None else (train and spkemb_train)
-        style_embed = self._spkemb(batch["ref_mel"], train=spk_train)
+        style_embed = self._spkemb(batch["ref_mel"], train=spk_train, group=group)
         teacher = train or force_duration
         pred = self._phoneme_encoder(
             batch["phoneme"], batch["puncts"], style_embed,
@@ -88,22 +90,29 @@ class ZeroVox(nn.Module):
         return pred
 
 
-def masked_mean(values: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """Mean over the elements where `keep` is True."""
+def masked_mean(values: torch.Tensor, keep: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean over the elements where `keep` is True. Under a data-parallel
+    `group` the denominator is the count over every rank's shard, so the
+    ranks' results sum to the mean over the global batch (the gradients'
+    sum over the ranks is then the global mean's gradient)."""
     keep = keep.expand(values.shape).to(values.dtype)
-    return torch.sum(values * keep) / torch.clamp(torch.sum(keep), min=1.0)
+    count = torch.sum(keep)
+    if group is not None:
+        count = all_reduce_sum(count, group)
+    return torch.sum(values * keep) / torch.clamp(count, min=1.0)
 
 
-def zerovox_loss(pred: dict, batch: dict) -> dict[str, torch.Tensor]:
+def zerovox_loss(pred: dict, batch: dict, group=None) -> dict[str, torch.Tensor]:
     """Masked L1 on mel, masked MSE on pitch, energy and log(d + 1)
-    duration, weighted 10/2/2/1."""
+    duration, weighted 10/2/2/1. Under a `group` each term is this rank's
+    share of the global batch's masked mean (see `masked_mean`)."""
     mel_keep = ~batch["mel_mask"]
     phon_keep = ~batch["phoneme_mask"]
-    mel_loss = masked_mean(torch.abs(pred["mel"] - batch["mel"]), mel_keep[..., None])
-    pitch_loss = masked_mean((pred["pitch"] - batch["pitch"]) ** 2, phon_keep)
-    energy_loss = masked_mean((pred["energy"] - batch["energy"]) ** 2, phon_keep)
+    mel_loss = masked_mean(torch.abs(pred["mel"] - batch["mel"]), mel_keep[..., None], group)
+    pitch_loss = masked_mean((pred["pitch"] - batch["pitch"]) ** 2, phon_keep, group)
+    energy_loss = masked_mean((pred["energy"] - batch["energy"]) ** 2, phon_keep, group)
     log_dur_target = torch.log(batch["duration"].to(torch.float32) + 1.0)
-    duration_loss = masked_mean((pred["log_duration"] - log_dur_target) ** 2, phon_keep)
+    duration_loss = masked_mean((pred["log_duration"] - log_dur_target) ** 2, phon_keep, group)
     loss = 10.0 * mel_loss + 2.0 * pitch_loss + 2.0 * energy_loss + duration_loss
     return {"loss": loss, "mel_loss": mel_loss, "pitch_loss": pitch_loss,
             "energy_loss": energy_loss, "duration_loss": duration_loss}

@@ -3,15 +3,19 @@
 Each `csrc/*.cu` source compiles with nvcc into its own shared library with
 a plain C interface, loaded with ctypes (no PyTorch headers, so a build
 takes seconds). All sources build together, one nvcc process each, at the
-first kernel launch of the process; libraries are named by a hash of the
-sources and reused while the sources are unchanged. Output goes to
-`build/zerovox_tpu_torch/` beside the package.
+first kernel launch of the process, and every library is loaded then;
+libraries are named by a hash of the sources and the flags and reused while
+they are unchanged, each with a `.json` beside it holding its nvcc's wall
+seconds. They live in the kernel build cache, `build/zerovox_tpu_torch/`
+beside the package unless `ZEROVOX_COMPILE_CACHE` says otherwise
+(`utils/compile_cache.py`, which also counts the hits, misses and seconds).
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -22,8 +26,9 @@ from pathlib import Path
 
 import torch
 
+from zerovox_tpu_torch.utils import compile_cache
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zerovox_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -59,40 +64,58 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, build_dir: Path) -> Path:
     h = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return build_dir / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _nvcc_run(cmd: list[str], done: dict, name: str) -> None:
+    """One nvcc process to its end: (returncode, output, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    done[name] = (proc.returncode, proc.stdout, time.perf_counter() - t0)
 
 
 def build_all() -> dict:
-    """Compile every kernel library that is missing, all nvcc processes in
-    parallel. Returns {"seconds": wall time, "ptxas": {name: nvcc's -Xptxas -v
-    lines}} for the libraries built by this call."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    """Compile every kernel library that is missing from the cache, all
+    nvcc processes in parallel, and count each library a hit or a miss.
+    Returns {"seconds": wall time, "ptxas": {name: nvcc's -Xptxas -v lines}}
+    for the libraries built by this call."""
+    build_dir = compile_cache.build_dir()
+    build_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    procs = {}
+    todo, threads, done = {}, [], {}
     for name in SIGNATURES:
-        out = _lib_path(name)
+        out = _lib_path(name, build_dir)
         if out.exists():
+            meta = Path(str(out) + ".json")
+            saved = json.loads(meta.read_text())["seconds"] if meta.exists() else 0.0
+            compile_cache.record(requests=1, hits=1, saved_sec=saved)
             continue
-        tmp = Path(tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")[1])
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out)
-    ptxas = {}
-    errors = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
+        nvcc = _nvcc()  # raises before anything is started when there is none
+        fd, tmp = tempfile.mkstemp(dir=build_dir, suffix=".so.tmp")
+        os.close(fd)
+        todo[name] = (Path(tmp), out)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        threads.append(threading.Thread(target=_nvcc_run, args=(cmd, done, name)))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    ptxas, errors = {}, []
+    for name, (tmp, out) in todo.items():
+        rc, log, sec = done[name]
+        compile_cache.record(requests=1, misses=1, backend_compiles=1, backend_compile_sec=sec)
+        if rc != 0:
             tmp.unlink(missing_ok=True)
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
-        os.replace(tmp, out)
+        Path(str(out) + ".json").write_text(json.dumps({"seconds": sec}))
+        os.replace(tmp, out)  # the library last: a library found has its .json
         # ptxas's report: entry functions, registers, and the spill line of each
         ptxas[name] = [ln for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]
     if errors:
@@ -101,25 +124,29 @@ def build_all() -> dict:
 
 
 def ensure_built() -> dict:
-    """Build the kernels once per process; returns build_all()'s report."""
+    """Build the kernels and load every library, once per process; returns
+    build_all()'s report."""
     with _lock:
         if not build_info:
-            build_info.update(build_all())
+            info = build_all()
+            build_dir = compile_cache.build_dir()
+            t0 = time.perf_counter()
+            for name, sigs in SIGNATURES.items():
+                so = ctypes.CDLL(str(_lib_path(name, build_dir)))
+                for fn, argtypes in sigs.items():
+                    f = getattr(so, fn)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+                _libs[name] = so
+            compile_cache.record(retrieval_sec=time.perf_counter() - t0)
+            build_info.update(info)
         return build_info
 
 
 def lib(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, building all kernels first if needed."""
     ensure_built()
-    with _lock:
-        if name not in _libs:
-            so = ctypes.CDLL(str(_lib_path(name)))
-            for fn, argtypes in SIGNATURES[name].items():
-                f = getattr(so, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
-            _libs[name] = so
-        return _libs[name]
+    return _libs[name]
 
 
 def check(err: int, what: str) -> None:

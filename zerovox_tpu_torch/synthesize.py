@@ -23,7 +23,14 @@ depends on the bucket: every path picks the same bucket as the JAX package
 (a `tts_batch` row is decoded at the batch's bucket, not at its own).
 
 Entry points run on the CUDA card unless the caller passes device="cpu";
-without a card they raise. The engine runs float32 with TF32 off, or, with
+without a card they raise. With `mesh=` (`parallel.make_mesh`, one
+process's devices on a `data` axis) the engine keeps one replica of both
+models on each device and `tts_batch` shards its rows over them, as the
+JAX package's serving mesh does: B is padded up to a multiple of the
+devices with fully masked rows, each shard's decode and vocode are queued
+on its own device from the one host thread, and the rows are gathered on
+the host without the pad. The single-utterance paths run on the first
+device. The engine runs float32 with TF32 off, or, with
 `precision="bf16"` (or `ZEROVOX_PRECISION=bf16` when `precision` is None),
 the JAX package's bf16 inference: every floating parameter and buffer of
 both models in bf16, bf16 inputs to the speaker encoder, encode, decode and
@@ -33,6 +40,7 @@ the vocoder; mels and waveforms reach the host as float32.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -50,6 +58,7 @@ from zerovox_tpu_torch.dsp.audio import load_wav, trim_silence
 from zerovox_tpu_torch.dsp.mels import MelFrontend
 from zerovox_tpu_torch.models.hifigan import HifiGanConfig, MelDec
 from zerovox_tpu_torch.models.zerovox import ZeroVox
+from zerovox_tpu_torch.parallel.mesh import indexed_device, replicate
 from zerovox_tpu_torch.streaming import ChunkStreamer, stream_vocode
 from zerovox_tpu_torch.symbols import Symbols
 from zerovox_tpu_torch.text.normalize import ZeroVoxNormalizer
@@ -109,15 +118,16 @@ class ZeroVoxTTS:
 
     def __init__(self, cfg: ZeroVoxConfig, state_dict: dict, meldec_cfg: HifiGanConfig,
                  meldec_state_dict: dict, language: str | None = None, verbose: bool = False,
-                 meldec_model: str = "", device=None, precision: str | None = None):
+                 meldec_model: str = "", device=None, precision: str | None = None, mesh=None):
         """`state_dict`: models.zerovox.ZeroVox weights (upstream key names);
         `meldec_state_dict`: models.hifigan.MelDec weights; `precision`:
-        "f32" or "bf16" (None: `ZEROVOX_PRECISION`, default "f32")."""
+        "f32" or "bf16" (None: `ZEROVOX_PRECISION`, default "f32"); `mesh`:
+        a serving mesh, whose first device is the engine's `device`."""
         self.precision = precision or os.environ.get("ZEROVOX_PRECISION", "f32")
         if self.precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {tuple(PRECISIONS)}, got {self.precision!r}")
         self._dtype = PRECISIONS[self.precision]
-        self.device = resolve_device(device)
+        self.device = _engine_device(device, mesh)
         if self.device.type == "cuda":
             use_full_f32()
         self.cfg = cfg
@@ -138,6 +148,10 @@ class ZeroVoxTTS:
         self._meldec = MelDec(meldec_cfg, use_pallas=True, pallas_all_batches=VOCODER_ALL_BATCHES)
         self._meldec.load_state_dict(meldec_state_dict)
         self._meldec.eval().to(self.device, self._dtype)
+        # (device, acoustic model, vocoder): one a device of the mesh's data axis
+        self._replicas = ([(self.device, self._model, self._meldec)] if mesh is None else
+                          list(zip(mesh.devices, replicate(self._model, mesh),
+                                   replicate(self._meldec, mesh))))
 
         a = cfg.audio
         self._hop_length = a.hop_size
@@ -331,7 +345,12 @@ class ZeroVoxTTS:
         and vocode are queued at a speculative bucket from the longest
         text, one host sync reads the duration sums, the exact bucket is
         redone only if it is larger, and the waveform is trimmed to it.
-        Returns [(wav, mel_len), ...]."""
+
+        The rows are split into one equal block a replica (one without a
+        serving mesh): B is padded up to a multiple of the replicas with
+        fully masked rows (mel length 0), every block's stages are queued on
+        its own device before the host sync, and the bucket is the whole
+        batch's. Returns [(wav, mel_len), ...]."""
         spk = self._spk(spkembs)
         if spk.shape[0] != len(texts):
             raise ValueError(f"{len(texts)} texts but {spk.shape[0]} speaker embeddings")
@@ -340,35 +359,67 @@ class ZeroVoxTTS:
         if max_n == 0:
             return [(np.zeros(1, np.float32), 0)] * len(texts)
         phonemes, puncts, mask = self._text_rows(ids)
-        if durations is not None:
-            return self._tts_batch_forced(ids, phonemes, puncts, mask, spk, durations)
+        B, L = phonemes.shape
+        dur = None if durations is None else self._forced_rows(ids, (B, L), durations)
+        pad = -B % len(self._replicas)
+        if pad:
+            phonemes = np.concatenate([phonemes, np.zeros((pad, L), phonemes.dtype)])
+            puncts = np.concatenate([puncts, np.zeros((pad, L), puncts.dtype)])
+            mask = np.concatenate([mask, np.ones((pad, L), bool)])
+            spk = torch.cat([spk, spk.new_zeros((pad,) + spk.shape[1:])])
+            if dur is not None:
+                dur = np.concatenate([dur, np.zeros((pad, L), np.int32)])
+        per = (B + pad) // len(self._replicas)
+        shards = []  # (device, model, meldec, speaker rows, encoder outputs) a replica
+        for r, (dev, model, meldec) in enumerate(self._replicas):
+            rows = slice(r * per, (r + 1) * per)
+            # the device current, so the kernels' launches go to its context
+            with _on(dev), torch.inference_mode():
+                s_r = spk[rows].to(dev)
+                enc = model.encode(
+                    torch.from_numpy(phonemes[rows]).to(dev),
+                    torch.from_numpy(puncts[rows]).to(dev),
+                    s_r, phoneme_mask=torch.from_numpy(mask[rows]).to(dev),
+                    duration_target=None if dur is None else torch.from_numpy(dur[rows]).to(dev))
+            shards.append((dev, model, meldec, s_r, enc))
+
+        def render(T: int) -> list[torch.Tensor]:
+            out = []
+            for dev, model, meldec, s_r, enc in shards:
+                with _on(dev), torch.inference_mode():
+                    mel, _, _ = model.decode(enc["x"], enc["duration_rounded"], s_r, T)
+                    out.append(meldec(mel).float())
+            return out
 
         max_len = self.cfg.model.max_mel_len
-        enc = self._run_encode(phonemes, puncts, mask, spk)
-        T = pick_bucket(min(self._SPEC_FRAMES_PER_PHONE * max_n + 16, max_len), MEL_BUCKETS)
-        wav = self._vocode(self._decode(enc, spk, T))
-        mel_lens = enc["duration_rounded"].sum(dim=1).cpu().numpy()  # the one host sync
-        eff_max = min(int(mel_lens.max()), max_len)
-        if eff_max > T:  # speculation too small: redo at the exact bucket
+        if dur is not None:  # the mel lengths are known on the host: no sync
+            mel_lens = np.minimum(dur.sum(axis=1), max_len)
+            T = pick_bucket(min(int(mel_lens[:B].max()), max_len), MEL_BUCKETS)
+            wavs = render(T)
+        else:
+            T = pick_bucket(min(self._SPEC_FRAMES_PER_PHONE * max_n + 16, max_len), MEL_BUCKETS)
+            wavs = render(T)
+            mel_lens = np.concatenate([enc["duration_rounded"].sum(dim=1).cpu().numpy()
+                                       for *_, enc in shards])  # the one host sync
+            eff_max = min(int(mel_lens[:B].max()), max_len)
+            if eff_max > T:  # speculation too small: redo at the exact bucket
+                T = pick_bucket(eff_max, MEL_BUCKETS)
+                wavs = render(T)
             T = pick_bucket(eff_max, MEL_BUCKETS)
-            wav = self._vocode(self._decode(enc, spk, T))
-        T_exact = pick_bucket(eff_max, MEL_BUCKETS)
-        return self._batch_postprocess(wav[:, :T_exact * self._hop_length], mel_lens)
+        wavs = [w[:, :T * self._hop_length] for w in wavs]
+        wav = wavs[0] if len(wavs) == 1 else torch.cat([w.cpu() for w in wavs])
+        return self._batch_postprocess(wav[:B], mel_lens[:B])
 
-    def _tts_batch_forced(self, ids, phonemes, puncts, mask, spk, durations):
-        """tts_batch with per-phone durations: the exact mel bucket is known
-        on the host, so there is no host sync before the waveform copy."""
-        dur = np.zeros(phonemes.shape, np.int32)
+    @staticmethod
+    def _forced_rows(ids, shape, durations) -> np.ndarray:
+        """Per-phone durations as [B, L] rows (zeros past each text)."""
+        dur = np.zeros(shape, np.int32)
         for i, (p, _) in enumerate(ids):
             d = np.asarray(durations[i], np.int32)
             if d.shape[0] != len(p):
                 raise ValueError(f"durations[{i}] has {d.shape[0]} entries for {len(p)} phones")
             dur[i, :len(p)] = d
-        max_len = self.cfg.model.max_mel_len
-        mel_lens = np.minimum(dur.sum(axis=1), max_len)
-        enc = self._run_encode(phonemes, puncts, mask, spk, dur)
-        T = pick_bucket(min(int(mel_lens.max()), max_len), MEL_BUCKETS)
-        return self._batch_postprocess(self._vocode(self._decode(enc, spk, T)), mel_lens)
+        return dur
 
     def _batch_postprocess(self, wav: torch.Tensor, mel_lens) -> list[tuple[np.ndarray, int]]:
         wav = wav.cpu().numpy()
@@ -440,6 +491,10 @@ class ZeroVoxTTS:
         spk = self._spk(spkemb)
         for B in batch_sizes:
             self.tts_batch([texts[0]] * B, spk.expand(B, -1, -1))
+        if self._verbose:
+            from zerovox_tpu_torch.utils.compile_cache import format_cache_stats
+
+            print(f"warmup done; {format_cache_stats()}")
 
     def summary(self, depth: int = 1) -> int:
         """Parameter counts of the acoustic model (total and, at depth 1,
@@ -461,10 +516,10 @@ class ZeroVoxTTS:
     def from_random(cls, cfg: ZeroVoxConfig | None = None,
                     meldec_cfg: HifiGanConfig | None = None, seed: int = 0,
                     language: str = "en", verbose: bool = False, device=None,
-                    precision: str | None = None):
+                    precision: str | None = None, mesh=None):
         """Engine with seeded random weights (benchmarks, tests, offline);
         the float32 weights, cast when `precision` is "bf16"."""
-        device = resolve_device(device)
+        device = _engine_device(device, mesh)
         cfg = cfg or ZeroVoxConfig()
         meldec_cfg = meldec_cfg or HifiGanConfig(num_mels=cfg.audio.num_mels,
                                                  sampling_rate=cfg.audio.sampling_rate)
@@ -473,7 +528,7 @@ class ZeroVoxTTS:
         random_init_(model, gen)
         random_init_(meldec, gen)
         return cls(cfg, model.state_dict(), meldec_cfg, meldec.state_dict(), language=language,
-                   verbose=verbose, device=device, precision=precision)
+                   verbose=verbose, device=device, precision=precision, mesh=mesh)
 
     @classmethod
     def from_jax_variables(cls, cfg: ZeroVoxConfig, variables: dict, meldec_cfg: HifiGanConfig,
@@ -488,7 +543,8 @@ class ZeroVoxTTS:
                    language=language, device=device, precision=precision)
 
     @classmethod
-    def load_model(cls, modelpath, meldec_model=None, verbose: bool = False, device=None):
+    def load_model(cls, modelpath, meldec_model=None, verbose: bool = False, device=None,
+                   mesh=None):
         """`modelcfg.yaml` + the newest (by ctime) `checkpoints/*.ckpt`
         (upstream Lightning) or `checkpoints/*.msgpack` (native) of a local
         directory, or `modelcfg.yaml` + `checkpoint.pkl` of a hub model
@@ -496,7 +552,7 @@ class ZeroVoxTTS:
         `from_checkpoint`). Returns (modelcfg dict, engine)."""
         import yaml  # only YAML loading needs it
 
-        device = resolve_device(device)
+        device = _engine_device(device, mesh)
         if os.path.isdir(str(modelpath)):
             config_path = Path(modelpath) / "modelcfg.yaml"
             ckpts = glob.glob(os.path.join(str(modelpath), "checkpoints", "*.ckpt"))
@@ -514,11 +570,11 @@ class ZeroVoxTTS:
             modelcfg = yaml.load(f, Loader=yaml.FullLoader)
         cfg = ZeroVoxConfig.from_dict(modelcfg)
         return modelcfg, cls.from_checkpoint(cfg, checkpoint, meldec_model, verbose=verbose,
-                                             device=device)
+                                             device=device, mesh=mesh)
 
     @classmethod
     def from_checkpoint(cls, cfg: ZeroVoxConfig, checkpoint, meldec_model=None,
-                        verbose: bool = False, device=None):
+                        verbose: bool = False, device=None, mesh=None):
         """Engine on a checkpoint file: a native `.msgpack` (the JAX package's
         variable tree) or an upstream torch checkpoint. The vocoder comes
         from `meldec_model`: a directory holding `config.json` and either
@@ -530,7 +586,7 @@ class ZeroVoxTTS:
         from zerovox_tpu_torch.training.checkpointing import load_native_checkpoint
         from zerovox_tpu_torch.weights import from_jax_variables, upstream_state_dict
 
-        device = resolve_device(device)
+        device = _engine_device(device, mesh)
         if str(checkpoint).endswith(".msgpack"):
             state_dict = from_jax_variables(load_native_checkpoint(checkpoint), cfg)
             embedded = {}
@@ -540,7 +596,27 @@ class ZeroVoxTTS:
             embedded = {k[len("_meldec."):]: v for k, v in sd.items() if k.startswith("_meldec.")}
         meldec_cfg, md = _load_meldec(meldec_model, embedded, verbose)
         return cls(cfg, state_dict, meldec_cfg, md, language=cfg.langs[0], verbose=verbose,
-                   meldec_model=str(meldec_model or ""), device=device)
+                   meldec_model=str(meldec_model or ""), device=device, mesh=mesh)
+
+
+def _on(device):
+    """`device` made the current CUDA device within the block (a no-op off the card)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _engine_device(device, mesh) -> torch.device:
+    """The engine's device: `device` (the card when None), or with a serving
+    `mesh` its first device. Raises for a mesh without a `data` axis, a
+    multi-process mesh, or a `device` that is not the mesh's first."""
+    if mesh is None:
+        return resolve_device(device)
+    if "data" not in getattr(mesh, "axis_names", ()):
+        raise ValueError(f"a serving mesh needs a 'data' axis (got {getattr(mesh, 'axis_names', None)})")
+    if mesh.group is not None:
+        raise ValueError("a serving mesh holds one process's devices, not a process group")
+    if device is not None and indexed_device(device) != mesh.devices[0]:
+        raise ValueError(f"device {device} is not the mesh's first device {mesh.devices[0]}")
+    return resolve_device(mesh.devices[0])
 
 
 def _load_meldec(meldec_model, embedded: dict, verbose: bool) -> tuple[HifiGanConfig, dict]:

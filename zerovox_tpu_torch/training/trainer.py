@@ -1,4 +1,4 @@
-"""Acoustic-model training loop on one CUDA card.
+"""Acoustic-model training loop on a CUDA card, or data parallel on several.
 
 The PyTorch counterpart of the JAX package's `training/trainer.py`:
 
@@ -33,7 +33,17 @@ The PyTorch counterpart of the JAX package's `training/trainer.py`:
     each;
   * `save_train_state` / `restore_train_state` write and read the whole
     train state (weights, optimizer moments, step, epoch, the dropout
-    generator) with torch.save.
+    generator) with torch.save;
+  * with a `mesh` over a process group (`parallel/mesh.py`) the step is
+    data parallel, one process a device: every rank starts from rank 0's
+    weights, takes its shard of each batch (`shard_batch`), computes the
+    speaker encoder's BatchNorm statistics and the loss's masked means over
+    the global batch, and all-reduces the gradients in one flat buffer
+    before the clip and the optimizer (the JAX step's order), so every rank
+    takes the same update; the losses are the global batch's. Dropout draws
+    from a stream of its own on each rank (rank 0's is the single-process
+    run's). Rank 0 alone logs and writes checkpoints, and the other ranks
+    wait for it at a barrier.
 """
 
 from __future__ import annotations
@@ -48,12 +58,15 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from zerovox_tpu_torch.config import ZeroVoxConfig
 from zerovox_tpu_torch.device import resolve_device, use_full_f32
 from zerovox_tpu_torch.models.layers import set_dropout_generator
 from zerovox_tpu_torch.models.zerovox import ZeroVox, zerovox_loss
+from zerovox_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads, all_reduce_values,
+                                             process_device, replicate, shard_batch)
 from zerovox_tpu_torch.training.checkpointing import save_native_checkpoint
 from zerovox_tpu_torch.training.optim import AdamW, warmup_cosine_epoch_schedule
 from zerovox_tpu_torch.utils.profiling import device_trace
@@ -122,10 +135,10 @@ class _LossBackward(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, inputs: dict, batch: dict, spkemb_train: bool) -> dict:
-        pred = self.model(inputs, train=True, spkemb_train=spkemb_train)
+    def forward(self, inputs: dict, batch: dict, spkemb_train: bool, group=None) -> dict:
+        pred = self.model(inputs, train=True, spkemb_train=spkemb_train, group=group)
         pred = {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in pred.items()}
-        losses = zerovox_loss(pred, batch)
+        losses = zerovox_loss(pred, batch, group)
         losses["loss"].backward()
         return {k: v.detach() for k, v in losses.items()}
 
@@ -139,7 +152,9 @@ class Trainer:
     """Epoch-driven trainer over an iterable of host batches."""
 
     def __init__(self, cfg: ZeroVoxConfig, tcfg: TrainerConfig, steps_per_epoch: int,
-                 device=None):
+                 device=None, mesh: Mesh | None = None):
+        """`mesh`: a data-parallel mesh over a process group, this process's
+        one device on it (the device then comes from the mesh)."""
         if tcfg.precision not in ("32", "bf16-mixed"):
             raise ValueError(f"precision {tcfg.precision!r}: '32' or 'bf16-mixed'")
         if tcfg.checkpoint_format not in ("msgpack", "state"):
@@ -147,6 +162,10 @@ class Trainer:
         self.cfg = cfg
         self.tcfg = tcfg
         self.mixed = tcfg.precision == "bf16-mixed"
+        device = process_device(mesh, device)
+        self.mesh = mesh
+        self.group = mesh.group if mesh is not None else None
+        self.rank = mesh.rank if mesh is not None else 0
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_full_f32()
@@ -169,6 +188,8 @@ class Trainer:
         else:
             model.load_state_dict(state_dict)
         model.to(self.device).train()
+        if self.group is not None:
+            replicate(model, self.mesh)
         set_dropout_generator(model, self._gen)
         if self.tcfg.train_decoder_only:
             for name, p in model.named_parameters():
@@ -195,18 +216,27 @@ class Trainer:
         """Forward + loss + backward at `state.step`; gradients land in the
         parameters' `.grad`. Returns the detached losses (on the device)."""
         model = state.model
-        seed = np.random.SeedSequence([self.tcfg.seed + 1, state.step]).generate_state(1)[0]
+        # rank r > 0 draws its own masks: the r-th child of rank 0's stream
+        spawn_key = (self.rank,) if self.rank else ()
+        seed = np.random.SeedSequence([self.tcfg.seed + 1, state.step],
+                                      spawn_key=spawn_key).generate_state(1)[0]
         self._gen.manual_seed(int(seed))
         state.optimizer.zero_grad()
         step = _LossBackward(model)
         spk = not self.tcfg.train_decoder_only
         if not self.mixed:
-            return step(batch, batch, spk)
+            return step(batch, batch, spk, self.group)
         half = {f"model.{n}": p.to(torch.bfloat16) for n, p in model.named_parameters()}
-        return torch.func.functional_call(step, half, (_to_bf16(batch), batch, spk))
+        return torch.func.functional_call(step, half, (_to_bf16(batch), batch, spk, self.group))
 
     def train_step(self, state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+        """One step on `batch` (this rank's shard under a process group);
+        returns the global batch's losses."""
         losses = self.forward_backward(state, batch)
+        if self.group is not None:
+            # each rank's loss is its share of the global mean: the sums are the mean's
+            all_reduce_grads(state.optimizer.params, self.group)
+            losses = all_reduce_values(losses, self.group)
         state.optimizer.step(self.schedule(state.step))
         state.step += 1
         return losses
@@ -264,6 +294,8 @@ class Trainer:
     # --------------------------------------------------------------- logging
 
     def _get_writer(self):
+        if self._writer is None and self.rank != 0:  # one writer a job
+            self._writer = False
         if self._writer is None:
             try:
                 from tensorboardX import SummaryWriter
@@ -303,7 +335,8 @@ class Trainer:
                 for batch in batches_per_epoch(epoch) if takes_epoch else batches_per_epoch():
                     if profile_after is not None and state.step == profile_after:
                         tracing.enter_context(device_trace(self.tcfg.profile_dir))
-                    pending.append(self.train_step(state, device_batch(batch, self.device)))
+                    batch = device_batch(shard_batch(batch, self.mesh), self.device)
+                    pending.append(self.train_step(state, batch))
                     if (profile_after is not None
                             and state.step >= profile_after + self.tcfg.profile_steps):
                         tracing.close()
@@ -321,7 +354,10 @@ class Trainer:
                                            "dur": last["duration_loss"]}, state.step)
                 epoch_losses = self._fetch(pending)
                 self._check_finite(epoch_losses[checked:], state.step)
-                self._on_epoch_end(epoch, epoch_losses, state, ckpt_root, t0)
+                if self.rank == 0:
+                    self._on_epoch_end(epoch, epoch_losses, state, ckpt_root, t0)
+                if self.group is not None:  # no rank runs ahead of rank 0's checkpoint
+                    dist.barrier(group=self.group)
         if self._writer:  # close drains tensorboardX's queue of pending events
             self._writer.close()
             self._writer = None

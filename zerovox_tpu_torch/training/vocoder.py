@@ -1,4 +1,4 @@
-"""HiFi-GAN adversarial vocoder training on one CUDA card.
+"""HiFi-GAN adversarial vocoder training on a CUDA card, or data parallel on several.
 
 The PyTorch counterpart of the JAX package's `training/vocoder.py`:
 
@@ -28,9 +28,12 @@ The PyTorch counterpart of the JAX package's `training/vocoder.py`:
   * `VocoderTrainer.fit` logs each epoch's last losses (fetched from the
     card only then) to `losses.json`, and every `checkpoint_every_n_epochs`
     (and at the end) writes `checkpoints/vocoder-NNNN.pt` (both nets, both
-    optimizers, step, epoch; `restore_state` continues from it) and the
-    inference contract `config.json` + `generator.msgpack`, which both
-    packages' engines load as a meldec dir.
+    optimizers, step, epoch; `restore_state` continues from it, and from
+    the JAX trainer's `vocoder-NNNN.msgpack`, which `save_jax_state`
+    writes) and the inference contract `config.json` + `generator.msgpack`,
+    which both packages' engines load as a meldec dir;
+  * with a `mesh` over a process group the trainer is data parallel (see
+    `VocoderTrainer`).
 """
 
 from __future__ import annotations
@@ -43,12 +46,15 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from zerovox_tpu_torch.device import resolve_device, use_full_f32
 from zerovox_tpu_torch.models.hifigan import (Generator, HifiGanConfig, MultiPeriodDiscriminator,
                                               MultiScaleDiscriminator, discriminator_loss,
                                               feature_loss, generator_loss)
+from zerovox_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads, all_reduce_values,
+                                             process_device, replicate, shard_batch)
 from zerovox_tpu_torch.training.optim import AdamW, exponential_decay_schedule
 
 # ----------------------------------------------------------------- data
@@ -256,11 +262,13 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 
 def make_vocoder_step(logmel: Callable, schedule: Callable[[int], float],
                       mel_weight: float = 45.0, precision: str = "32",
-                      split: bool = False) -> Callable:
+                      split: bool = False, grad_reduce: Callable | None = None) -> Callable:
     """step(state, batch) -> losses (detached, on the device): one GAN round
     on batch {"mel": [B, F, M], "wav": [B, F * hop]} (tensors on the nets'
     device), updating `state` in place. `schedule(count)` gives each
-    optimizer's learning rate from its update count before the update."""
+    optimizer's learning rate from its update count before the update.
+    `grad_reduce(params)`, when given, runs on each optimizer's parameters
+    between the backward and the update (the data-parallel mean)."""
     if precision not in ("32", "bf16-mixed"):
         raise ValueError(f"precision {precision!r}: '32' or 'bf16-mixed'")
     mixed = precision == "bf16-mixed"
@@ -281,6 +289,8 @@ def make_vocoder_step(logmel: Callable, schedule: Callable[[int], float],
         rs, gs, _, _ = run(state.msd, y, y_hat, grad=True)
         ls, _, _ = discriminator_loss([r.float() for r in rs], [g.float() for g in gs])
         (lf + ls).backward()
+        if grad_reduce is not None:
+            grad_reduce(state.d_opt.params)
         state.d_opt.step(schedule(state.d_opt.count))
         return {"d_mpd": lf.detach(), "d_msd": ls.detach(), "d_total": (lf + ls).detach()}
 
@@ -302,6 +312,8 @@ def make_vocoder_step(logmel: Callable, schedule: Callable[[int], float],
         l_adv_s, _ = generator_loss([g.float() for g in gs])
         loss = l_adv_f + l_adv_s + l_fm + l_mel
         loss.backward()
+        if grad_reduce is not None:
+            grad_reduce(state.g_opt.params)
         state.g_opt.step(schedule(state.g_opt.count))
         state.step += 1
         return {"g_total": loss.detach(), "g_mel": l_mel.detach(), "g_fm": l_fm.detach(),
@@ -379,21 +391,41 @@ def to_device_batch(batch: dict, device) -> dict[str, torch.Tensor]:
     return out
 
 
+def _sorted_tree(tree: dict) -> dict:
+    """`tree` with every map below the top level in sorted key order."""
+    def walk(t):
+        return {k: walk(t[k]) for k in sorted(t)} if isinstance(t, dict) else t
+
+    return {k: walk(v) for k, v in tree.items()}
+
+
 class VocoderTrainer:
     """Epoch-driven GAN trainer on one device (the card unless
-    device="cpu"); its generator drops into the engines as a meldec dir."""
+    device="cpu"), or data parallel over a `mesh`'s process group, one
+    device a process: each rank runs its shard of every batch (the JAX
+    trainer's `P("data")` rows) and the gradients are averaged over the
+    ranks before each update (the losses are means over equal shards and
+    the discriminators have no BatchNorm, so that is the global batch's
+    gradient). Its generator drops into the engines as a meldec dir."""
 
     def __init__(self, gcfg: HifiGanConfig, dcfg: VocoderDataConfig, tcfg: VocoderTrainerConfig,
-                 steps_per_epoch: int, device=None):
+                 steps_per_epoch: int, device=None, mesh: Mesh | None = None):
         self.gcfg, self.dcfg, self.tcfg = gcfg, dcfg, tcfg
+        device = process_device(mesh, device)
+        self.mesh = mesh
+        self.group = mesh.group if mesh is not None else None
+        self.rank = mesh.rank if mesh is not None else 0
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_full_f32()
         self.schedule = exponential_decay_schedule(tcfg.learning_rate, steps_per_epoch,
                                                    tcfg.lr_decay)
         self.logmel = make_batched_logmel(dcfg)
+        reduce = (None if self.group is None else
+                  lambda params: all_reduce_grads(params, self.group, average=True))
         self.step_fn = make_vocoder_step(self.logmel, self.schedule, mel_weight=tcfg.mel_weight,
-                                         precision=tcfg.precision, split=tcfg.split_step)
+                                         precision=tcfg.precision, split=tcfg.split_step,
+                                         grad_reduce=reduce)
 
     def init_state(self, gen: torch.Generator | None = None) -> VocoderTrainState:
         """Random nets (LeCun-normal kernels, zero biases) drawn from `gen`
@@ -408,13 +440,20 @@ class VocoderTrainer:
         for net in (g, mpd, msd):
             random_init_(net, gen)
             net.to(self.device).train()
+            if self.group is not None:
+                replicate(net, self.mesh)
         t = self.tcfg
         return VocoderTrainState(
             gen=g, mpd=mpd, msd=msd, g_opt=vocoder_adamw(g.parameters(), t.adam_b1, t.adam_b2),
             d_opt=vocoder_adamw([*mpd.parameters(), *msd.parameters()], t.adam_b1, t.adam_b2))
 
     def train_step(self, state: VocoderTrainState, batch: dict) -> dict[str, torch.Tensor]:
-        return self.step_fn(state, to_device_batch(batch, self.device))
+        """One round on `batch` (this rank's rows of it under a process
+        group); returns the global batch's losses."""
+        losses = self.step_fn(state, to_device_batch(shard_batch(batch, self.mesh), self.device))
+        if self.group is not None:
+            losses = all_reduce_values(losses, self.group, scale=1.0 / self.mesh.world)
+        return losses
 
     # ----------------------------------------------------------- persist
 
@@ -451,8 +490,18 @@ class VocoderTrainer:
         return path
 
     def restore_state(self, state: VocoderTrainState, path) -> int:
-        """Load `save_state`'s file into `state` (from `init_state`); returns
-        the epoch `fit` continues at."""
+        """Load a resume file into `state` (from `init_state`): the port's
+        `save_state` file (`.pt`), or the JAX trainer's `vocoder-NNNN.msgpack`
+        (flax's bytes of its `VocoderTrainState`, the epoch in the `.json`
+        beside it). Returns the epoch `fit` continues at, the one after the
+        file's."""
+        if str(path).endswith(".msgpack"):
+            from zerovox_tpu_torch.utils.msgpack_codec import unpackb
+
+            with open(path, "rb") as f:
+                self._load_jax_state(state, unpackb(f.read()), path)
+            with open(str(path) + ".json") as f:
+                return json.load(f)["epoch"] + 1
         blob = torch.load(path, map_location="cpu", weights_only=True)
         for name in ("gen", "mpd", "msd"):
             getattr(state, name).load_state_dict(blob[name])
@@ -466,6 +515,87 @@ class VocoderTrainer:
             opt.count = saved["count"]
         state.step = blob["step"]
         return blob["epoch"] + 1
+
+    # The JAX trainer's state in flax's layout: {"g_params", "d_params": {"mpd",
+    # "msd"}, "g_opt", "d_opt", "step"}; each optimizer's state is optax.adamw's
+    # chain, {"0": {"count", "mu", "nu"}, "1": {}, "2": {"count"}} (Adam, the
+    # weight decay, the schedule), mu and nu shaped as the parameters, so the
+    # parameters' layout maps carry them over element for element.
+
+    def _layouts(self, state: VocoderTrainState):
+        """(generator tree <-> tensors, discriminators' tree <-> tensors), the
+        tensors in the order of g_opt's and d_opt's parameter lists."""
+        from zerovox_tpu_torch import weights as w
+
+        periods, scales = self.tcfg.mpd_periods, self.tcfg.msd_scales
+        g_names = [n for n, _ in state.gen.named_parameters()]
+        mpd_names = [n for n, _ in state.mpd.named_parameters()]
+        msd_names = [n for n, _ in state.msd.named_parameters()]
+
+        def g_from(tree):
+            sd = w.generator_from_jax_params(tree, self.gcfg)
+            return [sd[n] for n in g_names]
+
+        def d_from(tree):
+            a = w.mpd_from_jax_variables(tree["mpd"], periods)
+            b = w.msd_from_jax_variables(tree["msd"], scales)
+            return [a[n] for n in mpd_names] + [b[n] for n in msd_names]
+
+        def g_to(tensors):
+            return w.generator_to_jax_params(dict(zip(g_names, tensors)), self.gcfg)
+
+        def d_to(tensors):
+            k = len(mpd_names)
+            return {"mpd": w.mpd_to_jax_variables(dict(zip(mpd_names, tensors[:k])), periods),
+                    "msd": w.msd_to_jax_variables(dict(zip(msd_names, tensors[k:])), scales)}
+
+        return (g_from, g_to), (d_from, d_to)
+
+    def _load_jax_state(self, state: VocoderTrainState, tree: dict, path) -> None:
+        (g_from, _), (d_from, _) = self._layouts(state)
+        for opt, key, from_tree in ((state.g_opt, "g", g_from), (state.d_opt, "d", d_from)):
+            adam, sched = tree[f"{key}_opt"]["0"], tree[f"{key}_opt"]["2"]
+            if int(adam["count"]) != int(sched["count"]):
+                raise ValueError(f"{path}: {key}_opt's Adam count {int(adam['count'])} is not "
+                                 f"its schedule's {int(sched['count'])}")
+            params = (list(state.gen.parameters()) if key == "g"
+                      else [*state.mpd.parameters(), *state.msd.parameters()])
+            with torch.no_grad():
+                for dst, src in zip(params + opt.mu + opt.nu,
+                                    from_tree(tree[f"{key}_params"]) + from_tree(adam["mu"])
+                                    + from_tree(adam["nu"])):
+                    dst.copy_(src)
+            opt.count = int(adam["count"])
+        state.step = int(tree["step"])
+
+    def save_jax_state(self, state: VocoderTrainState, out_dir: str, epoch: int) -> str:
+        """The JAX trainer's resume file for `state` after `epoch`:
+        checkpoints/vocoder-NNNN.msgpack, flax's `to_bytes` of its
+        VocoderTrainState (nested maps in sorted key order as flax's trees
+        hold them, the state's fields in field order), and its `.json`."""
+        from zerovox_tpu_torch.utils.msgpack_codec import packb
+
+        (_, g_to), (_, d_to) = self._layouts(state)
+
+        def opt_state(opt, to_tree):
+            count = np.asarray(opt.count, np.int32)
+            return {"0": {"count": count, "mu": to_tree(opt.mu), "nu": to_tree(opt.nu)},
+                    "1": {}, "2": {"count": count}}
+
+        tree = {"g_params": g_to(list(state.gen.parameters())),
+                "d_params": d_to([*state.mpd.parameters(), *state.msd.parameters()]),
+                "g_opt": opt_state(state.g_opt, g_to), "d_opt": opt_state(state.d_opt, d_to),
+                "step": np.asarray(state.step, np.int32)}
+        ckpt_dir = os.path.join(out_dir, "checkpoints")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = os.path.join(ckpt_dir, f"vocoder-{epoch:04d}.msgpack")
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(packb(_sorted_tree(tree), sort_keys=False))
+        os.replace(tmp, path)
+        with open(path + ".json", "w") as f:
+            json.dump({"epoch": epoch}, f)
+        return path
 
     # --------------------------------------------------------------- fit
 
@@ -497,24 +627,35 @@ class VocoderTrainer:
             losses = None
             for batch in loader(tcfg.batch_size):
                 losses = self.train_step(state, batch)
-            if losses is not None and (epoch % tcfg.log_every_n_epochs == 0
-                                       or epoch == tcfg.max_epochs - 1):
-                keys = list(losses)
-                host = dict(zip(keys, map(float, torch.stack([losses[k] for k in keys]).cpu())))
-                bad = [k for k, v in host.items() if not np.isfinite(v)]
-                if bad:
-                    print(f"*** error: invalid loss at epoch {epoch}: "
-                          + ", ".join(f"{k}={host[k]}" for k in bad))
-                history.append({"epoch": epoch, **host})
-                print(f"epoch {epoch}: g_total={host['g_total']:.3f} g_mel={host['g_mel']:.3f} "
-                      f"g_adv={host['g_adv']:.3f} g_fm={host['g_fm']:.3f} "
-                      f"d_total={host['d_total']:.3f} ({time.time() - t0:.0f}s)", flush=True)
-            if (epoch + 1) % tcfg.checkpoint_every_n_epochs == 0 or epoch == tcfg.max_epochs - 1:
-                self.save_state(state, tcfg.out_folder, epoch)
-                self.save_generator(state, tcfg.out_folder)
-        with open(hist_path, "w") as f:
-            json.dump(history, f, indent=1)
+            if self.rank == 0:  # every rank holds the same losses and weights
+                self._end_epoch(state, epoch, losses, history, t0)
+            if self.group is not None:  # no rank runs ahead of rank 0's checkpoint
+                dist.barrier(group=self.group)
+        if self.rank == 0:
+            with open(hist_path, "w") as f:
+                json.dump(history, f, indent=1)
         return state
+
+    def _end_epoch(self, state: VocoderTrainState, epoch: int, losses: dict | None,
+                   history: list[dict], t0: float) -> None:
+        """Log the epoch's last losses (on log epochs) and write its
+        checkpoint (on checkpoint epochs and the last)."""
+        tcfg = self.tcfg
+        if losses is not None and (epoch % tcfg.log_every_n_epochs == 0
+                                   or epoch == tcfg.max_epochs - 1):
+            keys = list(losses)
+            host = dict(zip(keys, map(float, torch.stack([losses[k] for k in keys]).cpu())))
+            bad = [k for k, v in host.items() if not np.isfinite(v)]
+            if bad:
+                print(f"*** error: invalid loss at epoch {epoch}: "
+                      + ", ".join(f"{k}={host[k]}" for k in bad))
+            history.append({"epoch": epoch, **host})
+            print(f"epoch {epoch}: g_total={host['g_total']:.3f} g_mel={host['g_mel']:.3f} "
+                  f"g_adv={host['g_adv']:.3f} g_fm={host['g_fm']:.3f} "
+                  f"d_total={host['d_total']:.3f} ({time.time() - t0:.0f}s)", flush=True)
+        if (epoch + 1) % tcfg.checkpoint_every_n_epochs == 0 or epoch == tcfg.max_epochs - 1:
+            self.save_state(state, tcfg.out_folder, epoch)
+            self.save_generator(state, tcfg.out_folder)
 
 
 # ------------------------------------------------- the round's gradients

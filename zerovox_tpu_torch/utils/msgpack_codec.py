@@ -6,7 +6,9 @@ The JAX package writes its native checkpoints with
 files:
 
   * maps with str keys, packed in sorted key order (`msgpack_serialize`
-    copies the tree with `jax.tree_util.tree_map`, which sorts dict keys);
+    copies the tree with `jax.tree_util.tree_map`, which sorts dict keys),
+    or with `sort_keys=False` in their own order (`flax.serialization.
+    to_bytes` serializes in place: a dataclass's fields in field order);
     lists; str (fixstr, str8,
     str16, str32), bytes (bin8/16/32), int, float (float64), bool and None
     as msgpack packs them with `use_bin_type=True, strict_types=True`;
@@ -92,7 +94,7 @@ def _ndarray_payload(arr: np.ndarray) -> bytes:
     return packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
 
 
-def _pack(obj, out: bytearray) -> None:
+def _pack(obj, out: bytearray, sort_keys: bool = True) -> None:
     t = type(obj)
     if obj is None:
         out.append(0xC0)
@@ -112,13 +114,13 @@ def _pack(obj, out: bytearray) -> None:
         out += data
     elif t is dict:
         _pack_len(len(obj), out, 0x80, 16, (None, 0xDE, 0xDF))
-        for k in sorted(obj):
+        for k in sorted(obj) if sort_keys else obj:
             _pack(k, out)
-            _pack(obj[k], out)
+            _pack(obj[k], out, sort_keys)
     elif t is list:
         _pack_len(len(obj), out, 0x90, 16, (None, 0xDC, 0xDD))
         for v in obj:
-            _pack(v, out)
+            _pack(v, out, sort_keys)
     elif isinstance(obj, np.ndarray):
         if obj.nbytes > 2**30:
             raise ValueError(f"array of {obj.nbytes} bytes: flax would chunk it, which is not supported")
@@ -129,11 +131,13 @@ def _pack(obj, out: bytearray) -> None:
         raise TypeError(f"cannot serialize {t.__name__} in flax's msgpack format")
 
 
-def packb(tree) -> bytes:
+def packb(tree, sort_keys: bool = True) -> bytes:
     """The bytes `flax.serialization.msgpack_serialize(tree)` gives for a
-    tree of dicts, lists, scalars and numpy arrays of at most 2**30 bytes."""
+    tree of dicts, lists, scalars and numpy arrays of at most 2**30 bytes;
+    with `sort_keys=False` those of `msgpack_serialize(tree, in_place=True)`,
+    which `flax.serialization.to_bytes` writes, maps in their own order."""
     out = bytearray()
-    _pack(tree, out)
+    _pack(tree, out, sort_keys)
     return bytes(out)
 
 
