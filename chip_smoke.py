@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile DIR   # also torch.profiler breakdowns of tts_ex (float32
                                           # and bf16) and of a train step, in DIR/profile_*.txt
     python3 chip_smoke.py --only 12 --repeat 20 [--dump DIR]
-                                          # phases 1-2, then phase 12 (18, 19) alone, 20 times:
+                                          # phases 1-2, then phase 12 (18, 19, 20) alone, 20 times:
                                           # each repeat's failure is recorded and the run goes
                                           # on; exits nonzero if any repeat failed. --dump
                                           # writes phase 12's variance predictions per repeat
@@ -180,6 +180,30 @@ Phases, in order; any failure exits nonzero:
    ZEROVOX_COMPILE_CACHE on one fresh directory: 4 misses with build
    seconds, then 4 hits with saved seconds, both `format_cache_stats()`
    lines printed. `--profile` adds (a)'s and (b)'s device splits.
+20. Tensor parallelism on the one card: two gloo ranks on cuda:0 (NCCL
+   refuses two ranks on one device; the library's default stays NCCL)
+   spawned by `parallel.mesh.spawn(..., backend="gloo",
+   mesh=MeshConfig(data=1, model=2))`, phase 6's configuration and batch, 2
+   steps in float32 and 2 in bf16-mixed: (a) under deterministic
+   algorithms, the 1 x 2 step's losses, running statistics and its
+   gradients and weights gathered whole against one process's data-only
+   step from the same state (restored from the 1 x 2 run's
+   `save_train_state` before each step), and against that step with the
+   model axis's arithmetic emulated in one process (`split_emulation`:
+   each split layer's blocks summed in the ranks' order): float32 within phase 19's
+   1e-6 of the emulation, and of the data-only step within the larger of
+   1e-6 and twice the emulation's own gap (what the reassociation
+   measures); the weights over the elements whose gradients were above
+   1e-6 of the largest (below, Adam's first step takes the sign of
+   rounding); bf16-mixed within the CPU test's bf16 bounds (losses and
+   running statistics 5e-2, each gradient group within 1.5 x the bf16
+   step's own distance from float32); (b) under the trainers' default
+   algorithms, every replicated parameter bitwise equal on both ranks
+   after each step; (c) 6 + 6 K4 launches a step on each rank (the bf16 K4
+   in bf16-mixed); (d) each rank's parameter elements equal to its rule's
+   count, printed with each rank's peak memory and the 1 x 2 step's ms in
+   turns with the one-process step (two ranks share the card: no speed
+   result).
 
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -260,6 +284,8 @@ PP_EMIT_TOL, PP_MEL_TOL, PP_ENERGY_RTOL = 1e-4, 1e-4, 1e-5  # card against CPU
 # ungrouped one where the bits differ (relative to a loss, or to the model's
 # largest gradient)
 DP_STEPS, DP_REL_TOL, DP_TIME_ROUNDS = 2, 1e-6, 3
+# tensor parallel (phase 20): steps a precision in each comparison
+TP_STEPS = 2
 
 
 class PhaseFailed(SystemExit):
@@ -3133,6 +3159,342 @@ def parallel_phase(torch, dev, card: str, refwav, sr: int, profile_dir=None) -> 
     return out
 
 
+def split_emulation(torch, model, m: int) -> int:
+    """The model axis's arithmetic in one process: every layer that
+    `param_sharding_rules` splits computes its m blocks' products and
+    concatenates them (column-parallel) or sums them in block order and
+    then adds its bias (row-parallel), as the ranks and their all-reduces
+    do; a block's input enters through one view node, so its gradient is
+    the sum of the blocks' before it meets the input's other uses (the
+    backward all-reduce). Attention's fc and the FFN's w_2 take their
+    partner's blocks as they are (parallel/tensor.py's pairing). The
+    parameters keep their objects and names. Returns the layers replaced."""
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    from zerovox_tpu_torch.parallel.mesh import param_sharding_rules
+
+    class Blocks(nn.Module):
+        def __init__(self, layer, axis: int, split_input: bool):
+            super().__init__()
+            self.weight, self.bias = layer.weight, layer.bias
+            self.axis, self.split_input = axis, split_input
+            self.conv = ({"padding": layer.padding, "dilation": layer.dilation,
+                          "stride": layer.stride} if isinstance(layer, nn.Conv1d) else None)
+
+        def product(self, x, w, b):
+            if self.conv is None:
+                return F.linear(x, w, b)
+            return F.conv1d(x.transpose(1, 2), w, b, **self.conv).transpose(1, 2)
+
+        def forward(self, x):
+            w = self.weight.to(x.dtype)
+            b = None if self.bias is None else self.bias.to(x.dtype)
+            if self.axis == 0:
+                x = x.view_as(x)
+                bs = [None] * m if b is None else b.chunk(m)
+                return torch.cat([self.product(x, wi, bi) for wi, bi in zip(w.chunk(m, 0), bs)],
+                                 dim=-1)
+            if not self.split_input:
+                x = x.view_as(x)
+            n = x.shape[-1] // m
+            y = None
+            for i, wi in enumerate(w.chunk(m, 1)):
+                p = self.product(x.narrow(-1, i * n, n), wi, None)
+                y = p if y is None else y + p
+            return y if b is None else y + b
+
+    rules = param_sharding_rules(model, m)
+    modules = dict(model.named_modules())
+    for name, axis in rules.items():
+        if axis is None:
+            continue
+        path = name.removesuffix(".weight")
+        parent_name, _, child = path.rpartition(".")
+        parent = modules[parent_name]
+        fed = ((child == "w_2" and hasattr(parent, "w_1"))
+               or (child == "fc" and hasattr(parent, "w_vs") and parent.n_head % m == 0))
+        parent._modules[child] = Blocks(modules[path], axis, fed)
+    return sum(a is not None for a in rules.values())
+
+
+def tp_gaps(torch, a: dict, b: dict) -> dict:
+    """Step `a` against step `b` from the same state: losses relative to
+    each; gradients relative to the model's largest; weights relative to
+    the largest weight over the elements whose gradient in `b` is above
+    DP_REL_TOL of the largest (below it Adam's update, g / (sqrt(nu) +
+    eps), takes the sign of rounding), and the largest gap anywhere in
+    units of the step's learning rate; running statistics relative to each
+    buffer's largest value."""
+    loss = max(abs(a["losses"][k] - v) / max(abs(v), 1e-30) for k, v in b["losses"].items())
+    top = max(v.abs().max().item() for v in b["grads"].values())
+    grad = {n: (a["grads"][n] - v).abs().max().item() for n, v in b["grads"].items()}
+    wtop = max(v.abs().max().item() for v in b["weights"].values())
+    weight, anywhere, undetermined = {}, 0.0, 0
+    for n, v in b["weights"].items():
+        d = (a["weights"][n] - v).abs()
+        determined = b["grads"][n].abs() > DP_REL_TOL * top
+        undetermined += int((~determined).sum())
+        anywhere = max(anywhere, d.max().item())
+        weight[n] = (d * determined).max().item()
+    bn = {n: (a["buffers"][n] - v).abs().max().item() / max(v.abs().max().item(), 1e-30)
+          for n, v in b["buffers"].items()}
+    worst, wworst, bworst = max(grad, key=grad.get), max(weight, key=weight.get), max(bn, key=bn.get)
+    same = (all(a["losses"][k] == v for k, v in b["losses"].items())
+            and all(torch.equal(a["grads"][n], v) for n, v in b["grads"].items())
+            and all(torch.equal(a["weights"][n], v) for n, v in b["weights"].items()))
+    return {"bitwise": same, "loss_rel": loss, "grad_rel": grad[worst] / max(top, 1e-30),
+            "grad_worst": worst, "weight_rel": weight[wworst] / max(wtop, 1e-30),
+            "weight_worst": wworst, "weight_anywhere_in_lr": anywhere / b["lr"],
+            "undetermined_elements": undetermined, "bn_rel": bn[bworst], "bn_worst": bworst}
+
+
+def tp_dist(a: dict, b: dict, names: list) -> float:
+    """||a - b|| / ||b|| over the named gradients."""
+    num = sum(float(((a[n] - b[n]) ** 2).sum()) for n in names)
+    return (num / max(sum(float((b[n] ** 2).sum()) for n in names), 1e-30)) ** 0.5
+
+
+def tp_rank(rank: int, host_batch, out_dir: str, mesh) -> None:
+    """Phase 20 on one of the two ranks of the 1 x 2 mesh (see
+    tensor_parallel_phase); rank 0 also runs the one-process references,
+    each step restored from the 1 x 2 run's train state before it (written
+    whole by `save_train_state`), so every step is compared from one
+    state. Writes out_dir/tp{rank}.json."""
+    import torch
+    import torch.distributed as dist
+
+    from zerovox_tpu_torch.device import use_full_f32
+    from zerovox_tpu_torch.models.zerovox import ZeroVox
+    from zerovox_tpu_torch.parallel.mesh import param_sharding_rules
+    from zerovox_tpu_torch.parallel.tensor import gather_shards, sharded_axes
+    from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig, device_batch
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    use_full_f32()
+    dev = mesh.devices[0]
+    cfg = train_config(fused=True)
+    batch = device_batch(host_batch, dev)
+    state_file = os.path.join(out_dir, "tp_state.pt")
+    out = {"rank": rank, "coords": [mesh.data_index, mesh.model_index],
+           "backend": dist.get_backend(), "device": str(dev)}
+    with torch.device("meta"):
+        whole = ZeroVox(cfg)
+    rule = param_sharding_rules(whole, 2)
+    n_whole = sum(p.numel() for p in whole.parameters())
+    n_split = sum(p.numel() for n, p in whole.named_parameters() if rule[n] is not None)
+    n_bias = sum(whole.get_submodule(n.removesuffix(".weight")).bias.numel()
+                 for n, a in rule.items() if a == 0)
+    del whole
+
+    def trainer(precision, on_mesh=False):
+        tr = Trainer(cfg, TrainerConfig(max_epochs=1, warmup_epochs=1, seed=0,
+                                        precision=precision),
+                     steps_per_epoch=1, device=None if on_mesh else dev,
+                     mesh=mesh if on_mesh else None)
+        return tr, tr.init_state()
+
+    def record(tr, st, losses, lr) -> dict:
+        """The step's losses and running statistics, and its gradients and
+        weights gathered whole, on the host."""
+        names = [n for n, _ in st.model.named_parameters()]
+        params = [p for _, p in st.model.named_parameters()]
+        grads, weights = [p.grad for p in params], [p.detach() for p in params]
+        if tr.tensor_parallel:
+            axes = sharded_axes(st.model)
+            ax = [axes.get(n) for n in names]
+            grads, weights = gather_shards(grads, ax, mesh), gather_shards(weights, ax, mesh)
+
+        def host(ts):
+            return {n: t.to("cpu", torch.float32, copy=True) for n, t in ts}
+
+        return {"losses": {k: float(v) for k, v in losses.items()}, "lr": lr,
+                "grads": host(zip(names, grads)), "weights": host(zip(names, weights)),
+                "buffers": host((n, b) for n, b in st.model.named_buffers() if "running" in n)}
+
+    for precision in ("32", "bf16-mixed"):
+        mixed = precision == "bf16-mixed"
+        fwd, bwd = (("se_conv_fwd_bf16", "se_conv_bwd_bf16") if mixed
+                    else ("se_conv_fwd", "se_conv_bwd"))
+        res = {}
+        t0 = time.perf_counter()
+        # (b)-(d) under the trainers' default algorithms: K4's launches and
+        # the replicated parameters, both ranks, each step; the peak memory
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr, st = trainer(precision, on_mesh=True)
+        res["elements"] = {"whole": n_whole, "rule_split": n_split, "column_biases": n_bias,
+                           "expected": n_whole - n_split // 2 - n_bias // 2,
+                           "held": sum(p.numel() for p in st.model.parameters())}
+        axes = sharded_axes(st.model)
+        k4, equal = [], []
+        for _ in range(TP_STEPS):
+            zero_counts()
+            tr.train_step(st, batch)
+            torch.cuda.synchronize()
+            n = kernel_counts()
+            k4.append([n[fwd], n[bwd]])
+            flat = torch.cat([p.detach().reshape(-1) for n, p in st.model.named_parameters()
+                              if n not in axes])
+            theirs = flat.clone()
+            dist.broadcast(theirs, src=dist.get_global_rank(mesh.group, 1), group=mesh.group)
+            same = torch.tensor([float(torch.equal(flat, theirs))], device=dev)
+            dist.all_reduce(same, op=dist.ReduceOp.MIN)
+            equal.append(bool(same.item()))
+        res.update(k4_per_step=k4, replicated_bitwise_default_algorithms=equal,
+                   replicated_elements=int(flat.numel()),
+                   peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+        del flat, theirs
+        # the step's ms in turns: the 1 x 2 step (both ranks, warm) and one
+        # process's data-only step (rank 0 alone after one warm-up step;
+        # rank 1 at a barrier)
+        one = trainer(precision) if rank == 0 else None
+        if rank == 0:
+            one[0].train_step(one[1], batch)
+        times = {"tp": [], "plain": []}
+        for label in ("tp", "plain", "plain", "tp"):
+            if label == "tp":
+                ms = cuda_time_ms(lambda: tr.train_step(st, batch), iters=1, warmup=0)
+            else:
+                ms = (cuda_time_ms(lambda: one[0].train_step(one[1], batch), iters=1, warmup=0)
+                      if rank == 0 else None)
+                dist.barrier()
+            times[label].append(ms)
+        if rank == 0:
+            res.update(step_ms=times, tp_ms=statistics.median(times["tp"]),
+                       plain_ms=statistics.median(times["plain"]))
+        del tr, st, one
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+
+        # (a) deterministic algorithms: each 1 x 2 step against one process's
+        # data-only step and its split emulation from the same state (and,
+        # in bf16-mixed, a float32 step from it: bf16's own distance)
+        with deterministic_algorithms(torch, True):
+            tr, st = trainer(precision, on_mesh=True)
+            refs = {}
+            if rank == 0:
+                refs = {"plain": trainer(precision), "emulated": trainer(precision)}
+                if mixed:
+                    refs["plain32"] = trainer("32")
+                res["emulated_layers"] = split_emulation(torch, refs["emulated"][1].model, 2)
+            steps = []
+            for _ in range(TP_STEPS):
+                tr.save_train_state(st, state_file, 0)  # gathered whole; rank 0 writes
+                dist.barrier()
+                lr = tr.schedule(st.step)
+                rec = {"tp": record(tr, st, tr.train_step(st, batch), lr)}
+                if rank == 0:
+                    for label, (rt, rs) in refs.items():
+                        rt.restore_train_state(rs, state_file)
+                        rec[label] = record(rt, rs, rt.train_step(rs, batch), lr)
+                    got = {"tp_vs_plain": tp_gaps(torch, rec["tp"], rec["plain"]),
+                           "emulated_vs_plain": tp_gaps(torch, rec["emulated"], rec["plain"]),
+                           "tp_vs_emulated": tp_gaps(torch, rec["tp"], rec["emulated"]),
+                           "losses": rec["tp"]["losses"], "plain_losses": rec["plain"]["losses"]}
+                    if mixed:  # the CPU test's bf16 measures (tests/test_torch_parallel.py)
+                        names = list(rec["plain"]["grads"])
+                        spk = [n for n in names if n.startswith("_spkemb.")]
+                        for key, group in (("grad_spk", spk),
+                                           ("grad_rest", [n for n in names if n not in spk])):
+                            got[key] = {"tp": tp_dist(rec["tp"]["grads"], rec["plain"]["grads"],
+                                                      group),
+                                        "bf16_vs_f32": tp_dist(rec["plain"]["grads"],
+                                                               rec["plain32"]["grads"], group)}
+                        got["bf16_vs_f32"] = tp_gaps(torch, rec["plain"], rec["plain32"])
+                    steps.append(got)
+                del rec
+                dist.barrier()
+            res["steps"] = steps
+            res["seconds"] = {"default_algorithms": t1 - t0,
+                              "deterministic": time.perf_counter() - t1}
+            del tr, st, refs
+            torch.cuda.empty_cache()
+        out[precision] = res
+        dist.barrier()
+    with open(os.path.join(out_dir, f"tp{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def tensor_parallel_phase(torch, dev, card: str) -> dict:
+    """Phase 20: the data x model mesh on the card's one H100, as two gloo
+    ranks on cuda:0 forming a 1 x 2 mesh (NCCL refuses two ranks on one
+    device): phase 6's configuration and batch, TP_STEPS steps in float32
+    and in bf16-mixed. See the module docstring."""
+    from zerovox_tpu_torch.parallel.mesh import MeshConfig, indexed_device, spawn
+    from zerovox_tpu_torch.training.data import SpeechDataModule
+
+    BUILD.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    dev = indexed_device(dev)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        tmp = Path(tmp)
+        cfg = train_config(fused=True)
+        write_corpus(tmp, "train", cfg.symbols(), cfg.audio.num_mels, TRAIN_BATCH, (80, 100),
+                     seed=0)
+        dm = SpeechDataModule([{"path": {"preprocessed_path": "train"}}], cfg.symbols(), STATS,
+                              batch_size=TRAIN_BATCH, num_workers=0, seed=0, base_path=str(tmp))
+        dm.prepare_data()
+        host_batch = next(iter(dm.train_dataloader(0)))
+        torch.cuda.empty_cache()
+        try:
+            spawn(tp_rank, 2, host_batch, str(tmp), devices=[str(dev)] * 2, backend="gloo",
+                  mesh=MeshConfig(data=1, model=2))
+        except Exception as e:  # a rank raised: its traceback is in the message
+            fail(f"the tensor-parallel ranks failed: {str(e)[-3000:]}")
+        ranks = [json.loads((tmp / f"tp{r}.json").read_text()) for r in range(2)]
+    out = {"card": card, "ranks": ranks, "phase_s": time.perf_counter() - t0,
+           "note": "two ranks share one card: the step ms are no speed result"}
+    print(json.dumps({"tensor_parallel": out}), flush=True)
+    check([r["coords"] for r in ranks] == [[0, 0], [0, 1]] and all(
+        r["backend"] == "gloo" and r["device"] == str(dev) for r in ranks),
+        f"the ranks: {[(r['coords'], r['backend'], r['device']) for r in ranks]}")
+    for precision in ("32", "bf16-mixed"):
+        r0, r1 = ranks[0][precision], ranks[1][precision]
+        for r in (r0, r1):
+            check(r["k4_per_step"] == [[6, 6]] * TP_STEPS,
+                  f"{precision}: a rank launched K4 {r['k4_per_step']}, not 6 + 6 a step")
+            e = r["elements"]
+            check(e["held"] == e["expected"],
+                  f"{precision}: a rank holds {e['held']} parameter elements, its rule gives {e}")
+            check(all(r["replicated_bitwise_default_algorithms"]),
+                  f"{precision}: the replicated parameters part across the ranks under the "
+                  f"default algorithms: {r['replicated_bitwise_default_algorithms']}")
+        e = r0["elements"]
+        print(f"tensor parallel {precision}: each rank holds {e['held']:,} of {e['whole']:,} "
+              f"parameter elements ({e['held'] / e['whole']:.1%}); peak {r0['peak_mib']:.0f} / "
+              f"{r1['peak_mib']:.0f} MiB; step {r0['tp_ms']:.1f} ms on the 1 x 2 mesh against "
+              f"{r0['plain_ms']:.1f} ms in one process (two ranks share the card: no speed "
+              f"result); {card}", flush=True)
+        for i, st in enumerate(r0["steps"]):
+            tp, em, same = st["tp_vs_plain"], st["emulated_vs_plain"], st["tp_vs_emulated"]
+            if precision == "32":
+                # against the one process that sums in the ranks' order: phase
+                # 19's bound; against the data-only step: that bound widened to
+                # what the reassociation itself measures
+                for key in ("loss_rel", "grad_rel", "weight_rel"):
+                    check(same["bitwise"] or same[key] <= DP_REL_TOL,
+                          f"32 step {i}: the 1 x 2 step differs from its one-process "
+                          f"emulation: {key} {same[key]} > {DP_REL_TOL} ({same})")
+                    check(tp[key] <= max(DP_REL_TOL, 2 * em[key]),
+                          f"32 step {i}: the 1 x 2 step differs from the data-only step: "
+                          f"{key} {tp[key]}, the reassociation {em[key]} ({tp})")
+                continue
+            # the CPU test's bf16 bounds; the running statistics' 5e-2 widened
+            # to 1.5 x bf16's own distance from float32 where that is larger,
+            # as the gradient groups are held
+            own = st["bf16_vs_f32"]["bn_rel"]
+            check(tp["loss_rel"] <= MIXED_LOSS_RTOL
+                  and tp["bn_rel"] <= max(MIXED_LOSS_RTOL, 1.5 * own),
+                  f"bf16-mixed step {i}: losses {tp['loss_rel']}, running statistics "
+                  f"{tp['bn_rel']} ({tp['bn_worst']}; bf16's own {own})")
+            for k in ("grad_spk", "grad_rest"):
+                check(st[k]["tp"] <= 1.5 * st[k]["bf16_vs_f32"],
+                      f"bf16-mixed step {i}: {k} {st[k]['tp']} from the data-only step, over "
+                      f"1.5 x the bf16 step's own distance from float32 {st[k]['bf16_vs_f32']}")
+    return out
+
+
 def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
     """torch.profiler over `calls` calls of fn: device time by kernel, the
     device's busy share of the window (the union of the kernels' and
@@ -3188,8 +3550,8 @@ def arg_value(flag: str, default=None):
 
 
 def only_phases(torch, dev, card: str, kind: str, count: int) -> None:
-    """`--only N[,M] --repeat R [--dump DIR]`: after phases 1-2, run phase 12
-    and/or 18 alone, R times each. A repeat's failed check is recorded with
+    """`--only N[,M] --repeat R [--dump DIR]`: after phases 1-2, run phases
+    12, 18, 19 and/or 20 alone, R times each. A repeat's failed check is recorded with
     its message and the run goes on; a summary line lists them, and the
     exit code is 1 if any repeat failed."""
     import numpy as np
@@ -3204,7 +3566,8 @@ def only_phases(torch, dev, card: str, kind: str, count: int) -> None:
     runs = {12: ("checkpoints", lambda: checkpoint_phase(torch, dev, card, refwav, dump)),
             18: ("preprocessing and tools", lambda: preprocess_phase(torch, dev, card)),
             19: ("data parallel, serving mesh, resume, compile cache",
-                 lambda: parallel_phase(torch, dev, card, refwav, sr, profile_dir))}
+                 lambda: parallel_phase(torch, dev, card, refwav, sr, profile_dir)),
+            20: ("tensor parallel", lambda: tensor_parallel_phase(torch, dev, card))}
     wanted = [int(v) for v in arg_value("--only").split(",")]
     check(all(n in runs for n in wanted), f"--only takes phases {sorted(runs)}")
     repeat = int(arg_value("--repeat", 1))
@@ -3486,6 +3849,11 @@ def main() -> None:
     # ---- 19. data parallel (world-1 NCCL), the serving mesh, the JAX vocoder resume, the cache
     phase("data parallel, serving mesh, resume, compile cache")
     parallel_phase(torch, dev, card, refwav, sr, profile_dir)
+    torch.cuda.empty_cache()
+
+    # ---- 20. tensor parallel: a 1 x 2 data x model mesh, two gloo ranks on the card
+    phase("tensor parallel")
+    tensor_parallel_phase(torch, dev, card)
 
     # ---- results
     print(card)

@@ -327,16 +327,23 @@ def _close(got, want, tol):
     assert err <= tol, err
 
 
-def test_tts_batch_over_a_serving_mesh():
+@pytest.mark.parametrize("model", [1, 2])
+def test_tts_batch_over_a_serving_mesh(model):
+    """A data x model serving mesh (model 2: four CPU devices) keeps its
+    replicas on the data axis, as the JAX engine replicates its weights
+    over `model` and splits its rows over `data`."""
     # the port's seeded weights on both sides (the JAX `from_random` jits
     # flax's init of both models: ~20 s on the CPU)
     single = ZeroVoxTTS.from_random(_engine_cfg(pc), HifiGanConfig(**HCFG), seed=0, device="cpu")
     sds = single.state_dicts()
     jax_tts = JaxTTS(_engine_cfg(jc), to_jax_variables(sds[0], single.cfg),
                      JaxHifiGanConfig(**HCFG),
-                     meldec_to_jax_variables(sds[1], HifiGanConfig(**HCFG)), mesh=_jax_mesh2())
+                     meldec_to_jax_variables(sds[1], HifiGanConfig(**HCFG)),
+                     mesh=jmesh.make_mesh(jmesh.MeshConfig(data=2, model=model),
+                                          devices=jax.devices()[:2 * model]))
     two = ZeroVoxTTS(single.cfg, sds[0], HifiGanConfig(**HCFG), sds[1],
-                     mesh=pmesh.make_mesh(pmesh.MeshConfig(data=2), devices=["cpu", "cpu"]))
+                     mesh=pmesh.make_mesh(pmesh.MeshConfig(data=2, model=model),
+                                          devices=["cpu"] * (2 * model)))
     one = ZeroVoxTTS(single.cfg, sds[0], HifiGanConfig(**HCFG), sds[1], device="cpu",
                      mesh=pmesh.make_mesh(devices=["cpu"]))
     assert two.device.type == "cpu" and len(two._replicas) == 2
@@ -370,8 +377,10 @@ def test_tts_batch_over_a_serving_mesh():
 def test_what_the_mesh_refuses(monkeypatch):
     with pytest.raises(ValueError, match="does not cover 2 devices"):
         pmesh.make_mesh(pmesh.MeshConfig(data=3), devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="P14b"):
-        pmesh.MeshConfig(data=1, model=2)
+    square = pmesh.make_mesh(pmesh.MeshConfig(data=2, model=2), devices=["cpu"] * 4)
+    assert square.shape == {"data": 2, "model": 2} and len(square.data_devices) == 2
+    with pytest.raises(ValueError, match="mesh 2x2 does not cover 2 devices"):
+        pmesh.make_mesh(pmesh.MeshConfig(data=2, model=2), devices=["cpu", "cpu"])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="--devices 2: only 1 CUDA device"):
         pmesh.device_count(2, "cuda")

@@ -92,14 +92,19 @@ def acoustic_step(rank: int, cfg: dict, state_dict: dict, batch: dict, jobs: tup
 
 
 def vocoder_step(rank: int, gcfg, dcfg, tcfg, nets: dict, batch: dict, out_dir: str) -> None:
-    """One data-parallel GAN round on this rank's half of `batch` with
-    recording optimizers: the round's losses and the reduced gradients. The
-    nets take `nets`' tensors as they are (built on the meta device: no
-    random init to pay for)."""
-    from zerovox_tpu_torch.models import hifigan
-
+    """One data-parallel GAN round on this rank's half of `batch` (`gan_round`)."""
     torch.set_num_threads(1)
     mesh = pmesh.make_mesh(pmesh.MeshConfig(data=2), devices=["cpu"])
+    torch.save(gan_round(mesh, gcfg, dcfg, tcfg, nets, batch),
+               os.path.join(out_dir, f"vocoder{rank}.pt"))
+
+
+def gan_round(mesh, gcfg, dcfg, tcfg, nets: dict, batch: dict) -> dict:
+    """One GAN round over `mesh` with recording optimizers: the round's
+    losses and the reduced gradients. The nets take `nets`' tensors as they
+    are (built on the meta device: no random init to pay for)."""
+    from zerovox_tpu_torch.models import hifigan
+
     trainer = pv.VocoderTrainer(gcfg, dcfg, tcfg, 1, mesh=mesh)
     with torch.device("meta"):
         built = {"gen": hifigan.Generator(gcfg),
@@ -112,9 +117,8 @@ def vocoder_step(rank: int, gcfg, dcfg, tcfg, nets: dict, batch: dict, out_dir: 
         **built, g_opt=pv.GradRecorder(built["gen"].parameters()),
         d_opt=pv.GradRecorder([*built["mpd"].parameters(), *built["msd"].parameters()]))
     losses = trainer.train_step(state, batch)
-    torch.save({"losses": {k: float(v) for k, v in losses.items()},
-                "g_grads": state.g_opt.grads, "d_grads": state.d_opt.grads},
-               os.path.join(out_dir, f"vocoder{rank}.pt"))
+    return {"losses": {k: float(v) for k, v in losses.items()},
+            "g_grads": state.g_opt.grads, "d_grads": state.d_opt.grads}
 
 
 def steps(rank: int, acoustic: tuple, vocoder: tuple, out_dir: str) -> None:

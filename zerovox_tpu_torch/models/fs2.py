@@ -10,7 +10,9 @@ its parameters and inputs (bf16 in bf16-mixed training): the position
 tables are cast to the activations' dtype, as the JAX module does, and the
 pitch/energy bins come from the targets in that dtype. Module names follow the
 upstream state_dict keys (`_phoneme_encoder._encoder.layer_stack.0.slf_attn.w_qs.weight`,
-...). Attention is the plain einsum path: -inf key mask, softmax in float32.
+...). Attention is the plain einsum path: -inf key mask, softmax in float32; it
+runs the heads its q, k, v projections give it (this rank's under tensor
+parallelism, parallel/tensor.py).
 Padded positions are zeroed after every block.
 """
 
@@ -40,15 +42,18 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, spk_emb, attn_mask):
         B, L, _ = x.shape
-        q = self.w_qs(x).view(B, L, self.n_head, self.d_k)
-        k = self.w_ks(x).view(B, L, self.n_head, self.d_k)
-        v = self.w_vs(x).view(B, L, self.n_head, self.d_v)
+        q = self.w_qs(x)
+        # the heads present: all of them, or this rank's under tensor parallelism
+        h = q.shape[-1] // self.d_k
+        q = q.view(B, L, h, self.d_k)
+        k = self.w_ks(x).view(B, L, h, self.d_k)
+        v = self.w_vs(x).view(B, L, h, self.d_v)
         scale = 1.0 / float(self.d_k) ** 0.5
         attn = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
         if attn_mask is not None:
             attn = attn.masked_fill(attn_mask[:, None, :, :], float("-inf"))
         attn = torch.softmax(attn, dim=-1).to(x.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, L, self.n_head * self.d_v)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, L, h * self.d_v)
         out = self.dropout(self.fc(out)) + x
         return self.layer_norm(out, spk_emb) if self.scln else self.layer_norm(out)
 

@@ -27,8 +27,10 @@ bf16. `remat` recomputes each unfused SEBasicBlock in the backward
 package.
 
 Under data parallelism (`group`, a process group whose ranks hold equal
-shards of one batch) the train-mode statistics are the global batch's, as
-the JAX package's over a `data`-sharded batch: K4's and the stem's sums are
+shards of one batch: a mesh's `data_group`, never the whole world of a
+data x model mesh, whose model ranks hold the same rows) the train-mode
+statistics are the global batch's, as the JAX package's over a
+`data`-sharded batch: K4's and the stem's sums are
 all-reduced before each affine is formed, and the unfused BatchNorms (the
 attention pool's too) all-reduce their sums when the group has more than
 one rank. Each all-reduce is differentiable, so K4's backward receives the
@@ -97,9 +99,12 @@ def batch_norm(bn: nn.BatchNorm2d | nn.BatchNorm1d, x, train: bool, group=None):
             + bn.bias.view(shape))
 
 
-def linear(layer: nn.Linear, x):
+def linear(layer: nn.Module, x):
     """`layer` on x in x's dtype (the JAX package's Dense promotes a bf16
-    kernel to a float32 input's type)."""
+    kernel to a float32 input's type). A layer split over the model axis
+    (parallel/tensor.py) computes in x's dtype itself."""
+    if not isinstance(layer, nn.Linear):
+        return layer(x)
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 

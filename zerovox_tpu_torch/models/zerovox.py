@@ -92,9 +92,11 @@ class ZeroVox(nn.Module):
 
 def masked_mean(values: torch.Tensor, keep: torch.Tensor, group=None) -> torch.Tensor:
     """Mean over the elements where `keep` is True. Under a data-parallel
-    `group` the denominator is the count over every rank's shard, so the
-    ranks' results sum to the mean over the global batch (the gradients'
-    sum over the ranks is then the global mean's gradient)."""
+    `group` (a mesh's `data_group`) the denominator is the count over every
+    rank's shard, so the ranks' results sum to the mean over the global
+    batch (the gradients' sum over the ranks is then the global mean's
+    gradient). Over the whole world of a data x model mesh it would count
+    every row once a model rank."""
     keep = keep.expand(values.shape).to(values.dtype)
     count = torch.sum(keep)
     if group is not None:

@@ -24,10 +24,12 @@ depends on the bucket: every path picks the same bucket as the JAX package
 
 Entry points run on the CUDA card unless the caller passes device="cpu";
 without a card they raise. With `mesh=` (`parallel.make_mesh`, one
-process's devices on a `data` axis) the engine keeps one replica of both
-models on each device and `tts_batch` shards its rows over them, as the
-JAX package's serving mesh does: B is padded up to a multiple of the
-devices with fully masked rows, each shard's decode and vocode are queued
+process's devices on a `data` axis, and optionally a `model` axis) the
+engine keeps one replica of both models on each device of the `data` axis
+(the first of each model row) and `tts_batch` shards its rows over them,
+as the JAX package's serving mesh does (its weights replicated over
+`model`, its rows split over `data`): B is padded up to a multiple of the
+data axis with fully masked rows, each shard's decode and vocode are queued
 on its own device from the one host thread, and the rows are gathered on
 the host without the pad. The single-utterance paths run on the first
 device. The engine runs float32 with TF32 off, or, with
@@ -150,7 +152,7 @@ class ZeroVoxTTS:
         self._meldec.eval().to(self.device, self._dtype)
         # (device, acoustic model, vocoder): one a device of the mesh's data axis
         self._replicas = ([(self.device, self._model, self._meldec)] if mesh is None else
-                          list(zip(mesh.devices, replicate(self._model, mesh),
+                          list(zip(mesh.data_devices, replicate(self._model, mesh),
                                    replicate(self._meldec, mesh))))
 
         a = cfg.audio

@@ -27,6 +27,7 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 
 def exponential_decay_schedule(base_lr: float, steps_per_epoch: int,
@@ -65,11 +66,16 @@ class AdamW:
     a fixed list of float32 parameters. `step(lr)` reads their `.grad`.
     `grad_clip=None` takes no clipping step (optax.adamw alone).
     `state_dtype`: "f32", or "bf16" second moments (b1 == 0 only; with
-    b1 != 0 it warns and keeps float32, as the JAX `make_optimizer`)."""
+    b1 != 0 it warns and keeps float32, as the JAX `make_optimizer`).
+    Under tensor parallelism `model_group` is the model axis's group and
+    `sharded` the parameters (of `params`) that hold only this rank's block:
+    the clip's global norm is then that of the whole gradient,
+    sqrt(sum of the replicated g^2 + the model axis's sum of the blocks'
+    g^2); the moments take each local parameter's shape."""
 
     def __init__(self, params, betas=(0.0, 0.99), eps: float = 1e-9,
                  weight_decay: float = 0.0, grad_clip: float | None = 1.0,
-                 state_dtype: str = "f32"):
+                 state_dtype: str = "f32", model_group=None, sharded=()):
         if state_dtype not in ("f32", "bf16"):
             raise ValueError(f"state_dtype must be 'f32' or 'bf16', got {state_dtype!r}")
         self.params = [p for p in params if p.requires_grad]
@@ -84,13 +90,16 @@ class AdamW:
         nu_dtype = torch.bfloat16 if state_dtype == "bf16" else None
         self.nu = [torch.zeros_like(p, dtype=nu_dtype) for p in self.params]
         self.mu = [torch.zeros_like(p) for p in self.params] if self.b1 != 0.0 else None
+        self.model_group = model_group
+        ids = {id(p) for p in sharded}
+        self.sharded = [id(p) in ids for p in self.params]
 
     @torch.no_grad()
     def step(self, lr: float) -> None:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         if self.grad_clip is not None:
             # global-norm clip: g * clip / ||g|| when ||g|| >= clip
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = self._global_norm(grads)
             scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                                 self.grad_clip / norm)
             grads = torch._foreach_mul(grads, scale)
@@ -125,6 +134,16 @@ class AdamW:
         if self.weight_decay:
             torch._foreach_add_(updates, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, updates, alpha=-lr)
+
+    def _global_norm(self, grads: list) -> torch.Tensor:
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.model_group is None:
+            return torch.linalg.vector_norm(norms)
+        sq = norms * norms
+        split = torch.tensor(self.sharded, device=sq.device)
+        blocks = torch.where(split, sq, torch.zeros_like(sq)).sum()
+        dist.all_reduce(blocks, group=self.model_group)
+        return torch.sqrt(torch.where(split, torch.zeros_like(sq), sq).sum() + blocks)
 
     def zero_grad(self) -> None:
         for p in self.params:

@@ -43,7 +43,24 @@ The PyTorch counterpart of the JAX package's `training/trainer.py`:
     takes the same update; the losses are the global batch's. Dropout draws
     from a stream of its own on each rank (rank 0's is the single-process
     run's). Rank 0 alone logs and writes checkpoints, and the other ranks
-    wait for it at a barrier.
+    wait for it at a barrier;
+  * on a data x model mesh (`MeshConfig(data=D, model=M)`, M > 1) the
+    step is also tensor parallel: `init_state` installs the model axis's
+    split layers (`parallel/tensor.py`, the JAX `param_sharding_rules`'
+    leaves), so each rank holds its block of those weights and Adam's
+    moments take the blocks' shapes. The batch, the BatchNorm sums, the
+    loss's denominators and the losses go over the `data` axis only
+    (`mesh.data_group`: over the whole world the loss's denominators would
+    count every row M times), and dropout seeds from the data index, so a
+    model group draws one mask. A split parameter's gradient is summed
+    over `data_group`; a replicated one's over the whole world and divided
+    by M, which keeps the model group's replicas bitwise equal where the
+    backward is not run-to-run exact (cuDNN's, index_put_'s atomics). The
+    clip takes the whole gradient's norm (`AdamW(model_group=...)`).
+    Checkpoints hold whole weights and moments, gathered over the model
+    axis (every rank of global rank 0's model group takes part; rank 0
+    writes): the keys and shapes of a data-parallel run, so either mesh
+    resumes the other's files.
 """
 
 from __future__ import annotations
@@ -67,6 +84,9 @@ from zerovox_tpu_torch.models.layers import set_dropout_generator
 from zerovox_tpu_torch.models.zerovox import ZeroVox, zerovox_loss
 from zerovox_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads, all_reduce_values,
                                              process_device, replicate, shard_batch)
+from zerovox_tpu_torch.parallel.tensor import (full_state_dict, gather_shards,
+                                               load_full_state_dict, local_shards, shard_model,
+                                               sharded_axes)
 from zerovox_tpu_torch.training.checkpointing import save_native_checkpoint
 from zerovox_tpu_torch.training.optim import AdamW, warmup_cosine_epoch_schedule
 from zerovox_tpu_torch.utils.profiling import device_trace
@@ -153,8 +173,8 @@ class Trainer:
 
     def __init__(self, cfg: ZeroVoxConfig, tcfg: TrainerConfig, steps_per_epoch: int,
                  device=None, mesh: Mesh | None = None):
-        """`mesh`: a data-parallel mesh over a process group, this process's
-        one device on it (the device then comes from the mesh)."""
+        """`mesh`: a data (x model) mesh over a process group, this
+        process's one device on it (the device then comes from the mesh)."""
         if tcfg.precision not in ("32", "bf16-mixed"):
             raise ValueError(f"precision {tcfg.precision!r}: '32' or 'bf16-mixed'")
         if tcfg.checkpoint_format not in ("msgpack", "state"):
@@ -166,6 +186,10 @@ class Trainer:
         self.mesh = mesh
         self.group = mesh.group if mesh is not None else None
         self.rank = mesh.rank if mesh is not None else 0
+        # the reductions over the batch: the data axis (the whole group without a model axis)
+        self.data_group = mesh.data_group if mesh is not None else None
+        self.data_index = mesh.data_index if mesh is not None else 0
+        self.tensor_parallel = mesh is not None and mesh.shape["model"] > 1
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_full_f32()
@@ -190,24 +214,31 @@ class Trainer:
         model.to(self.device).train()
         if self.group is not None:
             replicate(model, self.mesh)
+        if self.tensor_parallel:
+            shard_model(model, self.mesh)
+        split = sharded_axes(model)
         set_dropout_generator(model, self._gen)
         if self.tcfg.train_decoder_only:
             for name, p in model.named_parameters():
                 p.requires_grad_(name.startswith("_mel_decoder."))
         t = self.cfg.training
+        named = dict(model.named_parameters())
         opt = AdamW(model.parameters(), betas=tuple(t.betas), eps=t.eps,
                     weight_decay=t.weight_decay, grad_clip=t.grad_clip,
-                    state_dtype=self.tcfg.optim_dtype)
+                    state_dtype=self.tcfg.optim_dtype,
+                    model_group=self.mesh.model_group if split else None,
+                    sharded=[named[n] for n in split])
         return TrainState(model=model, optimizer=opt)
 
     def restore_into(self, state: TrainState, state_dict: dict,
                      reinit_decoder: bool = False) -> TrainState:
-        """Imported weights replace the model's; with `reinit_decoder` the mel
-        decoder keeps its current weights."""
+        """Imported (whole) weights replace the model's; with
+        `reinit_decoder` the mel decoder keeps its current weights."""
         if reinit_decoder:
-            state_dict = {**state_dict, **{k: v for k, v in state.model.state_dict().items()
+            state_dict = {**state_dict, **{k: v for k, v in
+                                           full_state_dict(state.model, self.mesh).items()
                                            if k.startswith("_mel_decoder.")}}
-        state.model.load_state_dict(state_dict)
+        load_full_state_dict(state.model, state_dict, self.mesh)
         return state
 
     # ------------------------------------------------------------------ step
@@ -216,8 +247,9 @@ class Trainer:
         """Forward + loss + backward at `state.step`; gradients land in the
         parameters' `.grad`. Returns the detached losses (on the device)."""
         model = state.model
-        # rank r > 0 draws its own masks: the r-th child of rank 0's stream
-        spawn_key = (self.rank,) if self.rank else ()
+        # data index d > 0 draws its own masks: the d-th child of index 0's
+        # stream (the ranks of a model group draw the same)
+        spawn_key = (self.data_index,) if self.data_index else ()
         seed = np.random.SeedSequence([self.tcfg.seed + 1, state.step],
                                       spawn_key=spawn_key).generate_state(1)[0]
         self._gen.manual_seed(int(seed))
@@ -225,9 +257,10 @@ class Trainer:
         step = _LossBackward(model)
         spk = not self.tcfg.train_decoder_only
         if not self.mixed:
-            return step(batch, batch, spk, self.group)
+            return step(batch, batch, spk, self.data_group)
         half = {f"model.{n}": p.to(torch.bfloat16) for n, p in model.named_parameters()}
-        return torch.func.functional_call(step, half, (_to_bf16(batch), batch, spk, self.group))
+        return torch.func.functional_call(step, half,
+                                          (_to_bf16(batch), batch, spk, self.data_group))
 
     def train_step(self, state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         """One step on `batch` (this rank's shard under a process group);
@@ -235,11 +268,31 @@ class Trainer:
         losses = self.forward_backward(state, batch)
         if self.group is not None:
             # each rank's loss is its share of the global mean: the sums are the mean's
-            all_reduce_grads(state.optimizer.params, self.group)
-            losses = all_reduce_values(losses, self.group)
+            self._reduce_grads(state.optimizer)
+            losses = all_reduce_values(losses, self.data_group)
         state.optimizer.step(self.schedule(state.step))
         state.step += 1
         return losses
+
+    def _reduce_grads(self, opt: AdamW) -> None:
+        """The data axis's sum of the gradients: over the group without a
+        model axis; with one, each split block over `data_group` and every
+        replicated gradient over the whole world, divided by the model
+        axis's size."""
+        if not self.tensor_parallel:
+            all_reduce_grads(opt.params, self.group)
+            return
+        split = [p for p, s in zip(opt.params, opt.sharded) if s]
+        all_reduce_grads([p for p, s in zip(opt.params, opt.sharded) if not s], self.group,
+                         scale=1.0 / self.mesh.shape["model"])
+        if self.mesh.shape["data"] > 1:
+            all_reduce_grads(split, self.data_group)
+
+    def _moment_axes(self, state: TrainState) -> list:
+        """The split axis of each optimizer parameter (None: replicated)."""
+        axes = sharded_axes(state.model)
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        return [axes.get(names[id(p)]) for p in state.optimizer.params]
 
     # ----------------------------------------------------------- checkpoints
 
@@ -250,11 +303,19 @@ class Trainer:
     def save_train_state(self, state: TrainState, path, epoch: int) -> None:
         """The whole train state after `epoch`: weights (BatchNorm running
         statistics included), the optimizer's moments (in their dtype) and
-        count, the step and the dropout generator's state."""
+        count, the step and the dropout generator's state. Under tensor
+        parallelism the weights and moments are gathered whole (every rank
+        of global rank 0's model group calls this) and rank 0 writes."""
         opt = state.optimizer
-        blob = {"model": state.model.state_dict(), "step": state.step, "epoch": epoch,
-                "optimizer": {"count": opt.count, "nu": opt.nu, "mu": opt.mu},
+        axes = self._moment_axes(state)
+        moments = {k: None if v is None else gather_shards(v, axes, self.mesh)
+                   for k, v in (("nu", opt.nu), ("mu", opt.mu))}
+        blob = {"model": full_state_dict(state.model, self.mesh), "step": state.step,
+                "epoch": epoch,
+                "optimizer": {"count": opt.count, **moments},
                 "dropout_generator": self._gen.get_state()}
+        if self.rank != 0:
+            return
         tmp = str(path) + ".tmp"
         torch.save(blob, tmp)
         os.replace(tmp, path)
@@ -263,13 +324,15 @@ class Trainer:
         """Load `save_train_state`'s file into `state` (from `init_state`);
         returns the epoch `fit` continues at."""
         blob = torch.load(path, map_location="cpu", weights_only=True)
-        state.model.load_state_dict(blob["model"])
+        load_full_state_dict(state.model, blob["model"], self.mesh)
         opt, saved = state.optimizer, blob["optimizer"]
         if len(saved["nu"]) != len(opt.nu) or (saved["mu"] is None) != (opt.mu is None):
             raise ValueError(f"{path}: optimizer state of another parameter set")
+        axes = self._moment_axes(state)
+        theirs = local_shards(saved["nu"] + (saved["mu"] or []), axes + axes, self.mesh)
         with torch.no_grad():
-            for mine, theirs in zip(opt.nu + (opt.mu or []), saved["nu"] + (saved["mu"] or [])):
-                mine.copy_(theirs)
+            for mine, t in zip(opt.nu + (opt.mu or []), theirs):
+                mine.copy_(t)
         opt.count = saved["count"]
         state.step = blob["step"]
         self._gen.set_state(blob["dropout_generator"])
@@ -354,7 +417,7 @@ class Trainer:
                                            "dur": last["duration_loss"]}, state.step)
                 epoch_losses = self._fetch(pending)
                 self._check_finite(epoch_losses[checked:], state.step)
-                if self.rank == 0:
+                if self.data_index == 0:  # rank 0's model group gathers its checkpoint
                     self._on_epoch_end(epoch, epoch_losses, state, ckpt_root, t0)
                 if self.group is not None:  # no rank runs ahead of rank 0's checkpoint
                     dist.barrier(group=self.group)
@@ -383,36 +446,46 @@ class Trainer:
 
     def _on_epoch_end(self, epoch: int, epoch_losses: list[dict], state: TrainState,
                       ckpt_root: str, t0: float) -> None:
-        gc.collect()
-        try:
-            import psutil
+        """Rank 0 logs the epoch and writes its checkpoints; under tensor
+        parallelism the other ranks of its model group take part in the
+        gathers of the whole weights."""
+        lead = self.rank == 0
+        if lead:
+            gc.collect()
+            try:
+                import psutil
 
-            rss = psutil.Process(os.getpid()).memory_info().rss / (1024 * 1024)
-            print(f"on_train_epoch_end: resident size = {rss} MB")
-        except Exception:
-            pass
+                rss = psutil.Process(os.getpid()).memory_info().rss / (1024 * 1024)
+                print(f"on_train_epoch_end: resident size = {rss} MB")
+            except Exception:
+                pass
         if not epoch_losses:
             return
         avg = {k: float(np.mean([d[k] for d in epoch_losses])) for k in epoch_losses[0]}
-        self._log_scalars({"aloss": avg["loss"], "amel": avg["mel_loss"],
-                           "apitch": avg["pitch_loss"], "aenergy": avg["energy_loss"],
-                           "adur": avg["duration_loss"], "lr": self.schedule(state.step)},
-                          state.step)
-        if self._writer:
-            self._writer.flush()
-        print(f"epoch {epoch}: loss={avg['loss']:.4f} mel={avg['mel_loss']:.4f} "
-              f"({time.time() - t0:.1f}s)")
+        if lead:
+            self._log_scalars({"aloss": avg["loss"], "amel": avg["mel_loss"],
+                               "apitch": avg["pitch_loss"], "aenergy": avg["energy_loss"],
+                               "adur": avg["duration_loss"], "lr": self.schedule(state.step)},
+                              state.step)
+            if self._writer:
+                self._writer.flush()
+            print(f"epoch {epoch}: loss={avg['loss']:.4f} mel={avg['mel_loss']:.4f} "
+                  f"({time.time() - t0:.1f}s)")
         every = max(1, self.tcfg.checkpoint_every_n_epochs)
         if epoch % every != every - 1 and epoch != self.tcfg.max_epochs - 1:
             return
+        weights = full_state_dict(state.model, self.mesh)
         path = os.path.join(ckpt_root, f"{epoch:04d}.msgpack")
-        save_native_checkpoint(path, to_jax_variables(state.model.state_dict(), self.cfg),
-                               meta={"epoch": epoch, "loss": avg["loss"], "step": state.step})
+        if lead:
+            save_native_checkpoint(path, to_jax_variables(weights, self.cfg),
+                                   meta={"epoch": epoch, "loss": avg["loss"], "step": state.step})
+        del weights
         state_dir = os.path.join(ckpt_root, "state")
         if self.tcfg.checkpoint_format == "state":
-            os.makedirs(state_dir, exist_ok=True)
+            if lead:
+                os.makedirs(state_dir, exist_ok=True)
             self.save_train_state(state, os.path.join(state_dir, f"{epoch:04d}.pt"), epoch)
-        if self.tcfg.keep_checkpoints > 0:
+        if lead and self.tcfg.keep_checkpoints > 0:
             keep = self.tcfg.keep_checkpoints
             for folder, ext, extra in ((ckpt_root, ".msgpack", (".json",)), (state_dir, ".pt", ())):
                 if not os.path.isdir(folder):

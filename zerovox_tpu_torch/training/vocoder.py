@@ -33,7 +33,8 @@ The PyTorch counterpart of the JAX package's `training/vocoder.py`:
     writes) and the inference contract `config.json` + `generator.msgpack`,
     which both packages' engines load as a meldec dir;
   * with a `mesh` over a process group the trainer is data parallel (see
-    `VocoderTrainer`).
+    `VocoderTrainer`); a data x model mesh replicates the nets over
+    `model`, as the JAX vocoder trainer does.
 """
 
 from __future__ import annotations
@@ -406,7 +407,12 @@ class VocoderTrainer:
     trainer's `P("data")` rows) and the gradients are averaged over the
     ranks before each update (the losses are means over equal shards and
     the discriminators have no BatchNorm, so that is the global batch's
-    gradient). Its generator drops into the engines as a meldec dir."""
+    gradient). On a data x model mesh the nets are replicated over
+    `model`: the ranks of a model group take the rows of their data index,
+    and the averages over the whole world (each shard's gradient counted
+    once a model rank) equal the `data` axis's, while keeping the model
+    group's replicas bitwise equal. Its generator drops into the engines
+    as a meldec dir."""
 
     def __init__(self, gcfg: HifiGanConfig, dcfg: VocoderDataConfig, tcfg: VocoderTrainerConfig,
                  steps_per_epoch: int, device=None, mesh: Mesh | None = None):
