@@ -694,8 +694,11 @@ def se_conv_bf16_rows(torch, x, w, s, t, cts, conv_flop) -> list[dict]:
     dx within BF16_ULP of the plain result's max, the float32 sums and
     gradients within BF16_RED_TOL of theirs; F.conv2d in bf16 alone beside
     each. Bound: one bf16 tensor-core product a product, against the bytes
-    of x and y (forward) or x, y, dy and dx (backward), each once."""
+    of x and y (forward) or x, y, dy and dx (backward), each once. Each row
+    also gives the kernel's design: tile, raw windows staged ahead, blocks
+    an SM and shared-memory bytes a block."""
     import torch.nn.functional as F
+    from zerovox_tpu_torch.ops import _cuda
     from zerovox_tpu_torch.ops.se_conv import (se_conv_bwd_bf16, se_conv_bwd_plain,
                                                se_conv_fwd_bf16, se_conv_plain)
     from zerovox_tpu_torch.utils.profiling import cuda_time_ms
@@ -704,6 +707,13 @@ def se_conv_bf16_rows(torch, x, w, s, t, cts, conv_flop) -> list[dict]:
     xb, wb, dyb = x.bfloat16(), w.bfloat16(), cts[0].bfloat16()
     act_bytes = 2.0 * xb.numel()
     fixed = 2.0 * wb.numel() + 4.0 * (2 * C)  # w in bf16, s and t (and sums) in float32
+
+    def design(bwd: int) -> dict:
+        """The kernel's design as its source sets it (zv_se_conv_bf16_design)."""
+        q = [_cuda.lib("se_conv").zv_se_conv_bf16_design(bwd, k) for k in range(5)]
+        check(min(q) > 0, f"zv_se_conv_bf16_design({bwd}): {q}")
+        return {"tile": f"{q[0]}x{q[1]}", "stages": q[2], "blocks_per_sm": q[3],
+                "smem_bytes": q[4]}
 
     def compare(name, keys, got, ref) -> tuple[float, float]:
         first, rel = 0.0, 0.0
@@ -729,7 +739,8 @@ def se_conv_bf16_rows(torch, x, w, s, t, cts, conv_flop) -> list[dict]:
              "replaces": replaces, "shape": f"[{B},{C},{H},{W}] bf16", "max_abs_err": errs[0],
              "max_rel_err_reductions": errs[1], "ms": ms, "plain_ms": plain_ms,
              "gflop": flop / 1e9, "method": "bf16", "bound_ms": bound_ms, "bound_by": bound_by,
-             "library_ms": None, "conv2d_only_ms": conv_ms}
+             "library_ms": None, "conv2d_only_ms": conv_ms,
+             "design": design(int(name.startswith("se_conv_bwd")))}
         print(json.dumps(r), flush=True)
         return r
 

@@ -10,9 +10,13 @@ measures first-chunk latency as `chip_smoke.py` phases 4 and 8 do (p50 of
 `tts_stream` to its first chunk over M calls, default 15, the first 5 not
 counted; bench.py's text with forced durations): on the default engine and
 on the StyleTTS engine with the single-tower vocoder, random weights from
-seed 0. The first parent and change children also save the float32 K1, K2,
-K3 and K4's outputs on seeded inputs, and the two sets are compared with
-`torch.equal`.
+seed 0; and the bf16 K4's forward and backward at the training shape
+[24, 32, 80, 500] by CUDA events. The first parent and change children also
+save the float32 K1, K2, K3 and K4's outputs and the bf16 K4's (y, sum, sq,
+m; dx, dw, ds, dt) on seeded inputs, and the two sets are compared with
+`torch.equal`; the bf16 K4's dw, ds and dt, which sum per-block partials
+that follow the grid, also by their largest distance relative to the
+parent's largest value (held to BF16_RED_TOL).
 
 Prints the card's name and power limit, then one JSON object (also written
 to FILE when given).
@@ -30,6 +34,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+K4_SHAPE = (24, 32, 80, 500)
+BF16_RED_TOL = 1e-3  # tests/test_torch_gpu.py's bound for the bf16 K4's float32 reductions
 TEXT = ("The quick brown fox jumps over the lazy dog while the curious cat "
         "watches from a sunny windowsill in the early morning light.")
 FRAMES_PER_PHONE = 6
@@ -40,7 +46,8 @@ def kernel_outputs(torch) -> dict:
     seeded inputs at their paths' widths."""
     from zerovox_tpu_torch.ops.mrf import fused_mrf, pack_towers
     from zerovox_tpu_torch.ops.resblock import fused_resblock1
-    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd, se_conv_fwd
+    from zerovox_tpu_torch.ops.se_conv import (se_conv_bwd, se_conv_bwd_bf16, se_conv_fwd,
+                                               se_conv_fwd_bf16)
     from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage, pack_upsampler
 
     gen = torch.Generator().manual_seed(77)
@@ -71,8 +78,38 @@ def kernel_outputs(torch) -> dict:
             out[f"k4_fwd_{relu}_{i}"] = a
         for i, a in enumerate(bwd):
             out[f"k4_bwd_{relu}_{i}"] = a
+    xb, wb = x.bfloat16(), w.bfloat16()
+    for relu in (True, False):
+        fwd = se_conv_fwd_bf16(xb, wb, s, t, relu)
+        bwd = se_conv_bwd_bf16(xb, fwd[0], rnd(4, 32, 80, 500).bfloat16(), wb, s, t, rnd(32),
+                               rnd(32), rnd(4, 32), relu)
+        for name, a in zip(("y", "sum", "sq", "m"), fwd):
+            out[f"k4_bf16_fwd_{relu}_{name}"] = a
+        for name, a in zip(("dx", "dw", "ds", "dt"), bwd):
+            out[f"k4_bf16_bwd_{relu}_{name}"] = a
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
+
+
+def k4_bf16_ms(torch) -> dict:
+    """CUDA-event ms of the bf16 K4's forward and backward (relu on) at
+    K4_SHAPE, on seeded inputs."""
+    from zerovox_tpu_torch.ops.se_conv import se_conv_bwd_bf16, se_conv_fwd_bf16
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    B, C, H, W = K4_SHAPE
+    gen = torch.Generator().manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+    x, w = rnd(B, C, H, W).bfloat16(), rnd(C, C, 3, 3, scale=(9 * C) ** -0.5).bfloat16()
+    s, t = (torch.rand(C, generator=gen) + 0.5).cuda(), rnd(C, scale=0.3)
+    dy, dsum, dsq, dm = rnd(B, C, H, W).bfloat16(), rnd(C), rnd(C), rnd(B, C)
+    y = se_conv_fwd_bf16(x, w, s, t, True)[0]
+    return {"fwd": cuda_time_ms(lambda: se_conv_fwd_bf16(x, w, s, t, True), iters=30, warmup=3),
+            "bwd": cuda_time_ms(lambda: se_conv_bwd_bf16(x, y, dy, w, s, t, dsum, dsq, dm, True),
+                                iters=30, warmup=3)}
 
 
 def first_chunk_p50(torch, engine, refwav, runs: int) -> float:
@@ -113,7 +150,8 @@ def child(root: Path, out: Path, dump: Path | None, runs: int) -> None:
     if dump is not None:
         torch.save(kernel_outputs(torch), dump)
     refwav = np.random.default_rng(0).normal(size=2 * 22050).astype(np.float32) * 0.1
-    res = {"main": first_chunk_p50(torch, ZeroVoxTTS.from_random(seed=0), refwav, runs)}
+    res = {"k4_bf16_ms": k4_bf16_ms(torch)}
+    res["main"] = first_chunk_p50(torch, ZeroVoxTTS.from_random(seed=0), refwav, runs)
     base = ZeroVoxConfig()
     cfg = dc.replace(base, model=dc.replace(
         base.model, decoder=dc.replace(base.model.decoder, kind="styletts")))
@@ -164,11 +202,21 @@ def main() -> None:
             turns[label].append(json.loads(res.read_text()))
         a, b = torch.load(dumps["parent"]), torch.load(dumps["change"])
         bitwise = {k: a[k].shape == b[k].shape and torch.equal(a[k], b[k]) for k in a}
+        red_err = {k: ((b[k] - a[k]).abs().max() / a[k].abs().max().clamp_min(1e-30)).item()
+                   for k in a if k.startswith("k4_bf16_bwd") and k[-2:] in ("dw", "ds", "dt")}
+    k4 = {label: [t.pop("k4_bf16_ms") for t in ts] for label, ts in turns.items()}
     medians = {label: {k: statistics.median(t[k] for t in ts) for k in ts[0]}
                for label, ts in turns.items()}
+    k4_medians = {label: {p: statistics.median(m[p] for m in ms) for p in ("fwd", "bwd")}
+                  for label, ms in k4.items()}
     result = {"first_chunk_p50_ms": turns, "median_of_p50s_ms": medians, "runs": args.runs,
+              "k4_bf16_ms": k4, "k4_bf16_median_ms": k4_medians,
               "kernels_bitwise_as_parent": bitwise,
-              "all_bitwise": all(bitwise.values()) and a.keys() == b.keys(), "card": card}
+              "all_bitwise": all(bitwise.values()) and a.keys() == b.keys(),
+              "f32_bitwise": all(v for k, v in bitwise.items() if "bf16" not in k),
+              "k4_bf16_reductions_rel_err": red_err,
+              "k4_bf16_reductions_within_tol": all(v <= BF16_RED_TOL for v in red_err.values()),
+              "card": card}
     print(card)
     print(json.dumps(result))
     if args.out is not None:

@@ -496,12 +496,18 @@ BF16_ULP = 2.0 ** -8  # one bf16 step at the top of [1, 2): y and dx against max
 BF16_RED_TOL = 1e-3  # the float32 sums and gradients, relative to max |plain|
 
 
+# every residue of W mod 8 with W > 32 (where a row starts in its 16-byte
+# chunk, which the bf16 kernels' window copies follow), H off the tile grid
+SE_W_RESIDUES = [(2, 11, 40), (1, 13, 33), (2, 5, 34), (1, 9, 67), (2, 7, 68), (1, 12, 69),
+                 (1, 11, 502), (2, 3, 503)]
+
+
 def _bf16_inputs(rng, B, H, W, dev):
     x, w, s, t = _se_inputs(rng, B, H, W, dev)
     return x.bfloat16(), w.bfloat16(), s, t
 
 
-@pytest.mark.parametrize("B,H,W", SE_SHAPES + [(24, 80, 500)])
+@pytest.mark.parametrize("B,H,W", SE_SHAPES + [(24, 80, 500)] + SE_W_RESIDUES)
 @pytest.mark.parametrize("relu", [True, False])
 def test_se_conv_bf16_forward_matches_plain(cuda, B, H, W, relu):
     from zerovox_tpu_torch.ops.se_conv import se_conv_fwd, se_conv_fwd_bf16, se_conv_plain
@@ -518,7 +524,7 @@ def test_se_conv_bf16_forward_matches_plain(cuda, B, H, W, relu):
         assert a.shape == b.shape and _close_rel(a, b, BF16_RED_TOL)
 
 
-@pytest.mark.parametrize("B,H,W", SE_SHAPES + [(24, 80, 500)])
+@pytest.mark.parametrize("B,H,W", SE_SHAPES + [(24, 80, 500)] + SE_W_RESIDUES)
 @pytest.mark.parametrize("relu", [True, False])
 def test_se_conv_bf16_backward_matches_plain(cuda, B, H, W, relu):
     """The bf16 backward kernel against se_conv_bwd_plain on the plain
@@ -538,6 +544,46 @@ def test_se_conv_bf16_backward_matches_plain(cuda, B, H, W, relu):
     assert got[0].dtype == torch.bfloat16 and _close_rel(got[0].float(), ref[0].float(), BF16_ULP)
     for a, b in zip(got[1:], ref[1:]):
         assert a.dtype == torch.float32 and a.shape == b.shape and _close_rel(a, b, BF16_RED_TOL)
+
+
+def _offset_view(a, how):
+    """a's values in a contiguous view whose base is not where an allocation
+    starts: the second sample of a [B + 1, ...] tensor, or a flat storage
+    one element in (a base only 2-byte aligned)."""
+    if how == "batch":
+        v = torch.empty((a.shape[0] + 1, *a.shape[1:]), dtype=a.dtype, device=a.device)[1:]
+    else:
+        v = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)[1:].view(a.shape)
+    v.copy_(a)
+    assert v.is_contiguous() and v.storage_offset() > 0
+    return v
+
+
+@pytest.mark.parametrize("how", ["batch", "element"])
+def test_se_conv_bf16_takes_offset_views(cuda, how):
+    """x (and y, dy) as views with a storage offset, x[1:] of a [3, 32, 7,
+    45] tensor among them: the kernels give what they give on fresh
+    tensors, which match plain."""
+    from zerovox_tpu_torch.ops.se_conv import (se_conv_bwd_bf16, se_conv_bwd_plain,
+                                               se_conv_fwd_bf16, se_conv_plain)
+
+    rng = np.random.default_rng(23)
+    x, w, s, t = _bf16_inputs(rng, 2, 7, 45, cuda)
+    cts = _se_cts(rng, 2, 7, 45, cuda)
+    xv = _offset_view(x, how)
+    if how == "element":
+        assert xv.data_ptr() % 16 == 2
+    got = se_conv_fwd_bf16(xv, w, s, t, True)
+    fresh = se_conv_fwd_bf16(x, w, s, t, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, fresh))
+    ref = se_conv_plain(x, w, s, t, True)
+    assert _close_rel(got[0].float(), ref[0].float(), BF16_ULP)
+    args = (x, ref[0], cts[0].bfloat16(), w, s, t, *cts[1:], True)
+    views = (xv, _offset_view(ref[0], how), _offset_view(args[2], how), *args[3:])
+    got_b = se_conv_bwd_bf16(*views)
+    assert all(torch.equal(a, b) for a, b in zip(got_b, se_conv_bwd_bf16(*args)))
+    for a, b in zip(got_b, se_conv_bwd_plain(*args)):
+        assert _close_rel(a.float(), b.float(), BF16_ULP if a.dtype == torch.bfloat16 else BF16_RED_TOL)
 
 
 def test_se_conv_bf16_autograd_runs_both_bf16_kernels(cuda):

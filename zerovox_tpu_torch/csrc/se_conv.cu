@@ -616,29 +616,86 @@ static_assert(BWD_SMEM <= 227 * 1024, "backward shared memory");
 // relu'(y)) from the bf16 y, du and dW accumulated in float32, dx =
 // bf16(du s), ds = S du x and dt = S du in float32.
 //
+// What bounds it on an H100: bytes from device memory, then shared memory.
 // Products run on mma.sync.m16n8k16 with bf16 operands and float32
-// accumulators, one MMA a product. At [24, 32, 80, 500] the forward's 17.7
-// GFLOP take 0.018 ms at 989 TFLOP/s against 0.037 ms for its 123 MB (x in,
-// y out) at 3.35 TB/s: bound by bytes, as is the backward (x, y, dy in, dx
-// out: 0.073 ms).
+// accumulators. At [24, 32, 80, 500] the forward's 17.7 GFLOP take 0.018 ms
+// at 989 TFLOP/s against 0.037 ms for its 123 MB (x in, y out) at 3.35 TB/s;
+// the backward 0.036 against 0.073 ms (x, y, dy in, dx out). But a tile
+// moves ~400 KB through shared memory forward (its raw window in, the
+// conversion's reads and writes, 256 bytes of fragments an MMA, y staged)
+// and ~830 KB backward, at 128 bytes a clock an SM: ~0.05 and ~0.11 ms.
 //
-// Windows hold bf16 in position-major rows of 32 channels at a pitch of 40
-// (80 bytes: eight consecutive rows land on eight distinct 16-byte bank
-// groups), so every fragment is one ldmatrix: the forward's and dgrad's A
-// (positions x channels) as stored, wgrad's A (channels x positions) and B
-// (positions x channels, shifted by the tap) transposed. Each lane gives one
-// position's row address, so the tap's one-position shift needs no
-// alignment. The taps sit in shared memory in fragment order (8 bytes a
-// lane). A simple first version: synchronous window loads, no fetch-ahead,
-// as many blocks an SM as fit, each walking tiles.
+// Windows loaded one 2-byte element a thread, with nothing in flight during
+// the MMAs, kept 88 % (forward) and 63 % (backward) of a kernel's time
+// without its MMAs (the 0.221 and 0.555 ms below). So:
+//
+// Fetch ahead. Each block walks tiles of TH x TW = 8 x 32 outputs. A tile's
+// raw window (each channel's 10 rows x 34 columns: a 1-pixel halo) arrives
+// by 16-byte cp.async.cg in a staging buffer, each row as the 16-byte chunks
+// from the one holding its first column, aligned down (at most six: W and
+// the tensor's base give a row any 2-byte alignment, so TMA's tensor maps,
+// which need 16-byte strides, cannot describe it). A chunk is copied when it
+// holds a byte of the row's image columns, so it lies in the tensor; the
+// others are never read unmasked. The forward fetches tile i + 1 while tile
+// i's MMAs run, two blocks an SM; the backward fetches the next tile's x, y
+// and dy the same way, x into a second slot, since the ds epilogue reads
+// this tile's x from its staging.
+//
+// Convert in shared memory. One pass turns the raw staging into the
+// position-major windows (a position's 32 channels at a pitch of PB = 40
+// bf16: eight consecutive positions on eight distinct 16-byte bank groups,
+// so every fragment is one ldmatrix). Lane 2 c' + hs of a warp takes
+// channels 2 c', 2 c' + 1 and four columns from 8 q + 4 hs of a window row.
+// It reads each channel's four as two aligned 8-byte words, picked and
+// shifted by the row's offset in its chunk without branches: 32 distinct
+// banks across a half-warp (a channel pair's rows RAW_PAIR = 484 words
+// apart, 4 mod 32; hs 2 banks on). It writes them as four 4-byte channel
+// pairs: 32 distinct banks across the warp (pair c' at bank c', four columns
+// on at c' + 16; 20 words a position). A lane takes a channel pair because a
+// position's channels are what the window holds contiguously: one channel
+// a lane would write 2 bytes a store. Each warp has two cells in flight.
+//
+// The MMAs keep one order whatever the tiling: conv_row's tap and k order
+// for the forward and dgrad, wgrad's k-loop with one tap a warp (its
+// fragments loaded a k-step ahead; tap 8's A picked a register at a time, as
+// an array picked whole would live in local memory). So y, the forward's
+// sums and m (one partial row a tile) and dx do not depend on the grid; dW,
+// ds and dt sum per-block partials, which do.
+//
+// Stores. y and dx leave through shared memory, a row of [C][PY] a warp,
+// each channel's positions placed at their global address's offset in a
+// 16-byte chunk, in aligned 8-byte pieces, eight lanes a channel row (2-byte
+// stores at an end a row covers in part). y leaves during the next tile's
+// MMAs, dx during wgrad's.
+//
+// Timed on an H100 at [24, 32, 80, 500] (scripts/bench_k4_breakdown.py, in
+// turns, PERF.md): forward 0.134 ms, backward 0.308 (windows loaded an
+// element a thread: 0.221 and 0.555). Against them: two raw windows staged
+// a block, so one block an SM, 0.167 forward; one window, one block an SM,
+// 0.170; y and dx in 2-, 4- and 16-byte pieces (32, 16 and 4 lanes a
+// channel row), 0.167, 0.150 and 0.160 forward, 0.336, 0.333 and 0.348
+// backward. Taken out one at a time:
+// the forward's MMAs 0.047 ms, its conversion 0.028, its stores 0.019, its
+// fetch 0.016; the backward's conversion 0.080, its fetch 0.054, dgrad's MMAs
+// 0.047, wgrad's 0.040, its stores 0.025.
 
 namespace bf {
 
 constexpr int PB = 40;                    // window pitch, bf16 a position
 constexpr int WIN = Win::NPOS * PB;       // bf16 of one window
 constexpr int TAPS = NTAP;                // bf16 of the staged taps
-constexpr int PY = 40;                    // y staging pitch, bf16 a channel row
-static_assert(TH * C * PY <= WIN, "y staging fits the u window");
+constexpr int PY = 40;                    // output staging pitch, bf16 a channel row
+constexpr int NQ = (Win::WR + 7) / 8;     // 8-column groups of a window row
+constexpr int RAW_ROW = 96;               // bytes of a raw window row: six 16-byte chunks
+constexpr int RAW_PAIR = Win::HR * 2 * RAW_ROW + 16;  // a channel pair's rows, 484 words
+constexpr int RAW = C / 2 * RAW_PAIR;     // bytes of one raw window
+constexpr int FWD_STAGES = 1;             // raw windows in a forward block's ring
+constexpr int FWD_BLOCKS = 2;             // forward blocks an SM, at most
+constexpr int STORE_P = 4;                // y and dx leave in pieces of STORE_P bf16
+constexpr int OUT = TH * C * PY;          // bf16 of a tile's output staging
+static_assert(PY >= 7 + TW && PY % 8 == 0, "a staged row holds 32 positions at any chunk offset");
+static_assert((7 + Win::WR - 1) / 4 * 4 + 8 <= RAW_ROW / 2, "raw reads stay in the row");
+static_assert(RAW_PAIR / 4 % 32 == 4 && RAW % 16 == 0, "raw staging banks and alignment");
 static_assert((TAPS * 2) % 16 == 0 && (WIN * 2) % 16 == 0 && (PB * 2) % 16 == 0,
               "ldmatrix rows are 16-byte aligned");
 
@@ -676,12 +733,189 @@ __device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// 16 bytes from global into shared memory, not through registers.
+__device__ __forceinline__ void cp16(void* dst, uintptr_t src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Byte offset of raw window row (c, r) in a staging buffer: a channel pair's
+// rows interleaved, RAW_PAIR bytes a pair.
+__device__ __forceinline__ int raw_row(int c, int r) {
+  return (c >> 1) * RAW_PAIR + (2 * r + (c & 1)) * RAW_ROW;
+}
+
+// Element index of row (b, c = 0, h), column w; the low bits of every
+// address, which is all the chunk offsets need, survive 32-bit wrap.
+__device__ __forceinline__ unsigned elem_at(const Shape& sh, int b, int h, int w) {
+  return ((unsigned)b * C * sh.H + h) * sh.W + w;
+}
+
+// The raw window of tile (b, h0, w0) of an NCHW bf16 tensor at base into a
+// staging buffer (raw_row's layout). Thread 8 c + k takes chunk k of
+// channel c's rows, stepping a row by the row's bytes: byte 0 is window
+// column 0 (image column w0 - 1) of the row, the chunk starts 16 k - lead
+// from it (lead: that byte's offset in its 16-byte chunk), and it is copied
+// when it overlaps the window's image columns, bytes [blo, bhi).
+__device__ __forceinline__ void fetch(unsigned char* raw, uintptr_t base, const Shape& sh, int b,
+                                      int h0, int w0) {
+  static_assert(TH * 32 == C * 8, "a thread a channel and chunk");
+  const int c = threadIdx.x >> 3, k = threadIdx.x & 7;
+  uintptr_t first =
+      base + 2 * ((((long long)b * C + c) * sh.H + h0 - 1) * (long long)sh.W + w0 - 1);
+  const int blo = max(0, 2 - 2 * w0), bhi = min(2 * Win::WR, 2 * (sh.W - w0 + 1));
+  unsigned char* dst = raw + raw_row(c, 0) + 16 * k;
+#pragma unroll 2
+  for (int r = 0; r < Win::HR; ++r, first += 2 * (uintptr_t)sh.W, dst += 2 * RAW_ROW) {
+    const int d = 16 * k - (int)(first & 15);
+    if ((unsigned)(h0 + r - 1) < (unsigned)sh.H && d < bhi && d + 16 > blo)
+      cp16(dst, (first & ~(uintptr_t)15) + 16 * k);
+  }
+}
+
+// Four bf16 of a raw row from element o on, as two bf16 pairs (element j in
+// half j % 2 of word j / 2): two aligned 8-byte reads, the words picked by
+// o's offset and a byte permute, without branches.
+__device__ __forceinline__ uint2 raw4(const unsigned char* row, int o) {
+  const int a = o & ~3, sft = o & 3;
+  const uint2 p = *reinterpret_cast<const uint2*>(row + 2 * a);
+  const uint2 q = *reinterpret_cast<const uint2*>(row + 2 * a + 8);
+  const uint32_t w0 = sft & 2 ? p.y : p.x, w1 = sft & 2 ? q.x : p.y, w2 = sft & 2 ? q.y : q.x;
+  const uint32_t sel = sft & 1 ? 0x5432u : 0x3210u;
+  return make_uint2(__byte_perm(w0, w1, sel), __byte_perm(w1, w2, sel));
+}
+
+// Element j of raw4's four, as float (exact).
+__device__ __forceinline__ float elem(const uint2& v, int j) {
+  const uint32_t w = j < 2 ? v.x : v.y;
+  return __uint_as_float(j & 1 ? w & 0xffff0000u : w << 16);
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A conversion cell's raw values, channels 2 c' and 2 c' + 1: x (forward),
+// or x, y and dy (backward).
+struct Raw2 {
+  uint2 c[2];
+};
+struct Raw6 {
+  uint2 x[2], y[2], d[2];
+};
+
+// The conversion of this warp's share of the window: cells (r, col0) of
+// window row r, columns col0..col0 + 3 of this lane (2 c' + hs: col0 = 8 q +
+// 4 hs), every row and q once a block; load(r, col0) reads a cell's raw
+// values, store(r, col0, v) writes its converted ones. Two cells at a time,
+// both loads first, so that the second's reads overlap the first's math.
+template <class L, class S>
+__device__ __forceinline__ void for_cells(L load, S store) {
+  constexpr int N = Win::HR * NQ;
+  const int warp = threadIdx.x >> 5, hs = threadIdx.x & 1;
+  for (int it = warp; it < N; it += 2 * TH) {
+    const int it1 = it + TH < N ? it + TH : it;  // the second cell, or the first again
+    const int r0 = it / NQ, c0 = (it - NQ * r0) * 8 + 4 * hs;
+    const int r1 = it1 / NQ, c1 = (it1 - NQ * r1) * 8 + 4 * hs;
+    const auto v0 = load(r0, c0);  // a column group past the window reads inside the row
+    const auto v1 = load(r1, c1);
+    if (c0 < Win::WR) store(r0, c0, v0);
+    if (it1 != it && c1 < Win::WR) store(r1, c1, v1);
+  }
+}
+
+// Whether all four columns of a cell (image row h, columns w..w + 3; window
+// columns col0..) lie in the image and in the window.
+__device__ __forceinline__ bool cell_inside(int h, int w, int col0, const Shape& sh) {
+  return (unsigned)h < (unsigned)sh.H && w >= 0 && w + 3 < sh.W && col0 + 3 < Win::WR;
+}
+
+// u = bf16(x s + t), rounded after the multiply and after the add as the
+// plain version computes it.
+__device__ __forceinline__ float affine(float x, float s, float t) {
+  return __fadd_rn(__fmul_rn(x, s), t);
+}
+
+// g before its rounding: (dy + dsum + 2 y dsq + dm) relu'(y), in the plain
+// version's order of adds.
+__device__ __forceinline__ float cotangent(float dy, float y, float dsum, float dsq, float dm,
+                                          int relu) {
+  const float g = __fadd_rn(__fadd_rn(__fadd_rn(dy, dsum), __fmul_rn(__fmul_rn(2.f, y), dsq)), dm);
+  return relu && !(y > 0.f) ? 0.f : g;
+}
+
+// P bf16 from shared memory (aligned to 2P bytes) to global memory in one
+// store.
+template <int P>
+__device__ __forceinline__ void store_piece(__nv_bfloat16* d, const __nv_bfloat16* s) {
+  if constexpr (P == 8)
+    *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+  else if constexpr (P == 4)
+    *reinterpret_cast<uint2*>(d) = *reinterpret_cast<const uint2*>(s);
+  else if constexpr (P == 2)
+    *reinterpret_cast<uint32_t*>(d) = *reinterpret_cast<const uint32_t*>(s);
+  else
+    *d = *s;
+}
+
+// A warp's staged output row out: channel co's n positions, staged in S from
+// (e0 + co hw) & 7 on (the offset of dst + co stride in its 16-byte chunk),
+// to dst + co stride. The row leaves in pieces of P aligned bf16, TW / P
+// lanes a channel, one store a piece that the row covers whole and 2-byte
+// stores at a partly covered end.
+template <int P>
+__device__ __forceinline__ void store_rows(const __nv_bfloat16* S, __nv_bfloat16* dst,
+                                           unsigned e0, unsigned hw, size_t stride, int n) {
+  constexpr int L = TW / P;  // lanes a channel row
+  const int lane = threadIdx.x & 31, q = lane % L;
+  for (int co = lane / L; co < C; co += 32 / L) {
+    const int off = (int)((e0 + co * hw) & 7u);
+    const __nv_bfloat16* src = S + co * PY;
+    __nv_bfloat16* d = dst + co * stride - off;
+    if (n == TW && (off & (P - 1)) == 0) {  // L whole pieces, one a lane
+      store_piece<P>(d + off + P * q, src + off + P * q);
+      continue;
+    }
+    for (int i = (off & ~(P - 1)) + P * q; i < off + n; i += P * L) {
+      const int lo = max(i, off), hi = min(i + P, off + n);
+      if (lo == i && hi == i + P) {
+        store_piece<P>(d + i, src + i);
+      } else {
+        for (int k = lo; k < hi; ++k) d[k] = src[k];
+      }
+    }
+  }
+}
+
+// One bf16 into a staged output row: channel co's position pos at its chunk
+// offset (e0 + co hw) & 7.
+__device__ __forceinline__ void stage_out(__nv_bfloat16* S, int co, int pos, unsigned e0,
+                                          unsigned hw, unsigned short v) {
+  reinterpret_cast<unsigned short*>(S)[co * PY + ((e0 + co * hw) & 7u) + pos] = v;
+}
+
 // The taps in fragment order: for tap t, k-step ks (16 k channels) and n
 // block nf (8 n channels), lane l = 4 g + q holds B[16 ks + 2q + {0, 1}]
 // [8 nf + g], then B[16 ks + 2q + 8 + {0, 1}][8 nf + g]. Forward: B[t][k =
 // ci][n = co] = w[co][ci][t]; dgrad: B[t][k = co][n = ci] = w[co][ci][8 - t].
+// The loop unrolled, so that its loads are in flight together: a persistent
+// block stages once, before its first tile.
 __device__ void stage_taps(__nv_bfloat16* Bs, const __nv_bfloat16* __restrict__ w, bool dgrad) {
-  for (int i = threadIdx.x; i < NTAP; i += blockDim.x) {  // w[co][ci][kh][kw]
+  static_assert(NTAP % (TH * 32) == 0, "whole rounds of the block");
+#pragma unroll
+  for (int j = 0; j < NTAP / (TH * 32); ++j) {  // w[co][ci][kh][kw]
+    const int i = threadIdx.x + j * TH * 32;
     const int co = i / (C * 9), ci = (i / 9) % C, t = i % 9;
     const int k = dgrad ? co : ci, n = dgrad ? ci : co, tap = dgrad ? 8 - t : t;
     const int kk = k % 16, lane = (n % 8) * 4 + (kk % 8) / 2;
@@ -727,48 +961,136 @@ __device__ __forceinline__ void conv_row(const __nv_bfloat16* A, const __nv_bflo
   }
 }
 
-// u = bf16(x s + t), rounded after the multiply and after the add as the
-// plain version computes it, at every position of a tile's window (0
-// outside the image).
-__device__ __forceinline__ float affine(float x, float s, float t) {
-  return __fadd_rn(__fmul_rn(x, s), t);
+// wgrad's fragments of one k-step (16 positions: tile row r, columns c16..):
+// A[co][pos] = g at the positions, B[pos][ci] = u at the positions + the
+// warp's tap's shift, and tap 8's B for this warp's fragment of it.
+struct WgradFrags {
+  uint32_t a[2][4], b[2][4], b8[2];
+};
+
+__device__ __forceinline__ void load_wgrad(WgradFrags& f, const __nv_bfloat16* G,
+                                           const __nv_bfloat16* U, int kstep, int apos, int ach,
+                                           int bpos, int bch, int kh, int kw, int nb8) {
+  const int r = kstep >> 1, c16 = (kstep & 1) * 16;
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+    ldsm_x4_t(f.a[mf], G + ((r + 1) * Win::WR + 1 + c16 + apos) * PB + 16 * mf + ach);
+  const __nv_bfloat16* ub = U + ((r + kh) * Win::WR + kw + c16 + bpos) * PB + bch;
+#pragma unroll
+  for (int np = 0; np < 2; ++np) ldsm_x4_t(f.b[np], ub + 16 * np);  // n blocks 2 np, 2 np + 1
+  // tap 8 (kh = kw = 2); lanes 0-15 give the rows
+  ldsm_x2_t(f.b8, U + ((r + 2) * Win::WR + 2 + c16 + bpos) * PB + 8 * nb8);
 }
 
-__global__ void __launch_bounds__(TH * 32)
+// The MMAs of a k-step, in wgrad's fixed order.
+__device__ __forceinline__ void mma_wgrad(float (&acc)[9][4], const WgradFrags& f, int mb8) {
+#pragma unroll
+  for (int np = 0; np < 2; ++np) {
+    const uint32_t b0[2] = {f.b[np][0], f.b[np][1]}, b1[2] = {f.b[np][2], f.b[np][3]};
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf) {
+      mma16(acc[4 * mf + 2 * np], f.a[mf], b0);
+      mma16(acc[4 * mf + 2 * np + 1], f.a[mf], b1);
+    }
+  }
+  uint32_t a8[4];  // picked a register at a time: an array picked whole would live in memory
+#pragma unroll
+  for (int e = 0; e < 4; ++e) a8[e] = mb8 ? f.a[1][e] : f.a[0][e];
+  mma16(acc[8], a8, f.b8);
+}
+
+__global__ void __launch_bounds__(TH * 32, FWD_BLOCKS)
 fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
            const float* __restrict__ s, const float* __restrict__ t,
            __nv_bfloat16* __restrict__ y, float* __restrict__ part, Shape sh, int relu) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* U = Bs + TAPS;
-  float* red = reinterpret_cast<float*>(U + WIN);  // [warp][sum, sq][C]
-  float* prm = red + 2 * TH * C;                   // s, t
+  unsigned char* Xr = reinterpret_cast<unsigned char*>(U + WIN);  // ring of raw x windows
+  __nv_bfloat16* Ys = reinterpret_cast<__nv_bfloat16*>(Xr + FWD_STAGES * RAW);  // y staging
+  float* red = reinterpret_cast<float*>(Ys + OUT);  // [warp][sum, sq][C]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
+  const int g = lane >> 2, t4 = lane & 3, cp = lane >> 1;
+  Ys += warp * C * PY;  // this warp's row
+  const uintptr_t xb = reinterpret_cast<uintptr_t>(x);
+  const unsigned xe = (unsigned)(xb >> 1), ye = (unsigned)(reinterpret_cast<uintptr_t>(y) >> 1);
+  const unsigned hw = (unsigned)sh.H * sh.W;
+  // the first FWD_STAGES tiles' windows in flight, one copy group each
+#pragma unroll
+  for (int k = 0; k < FWD_STAGES; ++k) {
+    const int tile = blockIdx.x + k * gridDim.x;
+    if (tile < sh.ntiles) {
+      int b, h0, w0;
+      tile_origin(sh, tile, &b, &h0, &w0);
+      fetch(Xr + k * RAW, xb, sh, b, h0, w0);
+    }
+    cp_commit();
+  }
   stage_taps(Bs, w, false);
-  if (threadIdx.x < 2 * C) prm[threadIdx.x] = threadIdx.x < C ? s[threadIdx.x] : t[threadIdx.x - C];
-  __syncthreads();
+  const float s0 = s[2 * cp], s1 = s[2 * cp + 1], t0 = t[2 * cp], t1 = t[2 * cp + 1];
 
+  // the last tile's y row, staged in Ys: stored during this tile's MMAs
+  __nv_bfloat16* ydst = nullptr;
+  unsigned ye0 = 0;
+  int yn = 0;
+  int slot = 0;
   for (int tile = blockIdx.x; tile < sh.ntiles; tile += gridDim.x) {
     int b, h0, w0;
     tile_origin(sh, tile, &b, &h0, &w0);
-    for_window(sh, b, h0, w0, [&](int c, int q, bool in, size_t o) {
-      const float u = in ? affine(__bfloat162float(x[o]), prm[c], prm[C + c]) : 0.f;
-      U[(q - chan(c)) * PB + c] = __float2bfloat16_rn(u);
-    });
-    __syncthreads();
+    unsigned char* raw = Xr + slot * RAW;
+    cp_wait<FWD_STAGES - 1>();
+    __syncthreads();  // this tile's window has arrived; the last tile is done with U and red
+    // channel 2 c' at window row 0: its elements' offset in their chunks
+    const unsigned e0r = xe + elem_at(sh, b, h0 - 1, w0 - 1) + 2 * cp * hw;
+    for_cells(
+        [&](int r, int col0) {  // rows out of the image are read, then masked
+          const unsigned e = e0r + r * sh.W;
+          return Raw2{{raw4(raw + raw_row(2 * cp, r), (int)(e & 7u) + col0),
+                       raw4(raw + raw_row(2 * cp + 1, r), (int)((e + hw) & 7u) + col0)}};
+        },
+        [&](int r, int col0, const Raw2& v) {
+          uint32_t* out = reinterpret_cast<uint32_t*>(U + (r * Win::WR + col0) * PB + 2 * cp);
+          const int h = h0 + r - 1, w = w0 - 1 + col0;
+          if (cell_inside(h, w, col0, sh)) {  // no mask
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              out[j * PB / 2] =
+                  pack2(affine(elem(v.c[0], j), s0, t0), affine(elem(v.c[1], j), s1, t1));
+            return;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const bool in = (unsigned)h < (unsigned)sh.H && (unsigned)(w + j) < (unsigned)sh.W;
+            if (col0 + j < Win::WR)
+              out[j * PB / 2] = pack2(in ? affine(elem(v.c[0], j), s0, t0) : 0.f,
+                                      in ? affine(elem(v.c[1], j), s1, t1) : 0.f);
+          }
+        });
+    __syncthreads();  // U is whole; the raw slot is free
+    {
+      const int next = tile + FWD_STAGES * gridDim.x;
+      if (next < sh.ntiles) {
+        int nb, nh0, nw0;
+        tile_origin(sh, next, &nb, &nh0, &nw0);
+        fetch(raw, xb, sh, nb, nh0, nw0);
+      }
+      cp_commit();
+    }
+    slot = slot + 1 == FWD_STAGES ? 0 : slot + 1;
+
+    if (ydst) store_rows<STORE_P>(Ys, ydst, ye0, hw, (size_t)hw, yn);
     float acc[2][4][4];
     conv_row(U, Bs, warp, acc);
-    __syncthreads();  // every warp is done with the window
-    // per-channel S y, S y^2 from the float32 y; y as bf16 through shared
-    // memory ([co][pos]), then out as 32 rows of 32 positions
-    __nv_bfloat16* Ys = U + warp * C * PY;
+    __syncwarp();  // the last row's stores have read Ys
+    // per-channel S y, S y^2 from the float32 y; y as bf16 into this warp's
+    // staging, out in aligned 16-byte chunks during the next tile's MMAs
     const int h = h0 + warp;
-    float s1[4][2], s2[4][2];
+    const unsigned e0 = ye + elem_at(sh, b, h, w0);
+    float s1r[4][2], s2r[4][2];
 #pragma unroll
     for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) s1[nf][e] = s2[nf][e] = 0.f;
+      for (int e = 0; e < 2; ++e) s1r[nf][e] = s2r[nf][e] = 0.f;
 #pragma unroll
     for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
@@ -782,28 +1104,25 @@ fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
             const int co = 8 * nf + 2 * t4 + e;
             float v = acc[mf][nf][2 * hh + e];
             if (relu) v = fmaxf(v, 0.f);
-            Ys[co * PY + pos] = __float2bfloat16_rn(v);
+            stage_out(Ys, co, pos, e0, hw, __bfloat16_as_ushort(__float2bfloat16_rn(v)));
             if (ok) {
-              s1[nf][e] += v;
-              s2[nf][e] = fmaf(v, v, s2[nf][e]);
+              s1r[nf][e] += v;
+              s2r[nf][e] = fmaf(v, v, s2r[nf][e]);
             }
           }
       }
-    __syncwarp();
-    if (h < sh.H && w0 + lane < sh.W) {
-      __nv_bfloat16* yo = y + ((size_t)b * C * sh.H + h) * sh.W + w0 + lane;
-#pragma unroll 8
-      for (int co = 0; co < C; ++co) yo[(size_t)co * sh.H * sh.W] = Ys[co * PY + lane];
-    }
+    ydst = h < sh.H ? y + ((size_t)b * C * sh.H + h) * sh.W + w0 : nullptr;
+    ye0 = e0;
+    yn = min(TW, sh.W - w0);
 #pragma unroll
     for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        s1[nf][e] = row_sum(s1[nf][e]);
-        s2[nf][e] = row_sum(s2[nf][e]);
+        s1r[nf][e] = row_sum(s1r[nf][e]);
+        s2r[nf][e] = row_sum(s2r[nf][e]);
         if (g == 0) {
-          red[(warp * 2 + 0) * C + 8 * nf + 2 * t4 + e] = s1[nf][e];
-          red[(warp * 2 + 1) * C + 8 * nf + 2 * t4 + e] = s2[nf][e];
+          red[(warp * 2 + 0) * C + 8 * nf + 2 * t4 + e] = s1r[nf][e];
+          red[(warp * 2 + 1) * C + 8 * nf + 2 * t4 + e] = s2r[nf][e];
         }
       }
     __syncthreads();
@@ -813,9 +1132,12 @@ fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
       part[(size_t)tile * 2 * C + threadIdx.x] = a;
     }
   }
+  __syncwarp();
+  if (ydst) store_rows<STORE_P>(Ys, ydst, ye0, hw, (size_t)hw, yn);
+  cp_wait<0>();  // no copy outlives the block
 }
 
-__global__ void __launch_bounds__(TH * 32)
+__global__ void __launch_bounds__(TH * 32, 1)
 bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
            const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ w,
            const float* __restrict__ s, const float* __restrict__ t,
@@ -827,15 +1149,35 @@ bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
   __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // dgrad taps
   __nv_bfloat16* G = Bs + TAPS;                                      // g window
   __nv_bfloat16* U = G + WIN;                                        // u window
-  float* red = reinterpret_cast<float*>(U + WIN);  // [warp][ds, dt][C]
-  float* prm = red + 2 * TH * C;                   // s, t, dsum, dsq
+  unsigned char* Xr = reinterpret_cast<unsigned char*>(U + WIN);     // raw x, two slots
+  unsigned char* Yr = Xr + 2 * RAW;                                  // raw y
+  unsigned char* Dr = Yr + RAW;                                      // raw dy
+  __nv_bfloat16* Ds = reinterpret_cast<__nv_bfloat16*>(Dr + RAW);   // dx staging
+  float* red = reinterpret_cast<float*>(Ds + OUT);  // [warp][ds, dt][C]
+  float* prm = red + 2 * TH * C;                    // s
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, ri = lane & 7;
+  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, ri = lane & 7, cp = lane >> 1;
+  Ds += warp * C * PY;  // this warp's row
+  const uintptr_t xb = reinterpret_cast<uintptr_t>(x), yb = reinterpret_cast<uintptr_t>(y),
+                  db = reinterpret_cast<uintptr_t>(dy);
+  const unsigned xe = (unsigned)(xb >> 1), ye = (unsigned)(yb >> 1), de = (unsigned)(db >> 1);
+  const unsigned dxe = (unsigned)(reinterpret_cast<uintptr_t>(dx) >> 1);
+  const unsigned hw = (unsigned)sh.H * sh.W;
+  auto fetch_tile = [&](int tile, unsigned char* xr) {
+    int b, h0, w0;
+    tile_origin(sh, tile, &b, &h0, &w0);
+    fetch(xr, xb, sh, b, h0, w0);
+    fetch(Yr, yb, sh, b, h0, w0);
+    fetch(Dr, db, sh, b, h0, w0);
+  };
+  if (blockIdx.x < sh.ntiles) fetch_tile(blockIdx.x, Xr);
+  cp_commit();
   stage_taps(Bs, w, true);
-  if (threadIdx.x < 4 * C) {
-    const int k = threadIdx.x / C, c = threadIdx.x % C;
-    prm[threadIdx.x] = (k == 0 ? s : k == 1 ? t : k == 2 ? dsum : dsq)[c];
-  }
+  if (threadIdx.x < C) prm[threadIdx.x] = s[threadIdx.x];
+  // this lane's channel pair in the conversion
+  const float s0 = s[2 * cp], s1 = s[2 * cp + 1], t0 = t[2 * cp], t1 = t[2 * cp + 1];
+  const float dsum0 = dsum[2 * cp], dsum1 = dsum[2 * cp + 1];
+  const float dsq0 = dsq[2 * cp], dsq1 = dsq[2 * cp + 1];
 
   // wgrad: this warp owns dW of tap `warp` (fragments f < 8: m block f / 4,
   // n block f % 4) and of tap 8 (f = 8: m block warp / 4, n block warp % 4);
@@ -856,96 +1198,129 @@ bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
   // positions by 8; B's step positions by 8, then ci by 8
   const int apos = (mi >> 1) * 8 + ri, ach = (mi & 1) * 8;
   const int bpos = (mi & 1) * 8 + ri, bch = (mi >> 1) * 8;
-  __syncthreads();
 
+  int slot = 0;
   for (int tile = blockIdx.x; tile < sh.ntiles; tile += gridDim.x) {
     int b, h0, w0;
     tile_origin(sh, tile, &b, &h0, &w0);
-    const float* dmb = dm + (size_t)b * C;
-    for_window(sh, b, h0, w0, [&](int c, int q, bool in, size_t o) {
-      float gv = 0.f, u = 0.f;
-      if (in) {
-        const float yv = __bfloat162float(y[o]);
-        gv = __fadd_rn(__fadd_rn(__fadd_rn(__bfloat162float(dy[o]), prm[2 * C + c]),
-                                 __fmul_rn(__fmul_rn(2.f, yv), prm[3 * C + c])),
-                       __ldg(dmb + c));
-        if (relu && !(yv > 0.f)) gv = 0.f;
-        u = affine(__bfloat162float(x[o]), prm[c], prm[C + c]);
-      }
-      const int p = q - chan(c);
-      G[p * PB + c] = __float2bfloat16_rn(gv);
-      U[p * PB + c] = __float2bfloat16_rn(u);
-    });
-    __syncthreads();
+    const unsigned char* xr = Xr + slot * RAW;
+    const float dm0 = dm[(size_t)b * C + 2 * cp], dm1 = dm[(size_t)b * C + 2 * cp + 1];
+    cp_wait<0>();
+    __syncthreads();  // this tile's windows have arrived; the last tile is done with G and U
+    // channel 2 c' at window row 0: its elements' offset in their chunks
+    const unsigned e0r = elem_at(sh, b, h0 - 1, w0 - 1) + 2 * cp * hw;
+    for_cells(
+        [&](int r, int col0) {  // rows out of the image are read, then masked
+          const unsigned e = e0r + r * sh.W;
+          Raw6 v;
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int row = raw_row(2 * cp + k, r);
+            v.x[k] = raw4(xr + row, (int)((xe + e + k * hw) & 7u) + col0);
+            v.y[k] = raw4(Yr + row, (int)((ye + e + k * hw) & 7u) + col0);
+            v.d[k] = raw4(Dr + row, (int)((de + e + k * hw) & 7u) + col0);
+          }
+          return v;
+        },
+        [&](int r, int col0, const Raw6& v) {
+          const int q = (r * Win::WR + col0) * PB + 2 * cp;
+          const int h = h0 + r - 1, w = w0 - 1 + col0;
+          auto put = [&](bool masked) {  // a copy without masks for cells inside
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (masked && col0 + j >= Win::WR) continue;
+              const bool in =
+                  !masked || ((unsigned)h < (unsigned)sh.H && (unsigned)(w + j) < (unsigned)sh.W);
+              const float g0 = cotangent(elem(v.d[0], j), elem(v.y[0], j), dsum0, dsq0, dm0, relu);
+              const float g1 = cotangent(elem(v.d[1], j), elem(v.y[1], j), dsum1, dsq1, dm1, relu);
+              const float u0 = affine(elem(v.x[0], j), s0, t0);
+              const float u1 = affine(elem(v.x[1], j), s1, t1);
+              *reinterpret_cast<uint32_t*>(G + q + j * PB) = pack2(in ? g0 : 0.f, in ? g1 : 0.f);
+              *reinterpret_cast<uint32_t*>(U + q + j * PB) = pack2(in ? u0 : 0.f, in ? u1 : 0.f);
+            }
+          };
+          if (cell_inside(h, w, col0, sh))
+            put(false);
+          else
+            put(true);
+        });
+    __syncthreads();  // G and U are whole; the raw y and dy are free
+    if (tile + gridDim.x < sh.ntiles) fetch_tile(tile + gridDim.x, Xr + (slot ^ 1) * RAW);
+    cp_commit();
 
-    // dgrad: du at tile row `warp` for input channels 8 nf + 2 t4 + e
+    // dgrad: du at tile row `warp` for input channels 8 nf + 2 t4 + e; dx =
+    // bf16(du s) through this warp's staging, out during wgrad's MMAs; ds =
+    // S du x with x from the staged raw window
     {
+      const int h = h0 + warp;
       float acc[2][4][4];
       conv_row(G, Bs, warp, acc);
-      const int h = h0 + warp;
-      if (h < sh.H) {
+      __syncwarp();  // the last row's stores have read Ds
+      const unsigned ex = xe + elem_at(sh, b, h, w0 - 1);  // x's window column 0, channel 0
+      const unsigned e0 = dxe + elem_at(sh, b, h, w0);
 #pragma unroll
-        for (int mf = 0; mf < 2; ++mf)
+      for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int col = w0 + 16 * mf + g + 8 * hh;
-            if (col >= sh.W) continue;
+        for (int hh = 0; hh < 2; ++hh) {
+          const int pos = 16 * mf + g + 8 * hh;
+          const bool ok = h < sh.H && w0 + pos < sh.W;
 #pragma unroll
-            for (int nf = 0; nf < 4; ++nf)
+          for (int nf = 0; nf < 4; ++nf) {
+            const int ci = 8 * nf + 2 * t4;
+            const float du0 = acc[mf][nf][2 * hh], du1 = acc[mf][nf][2 * hh + 1];
+            stage_out(Ds, ci, pos, e0, hw,
+                      __bfloat16_as_ushort(__float2bfloat16_rn(__fmul_rn(du0, prm[ci]))));
+            stage_out(Ds, ci + 1, pos, e0, hw,
+                      __bfloat16_as_ushort(__float2bfloat16_rn(__fmul_rn(du1, prm[ci + 1]))));
+            if (ok) {
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
-                const int ci = 8 * nf + 2 * t4 + e;
-                const size_t o = (((size_t)b * C + ci) * sh.H + h) * sh.W + col;
-                const float du = acc[mf][nf][2 * hh + e];
-                dx[o] = __float2bfloat16_rn(__fmul_rn(du, prm[ci]));
-                dsa[nf][e] = fmaf(du, __bfloat162float(x[o]), dsa[nf][e]);
+                const int o = (int)((ex + (ci + e) * hw) & 7u) + pos + 1;
+                const unsigned short* xrow =
+                    reinterpret_cast<const unsigned short*>(xr + raw_row(ci + e, warp + 1));
+                const float xv = __uint_as_float((unsigned)xrow[o] << 16);
+                const float du = e ? du1 : du0;
+                dsa[nf][e] = fmaf(du, xv, dsa[nf][e]);
                 dta[nf][e] += du;
               }
+            }
           }
-      }
+        }
+      __syncwarp();
+      if (h < sh.H)
+        store_rows<STORE_P>(Ds, dx + ((size_t)b * C * sh.H + h) * sh.W + w0, e0, hw, (size_t)hw,
+                   min(TW, sh.W - w0));
     }
 
     // wgrad over the tile's positions, 16 a k-step (row r, columns c16..):
     // A[co][pos] = g at the position, B[pos][ci] = u at the position + the
     // tap's shift. g is 0 outside the image, so those positions add 0.
+    // The fragments of k-step ks are loaded a k-step ahead of their MMAs
+    // (two register sets), so that the loads' latency hides behind them.
     {
       float acc[9][4];
 #pragma unroll
       for (int f = 0; f < 9; ++f)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[f][e] = 0.f;
+      WgradFrags f0, f1;
+      load_wgrad(f0, G, U, 0, apos, ach, bpos, bch, kh, kw, nb8);
 #pragma unroll 1
-      for (int kstep = 0; kstep < TH * 2; ++kstep) {
-        const int r = kstep >> 1, c16 = (kstep & 1) * 16;
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mf = 0; mf < 2; ++mf)
-          ldsm_x4_t(a[mf], G + ((r + 1) * Win::WR + 1 + c16 + apos) * PB + 16 * mf + ach);
-        const __nv_bfloat16* ub = U + ((r + kh) * Win::WR + kw + c16 + bpos) * PB + bch;
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {  // n blocks 2 np and 2 np + 1
-          uint32_t bb[4];
-          ldsm_x4_t(bb, ub + 16 * np);
-          const uint32_t b0[2] = {bb[0], bb[1]}, b1[2] = {bb[2], bb[3]};
-#pragma unroll
-          for (int mf = 0; mf < 2; ++mf) {
-            mma16(acc[4 * mf + 2 * np], a[mf], b0);
-            mma16(acc[4 * mf + 2 * np + 1], a[mf], b1);
-          }
-        }
-        {  // tap 8 (kh = kw = 2), this warp's fragment; lanes 0-15 give the rows
-          uint32_t b8[2];
-          ldsm_x2_t(b8, U + ((r + 2) * Win::WR + 2 + c16 + bpos) * PB + 8 * nb8);
-          mma16(acc[8], mb8 ? a[1] : a[0], b8);
-        }
+      for (int kstep = 0; kstep < TH * 2; kstep += 2) {
+        load_wgrad(f1, G, U, kstep + 1, apos, ach, bpos, bch, kh, kw, nb8);
+        mma_wgrad(acc, f0, mb8);
+        if (kstep + 2 < TH * 2) load_wgrad(f0, G, U, kstep + 2, apos, ach, bpos, bch, kh, kw, nb8);
+        mma_wgrad(acc, f1, mb8);
       }
 #pragma unroll
       for (int f = 0; f < 9; ++f)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dw[f][e] += acc[f][e];
     }
-    __syncthreads();  // every warp is done with the windows
+    slot ^= 1;  // the next tile's first barrier: every warp is done with G, U and this x
   }
+  __syncwarp();
+  cp_wait<0>();
 
   // this block's partial row: dW in w's layout [co][ci][kh][kw], then ds, dt
   float* row = part + (size_t)blockIdx.x * NPART;
@@ -978,24 +1353,38 @@ bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
   }
 }
 
-constexpr size_t FWD_SMEM = (size_t)(TAPS + WIN) * 2 + (2 * TH * C + 2 * C) * sizeof(float);
-constexpr size_t BWD_SMEM = (size_t)(TAPS + 2 * WIN) * 2 + (2 * TH * C + 4 * C) * sizeof(float);
+constexpr size_t FWD_SMEM =
+    (size_t)(TAPS + WIN + OUT) * 2 + (size_t)FWD_STAGES * RAW + 2 * TH * C * sizeof(float);
+constexpr size_t BWD_SMEM = (size_t)(TAPS + 2 * WIN + OUT) * 2 + 4 * (size_t)RAW +
+                            (2 * TH * C + C) * sizeof(float);
+static_assert(BWD_SMEM <= 227 * 1024, "backward shared memory");
+static_assert(FWD_SMEM <= 227 * 1024, "forward shared memory");
 
 cudaError_t set_smem() {
   cudaError_t e = cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        FWD_SMEM);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
 }
 
-// Blocks of a pass: as many an SM as fit, at most one a tile (after set_smem).
-int blocks(const Shape& sh, bool bwd) {
-  int per_sm = 0;
+// Blocks of a pass an SM (after set_smem): as many as fit, the forward at
+// most FWD_BLOCKS.
+int per_sm(bool bwd) {
+  int n = 0;
   const cudaError_t e =
-      bwd ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bwd_kernel, TH * 32, BWD_SMEM)
-          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fwd_kernel, TH * 32, FWD_SMEM);
-  if (e != cudaSuccess || per_sm < 1) per_sm = 1;
-  const int n = sm_count() * per_sm;
+      bwd ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, bwd_kernel, TH * 32, BWD_SMEM)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fwd_kernel, TH * 32, FWD_SMEM);
+  if (e != cudaSuccess || n < 1) n = 1;
+  return !bwd && n > FWD_BLOCKS ? FWD_BLOCKS : n;
+}
+
+// Blocks of a pass: per_sm an SM, at most one a tile.
+int blocks(const Shape& sh, bool bwd) {
+  const int n = sm_count() * per_sm(bwd);
   return sh.ntiles < n ? sh.ntiles : n;
 }
 
@@ -1069,6 +1458,21 @@ extern "C" {
 int zv_se_conv_bf16_blocks(int B, int H, int W, int bwd) {
   if (bf::set_smem() != cudaSuccess) return 1;
   return bf::blocks(make_shape(B, H, W), bwd != 0);
+}
+
+// The bf16 pass's design, forward (bwd = 0) or backward: what = 0 tile rows,
+// 1 tile columns, 2 raw windows staged ahead (the backward also keeps this
+// tile's x), 3 blocks an SM, 4 shared-memory bytes a block; -1 on an error.
+int zv_se_conv_bf16_design(int bwd, int what) {
+  if (bf::set_smem() != cudaSuccess) return -1;
+  switch (what) {
+    case 0: return TH;
+    case 1: return TW;
+    case 2: return bwd ? 1 : bf::FWD_STAGES;
+    case 3: return bf::per_sm(bwd != 0);
+    case 4: return (int)(bwd ? bf::BWD_SMEM : bf::FWD_SMEM);
+    default: return -1;
+  }
 }
 
 int zv_se_conv_fwd_bf16(const void* x, const void* w, const float* s, const float* t, void* y,

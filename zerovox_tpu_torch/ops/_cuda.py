@@ -47,7 +47,7 @@ SIGNATURES = {
     "se_conv": {"zv_se_conv_fwd_tiles": [_I] * 3, "zv_se_conv_bwd_blocks": [_I] * 3,
                 "zv_se_conv_fwd_f32": [_P] * 9 + [_I] * 4 + [_P],
                 "zv_se_conv_bwd_f32": [_P] * 12 + [_I] * 4 + [_P],
-                "zv_se_conv_bf16_blocks": [_I] * 4,
+                "zv_se_conv_bf16_blocks": [_I] * 4, "zv_se_conv_bf16_design": [_I] * 2,
                 "zv_se_conv_fwd_bf16": [_P] * 9 + [_I] * 4 + [_P],
                 "zv_se_conv_bwd_bf16": [_P] * 12 + [_I] * 4 + [_P]},
 }
