@@ -165,11 +165,12 @@ def test_rna_tf32_rounds_to_nearest_ties_away():
 
 
 def test_bf16_values_are_their_own_tf32_hi():
-    """The bf16 variants of K1-K3 run two MMAs a product: a bf16 weight
-    splits into hi = itself and lo = 0 exactly, so the hi.lo product they
-    drop adds only zeros. Their B fragments are the bf16 buffer's 32-bit
-    words, each two bf16 widened by `<< 16` and `& 0xFFFF0000`: the float32
-    buffer's values in the same order."""
+    """The bf16 K3 runs two TF32 MMAs a product: a bf16 weight splits into
+    hi = itself and lo = 0 exactly, so the hi.lo product it drops adds only
+    zeros. Its B fragments are the bf16 m16n8k8 buffer's 32-bit words, each
+    two bf16 widened by `<< 16` and `& 0xFFFF0000`: the float32 buffer's
+    values in the same order. (The bf16 K1 and K2 run bf16 MMAs on their own
+    buffer: tests/test_torch_bf16_mma.py.)"""
     from zerovox_tpu_torch.ops.mrf import widen
 
     rng = np.random.default_rng(1)

@@ -44,12 +44,13 @@
 // bf16 (bf16 inference, the TPU kernels' bf16 contract): x, weights, biases
 // and the output are bf16, every intermediate is float32 (the activations in
 // shared memory, the conv outputs, the tower sum), and the output is rounded
-// once. A bf16 weight is exactly a TF32 value (7 mantissa bits of TF32's
-// 10), so its split has lo == 0 and the hi.lo MMA adds only zeros: the bf16
-// B source (BGlobalBf16) drops it, two MMAs a product, and streams half the
-// bytes of the float32 fragments from L2. The activations keep their hi/lo
-// split, so the result is bitwise the float32 kernel's on the widened
-// inputs, rounded to bf16.
+// once. K1 and K2 run it on bf16 tensor-core products (mrf_bf16.cuh). K3
+// runs it on this tile: a bf16 weight is exactly a TF32 value (7 mantissa
+// bits of TF32's 10), so its split has lo == 0 and the hi.lo MMA adds only
+// zeros: the bf16 B source (BGlobalBf16) drops it, two MMAs a product, and
+// streams half the bytes of the float32 fragments from L2. The activations
+// keep their hi/lo split, so K3's result is bitwise the float32 kernel's on
+// the widened inputs, rounded to bf16.
 #pragma once
 
 #include <cstdint>
@@ -315,11 +316,14 @@ inline long gemm_rounds(int rows, int co, int nw = NWARP) {
   return (items + nw - 1) / nw;
 }
 
-// The MMA work of one tile's towers, in warp-item k-steps: every conv over
-// the rows it computes (the tile, conv_post's halo P and what later convs
-// still need), rounded up to whole rounds of items of nw warps.
+// The MMA work of one tile's towers, in warp-item k-steps of `kstep` input
+// channels (8 for the TF32 MMAs, 16 for the bf16 ones of mrf_bf16.cuh, C = 8
+// padded to one): every conv over the rows it computes (the tile, conv_post's
+// halo P and what later convs still need), rounded up to whole rounds of
+// items of nw warps.
 template <class E>
-inline long towers_cost(const MrfParamsT<E>& p, int C, int TT, int P, int nw = NWARP) {
+inline long towers_cost(const MrfParamsT<E>& p, int C, int TT, int P, int nw = NWARP,
+                        int kstep = 8) {
   long cost = 0;
   for (int j = 0; j < p.n_towers; ++j) {
     const int k = p.ks[j], half = (k - 1) / 2;
@@ -330,7 +334,7 @@ inline long towers_cost(const MrfParamsT<E>& p, int C, int TT, int P, int nw = N
       ext = e2;
     }
   }
-  return cost * (C / 8);
+  return cost * ((C + kstep - 1) / kstep);
 }
 
 // The tile (rows, a multiple of 4) that minimises waves x per-block cost

@@ -699,15 +699,9 @@ static_assert(RAW_PAIR / 4 % 32 == 4 && RAW % 16 == 0, "raw staging banks and al
 static_assert((TAPS * 2) % 16 == 0 && (WIN * 2) % 16 == 0 && (PB * 2) % 16 == 0,
               "ldmatrix rows are 16-byte aligned");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
+using zv::tc::ldsm_x4;
+using zv::tc::mma16;
+using zv::tc::smem_u32;
 
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -719,18 +713,6 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) . b (16x8, col), bf16 in, float32 accumulate. With g =
-// lane / 4 and t = lane % 4: a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..],
-// A[g+8][2t+8..]}, b = {B[2t..][g], B[2t+8..][g]}, two bf16 a register, the
-// lower index in the low half; d as in zv::tc::mma.
-__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
-                                      const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // 16 bytes from global into shared memory, not through registers.

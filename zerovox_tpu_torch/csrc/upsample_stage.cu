@@ -32,12 +32,15 @@
 // model as mrf.cu's (halo recompute against wave fill), with the
 // upsampler's GEMMs counted in.
 //
-// bf16 (zv_upsample_stage_bf16): as mrf.cu's bf16 variant, x widened when
-// it is staged, the transposed conv's and the towers' B fragments two bf16
-// and two MMAs a product, the tower sum float32 (a scratch of the output's
-// shape, or the shared buffer with conv_post), conv_post's weights widened,
-// and only the stage's output rounded to bf16.
-#include "mrf_tc.cuh"
+// bf16 (zv_upsample_stage_bf16): the same stage in the bf16x2 arithmetic of
+// mrf_bf16.cuh (bf16 mma.sync.m16n8k16, each activation as two bf16 terms,
+// two MMAs a product): x widened and leaky'd when it is staged, and staged
+// split, for the transposed conv's ldmatrix loads; the tower sum float32 (a
+// scratch of the output's shape, or the shared buffer with conv_post),
+// conv_post's weights widened, and only the stage's output rounded to bf16.
+#include <type_traits>
+
+#include "mrf_bf16.cuh"
 
 namespace {
 
@@ -56,14 +59,38 @@ __host__ __device__ inline int phase_taps(int ph, int up_k, int s) {
   return ph < up_k ? (up_k - ph + s - 1) / s : 0;
 }
 
-// E: the element type of x, out and every weight; sum: the float32 tower
-// sums without conv_post (out itself when E is float, so neither is
-// __restrict__).
-template <int CI, int CO, class E>
+// conv_post over the towers' mean, to the waveform: acc holds leaky(mean,
+// 0.01) for window rows [HW - P, HW + TT + P) in rows of CO + 4 floats; a
+// warp reduces one sample, lane l over channels l, l + 32, ... (at C_out of
+// 8 and 16 the lanes past C_out add nothing).
+template <int CO, class E>
+__device__ void post_conv(const float* acc, const E* __restrict__ post_w,
+                          const E* __restrict__ post_b, E* out, int post_k, int TT, int HW,
+                          int tbase, int T_out) {
+  constexpr int LD = CO + 4;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const float pb = zv::ldg1(post_b);
+  for (int r = HW + warp; r < HW + TT; r += NT / 32) {
+    const int t = tbase + r;
+    if ((unsigned)t >= (unsigned)T_out) continue;
+    float y = 0.f;
+    for (int tap = 0; tap < post_k; ++tap) {
+      const float* a = acc + (r - HW + tap) * LD;
+      const E* wt = post_w + tap * CO;
+      for (int ci = lane; ci < CO; ci += 32) y = fmaf(a[ci], zv::ldg1(wt + ci), y);
+    }
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) y += __shfl_xor_sync(0xffffffffu, y, s);
+    if (lane == 0) zv::store1(out + (size_t)blockIdx.y * T_out + t, tanhf(y + pb));
+  }
+}
+
+// The float32 kernel; without conv_post the tower sums are kept in out.
+template <int CI, int CO>
 __global__ void __launch_bounds__(NT, 1)
-stage_kernel(const E* __restrict__ x, E* out, float* sum, const E* __restrict__ up_w,
-             const E* __restrict__ up_b, zv::MrfParamsT<E> p, const E* __restrict__ post_w,
-             const E* __restrict__ post_b, int T_in, int T_out, int up_k, int stride,
+stage_kernel(const float* __restrict__ x, float* out, const float* __restrict__ up_w,
+             const float* __restrict__ up_b, zv::MrfParams p, const float* __restrict__ post_w,
+             const float* __restrict__ post_b, int T_in, int T_out, int up_k, int stride,
              int up_pad, int post_k, int TT, int HW, int bf_floats) {
   constexpr int LD = CO + 4;
   constexpr int LDI = CI + 4;
@@ -75,7 +102,7 @@ stage_kernel(const E* __restrict__ x, E* out, float* sum, const E* __restrict__ 
   float* acc = Bf + bf_floats;
   const int b = blockIdx.y;
   const int tbase = blockIdx.x * TT - HW;
-  const E* xb = x + (size_t)b * T_in * CI;
+  const float* xb = x + (size_t)b * T_in * CI;
 
   auto load = [&](int lo, int hi) {
     // stage leaky(x) rows [i_min, i_max] into B
@@ -93,7 +120,7 @@ stage_kernel(const E* __restrict__ x, E* out, float* sum, const E* __restrict__ 
     // t = i * stride - up_pad + tap. Output row r of phase ph reads staged
     // row (t + up_pad - ph) / stride - j - i_min for its tap ph + stride j;
     // rows outside [0, T_out) stay zero
-    const E* wph = up_w;
+    const float* wph = up_w;
     for (int ph = 0; ph < stride; ++ph) {
       const int nt = phase_taps(ph, up_k, stride);
       const int r0 = lo + ((ph - (tbase + lo + up_pad)) % stride + stride) % stride;
@@ -111,27 +138,72 @@ stage_kernel(const E* __restrict__ x, E* out, float* sum, const E* __restrict__ 
   };
 
   zv::tc::mrf_tile<CO>(A, Bf, p, HW, TT, P, tbase, T_out, (size_t)b * T_out,
-                       zv::tc::TileOut<E>{post_k > 0 ? nullptr : out, acc, 0.01f, sum}, load);
-  if (post_k == 0) return;
+                       zv::tc::TileOut<float>{post_k > 0 ? nullptr : out, acc, 0.01f, out}, load);
+  if (post_k > 0) post_conv<CO>(acc, post_w, post_b, out, post_k, TT, HW, tbase, T_out);
+}
 
-  // acc holds leaky(mean, 0.01) for window rows [HW - P, HW + TT + P); a
-  // warp reduces one sample, lane l over channels l, l + 32, ... (at C_out
-  // of 8 and 16 the lanes past C_out add nothing)
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const float pb = zv::ldg1(post_b);
-  for (int r = HW + warp; r < HW + TT; r += NT / 32) {
-    const int t = tbase + r;
-    if ((unsigned)t >= (unsigned)T_out) continue;
-    float y = 0.f;
-    for (int tap = 0; tap < post_k; ++tap) {
-      const float* a = acc + (r - HW + tap) * LD;
-      const E* wt = post_w + tap * CO;
-      for (int ci = lane; ci < CO; ci += 32) y = fmaf(a[ci], zv::ldg1(wt + ci), y);
+// The bf16 kernel (mrf_bf16.cuh): A of lda(C_out) floats a row, B of bf16
+// rows (ldb(C_in) while x is staged, ldb(C_out) in the towers); sum: the
+// float32 tower sums without conv_post.
+template <int CI, int CO>
+__global__ void __launch_bounds__(NT, 1)
+stage_kernel_bf16(const zv::bf16* __restrict__ x, zv::bf16* out, float* sum,
+                  const zv::bf16* __restrict__ up_w, const zv::bf16* __restrict__ up_b,
+                  zv::MrfParamsT<zv::bf16> p, const zv::bf16* __restrict__ post_w,
+                  const zv::bf16* __restrict__ post_b, int T_in, int T_out, int up_k, int stride,
+                  int up_pad, int post_k, int TT, int HW, int bf_floats) {
+  constexpr int LA = zv::bf16x2::lda(CO);
+  constexpr int LBI = zv::bf16x2::ldb(CI);
+  extern __shared__ __align__(16) float smem[];
+  const int W = TT + 2 * HW;
+  const int P = post_k > 0 ? (post_k - 1) / 2 : 0;
+  float* A = smem;
+  zv::bf16* Bs = reinterpret_cast<zv::bf16*>(A + W * LA);
+  float* acc = A + W * LA + bf_floats;
+  const int b = blockIdx.y;
+  const int tbase = blockIdx.x * TT - HW;
+  const zv::bf16* xb = x + (size_t)b * T_in * CI;
+
+  auto load = [&](int lo, int hi) {
+    // stage leaky(x) rows [i_min, i_max] into B, split
+    const int i_min = floor_div(tbase + lo + up_pad - (up_k - 1), stride);
+    const int i_max = floor_div(tbase + hi - 1 + up_pad, stride);
+    constexpr int C4 = CI / 4;
+    for (int idx = threadIdx.x; idx < (i_max - i_min + 1) * C4; idx += NT) {
+      const int i = i_min + idx / C4, c = (idx % C4) * 4;
+      const float4 v = (unsigned)i < (unsigned)T_in
+                           ? zv::leaky4(zv::ldg4(xb + (size_t)i * CI + c), 0.1f)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      uint2 h, l;
+      zv::bf16x2::split2(make_float2(v.x, v.y), h.x, l.x);
+      zv::bf16x2::split2(make_float2(v.z, v.w), h.y, l.y);
+      zv::bf16* row = Bs + (i - i_min) * LBI;
+      *reinterpret_cast<uint2*>(row + c) = h;
+      *reinterpret_cast<uint2*>(row + CI + c) = l;
     }
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) y += __shfl_xor_sync(0xffffffffu, y, s);
-    if (lane == 0) zv::store1(out + (size_t)b * T_out + t, tanhf(y + pb));
-  }
+    __syncthreads();
+    // the transposed conv as in stage_kernel
+    const uint2* wph = reinterpret_cast<const uint2*>(up_w);
+    for (int ph = 0; ph < stride; ++ph) {
+      const int nt = phase_taps(ph, up_k, stride);
+      const int r0 = lo + ((ph - (tbase + lo + up_pad)) % stride + stride) % stride;
+      if (r0 < hi) {
+        const zv::tc::Rows rw{(hi - r0 + stride - 1) / stride, r0, stride,
+                              (tbase + r0 + up_pad - ph) / stride - i_min, 0, -1};
+        zv::bf16x2::conv<CI, CO>(zv::bf16x2::ASplit<CI>{Bs}, wph, up_b, nt, rw,
+                                 [&](int r, int co, float2 v) {
+          zv::tc::at2(A + r * LA + co) =
+              (unsigned)(tbase + r) < (unsigned)T_out ? v : make_float2(0.f, 0.f);
+        });
+      }
+      wph += (size_t)nt * zv::bf16x2::k16(CI) * CO / 4;
+    }
+  };
+
+  zv::bf16x2::mrf_tile<CO>(A, Bs, p, HW, TT, P, tbase, T_out, (size_t)b * T_out,
+                           zv::tc::TileOut<zv::bf16>{post_k > 0 ? nullptr : out, acc, 0.01f, sum},
+                           load);
+  if (post_k > 0) post_conv<CO>(acc, post_w, post_b, out, post_k, TT, HW, tbase, T_out);
 }
 
 // A launch's geometry: the tile (zv::tc::choose_tile), the window's halo,
@@ -140,12 +212,17 @@ struct Plan {
   int TT, HW, bf_floats, smem;
 };
 
-// The same for both element types (the window is float32 either way).
+// float32: two windows of C + 4 floats a row, the cost in k-steps of 8;
+// bf16: A of lda(C_out) floats a row and B of the same bytes as float32's,
+// the cost in k-steps of 16.
 template <int CI, int CO, class E>
 int plan(const zv::MrfParamsT<E>& p, int B, int T_out, int up_k, int stride, int post_k,
          Plan* pl) {
+  constexpr bool bf = std::is_same_v<E, zv::bf16>;
   constexpr int LD = CO + 4;
   constexpr int LDI = CI + 4;
+  constexpr int LA = bf ? zv::bf16x2::lda(CO) : LD;
+  constexpr int kstep = bf ? 16 : 8;
   const int P = post_k > 0 ? (post_k - 1) / 2 : 0;
   const int HW = zv::mrf_halo(p) + P;
   auto bf_floats = [&](int tt) {
@@ -154,7 +231,7 @@ int plan(const zv::MrfParamsT<E>& p, int B, int T_out, int up_k, int stride, int
     return W * LD > staged ? W * LD : staged;
   };
   auto smem_of = [&](int tt) {
-    return 4L * ((long)(tt + 2 * HW) * LD + bf_floats(tt) + (P > 0 ? (long)(tt + 2 * P) * LD : 0));
+    return 4L * ((long)(tt + 2 * HW) * LA + bf_floats(tt) + (P > 0 ? (long)(tt + 2 * P) * LD : 0));
   };
   auto cost_of = [&](int tt) {
     long up = 0;  // the upsampler, once per tower over the rows the tower reads
@@ -163,7 +240,7 @@ int plan(const zv::MrfParamsT<E>& p, int B, int T_out, int up_k, int stride, int
       for (int ph = 0; ph < stride; ++ph)
         up += zv::tc::gemm_rounds((rows + stride - 1) / stride, CO) * phase_taps(ph, up_k, stride);
     }
-    return up * (CI / 8) + zv::tc::towers_cost(p, CO, tt, P);
+    return up * ((CI + kstep - 1) / kstep) + zv::tc::towers_cost(p, CO, tt, P, zv::tc::NWARP, kstep);
   };
   int sms = 0;
   const int e = zv::tc::sm_count(&sms);
@@ -182,14 +259,35 @@ int launch(const E* x, E* out, float* sum, const E* up_w, const E* up_b,
   Plan pl{};
   int e = plan<CI, CO>(p, B, T_out, up_k, stride, post_k, &pl);
   if (e != 0) return e;
-  e = (int)cudaFuncSetAttribute(stage_kernel<CI, CO, E>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
-  if (e != 0) return e;
   dim3 grid((T_out + pl.TT - 1) / pl.TT, B);
-  stage_kernel<CI, CO, E><<<grid, NT, pl.smem, s>>>(x, out, sum, up_w, up_b, p, post_w, post_b,
-                                                    T_in, T_out, up_k, stride, up_pad, post_k,
-                                                    pl.TT, pl.HW, pl.bf_floats);
+  if constexpr (std::is_same_v<E, zv::bf16>) {
+    e = (int)cudaFuncSetAttribute(stage_kernel_bf16<CI, CO>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (e != 0) return e;
+    stage_kernel_bf16<CI, CO><<<grid, NT, pl.smem, s>>>(x, out, sum, up_w, up_b, p, post_w,
+                                                         post_b, T_in, T_out, up_k, stride, up_pad,
+                                                         post_k, pl.TT, pl.HW, pl.bf_floats);
+  } else {
+    e = (int)cudaFuncSetAttribute(stage_kernel<CI, CO>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (e != 0) return e;
+    stage_kernel<CI, CO><<<grid, NT, pl.smem, s>>>(x, out, up_w, up_b, p, post_w, post_b, T_in,
+                                                    T_out, up_k, stride, up_pad, post_k, pl.TT,
+                                                    pl.HW, pl.bf_floats);
+  }
   return (int)cudaGetLastError();
+}
+
+template <class E>
+int tile_widths(const zv::MrfParamsT<E>& p, int B, int C_in, int C_out, int T_out, int up_k,
+                int stride, int post_k) {
+  Plan pl{};
+  int e = (int)cudaErrorInvalidValue;
+  if (C_in == 128 && C_out == 64) e = plan<128, 64>(p, B, T_out, up_k, stride, post_k, &pl);
+  if (C_in == 64 && C_out == 32) e = plan<64, 32>(p, B, T_out, up_k, stride, post_k, &pl);
+  if (C_in == 32 && C_out == 16) e = plan<32, 16>(p, B, T_out, up_k, stride, post_k, &pl);
+  if (C_in == 16 && C_out == 8) e = plan<16, 8>(p, B, T_out, up_k, stride, post_k, &pl);
+  return e != 0 ? -e : pl.TT;
 }
 
 template <class E>
@@ -245,7 +343,8 @@ extern "C" int zv_upsample_stage_f32(const float* x, float* out, const float* up
                        up_k, stride, up_pad, post_k, static_cast<cudaStream_t>(stream));
 }
 
-// zv_upsample_stage_f32 on bf16 x, out and weights (the same layouts); sum:
+// zv_upsample_stage_f32 on bf16 x, out and weights, up_w and w in m16n8k16
+// fragment order (mrf_bf16.cuh; the same order of taps and convs); sum:
 // float32 scratch [B, T_out, C_out] for the tower sums, used only without
 // post and with more than one tower (may be null otherwise).
 extern "C" int zv_upsample_stage_bf16(const zv::bf16* x, zv::bf16* out, float* sum,
@@ -265,8 +364,8 @@ extern "C" int zv_upsample_stage_bf16(const zv::bf16* x, zv::bf16* out, float* s
                        up_k, stride, up_pad, post_k, static_cast<cudaStream_t>(stream));
 }
 
-// The time tile zv_upsample_stage_f32 and zv_upsample_stage_bf16 take for
-// these arguments (output rows), or minus a cudaError_t.
+// The time tile zv_upsample_stage_f32 takes for these arguments (output
+// rows), or minus a cudaError_t.
 extern "C" int zv_upsample_stage_tile(int B, int T_in, int C_in, int C_out, int up_k, int stride,
                                       int up_pad, int post_k, int n_towers, int k0, int k1,
                                       int k2, int n_pairs, int d0, int d1, int d2) {
@@ -274,11 +373,17 @@ extern "C" int zv_upsample_stage_tile(int B, int T_in, int C_in, int C_out, int 
   if (int e = check_args(B, T_in, up_k, stride, up_pad, post_k, n_towers, n_pairs, &T_out))
     return -e;
   zv::MrfParams p{n_towers, {k0, k1, k2}, n_pairs, {d0, d1, d2}, nullptr, nullptr};
-  Plan pl{};
-  int e = (int)cudaErrorInvalidValue;
-  if (C_in == 128 && C_out == 64) e = plan<128, 64>(p, B, T_out, up_k, stride, post_k, &pl);
-  if (C_in == 64 && C_out == 32) e = plan<64, 32>(p, B, T_out, up_k, stride, post_k, &pl);
-  if (C_in == 32 && C_out == 16) e = plan<32, 16>(p, B, T_out, up_k, stride, post_k, &pl);
-  if (C_in == 16 && C_out == 8) e = plan<16, 8>(p, B, T_out, up_k, stride, post_k, &pl);
-  return e != 0 ? -e : pl.TT;
+  return tile_widths(p, B, C_in, C_out, T_out, up_k, stride, post_k);
+}
+
+// The time tile zv_upsample_stage_bf16 takes, likewise.
+extern "C" int zv_upsample_stage_bf16_tile(int B, int T_in, int C_in, int C_out, int up_k,
+                                           int stride, int up_pad, int post_k, int n_towers,
+                                           int k0, int k1, int k2, int n_pairs, int d0, int d1,
+                                           int d2) {
+  int T_out = 0;
+  if (int e = check_args(B, T_in, up_k, stride, up_pad, post_k, n_towers, n_pairs, &T_out))
+    return -e;
+  zv::MrfParamsT<zv::bf16> p{n_towers, {k0, k1, k2}, n_pairs, {d0, d1, d2}, nullptr, nullptr};
+  return tile_widths(p, B, C_in, C_out, T_out, up_k, stride, post_k);
 }

@@ -37,13 +37,14 @@ _I = ctypes.c_int
 # C signatures of the exported functions (every one returns a cudaError_t)
 SIGNATURES = {
     "mrf": {"zv_mrf_f32": [_P] * 4 + [_I] * 11 + [_P], "zv_mrf_tile": [_I] * 11,
-            "zv_mrf_bf16": [_P] * 5 + [_I] * 11 + [_P]},
+            "zv_mrf_bf16": [_P] * 5 + [_I] * 11 + [_P], "zv_mrf_bf16_tile": [_I] * 11},
     "resblock": {"zv_resblock1_f32": [_P] * 4 + [_I] * 8 + [_P], "zv_resblock1_tile": [_I] * 8,
                  "zv_resblock1_bf16": [_P] * 4 + [_I] * 8 + [_P],
                  "zv_resblock1_bf16_tile": [_I] * 8},
     "upsample_stage": {"zv_upsample_stage_f32": [_P] * 8 + [_I] * 16 + [_P],
                        "zv_upsample_stage_tile": [_I] * 16,
-                       "zv_upsample_stage_bf16": [_P] * 9 + [_I] * 16 + [_P]},
+                       "zv_upsample_stage_bf16": [_P] * 9 + [_I] * 16 + [_P],
+                       "zv_upsample_stage_bf16_tile": [_I] * 16},
     "se_conv": {"zv_se_conv_fwd_tiles": [_I] * 3, "zv_se_conv_bwd_blocks": [_I] * 3,
                 "zv_se_conv_fwd_f32": [_P] * 9 + [_I] * 4 + [_P],
                 "zv_se_conv_bwd_f32": [_P] * 12 + [_I] * 4 + [_P],

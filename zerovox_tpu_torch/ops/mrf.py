@@ -9,17 +9,22 @@ that mean in one pass over x [B, T, C]:
     `zerovox_tpu/ops/pallas/mrf.py::fused_mrf`. On an H100 the stage is
     bound by arithmetic (252 C^2 FLOP per row at the main path's C=128),
     not by memory; the kernel keeps every tower activation of a time tile
-    in shared memory and runs each conv as tensor-core GEMMs in 3xTF32
-    (design notes in `csrc/mrf_tc.cuh`);
+    in shared memory and runs each conv as tensor-core GEMMs, in 3xTF32 on
+    float32 (design notes in `csrc/mrf_tc.cuh`) and on bf16 tensor-core
+    products on bf16 (`csrc/mrf_bf16.cuh`);
   * on a CPU tensor it runs `mrf_plain`, the same function in plain PyTorch.
 
 Float32 or bf16 (bf16 inference): on bf16 x and weights the kernel (and the
 plain version) keeps every intermediate in float32 and rounds the stage's
-output to bf16 once, as the TPU kernel does. The bf16 launches are counted
-apart (`fused_mrf.launches_bf16`).
+output to bf16 once, as the TPU kernel does. The bf16 kernel feeds each
+activation to bf16 MMAs as two bf16 terms (hi and the rest), so its result
+is within one bf16 step of the plain version's, with ~0.2 % of the outputs
+rounded the other way (not bitwise the float32 kernel's). The bf16 launches
+are counted apart (`fused_mrf.launches_bf16`).
 
 The weights come packed once per weight version (`pack_towers`): the plain
-layout for the CPU, and the kernel's MMA fragment order. The kernel is
+layout for the CPU, and the kernels' MMA fragment orders (m16n8k8 for the
+float32 kernels and K3, m16n8k16 for the bf16 K1 and K2). The kernel is
 built for C of 8, 16, 32, 64 and 128 (`KERNEL_CHANNELS`); a stage of
 another width up to 128 runs zero-padded to the next one, as the TPU kernel
 pads to its 128 lanes: `pack_towers` pads the weights once, the wrapper
@@ -118,6 +123,8 @@ def check_towers(name, weights, kernel_sizes, n_pairs, C, width):
         raise ValueError(f"{name}: packed buffers do not hold {len(kernel_sizes)} towers of "
                          f"C={C} at width {width}, kernel sizes {tuple(kernel_sizes)}, "
                          f"{n_pairs} pairs")
+    if weights.w16 is not None and weights.w16.numel() != n_w // width * (-(-width // 16) * 16):
+        raise ValueError(f"{name}: the m16n8k16 buffer does not hold the towers at width {width}")
 
 
 def tower_args(towers, dilations, kernel_sizes):
@@ -135,9 +142,10 @@ class MrfWeights(NamedTuple):
     """A stage's ResBlock1 towers in both layouts (`pack_towers`)."""
 
     towers: list  # (w1 [P, k, C, C], b1 [P, C], w2, b2) per tower, taps (k, in, out)
-    w: torch.Tensor | None  # every conv's taps in MMA fragment order, tower by tower
+    w: torch.Tensor | None  # every conv's taps in m16n8k8 fragment order, tower by tower
     b: torch.Tensor  # b1 then b2 of each tower
     width: int | None = None  # the channels w and b are padded to (None: no kernel buffers)
+    w16: torch.Tensor | None = None  # bf16 towers: the taps in m16n8k16 order (bf16 K1, K2)
 
 
 def mma_fragments(w):
@@ -151,19 +159,37 @@ def mma_fragments(w):
     return f.permute(0, 1, 2, 5, 6, 4, 3).reshape(-1)
 
 
+def mma_fragments_bf16(w):
+    """Conv taps w [..., k, C_in, C_out] -> flat, in the bf16 kernels'
+    B-fragment order of mma.m16n8k16 (csrc/mrf_bf16.cuh): C_in zero-padded
+    to a multiple of 16; for each tap, k-step ks of 16 input channels and
+    block nf of 8 output channels, lane l of the warp holds w[tap][16 ks + 2
+    (l % 4) + {0, 1}][8 nf + l // 4] and the same at input channel + 8, four
+    values side by side."""
+    k, ci, co = w.shape[-3:]
+    c16 = -(-ci // 16) * 16
+    w = pad_to(w, (*w.shape[:-2], c16, co))
+    # (.., k, ks, +8, lane % 4, pair, nf, lane // 4)
+    f = w.reshape(-1, k, c16 // 16, 2, 4, 2, co // 8, 8)
+    return f.permute(0, 1, 2, 6, 7, 4, 3, 5).reshape(-1)
+
+
 def pack_towers(towers) -> MrfWeights:
     """The towers and the kernels' buffers built from them, zero-padded to
-    `kernel_channels(C)`; no fragment buffer past C = 128, where no kernel
-    takes the stage."""
+    `kernel_channels(C)`: m16n8k8 fragments, and for bf16 towers also the
+    m16n8k16 ones; no fragment buffer past C = 128, where no kernel takes
+    the stage."""
     width = kernel_channels(towers[0][0].shape[-1])
     if width is None:
         b = torch.cat([t.reshape(-1) for _, b1, _, b2 in towers for t in (b1, b2)])
         return MrfWeights(list(towers), None, b)
     P = towers[0][0].shape[0]
-    w = torch.cat([mma_fragments(pad_to(t, (P, t.shape[1], width, width)))
-                   for w1, _, w2, _ in towers for t in (w1, w2)])
+    padded = [pad_to(t, (P, t.shape[1], width, width)) for w1, _, w2, _ in towers for t in (w1, w2)]
+    w = torch.cat([mma_fragments(t) for t in padded])
+    w16 = (torch.cat([mma_fragments_bf16(t) for t in padded])
+           if w.dtype == torch.bfloat16 else None)
     b = torch.cat([pad_to(t, (P, width)).reshape(-1) for _, b1, _, b2 in towers for t in (b1, b2)])
-    return MrfWeights(list(towers), w, b, width)
+    return MrfWeights(list(towers), w, b, width, w16)
 
 
 def fused_mrf(x, weights: MrfWeights, dilations, kernel_sizes):
@@ -189,10 +215,13 @@ def fused_mrf(x, weights: MrfWeights, dilations, kernel_sizes):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _cuda.lib("mrf")
     if dtype == torch.bfloat16:
+        if weights.w16 is None:
+            raise ValueError("fused_mrf: bf16 x needs bf16 towers (pack_towers of bf16 weights)")
+        _cuda.require_cuda("fused_mrf", x.device, dtype, weights.w16)
         # the towers' float32 sums (the last tower's mean goes to out)
         sums = torch.empty(xk.shape, device=x.device) if len(weights.towers) > 1 else None
         err = lib.zv_mrf_bf16(xk.data_ptr(), out.data_ptr(),
-                              None if sums is None else sums.data_ptr(), weights.w.data_ptr(),
+                              None if sums is None else sums.data_ptr(), weights.w16.data_ptr(),
                               weights.b.data_ptr(), B, T, Ck, *args, stream)
         _cuda.check(err, "fused_mrf")
         fused_mrf.launches_bf16 += 1

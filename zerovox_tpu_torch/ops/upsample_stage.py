@@ -9,7 +9,8 @@ computes it in one pass over x [B, T_in, C_in]:
     `csrc/upsample_stage.cu`, which replaces the TPU kernel
     `zerovox_tpu/ops/pallas/packed.py::fused_packed_stage`. On an H100 the
     stage is bound by arithmetic; the kernel runs the transposed conv as a
-    polyphase GEMM and every conv on the tensor cores in 3xTF32, recomputes
+    polyphase GEMM and every conv on the tensor cores (3xTF32 on float32,
+    bf16 tensor-core products on bf16), recomputes
     the upsampler per tower inside a time tile instead of writing the
     upsampled activation, and writes only the stage output (design notes in
     the source and in `csrc/mrf_tc.cuh`);
@@ -18,7 +19,9 @@ computes it in one pass over x [B, T_in, C_in]:
 
 Float32 or bf16 (bf16 inference): on bf16 x and weights every intermediate
 stays float32 and the stage's output (or waveform) is rounded to bf16 once,
-as the TPU kernel does; bf16 launches are counted apart
+as the TPU kernel does; the bf16 kernel feeds each activation to bf16 MMAs
+as two bf16 terms, within one bf16 step of the plain version (as
+`ops.mrf.fused_mrf`'s); bf16 launches are counted apart
 (`fused_upsample_stage.launches_bf16`).
 
 The weights come packed once per weight version (`pack_upsampler`,
@@ -41,8 +44,8 @@ import torch.nn.functional as F
 
 from zerovox_tpu_torch.ops import _cuda
 from zerovox_tpu_torch.ops.mrf import (LRELU_SLOPE, MrfWeights, check_towers, mma_fragments,
-                                       mrf_plain, pad_to, refuse_grad, tower_args,
-                                       widen)
+                                       mma_fragments_bf16, mrf_plain, pad_to, refuse_grad,
+                                       tower_args, widen)
 
 # (C_in, C_out) instantiated in the source, narrowest first
 KERNEL_WIDTHS = ((16, 8), (32, 16), (64, 32), (128, 64))
@@ -64,6 +67,7 @@ class UpsamplerWeights(NamedTuple):
     frag: torch.Tensor | None  # taps grouped by phase, padded to `widths`, in MMA fragment order
     frag_b: torch.Tensor | None = None  # b padded to widths[1]
     widths: tuple[int, int] | None = None  # kernel_widths(C_in, C_out)
+    frag16: torch.Tensor | None = None  # bf16: frag's taps in m16n8k16 order (the bf16 K2)
 
 
 def phase_taps(k: int, stride: int) -> list[int]:
@@ -80,8 +84,10 @@ def pack_upsampler(w, b, stride: int) -> UpsamplerWeights:
     widths = kernel_widths(ci, co)
     if widths is None:
         return UpsamplerWeights(w, b, stride, None)
-    frag = mma_fragments(pad_to(w, (k, *widths))[phase_taps(k, stride)])
-    return UpsamplerWeights(w, b, stride, frag, pad_to(b, (widths[1],)), widths)
+    taps = pad_to(w, (k, *widths))[phase_taps(k, stride)]
+    frag16 = mma_fragments_bf16(taps) if w.dtype == torch.bfloat16 else None
+    return UpsamplerWeights(w, b, stride, mma_fragments(taps), pad_to(b, (widths[1],)), widths,
+                            frag16)
 
 
 def upsample_stage_plain(x, up_w, up_b, stride, up_padding, towers, dilations, post=None):
@@ -146,19 +152,25 @@ def fused_upsample_stage(x, up: UpsamplerWeights, up_padding, mrf: MrfWeights, d
     _cuda.require_cuda("fused_upsample_stage", x.device, dtype, xk, up.frag, up.frag_b, mrf.w,
                        mrf.b, pw, pb)
     lib = _cuda.lib("upsample_stage")
-    ptrs = (up.frag.data_ptr(), up.frag_b.data_ptr(), mrf.w.data_ptr(), mrf.b.data_ptr(),
-            pw.data_ptr(), pb.data_ptr(), B, T_in, Ci, Co, up_k, up.stride, up_padding,
-            post_k, *args, torch.cuda.current_stream(x.device).cuda_stream)
+    rest = (mrf.b.data_ptr(), pw.data_ptr(), pb.data_ptr(), B, T_in, Ci, Co, up_k, up.stride,
+            up_padding, post_k, *args, torch.cuda.current_stream(x.device).cuda_stream)
     if dtype == torch.bfloat16:
+        if up.frag16 is None or mrf.w16 is None:
+            raise ValueError("fused_upsample_stage: bf16 x needs bf16 weights (pack_upsampler "
+                             "and pack_towers of bf16 tensors)")
+        _cuda.require_cuda("fused_upsample_stage", x.device, dtype, up.frag16, mrf.w16)
         # the towers' float32 sums, without post (with it they stay in shared memory)
         sums = (torch.empty(B, T_out, Co, device=x.device)
                 if post is None and len(mrf.towers) > 1 else None)
         err = lib.zv_upsample_stage_bf16(xk.data_ptr(), out.data_ptr(),
-                                         None if sums is None else sums.data_ptr(), *ptrs)
+                                         None if sums is None else sums.data_ptr(),
+                                         up.frag16.data_ptr(), up.frag_b.data_ptr(),
+                                         mrf.w16.data_ptr(), *rest)
         _cuda.check(err, "fused_upsample_stage")
         fused_upsample_stage.launches_bf16 += 1
     else:
-        err = lib.zv_upsample_stage_f32(xk.data_ptr(), out.data_ptr(), *ptrs)
+        err = lib.zv_upsample_stage_f32(xk.data_ptr(), out.data_ptr(), up.frag.data_ptr(),
+                                        up.frag_b.data_ptr(), mrf.w.data_ptr(), *rest)
         _cuda.check(err, "fused_upsample_stage")
         fused_upsample_stage.launches += 1
     fused_upsample_stage.launches_at[widths] = fused_upsample_stage.launches_at.get(widths, 0) + 1
