@@ -31,11 +31,9 @@ Phases, in order; any failure exits nonzero:
    K1, K2 and K3 row its bf16 variant (bf16 inference) on the same inputs
    rounded to bf16, within one bf16 step of the largest output of its plain
    version, timed beside the plain version and the float32 kernel: the bf16
-   K1 and K2 (bf16 tensor cores, two terms an activation) with at most 1 %
-   of the outputs differing from the plain version's rounding, against two
-   bf16 products a product (their former two TF32 products beside it); the
-   bf16 K3 bitwise the float32 kernel on the widened inputs rounded to
-   bf16, against its two TF32 products.
+   K1, K2 and K3 (bf16 tensor cores, two terms an activation) with at most
+   1 % of the outputs differing from the plain version's rounding, against
+   two bf16 products a product (their former two TF32 products beside it).
 4. The serving path at full width (default ZeroVoxConfig + HiFi-GAN, random
    weights from seed 0): speaker_embed -> tts_ex -> tts_stream, with the
    kernels' launch counts read around that run; then RTF and first-chunk
@@ -264,7 +262,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 BF16_ULP = 2.0 ** -8  # bf16 K4's y and dx, relative to the plain result's max |value|
-BF16X2_SHARE = 0.01  # bf16 K1/K2: outputs off plain's rounding (emulated ~0.2 %, one term ~37 %)
+BF16X2_SHARE = 0.01  # bf16 K1-K3: outputs off plain's rounding (emulated ~0.2 %, one term ~37 %)
 BF16_RED_TOL = 1e-3  # bf16 K4's float32 sums and gradients, likewise
 MIXED_LOSS_RTOL = 5e-2  # bf16-mixed epoch-0 loss against float32's (docs/PERFORMANCE.md:130-133)
 BF16_WAV_TOL = 5e-2  # bf16 inference's waveform (docs/PERFORMANCE.md:130-133)
@@ -324,10 +322,11 @@ def bound(flop: float, nbytes: float, method: str = "f32") -> tuple[float, str]:
     """(least milliseconds the card could take, what bounds it) for a kernel
     whose products run as `method`: "f32", float32 FMA on the CUDA cores
     (flop at 67 TFLOP/s), "3xtf32", three TF32 tensor-core products per
-    product (3 x flop at 495 TFLOP/s), "2xtf32", two (the bf16 K3, whose
-    weights' lo halves are zero: 2 x flop at 495 TFLOP/s), "bf16x2", two
-    bf16 tensor-core products (the bf16 K1 and K2, two terms an activation:
-    2 x flop at 989 TFLOP/s), or "bf16", one (flop at 989 TFLOP/s)."""
+    product (3 x flop at 495 TFLOP/s), "2xtf32", two (the bf16 K1-K3 before
+    their redesign, whose weights' lo halves were zero: 2 x flop at 495
+    TFLOP/s), "bf16x2", two bf16 tensor-core products (the bf16 K1-K3, two
+    terms an activation: 2 x flop at 989 TFLOP/s), or "bf16", one (flop at
+    989 TFLOP/s)."""
     t_ops = {"3xtf32": 3 * flop / PEAK_TF32_FLOPS, "2xtf32": 2 * flop / PEAK_TF32_FLOPS,
              "bf16x2": 2 * flop / PEAK_BF16_FLOPS,
              "bf16": flop / PEAK_BF16_FLOPS}.get(method, flop / PEAK_F32_FLOPS)
@@ -401,50 +400,38 @@ def bf16_step(t) -> float:
 
 
 def measure_bf16(torch, rows, name, source, replaces, shape, fn, f32_fn, plain, flop, nbytes,
-                 method="2xtf32", **extra) -> None:
-    """A bf16 variant of K1-K3 (bf16 inference) against its plain version
-    (float32 on the widened inputs, rounded once): within one bf16 step of
-    its largest output, and, by `method`, "2xtf32" (the bf16 K3: TF32
-    products of bf16 weights and split activations) bitwise its float32
-    kernel on the widened inputs, rounded to bf16 (f32_fn), or "bf16x2" (the
-    bf16 K1 and K2: bf16 products of two terms an activation) at most
-    BF16X2_SHARE of the outputs differing from plain's rounding. Timed
-    beside the plain version and the float32 kernel. Bound: two products a
-    product of the method; bytes at bf16 widths."""
+                 **extra) -> None:
+    """A bf16 variant of K1-K3 (bf16 inference: bf16 tensor-core products,
+    two terms an activation) against its plain version (float32 on the
+    widened inputs, rounded once): within one bf16 step of its largest
+    output, with at most BF16X2_SHARE of the outputs differing from plain's
+    rounding. Timed beside the plain version and the float32 kernel on the
+    widened inputs (f32_fn). Bound: two bf16 products a product ("bf16x2"),
+    the former two TF32 products beside it; bytes at bf16 widths."""
     from zerovox_tpu_torch.utils.profiling import cuda_time_ms
 
-    got, f32 = fn(), f32_fn()
+    got = fn()
     torch.cuda.synchronize()
     ref = plain()
     torch.cuda.synchronize()
     check(got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape,
           f"{name}: {got.dtype} {tuple(got.shape)} against plain {ref.dtype} {tuple(ref.shape)}")
     check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
-    checks = {}
-    if method == "2xtf32":
-        off = (got.float() - f32.bfloat16().float()).abs().max().item()
-        check(torch.equal(got, f32.bfloat16()),
-              f"{name}: not bitwise the float32 kernel rounded to bf16 ({off} apart)")
-        checks["bitwise_f32_kernel"] = True
-    else:
-        share = (got != ref).float().mean().item()
-        check(share <= BF16X2_SHARE,
-              f"{name}: {share:.4%} of outputs differ from plain's rounding (at most "
-              f"{BF16X2_SHARE:.0%})")
-        checks["share_off_plain"] = share
+    share = (got != ref).float().mean().item()
+    check(share <= BF16X2_SHARE,
+          f"{name}: {share:.4%} of outputs differ from plain's rounding (at most "
+          f"{BF16X2_SHARE:.0%})")
     err, step = (got.float() - ref.float()).abs().max().item(), bf16_step(ref)
     check(err <= step, f"{name}: max abs diff {err} against the plain version, one step {step}")
-    del got, f32, ref
+    del got, ref
     ms, plain_ms = cuda_time_ms(fn, iters=10, warmup=2), cuda_time_ms(plain, iters=5, warmup=1)
     f32_ms = cuda_time_ms(f32_fn, iters=10, warmup=2)
-    bound_ms, bound_by = bound(flop, nbytes, method)
+    bound_ms, bound_by = bound(flop, nbytes, "bf16x2")
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-           "shape": shape, "max_abs_err": err, "bf16_step": step, **checks,
+           "shape": shape, "max_abs_err": err, "bf16_step": step, "share_off_plain": share,
            "ms": ms, "plain_ms": plain_ms, "f32_kernel_ms": f32_ms, "gflop": flop / 1e9,
-           "method": method, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-           **extra}
-    if method == "bf16x2":
-        row["bound_2xtf32_ms"] = bound(flop, nbytes, "2xtf32")[0]
+           "method": "bf16x2", "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "bound_2xtf32_ms": bound(flop, nbytes, "2xtf32")[0], **extra}
     print(json.dumps(row), flush=True)
     rows.append(row)
 
@@ -477,7 +464,7 @@ def k1_rows(torch, rows, gen, dev, T: int, C: int, ks, dils, suffix: str = "") -
                  "zerovox_tpu/ops/pallas/mrf.py:93", f"[1,{T},{C}] bf16",
                  lambda: fused_mrf(xb, mrfb, dils, ks),
                  lambda: fused_mrf(xw, mrfw, dils, ks),
-                 lambda: mrf_plain(xb, twb, dils), flop, wbytes / 2 + 4.0 * T * C, "bf16x2",
+                 lambda: mrf_plain(xb, twb, dils), flop, wbytes / 2 + 4.0 * T * C,
                  tile_rows=_cuda.lib("mrf").zv_mrf_bf16_tile(1, T, C, *targs))
 
 
@@ -532,7 +519,7 @@ def k2_rows(torch, rows, gen, dev, T_in: int, C_in: int, C_out: int, u: int, k: 
                  lambda: fused_upsample_stage(xw, upw, pad, mrfw, dils, ks, post=postw),
                  lambda: upsample_stage_plain(xb, upb.w, upb.b, u, pad, twb, dils,
                                               post=postb),
-                 flop, wbytes / 2 + 2.0 * (T_in * C_in + out_elems), "bf16x2",
+                 flop, wbytes / 2 + 2.0 * (T_in * C_in + out_elems),
                  tile_rows=_cuda.lib("upsample_stage").zv_upsample_stage_bf16_tile(
                      1, T_in, C_in, C_out, k, u, pad, 7 if last else 0, *tower_args(tw, dils, ks)))
 

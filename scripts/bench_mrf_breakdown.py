@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where the bf16 K1 and K2's time goes on the card: `zerovox_tpu_torch/csrc/
-mrf.cu` and `upsample_stage.cu` (with the tile headers they include) against
-copies with one part of the tile's GEMMs taken out, timed in turns at the
-main path's shapes (bucket 689 of the default vocoder, CUDA events):
+"""Where the bf16 K1, K2 and K3's time goes on the card: `zerovox_tpu_torch/
+csrc/mrf.cu`, `upsample_stage.cu` and `resblock.cu` (with the tile headers
+they include) against copies with one part of the tile's GEMMs taken out,
+timed in turns at the main path's shapes (bucket 689 of the default vocoder
+and of the single-tower one, CUDA events):
 
   K1-bf16   [1, 44096, 128];
   K2-bf16   [1, 44096, 128] -> [1, 88192, 64];
-  K2+post   [1, 88192, 64] -> [1, 176384].
+  K2+post   [1, 88192, 64] -> [1, 176384];
+  K3-bf16   [1, 44096, 128], [1, 88192, 64], [1, 176384, 32] (one tower, k 3).
 
     python3 scripts/bench_mrf_breakdown.py [--tree DIR] [--out FILE]
 
@@ -23,7 +25,8 @@ nvcc flags:
              float32 bits go to the products as they are (the bf16x2
              design: also where conv1's epilogue and K2's staging split
              them into shared memory);
-  no_bfetch  no B fragment read from L2 (each replaced by its index).
+  no_bfetch  no B fragment read, from L2 or from K3's staged copy (each
+             replaced by its index; K3's copies into shared memory stay).
 
 Beside them, the bf16x2 design's choices against their alternatives:
 
@@ -42,7 +45,9 @@ of a tree's design must match its file exactly once
 (`tests/test_torch_mrf_breakdown.py` checks the bf16x2 set on the CPU).
 
 --tree DIR times an earlier checkout (`git archive` into a gitignored
-directory) with its own package, packers and wrappers. Prints the card's
+directory) with its own package, packers and wrappers; a bf16x2 tree from
+before K3's staged copy (`BSmem`) has no text for `no_bfetch`'s second
+substitution and is refused. Prints the card's
 name and power limit, then one JSON object (also written to FILE).
 """
 
@@ -59,7 +64,7 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCES = ("mrf", "upsample_stage")
+SOURCES = ("mrf", "upsample_stage", "resblock")
 TF32_MMA = ('asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "\n'
             '      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"')
 BF16_MMA = ('asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "\n'
@@ -93,7 +98,8 @@ DESIGNS = {
                       "h = make_uint2(__float_as_uint(v.x), __float_as_uint(v.z)), "
                       "l = make_uint2(__float_as_uint(v.y), __float_as_uint(v.w));")],
         "no_bfetch": [("mrf_bf16.cuh", "return __ldg(w + i);",
-                       "return make_uint2((uint32_t)i, (uint32_t)i);")],
+                       "return make_uint2((uint32_t)i, (uint32_t)i);"),
+                      ("mrf_bf16.cuh", "return s[i];", "return make_uint2((uint32_t)i, (uint32_t)i);")],
         "unroll_1": [("mrf_bf16.cuh", "constexpr int KK_UNROLL = 2;", "constexpr int KK_UNROLL = 1;")],
         "unroll_4": [("mrf_bf16.cuh", "constexpr int KK_UNROLL = 2;", "constexpr int KK_UNROLL = 4;")],
         "b_ahead_2": [("mrf_bf16.cuh", "constexpr int B_AHEAD = 1;", "constexpr int B_AHEAD = 2;")],
@@ -103,6 +109,7 @@ DESIGNS = {
 }
 B = 1
 T1, C1, C2, C3 = 44096, 128, 64, 32  # bucket 689 x rates 8, 8; stage widths
+K3_SHAPES = ((T1, C1), (2 * T1, C2), (4 * T1, C3))  # the single-tower vocoder's stages 1-3
 KS, DILS, UP_K, STRIDE, PAD, POST_K = (3, 7, 11), (1, 3, 5), 4, 2, 1, 7
 
 
@@ -128,7 +135,7 @@ def bf16_registers(log: str) -> dict:
     out, name, spill = {}, None, "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"((?:mrf|stage)_kernel(?:_bf16)?)I((?:Li\d+E)+)", ln)
+            m = re.search(r"((?:mrf|stage|resblock)_kernel(?:_bf16)?)I((?:Li\d+E)+)", ln)
             m = m if "bfloat16" in ln else None
             name = m and f"{m[1]}<{','.join(re.findall(r'Li(\d+)E', m[2]))}>"
         elif name is not None and "spill stores" in ln:
@@ -168,9 +175,10 @@ def build(tmp: Path, csrc: Path, variants: dict, _cuda) -> tuple[dict, dict]:
 
 
 def cases(torch):
-    """{case: callable} of the three bf16 launches on seeded inputs, through
+    """{case: callable} of the six bf16 launches on seeded inputs, through
     the tree's own packers and wrappers."""
     from zerovox_tpu_torch.ops.mrf import fused_mrf, pack_towers
+    from zerovox_tpu_torch.ops.resblock import fused_resblock1
     from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage, pack_upsampler
 
     gen = torch.Generator().manual_seed(11)
@@ -178,10 +186,10 @@ def cases(torch):
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).cuda().bfloat16()
 
-    def towers(C):
+    def towers(C, ks=KS):
         return pack_towers([(rnd(3, k, C, C, scale=(k * C) ** -0.5), rnd(3, C, scale=0.5),
                              rnd(3, k, C, C, scale=(k * C) ** -0.5), rnd(3, C, scale=0.5))
-                            for k in KS])
+                            for k in ks])
 
     def upsampler(ci, co):
         return pack_upsampler(rnd(UP_K, ci, co, scale=(UP_K * ci / STRIDE) ** -0.5),
@@ -191,11 +199,16 @@ def cases(torch):
     x2, up2, m2 = rnd(B, T1, C1), upsampler(C1, C2), towers(C2)
     x3, up3, m3 = rnd(B, 2 * T1, C2), upsampler(C2, C3), towers(C3)
     post = (rnd(POST_K, C3, 1, scale=(POST_K * C3) ** -0.5), rnd(1, scale=0.1))
-    return {f"k1 [1,{T1},{C1}]": lambda: fused_mrf(x1, m1, DILS, KS),
-            f"k2 [1,{T1},{C1}]->[1,{2 * T1},{C2}]":
-                lambda: fused_upsample_stage(x2, up2, PAD, m2, DILS, KS),
-            f"k2+post [1,{2 * T1},{C2}]->[1,{4 * T1}]":
-                lambda: fused_upsample_stage(x3, up3, PAD, m3, DILS, KS, post=post)}
+    out = {f"k1 [1,{T1},{C1}]": lambda: fused_mrf(x1, m1, DILS, KS),
+           f"k2 [1,{T1},{C1}]->[1,{2 * T1},{C2}]":
+               lambda: fused_upsample_stage(x2, up2, PAD, m2, DILS, KS),
+           f"k2+post [1,{2 * T1},{C2}]->[1,{4 * T1}]":
+               lambda: fused_upsample_stage(x3, up3, PAD, m3, DILS, KS, post=post)}
+    for T, C in K3_SHAPES:
+        x, tw = rnd(B, T, C), towers(C, (3,))
+        out[f"k3 [1,{T},{C}]"] = (lambda x=x, tw=tw:
+                                  fused_resblock1(x, *tw.towers[0], DILS, packed=tw))
+    return out
 
 
 def main() -> None:

@@ -1,7 +1,7 @@
-"""The arithmetic of the bf16 K1 (fused MRF) and K2 (fused upsample stage),
-emulated on the CPU: bf16 tensor-core products with a two-term activation
-split (csrc/mrf_bf16.cuh) against the plain versions on bf16 inputs and the
-JAX kernels in interpret mode.
+"""The arithmetic of the bf16 K1 (fused MRF), K2 (fused upsample stage) and
+K3 (one ResBlock1 tower), emulated on the CPU: bf16 tensor-core products
+with a two-term activation split (csrc/mrf_bf16.cuh) against the plain
+versions on bf16 inputs and the JAX kernels in interpret mode.
 
 The bf16 kernels take each float32 activation a that feeds a GEMM as two
 bf16 terms, hi = rn(a) and lo = rn(a - hi) (round to nearest even), and sum
@@ -9,7 +9,7 @@ two products per conv (lo.w + hi.w, the weights exact in bf16) in float32;
 every other intermediate is float32 and the output is rounded to bf16 once.
 Here each product is a float32 convolution of one term, with the weights
 read back from the kernels' m16n8k16 fragment buffers by the kernels' lane
-formula. Bounds (chip_smoke.py's for the bf16 K1/K2 on the card): within
+formula. Bounds (chip_smoke.py's for the bf16 K1-K3 on the card): within
 one bf16 step of the largest output, and at most 1 % of the outputs
 differing from the plain version's rounding. One bf16 term (the activation
 rounded to bf16) falls outside the share bound, which is why the kernels
@@ -24,8 +24,10 @@ import torch.nn.functional as F
 
 from zerovox_tpu.ops.pallas.mrf import fused_mrf as jax_fused_mrf
 from zerovox_tpu.ops.pallas.packed import fused_packed_stage
+from zerovox_tpu.ops.pallas.resblock import fused_resblock1 as jax_fused_resblock1
 
 from zerovox_tpu_torch.ops.mrf import LRELU_SLOPE, mma_fragments_bf16, mrf_plain, pack_towers
+from zerovox_tpu_torch.ops.resblock import resblock1_plain
 from zerovox_tpu_torch.ops.upsample_stage import pack_upsampler, upsample_stage_plain
 
 KS = (3, 7, 11)
@@ -143,11 +145,11 @@ def _bf(rng, *shape, scale):
     return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).bfloat16()
 
 
-def _towers(rng, C):
+def _towers(rng, C, ks=KS):
     """chip_smoke.py's random_towers scales, in bf16."""
     return [(_bf(rng, 3, k, C, C, scale=1 / np.sqrt(k * C)), _bf(rng, 3, C, scale=0.5),
              _bf(rng, 3, k, C, C, scale=1 / np.sqrt(k * C)), _bf(rng, 3, C, scale=0.5))
-            for k in KS]
+            for k in ks]
 
 
 def _jax(t):
@@ -183,16 +185,18 @@ def test_fragment_order_reads_back_the_taps(k, ci, co):
 
 
 def test_packers_build_both_orders_for_bf16_only():
-    """bf16 towers and upsamplers carry the m16n8k16 buffer beside the
-    m16n8k8 one (which the bf16 K3 reads); float32 ones do not."""
+    """bf16 towers and upsamplers carry the m16n8k16 buffer alone (every
+    bf16 kernel reads it), float32 ones the m16n8k8 buffer alone."""
     rng = np.random.default_rng(7)
     towers = _towers(rng, 8)
     packed = pack_towers(towers)
-    assert packed.w16.numel() == 2 * packed.w.numel()  # C = 8: k-steps padded to 16
-    assert pack_towers([tuple(t.float() for t in tw) for tw in towers]).w16 is None
+    f32 = pack_towers([tuple(t.float() for t in tw) for tw in towers])
+    assert packed.w is None and f32.w16 is None
+    assert packed.w16.numel() == 2 * f32.w.numel()  # C = 8: k-steps padded to 16
     up = pack_upsampler(_bf(rng, 4, 16, 8, scale=0.3), _bf(rng, 8, scale=0.5), 2)
-    assert up.frag16 is not None and up.frag16.numel() == up.frag.numel()
-    assert pack_upsampler(up.w.float(), up.b.float(), 2).frag16 is None
+    up32 = pack_upsampler(up.w.float(), up.b.float(), 2)
+    assert up.frag is None and up32.frag16 is None
+    assert up.frag16.numel() == up32.frag.numel()
 
 
 @pytest.mark.parametrize("C,T", [(128, 2000), (32, 1500), (8, 3000)])
@@ -248,6 +252,35 @@ def test_emulated_upsample_stage_matches_jax(widths, post):
         _jax(x), jnp.flip(_jax(up_w), 0), _jax(up_b), 2, 1,
         [tuple(_jax(a) for a in t) for t in towers], DILS, KS,
         post=None if p is None else tuple(_jax(a) for a in p), tile=64, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    err, share = _close(got, np.array(want.astype(jnp.float32)))
+    assert err <= 1.0 and share <= SHARE, (err, share)
+
+
+@pytest.mark.parametrize("C,T", [(32, 1500), (8, 3000), (8, 9)])
+def test_emulated_resblock_matches_plain(C, T):
+    """The bf16 K3 (one tower, k 3, the towers' buffer read by the lane
+    formula) at chip_smoke.py's weight scales: two terms within one bf16
+    step and 1 % of outputs off plain's rounding; one term misses that share.
+    T = 9 lies below the tower's 12-row halo."""
+    rng = np.random.default_rng(C + T + 3)
+    x = _bf(rng, 1, T, C, scale=1.0)
+    tower = _towers(rng, C, ks=(3,))[0]
+    packed = pack_towers([tower])
+    plain = resblock1_plain(x, *tower, DILS)
+    err, share = _close(mrf_bf16(x.float(), packed, C, DILS, (3,)).bfloat16(), plain)
+    assert err <= 1.0 and share <= SHARE, (err, share)
+    _, share1 = _close(mrf_bf16(x.float(), packed, C, DILS, (3,), n=1).bfloat16(), plain)
+    assert share1 > SHARE, share1
+
+
+@pytest.mark.parametrize("C,T", [(32, 150), (8, 9)])
+def test_emulated_resblock_matches_jax(C, T):
+    rng = np.random.default_rng(C + T + 4)
+    x = _bf(rng, 1, T, C, scale=1.0)
+    tower = _towers(rng, C, ks=(3,))[0]
+    got = mrf_bf16(x.float(), pack_towers([tower]), C, DILS, (3,)).bfloat16()
+    want = jax_fused_resblock1(_jax(x), *(_jax(a) for a in tower), DILS, tile=64, interpret=True)
     assert want.dtype == jnp.bfloat16
     err, share = _close(got, np.array(want.astype(jnp.float32)))
     assert err <= 1.0 and share <= SHARE, (err, share)

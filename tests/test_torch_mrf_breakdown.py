@@ -1,4 +1,4 @@
-"""scripts/bench_mrf_breakdown.py builds copies of the bf16 K1 and K2's
+"""scripts/bench_mrf_breakdown.py builds copies of the bf16 K1, K2 and K3's
 sources with a part of the tile's GEMMs taken out, by text substitution:
 each substitution of this tree's design (bf16x2) must match its file in
 `zerovox_tpu_torch/csrc/` exactly once, so that a source that drifts fails
@@ -46,3 +46,18 @@ def test_every_variant_applies_and_changes_the_sources():
     # epilogue and K2's staging of its input
     assert {f for f, _, _ in DESIGN["no_split"]} == {"mrf_bf16.cuh", "upsample_stage.cu"}
     assert len(DESIGN["no_split"]) == 3
+
+
+def test_k3_bf16_runs_on_the_substituted_tile():
+    """K3's bf16 kernel is built and timed with K1 and K2 (at the
+    single-tower vocoder's stage shapes), and runs on mrf_bf16.cuh's tile,
+    so that the bf16x2 substitutions reach it: the MMAs, conv1's split at
+    the load and conv2's split in conv1's epilogue, and both of its B
+    sources (L2, and the staged copy)."""
+    assert "resblock" in SCRIPT.SOURCES
+    assert SCRIPT.K3_SHAPES == ((44096, 128), (88192, 64), (176384, 32))
+    src = (CSRC / "resblock.cu").read_text()
+    assert '#include "mrf_bf16.cuh"' in src
+    assert "zv::bf16x2::mrf_tile<C, NW>(" in src and "zv::bf16x2::StagedWeights<NW>" in src
+    fetches = [old for f, old, _ in DESIGN["no_bfetch"]]
+    assert fetches == ["return __ldg(w + i);", "return s[i];"]

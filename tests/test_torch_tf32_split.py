@@ -165,12 +165,12 @@ def test_rna_tf32_rounds_to_nearest_ties_away():
 
 
 def test_bf16_values_are_their_own_tf32_hi():
-    """The bf16 K3 runs two TF32 MMAs a product: a bf16 weight splits into
-    hi = itself and lo = 0 exactly, so the hi.lo product it drops adds only
-    zeros. Its B fragments are the bf16 m16n8k8 buffer's 32-bit words, each
-    two bf16 widened by `<< 16` and `& 0xFFFF0000`: the float32 buffer's
-    values in the same order. (The bf16 K1 and K2 run bf16 MMAs on their own
-    buffer: tests/test_torch_bf16_mma.py.)"""
+    """A bf16 value splits into TF32 hi = itself and lo = 0 exactly, so the
+    float32 kernels on a bf16 tower's widened weights run exactly those
+    weights. The bf16 kernels read no m16n8k8 buffer: a bf16 tower carries
+    its m16n8k16 buffer alone, which holds the values of the widened
+    tower's m16n8k8 buffer in another order (tests/test_torch_bf16_mma.py
+    emulates the bf16 kernels on it)."""
     from zerovox_tpu_torch.ops.mrf import widen
 
     rng = np.random.default_rng(1)
@@ -178,13 +178,10 @@ def test_bf16_values_are_their_own_tf32_hi():
     hi, lo = split(w)
     assert torch.equal(hi, w) and torch.all(lo == 0)
     tower = tuple(t.bfloat16() for t in _towers(rng, 32)[1])
-    frag = pack_towers([tower]).w
-    assert frag.dtype == torch.bfloat16
-    words = frag.view(torch.int32)
-    first = (words << 16).view(torch.float32)
-    second = (words & -0x10000).view(torch.float32)
+    packed = pack_towers([tower])
+    assert packed.w is None and packed.w16.dtype == torch.bfloat16
     want = pack_towers(widen([tower])).w
-    assert torch.equal(first, want[0::2]) and torch.equal(second, want[1::2])
+    assert torch.equal(packed.w16.float().sort().values, want.sort().values)
 
 
 @pytest.mark.parametrize("k,ci,co", [(3, 128, 128), (4, 128, 64), (11, 32, 32), (4, 32, 16),

@@ -424,8 +424,9 @@ def test_cli_trains_and_resumes_on_the_cpu(tmp_path):
 
 def test_cli_bench_row(tmp_path):
     """`--bench`'s row (`bench_step`) on the tiny nets: the step's FLOP
-    counted, a positive marginal step time; the H100's peaks by precision,
-    and no MFU off the card (there is no peak of the CPU's to divide by)."""
+    counted, a positive median marginal step time; the H100's peaks by
+    precision, and no MFU off the card (there is no peak of the CPU's to
+    divide by)."""
     import argparse
 
     from zerovox_tpu_torch.cli import train_vocoder
@@ -438,7 +439,8 @@ def test_cli_bench_row(tmp_path):
     assert row["flops_per_step"] > 0 and row["ms_per_step"] > 0 and row["device"] == "cpu"
     assert train_vocoder.PEAK_FLOPS == {"32": 67e12, "bf16-mixed": 989e12}
     assert row["peak_flops"] is None and row["mfu_pct"] is None
-    assert state.step == 1 + 1 + 2  # the counted step, then chains of 1 and 2
+    # the counted step, then each pair's chains of 1 and 2 steps, each after its warm steps
+    assert state.step == 1 + train_vocoder.BENCH_PAIRS * (2 * train_vocoder.BENCH_WARM + 1 + 2)
 
 
 # --------------------------------------------- the JAX trainer's resume file

@@ -19,8 +19,9 @@ wrote or a `vocoder-NNNN.msgpack` the JAX package's trainer wrote, and
 continues at the epoch after the file's (the JAX CLI counts its epochs from
 0 again after a resume). The kernel build cache is `ZEROVOX_COMPILE_CACHE`'s
 (`utils/compile_cache.py`). `--bench` prints one JSON row instead of training: the
-step's device milliseconds (CUDA events, the marginal cost between two
-chain lengths), its FLOP (counted over one step by
+step's device milliseconds (CUDA events, the median marginal cost between
+two chain lengths over BENCH_PAIRS pairs of chains, each chain after
+BENCH_WARM untimed steps), its FLOP (counted over one step by
 torch.utils.flop_counter) and the MFU against the H100's dense peak for
 the precision.
 """
@@ -32,6 +33,8 @@ import json
 
 # H100 SXM dense peaks: float32 outside the tensor cores (TF32 is off), bf16
 PEAK_FLOPS = {"32": 67e12, "bf16-mixed": 989e12}
+BENCH_PAIRS = 3  # --bench: chain pairs (n1, n2 steps) whose marginal steps give the median
+BENCH_WARM = 2  # --bench: untimed steps before each timed chain, as the JAX CLI's run(n)
 
 
 def get_args(argv=None):
@@ -139,10 +142,13 @@ def _train(args, mesh):
 
 
 def bench_step(args, trainer, dataset, state) -> dict:
-    """One row: the step's milliseconds (the marginal cost between chains of
-    n1 and n2 steps on one batch; CUDA events on the card, the host clock on
-    the CPU), the FLOP of one step and, on the card, the MFU against PEAK_FLOPS (null
-    elsewhere)."""
+    """One row: the step's milliseconds, the FLOP of one step and, on the
+    card, the MFU against PEAK_FLOPS (null elsewhere). A chain of n steps on
+    one batch runs BENCH_WARM untimed steps, then times its n (CUDA events on
+    the card, from after the warm steps; the host clock on the CPU); the
+    step is the median over BENCH_PAIRS pairs of chains of n1 and n2 steps,
+    taken in turns, of the marginal cost (t(n2) - t(n1)) / (n2 - n1)."""
+    import statistics
     import time
 
     import torch
@@ -151,14 +157,13 @@ def bench_step(args, trainer, dataset, state) -> dict:
     batch = next(iter(trainer.loader(dataset)(args.batch_size)))
     batch = {k: torch.as_tensor(v).to(trainer.device) for k, v in batch.items()}
     cuda = trainer.device.type == "cuda"
-    # the counted step warms up too (cuDNN's algorithm choice, allocations)
     with FlopCounterMode(display=False) as counter:
         trainer.train_step(state, batch)
     flops = float(counter.get_total_flops()) or None
-    if cuda:
-        trainer.train_step(state, batch)
 
     def chain(n: int) -> float:
+        for _ in range(BENCH_WARM):
+            trainer.train_step(state, batch)
         if cuda:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -174,7 +179,16 @@ def bench_step(args, trainer, dataset, state) -> dict:
 
     n1 = max(args.bench_steps // 4, 1)
     n2 = max(args.bench_steps, n1 + 1)
-    step_s = (chain(n2) - chain(n1)) / (n2 - n1)
+    marginals = []
+    for i in range(BENCH_PAIRS):  # in turns: n1 first, then n2 first
+        if i % 2 == 0:
+            t1 = chain(n1)
+            t2 = chain(n2)
+        else:
+            t2 = chain(n2)
+            t1 = chain(n1)
+        marginals.append((t2 - t1) / (n2 - n1))
+    step_s = statistics.median(marginals)
     # the peak is the H100's: a run elsewhere has none to divide by
     peak = PEAK_FLOPS[args.precision] if cuda else None
     row = {"batch": args.batch_size, "segment_frames": args.segment_frames,

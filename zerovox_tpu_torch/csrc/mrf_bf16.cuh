@@ -1,9 +1,10 @@
-// The bf16 tile of the fused HiFi-GAN kernels K1 and K2 (mrf.cu's
-// zv_mrf_bf16, upsample_stage.cu's zv_upsample_stage_bf16): mrf_tc.cuh's
-// tile (one time tile of an MRF stage, every tower, the activations in
-// shared memory, each conv a sum over taps of warp GEMMs, the same items,
-// halos and tower sums) on Hopper's bf16 tensor cores, mma.sync.m16n8k16:
-// twice TF32's rate, 16 input channels a k-step.
+// The bf16 tile of the fused HiFi-GAN kernels K1, K2 and K3 (mrf.cu's
+// zv_mrf_bf16, upsample_stage.cu's zv_upsample_stage_bf16, resblock.cu's
+// zv_resblock1_bf16): mrf_tc.cuh's tile (one time tile of an MRF stage,
+// every tower, the activations in shared memory, each conv a sum over taps
+// of warp GEMMs, the same items, halos and tower sums) on Hopper's bf16
+// tensor cores, mma.sync.m16n8k16: twice TF32's rate, 16 input channels a
+// k-step.
 //
 // Arithmetic: the TPU kernels' bf16 contract, bf16 in, float32 inside, one
 // rounding at the output. The weights are bf16, so exact. Each float32
@@ -34,7 +35,10 @@
 // same tensor-core time as two TF32 m16n8k8 MMAs) and block nf of 8 output
 // channels, lane l holds w[16 ks + 2 (l % 4) + {0, 1}][8 nf + l / 4] and the
 // same at input channel + 8, 8 bytes, so that a warp's fragment is one
-// coalesced 256-byte load from L2 (through L1, one k-step ahead).
+// coalesced 256-byte load, one k-step ahead of its MMAs: from L2 through L1
+// (BL2; K1, K2), or from a copy in shared memory (BSmem, StagedWeights: K3
+// at the widths where a conv's fragments fit beside the tile, copied by
+// cp.async one conv ahead of the conv that reads them).
 #pragma once
 
 #include <cstdint>
@@ -80,10 +84,59 @@ __device__ __forceinline__ float2 lds2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// Lane-fragment i of a conv's B buffer.
-__device__ __forceinline__ uint2 fetch_b(const uint2* __restrict__ w, size_t i) {
-  return __ldg(w + i);
+// A conv's B source: fetch(i) gives lane-fragment i of its fragment buffer.
+// BL2: the buffer in global memory, through L1 from L2.
+struct BL2 {
+  const uint2* __restrict__ w;
+  __device__ __forceinline__ uint2 fetch(size_t i) const { return __ldg(w + i); }
+};
+
+// BSmem: a copy of the buffer in shared memory.
+struct BSmem {
+  const uint2* s;
+  __device__ __forceinline__ uint2 fetch(size_t i) const { return s[i]; }
+};
+
+// Where mrf_tile's convs read their weights. Every thread calls start(w)
+// once before the first conv, use(w, next) before each conv (after the
+// block's barrier), which gives the B source of the conv whose fragments
+// start at w (`next`: the following conv's, or null), and wait() before
+// each barrier that precedes a conv. L2Weights: BL2, nothing to wait for.
+struct L2Weights {
+  __device__ __forceinline__ void start(const uint2*) {}
+  __device__ __forceinline__ BL2 use(const uint2* w, const uint2*) { return BL2{w}; }
+  __device__ __forceinline__ void wait() {}
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(tc::smem_u32(dst)), "l"(src)
+               : "memory");
 }
+
+// StagedWeights: each conv's n lane-fragments (8 bytes each, n even) copied
+// into shared memory, two buffers of n at buf: the copy of the next conv
+// goes out by cp.async, 16 bytes a thread at a time, when the current conv
+// starts, and wait() (cp.async.wait_all) before the barrier between the two
+// makes it complete, so the copy runs under the current conv's MMAs. Every
+// conv of the tile has n lane-fragments (one tower: K3).
+template <int NW>
+struct StagedWeights {
+  uint2* buf;
+  int n;
+  int cur = 0;
+  __device__ __forceinline__ void copy(const uint2* w, uint2* dst) const {
+    for (int i = threadIdx.x; i < n / 2; i += NW * 32) cp_async16(dst + 2 * i, w + 2 * i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  __device__ __forceinline__ void start(const uint2* w) { copy(w, buf); }
+  __device__ __forceinline__ BSmem use(const uint2* w, const uint2* next) {
+    const uint2* here = buf + cur * n;
+    cur ^= 1;
+    if (next != nullptr) copy(next, buf + cur * n);
+    return BSmem{here};
+  }
+  __device__ __forceinline__ void wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+};
 
 // Conv1's A: leaky(0.1) of float32 rows of lda(C) floats, split at the load.
 // Off: this lane's offsets (floats) of its fragment rows g and g + 8.
@@ -147,13 +200,12 @@ struct ASplit {
 };
 
 // out[m][co] = bias[co] + sum_t sum_ci A(m, t, ci) w[t][ci][co] over `ntaps`
-// taps, A the source's two terms of row a0 + m + (t - half) dil; w in
-// m16n8k16 fragment order; epi(row, co, value) takes two finished
-// neighbouring channels. NW warps take the items (32 rows x item_cols(CO)
-// channels) in turn, as tc::conv_tc.
-template <int CI, int CO, int NW = NWARP, class ASrc, class TB, class Epi>
-__device__ void conv(ASrc a, const uint2* __restrict__ w, const TB* __restrict__ bias, int ntaps,
-                     Rows rw, Epi epi) {
+// taps, A the source's two terms of row a0 + m + (t - half) dil; w (a B
+// source: BL2, BSmem) in m16n8k16 fragment order; epi(row, co, value) takes
+// two finished neighbouring channels. NW warps take the items (32 rows x
+// item_cols(CO) channels) in turn, as tc::conv_tc.
+template <int CI, int CO, int NW = NWARP, class ASrc, class BSrc, class TB, class Epi>
+__device__ void conv(ASrc a, BSrc w, const TB* __restrict__ bias, int ntaps, Rows rw, Epi epi) {
   constexpr int KS = k16(CI) / 16, NF = CO / 8;
   constexpr int NFW = item_cols(CO) / 8;  // n fragments of a warp's item
   constexpr int NSL = NF / NFW;               // items across the channels
@@ -180,7 +232,7 @@ __device__ void conv(ASrc a, const uint2* __restrict__ w, const TB* __restrict__
     for (int s = 0; s < B_AHEAD; ++s)
 #pragma unroll
       for (int j = 0; j < NFW; ++j)
-        bq[s][j] = s < nk ? fetch_b(w, wl + ((size_t)s * NF + j) * 32) : make_uint2(0u, 0u);
+        bq[s][j] = s < nk ? w.fetch(wl + ((size_t)s * NF + j) * 32) : make_uint2(0u, 0u);
 #pragma unroll KK_UNROLL
     for (int kk = 0; kk < nk; ++kk) {
       uint32_t b[NFW][2];
@@ -196,7 +248,7 @@ __device__ void conv(ASrc a, const uint2* __restrict__ w, const TB* __restrict__
       if (kk + B_AHEAD < nk) {
 #pragma unroll
         for (int j = 0; j < NFW; ++j)
-          bq[B_AHEAD - 1][j] = fetch_b(w, wl + ((size_t)(kk + B_AHEAD) * NF + j) * 32);
+          bq[B_AHEAD - 1][j] = w.fetch(wl + ((size_t)(kk + B_AHEAD) * NF + j) * 32);
       }
       const int tap = kk / KS, ks = kk - tap * KS;
       const int shift = (tap - rw.half) * rw.dil * ASrc::LD + ks * 16;
@@ -239,51 +291,59 @@ __device__ __forceinline__ void store_split(bf16* Bs, int r, int co, float2 v) {
 }
 
 // tc::mrf_tile on the bf16 arithmetic: all towers of one MRF stage over one
-// tile. A holds W = TT + 2 HW rows of lda(C) floats, Bs W rows of ldb(C)
-// bf16; `load(lo, hi)` fills window rows [lo, hi) of A with the stage input
-// (zero outside [0, T)) and must leave Bs free; the mean over towers of rows
-// [HW - P, HW + TT + P) goes to `o` (o.acc: rows of C + 4 floats). Weights:
-// tower by tower, w1 [P][k] then w2 [P][k] taps in m16n8k16 fragment order
-// (k16(C) x C a tap); biases b1 [P][C] then b2 [P][C].
-template <int C, class Load>
+// tile, NW warps a block. A holds W = TT + 2 HW rows of lda(C) floats, Bs W
+// rows of ldb(C) bf16; `load(lo, hi)` fills window rows [lo, hi) of A with
+// the stage input (zero outside [0, T)) and must leave Bs free; the mean
+// over towers of rows [HW - P, HW + TT + P) goes to `o` (o.acc: rows of C + 4
+// floats). Weights: tower by tower, w1 [P][k] then w2 [P][k] taps in
+// m16n8k16 fragment order (k16(C) x C a tap), read as `weights` says
+// (L2Weights, StagedWeights); biases b1 [P][C] then b2 [P][C].
+template <int C, int NW = NWARP, class Load, class Weights = L2Weights>
 __device__ void mrf_tile(float* A, bf16* Bs, const MrfParamsT<bf16>& p, int HW, int TT, int P,
                          int tbase, int T, size_t gout_row0, const tc::TileOut<bf16>& o,
-                         Load load) {
+                         Load load, Weights weights = {}) {
   constexpr int LA = lda(C), LACC = C + 4;
   const int f_lo = HW - P, f_hi = HW + TT + P;
   auto valid = [&](int r) { return (unsigned)(tbase + r) < (unsigned)T; };
   const uint2* wf = reinterpret_cast<const uint2*>(p.w);
   size_t wofs = 0, bofs = 0;
+  weights.start(wf);
   for (int j = 0; j < p.n_towers; ++j) {
     const int k = p.ks[j];
     const int half = (k - 1) / 2;
     const size_t conv_w = (size_t)k * k16(C) * C / 4;  // lane-fragments (4 bf16) of a conv
     int ext = tower_halo(k, p);
     load(f_lo - ext, f_hi + ext);
+    weights.wait();
     __syncthreads();
     const uint2* w1 = wf + wofs;
     const uint2* w2 = w1 + p.n_pairs * conv_w;
+    const uint2* w_next_tower = j + 1 < p.n_towers ? w1 + 2 * p.n_pairs * conv_w : nullptr;
     const bf16* b1 = p.b + bofs;
     const bf16* b2 = b1 + (size_t)p.n_pairs * C;
     for (int q = 0; q < p.n_pairs; ++q) {
       const int e1 = ext - half * p.dils[q];
-      conv<C, C>(AFloat<C>{A}, w1 + q * conv_w, b1 + q * C, k,
-                 tc::same_rows(f_lo - e1, f_hi + e1, k, p.dils[q]), [&](int r, int co, float2 v) {
-                   store_split<C>(Bs, r, co, valid(r) ? v : make_float2(0.f, 0.f));
-                 });
+      conv<C, C, NW>(AFloat<C>{A}, weights.use(w1 + q * conv_w, w2 + q * conv_w), b1 + q * C, k,
+                     tc::same_rows(f_lo - e1, f_hi + e1, k, p.dils[q]),
+                     [&](int r, int co, float2 v) {
+                       store_split<C>(Bs, r, co, valid(r) ? v : make_float2(0.f, 0.f));
+                     });
+      weights.wait();
       __syncthreads();
       const int e2 = e1 - half;
+      const auto w2q = weights.use(w2 + q * conv_w,
+                                   q + 1 < p.n_pairs ? w1 + (q + 1) * conv_w : w_next_tower);
       if (q + 1 < p.n_pairs) {
-        conv<C, C>(ASplit<C>{Bs}, w2 + q * conv_w, b2 + q * C, k,
-                   tc::same_rows(f_lo - e2, f_hi + e2, k, 1), [&](int r, int co, float2 v) {
-                     float2& d = tc::at2(A + r * LA + co);
-                     d = valid(r) ? tc::add2(d, v) : make_float2(0.f, 0.f);
-                   });
+        conv<C, C, NW>(ASplit<C>{Bs}, w2q, b2 + q * C, k,
+                       tc::same_rows(f_lo - e2, f_hi + e2, k, 1), [&](int r, int co, float2 v) {
+                         float2& d = tc::at2(A + r * LA + co);
+                         d = valid(r) ? tc::add2(d, v) : make_float2(0.f, 0.f);
+                       });
       } else {
         const bool first = j == 0, last = j + 1 == p.n_towers;
         const float n = (float)p.n_towers;
-        conv<C, C>(ASplit<C>{Bs}, w2 + q * conv_w, b2 + q * C, k,
-                   tc::same_rows(f_lo, f_hi, k, 1), [&](int r, int co, float2 v) {
+        conv<C, C, NW>(ASplit<C>{Bs}, w2q, b2 + q * C, k,
+                       tc::same_rows(f_lo, f_hi, k, 1), [&](int r, int co, float2 v) {
           float2 t = valid(r) ? tc::add2(tc::at2(A + r * LA + co), v) : make_float2(0.f, 0.f);
           if (o.gout != nullptr) {
             if (!valid(r)) return;
@@ -300,6 +360,7 @@ __device__ void mrf_tile(float* A, bf16* Bs, const MrfParamsT<bf16>& p, int HW, 
           s = last ? tc::leaky2(make_float2(t.x / n, t.y / n), o.post_slope) : t;
         });
       }
+      weights.wait();
       __syncthreads();
       ext = e2;
     }

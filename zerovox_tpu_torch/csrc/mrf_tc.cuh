@@ -31,7 +31,7 @@
 // staging them in shared memory: at C = 128 one tap is 64 KB, and every byte
 // of shared memory is spent on the tile's rows, which set the halo
 // recompute. A kernel may instead stage each conv's fragments, split once,
-// in shared memory (BShared; resblock.cu at C <= 64, whose one-tower halo is
+// in shared memory (BShared; resblock.cu at C <= 32, whose one-tower halo is
 // small).
 //
 // The tower sum goes to float32 rows in global memory the block owns
@@ -41,16 +41,8 @@
 // conv_post's halo. Every row is written by one thread of one block: no
 // atomics, bitwise repeatable.
 //
-// bf16 (bf16 inference, the TPU kernels' bf16 contract): x, weights, biases
-// and the output are bf16, every intermediate is float32 (the activations in
-// shared memory, the conv outputs, the tower sum), and the output is rounded
-// once. K1 and K2 run it on bf16 tensor-core products (mrf_bf16.cuh). K3
-// runs it on this tile: a bf16 weight is exactly a TF32 value (7 mantissa
-// bits of TF32's 10), so its split has lo == 0 and the hi.lo MMA adds only
-// zeros: the bf16 B source (BGlobalBf16) drops it, two MMAs a product, and
-// streams half the bytes of the float32 fragments from L2. The activations
-// keep their hi/lo split, so K3's result is bitwise the float32 kernel's on
-// the widened inputs, rounded to bf16.
+// bf16 inference runs on the bf16 tile of mrf_bf16.cuh (K1, K2, K3), which
+// shares this tile's items, halos, tower sums and cost model.
 #pragma once
 
 #include <cstdint>
@@ -79,7 +71,6 @@ __device__ __forceinline__ float2 add2(float2 a, float2 b) { return make_float2(
 // (fragment order, 32 a warp), `frag` gives its hi and lo TF32 halves.
 // BGlobal: the float32 buffer through L1 from L2, split at each k-step.
 struct BGlobal {
-  static constexpr bool kLoZero = false;  // the lo halves may be nonzero
   const float2* w;
   __device__ __forceinline__ float2 fetch(size_t i) const { return __ldg(w + i); }
   __device__ __forceinline__ static void frag(float2 f, uint32_t (&h)[2], uint32_t (&l)[2]) {
@@ -91,7 +82,6 @@ struct BGlobal {
 // BShared: staged in shared memory already split, {hi.x, hi.y, lo.x, lo.y}
 // a lane-fragment.
 struct BShared {
-  static constexpr bool kLoZero = false;
   const uint4* w;
   __device__ __forceinline__ uint4 fetch(size_t i) const { return w[i]; }
   __device__ __forceinline__ static void frag(uint4 f, uint32_t (&h)[2], uint32_t (&l)[2]) {
@@ -102,32 +92,13 @@ struct BShared {
   }
 };
 
-// BGlobalBf16: the bf16 buffer (same fragment order, two bf16 a
-// lane-fragment) through L1 from L2; a bf16 value is its own TF32 hi, and
-// its lo is zero.
-struct BGlobalBf16 {
-  static constexpr bool kLoZero = true;
-  const uint32_t* w;
-  __device__ __forceinline__ uint32_t fetch(size_t i) const { return __ldg(w + i); }
-  __device__ __forceinline__ static void frag(uint32_t f, uint32_t (&h)[2], uint32_t (&l)[2]) {
-    h[0] = f << 16;
-    h[1] = f & 0xFFFF0000u;
-    l[0] = l[1] = 0u;
-  }
-};
-
 __device__ __forceinline__ BGlobal l2_weights(const float* w) {
   return BGlobal{reinterpret_cast<const float2*>(w)};
 }
 
-__device__ __forceinline__ BGlobalBf16 l2_weights(const bf16* w) {
-  return BGlobalBf16{reinterpret_cast<const uint32_t*>(w)};
-}
-
 // The weights of mrf_tile's convs, read from L2 (K1, K2).
 struct L2Weights {
-  template <class E>
-  __device__ __forceinline__ auto operator()(const E* w, int /*k*/) const {
+  __device__ __forceinline__ BGlobal operator()(const float* w, int /*k*/) const {
     return l2_weights(w);
   }
 };
@@ -140,11 +111,11 @@ struct Rows {
 
 // out[m][co] = bias[co] + sum_t sum_ci f(src[a0 + m + (t - half) dil][ci]) *
 // w[t][ci][co] over `ntaps` taps, f the leaky relu (slope 0.1) when
-// LEAKY_IN; src has CI + 4 floats a row, ws holds w in fragment order,
-// bias is float or bf16. epi(row, co, value) takes two finished
-// neighbouring channels. NW warps take the items in turn.
-template <int CI, int CO, bool LEAKY_IN, int NW = NWARP, class BSrc, class TB, class Epi>
-__device__ void conv_tc(const float* src, BSrc ws, const TB* __restrict__ bias, int ntaps,
+// LEAKY_IN; src has CI + 4 floats a row, ws holds w in fragment order.
+// epi(row, co, value) takes two finished neighbouring channels. NW warps
+// take the items in turn.
+template <int CI, int CO, bool LEAKY_IN, int NW = NWARP, class BSrc, class Epi>
+__device__ void conv_tc(const float* src, BSrc ws, const float* __restrict__ bias, int ntaps,
                         Rows rw, Epi epi) {
   constexpr int LDI = CI + 4;
   constexpr int KS = CI / 8, NF = CO / 8;
@@ -196,7 +167,7 @@ __device__ void conv_tc(const float* src, BSrc ws, const TB* __restrict__ bias, 
 #pragma unroll
         for (int j = 0; j < NFW; ++j) {
           mma(acc[i][j], al, bh[j]);
-          if constexpr (!BSrc::kLoZero) mma(acc[i][j], ah, bl[j]);
+          mma(acc[i][j], ah, bl[j]);
           mma(acc[i][j], ah, bh[j]);
         }
       }
@@ -242,9 +213,9 @@ struct TileOut {
 // then b2 [P][C]. `weights(w, k)`, called by every thread between convs
 // (after the block's barrier), gives the B source of the conv whose k taps
 // start at w.
-template <int C, int NW = NWARP, class E, class TO, class Load, class Weights = L2Weights>
-__device__ void mrf_tile(float* A, float* Bf, const MrfParamsT<E>& p, int HW, int TT, int P,
-                         int tbase, int T, size_t gout_row0, const TileOut<TO>& o, Load load,
+template <int C, int NW = NWARP, class Load, class Weights = L2Weights>
+__device__ void mrf_tile(float* A, float* Bf, const MrfParams& p, int HW, int TT, int P,
+                         int tbase, int T, size_t gout_row0, const TileOut<float>& o, Load load,
                          Weights weights = {}) {
   constexpr int LD = C + 4;
   const int f_lo = HW - P, f_hi = HW + TT + P;
@@ -257,10 +228,10 @@ __device__ void mrf_tile(float* A, float* Bf, const MrfParamsT<E>& p, int HW, in
     int ext = tower_halo(k, p);
     load(f_lo - ext, f_hi + ext);
     __syncthreads();
-    const E* w1 = p.w + wofs;
-    const E* w2 = w1 + p.n_pairs * conv_w;
-    const E* b1 = p.b + bofs;
-    const E* b2 = b1 + (size_t)p.n_pairs * C;
+    const float* w1 = p.w + wofs;
+    const float* w2 = w1 + p.n_pairs * conv_w;
+    const float* b1 = p.b + bofs;
+    const float* b2 = b1 + (size_t)p.n_pairs * C;
     for (int q = 0; q < p.n_pairs; ++q) {
       const int e1 = ext - half * p.dils[q];
       conv_tc<C, C, true, NW>(A, weights(w1 + q * conv_w, k), b1 + q * C, k,

@@ -44,15 +44,43 @@
 // without one does not compile. The tile is zv::tc::choose_tile's, with
 // towers_cost over one tower.
 //
-// bf16 (zv_resblock1_bf16): the same tile on bf16 x and weights (x widened
-// at the load, B fragments of two bf16 read from L2 at every width, two MMAs
-// a product), the tower's output rounded to bf16 when it is stored: bitwise
-// the float32 kernel on the widened inputs, rounded. Staging bf16 weights
-// at C <= 32 is not done yet (the layout bench_k3_variants.py measured is the
-// float32 one).
+// bf16 (zv_resblock1_bf16): the one-tower case of the bf16 tile of
+// mrf_bf16.cuh (K1's and K2's): bf16 mma.sync.m16n8k16, each float32
+// activation as two bf16 terms (hi = rn(a), lo = rn(a - hi)), two MMAs a
+// product accumulated in float32; conv1's A from the float32 tower state (rows
+// of lda(C) floats, split at the load), conv2's from B (rows of ldb(C) bf16,
+// split once by conv1's epilogue, read by ldmatrix); the weights in m16n8k16
+// fragment order (ops.mrf.mma_fragments_bf16, exact). The residual stream
+// stays float32 and the tower's output is rounded to bf16 once. The bound is
+// two bf16 products a product, 52 GFLOP at [1, 44096, 128] at 989 TFLOP/s,
+// against 23 MB. Its result is within one bf16 step of the plain version
+// with a fraction of a percent of the outputs rounded the other way; it is
+// not bitwise the float32 kernel (tests/test_torch_bf16_mma.py emulates it).
+//
+// The bf16 layout, `Layout<C>::warps_bf16` and `stage_bf16`, timed on an
+// H100 (700 W) by scripts/bench_k3_variants.py's bf16 variants, in turns at
+// bucket 689's shapes (PERF.md):
+//   * a bf16 conv's fragments are exact and need no split, so staging is a
+//     copy: k * k16(C) * C bf16 a conv (24 KB at C = 64, 6 KB at 32, 1.5 KB
+//     at 16, 0.75 KB at 8 with its input channels padded to 16), copied by
+//     cp.async one conv ahead into the second of two buffers after B, so
+//     that the copy runs under the current conv's MMAs and waits only at the
+//     barrier between convs (mrf_bf16.cuh's StagedWeights). Staged at C >=
+//     BF16_STAGE_MIN_C where the two buffers fit in half a block's share:
+//     C = 64 only, 0.1246 ms against 0.1267 from L2 at [1, 88192, 64]. The
+//     narrower widths read B from L2, where L1 holds their few KB: staged,
+//     C = 32 took 0.0767 ms against 0.0747 and C = 16 0.0255 against
+//     0.0245 (C = 8 within 1 %, 0.0225 against 0.0226). At C = 128 the two
+//     buffers (192 KB) do not fit beside a tile: B from L2, as in K1;
+//   * warps a block, BF16_WARPS_C64, _C32, _C16, _C8 (16 at C = 128): the
+//     float32 kernel's 16 / 8 / 16 / 4 held on bf16 too. 8-warp blocks at
+//     C = 64 took 0.1564 ms against 0.1246; at C = 32 16 warps took 0.0808
+//     and 4 warps 0.0969 against 0.0769 with 8; at C = 16 8 warps 0.0265
+//     against 0.0252 with 16; at C = 8 8 warps 0.0279 against 0.0222 with 4.
+#include <cstdint>
 #include <type_traits>
 
-#include "mrf_tc.cuh"
+#include "mrf_bf16.cuh"
 
 namespace {
 
@@ -60,15 +88,28 @@ constexpr int STAGE_MAX_C = 32;  // widths whose conv weights are staged in shar
 constexpr int WARPS_C32 = 8;     // warps of a block at C = 32
 constexpr int WARPS_C16 = 16;    // at C = 16
 constexpr int WARPS_C8 = 4;      // at C = 8 (16 at C = 64, 128)
+// bf16
+constexpr int BF16_STAGE_MIN_C = 64;  // widths whose bf16 conv weights are staged (two buffers)
+constexpr int BF16_WARPS_C64 = 16;    // warps of a bf16 block at C = 64
+constexpr int BF16_WARPS_C32 = 8;     // at C = 32
+constexpr int BF16_WARPS_C16 = 16;    // at C = 16
+constexpr int BF16_WARPS_C8 = 4;      // at C = 8 (16 at C = 128)
 
 // K3's layout at each instantiated width: warps a block, and whether the
-// float32 weights are staged (where they fit in half of a block's share).
+// weights are staged (where they fit in half of a block's share), for the
+// float32 kernel and for the bf16 one.
 template <int C>
 struct Layout {
   static_assert(C == 8 || C == 16 || C == 32 || C == 64 || C == 128,
                 "K3 has no layout for this width");
   static constexpr int warps = C == 8 ? WARPS_C8 : C == 16 ? WARPS_C16 : C == 32 ? WARPS_C32 : 16;
   static constexpr bool stage = C <= STAGE_MAX_C;
+  static constexpr int warps_bf16 = C == 8    ? BF16_WARPS_C8
+                                    : C == 16 ? BF16_WARPS_C16
+                                    : C == 32 ? BF16_WARPS_C32
+                                    : C == 64 ? BF16_WARPS_C64
+                                              : 16;
+  static constexpr bool stage_bf16 = C >= BF16_STAGE_MIN_C;
 };
 
 template <class E>
@@ -128,6 +169,41 @@ resblock_kernel(const E* __restrict__ x, E* __restrict__ out, zv::MrfParamsT<E> 
   }
 }
 
+// The bf16 kernel (mrf_bf16.cuh): A of lda(C) floats a row, B of ldb(C)
+// bf16, and, when STAGE, two buffers of one conv's fragments after B.
+template <int C, int NW, bool STAGE>
+__global__ void __launch_bounds__(NW * 32, 16 / NW)
+resblock_kernel_bf16(const zv::bf16* __restrict__ x, zv::bf16* __restrict__ out,
+                     zv::MrfParamsT<zv::bf16> p, int T, int TT, int HW) {
+  constexpr int LA = zv::bf16x2::lda(C), LB = zv::bf16x2::ldb(C);
+  extern __shared__ __align__(16) float smem[];
+  const int W = TT + 2 * HW;
+  float* A = smem;
+  zv::bf16* Bs = reinterpret_cast<zv::bf16*>(A + W * LA);
+  const int b = blockIdx.y;
+  const int tbase = blockIdx.x * TT - HW;
+  const zv::bf16* xb = x + (size_t)b * T * C;
+  auto load = [&](int lo, int hi) {
+    constexpr int C4 = C / 4;
+    for (int idx = threadIdx.x; idx < (hi - lo) * C4; idx += NW * 32) {
+      const int r = lo + idx / C4, c = (idx % C4) * 4;
+      const int t = tbase + r;
+      zv::at4(A + r * LA + c) = (unsigned)t < (unsigned)T
+                                    ? zv::ldg4(xb + (size_t)t * C + c)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  const zv::tc::TileOut<zv::bf16> o{out, nullptr, 0.f, nullptr};
+  if constexpr (STAGE) {
+    const int n = p.ks[0] * zv::bf16x2::k16(C) * C / 4;  // lane-fragments of a conv
+    zv::bf16x2::mrf_tile<C, NW>(
+        A, Bs, p, HW, TT, 0, tbase, T, (size_t)b * T, o, load,
+        zv::bf16x2::StagedWeights<NW>{reinterpret_cast<uint2*>(Bs + W * LB), n});
+  } else {
+    zv::bf16x2::mrf_tile<C, NW>(A, Bs, p, HW, TT, 0, tbase, T, (size_t)b * T, o, load);
+  }
+}
+
 template <class E>
 struct Plan {
   KernelFn<E> kernel;
@@ -135,32 +211,46 @@ struct Plan {
 };
 
 // The tile of one layout: blocks of NW warps, 16 / NW of them an SM, each
-// with A and B over the window and, when STAGE, one conv's split weights.
+// with A and B over the window and, when STAGE, the staged weights: float32,
+// two windows of C + 4 floats a row, one conv's split weights, the cost in
+// k-steps of 8; bf16, rows of lda(C) floats and ldb(C) bf16, two buffers of
+// one conv's fragments, the cost in k-steps of 16.
 template <int C, int NW, bool STAGE, class E>
 int plan_as(const zv::MrfParamsT<E>& p, int B, int T, Plan<E>* pl) {
-  constexpr int LD = C + 4, BPS = 16 / NW;
+  constexpr bool bf = std::is_same_v<E, zv::bf16>;
+  constexpr int BPS = 16 / NW;
+  constexpr long row_bytes =
+      bf ? 4L * zv::bf16x2::lda(C) + 2L * zv::bf16x2::ldb(C) : 8L * (C + 4);
   const int HW = zv::mrf_halo(p);
-  const long wbytes = STAGE ? 8L * p.ks[0] * C * C : 0;
+  const long wbytes = !STAGE ? 0 : bf ? 2 * 2L * p.ks[0] * zv::bf16x2::k16(C) * C
+                                      : 8L * p.ks[0] * C * C;
   int sms = 0;
   const int e = zv::tc::sm_count(&sms);
   if (e != 0) return e;
-  pl->kernel = resblock_kernel<C, NW, STAGE, E>;
+  if constexpr (bf)
+    pl->kernel = resblock_kernel_bf16<C, NW, STAGE>;
+  else
+    pl->kernel = resblock_kernel<C, NW, STAGE, E>;
   pl->threads = NW * 32;
   pl->TT = zv::tc::choose_tile(
-      T, B, sms * BPS, [&](int tt) { return 8L * (tt + 2 * HW) * LD + wbytes; },
-      [&](int tt) { return zv::tc::towers_cost(p, C, tt, 0, NW); }, &pl->smem,
+      T, B, sms * BPS, [&](int tt) { return row_bytes * (tt + 2 * HW) + wbytes; },
+      [&](int tt) { return zv::tc::towers_cost(p, C, tt, 0, NW, bf ? 16 : 8); }, &pl->smem,
       (zv::SMEM_BUDGET + 1024L) / BPS - 1024);
   return pl->TT == 0 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
-// The layout K3 takes at C (Layout<C>): float32 weights staged where they
-// fit in half of a block's shared memory, else B from L2.
+// The layout K3 takes at C (Layout<C>): weights staged where the layout says
+// and they fit in half of a block's shared memory (float32: one conv split
+// into hi and lo, 8 bytes a weight; bf16: two convs, 2 bytes a weight), else
+// B from L2.
 template <int C, class E>
 int plan(const zv::MrfParamsT<E>& p, int B, int T, Plan<E>* pl) {
-  constexpr int NW = Layout<C>::warps;
-  if constexpr (Layout<C>::stage && std::is_same_v<E, float>) {
+  constexpr bool bf = std::is_same_v<E, zv::bf16>;
+  constexpr int NW = bf ? Layout<C>::warps_bf16 : Layout<C>::warps;
+  if constexpr (bf ? Layout<C>::stage_bf16 : Layout<C>::stage) {
     const long budget = (zv::SMEM_BUDGET + 1024L) / (16 / NW) - 1024;
-    if (2 * 8L * p.ks[0] * C * C <= budget) return plan_as<C, NW, true>(p, B, T, pl);
+    const long staged = bf ? 2 * 2L * p.ks[0] * zv::bf16x2::k16(C) * C : 8L * p.ks[0] * C * C;
+    if (2 * staged <= budget) return plan_as<C, NW, true>(p, B, T, pl);
   }
   return plan_as<C, NW, false>(p, B, T, pl);
 }
@@ -219,10 +309,12 @@ extern "C" int zv_resblock1_f32(const float* x, float* out, const float* w, cons
   return launch(x, out, w, b, B, T, C, k, n_pairs, d0, d1, d2, stream);
 }
 
-// zv_resblock1_f32 on bf16 x, out, w and b (the same layouts).
+// zv_resblock1_f32 on bf16 x, out, w and b, w in m16n8k16 fragment order
+// (mrf_bf16.cuh, the same order of convs; 16-byte aligned).
 extern "C" int zv_resblock1_bf16(const zv::bf16* x, zv::bf16* out, const zv::bf16* w,
                                  const zv::bf16* b, int B, int T, int C, int k, int n_pairs,
                                  int d0, int d1, int d2, void* stream) {
+  if (reinterpret_cast<uintptr_t>(w) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   return launch(x, out, w, b, B, T, C, k, n_pairs, d0, d1, d2, stream);
 }
 
@@ -232,8 +324,7 @@ extern "C" int zv_resblock1_tile(int B, int T, int C, int k, int n_pairs, int d0
   return tile<float>(B, T, C, k, n_pairs, d0, d1, d2);
 }
 
-// The time tile zv_resblock1_bf16 takes (it stages no weights, so at C <=
-// 32 it can differ from zv_resblock1_tile's).
+// The time tile zv_resblock1_bf16 takes, likewise.
 extern "C" int zv_resblock1_bf16_tile(int B, int T, int C, int k, int n_pairs, int d0, int d1,
                                       int d2) {
   return tile<zv::bf16>(B, T, C, k, n_pairs, d0, d1, d2);

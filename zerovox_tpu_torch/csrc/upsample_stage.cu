@@ -190,7 +190,7 @@ stage_kernel_bf16(const zv::bf16* __restrict__ x, zv::bf16* out, float* sum,
       if (r0 < hi) {
         const zv::tc::Rows rw{(hi - r0 + stride - 1) / stride, r0, stride,
                               (tbase + r0 + up_pad - ph) / stride - i_min, 0, -1};
-        zv::bf16x2::conv<CI, CO>(zv::bf16x2::ASplit<CI>{Bs}, wph, up_b, nt, rw,
+        zv::bf16x2::conv<CI, CO>(zv::bf16x2::ASplit<CI>{Bs}, zv::bf16x2::BL2{wph}, up_b, nt, rw,
                                  [&](int r, int co, float2 v) {
           zv::tc::at2(A + r * LA + co) =
               (unsigned)(tbase + r) < (unsigned)T_out ? v : make_float2(0.f, 0.f);

@@ -23,8 +23,8 @@ rounded the other way (not bitwise the float32 kernel's). The bf16 launches
 are counted apart (`fused_mrf.launches_bf16`).
 
 The weights come packed once per weight version (`pack_towers`): the plain
-layout for the CPU, and the kernels' MMA fragment orders (m16n8k8 for the
-float32 kernels and K3, m16n8k16 for the bf16 K1 and K2). The kernel is
+layout for the CPU, and the kernels' MMA fragment order (m16n8k8 for the
+float32 kernels, m16n8k16 for the bf16 K1, K2 and K3). The kernel is
 built for C of 8, 16, 32, 64 and 128 (`KERNEL_CHANNELS`); a stage of
 another width up to 128 runs zero-padded to the next one, as the TPU kernel
 pads to its 128 lanes: `pack_towers` pads the weights once, the wrapper
@@ -116,15 +116,24 @@ def check_towers(name, weights, kernel_sizes, n_pairs, C, width):
                 or tuple(b1.shape) != (n_pairs, C) or tuple(b2.shape) != (n_pairs, C)):
             raise ValueError(f"{name}: tower weights {[tuple(t.shape) for t in (w1, b1, w2, b2)]} "
                              f"do not match C={C}, k={k}, {n_pairs} pairs")
-    n_w = sum(2 * n_pairs * k * width * width for k in kernel_sizes)
-    if (len(weights.towers) != len(kernel_sizes) or weights.w is None or weights.width != width
-            or weights.w.numel() != n_w
+    n_w = sum(2 * n_pairs * k * width for k in kernel_sizes)  # [k, C_in] rows of all convs
+    buf, c_in = ((weights.w16, -(-width // 16) * 16) if weights.w is None else (weights.w, width))
+    if (len(weights.towers) != len(kernel_sizes) or buf is None or weights.width != width
+            or buf.numel() != n_w * c_in
             or weights.b.numel() != 2 * n_pairs * width * len(kernel_sizes)):
         raise ValueError(f"{name}: packed buffers do not hold {len(kernel_sizes)} towers of "
                          f"C={C} at width {width}, kernel sizes {tuple(kernel_sizes)}, "
                          f"{n_pairs} pairs")
-    if weights.w16 is not None and weights.w16.numel() != n_w // width * (-(-width // 16) * 16):
-        raise ValueError(f"{name}: the m16n8k16 buffer does not hold the towers at width {width}")
+
+
+def fragments(name, dtype, f32, bf16):
+    """The fragment buffer the kernel for `dtype` reads: the m16n8k16 one
+    (`bf16`) for bf16 x, the m16n8k8 one (`f32`) otherwise; raises when the
+    weights were packed from the other dtype, which left it None."""
+    buf = bf16 if dtype == torch.bfloat16 else f32
+    if buf is None:
+        raise TypeError(f"{name}: {dtype} x needs weights packed from {dtype} tensors")
+    return buf
 
 
 def tower_args(towers, dilations, kernel_sizes):
@@ -142,10 +151,10 @@ class MrfWeights(NamedTuple):
     """A stage's ResBlock1 towers in both layouts (`pack_towers`)."""
 
     towers: list  # (w1 [P, k, C, C], b1 [P, C], w2, b2) per tower, taps (k, in, out)
-    w: torch.Tensor | None  # every conv's taps in m16n8k8 fragment order, tower by tower
+    w: torch.Tensor | None  # every conv's taps in m16n8k8 fragment order, tower by tower (not bf16)
     b: torch.Tensor  # b1 then b2 of each tower
     width: int | None = None  # the channels w and b are padded to (None: no kernel buffers)
-    w16: torch.Tensor | None = None  # bf16 towers: the taps in m16n8k16 order (bf16 K1, K2)
+    w16: torch.Tensor | None = None  # bf16 towers: the taps in m16n8k16 order (bf16 K1-K3)
 
 
 def mma_fragments(w):
@@ -176,20 +185,20 @@ def mma_fragments_bf16(w):
 
 def pack_towers(towers) -> MrfWeights:
     """The towers and the kernels' buffers built from them, zero-padded to
-    `kernel_channels(C)`: m16n8k8 fragments, and for bf16 towers also the
-    m16n8k16 ones; no fragment buffer past C = 128, where no kernel takes
-    the stage."""
+    `kernel_channels(C)`: m16n8k16 fragments for bf16 towers (`w16`),
+    m16n8k8 ones for others (`w`); no fragment buffer past C = 128, where no
+    kernel takes the stage."""
     width = kernel_channels(towers[0][0].shape[-1])
     if width is None:
         b = torch.cat([t.reshape(-1) for _, b1, _, b2 in towers for t in (b1, b2)])
         return MrfWeights(list(towers), None, b)
     P = towers[0][0].shape[0]
     padded = [pad_to(t, (P, t.shape[1], width, width)) for w1, _, w2, _ in towers for t in (w1, w2)]
-    w = torch.cat([mma_fragments(t) for t in padded])
-    w16 = (torch.cat([mma_fragments_bf16(t) for t in padded])
-           if w.dtype == torch.bfloat16 else None)
     b = torch.cat([pad_to(t, (P, width)).reshape(-1) for _, b1, _, b2 in towers for t in (b1, b2)])
-    return MrfWeights(list(towers), w, b, width, w16)
+    if b.dtype == torch.bfloat16:
+        return MrfWeights(list(towers), None, b, width, torch.cat([mma_fragments_bf16(t)
+                                                                   for t in padded]))
+    return MrfWeights(list(towers), torch.cat([mma_fragments(t) for t in padded]), b, width)
 
 
 def fused_mrf(x, weights: MrfWeights, dilations, kernel_sizes):
@@ -199,7 +208,8 @@ def fused_mrf(x, weights: MrfWeights, dilations, kernel_sizes):
     w2 [P, k, C, C], b2 [P, C]) with conv taps (k, in, out); dilations: the
     P first-conv dilations, shared by every tower; kernel_sizes: k of each
     tower."""
-    refuse_grad("fused_mrf", x, weights.w, weights.b, *[t for tw in weights.towers for t in tw])
+    refuse_grad("fused_mrf", x, weights.w, weights.w16, weights.b,
+                *[t for tw in weights.towers for t in tw])
     if x.device.type == "cpu":
         return mrf_plain(x, weights.towers, dilations)
     B, T, C = x.shape
@@ -210,23 +220,21 @@ def fused_mrf(x, weights: MrfWeights, dilations, kernel_sizes):
     check_towers("fused_mrf", weights, kernel_sizes, len(dilations), C, Ck)
     dtype = _cuda.float_kind("fused_mrf", x)
     xk = pad_to(x, (*x.shape[:-1], Ck))
-    _cuda.require_cuda("fused_mrf", x.device, dtype, xk, weights.w, weights.b)
+    w = fragments("fused_mrf", dtype, weights.w, weights.w16)
+    _cuda.require_cuda("fused_mrf", x.device, dtype, xk, w, weights.b)
     out = torch.empty_like(xk)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _cuda.lib("mrf")
     if dtype == torch.bfloat16:
-        if weights.w16 is None:
-            raise ValueError("fused_mrf: bf16 x needs bf16 towers (pack_towers of bf16 weights)")
-        _cuda.require_cuda("fused_mrf", x.device, dtype, weights.w16)
         # the towers' float32 sums (the last tower's mean goes to out)
         sums = torch.empty(xk.shape, device=x.device) if len(weights.towers) > 1 else None
         err = lib.zv_mrf_bf16(xk.data_ptr(), out.data_ptr(),
-                              None if sums is None else sums.data_ptr(), weights.w16.data_ptr(),
+                              None if sums is None else sums.data_ptr(), w.data_ptr(),
                               weights.b.data_ptr(), B, T, Ck, *args, stream)
         _cuda.check(err, "fused_mrf")
         fused_mrf.launches_bf16 += 1
     else:
-        err = lib.zv_mrf_f32(xk.data_ptr(), out.data_ptr(), weights.w.data_ptr(),
+        err = lib.zv_mrf_f32(xk.data_ptr(), out.data_ptr(), w.data_ptr(),
                              weights.b.data_ptr(), B, T, Ck, *args, stream)
         _cuda.check(err, "fused_mrf")
         fused_mrf.launches += 1

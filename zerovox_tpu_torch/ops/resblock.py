@@ -9,19 +9,25 @@ x [B, T, C]:
     `zerovox_tpu/ops/pallas/resblock.py::fused_resblock1`. On an H100 the
     tower is bound by arithmetic (36 C^2 FLOP per row at k=3, P=3); the
     kernel keeps a time tile and the tower's halo in shared memory across
-    all 2P convs, runs each conv as tensor-core GEMMs in 3xTF32 on K1's
-    tile (`csrc/mrf_tc.cuh`) and writes the output once (design notes in
-    the source);
+    all 2P convs, runs each conv as tensor-core GEMMs on K1's tile, in
+    3xTF32 on float32 (`csrc/mrf_tc.cuh`) and on bf16 tensor-core products
+    on bf16 (`csrc/mrf_bf16.cuh`), and writes the output once (design notes
+    in the source);
   * on a CPU tensor it runs `resblock1_plain`, the same function in plain
     PyTorch.
 
 Float32 or bf16 (bf16 inference): on bf16 x and weights every intermediate
 stays float32 and the tower's output is rounded to bf16 once, as the TPU
-kernel does; bf16 launches are counted apart (`fused_resblock1.launches_bf16`).
+kernel does. The bf16 kernel feeds each activation to bf16 MMAs as two bf16
+terms (hi and the rest), as the bf16 K1 does: its result is within one bf16
+step of the plain version's, with at most 1 % of the outputs (chip_smoke.py's
+BF16X2_SHARE) rounded the other way; it is not bitwise the float32 kernel's.
+bf16 launches are counted apart (`fused_resblock1.launches_bf16`).
 
-The kernel reads the tower's weights in MMA fragment order,
-`ops.mrf.pack_towers([tower])`: a caller that runs one weight version many
-times (the vocoder) packs once and passes `packed=`. Like K1 the kernel is
+The kernel reads the tower's weights in MMA fragment order (m16n8k8 on
+float32, m16n8k16 on bf16), `ops.mrf.pack_towers([tower])`: a caller that
+runs one weight version many times (the vocoder) packs once and passes
+`packed=`. Like K1 the kernel is
 built for C of 8, 16, 32, 64 and 128; other widths up to 128 run
 zero-padded to the next (weights padded by `pack_towers`, x per call, the
 output cut back). There is no fallback:
@@ -36,7 +42,7 @@ import torch
 
 from zerovox_tpu_torch.ops import _cuda
 from zerovox_tpu_torch.ops.mrf import (KERNEL_CHANNELS, MrfWeights, _torch_convs, check_towers,
-                                       kernel_channels, pack_towers, pad_to,
+                                       fragments, kernel_channels, pack_towers, pad_to,
                                        refuse_grad, resblock1_ncl)
 
 
@@ -58,7 +64,7 @@ def fused_resblock1(x, w1, b1, w2, b2, dilations, packed: MrfWeights | None = No
     convs; b1, b2: [P, C]; dilations: the P first-conv dilations; packed:
     `pack_towers([(w1, b1, w2, b2)])`, built here when not given."""
     refuse_grad("fused_resblock1", x, w1, b1, w2, b2,
-                *((packed.w, packed.b) if packed is not None else ()))
+                *((packed.w, packed.w16, packed.b) if packed is not None else ()))
     if x.device.type == "cpu":
         return resblock1_plain(x, w1, b1, w2, b2, dilations)
     if x.dim() != 3:
@@ -78,12 +84,13 @@ def fused_resblock1(x, w1, b1, w2, b2, dilations, packed: MrfWeights | None = No
     check_towers("fused_resblock1", packed, (k,), P, C, Ck)
     dtype = _cuda.float_kind("fused_resblock1", x)
     xk = pad_to(x, (*x.shape[:-1], Ck))
-    _cuda.require_cuda("fused_resblock1", x.device, dtype, xk, packed.w, packed.b)
+    w = fragments("fused_resblock1", dtype, packed.w, packed.w16)
+    _cuda.require_cuda("fused_resblock1", x.device, dtype, xk, w, packed.b)
     ds = list(dilations) + [0] * (3 - P)
     out = torch.empty_like(xk)
     lib = _cuda.lib("resblock")
     fn = lib.zv_resblock1_bf16 if dtype == torch.bfloat16 else lib.zv_resblock1_f32
-    err = fn(xk.data_ptr(), out.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(), B, T, Ck, k,
+    err = fn(xk.data_ptr(), out.data_ptr(), w.data_ptr(), packed.b.data_ptr(), B, T, Ck, k,
              P, *ds, torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(err, "fused_resblock1")
     if dtype == torch.bfloat16:

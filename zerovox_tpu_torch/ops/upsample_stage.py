@@ -43,9 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from zerovox_tpu_torch.ops import _cuda
-from zerovox_tpu_torch.ops.mrf import (LRELU_SLOPE, MrfWeights, check_towers, mma_fragments,
-                                       mma_fragments_bf16, mrf_plain, pad_to, refuse_grad,
-                                       tower_args, widen)
+from zerovox_tpu_torch.ops.mrf import (LRELU_SLOPE, MrfWeights, check_towers, fragments,
+                                       mma_fragments, mma_fragments_bf16, mrf_plain, pad_to,
+                                       refuse_grad, tower_args, widen)
 
 # (C_in, C_out) instantiated in the source, narrowest first
 KERNEL_WIDTHS = ((16, 8), (32, 16), (64, 32), (128, 64))
@@ -64,10 +64,10 @@ class UpsamplerWeights(NamedTuple):
     w: torch.Tensor  # [k, C_in, C_out]: torch's taps (the weight (in, out, k) permuted, not flipped)
     b: torch.Tensor  # [C_out]
     stride: int
-    frag: torch.Tensor | None  # taps grouped by phase, padded to `widths`, in MMA fragment order
+    frag: torch.Tensor | None  # taps grouped by phase, padded to `widths`, m16n8k8 order (not bf16)
     frag_b: torch.Tensor | None = None  # b padded to widths[1]
     widths: tuple[int, int] | None = None  # kernel_widths(C_in, C_out)
-    frag16: torch.Tensor | None = None  # bf16: frag's taps in m16n8k16 order (the bf16 K2)
+    frag16: torch.Tensor | None = None  # bf16: the same taps in m16n8k16 order (the bf16 K2)
 
 
 def phase_taps(k: int, stride: int) -> list[int]:
@@ -78,16 +78,18 @@ def phase_taps(k: int, stride: int) -> list[int]:
 
 def pack_upsampler(w, b, stride: int) -> UpsamplerWeights:
     """w [k, C_in, C_out] torch taps, b [C_out] -> both layouts, the
-    kernel's padded to `kernel_widths` (no fragment buffer when no kernel
-    width holds the stage)."""
+    kernel's padded to `kernel_widths`: m16n8k16 fragments for bf16 taps
+    (`frag16`), m16n8k8 ones for others (`frag`); no fragment buffer when no
+    kernel width holds the stage."""
     k, ci, co = w.shape
     widths = kernel_widths(ci, co)
     if widths is None:
         return UpsamplerWeights(w, b, stride, None)
     taps = pad_to(w, (k, *widths))[phase_taps(k, stride)]
-    frag16 = mma_fragments_bf16(taps) if w.dtype == torch.bfloat16 else None
-    return UpsamplerWeights(w, b, stride, mma_fragments(taps), pad_to(b, (widths[1],)), widths,
-                            frag16)
+    if w.dtype == torch.bfloat16:
+        return UpsamplerWeights(w, b, stride, None, pad_to(b, (widths[1],)), widths,
+                                mma_fragments_bf16(taps))
+    return UpsamplerWeights(w, b, stride, mma_fragments(taps), pad_to(b, (widths[1],)), widths)
 
 
 def upsample_stage_plain(x, up_w, up_b, stride, up_padding, towers, dilations, post=None):
@@ -117,7 +119,7 @@ def fused_upsample_stage(x, up: UpsamplerWeights, up_padding, mrf: MrfWeights, d
     when post = (w [k, C_out, 1], b [1]) is given. T_out = (T_in - 1) *
     stride + k - 2 * up_padding. up: `pack_upsampler` of the transposed
     conv; mrf, dilations, kernel_sizes: the towers as in ops.mrf.fused_mrf."""
-    refuse_grad("fused_upsample_stage", x, up.w, up.b, up.frag, mrf.w, mrf.b,
+    refuse_grad("fused_upsample_stage", x, up.w, up.b, up.frag, up.frag16, mrf.w, mrf.w16, mrf.b,
                 *[t for tw in mrf.towers for t in tw], *(post or ()))
     if x.device.type == "cpu":
         return upsample_stage_plain(x, up.w, up.b, up.stride, up_padding, mrf.towers, dilations,
@@ -149,28 +151,26 @@ def fused_upsample_stage(x, up: UpsamplerWeights, up_padding, mrf: MrfWeights, d
         out = torch.empty(B, T_out, Co, device=x.device, dtype=x.dtype)
     dtype = _cuda.float_kind("fused_upsample_stage", x)
     xk = pad_to(x, (*x.shape[:-1], Ci))
-    _cuda.require_cuda("fused_upsample_stage", x.device, dtype, xk, up.frag, up.frag_b, mrf.w,
-                       mrf.b, pw, pb)
+    up_frag = fragments("fused_upsample_stage", dtype, up.frag, up.frag16)
+    w = fragments("fused_upsample_stage", dtype, mrf.w, mrf.w16)
+    _cuda.require_cuda("fused_upsample_stage", x.device, dtype, xk, up_frag, up.frag_b, w, mrf.b,
+                       pw, pb)
     lib = _cuda.lib("upsample_stage")
     rest = (mrf.b.data_ptr(), pw.data_ptr(), pb.data_ptr(), B, T_in, Ci, Co, up_k, up.stride,
             up_padding, post_k, *args, torch.cuda.current_stream(x.device).cuda_stream)
     if dtype == torch.bfloat16:
-        if up.frag16 is None or mrf.w16 is None:
-            raise ValueError("fused_upsample_stage: bf16 x needs bf16 weights (pack_upsampler "
-                             "and pack_towers of bf16 tensors)")
-        _cuda.require_cuda("fused_upsample_stage", x.device, dtype, up.frag16, mrf.w16)
         # the towers' float32 sums, without post (with it they stay in shared memory)
         sums = (torch.empty(B, T_out, Co, device=x.device)
                 if post is None and len(mrf.towers) > 1 else None)
         err = lib.zv_upsample_stage_bf16(xk.data_ptr(), out.data_ptr(),
                                          None if sums is None else sums.data_ptr(),
-                                         up.frag16.data_ptr(), up.frag_b.data_ptr(),
-                                         mrf.w16.data_ptr(), *rest)
+                                         up_frag.data_ptr(), up.frag_b.data_ptr(), w.data_ptr(),
+                                         *rest)
         _cuda.check(err, "fused_upsample_stage")
         fused_upsample_stage.launches_bf16 += 1
     else:
-        err = lib.zv_upsample_stage_f32(xk.data_ptr(), out.data_ptr(), up.frag.data_ptr(),
-                                        up.frag_b.data_ptr(), mrf.w.data_ptr(), *rest)
+        err = lib.zv_upsample_stage_f32(xk.data_ptr(), out.data_ptr(), up_frag.data_ptr(),
+                                        up.frag_b.data_ptr(), w.data_ptr(), *rest)
         _cuda.check(err, "fused_upsample_stage")
         fused_upsample_stage.launches += 1
     fused_upsample_stage.launches_at[widths] = fused_upsample_stage.launches_at.get(widths, 0) + 1
