@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile DIR   # also torch.profiler breakdowns of tts_ex (float32
                                           # and bf16) and of a train step, in DIR/profile_*.txt
     python3 chip_smoke.py --only 12 --repeat 20 [--dump DIR]
-                                          # phases 1-2, then phase 12 (18, 19, 20) alone, 20 times:
+                                          # phases 1-2, then phase 12 (18-21) alone, 20 times:
                                           # each repeat's failure is recorded and the run goes
                                           # on; exits nonzero if any repeat failed. --dump
                                           # writes phase 12's variance predictions per repeat
@@ -178,8 +178,9 @@ Phases, in order; any failure exits nonzero:
    the JAX trainer's vocoder-0000.msgpack (`save_jax_state`) and as the
    port's .pt, each restored and run one more round: losses and weights
    bitwise; (d) two child processes building and loading the kernels with
-   ZEROVOX_COMPILE_CACHE on one fresh directory: 4 misses with build
-   seconds, then 4 hits with saved seconds, both `format_cache_stats()`
+   ZEROVOX_COMPILE_CACHE on one fresh directory: a miss with build seconds
+   for each library (`len(_cuda.SIGNATURES)`, five), then as many hits with
+   saved seconds, both `format_cache_stats()`
    lines printed. `--profile` adds (a)'s and (b)'s device splits.
 20. Tensor parallelism on the one card: two gloo ranks on cuda:0 (NCCL
    refuses two ranks on one device; the library's default stays NCCL)
@@ -205,6 +206,33 @@ Phases, in order; any failure exits nonzero:
    count, printed with each rank's peak memory and the 1 x 2 step's ms in
    turns with the one-process step (two ranks share the card: no speed
    result).
+
+21. Flash attention (K5, `ZEROVOX_ATTN=flash`; phases 1-20 run with it unset
+   and launch no K5): K5's forward at the serving decoder's [1, 2, 1024,
+   264] and the training decoder's [24, 2, 512, 264], and its backward
+   (dK/dV, dQ, both) at the training shape, float32 and bf16, on views of
+   [B, L, h, d] tensors with per-row valid lengths from seed 21, each
+   against its plain version (float32 within 5e-4; bf16 within one bf16
+   step of the largest output forward and two backward), timed beside it
+   and beside scaled_dot_product_attention on the boolean segment mask,
+   with the forward's query tile; the main-path engine at full width on
+   bench.py's text twice (204 phones, text bucket 256) at 5 frames a phone
+   (mel bucket 1024): tts_ex under flash launches K5's forward 10 times (4
+   encoder, 6 decoder layers), its waveform within 1e-3 of the same engine
+   on the einsum path and of a CPU run of the port under flash, the bf16
+   engine under flash (10 bf16 K5 launches) within phase 15's bound of the
+   card's float32, tts_stream and tts_batch at B = 2 under flash within
+   1e-3 of the einsum path's, 10 launches each, RTF and the encode and
+   decode stages' device ms flash against einsum in turns; phase 6's training configuration and corpus
+   (batch 24, mel bucket 512, text bucket 128) from the same weights and
+   batch under flash and einsum: float32 losses within 1e-4 relative and
+   gradients within 1e-3 x each tensor's max (the speaker encoder's, on
+   batch statistics, in aggregate as phase 7), bf16-mixed losses within
+   5e-2 of float32 and gradients no further from float32's than 1.5 x the
+   einsum bf16-mixed step's, 6 + 6 + 6 K5 launches a step (forward, dK/dV,
+   dQ; bf16 ones in bf16-mixed) and none on einsum, 12 + 6 + 6 with remat;
+   train_step's device ms and peak memory flash against einsum in turns,
+   both precisions. `--only 21` runs it after phases 1-2.
 
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -288,6 +316,18 @@ PP_EMIT_TOL, PP_MEL_TOL, PP_ENERGY_RTOL = 1e-4, 1e-4, 1e-5  # card against CPU
 DP_STEPS, DP_REL_TOL, DP_TIME_ROUNDS = 2, 1e-6, 3
 # tensor parallel (phase 20): steps a precision in each comparison
 TP_STEPS = 2
+# flash attention (phase 21): tts_medium's head dim 528 / 2 at the serving
+# decoder's mel bucket 1024 and the training decoder's batch 24 x bucket 512;
+# bench.py's text twice (204 phones, text bucket 256) at 5 frames a phone
+FLASH_SERVE_SHAPE = (1, 2, 1024, 264)
+FLASH_TRAIN_SHAPE = (24, 2, 512, 264)
+FLASH_REPEAT, FLASH_FRAMES = 2, 5
+K5_SOURCE = "zerovox_tpu_torch/csrc/flash_attn.cu"
+_K5_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+K5_REPLACES = {"fwd": f"zerovox_tpu/models/fs2.py:114 -> {_K5_LIB}:758",
+               "dkv": f"zerovox_tpu/models/fs2.py:114 -> {_K5_LIB}:1121",
+               "dq": f"zerovox_tpu/models/fs2.py:114 -> {_K5_LIB}:1456",
+               "bwd": f"zerovox_tpu/models/fs2.py:114 -> {_K5_LIB}:1121, :1456"}
 
 
 class PhaseFailed(SystemExit):
@@ -367,10 +407,12 @@ def random_towers(torch, gen, C, kernel_sizes, n_pairs, dev):
 
 
 def measure(torch, rows, name, source, replaces, shape, fn, plain, flop, nbytes, method="f32",
-            **extra) -> None:
+            library=None, **extra) -> None:
     """A kernel against its plain version on the same inputs (max abs diff
     < KERNEL_TOL), then both timed with CUDA events; appends its row, with
-    the bound of its method (and the float32 bound beside a tensor-core one)."""
+    the bound of its method (and the float32 bound beside a tensor-core one)
+    and the time of `library`, a PyTorch call computing the same function,
+    where one is given."""
     from zerovox_tpu_torch.utils.profiling import cuda_time_ms
 
     got = fn()
@@ -386,7 +428,8 @@ def measure(torch, rows, name, source, replaces, shape, fn, plain, flop, nbytes,
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "gflop": flop / 1e9, "method": method, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": None, **extra}
+           "library_ms": None if library is None else cuda_time_ms(library, iters=5, warmup=1),
+           **extra}
     if method != "f32":
         row["bound_f32_ms"] = bound(flop, nbytes)[0]
     print(json.dumps(row), flush=True)
@@ -400,6 +443,7 @@ def bf16_step(t) -> float:
 
 
 def measure_bf16(torch, rows, name, source, replaces, shape, fn, f32_fn, plain, flop, nbytes,
+                 method="bf16x2", max_share=BF16X2_SHARE, steps=1, library=None,
                  **extra) -> None:
     """A bf16 variant of K1-K3 (bf16 inference: bf16 tensor-core products,
     two terms an activation) against its plain version (float32 on the
@@ -407,7 +451,10 @@ def measure_bf16(torch, rows, name, source, replaces, shape, fn, f32_fn, plain, 
     output, with at most BF16X2_SHARE of the outputs differing from plain's
     rounding. Timed beside the plain version and the float32 kernel on the
     widened inputs (f32_fn). Bound: two bf16 products a product ("bf16x2"),
-    the former two TF32 products beside it; bytes at bf16 widths."""
+    the former two TF32 products beside it; bytes at bf16 widths. K5 in bf16
+    passes method "bf16" (one bf16 product a product), its own number of
+    `steps` and no share (max_share None: the share is printed), and the
+    PyTorch call it is held beside (`library`, timed as library_ms)."""
     from zerovox_tpu_torch.utils.profiling import cuda_time_ms
 
     got = fn()
@@ -418,20 +465,24 @@ def measure_bf16(torch, rows, name, source, replaces, shape, fn, f32_fn, plain, 
           f"{name}: {got.dtype} {tuple(got.shape)} against plain {ref.dtype} {tuple(ref.shape)}")
     check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
     share = (got != ref).float().mean().item()
-    check(share <= BF16X2_SHARE,
-          f"{name}: {share:.4%} of outputs differ from plain's rounding (at most "
-          f"{BF16X2_SHARE:.0%})")
+    if max_share is not None:
+        check(share <= max_share, f"{name}: {share:.4%} of outputs differ from plain's rounding "
+                                  f"(at most {max_share:.0%})")
     err, step = (got.float() - ref.float()).abs().max().item(), bf16_step(ref)
-    check(err <= step, f"{name}: max abs diff {err} against the plain version, one step {step}")
+    check(err <= steps * step,
+          f"{name}: max abs diff {err} against the plain version, {steps} step(s) of {step}")
     del got, ref
     ms, plain_ms = cuda_time_ms(fn, iters=10, warmup=2), cuda_time_ms(plain, iters=5, warmup=1)
     f32_ms = cuda_time_ms(f32_fn, iters=10, warmup=2)
-    bound_ms, bound_by = bound(flop, nbytes, "bf16x2")
+    bound_ms, bound_by = bound(flop, nbytes, method)
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "shape": shape, "max_abs_err": err, "bf16_step": step, "share_off_plain": share,
            "ms": ms, "plain_ms": plain_ms, "f32_kernel_ms": f32_ms, "gflop": flop / 1e9,
-           "method": "bf16x2", "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-           "bound_2xtf32_ms": bound(flop, nbytes, "2xtf32")[0], **extra}
+           "method": method, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None if library is None else cuda_time_ms(library, iters=5, warmup=1),
+           **extra}
+    if method == "bf16x2":
+        row["bound_2xtf32_ms"] = bound(flop, nbytes, "2xtf32")[0]
     print(json.dumps(row), flush=True)
     rows.append(row)
 
@@ -1021,7 +1072,17 @@ def kernel_counts() -> dict:
                                                se_conv_bwd_bf16)}
     counts.update({f"{f.__name__}_bf16": f.launches_bf16
                    for f in (fused_mrf, fused_upsample_stage, fused_resblock1)})
+    counts.update(k5_counts())
     return counts
+
+
+def k5_counts() -> dict:
+    """K5's launches: forward, dK/dV and dQ, float32 and bf16."""
+    from zerovox_tpu_torch.ops.flash_attention import KERNELS
+
+    out = {f.__name__: f.launches for f in KERNELS}
+    out.update({f"{f.__name__}_bf16": f.launches_bf16 for f in KERNELS})
+    return out
 
 
 def k4_bf16_counts():
@@ -1042,6 +1103,15 @@ def zero_counts() -> None:
     c.se_conv_fwd_bf16.launches = c.se_conv_bwd_bf16.launches = 0
     for f in (a.fused_mrf, b.fused_resblock1, d.fused_upsample_stage):
         f.launches_at.clear()
+
+
+def zero_k5_counts() -> None:
+    """K5's counts, apart from zero_counts: phases 1-20 leave them at 0
+    (ZEROVOX_ATTN unset), which main checks before phase 21."""
+    from zerovox_tpu_torch.ops.flash_attention import KERNELS
+
+    for f in KERNELS:
+        f.launches = f.launches_bf16 = 0
 
 
 def batch_inputs(engine, spk_wavs):
@@ -3045,6 +3115,7 @@ def parallel_phase(torch, dev, card: str, refwav, sr: int, profile_dir=None) -> 
     import torch.distributed as dist
 
     from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.ops import _cuda
     from zerovox_tpu_torch.ops.mrf import fused_mrf
     from zerovox_tpu_torch.ops.upsample_stage import fused_upsample_stage
     from zerovox_tpu_torch.parallel.mesh import MeshConfig, initialize_distributed, make_mesh
@@ -3169,7 +3240,7 @@ def parallel_phase(torch, dev, card: str, refwav, sr: int, profile_dir=None) -> 
                 print(f"compile cache child {len(runs) + 1}: {line}", flush=True)
                 runs.append({"line": line, "stats": json.loads(stats),
                              "wall_s": time.perf_counter() - t0})
-            n = 4
+            n = len(_cuda.SIGNATURES)
             first, second = runs[0]["stats"], runs[1]["stats"]
             check(first["misses"] == n and first["hits"] == 0 and first["backend_compile_sec"] > 0,
                   f"the first process: {runs[0]['line']}")
@@ -3516,6 +3587,394 @@ def tensor_parallel_phase(torch, dev, card: str) -> dict:
     return out
 
 
+def set_attention(kind: str | None) -> None:
+    """ZEROVOX_ATTN for the model's next forward: "flash", or None (unset:
+    the einsum path)."""
+    if kind is None:
+        os.environ.pop("ZEROVOX_ATTN", None)
+    else:
+        os.environ["ZEROVOX_ATTN"] = kind
+
+
+def k5_bytes(shape, esize: int, tensors: int, row_vectors: int) -> float:
+    """Bytes K5 must move at [B, h, L, d]: `tensors` of the shape in and
+    out, `row_vectors` float32 [B, h, L] (lse, D), the int32 segment ids."""
+    B, h, L, d = shape
+    return tensors * B * h * L * d * esize + row_vectors * B * h * L * 4 + B * L * 4
+
+
+def k5_rows(torch, dev) -> list[dict]:
+    """Phase 21's kernel rows: K5's forward at the serving decoder's and the
+    training decoder's shapes, and its backward (dK/dV, dQ, both) at the
+    training shape, float32 and bf16, each against its plain version (the
+    backward against autograd of the plain version), with
+    scaled_dot_product_attention on the boolean segment mask timed beside
+    it. Inputs from seed 21, views of [B, L, h, d] tensors as the model
+    passes them; segment ids with per-row valid lengths from the seed."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from zerovox_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(21)
+    rows: list[dict] = []
+
+    def inputs(shape):
+        B, h, L, d = shape
+
+        def t():
+            x = rng.normal(size=(B, L, h, d)).astype(np.float32)
+            return torch.from_numpy(x).to(dev).transpose(1, 2)
+
+        n = rng.integers(L // 2, L + 1, size=B)
+        n[0] = L
+        seg = torch.from_numpy((np.arange(L)[None] >= n[:, None]).astype(np.int32)).to(dev)
+        return t(), t(), t(), seg, t(), [int(v) for v in n]
+
+    def grads_of(f, q, k, v, seg, scale, do):
+        """(a function returning f's three gradients by autograd, its leaves)"""
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        o = f(qg, kg, vg, seg, scale)
+        return lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)
+
+    for label, shape in (("", FLASH_SERVE_SHAPE), ("_train", FLASH_TRAIN_SHAPE)):
+        B, h, L, d = shape
+        q, k, v, seg, do, lengths = inputs(shape)
+        scale = 1.0 / math.sqrt(d)
+        mask = seg[:, None, :, None] == seg[:, None, None, :]
+
+        def sdpa(q, k, v, seg, scale):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+        fwd_flop = 4.0 * B * h * L * L * d
+        extra = {"tile_rows": fa.fwd_tile(B, h, L), "valid_lengths": lengths[:4]}
+        for bf in (False, True):
+            qx, kx, vx, dox = (x.to(torch.bfloat16) if bf else x for x in (q, k, v, do))
+            name = f"flash_fwd{label}" + ("_bf16" if bf else "")
+            fn = lambda: fa.flash_fwd(qx, kx, vx, seg, scale)[0]  # noqa: E731
+            plain = lambda: fa.flash_attention_plain(qx, kx, vx, seg, scale)  # noqa: E731
+            lib = lambda: sdpa(qx, kx, vx, seg, scale)  # noqa: E731
+            nbytes = k5_bytes(shape, 2 if bf else 4, 4, 1)
+            if bf:
+                w = [x.float() for x in (qx, kx, vx)]
+                measure_bf16(torch, rows, name, K5_SOURCE, K5_REPLACES["fwd"], list(shape), fn,
+                             lambda: fa.flash_fwd(*w, seg, scale)[0], plain, fwd_flop, nbytes,
+                             method="bf16", max_share=None, steps=1, library=lib, **extra)
+            else:
+                measure(torch, rows, name, K5_SOURCE, K5_REPLACES["fwd"], list(shape), fn, plain,
+                        fwd_flop, nbytes, method="3xtf32", library=lib, **extra)
+            if not label:
+                continue
+            # the backward at the training shape: each kernel and both
+            o, lse = fa.flash_fwd(qx, kx, vx, seg, scale)
+            plain_g = grads_of(fa.flash_attention_plain, qx, kx, vx, seg, scale, dox)
+            lib_g = grads_of(sdpa, qx, kx, vx, seg, scale, dox)
+            for part, flop, tensors, kernel, pick in (
+                    ("dkv", 8.0, 6, lambda: fa.flash_bwd_dkv(qx, kx, vx, o, lse, dox, seg, scale),
+                     lambda g: g[1:]),
+                    ("dq", 6.0, 5, lambda: (fa.flash_bwd_dq(qx, kx, vx, o, lse, dox, seg, scale),),
+                     lambda g: g[:1]),
+                    ("", 10.0, 7, lambda: fa.flash_bwd(qx, kx, vx, o, lse, dox, seg, scale),
+                     lambda g: g)):
+                name = "flash_bwd" + (f"_{part}" if part else "") + ("_bf16" if bf else "")
+                fn = lambda kernel=kernel: torch.stack(kernel())  # noqa: E731
+                plain = lambda pick=pick: torch.stack(pick(plain_g()))  # noqa: E731
+                lib = lib_g if not part else None
+                flop_b = flop * B * h * L * L * d
+                nbytes = k5_bytes(shape, 2 if bf else 4, tensors, 2)
+                if bf:
+                    w = [x.float() for x in (qx, kx, vx, o, lse, dox)]
+                    w[4] = lse
+                    f32 = {"dkv": lambda: fa.flash_bwd_dkv(*w, seg, scale),
+                           "dq": lambda: fa.flash_bwd_dq(*w, seg, scale),
+                           "": lambda: fa.flash_bwd(*w, seg, scale)}[part]
+                    measure_bf16(torch, rows, name, K5_SOURCE, K5_REPLACES[part or "bwd"],
+                                 list(shape), fn, f32, plain, flop_b, nbytes, method="bf16",
+                                 max_share=None, steps=2, library=lib,
+                                 valid_lengths=lengths[:4])
+                else:
+                    measure(torch, rows, name, K5_SOURCE, K5_REPLACES[part or "bwd"],
+                            list(shape), fn, plain, flop_b, nbytes, method="3xtf32",
+                            library=lib, valid_lengths=lengths[:4])
+            del o, lse, plain_g, lib_g
+        del q, k, v, do, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def flash_serving(torch, card: str, refwav, sr: int) -> dict:
+    """Phase 21's serving run: the main-path engine at full width (seed 0)
+    on bench.py's text twice (204 phones, text bucket 256) at FLASH_FRAMES
+    frames a phone (mel bucket 1024): tts_ex under ZEROVOX_ATTN=flash (K5's
+    forward 10 times: 4 encoder and 6 decoder layers) against the same
+    engine on the einsum path (no K5) and a CPU run of the port under flash,
+    within WAV_TOL; the bf16 engine under flash (the bf16 K5, 10 times)
+    within phase 15's bound of the card's float32; tts_stream (against the
+    einsum path's stream) and tts_batch at B = 2 (against the einsum
+    path's) under flash within WAV_TOL, 10 launches each; RTF and the
+    encode and decode stages' device ms, flash against einsum in turns."""
+    import numpy as np
+
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.synthesize import MEL_BUCKETS, TEXT_BUCKETS, ZeroVoxTTS, pick_bucket
+    from zerovox_tpu_torch.utils.profiling import RtfStats, cuda_time_ms
+
+    engine = ZeroVoxTTS.from_random(seed=0)
+    text = " ".join([TEXT] * FLASH_REPEAT)
+    ids, puncts = engine.text2phonemeids(text)
+    n = len(ids)
+    dur = np.full(n, FLASH_FRAMES, dtype=np.int32)
+    text_b, mel_b = pick_bucket(n, TEXT_BUCKETS), pick_bucket(n * FLASH_FRAMES, MEL_BUCKETS)
+    check(text_b == 256 and mel_b == 1024, f"flash text: {n} phones, buckets {text_b}, {mel_b}")
+    spk = engine.speaker_embed(refwav)
+    layers = engine.cfg.model.encoder.fs2_layer + engine.cfg.model.decoder.n_layers
+
+    def run(eng, kind, spk):
+        set_attention(kind)
+        zero_k5_counts()
+        wav = eng.tts_ex(text, spk, duration=dur)[0]
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        return wav, k5_counts()
+
+    want_f32 = {k: 0 for k in k5_counts()}
+    want_f32["flash_fwd"] = layers
+    wav_f, n_f = run(engine, "flash", spk)
+    check(n_f == want_f32, f"flash tts_ex launched K5 {n_f}, not the forward {layers} times")
+    wav_e, n_e = run(engine, None, spk)
+    check(not any(n_e.values()), f"the einsum tts_ex launched K5: {n_e}")
+    peak = float(np.max(np.abs(wav_e)))
+    check(wav_f.shape == wav_e.shape == (n * FLASH_FRAMES * engine.cfg.audio.hop_size,)
+          and bool(np.isfinite(wav_f).all()), f"flash wav {wav_f.shape}, einsum {wav_e.shape}")
+    err_e = float(np.max(np.abs(wav_f - wav_e)))
+    check(peak > 0 and err_e < WAV_TOL * min(peak, 1.0),
+          f"flash tts_ex differs from einsum by {err_e} (peak {peak})")
+    sd, meldec_sd = engine.state_dicts()
+    cpu = ZeroVoxTTS(engine.cfg, sd, HifiGanConfig(), meldec_sd, device="cpu")
+    wav_c, _ = run(cpu, "flash", spk.cpu())
+    err_c = float(np.max(np.abs(wav_f - wav_c)))
+    check(err_c < WAV_TOL * min(peak, 1.0), f"flash tts_ex differs from the CPU by {err_c}")
+    del cpu
+    e16 = ZeroVoxTTS(engine.cfg, sd, HifiGanConfig(), meldec_sd, precision="bf16")
+    wav_16, n_16 = run(e16, "flash", spk)
+    want_16 = {k: 0 for k in k5_counts()}
+    want_16["flash_fwd_bf16"] = layers
+    check(n_16 == want_16, f"the bf16 flash tts_ex launched K5 {n_16}")
+    err_16, tol_16 = float(np.max(np.abs(wav_16 - wav_f))), min(BF16_WAV_TOL, BF16_WAV_REL * peak)
+    check(bool(np.isfinite(wav_16).all()) and err_16 <= tol_16,
+          f"bf16 flash tts_ex {err_16} from the card's float32 (bound {tol_16})")
+    del e16
+
+    # tts_stream and tts_batch (B = 2) under flash: one encode and one decode each
+    set_attention("flash")
+    zero_k5_counts()
+    streamed = np.concatenate(list(engine.tts_stream(text, spk, duration=dur)))
+    torch.cuda.synchronize()
+    n_s = k5_counts()
+    zero_k5_counts()
+    rows = engine.tts_batch([text, text], torch.cat([spk, spk]), durations=[dur, dur])
+    torch.cuda.synchronize()
+    n_b = k5_counts()
+    set_attention(None)
+    # against the einsum path's stream: the same vocoder windows
+    streamed_e = np.concatenate(list(engine.tts_stream(text, spk, duration=dur)))
+    err_s = float(np.max(np.abs(streamed - streamed_e))) \
+        if streamed.shape == streamed_e.shape == wav_f.shape else math.inf
+    check(n_s == want_f32 and err_s < WAV_TOL * min(peak, 1.0),
+          f"flash tts_stream: K5 {n_s}, {err_s} from the einsum stream")
+    rows_e = engine.tts_batch([text, text], torch.cat([spk, spk]), durations=[dur, dur])
+    err_b = max(float(np.max(np.abs(w - we))) if w.shape == we.shape == wav_f.shape else math.inf
+                for (w, _), (we, _) in zip(rows, rows_e))
+    check(n_b == want_f32 and err_b < WAV_TOL * min(peak, 1.0),
+          f"flash tts_batch at B=2: K5 {n_b}, rows {err_b} from the einsum path's")
+
+    enc, _, _ = engine._encode(ids, puncts, spk, dur)
+    turns = {"flash": [], "einsum": []}
+    for kind in ("flash", "einsum", "einsum", "flash"):
+        set_attention(kind if kind == "flash" else None)
+        stats = RtfStats(warmup=2)
+        for _ in range(8):
+            t0 = time.perf_counter()
+            w, _, _, _ = engine.tts_ex(text, spk, duration=dur)
+            stats.add(w.shape[0] / sr, time.perf_counter() - t0)
+        turns[kind].append({
+            "rtf": stats.mean_rtf,
+            "encode_ms": cuda_time_ms(lambda: engine._encode(ids, puncts, spk, dur), iters=10),
+            "decode_ms": cuda_time_ms(lambda: engine._decode(enc, spk, mel_b), iters=10)})
+    set_attention(None)
+    out = {"card": card, "phones": n, "text_bucket": text_b, "mel_bucket": mel_b,
+           "launches": n_f, "launches_bf16": n_16, "wav_peak": peak,
+           "flash_vs_einsum_max_abs": err_e, "flash_vs_cpu_max_abs": err_c,
+           "bf16_vs_f32_max_abs": err_16, "bf16_bound": tol_16, "stream_vs_einsum_stream": err_s,
+           "batch2_vs_einsum_batch2": err_b, "turns": turns}
+    print(json.dumps({"flash_serving": out}), flush=True)
+    return out
+
+
+def grad_gap(a: dict, b: dict, names) -> float:
+    """||a - b|| / ||b|| over the named gradients."""
+    num = sum(((a[n].double() - b[n].double()) ** 2).sum().item() for n in names)
+    return (num / max(sum((b[n].double() ** 2).sum().item() for n in names), 1e-300)) ** 0.5
+
+
+def flash_training(torch, card: str) -> dict:
+    """Phase 21's training run: phase 6's configuration and corpus (tts_medium,
+    the fused stage 1, batch 24, mel bucket 512, text bucket 128: the encoder
+    stays on the einsum path), one forward_backward from the same weights and
+    batch (the same dropout masks) under flash and under einsum, in float32
+    and in bf16-mixed (the CLI's default): K5's forward, dK/dV and dQ 6 times
+    each (the decoder's layers) under flash and never under einsum; float32
+    losses within STEP_LOSS_RTOL and gradients within STEP_GRAD_TOL x each
+    tensor's max (the speaker encoder's, under batch statistics, in
+    aggregate within SPK_BATCH_STATS_TOL, as phase 7); bf16-mixed losses
+    within MIXED_LOSS_RTOL of float32 einsum and its gradients no further
+    from float32 einsum's than 1.5 x the bf16-mixed einsum step's. A remat
+    step under flash re-runs the forward (12 + 6 + 6). Then train_step's
+    device ms and peak memory, flash against einsum in turns, each precision."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from zerovox_tpu_torch.training.data import SpeechDataModule
+    from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig, device_batch
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    cfg = train_config(fused=True)
+    out = {"card": card}
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        root = Path(tmp)
+        write_corpus(root, "train", cfg.symbols(), cfg.audio.num_mels, TRAIN_UTTS, (80, 100), seed=0)
+        dm = SpeechDataModule([{"path": {"preprocessed_path": "train"}}], cfg.symbols(), STATS,
+                              batch_size=TRAIN_BATCH, num_workers=4, seed=0, base_path=str(root))
+        dm.prepare_data()
+        batch = device_batch(next(iter(dm.train_dataloader(0))), "cuda")
+        text_b, mel_b = batch["phoneme"].shape[1], batch["mel"].shape[1]
+        check(mel_b == 512 and batch["mel"].shape[0] == TRAIN_BATCH,
+              f"flash training batch: mel {tuple(batch['mel'].shape)}")
+        per_step = cfg.model.decoder.n_layers + (
+            cfg.model.encoder.fs2_layer if text_b % 128 == 0 and text_b >= 256 else 0)
+
+        def tcfg(precision):
+            return TrainerConfig(max_epochs=1, warmup_epochs=1, seed=0, precision=precision,
+                                 out_folder=str(root / "model"))
+
+        sd = Trainer(cfg, tcfg("32"), steps_per_epoch=2).init_state().model.state_dict()
+
+        def step(trainer, state, kind):
+            set_attention(kind)
+            zero_k5_counts()
+            losses = trainer.forward_backward(state, batch)
+            torch.cuda.synchronize()
+            grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()
+                     if p.grad is not None}
+            return {k: v.item() for k, v in losses.items()}, grads, k5_counts()
+
+        def want(kind, suffix, fwd=per_step):
+            n = {k: 0 for k in k5_counts()}
+            if kind == "flash":
+                n.update({f"flash_fwd{suffix}": fwd, f"flash_bwd_dkv{suffix}": per_step,
+                          f"flash_bwd_dq{suffix}": per_step})
+            return n
+
+        trainers, runs = {}, {}
+        for precision, suffix in (("32", ""), ("bf16-mixed", "_bf16")):
+            trainer = Trainer(cfg, tcfg(precision), steps_per_epoch=2)
+            state = trainer.init_state(sd)
+            trainers[precision] = (trainer, state)
+            for kind in ("flash", "einsum"):
+                losses, grads, n = step(trainer, state, kind if kind == "flash" else None)
+                check(n == want(kind, suffix), f"{precision} {kind} step launched K5 {n}")
+                check(all(np.isfinite(v) for v in losses.values()), f"{precision} {kind}: {losses}")
+                runs[(precision, kind)] = (losses, grads, n)
+
+        # float32: flash against einsum
+        (l_f, g_f, n_f), (l_e, g_e, _) = runs[("32", "flash")], runs[("32", "einsum")]
+        loss_err = {k: abs(l_f[k] - l_e[k]) / max(abs(l_e[k]), 1e-30) for k in l_e}
+        check(max(loss_err.values()) <= STEP_LOSS_RTOL, f"flash f32 losses {l_f} vs einsum {l_e}")
+        check(g_f.keys() == g_e.keys(), "flash and einsum steps differ in their gradients")
+        floor = 1e-3 * max(g.abs().max().item() for g in g_e.values())
+        spk = [k for k in g_e if k.startswith("_spkemb.")]
+        worst = {k: (g_f[k] - g_e[k]).abs().max().item() / max(g_e[k].abs().max().item(), floor)
+                 for k in g_e}
+        held = {k: v for k, v in worst.items() if k not in spk}
+        bad = {k: v for k, v in held.items() if v > STEP_GRAD_TOL}
+        check(not bad, f"flash f32 gradients off einsum's: {dict(list(bad.items())[:5])}")
+        spk_gap = grad_gap(g_f, g_e, spk)
+        check(spk_gap <= SPK_BATCH_STATS_TOL, f"flash f32 speaker-encoder gradients {spk_gap}")
+        out["f32"] = {"losses_flash": l_f, "losses_einsum": l_e, "loss_rel_err": loss_err,
+                      "worst_grad_rel_err": max(held.values()),
+                      "worst_grad": max(held, key=held.get), "spkemb_l2_rel_err": spk_gap,
+                      "spkemb_worst_rel_err": max(worst[k] for k in spk), "launches": n_f}
+
+        # bf16-mixed: each against float32 einsum
+        (l_fb, g_fb, n_fb), (l_eb, g_eb, _) = (runs[("bf16-mixed", "flash")],
+                                               runs[("bf16-mixed", "einsum")])
+        names = list(g_e)
+        gap_f, gap_e = grad_gap(g_fb, g_e, names), grad_gap(g_eb, g_e, names)
+        loss_err16 = {k: abs(l_fb[k] - l_e[k]) / max(abs(l_e[k]), 1e-30) for k in l_e}
+        check(max(loss_err16.values()) <= MIXED_LOSS_RTOL, f"bf16 flash losses {l_fb} vs {l_e}")
+        check(gap_f <= 1.5 * gap_e, f"bf16 flash gradients {gap_f} from float32, einsum's {gap_e}")
+        out["bf16_mixed"] = {"losses_flash": l_fb, "losses_einsum": l_eb,
+                             "loss_rel_err_vs_f32": loss_err16, "grad_gap_flash_vs_f32": gap_f,
+                             "grad_gap_einsum_vs_f32": gap_e, "launches": n_fb}
+        del runs
+
+        # remat: the recomputation re-runs K5's forward
+        rcfg = dc.replace(cfg, model=dc.replace(cfg.model, remat=True))
+        rtrainer = Trainer(rcfg, tcfg("32"), steps_per_epoch=2)
+        l_r, g_r, n_r = step(rtrainer, rtrainer.init_state(sd), "flash")
+        check(n_r == want("flash", "", fwd=2 * per_step), f"the remat flash step launched K5 {n_r}")
+        remat_err = max((g_r[k] - g_f[k]).abs().max().item()
+                        / max(g_f[k].abs().max().item(), floor) for k in g_f if k not in spk)
+        check(abs(l_r["loss"] - l_f["loss"]) <= STEP_LOSS_RTOL * abs(l_f["loss"])
+              and remat_err <= STEP_GRAD_TOL, f"remat flash step: {l_r} vs {l_f}, {remat_err}")
+        out["remat"] = {"launches": n_r, "loss": l_r["loss"], "worst_grad_rel_err": remat_err}
+        del rtrainer, g_r, g_f, g_e, g_fb, g_eb
+
+        # train_step in turns: device ms and peak memory
+        for precision, (trainer, state) in trainers.items():
+            turns = {"flash": [], "einsum": []}
+            for kind in ("flash", "einsum", "einsum", "flash"):
+                set_attention(kind if kind == "flash" else None)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_time_ms(lambda: trainer.train_step(state, batch), iters=3, warmup=1)
+                turns[kind].append({"ms": ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+            out[f"step_turns_{precision}"] = turns
+        set_attention(None)
+        out.update({"text_bucket": text_b, "mel_bucket": mel_b, "batch": TRAIN_BATCH,
+                    "k5_per_step": per_step})
+        del trainers
+    torch.cuda.empty_cache()
+    print(json.dumps({"flash_training": out}), flush=True)
+    return out
+
+
+def flash_phase(torch, dev, card: str, refwav, sr: int) -> dict:
+    """Phase 21: K5's rows, then its serving and training paths; the rows'
+    launches are those paths' counts (the float32 and bf16 forward from
+    tts_ex at bucket 1024, the training rows from the float32 and bf16-mixed
+    steps)."""
+    t0 = time.perf_counter()
+    rows = k5_rows(torch, dev)
+    serve = flash_serving(torch, card, refwav, sr)
+    train = flash_training(torch, card)
+    for row in rows:
+        name = row["name"]
+        bf = name.endswith("_bf16")
+        suffix = "_bf16" if bf else ""
+        if name.startswith("flash_fwd") and "_train" not in name:
+            row["launches"] = serve["launches_bf16" if bf else "launches"][f"flash_fwd{suffix}"]
+            continue
+        counts = train["bf16_mixed" if bf else "f32"]["launches"]
+        kernel = name.removesuffix("_bf16").replace("_train", "")
+        # a whole backward pass ("flash_bwd") launches dK/dV and dQ once each
+        row["launches"] = counts[("flash_bwd_dq" if kernel == "flash_bwd" else kernel) + suffix]
+    return {"rows": rows, "serving": serve, "training": train,
+            "phase_s": time.perf_counter() - t0}
+
+
 def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
     """torch.profiler over `calls` calls of fn: device time by kernel, the
     device's busy share of the window (the union of the kernels' and
@@ -3572,7 +4031,7 @@ def arg_value(flag: str, default=None):
 
 def only_phases(torch, dev, card: str, kind: str, count: int) -> None:
     """`--only N[,M] --repeat R [--dump DIR]`: after phases 1-2, run phases
-    12, 18, 19 and/or 20 alone, R times each. A repeat's failed check is recorded with
+    12, 18, 19, 20 and/or 21 alone, R times each. A repeat's failed check is recorded with
     its message and the run goes on; a summary line lists them, and the
     exit code is 1 if any repeat failed."""
     import numpy as np
@@ -3588,7 +4047,8 @@ def only_phases(torch, dev, card: str, kind: str, count: int) -> None:
             18: ("preprocessing and tools", lambda: preprocess_phase(torch, dev, card)),
             19: ("data parallel, serving mesh, resume, compile cache",
                  lambda: parallel_phase(torch, dev, card, refwav, sr, profile_dir)),
-            20: ("tensor parallel", lambda: tensor_parallel_phase(torch, dev, card))}
+            20: ("tensor parallel", lambda: tensor_parallel_phase(torch, dev, card)),
+            21: ("flash attention", lambda: flash_phase(torch, dev, card, refwav, sr))}
     wanted = [int(v) for v in arg_value("--only").split(",")]
     check(all(n in runs for n in wanted), f"--only takes phases {sorted(runs)}")
     repeat = int(arg_value("--repeat", 1))
@@ -3633,6 +4093,7 @@ def main() -> None:
 
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     card = card_line()
+    set_attention(None)  # phases 1-20 on the einsum path; phase 21 sets flash where it runs it
     print(f"device: {kind} (count {count}); torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(card)
     use_full_f32()  # TF32 off: matmuls and cuDNN convolutions in full float32
@@ -3875,6 +4336,11 @@ def main() -> None:
     # ---- 20. tensor parallel: a 1 x 2 data x model mesh, two gloo ranks on the card
     phase("tensor parallel")
     tensor_parallel_phase(torch, dev, card)
+
+    # ---- 21. flash attention: K5 on the serving and training paths under ZEROVOX_ATTN=flash
+    check(not any(k5_counts().values()), f"phases 1-20 launched K5: {k5_counts()}")
+    phase("flash attention")
+    rows += flash_phase(torch, dev, card, refwav, sr)["rows"]
 
     # ---- results
     print(card)

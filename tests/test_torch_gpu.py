@@ -12,6 +12,12 @@ output (2^(floor(log2 max) - 7)) of their plain versions (float32 on the
 widened inputs, rounded once), and, their bf16 products taking each
 activation as two bf16 terms, leave at most 1 % of the outputs off the plain
 version's rounding (and at most 3 of a result of fewer than 300 values).
+Flash attention (K5) in float32 is within 5e-4 of its plain version forward
+and within 1e-4 x each gradient's largest value backward (3xTF32 products);
+in bf16 its output is within one bf16 step of the plain output's largest
+value and its gradients within two (P and dS rounded to bf16 before their
+products, in the online softmax's order, against the plain version's
+normalized P and float32 dS).
 """
 
 import numpy as np
@@ -1181,3 +1187,86 @@ def test_forced_align_torch_on_card_matches_native(cuda, seed):
     want, want_scores = forced_align(em, targets)
     np.testing.assert_array_equal(tok.cpu().numpy(), want)
     np.testing.assert_array_equal(scores.cpu().numpy(), want_scores)
+
+
+# ------------------------------------------------------------ K5: flash attention
+
+def _attn_inputs(rng, B, h, L, d, dev, dtype=torch.float32, strided=False):
+    """q, k, v [B, h, L, d] (strided: views of [B, L, h, d] tensors, as the
+    model passes them), segment ids with per-row valid lengths (row 0 full),
+    and an output cotangent."""
+    def t():
+        x = torch.tensor(rng.normal(size=(B, L, h, d)).astype(np.float32)).to(dev, dtype)
+        return x.transpose(1, 2) if strided else x.transpose(1, 2).contiguous()
+
+    n = rng.integers(L // 2, L + 1, size=B)
+    n[0] = L
+    seg = torch.tensor((np.arange(L)[None] >= n[:, None]).astype(np.int32)).to(dev)
+    return t(), t(), t(), seg, t()
+
+
+FLASH_SHAPES = [(2, 2, 256, 24), (1, 2, 1024, 264), (2, 2, 384, 136), (2, 2, 512, 256)]
+
+
+def _flash_grads(fn, q, k, v, seg, do, scale):
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    o = fn(q, k, v, seg, scale)
+    o.backward(do)
+    return o.detach(), q.grad, k.grad, v.grad
+
+
+@pytest.mark.parametrize("B,h,L,d", FLASH_SHAPES)
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, B, h, L, d, strided, dtype):
+    from zerovox_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    rng = np.random.default_rng(L + d)
+    q, k, v, seg, do = _attn_inputs(rng, B, h, L, d, cuda, dtype, strided)
+    scale = 1.0 / np.sqrt(d)
+    got = _flash_grads(flash_attention, q, k, v, seg, do, scale)
+    want = _flash_grads(flash_attention_plain, q, k, v, seg, do, scale)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == dtype, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        err = (g.float() - w.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            bound = (1 if name == "o" else 2) * bf16_step(w.float())
+        else:
+            bound = TOL if name == "o" else 1e-4 * w.abs().max().item()
+        assert err <= bound, f"{name}: {err} > {bound}"
+    if strided:
+        assert got[0].stride() == q.stride() and got[1].stride() == q.stride()
+
+
+def test_flash_attention_counts_and_repeats(cuda):
+    from zerovox_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(3)
+    q, k, v, seg, do = _attn_inputs(rng, 4, 2, 512, 264, cuda, strided=True)
+    before = [(f.launches, f.launches_bf16) for f in fa.KERNELS]
+    a = _flash_grads(fa.flash_attention, q, k, v, seg, do, 0.1)
+    b = _flash_grads(fa.flash_attention, q, k, v, seg, do, 0.1)
+    after = [(f.launches, f.launches_bf16) for f in fa.KERNELS]
+    assert [(x - y, z - w) for (x, z), (y, w) in zip(after, before)] == [(2, 0)] * 3
+    for x, y in zip(a, b):
+        assert torch.equal(x, y), "K5 is not bitwise repeatable"
+    assert fa.fwd_tile(1, 2, 1024) == 16 and fa.fwd_tile(24, 2, 512) == 64
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    from zerovox_tpu_torch.ops.flash_attention import flash_attention, flash_fwd
+
+    def qkv(L, d, dtype=torch.float32):
+        return [torch.zeros(1, 2, L, d, device=cuda, dtype=dtype) for _ in range(3)]
+
+    for args, what in ((qkv(256, 12), "head dim"), (qkv(256, 280), "head dim"),
+                       (qkv(100, 24), "multiple of 64"), (qkv(256, 24, torch.float16), "float16")):
+        with pytest.raises((ValueError, TypeError), match=what):
+            flash_attention(*args, None, 1.0)
+    q, k, v = qkv(256, 24)
+    with pytest.raises(ValueError, match="segment ids"):
+        flash_fwd(q, k, v, torch.zeros(1, 256, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_fwd(q.cpu(), k.cpu(), v.cpu())

@@ -94,7 +94,7 @@ def _spawn_async(fn, tmp, *args):
 
     def run():
         try:
-            pmesh.spawn(fn, 2, *args, str(tmp))
+            pmesh.spawn(fn, 2, *args, str(tmp), devices=["cpu"] * 2)
         except BaseException as e:  # re-raised in the test's thread
             errors.append(e)
 
@@ -420,3 +420,25 @@ def test_mesh_defaults_need_the_card(monkeypatch, tmp_path):
                                      num_processes=1, process_id=0)
     assert not dist.is_initialized()
     assert pmesh.make_mesh(devices=["cpu"]).devices == (torch.device("cpu"),)
+
+
+def test_spawn_without_devices_needs_the_cards(monkeypatch):
+    """spawn with no devices puts rank r on cuda:r: without enough cards it
+    raises before it starts any process; CPU ranks are asked for by name."""
+    import torch.multiprocessing as mp
+
+    started = []
+    monkeypatch.setattr(mp, "start_processes", lambda *a, **k: started.append(1))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="only 0 CUDA device"):
+        pmesh.spawn(_mesh_rank_noop, 2)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="only 1 CUDA device"):
+        pmesh.spawn(_mesh_rank_noop, 2)
+    assert not started
+    pmesh.spawn(_mesh_rank_noop, 2, devices=["cpu"] * 2)
+    assert started == [1]
+
+
+def _mesh_rank_noop(rank: int) -> None:
+    pass

@@ -243,7 +243,7 @@ def spawned(tmp_path_factory):
             pmesh.spawn(ranks.tp_steps, 4, {k: copy.deepcopy(v) for k, v in cfgs.items()},
                         {k: _copies(v) for k, v in sds.items()}, batch,
                         (port_gcfg(), port_dcfg(8), tcfg, _copies(nets), vbatch), str(tmp),
-                        mesh=pmesh.MeshConfig(data=2, model=2))
+                        devices=["cpu"] * 4, mesh=pmesh.MeshConfig(data=2, model=2))
         except BaseException as e:  # re-raised in the test's thread
             errors.append(e)
 

@@ -10,21 +10,37 @@ its parameters and inputs (bf16 in bf16-mixed training): the position
 tables are cast to the activations' dtype, as the JAX module does, and the
 pitch/energy bins come from the targets in that dtype. Module names follow the
 upstream state_dict keys (`_phoneme_encoder._encoder.layer_stack.0.slf_attn.w_qs.weight`,
-...). Attention is the plain einsum path: -inf key mask, softmax in float32; it
-runs the heads its q, k, v projections give it (this rank's under tensor
-parallelism, parallel/tensor.py).
-Padded positions are zeroed after every block.
+...). Attention runs the heads its q, k, v projections give it (this rank's
+under tensor parallelism, parallel/tensor.py) on one of two paths, chosen
+as the JAX module chooses (`flash_eligible`): the einsum path (-inf key
+mask, softmax in float32), or under ZEROVOX_ATTN=flash at lengths that are
+multiples of 128 from 256 up, flash attention (`ops.flash_attention`, kernel
+K5 on the card) with the pad mask as segment ids. The two agree on valid
+positions; padded positions are zeroed after every block.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn as nn
 
 from zerovox_tpu_torch.config import DecoderConfig, ModelConfig
 from zerovox_tpu_torch.models.layers import SCLN, Conv, Dropout, NLCConv1d, position_table, remat
+from zerovox_tpu_torch.ops.flash_attention import flash_attention
 from zerovox_tpu_torch.ops.length_regulator import length_regulate
 from zerovox_tpu_torch.symbols import Symbols
+
+
+def flash_eligible(seq_len: int) -> bool:
+    """Whether attention over seq_len positions takes flash attention:
+    only under ZEROVOX_ATTN=flash (unset, `auto`, `einsum` or any other
+    value: the einsum path), at lengths that are multiples of 128 from 256
+    up (the JAX package's `_flash_eligible`)."""
+    if os.environ.get("ZEROVOX_ATTN", "auto") != "flash":
+        return False
+    return seq_len % 128 == 0 and seq_len >= 256
 
 
 class MultiHeadAttention(nn.Module):
@@ -40,7 +56,7 @@ class MultiHeadAttention(nn.Module):
         self.scln = scln
         self.layer_norm = SCLN(d_model) if scln else nn.LayerNorm(d_model)
 
-    def forward(self, x, spk_emb, attn_mask):
+    def forward(self, x, spk_emb, attn_mask, pad_mask=None):
         B, L, _ = x.shape
         q = self.w_qs(x)
         # the heads present: all of them, or this rank's under tensor parallelism
@@ -49,11 +65,18 @@ class MultiHeadAttention(nn.Module):
         k = self.w_ks(x).view(B, L, h, self.d_k)
         v = self.w_vs(x).view(B, L, h, self.d_v)
         scale = 1.0 / float(self.d_k) ** 0.5
-        attn = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-        if attn_mask is not None:
-            attn = attn.masked_fill(attn_mask[:, None, :, :], float("-inf"))
-        attn = torch.softmax(attn, dim=-1).to(x.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, L, h * self.d_v)
+        if self.d_k == self.d_v and pad_mask is not None and flash_eligible(L):
+            # pads form their own segment: valid queries never see them, pad
+            # queries see pads only (their rows are zeroed by the caller)
+            o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                pad_mask.to(torch.int32), scale)
+            out = o.transpose(1, 2).reshape(B, L, h * self.d_v)
+        else:
+            attn = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+            if attn_mask is not None:
+                attn = attn.masked_fill(attn_mask[:, None, :, :], float("-inf"))
+            attn = torch.softmax(attn, dim=-1).to(x.dtype)
+            out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, L, h * self.d_v)
         out = self.dropout(self.fc(out)) + x
         return self.layer_norm(out, spk_emb) if self.scln else self.layer_norm(out)
 
@@ -90,7 +113,7 @@ class FFTBlock(nn.Module):
         self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size, scln, dropout)
 
     def forward(self, x, spk_emb, pad_mask, attn_mask):
-        out = self.slf_attn(x, spk_emb, attn_mask).masked_fill(pad_mask[..., None], 0.0)
+        out = self.slf_attn(x, spk_emb, attn_mask, pad_mask).masked_fill(pad_mask[..., None], 0.0)
         return self.pos_ffn(out, spk_emb).masked_fill(pad_mask[..., None], 0.0)
 
 

@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the exported functions (every one returns a cudaError_t)
 SIGNATURES = {
     "mrf": {"zv_mrf_f32": [_P] * 4 + [_I] * 11 + [_P], "zv_mrf_tile": [_I] * 11,
@@ -51,6 +52,13 @@ SIGNATURES = {
                 "zv_se_conv_bf16_blocks": [_I] * 4, "zv_se_conv_bf16_design": [_I] * 2,
                 "zv_se_conv_fwd_bf16": [_P] * 9 + [_I] * 4 + [_P],
                 "zv_se_conv_bwd_bf16": [_P] * 12 + [_I] * 4 + [_P]},
+    "flash_attn": {"zv_flash_fwd_f32": [_P] * 6 + [_I] * 7 + [_F, _P],
+                   "zv_flash_fwd_bf16": [_P] * 6 + [_I] * 7 + [_F, _P],
+                   "zv_flash_dkv_f32": [_P] * 9 + [_I] * 7 + [_F, _P],
+                   "zv_flash_dkv_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
+                   "zv_flash_dq_f32": [_P] * 8 + [_I] * 7 + [_F, _P],
+                   "zv_flash_dq_bf16": [_P] * 8 + [_I] * 7 + [_F, _P],
+                   "zv_flash_fwd_tile": [_I] * 3},
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,229 @@
+"""Flash attention: kernel K5, forward, dK/dV and dQ.
+
+`flash_attention(q, k, v, segment_ids, sm_scale)` computes
+
+    o = softmax(sm_scale * q k^T + mask) v,  mask = 0 where the query's and the
+                                             key's segment ids are equal, else
+                                             MASK_VALUE
+
+on the layout of the JAX library function it stands for
+(`jax.experimental.pallas.ops.tpu.flash_attention`, which the JAX package's
+`models/fs2.py` calls under ZEROVOX_ATTN=flash): q, k, v [B, h, L, d],
+segment ids [B, L] int32 (or None: no mask), o in q's dtype. Strided views
+are taken as they are as long as the head dim is contiguous, so the model
+passes `q.transpose(1, 2)` of its [B, L, h, d] projections without a copy,
+and o (and on the backward dq, dk, dv) comes back with q's strides.
+
+  * On CUDA tensors it launches the hand-written Hopper kernels of
+    `csrc/flash_attn.cu` through `FlashAttention`, an autograd Function that
+    saves q, k, v, o and the float32 log-sum-exp of each row, and whose
+    backward launches the dK/dV kernel and the dQ kernel. They replace the
+    library's three TPU kernels (forward, dK/dV, dQ). float32 runs 3xTF32
+    tensor-core products, bf16 bf16 ones with float32 accumulation and P (and
+    dS) rounded to bf16 before their products, as the library does;
+    D = rowsum(dO * O) is a float32 reduction here, as the library computes
+    it outside its kernels. Bound by operations on an H100; the design notes
+    are in the source.
+  * On CPU tensors it runs `flash_attention_plain`, the same function by
+    masked softmax with float32 scores, differentiated by autograd.
+
+There is no fallback: a CUDA tensor the kernels do not take (d not a
+multiple of 8 or above 272, L not a multiple of 64, another dtype, k or v
+shaped or strided unlike q) raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from zerovox_tpu_torch.ops import _cuda
+
+# the library's DEFAULT_MASK_VALUE: finite, so a row whose first key tile is
+# all masked does not produce NaN in an online softmax
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+MAX_HEAD_DIM = 272
+L_MULTIPLE = 64
+
+
+def flash_attention_plain(q, k, v, segment_ids=None, sm_scale: float = 1.0):
+    """K5 in plain PyTorch: float32 scores and softmax, P rounded to v's
+    dtype before P.V (float32 accumulation), o in q's dtype."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if segment_ids is not None:
+        same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+        s = s + torch.where(same, 0.0, MASK_VALUE)
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def _kind(name: str, q) -> str:
+    if q.dtype == torch.float32:
+        return "f32"
+    if q.dtype == torch.bfloat16:
+        return "bf16"
+    raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {q.dtype}")
+
+
+def _check(name: str, q, *others) -> None:
+    """Raise unless q and every other [B, h, L, d] tensor are CUDA tensors of
+    one dtype, shape and strides the kernels take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel runs on a CUDA device, got {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be [B, h, L, d], got {tuple(q.shape)}")
+    L, d = q.shape[2], q.shape[3]
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} is not a multiple of 8 in [8, {MAX_HEAD_DIM}]")
+    if L % L_MULTIPLE:
+        raise ValueError(f"{name}: sequence length {L} is not a multiple of {L_MULTIPLE}")
+    vec = 16 // q.element_size()
+    if q.stride(3) != 1 or any(s % vec for s in q.stride()[:3]) or q.data_ptr() % 16:
+        raise ValueError(f"{name}: q needs a contiguous head dim, 16-byte strides and base; "
+                         f"strides {q.stride()}")
+    for t in others:
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name}: all tensors must be {q.dtype} on {q.device}, got "
+                             f"{t.dtype} on {t.device}")
+        if t.shape != q.shape or t.stride() != q.stride() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be shaped and strided as q "
+                             f"({tuple(q.shape)}, {q.stride()}), got {tuple(t.shape)}, "
+                             f"{t.stride()}")
+
+
+def _segments(name: str, segment_ids, q):
+    if segment_ids is None:
+        return None
+    B, L = q.shape[0], q.shape[2]
+    if segment_ids.dtype != torch.int32 or tuple(segment_ids.shape) != (B, L) \
+            or segment_ids.device != q.device or not segment_ids.is_contiguous():
+        raise ValueError(f"{name}: segment ids must be a contiguous int32 [{B}, {L}] tensor on "
+                         f"{q.device}, got {segment_ids.dtype} {tuple(segment_ids.shape)}")
+    return segment_ids
+
+
+def _dims(q) -> list[int]:
+    B, h, L, d = q.shape
+    return [B, h, L, d, *q.stride()[:3]]
+
+
+def flash_fwd(q, k, v, segment_ids=None, sm_scale: float = 1.0):
+    """K5's forward on the card: (o shaped and strided as q, lse [B, h, L]
+    float32)."""
+    kind = _kind("flash_fwd", q)
+    _check("flash_fwd", q, k, v)
+    seg = _segments("flash_fwd", segment_ids, q)
+    o = torch.empty_like(q)
+    lse = q.new_empty(q.shape[:3], dtype=torch.float32)
+    err = getattr(_cuda.lib("flash_attn"), f"zv_flash_fwd_{kind}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        None if seg is None else seg.data_ptr(), *_dims(q), float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _cuda.check(err, "flash_fwd")
+    if kind == "f32":
+        flash_fwd.launches += 1
+    else:
+        flash_fwd.launches_bf16 += 1
+    return o, lse
+
+
+def _bwd_inputs(name, q, k, v, o, lse, do, dsum):
+    """do in q's layout and dsum = D = rowsum(dO * O) in float32 (computed
+    here, outside the kernels as in the library, unless given), checked
+    with lse."""
+    if do.stride() != q.stride():
+        do = torch.empty_like(q).copy_(do)
+    _check(name, q, k, v, o, do)
+    if dsum is None:
+        dsum = (do.float() * o.float()).sum(-1).contiguous()
+    for t in (lse, dsum):
+        if t.dtype != torch.float32 or t.shape != q.shape[:3] or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"{name}: lse and D must be contiguous float32 {tuple(q.shape[:3])} "
+                             f"tensors on {q.device}, got {t.dtype} {tuple(t.shape)}")
+    return do, dsum
+
+
+def flash_bwd_dkv(q, k, v, o, lse, do, segment_ids=None, sm_scale: float = 1.0, dsum=None):
+    """K5's dK/dV kernel on the card: (dk, dv), shaped and strided as q;
+    dsum is D = rowsum(dO * O), computed here when not given."""
+    kind = _kind("flash_bwd_dkv", q)
+    do, dsum = _bwd_inputs("flash_bwd_dkv", q, k, v, o, lse, do, dsum)
+    seg = _segments("flash_bwd_dkv", segment_ids, q)
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    err = getattr(_cuda.lib("flash_attn"), f"zv_flash_dkv_{kind}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+        None if seg is None else seg.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_dims(q),
+        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _cuda.check(err, "flash_bwd_dkv")
+    if kind == "f32":
+        flash_bwd_dkv.launches += 1
+    else:
+        flash_bwd_dkv.launches_bf16 += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, segment_ids=None, sm_scale: float = 1.0, dsum=None):
+    """K5's dQ kernel on the card: dq, shaped and strided as q (dsum as in
+    flash_bwd_dkv)."""
+    kind = _kind("flash_bwd_dq", q)
+    do, dsum = _bwd_inputs("flash_bwd_dq", q, k, v, o, lse, do, dsum)
+    seg = _segments("flash_bwd_dq", segment_ids, q)
+    dq = torch.empty_like(q)
+    err = getattr(_cuda.lib("flash_attn"), f"zv_flash_dq_{kind}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+        None if seg is None else seg.data_ptr(), dq.data_ptr(), *_dims(q), float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _cuda.check(err, "flash_bwd_dq")
+    if kind == "f32":
+        flash_bwd_dq.launches += 1
+    else:
+        flash_bwd_dq.launches_bf16 += 1
+    return dq
+
+
+def flash_bwd(q, k, v, o, lse, do, segment_ids=None, sm_scale: float = 1.0):
+    """Both backward kernels: (dq, dk, dv)."""
+    do, dsum = _bwd_inputs("flash_bwd", q, k, v, o, lse, do, None)
+    dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, segment_ids, sm_scale, dsum)
+    dq = flash_bwd_dq(q, k, v, o, lse, do, segment_ids, sm_scale, dsum)
+    return dq, dk, dv
+
+
+KERNELS = (flash_fwd, flash_bwd_dkv, flash_bwd_dq)
+for _f in KERNELS:
+    _f.launches = _f.launches_bf16 = 0
+
+
+def fwd_tile(B: int, h: int, L: int) -> int:
+    """The query rows a block of the forward takes at these sizes on the
+    current card."""
+    return _cuda.lib("flash_attn").zv_flash_fwd_tile(B, h, L)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K5 with its backward; CUDA tensors only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, sm_scale: float):
+        o, lse = flash_fwd(q, k, v, segment_ids, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse, segment_ids)
+        ctx.sm_scale = sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, seg = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, seg, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, segment_ids=None, sm_scale: float = 1.0):
+    """K5; see the module docstring. CPU tensors run `flash_attention_plain`
+    under autograd."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, segment_ids, sm_scale)
+    if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if segment_ids is not None:
+        segment_ids = segment_ids.contiguous()
+    return FlashAttention.apply(q, k, v, segment_ids, sm_scale)

@@ -444,14 +444,22 @@ def spawn(fn: Callable, nprocs: int, *args, devices=None, mesh: MeshConfig | Non
           backend: str | None = None) -> None:
     """Run fn(rank, *args) in `nprocs` fresh processes that form one process
     group through a file store in a temporary directory: rank r on
-    devices[r] (default the CPU). With `mesh`, a MeshConfig, each rank
+    devices[r] (default `cuda:r`; raises before starting any process when
+    fewer cards are visible, and CPU ranks are asked for by name). With
+    `mesh`, a MeshConfig, each rank
     also forms that data x model mesh over the group and gets it as fn's
     last argument: fn(rank, *args, mesh). `backend` is the group's (default
     NCCL on CUDA devices, gloo on the CPU; gloo puts several ranks on one
     card). Returns when every rank has; raises if any rank raised."""
     import torch.multiprocessing as mp
 
-    devices = [torch.device(d) for d in (devices or ["cpu"] * nprocs)]
+    if devices is None:
+        visible = torch.cuda.device_count()
+        if nprocs > visible:
+            raise RuntimeError(f"spawn: {nprocs} processes but only {visible} CUDA device(s) "
+                               "are visible; pass devices=['cpu'] * n for CPU ranks")
+        devices = [f"cuda:{i}" for i in range(nprocs)]
+    devices = [torch.device(d) for d in devices]
     if len(devices) != nprocs:
         raise ValueError(f"{nprocs} processes but {len(devices)} devices")
     with tempfile.TemporaryDirectory() as tmp:
