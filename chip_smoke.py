@@ -215,7 +215,8 @@ Phases, in order; any failure exits nonzero:
    against its plain version (float32 within 5e-4; bf16 within one bf16
    step of the largest output forward and two backward), timed beside it
    and beside scaled_dot_product_attention on the boolean segment mask,
-   with the forward's query tile; the main-path engine at full width on
+   with the forward's query tile (the whole backward's rows name SDPA's
+   backend and its gradients' distance from plain); the main-path engine at full width on
    bench.py's text twice (204 phones, text bucket 256) at 5 frames a phone
    (mel bucket 1024): tts_ex under flash launches K5's forward 10 times (4
    encoder, 6 decoder layers), its waveform within 1e-3 of the same engine
@@ -3603,14 +3604,38 @@ def k5_bytes(shape, esize: int, tensors: int, row_vectors: int) -> float:
     return tensors * B * h * L * d * esize + row_vectors * B * h * L * 4 + B * L * 4
 
 
+def sdpa_backend(torch, F, q, k, v, mask, scale) -> str:
+    """The backend that scaled_dot_product_attention's default dispatch
+    takes for these inputs: the first of flash, efficient, cuDNN and math
+    whose forced output equals the default's bitwise ("unknown" if none)."""
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+    except ImportError:
+        return "unknown"
+    ref = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+    for backend in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+        if not hasattr(SDPBackend, backend):
+            continue
+        try:
+            with sdpa_kernel([getattr(SDPBackend, backend)]):
+                out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+        except RuntimeError:
+            continue
+        if torch.equal(out, ref):
+            return backend.lower()
+    return "unknown"
+
+
 def k5_rows(torch, dev) -> list[dict]:
     """Phase 21's kernel rows: K5's forward at the serving decoder's and the
     training decoder's shapes, and its backward (dK/dV, dQ, both) at the
     training shape, float32 and bf16, each against its plain version (the
     backward against autograd of the plain version), with
     scaled_dot_product_attention on the boolean segment mask timed beside
-    it. Inputs from seed 21, views of [B, L, h, d] tensors as the model
-    passes them; segment ids with per-row valid lengths from the seed."""
+    it; the whole backward's rows also name the SDPA backend that ran and
+    its gradients' largest distance from plain's. Inputs from seed 21, views
+    of [B, L, h, d] tensors as the model passes them; segment ids with
+    per-row valid lengths from the seed."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -3669,6 +3694,9 @@ def k5_rows(torch, dev) -> list[dict]:
             o, lse = fa.flash_fwd(qx, kx, vx, seg, scale)
             plain_g = grads_of(fa.flash_attention_plain, qx, kx, vx, seg, scale, dox)
             lib_g = grads_of(sdpa, qx, kx, vx, seg, scale, dox)
+            yardstick = {"library_backend": sdpa_backend(torch, F, qx, kx, vx, mask, scale),
+                         "library_max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                                    for a, b in zip(lib_g(), plain_g()))}
             for part, flop, tensors, kernel, pick in (
                     ("dkv", 8.0, 6, lambda: fa.flash_bwd_dkv(qx, kx, vx, o, lse, dox, seg, scale),
                      lambda g: g[1:]),
@@ -3682,6 +3710,7 @@ def k5_rows(torch, dev) -> list[dict]:
                 lib = lib_g if not part else None
                 flop_b = flop * B * h * L * L * d
                 nbytes = k5_bytes(shape, 2 if bf else 4, tensors, 2)
+                more = {} if part else yardstick
                 if bf:
                     w = [x.float() for x in (qx, kx, vx, o, lse, dox)]
                     w[4] = lse
@@ -3691,11 +3720,11 @@ def k5_rows(torch, dev) -> list[dict]:
                     measure_bf16(torch, rows, name, K5_SOURCE, K5_REPLACES[part or "bwd"],
                                  list(shape), fn, f32, plain, flop_b, nbytes, method="bf16",
                                  max_share=None, steps=2, library=lib,
-                                 valid_lengths=lengths[:4])
+                                 valid_lengths=lengths[:4], **more)
                 else:
                     measure(torch, rows, name, K5_SOURCE, K5_REPLACES[part or "bwd"],
                             list(shape), fn, plain, flop_b, nbytes, method="3xtf32",
-                            library=lib, valid_lengths=lengths[:4])
+                            library=lib, valid_lengths=lengths[:4], **more)
             del o, lse, plain_g, lib_g
         del q, k, v, do, mask
         torch.cuda.empty_cache()

@@ -1,0 +1,213 @@
+#!/usr/bin/env python3
+"""Where the float32 backward of kernel K5 spends its time on the card:
+`zerovox_tpu_torch/csrc/flash_attn.cu` against copies of itself with a phase
+of `tf::dkv_kernel` and `tf::dq_kernel` taken out or a design choice
+changed, timed in turns at the training shape [24, 2, 512, 264] (CUDA
+events; views of [B, L, h, d] tensors, segment ids with per-row valid
+lengths from seed 21, as chip_smoke.py phase 21 passes them).
+
+    python3 scripts/bench_k5_breakdown.py [--parent DIR]
+
+Variants, built from text substitutions of the source with the kernels' own
+nvcc flags (each substitution must match the source exactly once:
+`tests/test_torch_flash_bwd_emulation.py` checks that on the CPU):
+
+  kernel      the source as it is;
+  no_s_mma    S and dP (S^T and dP^T) without their MMAs;
+  no_acc_mma  dK/dV and dQ's accumulation without its MMAs;
+  no_fetch    the streamed tiles not copied from device memory (cp.async);
+  parent      (with --parent) DIR's flash_attn.cu, the kernels it had.
+
+A variant's distance from `kernel` is the device time of what it takes out.
+Beside them, the rate of the instruction the kernels are built on: a kernel
+that only runs `mma.sync.m16n8k8` TF32 on registers (8 independent
+accumulators a warp sharing their operands, 6 chains of three MMAs as
+3xTF32 adds them, or 8 accumulators with operands of their own), with 4, 8
+and 16 warps on each SM, in TFLOP/s. Prints the card's name and power
+limit, then one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCE = ROOT / "zerovox_tpu_torch" / "csrc" / "flash_attn.cu"
+SHAPE = (24, 2, 512, 264)
+VARIANTS = {
+    "kernel": [],
+    "no_s_mma": [("      tc::mma(lh[n], a.lo, b.hi);\n      tc::mma(hl[n], a.hi, b.lo);\n"
+                  "      tc::mma(hh[n], a.hi, b.hi);\n", "")],
+    "no_acc_mma": [("        for (int r = 0; r < 2; ++r) tc::mma(acc[r][i], a[r].lo, b.hi);\n",
+                    "        continue;\n")],
+    "no_fetch": [("    copy2(buf, buf + TB * ld, ld, q + (size_t)q0 * a.sl, dout + (size_t)q0 * a.sl, a.sl, d);\n",
+                  ""),
+                 ("    copy2(buf, buf + TB * ld, ld, kp + (size_t)k0 * a.sl, vp + (size_t)k0 * a.sl, a.sl, d);\n",
+                  "")],
+}
+
+
+MMA_RATE_CU = r"""
+#include <cstdint>
+#include "tc_common.cuh"
+// CHAINS independent accumulators a warp, DEPTH dependent MMAs on each a
+// round; FRESH: each accumulator's MMA takes its own A and B registers
+// (else all share one A and one B, which the operand reuse cache serves)
+template <int CHAINS, int DEPTH, bool FRESH>
+__global__ void rate(float* out, int rounds) {
+  uint32_t a[CHAINS][4], b[CHAINS][2];
+  for (int c = 0; c < CHAINS; ++c) {
+    for (int i = 0; i < 4; ++i) a[c][i] = threadIdx.x * 977u + i + (FRESH ? 7u * c : 0u);
+    for (int i = 0; i < 2; ++i) b[c][i] = threadIdx.x * 131u + i + (FRESH ? 5u * c : 0u);
+  }
+  float acc[CHAINS][4] = {};
+  for (int r = 0; r < rounds; ++r)
+#pragma unroll
+    for (int k = 0; k < DEPTH; ++k)
+#pragma unroll
+      for (int c = 0; c < CHAINS; ++c) zv::tc::mma(acc[c], a[FRESH ? c : 0], b[FRESH ? c : 0]);
+  float s = 0.f;
+  for (int c = 0; c < CHAINS; ++c) s += acc[c][0] + acc[c][1] + acc[c][2] + acc[c][3];
+  if (s == 1.2345f) out[threadIdx.x] = s;
+}
+extern "C" int zv_mma_rate(int kind, int blocks, int warps, int rounds, float* out) {
+  if (kind == 0) rate<8, 1, false><<<blocks, 32 * warps>>>(out, rounds);
+  else if (kind == 1) rate<6, 3, false><<<blocks, 32 * warps>>>(out, rounds);
+  else rate<8, 1, true><<<blocks, 32 * warps>>>(out, rounds);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def mma_rate(torch, tmp: Path, _cuda, cuda_time_ms) -> dict:
+    """TFLOP/s of mma.sync.m16n8k8 TF32 run on registers: one block of
+    4, 8 or 16 warps on each SM, 8 independent accumulators a warp
+    ("independent"), 6 chains of three ("chains_of_3"), or 8 accumulators
+    each with its own A and B registers ("fresh_operands")."""
+    cu = tmp / "mma_rate.cu"
+    cu.write_text(MMA_RATE_CU)
+    so = tmp / "mma_rate.so"
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, f"-I{_cuda.CSRC}", "-o", str(so), str(cu)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.zv_mma_rate.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out, rounds = torch.zeros(512, device="cuda"), 4096
+    res = {}
+    for kind, name, per_round in ((0, "independent", 8), (1, "chains_of_3", 18),
+                                  (2, "fresh_operands", 8)):
+        for warps in (4, 8, 16):
+            ms = cuda_time_ms(lambda: _cuda.check(lib.zv_mma_rate(kind, sms, warps, rounds,
+                                                                  out.data_ptr()), "mma_rate"),
+                              iters=5, warmup=1)
+            res[f"{name}_{warps}w"] = sms * warps * rounds * per_round * 2048 / (ms * 1e-3) / 1e12
+    return res
+
+
+def variant_source(src: str, subs) -> str:
+    """src with every (old, new) of subs applied; raises unless each old
+    occurs exactly once."""
+    for old, new in subs:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{old!r} is not in flash_attn.cu once")
+        src = src.replace(old, new)
+    return src
+
+
+def build(tmp: Path, _cuda, parent: Path | None) -> tuple[dict, list[str]]:
+    src = SOURCE.read_text()
+    sources = {name: variant_source(src, subs) for name, subs in VARIANTS.items()}
+    if parent is not None:
+        sources["parent"] = (parent / "zerovox_tpu_torch" / "csrc" / "flash_attn.cu").read_text()
+    procs = {}
+    for name, text in sources.items():
+        cu = tmp / f"{name}.cu"
+        cu.write_text(text)
+        procs[name] = subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, f"-I{_cuda.CSRC}", "-o", str(tmp / f"{name}.so"),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, ptxas = {}, []
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        if name == "kernel":  # registers and spills of each kernel
+            ptxas = [ln.strip() for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]
+        lib = ctypes.CDLL(str(tmp / f"{name}.so"))
+        for fn, argtypes in _cuda.SIGNATURES["flash_attn"].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs, ptxas
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", type=Path, default=None)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("bench_k5_breakdown: needs a CUDA card")
+    from zerovox_tpu_torch.ops import _cuda
+    from zerovox_tpu_torch.ops import flash_attention as fa
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    B, h, L, d = SHAPE
+    rng = np.random.default_rng(21)
+
+    def t():
+        return torch.from_numpy(rng.normal(size=(B, L, h, d)).astype(np.float32)).cuda() \
+            .transpose(1, 2)
+
+    q, k, v, do = t(), t(), t(), t()
+    n = rng.integers(L // 2, L + 1, size=B)
+    n[0] = L
+    seg = torch.from_numpy((np.arange(L)[None] >= n[:, None]).astype(np.int32)).cuda()
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_fwd(q, k, v, seg, scale)
+    dsum = (do * o).sum(-1).contiguous()
+    dk, dv, dq = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dims = [B, h, L, d, *q.stride()[:3]]
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def dkv(lib):
+        _cuda.check(lib.zv_flash_dkv_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                         lse.data_ptr(), dsum.data_ptr(), seg.data_ptr(),
+                                         dk.data_ptr(), dv.data_ptr(), *dims, scale, stream()),
+                    "dkv")
+
+    def dq_(lib):
+        _cuda.check(lib.zv_flash_dq_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                        lse.data_ptr(), dsum.data_ptr(), seg.data_ptr(),
+                                        dq.data_ptr(), *dims, scale, stream()), "dq")
+
+    passes = {"dkv": dkv, "dq": dq_}
+    with tempfile.TemporaryDirectory() as tmp:
+        libs, ptxas = build(Path(tmp), _cuda, args.parent)
+        ms = {name: {p: [] for p in passes} for name in libs}
+        for names in (list(libs), list(libs)[::-1]):  # in turns, each order once
+            for name in names:
+                for p, fn in passes.items():
+                    ms[name][p].append(cuda_time_ms(lambda: fn(libs[name]), iters=20, warmup=3))
+        rate = mma_rate(torch, Path(tmp), _cuda, cuda_time_ms)
+    print(card)
+    print(json.dumps({"k5_breakdown": {"shape": list(SHAPE), "ms": ms, "card": card,
+                                       "mma_tflops": rate, "ptxas": ptxas}}))
+
+
+if __name__ == "__main__":
+    main()

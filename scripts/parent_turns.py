@@ -13,17 +13,20 @@ on the StyleTTS engine with the single-tower vocoder, random weights from
 seed 0; the bf16 K4's forward and backward at the training shape
 [24, 32, 80, 500]; the bf16 K1 and K2 (with and without conv_post) at the
 main path's and one streamed window's shapes, and the bf16 K3 at the
-single-tower vocoder's three stage shapes and at C = 16 and 8, by CUDA
-events. The first parent and change children also save the float32 K1, K2,
-K3 and K4's outputs, the bf16 K1, K2 and K3's and the bf16 K4's (y, sum, sq,
-m; dx, dw, ds, dt) on seeded inputs, and the two sets are compared with
-`torch.equal`; the bf16 K4's dw, ds and dt, which sum per-block partials
-that follow the grid, also by their largest distance relative to the
-parent's largest value (held to BF16_RED_TOL). The outputs of a kernel whose
-arithmetic this tree changed against its parent (REDESIGNED: the bf16 K3,
-moved from 2xTF32 to bf16 tensor-core products) are compared instead by
-their largest distance in bf16 steps of the parent's largest value (held to
-one) and the share of elements that differ (held to BF16X2_SHARE).
+single-tower vocoder's three stage shapes and at C = 16 and 8; K5's
+backward (dK/dV, dQ and both, D's reduction included) in float32 and bf16
+at the training shape [24, 2, 512, 264], by CUDA events. The first parent
+and change children also save the float32 K1, K2, K3 and K4's outputs, the
+bf16 K1, K2 and K3's, the bf16 K4's (y, sum, sq, m; dx, dw, ds, dt) and
+K5's (forward o and lse, backward dq, dk, dv; float32 and bf16) on seeded
+inputs, and the two sets are compared with `torch.equal`; the bf16 K4's
+dw, ds and dt, which sum per-block partials that follow the grid, also by
+their largest distance relative to the parent's largest value (held to
+BF16_RED_TOL). The outputs of a kernel whose arithmetic this tree changed
+against its parent (REDESIGNED: K5's float32 backward, redesigned for
+Hopper) are compared instead by their largest distance relative to the
+parent's largest value, held to the kernel's bound against plain,
+REDESIGNED_TOL.
 
 Prints the card's name and power limit, then one JSON object (also written
 to FILE when given).
@@ -43,8 +46,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 K4_SHAPE = (24, 32, 80, 500)
 BF16_RED_TOL = 1e-3  # tests/test_torch_gpu.py's bound for the bf16 K4's float32 reductions
-BF16X2_SHARE = 0.01  # chip_smoke.py's bound on a bf16 result's outputs off another's rounding
-REDESIGNED = ("k3_bf16_",)  # outputs whose arithmetic this tree changed (key prefixes)
+REDESIGNED = ("k5_bwd_f32_",)  # outputs whose arithmetic this tree changed (key prefixes)
+REDESIGNED_TOL = 1e-4  # x the largest value: tests/test_torch_gpu.py's bound for K5's gradients
+K5_SHAPE = (24, 2, 512, 264)
+K5_OUT_SHAPE = (4, 2, 512, 264)  # the outputs compared with the parent's
 K3_SHAPES = ((44096, 128), (88192, 64), (176384, 32), (88192, 16), (176384, 8))
 TEXT = ("The quick brown fox jumps over the lazy dog while the curious cat "
         "watches from a sunny windowsill in the early morning light.")
@@ -54,6 +59,7 @@ FRAMES_PER_PHONE = 6
 def kernel_outputs(torch) -> dict:
     """K1, K2 (plain and with conv_post), K3 and K4 forward and backward on
     seeded inputs at their paths' widths."""
+    from zerovox_tpu_torch.ops import flash_attention as fa
     from zerovox_tpu_torch.ops.mrf import fused_mrf, pack_towers
     from zerovox_tpu_torch.ops.resblock import fused_resblock1
     from zerovox_tpu_torch.ops.se_conv import (se_conv_bwd, se_conv_bwd_bf16, se_conv_fwd,
@@ -108,8 +114,53 @@ def kernel_outputs(torch) -> dict:
             out[f"k4_bf16_fwd_{relu}_{name}"] = a
         for name, a in zip(("dx", "dw", "ds", "dt"), bwd):
             out[f"k4_bf16_bwd_{relu}_{name}"] = a
+    for kind, (q, k, v, seg, do, scale) in k5_inputs(torch, K5_OUT_SHAPE).items():
+        o, lse = fa.flash_fwd(q, k, v, seg, scale)
+        out[f"k5_fwd_{kind}_o"], out[f"k5_fwd_{kind}_lse"] = o, lse
+        for name, a in zip(("dq", "dk", "dv"), fa.flash_bwd(q, k, v, o, lse, do, seg, scale)):
+            out[f"k5_bwd_{kind}_{name}"] = a
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
+
+
+def k5_inputs(torch, shape) -> dict:
+    """K5's inputs at [B, h, L, d] as chip_smoke.py phase 21 makes them (views
+    of [B, L, h, d] tensors, segment ids with per-row valid lengths, seed
+    21), float32 and bf16: {kind: (q, k, v, seg, do, scale)}."""
+    import numpy as np
+
+    B, h, L, d = shape
+    rng = np.random.default_rng(21)
+
+    def t():
+        return torch.from_numpy(rng.normal(size=(B, L, h, d)).astype(np.float32)).cuda() \
+            .transpose(1, 2)
+
+    q, k, v, do = t(), t(), t(), t()
+    n = rng.integers(L // 2, L + 1, size=B)
+    n[0] = L
+    seg = torch.from_numpy((np.arange(L)[None] >= n[:, None]).astype(np.int32)).cuda()
+    scale = d ** -0.5
+    return {"f32": (q, k, v, seg, do, scale),
+            "bf16": (*(x.bfloat16() for x in (q, k, v)), seg, do.bfloat16(), scale)}
+
+
+def k5_ms(torch) -> dict:
+    """CUDA-event ms of K5's backward at K5_SHAPE: dK/dV, dQ and both (D's
+    reduction included, as chip_smoke.py phase 21's flash_bwd row), float32
+    and bf16."""
+    from zerovox_tpu_torch.ops import flash_attention as fa
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    res = {}
+    for kind, (q, k, v, seg, do, scale) in k5_inputs(torch, K5_SHAPE).items():
+        o, lse = fa.flash_fwd(q, k, v, seg, scale)
+        calls = {"dkv": lambda: fa.flash_bwd_dkv(q, k, v, o, lse, do, seg, scale),
+                 "dq": lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, seg, scale),
+                 "bwd": lambda: fa.flash_bwd(q, k, v, o, lse, do, seg, scale)}
+        for part, fn in calls.items():
+            res[f"{part}_{kind}"] = cuda_time_ms(fn, iters=20, warmup=3)
+    return res
 
 
 def k4_bf16_ms(torch) -> dict:
@@ -211,7 +262,8 @@ def child(root: Path, out: Path, dump: Path | None, runs: int) -> None:
     if dump is not None:
         torch.save(kernel_outputs(torch), dump)
     refwav = np.random.default_rng(0).normal(size=2 * 22050).astype(np.float32) * 0.1
-    res = {"k4_bf16_ms": k4_bf16_ms(torch), "bf16_tile_ms": bf16_tile_ms(torch)}
+    res = {"k4_bf16_ms": k4_bf16_ms(torch), "bf16_tile_ms": bf16_tile_ms(torch),
+           "k5_ms": k5_ms(torch)}
     res["main"] = first_chunk_p50(torch, ZeroVoxTTS.from_random(seed=0), refwav, runs)
     base = ZeroVoxConfig()
     cfg = dc.replace(base, model=dc.replace(
@@ -262,9 +314,8 @@ def main() -> None:
                 sys.exit(f"parent_turns: the {label} child failed:\n{proc.stdout}\n{proc.stderr}")
             turns[label].append(json.loads(res.read_text()))
         a, b = torch.load(dumps["parent"]), torch.load(dumps["change"])
-        redesigned = {k: {"steps": ((b[k].float() - a[k].float()).abs().max()
-                                    / 2.0 ** (a[k].float().abs().max().log2().floor() - 7)).item(),
-                          "share": (b[k] != a[k]).float().mean().item()}
+        redesigned = {k: ((b[k].float() - a[k].float()).abs().max()
+                          / a[k].float().abs().max().clamp_min(1e-30)).item()
                       for k in a if k.startswith(REDESIGNED)}
         bitwise = {k: a[k].shape == b[k].shape and torch.equal(a[k], b[k])
                    for k in a if not k.startswith(REDESIGNED)}
@@ -272,18 +323,22 @@ def main() -> None:
                    for k in a if k.startswith("k4_bf16_bwd") and k[-2:] in ("dw", "ds", "dt")}
     k4 = {label: [t.pop("k4_bf16_ms") for t in ts] for label, ts in turns.items()}
     k12 = {label: [t.pop("bf16_tile_ms") for t in ts] for label, ts in turns.items()}
+    k5 = {label: [t.pop("k5_ms") for t in ts] for label, ts in turns.items()}
     medians = {label: {k: statistics.median(t[k] for t in ts) for k in ts[0]}
                for label, ts in turns.items()}
     k4_medians = {label: {p: statistics.median(m[p] for m in ms) for p in ("fwd", "bwd")}
                   for label, ms in k4.items()}
     k12_medians = {label: {c: statistics.median(m[c] for m in ms) for c in ms[0]}
                    for label, ms in k12.items()}
+    k5_medians = {label: {c: statistics.median(m[c] for m in ms) for c in ms[0]}
+                  for label, ms in k5.items()}
     result = {"first_chunk_p50_ms": turns, "median_of_p50s_ms": medians, "runs": args.runs,
               "k4_bf16_ms": k4, "k4_bf16_median_ms": k4_medians,
               "bf16_tile_ms": k12, "bf16_tile_median_ms": k12_medians,
-              "redesigned_vs_parent": redesigned,
-              "redesigned_within": all(v["steps"] <= 1.0 and v["share"] <= BF16X2_SHARE
-                                       for v in redesigned.values()),
+              "k5_ms": k5, "k5_median_ms": k5_medians,
+              "redesigned_rel_err_vs_parent": redesigned,
+              "redesigned_within": bool(redesigned) and all(v <= REDESIGNED_TOL
+                                                             for v in redesigned.values()),
               "kernels_bitwise_as_parent": bitwise,
               "all_bitwise": all(bitwise.values()) and a.keys() == b.keys(),
               "f32_bitwise": all(v for k, v in bitwise.items() if "bf16" not in k),

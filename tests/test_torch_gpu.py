@@ -1205,7 +1205,8 @@ def _attn_inputs(rng, B, h, L, d, dev, dtype=torch.float32, strided=False):
     return t(), t(), t(), seg, t()
 
 
-FLASH_SHAPES = [(2, 2, 256, 24), (1, 2, 1024, 264), (2, 2, 384, 136), (2, 2, 512, 256)]
+FLASH_SHAPES = [(2, 2, 256, 24), (1, 2, 1024, 264), (2, 2, 384, 136), (2, 2, 512, 256),
+                (2, 2, 256, 272)]
 
 
 def _flash_grads(fn, q, k, v, seg, do, scale):

@@ -22,17 +22,19 @@
 // What bounds it on an H100: tensor-core operations at the model's shapes
 // (d = 264 for tts_medium, 256 for tts_medium_tpu): the forward does
 // 4 B H L^2 d FLOP (two products), the backward 10 B H L^2 d (five: S and dP
-// recomputed, dV, dK, dQ), against 4 B H L d elements in and out; at
-// [24, 2, 512, 264] that is 13.3 / 33.2 GFLOP against 27-54 MB, 250-600
-// FLOP a byte. The float32 path runs every product in 3xTF32 (tc_common.cuh,
-// as K1-K4: three TF32 MMAs a product, float32-accurate), the bf16 path
-// mma.sync.m16n8k16 with float32 accumulation.
+// recomputed, dV, dK, dQ; the two kernels compute S and dP each, seven in
+// all), against 4 B H L d elements in and out; at [24, 2, 512, 264] that is
+// 13.3 / 33.2 GFLOP against 27-54 MB, 250-600 FLOP a byte. The float32 path
+// runs every product in 3xTF32 (tc_common.cuh, as K1-K4: three TF32 MMAs a
+// product, float32-accurate), the bf16 path mma.sync.m16n8k16 with float32
+// accumulation. On this card mma.sync.m16n8k8 TF32 runs at ~320 TFLOP/s
+// (scripts/bench_k5_breakdown.py), ~109 TFLOP/s of 3xTF32.
 //
-// Design, a first kernel that is right and simple (no wgmma, TMA or warp
-// specialisation yet): 8 warps a block; the tiles of one block sit in shared
-// memory as rows of the head dim (padded so that a warp's fragment loads
-// fall on distinct banks); each of the two products a step is a warp GEMM
-// on mma.sync:
+// Forward, and the bf16 backward (a first kernel that is right and simple;
+// no wgmma, TMA or warp specialisation): 8 warps a block; the tiles of one
+// block sit in shared memory as rows of the head dim (padded so that a
+// warp's fragment loads fall on distinct banks); each of the two products a
+// step is a warp GEMM on mma.sync:
 //   * forward, one block per (query tile of BQ rows, head, batch row): for
 //     each key tile of BK = 32 rows, S = scale Q K^T + mask into shared
 //     memory, the online softmax row by row (256 / BQ threads a row, the
@@ -42,17 +44,50 @@
 //     largest of 64, 32, 16 that still gives every SM a block (zv_flash_fwd_tile):
 //     the serving decoder (B = 1, H = 2, L = 1024) has only 32 query tiles of
 //     64 rows for 132 SMs, and takes 16-row tiles (128 blocks);
-//   * dK/dV, one block per (key tile of 32 rows, head, batch row), looping
-//     over query tiles of 32: S^T = K Q^T and dP^T = V dO^T in the same warp
-//     tile, P^T = exp(S^T - lse) and dS^T = P^T (dP^T - D) scale into shared
-//     memory, then dV += P^T dO and dK += dS^T Q in registers;
-//   * dQ, one block per (query tile of 32 rows, head, batch row), looping
-//     over key tiles of 32: S and dP, dS into shared memory, dQ += dS K.
+//   * bf16 dK/dV (dkv_kernel<BF16>), one block per (key tile of 32 rows,
+//     head, batch row), looping over query tiles of 32: S^T = K Q^T and
+//     dP^T = V dO^T in the same warp tile, P^T and dS^T into shared memory,
+//     then dV += P^T dO and dK += dS^T Q in registers; bf16 dQ
+//     (dq_kernel<BF16>) likewise over key tiles: S, dP, dS, dQ += dS K. bf16
+//     pads the head dim to 16 (264 -> 272) with zeros in shared memory. bf16
+//     keeps these kernels: they already beat SDPA's bf16 backward, and the
+//     float32 design below has not been carried over to them.
+//
+// The float32 backward (namespace tf). The bf16 kernels' structure, run in
+// float32, reaches 6.5 % of the bound: shared-memory loads, operand splits
+// and register shuffles, not the MMAs, set its pace. Each block still owns
+// 32 output rows (dK/dV: keys, dQ: queries) and loops over the other side's
+// tiles of 32 rows, 8 warps, one block an SM. What the design does about
+// each cause (scripts/bench_k5_breakdown.py times each):
+//   * Fragments in register order. S and dP take the head dim's k-steps in
+//     the order 2t, 2t + 1 of each lane (the same products as t, t + 4), so
+//     an A fragment row and a B fragment are one 8-byte load each; P^T, dS^T
+//     and dS are written as m16n8k8 A fragments, split, hi[4] and lo[4] of
+//     a lane in 16 bytes each. Rows are 8 or 24 mod 32 words, so no load
+//     has a bank conflict. (hi, lo) pairs stored together cost ~5 register
+//     moves an MMA to repack.
+//   * Independent accumulators. S and dP keep their three 3xTF32 terms in
+//     separate accumulators (warp tile 16 x 16: 6 MMAs a k-step, none
+//     waiting on another), summed once as hh + (lh + hl).
+//   * Copies off the critical path, without registers. The streamed tiles
+//     (dK/dV: Q, dO; dQ: K, V) stay raw in two buffers; the next step's
+//     come by cp.async into the other one, started at the top of the step,
+//     with their lse, D and segment ids. Operands are split into TF32 hi
+//     and lo at their fragment load: the integer work fits beside the MMAs,
+//     while splitting each tile once into hi and lo planes as it landed
+//     took a pass over shared memory and a barrier every step (8 % slower),
+//     and a register prefetch of the next tiles (68-72 registers) spilled.
+//   * Fewer barriers. dV += P^T dO (warps 0-3) starts once P^T is written;
+//     dK += dS^T Q (warps 4-7, which wrote dS^T) waits only for them.
+// Shared memory at d = 264: 220,160 bytes a block (two resident tiles
+// 67,584, two buffers 135,168, P^T and dS^T 16,384, step vectors 1,024); at
+// d = 272 232,448, all that a block may have. What
+// bounds it now: the MMA phases themselves, near the shared-memory or
+// integer throughput of the 16 x 16 warp tile. Measured slower: 16 warps a
+// block with the head dim split between warp pairs, pairs of blocks (a
+// cluster) splitting the head dim, 32 x 16 warp tiles.
 // Neither backward kernel uses atomics: each output row belongs to one
-// block, so a step is bitwise repeatable. At d = 264 the float32 tiles take
-// 146-156 KB of shared memory (one or two blocks an SM), the bf16 tiles
-// half. bf16 pads the head dim to 16 (264 -> 272) with zeros in shared
-// memory; TF32's k = 8 divides every supported d.
+// block, so a step is bitwise repeatable.
 //
 // Supported: d a multiple of 8 up to DMAX = 272, L a multiple of 64, every
 // tensor's base 16-byte aligned and its batch, head and row strides
@@ -64,6 +99,7 @@
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "tc_common.cuh"
 
@@ -558,6 +594,381 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
                      1.f, 1.f, nt, wc, NC, g, t);
 }
 
+// ---- the float32 backward (3xTF32): raw tiles, the streamed ones copied by
+// cp.async a step ahead into the other of two buffers, every fragment loaded
+// in the register order of its MMA and split there. See the header for the
+// design; dkv_kernel and dq_kernel above serve bf16.
+namespace tf {
+
+constexpr int TB = 32;            // rows of a block's resident tiles and of a step's streamed ones
+constexpr int NTW_KV = 9;         // dK or dV n-tiles a warp: 4 warps cover 34
+constexpr int NTW_Q = 5;          // dQ n-tiles a warp: 8 warps cover 34
+constexpr int FRAG = 256;         // floats of one A fragment block: hi then lo, 4 a lane
+constexpr int FRAGS = 2 * (TB / 8) * FRAG;  // a TB x TB matrix as A fragments (2 row groups)
+
+// A row of a tile: ld(d) floats, 8 or 24 mod 32 words, so that a half warp's
+// 8-byte loads (row g, columns 2t, 2t + 1) and a warp's 4-byte loads (row t,
+// column g) fall on distinct banks, and rows stay 16-byte aligned.
+__host__ __device__ inline int ld_of(int d) { return d % 16 == 0 ? d + 8 : d; }
+
+// res0/res1: the block's resident tiles (dK/dV: K, V; dQ: Q, dO); buf[2]:
+// the streamed tiles of a step (dK/dV: Q then dO; dQ: K then V), the next
+// step's arriving in the other; pa: P^T (dK/dV only), pb: dS^T or dS, both
+// as A fragments, pb also P from its S warp to its dP warp; lse, D and
+// segment ids, two sets by step parity for the streamed rows (dK/dV: lse,
+// D, segq; dQ: segk), the first set for the block's own rows.
+struct Smem {
+  size_t res0, res1, buf0, buf1, pa, pb, lse, dsum, segq, segk, bytes;
+  __host__ __device__ Smem(int d) {
+    const size_t tile = (size_t)TB * ld_of(d) * sizeof(float);
+    Carve c;
+    res0 = c.take(tile);
+    res1 = c.take(tile);
+    buf0 = c.take(2 * tile);
+    buf1 = c.take(2 * tile);
+    pa = c.take(FRAGS * sizeof(float));
+    pb = c.take(FRAGS * sizeof(float));
+    lse = c.take(2 * TB * sizeof(float));
+    dsum = c.take(2 * TB * sizeof(float));
+    segq = c.take(2 * TB * sizeof(int));
+    segk = c.take(2 * TB * sizeof(int));
+    bytes = c.off;
+  }
+};
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ float2 split2(float x) {
+  uint32_t hi, lo;
+  tc::split(x, hi, lo);
+  return make_float2(__uint_as_float(hi), __uint_as_float(lo));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(tc::smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(tc::smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// Operands of S = X Y^T (or S^T), on the k-order 2t, 2t + 1 of each k-step
+// (lane t's k and k + 4 of the MMA): the same products, each fragment row
+// one 8-byte load already in register order, split here.
+// A (16 x 8) at s[row * ld + k0 + k]
+__device__ __forceinline__ void load_a_nt(F32::A& a, const float* s, int ld, int k0, int g,
+                                          int t) {
+  const float2 x0 = *reinterpret_cast<const float2*>(s + g * ld + k0 + 2 * t);
+  const float2 x1 = *reinterpret_cast<const float2*>(s + (g + 8) * ld + k0 + 2 * t);
+  tc::split(x0.x, a.hi[0], a.lo[0]);
+  tc::split(x1.x, a.hi[1], a.lo[1]);
+  tc::split(x0.y, a.hi[2], a.lo[2]);
+  tc::split(x1.y, a.hi[3], a.lo[3]);
+}
+// B (8 x 8), B[k][n] = s[n * ld + k0 + k]
+__device__ __forceinline__ void load_b_nt(F32::B& b, const float* s, int ld, int k0, int g,
+                                          int t) {
+  const float2 x = *reinterpret_cast<const float2*>(s + g * ld + k0 + 2 * t);
+  tc::split(x.x, b.hi[0], b.lo[0]);
+  tc::split(x.y, b.hi[1], b.lo[1]);
+}
+// B (8 x 8), B[k][n] = s[(k0 + k) * ld + n] (the natural k-order)
+__device__ __forceinline__ void load_b_nn(F32::B& b, const float* s, int ld, int k0, int g,
+                                          int t) {
+  const float* p = s + (k0 + t) * ld + g;
+  tc::split(p[0], b.hi[0], b.lo[0]);
+  tc::split(p[4 * ld], b.hi[1], b.lo[1]);
+}
+
+// A TB x TB matrix (P^T, dS^T or dS) as A fragments: block (r, kk) holds rows
+// 16 r.., columns 8 kk.., lane l's hi[0..3] at l * 4, its lo[0..3] at 128 + l * 4.
+__device__ __forceinline__ void load_a_frag(F32::A& a, const float* x, int r, int kk, int lane) {
+  const float* p = x + (r * (TB / 8) + kk) * FRAG + lane * 4;
+  const uint4 h = *reinterpret_cast<const uint4*>(p);
+  const uint4 l = *reinterpret_cast<const uint4*>(p + 128);
+  a.hi[0] = h.x, a.hi[1] = h.y, a.hi[2] = h.z, a.hi[3] = h.w;
+  a.lo[0] = l.x, a.lo[1] = l.y, a.lo[2] = l.z, a.lo[3] = l.w;
+}
+// element (row R, column C) of it, split
+__device__ __forceinline__ void store_frag(float* x, int R, int C, float v) {
+  const int rr = R & 15, cc = C & 7;
+  float* p = x + ((R >> 4) * (TB / 8) + (C >> 3)) * FRAG + ((rr & 7) * 4 + (cc & 3)) * 4 +
+             (rr >> 3) + 2 * (cc >> 2);
+  const float2 hl = split2(v);
+  p[0] = hl.x;
+  p[128] = hl.y;
+}
+
+// Two tiles (TB rows of d floats each, global rows `stride` apart) by
+// cp.async, 16 bytes a thread, to s0 and s1: a block's resident tiles, or a
+// step's streamed ones into a buffer (s1 = s0 + TB ld).
+__device__ __forceinline__ void copy2(float* s0, float* s1, int ld, const float* g0,
+                                      const float* g1, int stride, int d) {
+  const int nv = d / 4;
+  for (int i = threadIdx.x; i < TB * nv; i += THREADS) {
+    const int r = i / nv, c = (i - r * nv) * 4;
+    cp_async16(s0 + r * ld + c, g0 + (size_t)r * stride + c);
+    cp_async16(s1 + r * ld + c, g1 + (size_t)r * stride + c);
+  }
+}
+
+// A warp's 16 x 16 tile of X Y^T over the head dim: X 16 rows of ld at x, Y
+// 16 rows at y, both split at each fragment load. The three products of
+// 3xTF32 go to their own accumulators, so that no MMA waits on the one
+// before it, and are summed at the end as hh + (lh + hl).
+__device__ __forceinline__ void s_tile(float (&s)[2][4], const float* x, const float* y, int ld,
+                                       int d, int g, int t) {
+  float lh[2][4], hl[2][4], hh[2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) lh[n][e] = hl[n][e] = hh[n][e] = 0.f;
+#pragma unroll 11
+  for (int k0 = 0; k0 < d; k0 += 8) {
+    F32::A a;
+    load_a_nt(a, x, ld, k0, g, t);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      F32::B b;
+      load_b_nt(b, y + n * 8 * ld, ld, k0, g, t);
+      tc::mma(lh[n], a.lo, b.hi);
+      tc::mma(hl[n], a.hi, b.lo);
+      tc::mma(hh[n], a.hi, b.hi);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = hh[n][e] + (lh[n][e] + hl[n][e]);
+}
+
+// acc[r] (rows 16 r + g, + 8; n-tiles wc + nc i) += X Y: X TB x TB as A
+// fragments at x, Y TB x d at y; each product adds lo.hi, hi.lo, hi.hi to
+// its accumulator, the row groups interleaved.
+template <int NTW>
+__device__ __forceinline__ void accumulate(float (&acc)[2][NTW][4], const float* x, const float* y,
+                                           int ld, int nt, int wc, int nc, int lane, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < TB / 8; ++kk) {
+    F32::A a[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) load_a_frag(a[r], x, r, kk, lane);
+#pragma unroll
+    for (int i = 0; i < NTW; ++i) {
+      const int n = wc + nc * i;
+      if (n < nt) {
+        F32::B b;
+        load_b_nn(b, y + n * 8, ld, kk * 8, g, t);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) tc::mma(acc[r][i], a[r].lo, b.hi);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) tc::mma(acc[r][i], a[r].hi, b.lo);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) tc::mma(acc[r][i], a[r].hi, b.hi);
+      }
+    }
+  }
+}
+
+// S (or S^T) and dP (or dP^T) of a step, then P and dS. Warp w takes tile
+// (row group rg, column group cg) = ((w & 3) >> 1, w & 1) of S (w < 4) or
+// dP. The S warps write P (dK/dV: P^T as A fragments to pa) and hand P to
+// their dP partner through pb; the dP warps write dS (or dS^T) as A
+// fragments to pb. Tile rows are keys when rows_are_keys, else queries;
+// columns the other. On return P^T is complete; dS is complete once the dP
+// warps (4-7) have passed a barrier.
+__device__ __forceinline__ void s_p_ds(const float* xs, const float* xd, const float* ys,
+                                       const float* yd, int ld, int d, bool rows_are_keys,
+                                       const float* lse, const float* dsum, const int* segq,
+                                       const int* segk, float scale, float* pa, float* pb,
+                                       bool write_pt) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rg = (warp & 3) >> 1, cg = warp & 1;
+  const bool is_s = warp < 4;
+  float s[2][4];
+  s_tile(s, (is_s ? xs : xd) + rg * 16 * ld, (is_s ? ys : yd) + cg * 16 * ld, ld, d, g, t);
+  const int r0 = rg * 16, c0 = cg * 16;
+  float* xch = pb + (warp & 3) * 8 * 32 + lane;
+  if (is_s) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + 8 * (e >> 1), c = c0 + n * 8 + 2 * t + (e & 1);
+        const int qi = rows_are_keys ? c : r, ki = rows_are_keys ? r : c;
+        const float x = s[n][e] * scale + (segq[qi] == segk[ki] ? 0.f : MASK);
+        const float p = expf(x - lse[qi]);
+        xch[(n * 4 + e) * 32] = p;
+        if (write_pt) store_frag(pa, r, c, p);
+      }
+  }
+  __syncthreads();  // P handed over
+  if (!is_s) {
+    float p[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n][e] = xch[(n * 4 + e) * 32];
+    named_sync(1, 128);  // every dP warp has read P before pb is overwritten
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + 8 * (e >> 1), c = c0 + n * 8 + 2 * t + (e & 1);
+        const int qi = rows_are_keys ? c : r;
+        store_frag(pb, r, c, p[n][e] * (s[n][e] - dsum[qi]) * scale);
+      }
+  }
+}
+
+// dK and dV of one key tile of TB rows: out0 = dk, out1 = dv.
+__global__ void __launch_bounds__(THREADS, 1) dkv_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem lay(a.d);
+  float* Ks = reinterpret_cast<float*>(smem + lay.res0);
+  float* Vs = reinterpret_cast<float*>(smem + lay.res1);
+  float* Pt = reinterpret_cast<float*>(smem + lay.pa);
+  float* dSt = reinterpret_cast<float*>(smem + lay.pb);
+  int* segk = reinterpret_cast<int*>(smem + lay.segk);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int d = a.d, ld = ld_of(d), nt = d / 8;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * TB;
+  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh;
+  const size_t rows = ((size_t)b * a.H + h) * a.L;
+  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* dout = static_cast<const float*>(a.dout) + base;
+
+  // a step's Q, dO, lse, D and segment ids into buffer j & 1 (one group)
+  const int lid = threadIdx.x;
+  auto stage = [&](int j) {
+    float* buf = reinterpret_cast<float*>(smem + ((j & 1) ? lay.buf1 : lay.buf0));
+    const int q0 = j * TB, o = (j & 1) * TB;
+    copy2(buf, buf + TB * ld, ld, q + (size_t)q0 * a.sl, dout + (size_t)q0 * a.sl, a.sl, d);
+    if (lid < TB) {
+      cp_async4(reinterpret_cast<float*>(smem + lay.lse) + o + lid, a.lse + rows + q0 + lid);
+      cp_async4(reinterpret_cast<float*>(smem + lay.dsum) + o + lid, a.dsum + rows + q0 + lid);
+      if (seg) cp_async4(reinterpret_cast<int*>(smem + lay.segq) + o + lid, seg + q0 + lid);
+      else reinterpret_cast<int*>(smem + lay.segq)[o + lid] = 0;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  copy2(Ks, Vs, ld, static_cast<const float*>(a.k) + base + (size_t)k0 * a.sl,
+        static_cast<const float*>(a.v) + base + (size_t)k0 * a.sl, a.sl, d);
+  load_seg(segk, seg ? seg + k0 : nullptr, TB);
+  stage(0);
+
+  // dV += P^T dO (warps 0-3), dK += dS^T Q (4-7): both row groups, n-tiles
+  // (w & 3) + 4 i
+  const bool is_dv = warp < 4;
+  float acc[2][NTW_KV][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < NTW_KV; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][i][e] = 0.f;
+
+  const int steps = a.L / TB;
+  for (int j = 0; j < steps; ++j) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();  // step j's tiles have arrived; step j - 1 is done with the other buffer
+    if (j + 1 < steps) stage(j + 1);
+    const float* Qs = reinterpret_cast<const float*>(smem + ((j & 1) ? lay.buf1 : lay.buf0));
+    const float* dOs = Qs + TB * ld;
+    const int o = (j & 1) * TB;
+    // S^T = K Q^T, dP^T = V dO^T
+    s_p_ds(Ks, Vs, Qs, dOs, ld, d, true, reinterpret_cast<const float*>(smem + lay.lse) + o,
+           reinterpret_cast<const float*>(smem + lay.dsum) + o,
+           reinterpret_cast<const int*>(smem + lay.segq) + o, segk, a.scale, Pt, dSt, true);
+    if (is_dv) {
+      accumulate(acc, Pt, dOs, ld, nt, warp & 3, 4, lane, g, t);
+    } else {
+      named_sync(2, 128);  // dS^T is complete
+      accumulate(acc, dSt, Qs, ld, nt, warp & 3, 4, lane, g, t);
+    }
+  }
+  float* out = static_cast<float*>(is_dv ? a.out1 : a.out0) + base + (size_t)k0 * a.sl;
+  store_rows<F32, NTW_KV>(out, a.sl, acc[0], 1.f, 1.f, nt, warp & 3, 4, g, t);
+  store_rows<F32, NTW_KV>(out + (size_t)16 * a.sl, a.sl, acc[1], 1.f, 1.f, nt, warp & 3, 4, g, t);
+}
+
+// dQ of one query tile of TB rows: out0 = dq.
+__global__ void __launch_bounds__(THREADS, 1) dq_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem lay(a.d);
+  float* Qs = reinterpret_cast<float*>(smem + lay.res0);
+  float* dOs = reinterpret_cast<float*>(smem + lay.res1);
+  float* dSs = reinterpret_cast<float*>(smem + lay.pb);
+  float* lse_s = reinterpret_cast<float*>(smem + lay.lse);
+  float* dsum_s = reinterpret_cast<float*>(smem + lay.dsum);
+  int* segq = reinterpret_cast<int*>(smem + lay.segq);
+  int* segk = reinterpret_cast<int*>(smem + lay.segk);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int d = a.d, ld = ld_of(d), nt = d / 8;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TB;
+  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh;
+  const size_t rows = ((size_t)b * a.H + h) * a.L;
+  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
+  const float* kp = static_cast<const float*>(a.k) + base;
+  const float* vp = static_cast<const float*>(a.v) + base;
+
+  // a step's K, V and segment ids into buffer j & 1 (one group)
+  const int lid = threadIdx.x;
+  auto stage = [&](int j) {
+    float* buf = reinterpret_cast<float*>(smem + ((j & 1) ? lay.buf1 : lay.buf0));
+    const int k0 = j * TB, o = (j & 1) * TB;
+    copy2(buf, buf + TB * ld, ld, kp + (size_t)k0 * a.sl, vp + (size_t)k0 * a.sl, a.sl, d);
+    if (lid < TB) {
+      if (seg) cp_async4(segk + o + lid, seg + k0 + lid);
+      else segk[o + lid] = 0;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  copy2(Qs, dOs, ld, static_cast<const float*>(a.q) + base + (size_t)q0 * a.sl,
+        static_cast<const float*>(a.dout) + base + (size_t)q0 * a.sl, a.sl, d);
+  if (lid < TB) {
+    lse_s[lid] = a.lse[rows + q0 + lid];
+    dsum_s[lid] = a.dsum[rows + q0 + lid];
+  }
+  load_seg(segq, seg ? seg + q0 : nullptr, TB);
+  stage(0);
+
+  // dQ += dS K: both row groups, n-tiles w + 8 i
+  float acc[2][NTW_Q][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < NTW_Q; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][i][e] = 0.f;
+
+  const int steps = a.L / TB;
+  for (int j = 0; j < steps; ++j) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();  // step j's tiles have arrived; step j - 1 is done with the other buffer
+    if (j + 1 < steps) stage(j + 1);
+    const float* Ks = reinterpret_cast<const float*>(smem + ((j & 1) ? lay.buf1 : lay.buf0));
+    const float* Vs = Ks + TB * ld;
+    // S = Q K^T, dP = dO V^T
+    s_p_ds(Qs, dOs, Ks, Vs, ld, d, false, lse_s, dsum_s, segq, segk + (j & 1) * TB, a.scale,
+           nullptr, dSs, false);
+    __syncthreads();  // dS is complete
+    accumulate(acc, dSs, Ks, ld, nt, warp, WARPS, lane, g, t);
+  }
+  float* out = static_cast<float*>(a.out0) + base + (size_t)q0 * a.sl;
+  store_rows<F32, NTW_Q>(out, a.sl, acc[0], 1.f, 1.f, nt, warp, WARPS, g, t);
+  store_rows<F32, NTW_Q>(out + (size_t)16 * a.sl, a.sl, acc[1], 1.f, 1.f, nt, warp, WARPS, g, t);
+}
+
+}  // namespace tf
+
 // ---- host side
 
 template <class P>
@@ -611,16 +1022,26 @@ int fwd(const Args& a, void* stream) {
   }
 }
 
+// The backward: float32 on the kernels of namespace tf, bf16 on dkv_kernel
+// and dq_kernel.
 template <class P>
 int dkv(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.lse || !a.dsum || !a.out1) return (int)cudaErrorInvalidValue;
-  return (int)launch(dkv_kernel<P>, dim3(a.L / BB, a.H, a.B), BwdSmem<P>(a.d).bytes, a, stream);
+  if constexpr (std::is_same_v<P, F32>)
+    return (int)launch(tf::dkv_kernel, dim3(a.L / tf::TB, a.H, a.B), tf::Smem(a.d).bytes, a,
+                       stream);
+  else
+    return (int)launch(dkv_kernel<P>, dim3(a.L / BB, a.H, a.B), BwdSmem<P>(a.d).bytes, a, stream);
 }
 
 template <class P>
 int dq(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.lse || !a.dsum) return (int)cudaErrorInvalidValue;
-  return (int)launch(dq_kernel<P>, dim3(a.L / BB, a.H, a.B), BwdSmem<P>(a.d).bytes, a, stream);
+  if constexpr (std::is_same_v<P, F32>)
+    return (int)launch(tf::dq_kernel, dim3(a.L / tf::TB, a.H, a.B), tf::Smem(a.d).bytes, a,
+                       stream);
+  else
+    return (int)launch(dq_kernel<P>, dim3(a.L / BB, a.H, a.B), BwdSmem<P>(a.d).bytes, a, stream);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout, const float* lse,
