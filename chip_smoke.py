@@ -209,13 +209,15 @@ Phases, in order; any failure exits nonzero:
 
 21. Flash attention (K5, `ZEROVOX_ATTN=flash`; phases 1-20 run with it unset
    and launch no K5): K5's forward at the serving decoder's [1, 2, 1024,
-   264] and the training decoder's [24, 2, 512, 264], and its backward
+   264], the training decoder's [24, 2, 512, 264] and the serving
+   encoder's [1, 2, 256, 264], and its backward
    (dK/dV, dQ, both) at the training shape, float32 and bf16, on views of
    [B, L, h, d] tensors with per-row valid lengths from seed 21, each
    against its plain version (float32 within 5e-4; bf16 within one bf16
    step of the largest output forward and two backward), timed beside it
    and beside scaled_dot_product_attention on the boolean segment mask,
-   with the forward's query tile (the whole backward's rows name SDPA's
+   with the forward's query tile, key groups, registers and spill bytes
+   (the whole backward's rows name SDPA's
    backend and its gradients' distance from plain); the main-path engine at full width on
    bench.py's text twice (204 phones, text bucket 256) at 5 frames a phone
    (mel bucket 1024): tts_ex under flash launches K5's forward 10 times (4
@@ -322,13 +324,14 @@ TP_STEPS = 2
 # bench.py's text twice (204 phones, text bucket 256) at 5 frames a phone
 FLASH_SERVE_SHAPE = (1, 2, 1024, 264)
 FLASH_TRAIN_SHAPE = (24, 2, 512, 264)
+FLASH_ENC_SHAPE = (1, 2, 256, 264)  # the serving encoder's at text bucket 256
 FLASH_REPEAT, FLASH_FRAMES = 2, 5
 K5_SOURCE = "zerovox_tpu_torch/csrc/flash_attn.cu"
 _K5_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
-K5_REPLACES = {"fwd": f"zerovox_tpu/models/fs2.py:114 -> {_K5_LIB}:758",
-               "dkv": f"zerovox_tpu/models/fs2.py:114 -> {_K5_LIB}:1121",
-               "dq": f"zerovox_tpu/models/fs2.py:114 -> {_K5_LIB}:1456",
-               "bwd": f"zerovox_tpu/models/fs2.py:114 -> {_K5_LIB}:1121, :1456"}
+K5_REPLACES = {"fwd": f"zerovox_tpu/models/fs2.py:113 -> {_K5_LIB}:758",
+               "dkv": f"zerovox_tpu/models/fs2.py:113 -> {_K5_LIB}:1121",
+               "dq": f"zerovox_tpu/models/fs2.py:113 -> {_K5_LIB}:1456",
+               "bwd": f"zerovox_tpu/models/fs2.py:113 -> {_K5_LIB}:1121, :1456"}
 
 
 class PhaseFailed(SystemExit):
@@ -3627,15 +3630,17 @@ def sdpa_backend(torch, F, q, k, v, mask, scale) -> str:
 
 
 def k5_rows(torch, dev) -> list[dict]:
-    """Phase 21's kernel rows: K5's forward at the serving decoder's and the
-    training decoder's shapes, and its backward (dK/dV, dQ, both) at the
-    training shape, float32 and bf16, each against its plain version (the
-    backward against autograd of the plain version), with
-    scaled_dot_product_attention on the boolean segment mask timed beside
-    it; the whole backward's rows also name the SDPA backend that ran and
-    its gradients' largest distance from plain's. Inputs from seed 21, views
-    of [B, L, h, d] tensors as the model passes them; segment ids with
-    per-row valid lengths from the seed."""
+    """Phase 21's kernel rows: K5's forward at the serving decoder's, the
+    training decoder's and the serving encoder's shapes, and its backward
+    (dK/dV, dQ, both) at the training shape, float32 and bf16, each against
+    its plain version (the backward against autograd of the plain version),
+    with scaled_dot_product_attention on the boolean segment mask timed
+    beside it; the forward's rows carry its layout (query rows a block, key
+    groups) and its kernel's registers and spill bytes, the whole
+    backward's rows the SDPA backend that ran and its gradients' largest
+    distance from plain's. Inputs from seed 21, views of [B, L, h, d]
+    tensors as the model passes them; segment ids with per-row valid
+    lengths from the seed."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -3662,7 +3667,8 @@ def k5_rows(torch, dev) -> list[dict]:
         o = f(qg, kg, vg, seg, scale)
         return lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)
 
-    for label, shape in (("", FLASH_SERVE_SHAPE), ("_train", FLASH_TRAIN_SHAPE)):
+    for label, shape in (("", FLASH_SERVE_SHAPE), ("_train", FLASH_TRAIN_SHAPE),
+                         ("_enc", FLASH_ENC_SHAPE)):
         B, h, L, d = shape
         q, k, v, seg, do, lengths = inputs(shape)
         scale = 1.0 / math.sqrt(d)
@@ -3672,10 +3678,10 @@ def k5_rows(torch, dev) -> list[dict]:
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
         fwd_flop = 4.0 * B * h * L * L * d
-        extra = {"tile_rows": fa.fwd_tile(B, h, L), "valid_lengths": lengths[:4]}
         for bf in (False, True):
             qx, kx, vx, dox = (x.to(torch.bfloat16) if bf else x for x in (q, k, v, do))
             name = f"flash_fwd{label}" + ("_bf16" if bf else "")
+            extra = {**fa.fwd_layout(B, h, L, qx.dtype), "valid_lengths": lengths[:4]}
             fn = lambda: fa.flash_fwd(qx, kx, vx, seg, scale)[0]  # noqa: E731
             plain = lambda: fa.flash_attention_plain(qx, kx, vx, seg, scale)  # noqa: E731
             lib = lambda: sdpa(qx, kx, vx, seg, scale)  # noqa: E731
@@ -3688,7 +3694,7 @@ def k5_rows(torch, dev) -> list[dict]:
             else:
                 measure(torch, rows, name, K5_SOURCE, K5_REPLACES["fwd"], list(shape), fn, plain,
                         fwd_flop, nbytes, method="3xtf32", library=lib, **extra)
-            if not label:
+            if label != "_train":
                 continue
             # the backward at the training shape: each kernel and both
             o, lse = fa.flash_fwd(qx, kx, vx, seg, scale)
@@ -3832,6 +3838,8 @@ def flash_serving(torch, card: str, refwav, sr: int) -> dict:
             "decode_ms": cuda_time_ms(lambda: engine._decode(enc, spk, mel_b), iters=10)})
     set_attention(None)
     out = {"card": card, "phones": n, "text_bucket": text_b, "mel_bucket": mel_b,
+           "layers": {"encoder": engine.cfg.model.encoder.fs2_layer,
+                      "decoder": engine.cfg.model.decoder.n_layers},
            "launches": n_f, "launches_bf16": n_16, "wav_peak": peak,
            "flash_vs_einsum_max_abs": err_e, "flash_vs_cpu_max_abs": err_c,
            "bf16_vs_f32_max_abs": err_16, "bf16_bound": tol_16, "stream_vs_einsum_stream": err_s,
@@ -3995,6 +4003,8 @@ def flash_phase(torch, dev, card: str, refwav, sr: int) -> dict:
         suffix = "_bf16" if bf else ""
         if name.startswith("flash_fwd") and "_train" not in name:
             row["launches"] = serve["launches_bf16" if bf else "launches"][f"flash_fwd{suffix}"]
+            # of them at this row's shape: the encoder's layers or the decoder's
+            row["launches_at_shape"] = serve["layers"]["encoder" if "_enc" in name else "decoder"]
             continue
         counts = train["bf16_mixed" if bf else "f32"]["launches"]
         kernel = name.removesuffix("_bf16").replace("_train", "")

@@ -1,30 +1,48 @@
 #!/usr/bin/env python3
-"""Where the float32 backward of kernel K5 spends its time on the card:
-`zerovox_tpu_torch/csrc/flash_attn.cu` against copies of itself with a phase
-of `tf::dkv_kernel` and `tf::dq_kernel` taken out or a design choice
-changed, timed in turns at the training shape [24, 2, 512, 264] (CUDA
-events; views of [B, L, h, d] tensors, segment ids with per-row valid
-lengths from seed 21, as chip_smoke.py phase 21 passes them).
+"""Where kernel K5 spends its time on the card: `zerovox_tpu_torch/csrc/
+flash_attn.cu` against copies of itself with a phase taken out or a design
+choice changed, timed in turns (CUDA events; views of [B, L, h, d] tensors,
+segment ids with per-row valid lengths from seed 21, as chip_smoke.py phase
+21 passes them): the forward (`fw::fwd_kernel`, float32 and bf16) at the
+training shape [24, 2, 512, 264] and the serving shapes [1, 2, 1024, 264]
+(decoder) and [1, 2, 256, 264] (encoder), the float32 backward
+(`tf::dkv_kernel`, `tf::dq_kernel`) at the training shape.
 
     python3 scripts/bench_k5_breakdown.py [--parent DIR]
 
 Variants, built from text substitutions of the source with the kernels' own
 nvcc flags (each substitution must match the source exactly once:
-`tests/test_torch_flash_bwd_emulation.py` checks that on the CPU):
+`tests/test_torch_flash_bwd_emulation.py` and
+`tests/test_torch_flash_fwd_emulation.py` check that on the CPU); a variant
+without an MMA also loses whatever only fed it:
 
-  kernel      the source as it is;
-  no_s_mma    S and dP (S^T and dP^T) without their MMAs;
-  no_acc_mma  dK/dV and dQ's accumulation without its MMAs;
-  no_fetch    the streamed tiles not copied from device memory (cp.async);
-  parent      (with --parent) DIR's flash_attn.cu, the kernels it had.
+  kernel        the source as it is (forward and backward);
+  fwd_no_s_mma  the forward's S without its MMAs;
+  fwd_no_pv_mma the forward's P.V without its MMAs;
+  fwd_no_fetch  the forward's K and V not copied from device memory;
+  fwd_rna_lo    the float32 forward's operand split with lo rounded to TF32
+                (cvt.rna's rounding, as tc::split) instead of truncated by
+                the MMA: the design choice it replaced;
+  fwd_pv_group_1, fwd_pv_group_17
+                the float32 forward's P.V splitting V's B fragments one
+                n-tile (each n-tile's three MMAs in a chain) or a warp's
+                17 n-tiles at a time instead of 4;
+  fwd_rows_32   the forward's tile rule taking 32 query rows (2 key groups)
+                where it takes 16 (4 key groups);
+  no_s_mma      the backward's S and dP (S^T and dP^T) without their MMAs;
+  no_acc_mma    the backward's dK/dV and dQ accumulation without its MMAs;
+  no_fetch      the backward's streamed tiles not copied (cp.async);
+  parent        (with --parent) DIR's flash_attn.cu, the kernels it had
+                (forward and backward).
 
 A variant's distance from `kernel` is the device time of what it takes out.
-Beside them, the rate of the instruction the kernels are built on: a kernel
-that only runs `mma.sync.m16n8k8` TF32 on registers (8 independent
+Beside them, the rate of the instruction the float32 kernels are built on: a
+kernel that only runs `mma.sync.m16n8k8` TF32 on registers (8 independent
 accumulators a warp sharing their operands, 6 chains of three MMAs as
 3xTF32 adds them, or 8 accumulators with operands of their own), with 4, 8
 and 16 warps on each SM, in TFLOP/s. Prints the card's name and power
-limit, then one JSON object.
+limit, then one JSON object with ptxas's registers and spills of every
+kernel.
 """
 
 from __future__ import annotations
@@ -40,9 +58,41 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCE = ROOT / "zerovox_tpu_torch" / "csrc" / "flash_attn.cu"
-SHAPE = (24, 2, 512, 264)
+SHAPE = (24, 2, 512, 264)  # the backward's
+FWD_SHAPES = {"train": (24, 2, 512, 264), "serve": (1, 2, 1024, 264), "enc": (1, 2, 256, 264)}
 VARIANTS = {
     "kernel": [],
+    "fwd_no_s_mma": [("      tc::mma(lh[c], a.lo, b.hi);\n      tc::mma(hl[c], a.hi, b.lo);\n"
+                      "      tc::mma(hh[c], a.hi, b.hi);\n", ""),
+                     ("      tc::mma16(acc[c], a, b0);\n      tc::mma16(acc[c + 1], a, b1);\n", "")],
+    "fwd_no_pv_mma": [("        if (i0 + j < ntw) tc::mma(acc[i0 + j], a.lo, b[j].hi);\n", "        ;\n"),
+                      ("        if (i0 + j < ntw) tc::mma(acc[i0 + j], a.hi, b[j].lo);\n", "        ;\n"),
+                      ("        if (i0 + j < ntw) tc::mma(acc[i0 + j], a.hi, b[j].hi);\n", "        ;\n"),
+                      ("        tc::mma16(acc[i], a, b0);\n        tc::mma16(acc[i + 1], a, b1);\n",
+                       "")],
+    "fwd_no_fetch": [("    copy_rows(Kb + (j & 1) * BK * ldq, ldq, kg + (size_t)k0 * a.sl, a.sl, BK, d);\n"
+                      "    copy_rows(Vb + (j & 1) * BK * ldv, ldv, vg + (size_t)k0 * a.sl, a.sl, BK, d);\n",
+                      "")],
+    "fwd_rna_lo": [("  lo = __float_as_uint(x - __uint_as_float(hi));\n",
+                    "  lo = tc::to_tf32(x - __uint_as_float(hi));\n")],
+    "fwd_trunc_hi": [("  hi = tc::to_tf32(x);\n  lo = __float_as_uint(x - __uint_as_float(hi));\n",
+                      "  hi = __float_as_uint(x);\n"
+                      "  lo = __float_as_uint(x - __uint_as_float(hi & 0xFFFFE000u));\n")],
+    "fwd_pv_group_6": [("constexpr int PV_GROUP = 4;\n", "constexpr int PV_GROUP = 6;\n")],
+    "fwd_bf16_bk32": [("imax(4 * P::KS, KQ * P::KS);", "imax(32, KQ * P::KS);")],
+    "fwd_s_unroll_1": [("#pragma unroll 3\n  for (int ks = kb; ks < ke; ++ks) {",
+                        "#pragma unroll 1\n  for (int ks = kb; ks < ke; ++ks) {")],
+    "fwd_s_unroll_6": [("#pragma unroll 3\n  for (int ks = kb; ks < ke; ++ks) {",
+                        "#pragma unroll 6\n  for (int ks = kb; ks < ke; ++ks) {")],
+    "fwd_no_exchange": [("    tf::named_sync(1 + u, 64);\n", ""),
+                        ("      for (int e = 0; e < 4; ++e) xmine[(c * 4 + e) * 32] = s[c][e];\n",
+                         "      for (int e = 0; e < 4; ++e) s[c][e] *= 2.f;\n"),
+                        ("      for (int e = 0; e < 4; ++e) s[c][e] += xother[(c * 4 + e) * 32];\n",
+                         "      for (int e = 0; e < 4; ++e) s[c][e] += 1.f;\n")],
+    "fwd_pv_group_1": [("constexpr int PV_GROUP = 4;\n", "constexpr int PV_GROUP = 1;\n")],
+    "fwd_pv_group_17": [("constexpr int PV_GROUP = 4;\n", "constexpr int PV_GROUP = 17;\n")],
+    "fwd_rows_32": [("  if ((long long)B * H * (L / 32) >= sms) return 32;\n  return 16;\n",
+                     "  return 32;\n")],
     "no_s_mma": [("      tc::mma(lh[n], a.lo, b.hi);\n      tc::mma(hl[n], a.hi, b.lo);\n"
                   "      tc::mma(hh[n], a.hi, b.hi);\n", "")],
     "no_acc_mma": [("        for (int r = 0; r < 2; ++r) tc::mma(acc[r][i], a[r].lo, b.hi);\n",
@@ -52,7 +102,6 @@ VARIANTS = {
                  ("    copy2(buf, buf + TB * ld, ld, kp + (size_t)k0 * a.sl, vp + (size_t)k0 * a.sl, a.sl, d);\n",
                   "")],
 }
-
 
 MMA_RATE_CU = r"""
 #include <cstdint>
@@ -148,6 +197,21 @@ def build(tmp: Path, _cuda, parent: Path | None) -> tuple[dict, list[str]]:
     return libs, ptxas
 
 
+def inputs(torch, np, shape, rng):
+    """q, k, v, dO (views of [B, L, h, d] float32 tensors), segment ids"""
+    B, h, L, d = shape
+
+    def t():
+        return torch.from_numpy(rng.normal(size=(B, L, h, d)).astype(np.float32)).cuda() \
+            .transpose(1, 2)
+
+    q, k, v, do = t(), t(), t(), t()
+    n = rng.integers(L // 2, L + 1, size=B)
+    n[0] = L
+    seg = torch.from_numpy((np.arange(L)[None] >= n[:, None]).astype(np.int32)).cuda()
+    return q, k, v, do, seg
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
@@ -164,25 +228,32 @@ def main() -> None:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    B, h, L, d = SHAPE
     rng = np.random.default_rng(21)
-
-    def t():
-        return torch.from_numpy(rng.normal(size=(B, L, h, d)).astype(np.float32)).cuda() \
-            .transpose(1, 2)
-
-    q, k, v, do = t(), t(), t(), t()
-    n = rng.integers(L // 2, L + 1, size=B)
-    n[0] = L
-    seg = torch.from_numpy((np.arange(L)[None] >= n[:, None]).astype(np.int32)).cuda()
-    scale = 1.0 / math.sqrt(d)
-    o, lse = fa.flash_fwd(q, k, v, seg, scale)
-    dsum = (do * o).sum(-1).contiguous()
-    dk, dv, dq = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    dims = [B, h, L, d, *q.stride()[:3]]
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
+
+    passes = {}
+    for label, shape in FWD_SHAPES.items():  # the forward: o and lse into buffers of their own
+        q, k, v, _, seg = inputs(torch, np, shape, rng)
+        scale = 1.0 / math.sqrt(shape[3])
+        for kind in ("f32", "bf16"):
+            x = [q, k, v] if kind == "f32" else [t.bfloat16() for t in (q, k, v)]
+            o, lse = torch.empty_like(x[0]), x[0].new_empty(shape[:3], dtype=torch.float32)
+            dims = [*shape, *x[0].stride()[:3]]
+
+            def fwd(lib, x=x, o=o, lse=lse, seg=seg, dims=dims, scale=scale, kind=kind):
+                _cuda.check(getattr(lib, f"zv_flash_fwd_{kind}")(
+                    x[0].data_ptr(), x[1].data_ptr(), x[2].data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), seg.data_ptr(), *dims, scale, stream()), "fwd")
+
+            passes[f"fwd_{kind}_{label}"] = fwd
+    q, k, v, do, seg = inputs(torch, np, SHAPE, np.random.default_rng(21))
+    scale = 1.0 / math.sqrt(SHAPE[3])
+    o, lse = fa.flash_fwd(q, k, v, seg, scale)
+    dsum = (do * o).sum(-1).contiguous()
+    dk, dv, dq = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dims = [*SHAPE, *q.stride()[:3]]
 
     def dkv(lib):
         _cuda.check(lib.zv_flash_dkv_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -195,18 +266,29 @@ def main() -> None:
                                         lse.data_ptr(), dsum.data_ptr(), seg.data_ptr(),
                                         dq.data_ptr(), *dims, scale, stream()), "dq")
 
-    passes = {"dkv": dkv, "dq": dq_}
+    passes.update({"dkv": dkv, "dq": dq_})
+
+    def timed(name: str) -> list[str]:
+        """the passes a variant is timed on: its own side of the kernel"""
+        if name.startswith("fwd_"):
+            return [p for p in passes if p.startswith("fwd_")]
+        if name in ("kernel", "parent"):
+            return list(passes)
+        return ["dkv", "dq"]
+
     with tempfile.TemporaryDirectory() as tmp:
         libs, ptxas = build(Path(tmp), _cuda, args.parent)
-        ms = {name: {p: [] for p in passes} for name in libs}
+        ms = {name: {p: [] for p in timed(name)} for name in libs}
         for names in (list(libs), list(libs)[::-1]):  # in turns, each order once
             for name in names:
-                for p, fn in passes.items():
-                    ms[name][p].append(cuda_time_ms(lambda: fn(libs[name]), iters=20, warmup=3))
+                for p in timed(name):
+                    ms[name][p].append(cuda_time_ms(lambda: passes[p](libs[name]), iters=20,
+                                                    warmup=3))
         rate = mma_rate(torch, Path(tmp), _cuda, cuda_time_ms)
     print(card)
-    print(json.dumps({"k5_breakdown": {"shape": list(SHAPE), "ms": ms, "card": card,
-                                       "mma_tflops": rate, "ptxas": ptxas}}))
+    print(json.dumps({"k5_breakdown": {"fwd_shapes": FWD_SHAPES, "bwd_shape": list(SHAPE),
+                                       "ms": ms, "card": card, "mma_tflops": rate,
+                                       "ptxas": ptxas}}))
 
 
 if __name__ == "__main__":

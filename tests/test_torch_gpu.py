@@ -13,7 +13,9 @@ widened inputs, rounded once), and, their bf16 products taking each
 activation as two bf16 terms, leave at most 1 % of the outputs off the plain
 version's rounding (and at most 3 of a result of fewer than 300 values).
 Flash attention (K5) in float32 is within 5e-4 of its plain version forward
-and within 1e-4 x each gradient's largest value backward (3xTF32 products);
+(its lse within 1e-5 x the largest of the float64 log-sum-exp, in every
+layout the forward picks) and within 1e-4 x each gradient's largest value
+backward (3xTF32 products);
 in bf16 its output is within one bf16 step of the plain output's largest
 value and its gradients within two (P and dS rounded to bf16 before their
 products, in the online softmax's order, against the plain version's
@@ -1239,6 +1241,60 @@ def test_flash_attention_matches_plain(cuda, B, h, L, d, strided, dtype):
         assert err <= bound, f"{name}: {err} > {bound}"
     if strided:
         assert got[0].stride() == q.stride() and got[1].stride() == q.stride()
+
+
+# The forward's layouts, each forced by the sizes that select it on an
+# H100's 132 SMs (fwd_tile: 64, 32 or 16 query rows a block, each row
+# group's keys split 1, 2 or 4 ways between warp pairs); L = 64 is one bf16
+# key tile at 16 rows, d = 272 the largest shared-memory layout.
+FLASH_FWD_LAYOUTS = [(9, 2, 512, 264, 64), (9, 2, 512, 272, 64), (66, 2, 64, 24, 64),
+                     (4, 2, 640, 136, 32), (3, 2, 1024, 264, 32), (1, 2, 1024, 264, 16),
+                     (1, 2, 256, 264, 16), (1, 2, 64, 264, 16), (1, 1, 64, 8, 16)]
+
+
+def _lse_plain(q, k, seg, scale):
+    """The float64 log-sum-exp of each row's masked scores."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * scale
+    if seg is not None:
+        from zerovox_tpu_torch.ops.flash_attention import MASK_VALUE
+
+        same = seg[:, None, :, None] == seg[:, None, None, :]
+        s = s + torch.where(same, 0.0, MASK_VALUE).double()
+    return torch.logsumexp(s, dim=-1)
+
+
+@pytest.mark.parametrize("B,h,L,d,tile", FLASH_FWD_LAYOUTS)
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_every_layout(cuda, B, h, L, d, tile, masked, strided, dtype):
+    """o within the forward's bound of plain and lse within 1e-5 x its
+    largest value of the float64 log-sum-exp, in every layout the launcher
+    picks; row 0 of the segment ids is all one segment."""
+    from zerovox_tpu_torch.ops import flash_attention as fa
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want_tile = 64 if B * h * (L // 64) >= sms else 32 if B * h * (L // 32) >= sms else 16
+    assert fa.fwd_tile(B, h, L) == want_tile
+    if sms == 132:
+        assert want_tile == tile
+    rng = np.random.default_rng(B * L + d)
+    q, k, v, seg, _ = _attn_inputs(rng, B, h, L, d, cuda, dtype, strided)
+    assert bool((seg[0] == 0).all())
+    seg = seg if masked else None
+    scale = 1.0 / np.sqrt(d)
+    o, lse = fa.flash_fwd(q, k, v, seg, scale)
+    want = fa.flash_attention_plain(q, k, v, seg, scale)
+    want_lse = _lse_plain(q, k, seg, scale)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.stride() == q.stride() and lse.shape == (B, h, L)
+    assert bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(lse).all())
+    err = (o.float() - want.float()).abs().max().item()
+    bound = bf16_step(want.float()) if dtype == torch.bfloat16 else TOL
+    assert err <= bound, f"o: {err} > {bound}"
+    lse_err, lse_bound = (lse.double() - want_lse).abs().max().item(), \
+        1e-5 * want_lse.abs().max().item()
+    assert lse_err <= lse_bound, f"lse: {lse_err} > {lse_bound}"
 
 
 def test_flash_attention_counts_and_repeats(cuda):

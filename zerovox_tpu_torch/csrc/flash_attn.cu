@@ -30,28 +30,72 @@
 // accumulation. On this card mma.sync.m16n8k8 TF32 runs at ~320 TFLOP/s
 // (scripts/bench_k5_breakdown.py), ~109 TFLOP/s of 3xTF32.
 //
-// Forward, and the bf16 backward (a first kernel that is right and simple;
-// no wgmma, TMA or warp specialisation): 8 warps a block; the tiles of one
-// block sit in shared memory as rows of the head dim (padded so that a
-// warp's fragment loads fall on distinct banks); each of the two products a
-// step is a warp GEMM on mma.sync:
-//   * forward, one block per (query tile of BQ rows, head, batch row): for
-//     each key tile of BK = 32 rows, S = scale Q K^T + mask into shared
-//     memory, the online softmax row by row (256 / BQ threads a row, the
-//     running max and sum in their registers), P and each row's correction
-//     into shared memory, then O = alpha O + P V with O in registers (warps
-//     split O's rows in 16s and its columns in n-tiles of 8). BQ is the
-//     largest of 64, 32, 16 that still gives every SM a block (zv_flash_fwd_tile):
-//     the serving decoder (B = 1, H = 2, L = 1024) has only 32 query tiles of
-//     64 rows for 132 SMs, and takes 16-row tiles (128 blocks);
-//   * bf16 dK/dV (dkv_kernel<BF16>), one block per (key tile of 32 rows,
-//     head, batch row), looping over query tiles of 32: S^T = K Q^T and
-//     dP^T = V dO^T in the same warp tile, P^T and dS^T into shared memory,
-//     then dV += P^T dO and dK += dS^T Q in registers; bf16 dQ
-//     (dq_kernel<BF16>) likewise over key tiles: S, dP, dS, dQ += dS K. bf16
-//     pads the head dim to 16 (264 -> 272) with zeros in shared memory. bf16
-//     keeps these kernels: they already beat SDPA's bf16 backward, and the
-//     float32 design below has not been carried over to them.
+// The forward (namespace fw; FlashAttention-2's layout). At the model's
+// shapes it is bound by the tensor-core products and, in float32, by the
+// integer and shared-memory work that feeds 3xTF32 (each operand split into
+// hi and lo). A first forward that handed S and P to the softmax through
+// shared memory, with four block barriers a step of keys, reached 10 % of
+// the 3xTF32 bound at [24, 2, 512, 264]. What each choice does (times from
+// scripts/bench_k5_breakdown.py on an NVIDIA H100 80GB HBM3 at 700 W, which
+// also times the forward without each phase):
+//   * S and P stay in registers. A block's 8 warps form 4 pairs; each pair
+//     owns a row group of 16 query rows and a key group (below); its two
+//     warps split the head dim: each computes S over its half of the head
+//     dim, the halves are exchanged through shared memory (one pair barrier
+//     a step, ~3 % of the float32 time) and summed, and each warp keeps the
+//     online softmax's row max and sum in registers (quad shuffles) and O's
+//     columns of its half (17 or 18 n-tiles: 68-72 floats a lane; a warp
+//     holding a whole row of O at d = 264, 132 floats, would leave no room
+//     for S's accumulators). O is rescaled only where a row max moved (a
+//     warp vote; a scale of exactly 1 changes no bit). P's C fragments are
+//     P.V's A fragments: in float32 by taking the keys of each 8-key block
+//     in the order 2t, 2t + 1 (lane t's k and k + 4; V's B fragment is then
+//     its rows 2t and 2t + 1), in bf16 by packing two 8-key n-tiles into one
+//     m16n8k16 fragment (V by ldmatrix.trans).
+//   * K and V by cp.async a step ahead into the other of two buffers, with
+//     their segment ids: one block barrier a step of BK keys (float32 32,
+//     bf16 64: 9 % faster than 32). Each thread walks its 16-byte chunks
+//     without a division a chunk.
+//   * S in float32: a warp's 16 x (its keys) strip, each Q fragment loaded
+//     (8 bytes a row, register order) and split once a k-step for all of
+//     them; the three 3xTF32 terms in their own accumulators, summed as
+//     hh + (lh + hl). An operand's lo is left as x - hi: mma.sync reads a
+//     TF32 operand's top 19 bits, so lo enters truncated (3 operations a
+//     split; rounding lo as well: 34 % slower). bf16 takes Q and K by
+//     ldmatrix.
+//   * P.V in float32 splits V's B fragments PV_GROUP = 4 n-tiles at a time
+//     and runs each 3xTF32 term over the group, so that no MMA waits on the
+//     one before (one n-tile at a time, three chained MMAs each: 15 %
+//     slower; all 17 at once: 21 % slower).
+//   * Enough warps at the serving shapes. A block takes RG row groups (BQ =
+//     16 RG query rows) and splits each row group's keys between KQ = 4 / RG
+//     key groups: BQ is the largest of 64, 32, 16 whose grid gives every SM
+//     a block (zv_flash_fwd_tile), so the serving decoder (B = 1, H = 2,
+//     L = 1024: 128 query tiles of 16) runs 8 busy warps a block (32 rows
+//     and 2 key groups: 44 % slower there). Key groups merge their m, l and
+//     O by the log-sum-exp through shared memory at the end, in a fixed
+//     order.
+// Shared memory at d = 264, float32, BQ = 64: Q 67,584 bytes, two K and two
+// V buffers 136,192, the S exchange 16,384: 220,672 bytes, one block an SM;
+// at d = 272 231,424. Every step computes every key tile, masked or not, as
+// the library kernel does. What bounds it now: at the training shape the
+// two MMA phases take about a third of the float32 time each, the rest is
+// the softmax, the exchange, the barriers and the copies (K and V come from
+// L2 once for every 64 query rows).
+//
+// The bf16 backward (dkv_kernel<BF16>, dq_kernel<BF16>: a first kernel that
+// is right and simple; no wgmma, TMA or warp specialisation): 8 warps a
+// block; the tiles of one block sit in shared memory as rows of the head dim
+// (padded so that a warp's fragment loads fall on distinct banks); each of
+// the products a step is a warp GEMM on mma.sync:
+//   * dK/dV, one block per (key tile of 32 rows, head, batch row), looping
+//     over query tiles of 32: S^T = K Q^T and dP^T = V dO^T in the same warp
+//     tile, P^T and dS^T into shared memory, then dV += P^T dO and
+//     dK += dS^T Q in registers; dQ likewise over key tiles: S, dP, dS,
+//     dQ += dS K. bf16 pads the head dim to 16 (264 -> 272) with zeros in
+//     shared memory. bf16 keeps these kernels: they already beat SDPA's
+//     bf16 backward, and the float32 design below has not been carried
+//     over to them.
 //
 // The float32 backward (namespace tf). The bf16 kernels' structure, run in
 // float32, reaches 6.5 % of the bound: shared-memory loads, operand splits
@@ -112,7 +156,6 @@ constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int DMAX = 272;            // the largest head dim
 constexpr int NT_MAX = DMAX / 8;     // n-tiles of 8 columns in an output row
-constexpr int BK = 32;               // forward: key rows a step
 constexpr int BB = 32;               // backward: rows of a block's tile and of a step
 constexpr int L_MULTIPLE = 64;
 constexpr float MASK = -0.7f * FLT_MAX;  // the library's DEFAULT_MASK_VALUE
@@ -216,26 +259,6 @@ template <class P>
 __host__ __device__ int dk_of(int d) { return round_up(d, P::KS); }
 template <class P>
 __host__ __device__ int ld_of(int d) { return dk_of<P>(d) + P::PAD; }
-
-template <class P, int BQ>
-struct FwdSmem {
-  size_t q, k, v, s, p, alpha, l, segq, segk, bytes;
-  __host__ __device__ FwdSmem(int d) {
-    using T = typename P::T;
-    const size_t ld = ld_of<P>(d);
-    Carve c;
-    q = c.take(BQ * ld * sizeof(T));
-    k = c.take(BK * ld * sizeof(T));
-    v = c.take(BK * ld * sizeof(T));
-    s = c.take(BQ * (BK + 4) * sizeof(float));
-    p = c.take(BQ * (BK + P::PAD) * sizeof(T));
-    alpha = c.take(BQ * sizeof(float));
-    l = c.take(BQ * sizeof(float));
-    segq = c.take(BQ * sizeof(int));
-    segk = c.take(BK * sizeof(int));
-    bytes = c.off;
-  }
-};
 
 // Both backward kernels: four tiles of BB rows (dK/dV: K, V, Q, dO; dQ: Q,
 // dO, K, V), two BB x BB tiles of P or dS, and BB floats of lse, D and
@@ -346,110 +369,6 @@ struct Args {
   int sb, sh, sl;  // strides (elements) of every [B, H, L, d] tensor
   float scale;
 };
-
-// ---- forward
-
-template <class P, int BQ>
-__global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
-  using T = typename P::T;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const FwdSmem<P, BQ> lay(a.d);
-  T* Qs = reinterpret_cast<T*>(smem + lay.q);
-  T* Ks = reinterpret_cast<T*>(smem + lay.k);
-  T* Vs = reinterpret_cast<T*>(smem + lay.v);
-  float* Ss = reinterpret_cast<float*>(smem + lay.s);
-  T* Ps = reinterpret_cast<T*>(smem + lay.p);
-  float* alpha_s = reinterpret_cast<float*>(smem + lay.alpha);
-  float* l_s = reinterpret_cast<float*>(smem + lay.l);
-  int* segq = reinterpret_cast<int*>(smem + lay.segq);
-  int* segk = reinterpret_cast<int*>(smem + lay.segk);
-
-  constexpr int SLD = BK + 4, PLD = BK + P::PAD;
-  constexpr int RG = BQ / 16, NC = WARPS / RG, NTW = (NT_MAX + NC - 1) / NC;
-  constexpr int STILES = RG * (BK / 8);
-  constexpr int TPR = THREADS / BQ, CPT = BK / TPR;  // softmax: threads a row, columns a thread
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int d = a.d, dk = dk_of<P>(d), ld = ld_of<P>(d), nt = d / 8;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh;
-  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
-
-  load_tile(Qs, ld, static_cast<const T*>(a.q) + base + (size_t)q0 * a.sl, a.sl, BQ, d, dk);
-  load_seg(segq, seg ? seg + q0 : nullptr, BQ);
-
-  const int srow = threadIdx.x / TPR, spart = threadIdx.x % TPR;
-  float m_run = -INFINITY, l_run = 0.f;
-  const int rg = warp % RG, wc = warp / RG;
-  float acc[NTW][4];
-#pragma unroll
-  for (int i = 0; i < NTW; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int k0 = 0; k0 < a.L; k0 += BK) {
-    __syncthreads();  // the previous step is done with Ks, Vs, Ps
-    load_tile(Ks, ld, static_cast<const T*>(a.k) + base + (size_t)k0 * a.sl, a.sl, BK, d, dk);
-    load_tile(Vs, ld, static_cast<const T*>(a.v) + base + (size_t)k0 * a.sl, a.sl, BK, d, dk);
-    load_seg(segk, seg ? seg + k0 : nullptr, BK);
-    __syncthreads();
-    // S = scale Q K^T + mask
-    for (int i = warp; i < STILES; i += WARPS) {
-      const int sr = i / (BK / 8), sc = i % (BK / 8);
-      float c[4];
-      tile_nt<P>(c, Qs + sr * 16 * ld, Ks + sc * 8 * ld, ld, dk, g, t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = sr * 16 + g + 8 * (e >> 1), col = sc * 8 + 2 * t + (e & 1);
-        Ss[r * SLD + col] = c[e] * a.scale + (segq[r] == segk[col] ? 0.f : MASK);
-      }
-    }
-    __syncthreads();
-    // online softmax: row srow, columns spart + TPR j
-    {
-      float s[CPT], mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        s[j] = Ss[srow * SLD + spart + TPR * j];
-        mx = fmaxf(mx, s[j]);
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = expf(s[j] - m_new);
-        sum += p;
-        Ps[srow * PLD + spart + TPR * j] = P::cast(p);
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m_run - m_new);  // 0 on the first step (m_run = -inf)
-      l_run = l_run * alpha + sum;
-      m_run = m_new;
-      if (spart == 0) alpha_s[srow] = alpha;
-    }
-    __syncthreads();
-    // O = alpha O + P V
-    {
-      const float a0 = alpha_s[rg * 16 + g], a1 = alpha_s[rg * 16 + g + 8];
-#pragma unroll
-      for (int i = 0; i < NTW; ++i) {
-        acc[i][0] *= a0;
-        acc[i][1] *= a0;
-        acc[i][2] *= a1;
-        acc[i][3] *= a1;
-      }
-      accumulate_nn<P, NTW>(acc, Ps + rg * 16 * PLD, PLD, Vs, ld, BK, nt, wc, NC, g, t);
-    }
-  }
-  if (spart == 0) {
-    l_s[srow] = l_run;
-    static_cast<float*>(a.out1)[((size_t)b * a.H + h) * a.L + q0 + srow] = m_run + logf(l_run);
-  }
-  __syncthreads();
-  const int r0 = rg * 16;
-  store_rows<P, NTW>(static_cast<T*>(a.out0) + base + (size_t)(q0 + r0) * a.sl, a.sl, acc,
-                     1.f / l_s[r0 + g], 1.f / l_s[r0 + g + 8], nt, wc, NC, g, t);
-}
 
 // ---- backward: one 16 x 8 tile of P (or P^T) and dS a warp, from S and dP
 // at (row r, column col) of the tile; q-indexed values at qi, the pair of
@@ -969,6 +888,478 @@ __global__ void __launch_bounds__(THREADS, 1) dq_kernel(Args a) {
 
 }  // namespace tf
 
+// ---- the forward (FlashAttention-2's layout): see the header. Warp w is
+// in pair u = w % PAIRS, head-dim half dh = w / PAIRS; pair u takes row
+// group u % RG and key group u / RG.
+namespace fw {
+
+constexpr int PAIRS = WARPS / 2;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// A block of RG row groups: its key groups, query rows, key rows a step (32
+// in float32, 64 in bf16), a key group's keys a step, S's n-tiles and O's
+// n-tiles a warp (half a row; bf16 in pairs of n-tiles).
+template <class P, int RG>
+struct Tile {
+  static constexpr int KQ = PAIRS / RG;
+  static constexpr int BQ = 16 * RG;
+  static constexpr int BK = imax(4 * P::KS, KQ * P::KS);
+  static constexpr int KW = BK / KQ;
+  static constexpr int NS = KW / 8;
+  static constexpr int NTD = P::KS == 8 ? (NT_MAX + 1) / 2 : 2 * ((NT_MAX / 2 + 1) / 2);
+};
+
+// Row lengths in shared memory. float32: Q and K rows 8 or 24 mod 32 words
+// (a half warp's 8-byte fragment loads on distinct banks), V rows 4 or 12
+// mod 16 (a warp's 4-byte loads of rows 2t, 2t + 1 at column g on distinct
+// banks). bf16: 16-byte rows an odd number of 16 bytes apart (ldmatrix).
+template <class P>
+__host__ __device__ int ld_qk(int d) { return P::KS == 8 ? tf::ld_of(d) : ld_of<P>(d); }
+template <class P>
+__host__ __device__ int ld_v(int d) { return P::KS == 8 ? d + 4 : ld_of<P>(d); }
+
+// Q; two buffers of K and of V (after the last step: the partial O's of key
+// groups 1.. as C fragments); the S exchange; segment ids of the query rows
+// and of the two key tiles; each key group's row max and sum.
+template <class P, int RG>
+struct Smem {
+  size_t q, k, v, xch, segq, segk, ml, bytes;
+  __host__ __device__ Smem(int d) {
+    using T = typename P::T;
+    using C = Tile<P, RG>;
+    Carve c;
+    q = c.take((size_t)C::BQ * ld_qk<P>(d) * sizeof(T));
+    k = c.take((size_t)2 * C::BK * ld_qk<P>(d) * sizeof(T));
+    v = c.take((size_t)2 * C::BK * ld_v<P>(d) * sizeof(T));
+    const size_t part = (size_t)RG * (C::KQ - 1) * 2 * C::NTD * 32 * 4 * sizeof(float);
+    if (c.off < k + part) c.off = k + part;
+    xch = c.take((size_t)WARPS * C::NS * 4 * 32 * sizeof(float));
+    segq = c.take(C::BQ * sizeof(int));
+    segk = c.take(2 * C::BK * sizeof(int));
+    ml = c.take(C::KQ > 1 ? RG * C::KQ * 16 * 2 * sizeof(float) : 0);
+    bytes = c.off;
+  }
+};
+
+// 3xTF32's split for the forward: hi = rna_tf32(x), lo = x - hi as it is
+// (the MMA reads its top 19 bits).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tc::to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// rows x d elements from global rows `stride` apart into shared rows of ld,
+// by cp.async, 16 bytes a thread: each thread walks its chunks THREADS
+// apart without a division a chunk
+template <class T>
+__device__ __forceinline__ void copy_rows(T* s, int ld, const T* g, int stride, int rows, int d) {
+  constexpr int V = 16 / sizeof(T);
+  const int nv = d / V, dr = THREADS / nv, dc = (THREADS - dr * nv) * V;
+  const int r = threadIdx.x / nv;
+  int c = (threadIdx.x - r * nv) * V;
+  const T* gp = g + (size_t)r * stride + c;
+  T* sp = s + r * ld + c;
+  for (int i = threadIdx.x; i < rows * nv; i += THREADS) {
+    tf::cp_async16(sp, gp);
+    c += dc;
+    gp += (size_t)dr * stride + dc;
+    sp += dr * ld + dc;
+    if (c >= d) {
+      c -= d;
+      gp += stride - d;
+      sp += ld - d;
+    }
+  }
+}
+
+// float32: this warp's S strip (16 rows x 8 NS keys) over k-steps [kb, ke)
+// of 8 columns: Q rows at q, the keys' rows at k, both rows of ld.
+template <int NS>
+__device__ __forceinline__ void s_part(float (&s)[NS][4], const float* q, const float* k, int ld,
+                                       int kb, int ke, int g, int t) {
+  float lh[NS][4], hl[NS][4], hh[NS][4];
+#pragma unroll
+  for (int c = 0; c < NS; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) lh[c][e] = hl[c][e] = hh[c][e] = 0.f;
+  const float* q0 = q + g * ld + 2 * t;
+  const float* k0 = k + g * ld + 2 * t;
+#pragma unroll 3
+  for (int ks = kb; ks < ke; ++ks) {
+    const float2 x0 = *reinterpret_cast<const float2*>(q0 + ks * 8);
+    const float2 x1 = *reinterpret_cast<const float2*>(q0 + 8 * ld + ks * 8);
+    F32::A a;
+    split(x0.x, a.hi[0], a.lo[0]);
+    split(x1.x, a.hi[1], a.lo[1]);
+    split(x0.y, a.hi[2], a.lo[2]);
+    split(x1.y, a.hi[3], a.lo[3]);
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      const float2 y = *reinterpret_cast<const float2*>(k0 + c * 8 * ld + ks * 8);
+      F32::B b;
+      split(y.x, b.hi[0], b.lo[0]);
+      split(y.y, b.hi[1], b.lo[1]);
+      tc::mma(lh[c], a.lo, b.hi);
+      tc::mma(hl[c], a.hi, b.lo);
+      tc::mma(hh[c], a.hi, b.hi);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < NS; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[c][e] = hh[c][e] + (lh[c][e] + hl[c][e]);
+}
+
+// bf16: the same over k-steps [kb, ke) of 16 columns, Q and K by ldmatrix;
+// with fewer than 4 n-tiles, even and odd k-steps into accumulators of their
+// own.
+template <int NS>
+__device__ __forceinline__ void s_part(float (&s)[NS][4], const bf16* q, const bf16* k, int ld,
+                                       int kb, int ke, int lane) {
+  constexpr bool TWO = NS < 4;
+  float se[NS][4], so[TWO ? NS : 1][4];
+#pragma unroll
+  for (int c = 0; c < NS; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) se[c][e] = so[TWO ? c : 0][e] = 0.f;
+  const bf16* qa = q + (lane & 15) * ld + (lane >> 4) * 8;
+  const bf16* kp = k + ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8;
+  auto step = [&](auto& acc, int ks) {
+    uint32_t a[4];
+    tc::ldsm_x4(a, qa + ks * 16);
+#pragma unroll
+    for (int c = 0; c < NS; c += 2) {
+      uint32_t r[4];
+      tc::ldsm_x4(r, kp + c * 8 * ld + ks * 16);
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      tc::mma16(acc[c], a, b0);
+      tc::mma16(acc[c + 1], a, b1);
+    }
+  };
+  if constexpr (TWO) {
+    for (int ks = kb; ks < ke; ks += 2) {
+      step(se, ks);
+      if (ks + 1 < ke) step(so, ks + 1);
+    }
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[c][e] = se[c][e] + so[c][e];
+  } else {
+    for (int ks = kb; ks < ke; ++ks) step(se, ks);
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[c][e] = se[c][e];
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(tc::smem_u32(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// float32: acc (this warp's n-tiles n0.., ntw of them) += P V over the
+// warp's 8 NS keys: P as A fragments straight from S's C fragments (keys
+// 2t, 2t + 1 of each 8 as lane t's k, k + 4), V's rows at v (rows of ldv).
+// V's B fragments are split PV_GROUP n-tiles at a time, then each of the
+// three terms runs over the group, so that no MMA waits on the one before.
+constexpr int PV_GROUP = 4;
+template <int NS, int NTD>
+__device__ __forceinline__ void pv(float (&acc)[NTD][4], const float (&p)[NS][4], const float* v,
+                                   int ldv, int n0, int ntw, int lane, int g, int t) {
+#pragma unroll
+  for (int kb = 0; kb < NS; ++kb) {
+    F32::A a;
+    split(p[kb][0], a.hi[0], a.lo[0]);
+    split(p[kb][2], a.hi[1], a.lo[1]);
+    split(p[kb][1], a.hi[2], a.lo[2]);
+    split(p[kb][3], a.hi[3], a.lo[3]);
+    const float* vr = v + (kb * 8 + 2 * t) * ldv + n0 * 8 + g;
+#pragma unroll
+    for (int i0 = 0; i0 < NTD; i0 += PV_GROUP) {
+      F32::B b[PV_GROUP];
+#pragma unroll
+      for (int j = 0; j < PV_GROUP && i0 + j < NTD; ++j)
+        if (i0 + j < ntw) {
+          split(vr[(i0 + j) * 8], b[j].hi[0], b[j].lo[0]);
+          split(vr[(i0 + j) * 8 + ldv], b[j].hi[1], b[j].lo[1]);
+        }
+#pragma unroll
+      for (int j = 0; j < PV_GROUP && i0 + j < NTD; ++j)
+        if (i0 + j < ntw) tc::mma(acc[i0 + j], a.lo, b[j].hi);
+#pragma unroll
+      for (int j = 0; j < PV_GROUP && i0 + j < NTD; ++j)
+        if (i0 + j < ntw) tc::mma(acc[i0 + j], a.hi, b[j].lo);
+#pragma unroll
+      for (int j = 0; j < PV_GROUP && i0 + j < NTD; ++j)
+        if (i0 + j < ntw) tc::mma(acc[i0 + j], a.hi, b[j].hi);
+    }
+  }
+}
+
+// bf16: the same, P rounded to bf16 and two 8-key n-tiles packed into one
+// m16n8k16 A fragment, V's B fragments by ldmatrix.trans, 16 columns a load.
+template <int NS, int NTD>
+__device__ __forceinline__ void pv(float (&acc)[NTD][4], const float (&p)[NS][4], const bf16* v,
+                                   int ldv, int n0, int ntw, int lane, int, int) {
+  const bf16* vp = v + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldv + n0 * 8 + (lane >> 4) * 8;
+#pragma unroll
+  for (int kb = 0; kb < NS / 2; ++kb) {
+    const uint32_t a[4] = {pack_bf16(p[2 * kb][0], p[2 * kb][1]),
+                           pack_bf16(p[2 * kb][2], p[2 * kb][3]),
+                           pack_bf16(p[2 * kb + 1][0], p[2 * kb + 1][1]),
+                           pack_bf16(p[2 * kb + 1][2], p[2 * kb + 1][3])};
+#pragma unroll
+    for (int i = 0; i < NTD; i += 2) {
+      if (i < ntw) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, vp + kb * 16 * ldv + i * 8);
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        tc::mma16(acc[i], a, b0);
+        tc::mma16(acc[i + 1], a, b1);
+      }
+    }
+  }
+}
+
+// o and lse of BQ query rows: out0 = o, out1 = lse.
+template <class P, int RG>
+__global__ void __launch_bounds__(THREADS, 1) fwd_kernel(Args a) {
+  using T = typename P::T;
+  using C = Tile<P, RG>;
+  constexpr int KQ = C::KQ, BK = C::BK, KW = C::KW, NS = C::NS, NTD = C::NTD;
+  constexpr bool F = std::is_same_v<P, F32>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem<P, RG> lay(a.d);
+  T* Qs = reinterpret_cast<T*>(smem + lay.q);
+  T* Kb = reinterpret_cast<T*>(smem + lay.k);
+  T* Vb = reinterpret_cast<T*>(smem + lay.v);
+  float* xch = reinterpret_cast<float*>(smem + lay.xch);
+  int* segq = reinterpret_cast<int*>(smem + lay.segq);
+  int* segk = reinterpret_cast<int*>(smem + lay.segk);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int u = warp % PAIRS, dh = warp / PAIRS, rg = u % RG, kq = u / RG;
+  const int d = a.d, ldq = ld_qk<P>(d), ldv = ld_v<P>(d), nt = d / 8;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * C::BQ;
+  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh;
+  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
+  const T* kg = static_cast<const T*>(a.k) + base;
+  const T* vg = static_cast<const T*>(a.v) + base;
+  const int lid = threadIdx.x;
+
+  // this warp's half of the head dim: S's k-steps [kb, ke), O's n-tiles n0.. (ntw)
+  const int nk = round_up(d, P::KS) / P::KS, kh = (nk + 1) / 2;
+  const int kb = dh ? kh : 0, ke = dh ? nk : kh;
+  int n0, ntw;
+  if constexpr (F) {
+    const int nh = (nt + 1) / 2;
+    n0 = dh ? nh : 0;
+    ntw = dh ? nt - nh : nh;
+  } else {  // in pairs of n-tiles (16 columns): the zero tail's n-tile is computed, not stored
+    const int np = (nt + 1) / 2, ph = (np + 1) / 2;
+    n0 = dh ? 2 * ph : 0;
+    ntw = dh ? 2 * (np - ph) : 2 * ph;
+  }
+
+  // step j's K, V and key segment ids into buffer j & 1 (one group)
+  auto stage = [&](int j) {
+    const int k0 = j * BK;
+    copy_rows(Kb + (j & 1) * BK * ldq, ldq, kg + (size_t)k0 * a.sl, a.sl, BK, d);
+    copy_rows(Vb + (j & 1) * BK * ldv, ldv, vg + (size_t)k0 * a.sl, a.sl, BK, d);
+    if (lid < BK) {
+      if (seg) tf::cp_async4(segk + (j & 1) * BK + lid, seg + k0 + lid);
+      else segk[(j & 1) * BK + lid] = 0;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  copy_rows(Qs, ldq, static_cast<const T*>(a.q) + base + (size_t)q0 * a.sl, a.sl, C::BQ, d);
+  if (lid < C::BQ) {
+    if (seg) tf::cp_async4(segq + lid, seg + q0 + lid);
+    else segq[lid] = 0;
+  }
+  stage(0);
+  if constexpr (!F) {  // bf16's zero tail [d, dk) of every row the products read
+    if (round_up(d, 16) != d) {
+      for (int r = lid; r < C::BQ + 4 * BK; r += THREADS) {
+        T* row = r < C::BQ ? Qs + r * ldq
+                 : r < C::BQ + 2 * BK ? Kb + (r - C::BQ) * ldq : Vb + (r - C::BQ - 2 * BK) * ldv;
+        *reinterpret_cast<uint4*>(row + d) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+
+  float acc[NTD][4];
+#pragma unroll
+  for (int i = 0; i < NTD; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  int sq[2] = {0, 0};
+  const float sl2 = a.scale * LOG2E;  // scores in the log2 domain: exp2 of the difference
+  float* xmine = xch + warp * (NS * 4 * 32) + lane;
+  const float* xother = xch + (warp ^ PAIRS) * (NS * 4 * 32) + lane;
+
+  const int steps = a.L / BK;
+  for (int j = 0; j < steps; ++j) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();  // step j's tiles have arrived; step j - 1 is done with the other buffer
+    if (j + 1 < steps) stage(j + 1);
+    if (j == 0) {
+      sq[0] = segq[rg * 16 + g];
+      sq[1] = segq[rg * 16 + g + 8];
+    }
+    const T* Ks = Kb + ((j & 1) * BK + kq * KW) * ldq;
+    const T* Vs = Vb + ((j & 1) * BK + kq * KW) * ldv;
+    const int* sk = segk + (j & 1) * BK + kq * KW + 2 * t;
+    // S over this warp's half of the head dim, plus its partner's half
+    float s[NS][4];
+    if constexpr (F) s_part<NS>(s, Qs + rg * 16 * ldq, Ks, ldq, kb, ke, g, t);
+    else s_part<NS>(s, Qs + rg * 16 * ldq, Ks, ldq, kb, ke, lane);
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xmine[(c * 4 + e) * 32] = s[c][e];
+    tf::named_sync(1 + u, 64);
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[c][e] += xother[(c * 4 + e) * 32];
+    // the online softmax of rows g and g + 8 (lane quads share a row)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = fmaf(s[c][e], sl2, sq[e >> 1] == sk[c * 8 + (e & 1)] ? 0.f : MASK);
+        s[c][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);  // 0 on the first step (m = -inf)
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[c][e] - m[e >> 1]);
+        s[c][e] = p;
+        ls[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // else O stays as it is
+#pragma unroll
+      for (int i = 0; i < NTD; ++i) {
+        acc[i][0] *= alpha[0];
+        acc[i][1] *= alpha[0];
+        acc[i][2] *= alpha[1];
+        acc[i][3] *= alpha[1];
+      }
+    }
+    pv<NS, NTD>(acc, s, Vs, ldv, n0, ntw, lane, g, t);
+  }
+
+  // each row's sum over the quad; key groups merge by their row max
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float mt[2] = {m[0], m[1]}, lt[2] = {l[0], l[1]};
+  if constexpr (KQ > 1) {
+    float* ml = reinterpret_cast<float*>(smem + lay.ml);  // [rg][kq][row]{m, l}
+    float* part = reinterpret_cast<float*>(smem + lay.k);
+    __syncthreads();  // every warp is done with K and V: their buffers take the partial O's
+    if (dh == 0 && t == 0) {
+      float* x = ml + (rg * KQ + kq) * 32;
+      x[2 * g] = m[0];
+      x[2 * g + 1] = l[0];
+      x[2 * (g + 8)] = m[1];
+      x[2 * (g + 8) + 1] = l[1];
+    }
+    __syncthreads();
+    float f[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* x = ml + rg * KQ * 32 + 2 * (g + 8 * r);
+      float mm = x[0];
+#pragma unroll
+      for (int w = 1; w < KQ; ++w) mm = fmaxf(mm, x[w * 32]);
+      float ll = 0.f;
+#pragma unroll
+      for (int w = 0; w < KQ; ++w) ll += exp2f(x[w * 32] - mm) * x[w * 32 + 1];
+      mt[r] = mm;
+      lt[r] = ll;
+      f[r] = exp2f(m[r] - mm);
+    }
+#pragma unroll
+    for (int i = 0; i < NTD; ++i) {
+      acc[i][0] *= f[0];
+      acc[i][1] *= f[0];
+      acc[i][2] *= f[1];
+      acc[i][3] *= f[1];
+    }
+    auto slot = [&](int w) { return part + ((rg * (KQ - 1) + w - 1) * 2 + dh) * (NTD * 128); };
+    if (kq != 0) {
+      float* x = slot(kq) + lane * 4;
+#pragma unroll
+      for (int i = 0; i < NTD; ++i)
+        if (i < ntw)
+          *reinterpret_cast<float4*>(x + i * 128) = make_float4(acc[i][0], acc[i][1], acc[i][2],
+                                                                acc[i][3]);
+    }
+    __syncthreads();
+    if (kq == 0) {
+#pragma unroll
+      for (int w = 1; w < KQ; ++w) {
+        const float* x = slot(w) + lane * 4;
+#pragma unroll
+        for (int i = 0; i < NTD; ++i)
+          if (i < ntw) {
+            const float4 y = *reinterpret_cast<const float4*>(x + i * 128);
+            acc[i][0] += y.x;
+            acc[i][1] += y.y;
+            acc[i][2] += y.z;
+            acc[i][3] += y.w;
+          }
+      }
+    }
+  }
+  if (kq == 0) {
+    const float inv0 = 1.f / lt[0], inv1 = 1.f / lt[1];
+    T* out = static_cast<T*>(a.out0) + base + (size_t)(q0 + rg * 16 + g) * a.sl + 2 * t;
+#pragma unroll
+    for (int i = 0; i < NTD; ++i) {
+      const int n = n0 + i;
+      if (i < ntw && n < nt) {
+        P::store2(out + n * 8, acc[i][0] * inv0, acc[i][1] * inv0);
+        P::store2(out + (size_t)8 * a.sl + n * 8, acc[i][2] * inv1, acc[i][3] * inv1);
+      }
+    }
+    if (dh == 0 && t == 0) {
+      float* lse = static_cast<float*>(a.out1) + ((size_t)b * a.H + h) * a.L + q0 + rg * 16 + g;
+      lse[0] = mt[0] * LN2 + logf(lt[0]);
+      lse[8] = mt[1] * LN2 + logf(lt[1]);
+    }
+  }
+}
+
+}  // namespace fw
+
 // ---- host side
 
 template <class P>
@@ -989,8 +1380,9 @@ int sm_count() {
   return n;
 }
 
-// The forward's query tile: the largest of 64, 32, 16 whose grid gives every
-// SM a block.
+// The forward's query tile (rows a block, 16 RG): the largest of 64, 32, 16
+// whose grid gives every SM a block; the block splits each row group's keys
+// between 4 / RG key groups.
 int fwd_tile(int B, int H, int L, int sms) {
   if ((long long)B * H * (L / 64) >= sms) return 64;
   if ((long long)B * H * (L / 32) >= sms) return 32;
@@ -1006,19 +1398,22 @@ cudaError_t launch(K kernel, dim3 grid, size_t smem, const Args& a, void* stream
   return cudaGetLastError();
 }
 
+template <class P, int RG>
+int fwd_launch(const Args& a, void* stream) {
+  return (int)launch(fw::fwd_kernel<P, RG>, dim3(a.L / (16 * RG), a.H, a.B),
+                     fw::Smem<P, RG>(a.d).bytes, a, stream);
+}
+
 template <class P>
 int fwd(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.out1) return (int)cudaErrorInvalidValue;
   switch (fwd_tile(a.B, a.H, a.L, sm_count())) {
     case 64:
-      return (int)launch(fwd_kernel<P, 64>, dim3(a.L / 64, a.H, a.B), FwdSmem<P, 64>(a.d).bytes,
-                         a, stream);
+      return fwd_launch<P, 4>(a, stream);
     case 32:
-      return (int)launch(fwd_kernel<P, 32>, dim3(a.L / 32, a.H, a.B), FwdSmem<P, 32>(a.d).bytes,
-                         a, stream);
+      return fwd_launch<P, 2>(a, stream);
     default:
-      return (int)launch(fwd_kernel<P, 16>, dim3(a.L / 16, a.H, a.B), FwdSmem<P, 16>(a.d).bytes,
-                         a, stream);
+      return fwd_launch<P, 1>(a, stream);
   }
 }
 

@@ -17,6 +17,7 @@ import ctypes
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -130,6 +131,24 @@ def build_all() -> dict:
     if errors:
         raise RuntimeError("\n".join(errors))
     return {"seconds": time.perf_counter() - t0, "ptxas": ptxas}
+
+
+def ptxas_kernels(lines: list[str]) -> dict:
+    """{entry function (mangled): {"registers", "spill_stores", "spill_loads"}}
+    from nvcc's -Xptxas -v lines of one library."""
+    out, cur = {}, None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def ensure_built() -> dict:

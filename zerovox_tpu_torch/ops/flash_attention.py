@@ -196,8 +196,29 @@ for _f in KERNELS:
 
 def fwd_tile(B: int, h: int, L: int) -> int:
     """The query rows a block of the forward takes at these sizes on the
-    current card."""
+    current card: 16 x its row groups."""
     return _cuda.lib("flash_attn").zv_flash_fwd_tile(B, h, L)
+
+
+FWD_PAIRS = 4  # warp pairs a forward block (fw::PAIRS): row groups x key groups
+
+
+def fwd_layout(B: int, h: int, L: int, dtype=torch.float32) -> dict:
+    """The forward's layout at these sizes on the current card: its query
+    rows a block, the key groups each row group's keys are split between,
+    and the registers and spill bytes of that kernel (`fw::fwd_kernel<P,
+    RG>`) as ptxas reported them when this process built the library (None
+    when it came from the build cache)."""
+    rows = fwd_tile(B, h, L)
+    rg = rows // 16
+    ptxas = _cuda.build_info.get("ptxas", {}).get("flash_attn")
+    kind = "3F32" if dtype == torch.float32 else "4BF16"
+    found = [v for k, v in _cuda.ptxas_kernels(ptxas or []).items()
+             if "fwd_kernel" in k and f"{kind}ELi{rg}E" in k]
+    res = found[0] if len(found) == 1 else {}
+    return {"tile_rows": rows, "key_groups": FWD_PAIRS // rg,
+            "registers": res.get("registers"),
+            "spill_bytes": (res["spill_stores"] + res["spill_loads"]) if res else None}
 
 
 class FlashAttention(torch.autograd.Function):
