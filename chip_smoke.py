@@ -214,9 +214,11 @@ Phases, in order; any failure exits nonzero:
    (dK/dV, dQ, both) at the training shape, float32 and bf16, on views of
    [B, L, h, d] tensors with per-row valid lengths from seed 21, each
    against its plain version (float32 within 5e-4; bf16 within one bf16
-   step of the largest output forward and two backward), timed beside it
-   and beside scaled_dot_product_attention on the boolean segment mask,
-   with the forward's query tile, key groups, registers and spill bytes
+   step of the largest output forward and two backward, the bf16 backward
+   also within two of the float32 kernel's on the widened inputs), timed
+   beside it and beside scaled_dot_product_attention on the boolean segment
+   mask, with the forward's query tile, key groups, registers and spill
+   bytes, and the bf16 backward kernels' registers and spill bytes
    (the whole backward's rows name SDPA's
    backend and its gradients' distance from plain); the main-path engine at full width on
    bench.py's text twice (204 phones, text bucket 256) at 5 frames a phone
@@ -447,7 +449,7 @@ def bf16_step(t) -> float:
 
 
 def measure_bf16(torch, rows, name, source, replaces, shape, fn, f32_fn, plain, flop, nbytes,
-                 method="bf16x2", max_share=BF16X2_SHARE, steps=1, library=None,
+                 method="bf16x2", max_share=BF16X2_SHARE, steps=1, library=None, f32_ref=None,
                  **extra) -> None:
     """A bf16 variant of K1-K3 (bf16 inference: bf16 tensor-core products,
     two terms an activation) against its plain version (float32 on the
@@ -458,7 +460,10 @@ def measure_bf16(torch, rows, name, source, replaces, shape, fn, f32_fn, plain, 
     the former two TF32 products beside it; bytes at bf16 widths. K5 in bf16
     passes method "bf16" (one bf16 product a product), its own number of
     `steps` and no share (max_share None: the share is printed), and the
-    PyTorch call it is held beside (`library`, timed as library_ms)."""
+    PyTorch call it is held beside (`library`, timed as library_ms); with
+    `f32_ref` (fn's output from the float32 kernel on the widened inputs)
+    it is held to that too, within `steps` bf16 steps of its largest
+    value."""
     from zerovox_tpu_torch.utils.profiling import cuda_time_ms
 
     got = fn()
@@ -475,6 +480,13 @@ def measure_bf16(torch, rows, name, source, replaces, shape, fn, f32_fn, plain, 
     err, step = (got.float() - ref.float()).abs().max().item(), bf16_step(ref)
     check(err <= steps * step,
           f"{name}: max abs diff {err} against the plain version, {steps} step(s) of {step}")
+    if f32_ref is not None:
+        r32 = f32_ref()
+        err32, step32 = (got.float() - r32).abs().max().item(), bf16_step(r32)
+        check(err32 <= steps * step32, f"{name}: max abs diff {err32} against the float32 "
+                                       f"kernel, {steps} step(s) of {step32}")
+        extra = {**extra, "f32_kernel_max_abs_err": err32}
+        del r32
     del got, ref
     ms, plain_ms = cuda_time_ms(fn, iters=10, warmup=2), cuda_time_ms(plain, iters=5, warmup=1)
     f32_ms = cuda_time_ms(f32_fn, iters=10, warmup=2)
@@ -3721,12 +3733,14 @@ def k5_rows(torch, dev) -> list[dict]:
                     w = [x.float() for x in (qx, kx, vx, o, lse, dox)]
                     w[4] = lse
                     f32 = {"dkv": lambda: fa.flash_bwd_dkv(*w, seg, scale),
-                           "dq": lambda: fa.flash_bwd_dq(*w, seg, scale),
+                           "dq": lambda: (fa.flash_bwd_dq(*w, seg, scale),),
                            "": lambda: fa.flash_bwd(*w, seg, scale)}[part]
                     measure_bf16(torch, rows, name, K5_SOURCE, K5_REPLACES[part or "bwd"],
                                  list(shape), fn, f32, plain, flop_b, nbytes, method="bf16",
                                  max_share=None, steps=2, library=lib,
-                                 valid_lengths=lengths[:4], **more)
+                                 f32_ref=lambda f32=f32: torch.stack(f32()),
+                                 valid_lengths=lengths[:4], kernels=fa.bwd_bf16_registers(),
+                                 **more)
                 else:
                     measure(torch, rows, name, K5_SOURCE, K5_REPLACES[part or "bwd"],
                             list(shape), fn, plain, flop_b, nbytes, method="3xtf32",

@@ -6,7 +6,8 @@ segment ids with per-row valid lengths from seed 21, as chip_smoke.py phase
 21 passes them): the forward (`fw::fwd_kernel`, float32 and bf16) at the
 training shape [24, 2, 512, 264] and the serving shapes [1, 2, 1024, 264]
 (decoder) and [1, 2, 256, 264] (encoder), the float32 backward
-(`tf::dkv_kernel`, `tf::dq_kernel`) at the training shape.
+(`tf::dkv_kernel`, `tf::dq_kernel`) and the bf16 one (`wg::dkv_kernel`,
+`wg::dq_kernel`) at the training shape.
 
     python3 scripts/bench_k5_breakdown.py [--parent DIR]
 
@@ -32,17 +33,29 @@ without an MMA also loses whatever only fed it:
   no_s_mma      the backward's S and dP (S^T and dP^T) without their MMAs;
   no_acc_mma    the backward's dK/dV and dQ accumulation without its MMAs;
   no_fetch      the backward's streamed tiles not copied (cp.async);
+  bf16_no_s_mma, bf16_no_acc_mma, bf16_no_fetch
+                the same three of the bf16 backward (`wg::dkv_kernel`,
+                `wg::dq_kernel`; no_fetch: no TMA box issued, each step's
+                barrier expecting none);
+  bf16_rows_32  the bf16 backward streaming 32 rows a step instead of 64
+                (S's wgmma N 32, half the shared memory; a block owns 64
+                rows, one wgmma M, either way);
+  bf16_fetch_twice
+                the bf16 backward fetching its streamed tiles for the first
+                two steps only, then computing on them again: real data
+                without the fetch (no_fetch computes on stale shared memory);
   parent        (with --parent) DIR's flash_attn.cu, the kernels it had
                 (forward and backward).
 
 A variant's distance from `kernel` is the device time of what it takes out.
-Beside them, the rate of the instruction the float32 kernels are built on: a
+Beside them, the rate of the instructions the kernels are built on: a
 kernel that only runs `mma.sync.m16n8k8` TF32 on registers (8 independent
 accumulators a warp sharing their operands, 6 chains of three MMAs as
-3xTF32 adds them, or 8 accumulators with operands of their own), with 4, 8
-and 16 warps on each SM, in TFLOP/s. Prints the card's name and power
-limit, then one JSON object with ptxas's registers and spills of every
-kernel.
+3xTF32 adds them, or 8 accumulators with operands of their own), and
+`mma.sync.m16n8k16` bf16 (8 independent accumulators), with 4, 8 and 16
+warps on each SM, in TFLOP/s. Prints the card's name and power limit, then
+one JSON object with ptxas's registers and spills of every kernel, and of
+the bf16 backward's kernels in each variant.
 """
 
 from __future__ import annotations
@@ -101,6 +114,26 @@ VARIANTS = {
                   ""),
                  ("    copy2(buf, buf + TB * ld, ld, kp + (size_t)k0 * a.sl, vp + (size_t)k0 * a.sl, a.sl, d);\n",
                   "")],
+    "bf16_no_s_mma": [("    const bf16* y = grp ? dOs : Qs;\n    wg_fence();\n"
+                       "    for (int ks = 0; ks < nk; ++ks) mma_s(s, desc_k(x, ks), desc_ks(y, ks), ks);\n",
+                       "    const bf16* y = grp ? dOs : Qs;\n    wg_fence();\n"
+                       "#pragma unroll\n    for (int i = 0; i < NS; ++i) s[i] = 0.f;\n"),
+                      ("    const bf16* y = grp ? Vt : Kt;\n    wg_fence();\n"
+                       "    for (int ks = 0; ks < nk; ++ks) mma_s(s, desc_k(x, ks), desc_ks(y, ks), ks);\n",
+                       "    const bf16* y = grp ? Vt : Kt;\n    wg_fence();\n"
+                       "#pragma unroll\n    for (int i = 0; i < NS; ++i) s[i] = 0.f;\n")],
+    "bf16_no_acc_mma": [("      mma_acc(acc0, af[kk], desc_mn(yb, kk, 0));\n"
+                         "      mma_acc(acc1, af[kk], desc_mn(yb, kk, N0 / 16));\n", "      (void)af;\n"),
+                        ("mma_acc_ss(acc, desc_k(dSs, kk), desc_mn(Kt, kk, 0));", "(void)dSs;"),
+                        ("mma_acc_ss(acc1, desc_k(dSs, kk), desc_mn(Kt, kk, N0 / 16));", "(void)dSs;")],
+    "bf16_no_fetch": [("  if (lane == 0) mbar_expect(bar, 2 * np * BOX);\n",
+                       "  if (lane == 0) mbar_expect(bar, 0);\n"),
+                      ("  for (int i = lane; i < 2 * np; i += 32) {\n", "  for (int i = lane; i < 0; i += 32) {\n")],
+    "bf16_rows_32": [("constexpr int BS = 64;", "constexpr int BS = 32;")],
+    "bf16_fetch_twice": [("    if (warp == 0) tma_tiles(buf(j), pr, q0, h, b, nk, bars + (j & 1), lane);\n",
+                          "    if (warp == 0) tma_tiles(buf(j), pr, q0, h, b, j < 2 ? nk : 0, bars + (j & 1), lane);\n"),
+                         ("    if (warp == 0) tma_tiles(buf(j), pr, k0, h, b, nk, bars + (j & 1), lane);\n",
+                          "    if (warp == 0) tma_tiles(buf(j), pr, k0, h, b, j < 2 ? nk : 0, bars + (j & 1), lane);\n")],
 }
 
 MMA_RATE_CU = r"""
@@ -108,8 +141,9 @@ MMA_RATE_CU = r"""
 #include "tc_common.cuh"
 // CHAINS independent accumulators a warp, DEPTH dependent MMAs on each a
 // round; FRESH: each accumulator's MMA takes its own A and B registers
-// (else all share one A and one B, which the operand reuse cache serves)
-template <int CHAINS, int DEPTH, bool FRESH>
+// (else all share one A and one B, which the operand reuse cache serves);
+// BF16: mma.sync.m16n8k16 bf16 instead of m16n8k8 TF32
+template <int CHAINS, int DEPTH, bool FRESH, bool BF16 = false>
 __global__ void rate(float* out, int rounds) {
   uint32_t a[CHAINS][4], b[CHAINS][2];
   for (int c = 0; c < CHAINS; ++c) {
@@ -121,7 +155,10 @@ __global__ void rate(float* out, int rounds) {
 #pragma unroll
     for (int k = 0; k < DEPTH; ++k)
 #pragma unroll
-      for (int c = 0; c < CHAINS; ++c) zv::tc::mma(acc[c], a[FRESH ? c : 0], b[FRESH ? c : 0]);
+      for (int c = 0; c < CHAINS; ++c) {
+        if constexpr (BF16) zv::tc::mma16(acc[c], a[FRESH ? c : 0], b[FRESH ? c : 0]);
+        else zv::tc::mma(acc[c], a[FRESH ? c : 0], b[FRESH ? c : 0]);
+      }
   float s = 0.f;
   for (int c = 0; c < CHAINS; ++c) s += acc[c][0] + acc[c][1] + acc[c][2] + acc[c][3];
   if (s == 1.2345f) out[threadIdx.x] = s;
@@ -129,7 +166,8 @@ __global__ void rate(float* out, int rounds) {
 extern "C" int zv_mma_rate(int kind, int blocks, int warps, int rounds, float* out) {
   if (kind == 0) rate<8, 1, false><<<blocks, 32 * warps>>>(out, rounds);
   else if (kind == 1) rate<6, 3, false><<<blocks, 32 * warps>>>(out, rounds);
-  else rate<8, 1, true><<<blocks, 32 * warps>>>(out, rounds);
+  else if (kind == 2) rate<8, 1, true><<<blocks, 32 * warps>>>(out, rounds);
+  else rate<8, 1, false, true><<<blocks, 32 * warps>>>(out, rounds);
   return (int)cudaGetLastError();
 }
 """
@@ -139,7 +177,9 @@ def mma_rate(torch, tmp: Path, _cuda, cuda_time_ms) -> dict:
     """TFLOP/s of mma.sync.m16n8k8 TF32 run on registers: one block of
     4, 8 or 16 warps on each SM, 8 independent accumulators a warp
     ("independent"), 6 chains of three ("chains_of_3"), or 8 accumulators
-    each with its own A and B registers ("fresh_operands")."""
+    each with its own A and B registers ("fresh_operands"); and of
+    mma.sync.m16n8k16 bf16 with 8 independent accumulators
+    ("bf16_independent")."""
     cu = tmp / "mma_rate.cu"
     cu.write_text(MMA_RATE_CU)
     so = tmp / "mma_rate.so"
@@ -150,13 +190,14 @@ def mma_rate(torch, tmp: Path, _cuda, cuda_time_ms) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out, rounds = torch.zeros(512, device="cuda"), 4096
     res = {}
-    for kind, name, per_round in ((0, "independent", 8), (1, "chains_of_3", 18),
-                                  (2, "fresh_operands", 8)):
+    for kind, name, per_round, flop in ((0, "independent", 8, 2048), (1, "chains_of_3", 18, 2048),
+                                        (2, "fresh_operands", 8, 2048),
+                                        (3, "bf16_independent", 8, 4096)):
         for warps in (4, 8, 16):
             ms = cuda_time_ms(lambda: _cuda.check(lib.zv_mma_rate(kind, sms, warps, rounds,
                                                                   out.data_ptr()), "mma_rate"),
                               iters=5, warmup=1)
-            res[f"{name}_{warps}w"] = sms * warps * rounds * per_round * 2048 / (ms * 1e-3) / 1e12
+            res[f"{name}_{warps}w"] = sms * warps * rounds * per_round * flop / (ms * 1e-3) / 1e12
     return res
 
 
@@ -170,7 +211,7 @@ def variant_source(src: str, subs) -> str:
     return src
 
 
-def build(tmp: Path, _cuda, parent: Path | None) -> tuple[dict, list[str]]:
+def build(tmp: Path, _cuda, parent: Path | None) -> tuple[dict, list[str], dict]:
     src = SOURCE.read_text()
     sources = {name: variant_source(src, subs) for name, subs in VARIANTS.items()}
     if parent is not None:
@@ -182,19 +223,21 @@ def build(tmp: Path, _cuda, parent: Path | None) -> tuple[dict, list[str]]:
         procs[name] = subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, f"-I{_cuda.CSRC}", "-o", str(tmp / f"{name}.so"),
              str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs, ptxas = {}, []
+    libs, ptxas, bf16_bwd = {}, [], {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         if name == "kernel":  # registers and spills of each kernel
             ptxas = [ln.strip() for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]
+        bf16_bwd[name] = {k: v for k, v in _cuda.ptxas_kernels(log.splitlines()).items()
+                          if "2wg" in k}
         lib = ctypes.CDLL(str(tmp / f"{name}.so"))
         for fn, argtypes in _cuda.SIGNATURES["flash_attn"].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
-    return libs, ptxas
+    return libs, ptxas, bf16_bwd
 
 
 def inputs(torch, np, shape, rng):
@@ -267,17 +310,37 @@ def main() -> None:
                                         dq.data_ptr(), *dims, scale, stream()), "dq")
 
     passes.update({"dkv": dkv, "dq": dq_})
+    qb, kb, vb, dob = (x.bfloat16() for x in (q, k, v, do))
+    ob, lseb = fa.flash_fwd(qb, kb, vb, seg, scale)
+    dsumb = (dob.float() * ob.float()).sum(-1).contiguous()
+    dkb, dvb, dqb = torch.empty_like(qb), torch.empty_like(qb), torch.empty_like(qb)
+
+    def dkv_bf16(lib):
+        _cuda.check(lib.zv_flash_dkv_bf16(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
+                                          dob.data_ptr(), lseb.data_ptr(), dsumb.data_ptr(),
+                                          seg.data_ptr(), dkb.data_ptr(), dvb.data_ptr(), *dims,
+                                          scale, stream()), "dkv_bf16")
+
+    def dq_bf16(lib):
+        _cuda.check(lib.zv_flash_dq_bf16(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
+                                         dob.data_ptr(), lseb.data_ptr(), dsumb.data_ptr(),
+                                         seg.data_ptr(), dqb.data_ptr(), *dims, scale, stream()),
+                    "dq_bf16")
+
+    passes.update({"dkv_bf16": dkv_bf16, "dq_bf16": dq_bf16})
 
     def timed(name: str) -> list[str]:
         """the passes a variant is timed on: its own side of the kernel"""
         if name.startswith("fwd_"):
             return [p for p in passes if p.startswith("fwd_")]
+        if name.startswith("bf16_"):
+            return ["dkv_bf16", "dq_bf16"]
         if name in ("kernel", "parent"):
             return list(passes)
         return ["dkv", "dq"]
 
     with tempfile.TemporaryDirectory() as tmp:
-        libs, ptxas = build(Path(tmp), _cuda, args.parent)
+        libs, ptxas, bf16_bwd = build(Path(tmp), _cuda, args.parent)
         ms = {name: {p: [] for p in timed(name)} for name in libs}
         for names in (list(libs), list(libs)[::-1]):  # in turns, each order once
             for name in names:
@@ -288,7 +351,7 @@ def main() -> None:
     print(card)
     print(json.dumps({"k5_breakdown": {"fwd_shapes": FWD_SHAPES, "bwd_shape": list(SHAPE),
                                        "ms": ms, "card": card, "mma_tflops": rate,
-                                       "ptxas": ptxas}}))
+                                       "ptxas": ptxas, "ptxas_bf16_bwd": bf16_bwd}}))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """The arithmetic of K5's float32 backward (`tf::dkv_kernel`, `tf::dq_kernel`
-in `csrc/flash_attn.cu`), emulated on the CPU.
+in `csrc/flash_attn.cu`), emulated on the CPU; and the order and rounding
+points of the bf16 backward (`wg::dkv_kernel`, `wg::dq_kernel`).
 
 The kernels split each float32 operand as hi = rna_tf32(x), lo =
 rna_tf32(x - hi) (at its fragment load, or as P and dS are written) and run
@@ -23,6 +24,16 @@ Bound: 1e-4 x each gradient's largest value against autograd of
 `flash_attention_plain` in float64 (tests/test_torch_gpu.py's bound for the
 kernels against plain), and against the JAX library kernel's VJP in
 interpret mode; a single-pass TF32 control must miss it.
+
+The bf16 kernels take bf16 products with float32 accumulation (wgmma): S
+and dP (S^T and dP^T) over k-steps of 16 columns (the head dim's zero pad
+completing the last), one float32 sum; P = exp2(S scale log2(e) - lse
+log2(e)) where the segments match, else 0; P rounded to bf16 before P^T dO,
+dS = P (dP - D) scale in float32 rounded to bf16 before dS^T Q and dS K;
+each gradient summed in float32 one streamed tile of BS rows at a time and
+rounded to bf16 once. Bound: two bf16 steps of each gradient's largest value against
+the JAX library kernel's bf16 VJP (tests/test_torch_gpu.py's bound for the
+bf16 kernels against plain).
 """
 
 import importlib.util
@@ -33,7 +44,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_flash_attention import _attention_inputs, _jax_attention
+from test_torch_flash_attention import _attention_inputs, _jax_attention, bf16_step
 from zerovox_tpu_torch.ops.flash_attention import MASK_VALUE, flash_attention_plain
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,6 +69,9 @@ def _const(name: str) -> int:
 
 
 TB = _const("TB")
+BW = SOURCE[SOURCE.index("namespace wg {"):SOURCE.index("}  // namespace wg")]  # the bf16 backward
+BS = int(re.search(r"constexpr int BS = (\d+);", BW).group(1))
+LOG2E = 1.4426950408889634
 
 
 def rna_tf32(x):
@@ -201,6 +215,96 @@ def test_the_source_holds_what_the_emulation_follows():
         assert smem <= SMEM_MAX, (d, smem)
     assert _const("NTW_KV") * warps // 2 >= dmax // 8  # 4 warps cover a row of dK or dV
     assert _const("NTW_Q") * warps >= dmax // 8  # 8 warps cover a row of dQ
+
+
+def bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def s_bf16(x, y):
+    """X Y^T over the head dim as the S wgmma loop: k-steps of 16 columns
+    (the zero pad completing the last), one float32 sum."""
+    d = x.shape[-1]
+    acc = torch.zeros(*x.shape[:-1], y.shape[-2])
+    for k0 in range(0, d, 16):
+        acc = acc + x[..., k0:k0 + 16] @ y[..., k0:k0 + 16].transpose(-1, -2)
+    return acc
+
+
+def p_ds_bf16(s, dp, same, lse, dsum, scale):
+    """P (float32) and dS rounded to bf16 from S and dP as the kernels take
+    them: the log2 domain, fmaf(s, scale log2(e), -(lse log2(e))) rounded
+    once, exp2; dS = P (dP - D) scale."""
+    sl2 = np.float32(np.float32(scale) * np.float32(LOG2E))
+    l2 = (lse * np.float32(LOG2E)).double()
+    p = torch.where(same, torch.exp2((s.double() * float(sl2) - l2).float()), 0.0)
+    return p, bf16(p * (dp - dsum) * np.float32(scale))
+
+
+def emulate_bwd_bf16(q, k, v, do, seg, scale):
+    """(dq, dk, dv) of the bf16 kernels for [B, h, L, d] inputs holding bf16
+    values: lse and o as the forward gives them (float32, bf16), D in
+    float32 as the wrapper computes it."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * np.float32(scale)
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    lse = torch.logsumexp(s + torch.where(same, 0.0, MASK_VALUE), dim=-1)
+    o = bf16(flash_attention_plain(*(x.bfloat16() for x in (q, k, v)), seg, scale))
+    dsum = (do * o).sum(-1)
+    L = q.shape[2]
+    dk, dv, dq = torch.zeros_like(k), torch.zeros_like(v), torch.zeros_like(q)
+    for j in range(0, L, BS):  # dK/dV: every key tile over query tile j
+        qs = slice(j, j + BS)
+        pt, dst = p_ds_bf16(s_bf16(k, q[:, :, qs]), s_bf16(v, do[:, :, qs]),
+                            same[:, :, qs].transpose(-1, -2), lse[:, :, None, qs],
+                            dsum[:, :, None, qs], scale)
+        dv = dv + bf16(pt) @ do[:, :, qs]
+        dk = dk + dst @ q[:, :, qs]
+    for j in range(0, L, BS):  # dQ: every query tile over key tile j
+        ks = slice(j, j + BS)
+        _, ds = p_ds_bf16(s_bf16(q, k[:, :, ks]), s_bf16(do, v[:, :, ks]),
+                          same[:, :, :, ks], lse[..., None], dsum[..., None], scale)
+        dq = dq + ds @ k[:, :, ks]
+    return bf16(dq), bf16(dk), bf16(dv)
+
+
+def test_bf16_emulation_matches_the_library_kernel():
+    """The bf16 kernels' order and rounding points against the library
+    kernel's bf16 gradients (the float32 case's inputs, rounded to bf16)."""
+    import jax.numpy as jnp
+
+    B, h, L, d, lengths = 1, 2, 256, 24, (201,)
+    q, k, v, seg, do = _attention_inputs(7, B, h, L, d, lengths)
+    xs = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do)]
+    want = _jax_attention(xs[0], xs[1], xs[2], seg, 1.0 / np.sqrt(d), xs[3])[1:]
+    got = emulate_bwd_bf16(*(torch.from_numpy(np.asarray(x, np.float32)) for x in xs),
+                           torch.from_numpy(seg), 1.0 / np.sqrt(d))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err, step = np.abs(g.numpy() - w).max(), bf16_step(w)
+        assert err <= 2 * step, f"{name}: {err} against a step of {step}"
+
+
+def test_the_source_holds_what_the_bf16_emulation_follows():
+    """The bf16 kernels' rounding points and sums, read from the source, and
+    their layout: a block's 64 rows (one wgmma M), BS streamed rows a step,
+    every tile and buffer in one block's shared memory at every head dim."""
+    assert "exp2f(fmaf(s[4 * c + e], sl2, -(lq * LOG2E)))" in BW
+    assert "const float sl2 = a.scale * LOG2E;" in BW
+    # S: every k-step into one accumulator, the first with its input off
+    assert "for (int ks = 0; ks < nk; ++ks) mma_s(s, desc_k(x, ks), desc_ks(y, ks), ks);" in BW
+    assert "fw::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1])" in BW  # P^T, dS^T to bf16
+    assert "fw::pack_bf16(s[4 * c], s[4 * c + 1])" in BW  # dS to bf16 (dQ)
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", BW))
+    br, bs = int(consts["BR"]), int(consts["BS"])
+    assert br == 64 and bs == BS and bs % 16 == 0
+
+    def take(n):
+        return (n + 15) // 16 * 16
+
+    cb = _const("DMAX") // 8  # every head dim's tiles take DMAX columns
+    for dkv in (True, False):
+        smem = (2 * take(br * cb * 16) + 4 * take(bs * cb * 16) + take(4 * bs // 2 * 32 * 4)
+                + (2 if dkv else 0) * take(2 * bs * 4) + take(2 * bs * 4) + take(16))
+        assert smem <= SMEM_MAX, (dkv, smem)
 
 
 def _breakdown():

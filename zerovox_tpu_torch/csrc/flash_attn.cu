@@ -26,9 +26,10 @@
 // all), against 4 B H L d elements in and out; at [24, 2, 512, 264] that is
 // 13.3 / 33.2 GFLOP against 27-54 MB, 250-600 FLOP a byte. The float32 path
 // runs every product in 3xTF32 (tc_common.cuh, as K1-K4: three TF32 MMAs a
-// product, float32-accurate), the bf16 path mma.sync.m16n8k16 with float32
-// accumulation. On this card mma.sync.m16n8k8 TF32 runs at ~320 TFLOP/s
-// (scripts/bench_k5_breakdown.py), ~109 TFLOP/s of 3xTF32.
+// product, float32-accurate), the bf16 forward mma.sync.m16n8k16 and the
+// bf16 backward wgmma, with float32 accumulation. On this card
+// mma.sync.m16n8k8 TF32 runs at ~320 TFLOP/s (scripts/bench_k5_breakdown.py),
+// ~109 TFLOP/s of 3xTF32, and mma.sync.m16n8k16 bf16 at ~640.
 //
 // The forward (namespace fw; FlashAttention-2's layout). At the model's
 // shapes it is bound by the tensor-core products and, in float32, by the
@@ -83,23 +84,62 @@
 // the softmax, the exchange, the barriers and the copies (K and V come from
 // L2 once for every 64 query rows).
 //
-// The bf16 backward (dkv_kernel<BF16>, dq_kernel<BF16>: a first kernel that
-// is right and simple; no wgmma, TMA or warp specialisation): 8 warps a
-// block; the tiles of one block sit in shared memory as rows of the head dim
-// (padded so that a warp's fragment loads fall on distinct banks); each of
-// the products a step is a warp GEMM on mma.sync:
-//   * dK/dV, one block per (key tile of 32 rows, head, batch row), looping
-//     over query tiles of 32: S^T = K Q^T and dP^T = V dO^T in the same warp
-//     tile, P^T and dS^T into shared memory, then dV += P^T dO and
-//     dK += dS^T Q in registers; dQ likewise over key tiles: S, dP, dS,
-//     dQ += dS K. bf16 pads the head dim to 16 (264 -> 272) with zeros in
-//     shared memory. bf16 keeps these kernels: they already beat SDPA's
-//     bf16 backward, and the float32 design below has not been carried
-//     over to them.
+// The bf16 backward (namespace wg; wgmma, float32 accumulation, TMA). A block
+// owns BR = 64 output rows (dK/dV: keys, dQ: queries; one wgmma M), keeps
+// them and their partner tile (K and V, or Q and dO) resident and streams
+// the other side's rows, BS = 64 a step, with two warpgroups: dK/dV's first
+// computes S^T = K Q^T, P^T and dV += P^T dO, its second dP^T = V dO^T,
+// dS^T (P^T handed over through shared memory) and dK += dS^T Q, each
+// gradient in 136 registers a thread (wgmma of N = 144 and 128 a k-step);
+// dQ's first computes S and P, its second dP and dS, which it stores for
+// both, and each takes its columns of dQ += dS K. Times below from
+// scripts/bench_k5_breakdown.py on an NVIDIA H100 80GB HBM3 at 700 W at
+// [24, 2, 512, 264], dK/dV / dQ; a first version (scalar B loads, register
+// copies between three barriers a step, one 16 x 8 tile a warp) took
+// 0.359-0.365 / 0.333-0.338 ms, these 0.143-0.145 / 0.139-0.141.
+//   * The resident tiles as core matrices (8 rows x 16 bytes, 128
+//     contiguous bytes) column chunk after column chunk, no swizzle (any
+//     head dim up to 272; the pad chunks zero); the streamed ones as
+//     16-column panels of 32-byte rows with TMA's 32-byte swizzle, which
+//     wgmma reads both as a K-major B of S and dP (the head dim as k) and
+//     as an MN-major B of the accumulations (rows as k): no tile is
+//     transposed or copied twice.
+//   * P^T and dS^T go from their accumulators to the accumulations' A as
+//     registers (rounded to bf16 pairs), as the forward's P does; dQ's dS
+//     through shared memory, since both warpgroups take it.
+//   * The streamed tiles by TMA, one box a panel (16 columns x 64 rows of
+//     one (b, h); the columns past d zero), issued by warp 0 while the S
+//     wgmma run, completing on an mbarrier a buffer; their lse, D and
+//     segment ids by cp.async. Boxes of one 16-byte chunk (8 columns, the
+//     layout without swizzle; each 32-byte L2 sector fetched twice):
+//     0.157 / 0.139; 16-byte cp.async from every thread: 0.177 / 0.156.
+//   * S's first k-step runs with the wgmma's accumulator input off instead
+//     of zeroing the registers, which ptxas serialised the wgmma behind
+//     (0.167 / 0.147 before).
+//   * One block an SM (226,832 bytes of shared memory; 222 and 151
+//     registers, no spills).
+// Measured and not taken: a redesign on mma.sync.m16n8k16
+// (ldmatrix for every fragment, warp pairs splitting S's head dim, blocks of
+// 32 rows, two an SM at 128 registers) 0.185 / 0.141; in it, 32-row blocks
+// one an SM (183 registers) 0.239 / 0.190, 64-row blocks with 16 warps
+// 0.219 / 0.146, with 8 warps 0.178 / 0.154. On wgmma: 32 streamed rows a
+// step (half the shared memory) 0.178 / 0.171; clusters of two blocks
+// sharing each streamed box by TMA multicast 0.165 / 0.151 against 0.168 /
+// 0.148 (the cluster barrier a step costs what the halved L2 reads save);
+// the accumulations waited for a step later, under the next S, 0.171 /
+// 0.149 against 0.167 / 0.147 (ptxas serialises them).
+// What bounds it now: taking out S and dP's wgmma saves 10 % / 16 %, the
+// accumulations' 9 % / 12 %; fetching the streamed tiles for the first two
+// steps only and computing on them again saves 24 % / 27 % (taking the
+// fetch out altogether, on stale tiles, 32 % / 36 %); the rest is each
+// warpgroup's S -> P or dS -> accumulation chain, the P handover and one
+// block an SM. Every key tile is computed, masked or not, as the library
+// does.
 //
-// The float32 backward (namespace tf). The bf16 kernels' structure, run in
-// float32, reaches 6.5 % of the bound: shared-memory loads, operand splits
-// and register shuffles, not the MMAs, set its pace. Each block still owns
+// The float32 backward (namespace tf). A first backward, the same kernels
+// in float32 and bf16, reached 6.5 % of the bound in float32:
+// shared-memory loads, operand splits and register shuffles, not the MMAs,
+// set its pace. Each block still owns
 // 32 output rows (dK/dV: keys, dQ: queries) and loops over the other side's
 // tiles of 32 rows, 8 warps, one block an SM. What the design does about
 // each cause (scripts/bench_k5_breakdown.py times each):
@@ -137,6 +177,7 @@
 // tensor's base 16-byte aligned and its batch, head and row strides
 // multiples of 16 bytes. Anything else returns cudaErrorInvalidValue (the
 // wrapper checks first and says why).
+#include <cuda.h>  // CUtensorMap (cuTensorMapEncodeTiled is looked up at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -156,46 +197,25 @@ constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int DMAX = 272;            // the largest head dim
 constexpr int NT_MAX = DMAX / 8;     // n-tiles of 8 columns in an output row
-constexpr int BB = 32;               // backward: rows of a block's tile and of a step
 constexpr int L_MULTIPLE = 64;
 constexpr float MASK = -0.7f * FLT_MAX;  // the library's DEFAULT_MASK_VALUE
 
-// ---- the two element types: fragments from shared memory and the product
+// ---- the two element types: k of one MMA, row padding, fragments, stores
 
-// float32: 3xTF32 m16n8k8 (operands split into hi/lo TF32 halves at the load).
+// float32: 3xTF32 m16n8k8 (operands split into hi/lo TF32 halves at the load);
+// mma is 3xTF32's term order, lo.hi, hi.lo, hi.hi, as the float32 backward
+// adds its terms into one accumulator.
 struct F32 {
   using T = float;
   static constexpr int KS = 8;    // k of one MMA
   static constexpr int PAD = 4;   // row padding (elements): a row is 4 mod 8 words
   struct A { uint32_t hi[4], lo[4]; };
   struct B { uint32_t hi[2], lo[2]; };
-  // A (16 x 8) at s[row * ld + k0 + col]
-  static __device__ __forceinline__ void load_a(A& a, const float* s, int ld, int k0, int g, int t) {
-    const float* p = s + g * ld + k0 + t;
-    tc::split(p[0], a.hi[0], a.lo[0]);
-    tc::split(p[8 * ld], a.hi[1], a.lo[1]);
-    tc::split(p[4], a.hi[2], a.lo[2]);
-    tc::split(p[8 * ld + 4], a.hi[3], a.lo[3]);
-  }
-  // B (8 x 8) with B[k][n] = s[n * ld + k0 + k]: the rows of s are the
-  // product's columns (the second operand of Q K^T)
-  static __device__ __forceinline__ void load_b_nt(B& b, const float* s, int ld, int k0, int g, int t) {
-    const float* p = s + g * ld + k0 + t;
-    tc::split(p[0], b.hi[0], b.lo[0]);
-    tc::split(p[4], b.hi[1], b.lo[1]);
-  }
-  // B (8 x 8) with B[k][n] = s[(k0 + k) * ld + n] (the second operand of P V)
-  static __device__ __forceinline__ void load_b_nn(B& b, const float* s, int ld, int k0, int g, int t) {
-    const float* p = s + (k0 + t) * ld + g;
-    tc::split(p[0], b.hi[0], b.lo[0]);
-    tc::split(p[4 * ld], b.hi[1], b.lo[1]);
-  }
   static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
     tc::mma(d, a.lo, b.hi);
     tc::mma(d, a.hi, b.lo);
     tc::mma(d, a.hi, b.hi);
   }
-  static __device__ __forceinline__ float cast(float x) { return x; }
   static __device__ __forceinline__ void store2(float* p, float x, float y) {
     *reinterpret_cast<float2*>(p) = make_float2(x, y);
   }
@@ -206,35 +226,6 @@ struct BF16 {
   using T = bf16;
   static constexpr int KS = 16;
   static constexpr int PAD = 8;   // a row is 4 mod 8 words
-  struct A { uint32_t r[4]; };
-  struct B { uint32_t r[2]; };
-  static __device__ __forceinline__ uint32_t word(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  static __device__ __forceinline__ uint32_t pack(const bf16* lo, const bf16* hi) {
-    return (uint32_t)__bfloat16_as_ushort(*lo) | ((uint32_t)__bfloat16_as_ushort(*hi) << 16);
-  }
-  static __device__ __forceinline__ void load_a(A& a, const bf16* s, int ld, int k0, int g, int t) {
-    const bf16* p = s + g * ld + k0 + 2 * t;
-    a.r[0] = word(p);
-    a.r[1] = word(p + 8 * ld);
-    a.r[2] = word(p + 8);
-    a.r[3] = word(p + 8 * ld + 8);
-  }
-  static __device__ __forceinline__ void load_b_nt(B& b, const bf16* s, int ld, int k0, int g, int t) {
-    const bf16* p = s + g * ld + k0 + 2 * t;
-    b.r[0] = word(p);
-    b.r[1] = word(p + 8);
-  }
-  static __device__ __forceinline__ void load_b_nn(B& b, const bf16* s, int ld, int k0, int g, int t) {
-    const bf16* p = s + (k0 + 2 * t) * ld + g;
-    b.r[0] = pack(p, p + ld);
-    b.r[1] = pack(p + 8 * ld, p + 9 * ld);
-  }
-  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
-    tc::mma16(d, a.r, b.r);
-  }
-  static __device__ __forceinline__ bf16 cast(float x) { return __float2bfloat16_rn(x); }
   static __device__ __forceinline__ void store2(bf16* p, float x, float y) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
   }
@@ -260,83 +251,8 @@ __host__ __device__ int dk_of(int d) { return round_up(d, P::KS); }
 template <class P>
 __host__ __device__ int ld_of(int d) { return dk_of<P>(d) + P::PAD; }
 
-// Both backward kernels: four tiles of BB rows (dK/dV: K, V, Q, dO; dQ: Q,
-// dO, K, V), two BB x BB tiles of P or dS, and BB floats of lse, D and
-// segment ids for the query rows, BB segment ids for the key rows.
-template <class P>
-struct BwdSmem {
-  size_t t0, t1, t2, t3, p0, p1, lse, dsum, segq, segk, bytes;
-  __host__ __device__ BwdSmem(int d) {
-    using T = typename P::T;
-    const size_t ld = ld_of<P>(d);
-    Carve c;
-    t0 = c.take(BB * ld * sizeof(T));
-    t1 = c.take(BB * ld * sizeof(T));
-    t2 = c.take(BB * ld * sizeof(T));
-    t3 = c.take(BB * ld * sizeof(T));
-    p0 = c.take(BB * (BB + P::PAD) * sizeof(T));
-    p1 = c.take(BB * (BB + P::PAD) * sizeof(T));
-    lse = c.take(BB * sizeof(float));
-    dsum = c.take(BB * sizeof(float));
-    segq = c.take(BB * sizeof(int));
-    segk = c.take(BB * sizeof(int));
-    bytes = c.off;
-  }
-};
-
-// rows x d elements from global rows `stride` apart into shared rows of ld,
-// 16 bytes a thread, with the zero tail [d, dk) that bf16's k = 16 reads.
-template <class T>
-__device__ __forceinline__ void load_tile(T* s, int ld, const T* g, int stride, int rows, int d,
-                                          int dk) {
-  constexpr int V = 16 / sizeof(T);
-  const int nv = dk / V;
-  for (int i = threadIdx.x; i < rows * nv; i += THREADS) {
-    const int r = i / nv, c = (i - r * nv) * V;
-    const uint4 x = c < d ? *reinterpret_cast<const uint4*>(g + (size_t)r * stride + c)
-                          : make_uint4(0u, 0u, 0u, 0u);
-    *reinterpret_cast<uint4*>(s + r * ld + c) = x;
-  }
-}
-
 __device__ __forceinline__ void load_seg(int* s, const int* seg, int rows) {
   if ((int)threadIdx.x < rows) s[threadIdx.x] = seg ? seg[threadIdx.x] : 0;
-}
-
-// One 16 x 8 tile of a product X Y^T over the head dim: X's rows at x (16
-// of them), Y's at y (8), both rows of ld in shared memory.
-template <class P>
-__device__ __forceinline__ void tile_nt(float (&c)[4], const typename P::T* x,
-                                        const typename P::T* y, int ld, int dk, int g, int t) {
-  c[0] = c[1] = c[2] = c[3] = 0.f;
-  for (int k0 = 0; k0 < dk; k0 += P::KS) {
-    typename P::A a;
-    typename P::B b;
-    P::load_a(a, x, ld, k0, g, t);
-    P::load_b_nt(b, y, ld, k0, g, t);
-    P::mma(c, a, b);
-  }
-}
-
-// acc (a warp's 16 rows x its n-tiles) += X Y: X 16 x kn at x (rows of ldx),
-// Y kn x d at y (rows of ldy); the warp's n-tiles are wc, wc + nc, ...
-template <class P, int NTW>
-__device__ __forceinline__ void accumulate_nn(float (&acc)[NTW][4], const typename P::T* x,
-                                              int ldx, const typename P::T* y, int ldy, int kn,
-                                              int nt, int wc, int nc, int g, int t) {
-  for (int k0 = 0; k0 < kn; k0 += P::KS) {
-    typename P::A a;
-    P::load_a(a, x, ldx, k0, g, t);
-#pragma unroll
-    for (int i = 0; i < NTW; ++i) {
-      const int n = wc + nc * i;
-      if (n < nt) {
-        typename P::B b;
-        P::load_b_nn(b, y + n * 8, ldy, k0, g, t);
-        P::mma(acc[i], a, b);
-      }
-    }
-  }
 }
 
 // A warp's rows r0 + g and r0 + g + 8 of acc (times s0, s1) into global rows.
@@ -370,153 +286,10 @@ struct Args {
   float scale;
 };
 
-// ---- backward: one 16 x 8 tile of P (or P^T) and dS a warp, from S and dP
-// at (row r, column col) of the tile; q-indexed values at qi, the pair of
-// segment ids for the mask.
-template <class P>
-__device__ __forceinline__ void p_ds(const float (&s)[4], const float (&dp)[4], int sr, int sc,
-                                     bool rows_are_keys, const float* lse, const float* dsum,
-                                     const int* segq, const int* segk, float scale,
-                                     typename P::T* p_out, typename P::T* ds_out, int pld, int g,
-                                     int t) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int r = sr * 16 + g + 8 * (e >> 1), col = sc * 8 + 2 * t + (e & 1);
-    const int qi = rows_are_keys ? col : r, ki = rows_are_keys ? r : col;
-    const float x = s[e] * scale + (segq[qi] == segk[ki] ? 0.f : MASK);
-    const float p = expf(x - lse[qi]);
-    const float ds = p * (dp[e] - dsum[qi]) * scale;
-    if (p_out) p_out[r * pld + col] = P::cast(p);
-    ds_out[r * pld + col] = P::cast(ds);
-  }
-}
-
-// dK and dV of one key tile: out0 = dk, out1 = dv.
-template <class P>
-__global__ void __launch_bounds__(THREADS) dkv_kernel(Args a) {
-  using T = typename P::T;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const BwdSmem<P> lay(a.d);
-  T* Ks = reinterpret_cast<T*>(smem + lay.t0);
-  T* Vs = reinterpret_cast<T*>(smem + lay.t1);
-  T* Qs = reinterpret_cast<T*>(smem + lay.t2);
-  T* dOs = reinterpret_cast<T*>(smem + lay.t3);
-  T* Pt = reinterpret_cast<T*>(smem + lay.p0);
-  T* dSt = reinterpret_cast<T*>(smem + lay.p1);
-  float* lse_s = reinterpret_cast<float*>(smem + lay.lse);
-  float* dsum_s = reinterpret_cast<float*>(smem + lay.dsum);
-  int* segq = reinterpret_cast<int*>(smem + lay.segq);
-  int* segk = reinterpret_cast<int*>(smem + lay.segk);
-
-  constexpr int PLD = BB + P::PAD;
-  constexpr int RG = BB / 16, NC = WARPS / RG, NTW = (NT_MAX + NC - 1) / NC;
-  static_assert(RG * (BB / 8) == WARPS, "one S tile a warp");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int d = a.d, dk = dk_of<P>(d), ld = ld_of<P>(d), nt = d / 8;
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BB;
-  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh;
-  const size_t rows = ((size_t)b * a.H + h) * a.L;
-  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
-
-  load_tile(Ks, ld, static_cast<const T*>(a.k) + base + (size_t)k0 * a.sl, a.sl, BB, d, dk);
-  load_tile(Vs, ld, static_cast<const T*>(a.v) + base + (size_t)k0 * a.sl, a.sl, BB, d, dk);
-  load_seg(segk, seg ? seg + k0 : nullptr, BB);
-
-  const int sr = warp / (BB / 8), sc = warp % (BB / 8);  // this warp's S^T tile
-  const int rg = warp % RG, wc = warp / RG;               // its rows and n-tiles of dK, dV
-  float dk_acc[NTW][4], dv_acc[NTW][4];
-#pragma unroll
-  for (int i = 0; i < NTW; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-
-  for (int q0 = 0; q0 < a.L; q0 += BB) {
-    __syncthreads();  // the previous step is done with Qs, dOs, Pt, dSt
-    load_tile(Qs, ld, static_cast<const T*>(a.q) + base + (size_t)q0 * a.sl, a.sl, BB, d, dk);
-    load_tile(dOs, ld, static_cast<const T*>(a.dout) + base + (size_t)q0 * a.sl, a.sl, BB, d, dk);
-    if ((int)threadIdx.x < BB) {
-      lse_s[threadIdx.x] = a.lse[rows + q0 + threadIdx.x];
-      dsum_s[threadIdx.x] = a.dsum[rows + q0 + threadIdx.x];
-    }
-    load_seg(segq, seg ? seg + q0 : nullptr, BB);
-    __syncthreads();
-    {
-      float s[4], dp[4];
-      tile_nt<P>(s, Ks + sr * 16 * ld, Qs + sc * 8 * ld, ld, dk, g, t);    // S^T = K Q^T
-      tile_nt<P>(dp, Vs + sr * 16 * ld, dOs + sc * 8 * ld, ld, dk, g, t);  // dP^T = V dO^T
-      p_ds<P>(s, dp, sr, sc, true, lse_s, dsum_s, segq, segk, a.scale, Pt, dSt, PLD, g, t);
-    }
-    __syncthreads();
-    accumulate_nn<P, NTW>(dv_acc, Pt + rg * 16 * PLD, PLD, dOs, ld, BB, nt, wc, NC, g, t);
-    accumulate_nn<P, NTW>(dk_acc, dSt + rg * 16 * PLD, PLD, Qs, ld, BB, nt, wc, NC, g, t);
-  }
-  const size_t out = base + (size_t)(k0 + rg * 16) * a.sl;
-  store_rows<P, NTW>(static_cast<T*>(a.out0) + out, a.sl, dk_acc, 1.f, 1.f, nt, wc, NC, g, t);
-  store_rows<P, NTW>(static_cast<T*>(a.out1) + out, a.sl, dv_acc, 1.f, 1.f, nt, wc, NC, g, t);
-}
-
-// dQ of one query tile: out0 = dq.
-template <class P>
-__global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
-  using T = typename P::T;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const BwdSmem<P> lay(a.d);
-  T* Qs = reinterpret_cast<T*>(smem + lay.t0);
-  T* dOs = reinterpret_cast<T*>(smem + lay.t1);
-  T* Ks = reinterpret_cast<T*>(smem + lay.t2);
-  T* Vs = reinterpret_cast<T*>(smem + lay.t3);
-  T* dSs = reinterpret_cast<T*>(smem + lay.p0);
-  float* lse_s = reinterpret_cast<float*>(smem + lay.lse);
-  float* dsum_s = reinterpret_cast<float*>(smem + lay.dsum);
-  int* segq = reinterpret_cast<int*>(smem + lay.segq);
-  int* segk = reinterpret_cast<int*>(smem + lay.segk);
-
-  constexpr int PLD = BB + P::PAD;
-  constexpr int RG = BB / 16, NC = WARPS / RG, NTW = (NT_MAX + NC - 1) / NC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int d = a.d, dk = dk_of<P>(d), ld = ld_of<P>(d), nt = d / 8;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BB;
-  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh;
-  const size_t rows = ((size_t)b * a.H + h) * a.L;
-  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
-
-  load_tile(Qs, ld, static_cast<const T*>(a.q) + base + (size_t)q0 * a.sl, a.sl, BB, d, dk);
-  load_tile(dOs, ld, static_cast<const T*>(a.dout) + base + (size_t)q0 * a.sl, a.sl, BB, d, dk);
-  if ((int)threadIdx.x < BB) {
-    lse_s[threadIdx.x] = a.lse[rows + q0 + threadIdx.x];
-    dsum_s[threadIdx.x] = a.dsum[rows + q0 + threadIdx.x];
-  }
-  load_seg(segq, seg ? seg + q0 : nullptr, BB);
-
-  const int sr = warp / (BB / 8), sc = warp % (BB / 8);
-  const int rg = warp % RG, wc = warp / RG;
-  float acc[NTW][4];
-#pragma unroll
-  for (int i = 0; i < NTW; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int k0 = 0; k0 < a.L; k0 += BB) {
-    __syncthreads();  // the previous step is done with Ks, Vs, dSs
-    load_tile(Ks, ld, static_cast<const T*>(a.k) + base + (size_t)k0 * a.sl, a.sl, BB, d, dk);
-    load_tile(Vs, ld, static_cast<const T*>(a.v) + base + (size_t)k0 * a.sl, a.sl, BB, d, dk);
-    load_seg(segk, seg ? seg + k0 : nullptr, BB);
-    __syncthreads();
-    {
-      float s[4], dp[4];
-      tile_nt<P>(s, Qs + sr * 16 * ld, Ks + sc * 8 * ld, ld, dk, g, t);    // S = Q K^T
-      tile_nt<P>(dp, dOs + sr * 16 * ld, Vs + sc * 8 * ld, ld, dk, g, t);  // dP = dO V^T
-      p_ds<P>(s, dp, sr, sc, false, lse_s, dsum_s, segq, segk, a.scale, nullptr, dSs, PLD, g, t);
-    }
-    __syncthreads();
-    accumulate_nn<P, NTW>(acc, dSs + rg * 16 * PLD, PLD, Ks, ld, BB, nt, wc, NC, g, t);
-  }
-  store_rows<P, NTW>(static_cast<T*>(a.out0) + base + (size_t)(q0 + rg * 16) * a.sl, a.sl, acc,
-                     1.f, 1.f, nt, wc, NC, g, t);
-}
-
 // ---- the float32 backward (3xTF32): raw tiles, the streamed ones copied by
 // cp.async a step ahead into the other of two buffers, every fragment loaded
 // in the register order of its MMA and split there. See the header for the
-// design; dkv_kernel and dq_kernel above serve bf16.
+// design; namespace wg serves bf16.
 namespace tf {
 
 constexpr int TB = 32;            // rows of a block's resident tiles and of a step's streamed ones
@@ -1360,6 +1133,578 @@ __global__ void __launch_bounds__(THREADS, 1) fwd_kernel(Args a) {
 
 }  // namespace fw
 
+// ---- the bf16 backward on wgmma (namespace wg): a block owns 64 rows, two
+// warpgroups, 64 streamed rows a step; see the header.
+namespace wg {
+
+constexpr int BR = 64;               // rows of a block's resident tiles (one wgmma M)
+constexpr int BS = 64;               // rows of a step's streamed tiles (S's wgmma N)
+constexpr int CB = DMAX / 8;         // 16-byte chunks of a tile row (every head dim)
+constexpr int RTILE = BR * CB * 8;   // elements of a resident tile
+constexpr int NP = DMAX / 16;        // 16-column panels of a streamed tile
+constexpr int PANEL = BS * 16;       // elements of a panel: BS rows of 32 bytes
+constexpr int STILE = NP * PANEL;    // elements of a streamed tile
+constexpr int NS = BS / 2;           // S's accumulators a thread
+constexpr int KS = BS / 16;          // k-steps of an accumulation over a step's rows
+constexpr int N0 = 144;              // columns of an accumulation's first wgmma (N; whole panels)
+constexpr int N1 = DMAX - N0;        // and of its second
+constexpr int BOX = PANEL * 2;       // bytes of one TMA box: a panel
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert((BS == 64 || BS == 32) && N0 % 16 == 0 && N1 % 16 == 0, "the layout");
+
+// The wgmma kernels' parameters: the streamed tensors (dK/dV: Q, dO; dQ: K,
+// V) as TMA tensor maps of boxes of 16 columns x BS rows of one (b, h), 32-byte
+// swizzled, dims (d, L, H, B), or (d, H, L, B) when H's stride is the smaller
+// (l_inner 0).
+struct Params {
+  CUtensorMap t0, t1;
+  Args a;
+  int l_inner;
+};
+
+// Shared memory: res0/res1 the block's tiles (dK/dV: K, V; dQ: Q, dO);
+// buf0/buf1 a step's streamed tiles (dK/dV: Q then dO; dQ: K then V); xp P
+// from warpgroup 0 to warpgroup 1 (64 x 64 floats), in dQ then dS (bf16);
+// the streamed rows' lse, D (dK/dV) and segment ids by step parity. The
+// resident tiles are core matrices (8 rows x 16 bytes, 128 contiguous
+// bytes) by column chunk: row r's chunk c at (c BR + r) 16 bytes; the
+// streamed ones 16-column panels of BS rows of 32 bytes, as TMA's 32-byte
+// swizzle lands them (row r's 16-byte half c at 32 r + 16 (c ^ (r / 4 % 2))).
+struct Smem {
+  size_t res0, res1, buf0, buf1, xp, lse, dsum, seg, bar, bytes;
+  __host__ __device__ Smem(bool dkv) {
+    Carve c;
+    res0 = c.take(RTILE * sizeof(bf16));
+    res1 = c.take(RTILE * sizeof(bf16));
+    buf0 = c.take(2 * STILE * sizeof(bf16));
+    buf1 = c.take(2 * STILE * sizeof(bf16));
+    xp = c.take(4 * NS * 32 * sizeof(float));
+    lse = c.take(dkv ? 2 * BS * sizeof(float) : 0);
+    dsum = c.take(dkv ? 2 * BS * sizeof(float) : 0);
+    seg = c.take(2 * BS * sizeof(int));
+    bar = c.take(2 * sizeof(uint64_t));  // an mbarrier a buffer
+    bytes = c.off;
+  }
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(tc::smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(tc::smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(tc::smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// Step j's two streamed tiles (rows r0.. of (b, h) in t0 and t1) into buf
+// and buf + STILE by TMA, a box a panel (np of them: the head dim's; the
+// columns past d zero), completing on bar; warp 0.
+__device__ __forceinline__ void tma_tiles(bf16* buf, const Params& p, int r0, int h, int b, int np,
+                                          uint64_t* bar, int lane) {
+  if (lane == 0) mbar_expect(bar, 2 * np * BOX);
+  __syncwarp();
+  const int c1 = p.l_inner ? r0 : h, c2 = p.l_inner ? h : r0;
+  for (int i = lane; i < 2 * np; i += 32) {
+    const int one = i >= np, c = i - one * np;
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(tc::smem_u32(buf + one * STILE + c * PANEL)),
+        "l"(reinterpret_cast<uint64_t>(one ? &p.t1 : &p.t0)), "r"(16 * c), "r"(c1), "r"(c2), "r"(b),
+        "r"(tc::smem_u32(bar)) : "memory");
+  }
+}
+
+// A shared-memory matrix descriptor without swizzle: lbo, sbo the byte
+// strides between core matrices along k and along m (or n).
+__device__ __forceinline__ uint64_t desc(const bf16* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((tc::smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+// k-step ks of a core-matrix tile of BR rows as a K-major A (its rows m)
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int ks) {
+  return desc(tile + ks * 2 * BR * 8, BR * 16, 128);
+}
+constexpr uint64_t SW32 = 3ull << 62;  // a descriptor's 32-byte swizzle
+// k-step ks of a streamed tile as a K-major B: a panel, 8-row groups 256
+// bytes apart
+__device__ __forceinline__ uint64_t desc_ks(const bf16* tile, int ks) {
+  return desc(tile + ks * PANEL, 16, 256) | SW32;
+}
+// rows 16 kk.. (k) and panels p0.. (n) of a streamed tile as an MN-major B:
+// panels a panel apart, 8-row groups 256 bytes apart
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int kk, int p0) {
+  return desc(tile + p0 * PANEL + 16 * kk * 16, PANEL * 2, 256) | SW32;
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from touching r before the wait that precedes it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64) = A B^T (+ d when acc), both K-major in shared memory
+__device__ __forceinline__ void mma_s(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 32) = A B^T (+ d when acc), both K-major in shared memory
+__device__ __forceinline__ void mma_s(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x N0) += A (registers) B, B MN-major in shared memory
+__device__ __forceinline__ void mma_acc(float (&d)[72], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71"
+      "}, {%72, %73, %74, %75}, %76, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d (64 x N1) += A (registers) B, B MN-major in shared memory
+__device__ __forceinline__ void mma_acc(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d (64 x N0) += A B, A K-major and B MN-major in shared memory
+__device__ __forceinline__ void mma_acc_ss(float (&d)[72], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71"
+      "}, %72, %73, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+      : "l"(a), "l"(b));
+}
+
+// d (64 x N1) += A B, A K-major and B MN-major in shared memory
+__device__ __forceinline__ void mma_acc_ss(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b));
+}
+
+// A 64-row tile from global rows `stride` apart by cp.async: warp w copies
+// rows 8w..8w + 7, each group of 8 lanes one 128-byte core matrix.
+__device__ __forceinline__ void copy_tile(bf16* s, const bf16* g, int stride, int nv, int warp,
+                                          int lane) {
+  const int r = 8 * warp + (lane & 7);
+  const bf16* gp = g + (size_t)r * stride;
+  for (int c = lane >> 3; c < nv; c += 4) tf::cp_async16(s + (c * BR + r) * 8, gp + c * 8);
+}
+
+// chunks [nv, CB) of a tile of `rows` rows: zero (the head dim's pad, which
+// S's last k-step reads when d / 8 is odd, and the columns no output keeps)
+__device__ __forceinline__ void zero_pad(bf16* s, int rows, int nv) {
+  for (int i = threadIdx.x; i < (CB - nv) * rows; i += THREADS)
+    *reinterpret_cast<uint4*>(s + (nv * rows + i) * 8) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// K, V (or Q, dO): their pad chunks zero; both buffers' streamed tiles: the
+// panels past the head dim's np (TMA zeroes the columns past d in its boxes)
+__device__ __forceinline__ void zero_pads(bf16* res, int nv, int np) {
+  zero_pad(res, BR, nv);
+  zero_pad(res + RTILE, BR, nv);
+  for (int i = threadIdx.x; i < 4 * (NP - np) * PANEL / 8; i += THREADS) {
+    const int tile = i / ((NP - np) * PANEL / 8), j = i - tile * ((NP - np) * PANEL / 8);
+    *reinterpret_cast<uint4*>(res + 2 * RTILE + tile * STILE + np * PANEL + j * 8) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// A fragments (m16n8k16's, as wgmma takes them from registers) of a 64 x BS
+// accumulator rounded to bf16: k-step kk from n-tiles 2 kk, 2 kk + 1.
+__device__ __forceinline__ void to_a(uint32_t (&af)[KS][4], const float (&s)[NS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) af[kk][i] = fw::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+}
+
+// A warp's rows 16 w + g, + 8 of an accumulation's columns c0.. into global
+// rows.
+template <int NA>
+__device__ __forceinline__ void store_cols(bf16* out, int stride, const float (&acc)[NA], int c0,
+                                           int d, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j) {
+    const int col = c0 + 8 * j + 2 * t;
+    if (col < d) {
+      *reinterpret_cast<uint32_t*>(out + (size_t)g * stride + col) =
+          fw::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(out + (size_t)(g + 8) * stride + col) =
+          fw::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+// dK and dV of 64 key rows: out0 = dk, out1 = dv. Warpgroup 0: S^T = K Q^T,
+// P^T, dV += P^T dO; warpgroup 1: dP^T = V dO^T, dS^T, dK += dS^T Q.
+__global__ void __launch_bounds__(THREADS, 1) dkv_kernel(const __grid_constant__ Params pr) {
+  extern __shared__ __align__(128) unsigned char wsmem[];
+  unsigned char* smem = wsmem;
+  const Args& a = pr.a;
+  const Smem lay(true);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + lay.res0);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + lay.res1);
+  float* xp = reinterpret_cast<float*>(smem + lay.xp);
+  float* lse_s = reinterpret_cast<float*>(smem + lay.lse);
+  float* dsum_s = reinterpret_cast<float*>(smem + lay.dsum);
+  int* segq = reinterpret_cast<int*>(smem + lay.seg);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int grp = warp >> 2, w = warp & 3;
+  const int d = a.d, nv = d / 8, nk = (d + 15) / 16;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BR;
+  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh;
+  const size_t rows = ((size_t)b * a.H + h) * a.L;
+  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
+  const int lid = threadIdx.x;
+
+  auto buf = [&](int j) { return reinterpret_cast<bf16*>(smem + ((j & 1) ? lay.buf1 : lay.buf0)); };
+  // a step's Q, dO, lse, D and segment ids into buffer j & 1 (one group)
+  auto stage = [&](int j) {
+    const int q0 = j * BS, o = (j & 1) * BS;
+    if (warp == 0) tma_tiles(buf(j), pr, q0, h, b, nk, bars + (j & 1), lane);
+    if (lid < BS) {
+      tf::cp_async4(lse_s + o + lid, a.lse + rows + q0 + lid);
+      tf::cp_async4(dsum_s + o + lid, a.dsum + rows + q0 + lid);
+      if (seg) tf::cp_async4(segq + o + lid, seg + q0 + lid);
+      else segq[o + lid] = 0;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  zero_pads(Ks, nv, nk);
+  if (lid == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  copy_tile(Ks, static_cast<const bf16*>(a.k) + base + (size_t)k0 * a.sl, a.sl, nv, warp, lane);
+  copy_tile(Vs, static_cast<const bf16*>(a.v) + base + (size_t)k0 * a.sl, a.sl, nv, warp, lane);
+  stage(0);
+
+  int sk[2] = {0, 0};  // the segment ids of this thread's key rows
+  if (seg) {
+    sk[0] = seg[k0 + 16 * w + g];
+    sk[1] = seg[k0 + 16 * w + g + 8];
+  }
+  const float sl2 = a.scale * LOG2E;  // scores in the log2 domain
+  float* xw = xp + w * (NS * 32) + lane;
+  float acc0[N0 / 2], acc1[N1 / 2];  // the gradient's columns 0..N0 - 1, N0..
+#pragma unroll
+  for (int i = 0; i < N0 / 2; ++i) acc0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N1 / 2; ++i) acc1[i] = 0.f;
+
+  const int steps = a.L / BS;
+  for (int j = 0; j < steps; ++j) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_wait(bars + (j & 1), (j >> 1) & 1);
+    __syncthreads();  // step j's tiles have arrived; step j - 1 is done with the other buffer
+    const bf16* Qs = buf(j);
+    const bf16* dOs = Qs + STILE;
+    const int o = (j & 1) * BS + 2 * t;
+    float s[NS];  // the first k-step writes it (its wgmma's scale-d off)
+    const bf16* x = grp ? Vs : Ks;
+    const bf16* y = grp ? dOs : Qs;
+    wg_fence();
+    for (int ks = 0; ks < nk; ++ks) mma_s(s, desc_k(x, ks), desc_ks(y, ks), ks);
+    wg_commit();
+    if (j + 1 < steps) stage(j + 1);  // the copies issue while the tensor cores run
+    wg_wait();
+    fence_regs(s);
+    if (grp == 0) {  // P^T = exp2(S^T scale log2(e) - lse log2(e)) where the segments match
+#pragma unroll
+      for (int c = 0; c < BS / 8; ++c) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + o + 8 * c);
+        const int2 sq = *reinterpret_cast<const int2*>(segq + o + 8 * c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq = (e & 1) ? l2.y : l2.x;
+          const int sg = (e & 1) ? sq.y : sq.x;
+          const float p = sk[e >> 1] == sg ? exp2f(fmaf(s[4 * c + e], sl2, -(lq * LOG2E))) : 0.f;
+          s[4 * c + e] = p;
+          xw[(4 * c + e) * 32] = p;
+        }
+      }
+      bar_arrive(1, THREADS);  // P to warpgroup 1
+    } else {  // dS^T = P^T (dP^T - D) scale
+      tf::named_sync(1, THREADS);
+#pragma unroll
+      for (int c = 0; c < BS / 8; ++c) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dsum_s + o + 8 * c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * c + e] = xw[(4 * c + e) * 32] * (s[4 * c + e] - ((e & 1) ? d2.y : d2.x)) * a.scale;
+      }
+    }
+    uint32_t af[KS][4];
+    to_a(af, s);
+    const bf16* yb = grp ? Qs : dOs;  // dV += P^T dO, dK += dS^T Q
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      mma_acc(acc0, af[kk], desc_mn(yb, kk, 0));
+      mma_acc(acc1, af[kk], desc_mn(yb, kk, N0 / 16));
+    }
+    wg_commit();
+    wg_wait();
+    fence_regs(acc0);
+    fence_regs(acc1);
+  }
+  bf16* out = static_cast<bf16*>(grp ? a.out0 : a.out1) + base + (size_t)(k0 + 16 * w) * a.sl;
+  store_cols(out, a.sl, acc0, 0, d, g, t);
+  store_cols(out, a.sl, acc1, N0, d, g, t);
+}
+
+// dQ of 64 query rows: out0 = dq. Warpgroup 0: S = Q K^T and P; warpgroup
+// 1: dP = dO V^T and dS, into shared memory; each warpgroup then half of
+// dQ += dS K.
+__global__ void __launch_bounds__(THREADS, 1) dq_kernel(const __grid_constant__ Params pr) {
+  extern __shared__ __align__(128) unsigned char wsmem[];
+  unsigned char* smem = wsmem;
+  const Args& a = pr.a;
+  const Smem lay(false);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + lay.res0);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + lay.res1);
+  float* xp = reinterpret_cast<float*>(smem + lay.xp);
+  bf16* dSs = reinterpret_cast<bf16*>(smem + lay.xp);  // after P is read
+  int* segk = reinterpret_cast<int*>(smem + lay.seg);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int grp = warp >> 2, w = warp & 3;
+  const int d = a.d, nv = d / 8, nk = (d + 15) / 16;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BR;
+  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh;
+  const size_t rows = ((size_t)b * a.H + h) * a.L;
+  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
+  const int lid = threadIdx.x;
+
+  auto buf = [&](int j) { return reinterpret_cast<bf16*>(smem + ((j & 1) ? lay.buf1 : lay.buf0)); };
+  // a step's K, V and segment ids into buffer j & 1 (one group)
+  auto stage = [&](int j) {
+    const int k0 = j * BS, o = (j & 1) * BS;
+    if (warp == 0) tma_tiles(buf(j), pr, k0, h, b, nk, bars + (j & 1), lane);
+    if (lid < BS) {
+      if (seg) tf::cp_async4(segk + o + lid, seg + k0 + lid);
+      else segk[o + lid] = 0;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  zero_pads(Qs, nv, nk);
+  if (lid == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  copy_tile(Qs, static_cast<const bf16*>(a.q) + base + (size_t)q0 * a.sl, a.sl, nv, warp, lane);
+  copy_tile(dOs, static_cast<const bf16*>(a.dout) + base + (size_t)q0 * a.sl, a.sl, nv, warp,
+            lane);
+  stage(0);
+
+  float lq[2], dr[2];  // lse log2(e), D and segment ids of this thread's query rows
+  int sq[2] = {0, 0};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * w + g + 8 * r;
+    lq[r] = a.lse[rows + row] * LOG2E;
+    dr[r] = a.dsum[rows + row];
+    if (seg) sq[r] = seg[row];
+  }
+  const float sl2 = a.scale * LOG2E;
+  float* xw = xp + w * (NS * 32) + lane;
+  // dQ's columns 0..N0 - 1 (warpgroup 0) or N0.. (warpgroup 1, the first
+  // N1 / 2 of them)
+  float acc[N0 / 2];
+  float (&acc1)[N1 / 2] = *reinterpret_cast<float(*)[N1 / 2]>(acc);
+#pragma unroll
+  for (int i = 0; i < N0 / 2; ++i) acc[i] = 0.f;
+
+  const int steps = a.L / BS;
+  for (int j = 0; j < steps; ++j) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_wait(bars + (j & 1), (j >> 1) & 1);
+    __syncthreads();  // step j's tiles have arrived; step j - 1 is done with the other buffer
+    const bf16* Kt = buf(j);
+    const bf16* Vt = Kt + STILE;
+    float s[NS];  // the first k-step writes it (its wgmma's scale-d off)
+    const bf16* x = grp ? dOs : Qs;
+    const bf16* y = grp ? Vt : Kt;
+    wg_fence();
+    for (int ks = 0; ks < nk; ++ks) mma_s(s, desc_k(x, ks), desc_ks(y, ks), ks);
+    wg_commit();
+    if (j + 1 < steps) stage(j + 1);  // the copies issue while the tensor cores run
+    wg_wait();
+    fence_regs(s);
+    if (grp == 0) {  // P = exp2(S scale log2(e) - lse log2(e)) where the segments match
+      const int* sk = segk + (j & 1) * BS + 2 * t;
+#pragma unroll
+      for (int c = 0; c < BS / 8; ++c) {
+        const int2 k2 = *reinterpret_cast<const int2*>(sk + 8 * c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          xw[(4 * c + e) * 32] = sq[e >> 1] == ((e & 1) ? k2.y : k2.x)
+                                     ? exp2f(fmaf(s[4 * c + e], sl2, -lq[e >> 1])) : 0.f;
+      }
+      bar_arrive(1, THREADS);  // P to warpgroup 1
+    } else {  // dS = P (dP - D) scale, into shared memory as a K-major A
+      tf::named_sync(1, THREADS);
+#pragma unroll
+      for (int c = 0; c < BS / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * c + e] = xw[(4 * c + e) * 32] * (s[4 * c + e] - dr[e >> 1]) * a.scale;
+      tf::named_sync(2, THREADS / 2);  // every warp of the group has read P
+#pragma unroll
+      for (int c = 0; c < BS / 8; ++c) {
+        bf16* p = dSs + (c * BR + 16 * w + g) * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(p) = fw::pack_bf16(s[4 * c], s[4 * c + 1]);
+        *reinterpret_cast<uint32_t*>(p + 64) = fw::pack_bf16(s[4 * c + 2], s[4 * c + 3]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+    __syncthreads();  // dS is complete
+    wg_fence();  // dQ's columns of warpgroup grp += dS K
+    if (grp == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) mma_acc_ss(acc, desc_k(dSs, kk), desc_mn(Kt, kk, 0));
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        mma_acc_ss(acc1, desc_k(dSs, kk), desc_mn(Kt, kk, N0 / 16));
+    }
+    wg_commit();
+    wg_wait();
+    fence_regs(acc);
+  }
+  bf16* out = static_cast<bf16*>(a.out0) + base + (size_t)(q0 + 16 * w) * a.sl;
+  if (grp == 0) store_cols(out, a.sl, acc, 0, d, g, t);
+  else store_cols(out, a.sl, acc1, N0, d, g, t);
+}
+
+}  // namespace wg
+
 // ---- host side
 
 template <class P>
@@ -1389,8 +1734,8 @@ int fwd_tile(int B, int H, int L, int sms) {
   return 16;
 }
 
-template <class K>
-cudaError_t launch(K kernel, dim3 grid, size_t smem, const Args& a, void* stream) {
+template <class K, class A>
+cudaError_t launch(K kernel, dim3 grid, size_t smem, const A& a, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
@@ -1417,16 +1762,61 @@ int fwd(const Args& a, void* stream) {
   }
 }
 
-// The backward: float32 on the kernels of namespace tf, bf16 on dkv_kernel
-// and dq_kernel.
+// The backward: float32 on the kernels of namespace tf, bf16 on those of
+// namespace wg.
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, or null
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult got;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &got) !=
+            cudaSuccess || got != cudaDriverEntryPointSuccess)
+      return EncodeTiled(nullptr);
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// A [B, H, L, d] bf16 tensor (a's shape and strides) as boxes of 16 columns x
+// wg::BS rows of one (b, h), 32-byte swizzled; the smaller-strided of L and H
+// goes first.
+bool tile_map(CUtensorMap* m, const void* base, const Args& a, bool l_inner) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)a.d, (cuuint64_t)(l_inner ? a.L : a.H),
+                              (cuuint64_t)(l_inner ? a.H : a.L), (cuuint64_t)a.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(l_inner ? a.sl : a.sh) * 2,
+                                 (cuuint64_t)(l_inner ? a.sh : a.sl) * 2, (cuuint64_t)a.sb * 2};
+  const cuuint32_t box[4] = {16, l_inner ? (cuuint32_t)wg::BS : 1u,
+                             l_inner ? 1u : (cuuint32_t)wg::BS, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The wgmma kernels' parameters, streaming s0 and s1.
+bool wg_params(wg::Params* p, const Args& a, const void* s0, const void* s1) {
+  p->a = a;
+  p->l_inner = a.sl <= a.sh;
+  return tile_map(&p->t0, s0, a, p->l_inner) && tile_map(&p->t1, s1, a, p->l_inner);
+}
 template <class P>
 int dkv(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.lse || !a.dsum || !a.out1) return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same_v<P, F32>)
     return (int)launch(tf::dkv_kernel, dim3(a.L / tf::TB, a.H, a.B), tf::Smem(a.d).bytes, a,
                        stream);
-  else
-    return (int)launch(dkv_kernel<P>, dim3(a.L / BB, a.H, a.B), BwdSmem<P>(a.d).bytes, a, stream);
+  wg::Params p;
+  if (!wg_params(&p, a, a.q, a.dout)) return (int)cudaErrorInvalidValue;
+  return (int)launch(wg::dkv_kernel, dim3(a.L / wg::BR, a.H, a.B), wg::Smem(true).bytes, p,
+                     stream);
 }
 
 template <class P>
@@ -1435,8 +1825,10 @@ int dq(const Args& a, void* stream) {
   if constexpr (std::is_same_v<P, F32>)
     return (int)launch(tf::dq_kernel, dim3(a.L / tf::TB, a.H, a.B), tf::Smem(a.d).bytes, a,
                        stream);
-  else
-    return (int)launch(dq_kernel<P>, dim3(a.L / BB, a.H, a.B), BwdSmem<P>(a.d).bytes, a, stream);
+  wg::Params p;
+  if (!wg_params(&p, a, a.k, a.v)) return (int)cudaErrorInvalidValue;
+  return (int)launch(wg::dq_kernel, dim3(a.L / wg::BR, a.H, a.B), wg::Smem(false).bytes, p,
+                     stream);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout, const float* lse,

@@ -221,6 +221,21 @@ def fwd_layout(B: int, h: int, L: int, dtype=torch.float32) -> dict:
             "spill_bytes": (res["spill_stores"] + res["spill_loads"]) if res else None}
 
 
+def bwd_bf16_registers() -> dict:
+    """The registers and spill bytes of the bf16 backward's kernels
+    (`wg::dkv_kernel`, `wg::dq_kernel`) as ptxas reported them when this
+    process built the library: {"dkv": {...}, "dq": {...}}, values None when
+    the library came from the build cache."""
+    ptxas = _cuda.ptxas_kernels(_cuda.build_info.get("ptxas", {}).get("flash_attn") or [])
+    res = {}
+    for part, name in (("dkv", "2wg10dkv_kernel"), ("dq", "2wg9dq_kernel")):
+        found = [v for k, v in ptxas.items() if name in k]
+        r = found[0] if len(found) == 1 else {}
+        res[part] = {"registers": r.get("registers"),
+                     "spill_bytes": (r["spill_stores"] + r["spill_loads"]) if r else None}
+    return res
+
+
 class FlashAttention(torch.autograd.Function):
     """K5 with its backward; CUDA tensors only."""
 
