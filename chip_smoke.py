@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile DIR   # also torch.profiler breakdowns of tts_ex (float32
                                           # and bf16) and of a train step, in DIR/profile_*.txt
     python3 chip_smoke.py --only 12 --repeat 20 [--dump DIR]
-                                          # phases 1-2, then phase 12 (18-21) alone, 20 times:
+                                          # phases 1-2, then phase 12 (18-22) alone, 20 times:
                                           # each repeat's failure is recorded and the run goes
                                           # on; exits nonzero if any repeat failed. --dump
                                           # writes phase 12's variance predictions per repeat
@@ -120,7 +120,11 @@ Phases, in order; any failure exits nonzero:
    card, the engine within 1e-3 of the CPU on the short text; RTF and
    first-chunk p50; the same engine in bf16 launching only the bf16
    kernels at the same widths, its waveform within min(5e-2, 5e-2 x peak)
-   of the float32 engine's (phase 15's main-path bound). Phase 3's narrow-width rows (`@` and the
+   of the float32 engine's (phase 15's main-path bound); then HiFi-GAN V3
+   (jik876/hifi-gan `config_v3.json`: ResBlock2 towers, rates 8,8,4, 256
+   initial channels), which no kernel fuses: no launch of K1-K5 in either
+   precision, the same checks, its streaming halo printed (27 frames by
+   ResBlock1's formula, an over-estimate for ResBlock2). Phase 3's narrow-width rows (`@` and the
    width in their names: K1 and K3 at [1, 88192, 16] and [1, 176384, 8], K2
    at (16, 8) with conv_post on [1, 88192, 16]) take their launches from
    this phase (K1 and K2 from V2, K3 from the single tower).
@@ -238,6 +242,26 @@ Phases, in order; any failure exits nonzero:
    dQ; bf16 ones in bf16-mixed) and none on einsum, 12 + 6 + 6 with remat;
    train_step's device ms and peak memory flash against einsum in turns,
    both precisions. `--only 21` runs it after phases 1-2.
+22. The JAX package's lane-aligned `configs/tts_medium_tpu.yaml` (written in
+   code, `tts_medium_tpu()`: punct_emb_dim 0, d_model 512, two heads of
+   256), random weights from seed 0: K5's rows of phase 21 at d = 256 ([1, 2,
+   1024, 256], [24, 2, 512, 256] and [1, 2, 256, 256] forward, the backward
+   at the training shape; names ending in `_d256`, the same bounds); (a)
+   the engine with the default vocoder on bench.py's text (bucket 689):
+   phase 16's checks (K1 once and K2 twice a tts_ex and a streamed window,
+   no other kernel, a [1, 1, 512] speaker embedding, the stream within
+   1e-4, the vocoder against its nn.Modules and the engine against the CPU
+   within 1e-3, RTF, first chunk, bf16 within phase 15's bound); (b) its
+   encode, decode and vocode device ms, RTF, first-chunk p50 and tts_batch
+   at B=4 in turns with phase 4's tts_medium engine; (c) phase 21's flash
+   serving on this model (10 K5 forward launches a tts_ex in float32 and in
+   bf16, against einsum, the CPU and float32); (d) its float32 train_step
+   at batch 24, mel bucket 512 with the fused stage 1 (6 + 6 K4 launches a
+   step, finite losses), device ms and peak memory in turns with phase 6's
+   tts_medium step, phase 7's one step card against CPU, and phase 21's
+   flash training on this model (6 + 6 + 6 K5 launches a step at [24, 2,
+   512, 256], float32 and bf16-mixed; flash against einsum timed in float32
+   only). `--only 22` runs it after phases 1-2.
 
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -328,6 +352,11 @@ FLASH_SERVE_SHAPE = (1, 2, 1024, 264)
 FLASH_TRAIN_SHAPE = (24, 2, 512, 264)
 FLASH_ENC_SHAPE = (1, 2, 256, 264)  # the serving encoder's at text bucket 256
 FLASH_REPEAT, FLASH_FRAMES = 2, 5
+K5_SHAPES = (("", FLASH_SERVE_SHAPE), ("_train", FLASH_TRAIN_SHAPE), ("_enc", FLASH_ENC_SHAPE))
+# phase 22: tts_medium_tpu's head dim 512 / 2 at the same lengths; rows named *_d256
+K5_D256_SHAPES = tuple((label, shape[:3] + (256,)) for label, shape in K5_SHAPES)
+# the default vocoder's kernels a tts_ex by width: K1 at stage 1, K2 at stages 2 and 3
+MAIN_WIDTHS = {"fused_mrf": {128: 1}, "fused_upsample_stage": {"128x64": 1, "64x32": 1}}
 K5_SOURCE = "zerovox_tpu_torch/csrc/flash_attn.cu"
 _K5_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 K5_REPLACES = {"fwd": f"zerovox_tpu/models/fs2.py:113 -> {_K5_LIB}:758",
@@ -879,14 +908,15 @@ def write_corpus(root: Path, name: str, syms, n_mels: int, n_utts: int, phones: 
     (pp / "train.txt").write_text("\n".join(lines) + "\n")
 
 
-def train_config(fused: bool, shallow: bool = False):
-    """ZeroVoxConfig() (tts_medium) for training, with the fused stage 1 or
-    without; `shallow`: one FFT layer each side and every dropout rate 0."""
+def train_config(fused: bool, shallow: bool = False, base=None):
+    """`base` (default ZeroVoxConfig(), tts_medium) for training, with the
+    fused stage 1 or without; `shallow`: one FFT layer each side and every
+    dropout rate 0."""
     import dataclasses as dc
 
     from zerovox_tpu_torch.config import Stats, ZeroVoxConfig
 
-    base = ZeroVoxConfig()
+    base = ZeroVoxConfig() if base is None else base
     m = dc.replace(base.model, packed_speaker=int(fused), fused_speaker=fused)
     if shallow:
         m = dc.replace(m, encoder=dc.replace(m.encoder, fs2_layer=1, fs2_dropout=0.0, vp_dropout=0.0),
@@ -982,11 +1012,11 @@ def step_grads(model, batch, spkemb_train: bool) -> tuple[dict, dict]:
              if p.grad is not None})
 
 
-def train_cross_check(torch, dev, corpus_root: Path) -> dict:
-    """One train step at reduced depth from the same weights and 2-utterance
-    batch on the card and on the CPU, twice: with the speaker encoder's
-    BatchNorms on batch statistics (the step `fit` takes) and on their
-    running statistics.
+def train_cross_check(torch, dev, corpus_root: Path, base=None) -> dict:
+    """One train step at reduced depth (train_config's `base`, default
+    tts_medium) from the same weights and 2-utterance batch on the card and
+    on the CPU, twice: with the speaker encoder's BatchNorms on batch
+    statistics (the step `fit` takes) and on their running statistics.
 
     Every gradient is held within STEP_GRAD_TOL x its max |value| of the CPU
     run, except the speaker encoder's under batch statistics: there the
@@ -1004,7 +1034,7 @@ def train_cross_check(torch, dev, corpus_root: Path) -> dict:
     from zerovox_tpu_torch.training.data import SpeechDataset, collate
     from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig, device_batch
 
-    cfg = train_config(fused=True, shallow=True)
+    cfg = train_config(fused=True, shallow=True, base=base)
     ds = SpeechDataset("train.txt", [{"path": {"preprocessed_path": "short"}}], cfg.symbols(),
                        STATS, base_path=str(corpus_root))
     host = collate([ds.load_item(i) for i in range(len(ds))], np.random.default_rng(6))
@@ -2340,6 +2370,31 @@ def hifigan_v2():
                          resblock_dilation_sizes=((1, 3, 5),) * 3)
 
 
+def hifigan_v3():
+    """HiFi-GAN V3 (jik876/hifi-gan config_v3.json): ResBlock2 towers 3/5/7 x
+    dilations (1, 2), (2, 6), (3, 12) at 256 initial channels, rates 8,8,4
+    (hop 256), upsample kernels 16,16,8. No kernel fuses ResBlock2 (the JAX
+    package's `mrf_fusable` needs ResBlock1): every stage runs nn.Modules."""
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+
+    return HifiGanConfig(resblock="2", upsample_rates=(8, 8, 4), upsample_kernel_sizes=(16, 16, 8),
+                         upsample_initial_channel=256, resblock_kernel_sizes=(3, 5, 7),
+                         resblock_dilation_sizes=((1, 2), (2, 6), (3, 12)))
+
+
+def tts_medium_tpu():
+    """configs/tts_medium_tpu.yaml in code (the card's machine has no pyyaml):
+    tts_medium with the punctuation embedding folded additively into the
+    phone embedding (punct_emb_dim 0), so d_model is 512 and each of the two
+    attention heads is 256 wide."""
+    import dataclasses as dc
+
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+
+    base = ZeroVoxConfig()
+    return dc.replace(base, model=dc.replace(base.model, emb_dim=512, punct_emb_dim=0))
+
+
 def single_tower_256():
     """One ResBlock1 tower (k 3, dilations 1,3,5) at 256 initial channels,
     rates 8,8,2,2: K3 runs all four stages (C = 128, 64, 32, 16)."""
@@ -2363,11 +2418,13 @@ def widths_launched() -> dict:
 
 
 def narrow_path(torch, card: str, name: str, hcfg, want: dict, refwav, sr: int,
-                profile_dir) -> dict:
-    """One vocoder of phase 16 behind the default acoustic model at full
-    width (seed 0, bench.py's text with forced durations, bucket 689):
-    speaker_embed -> tts_ex -> tts_stream with the launches by width read
-    around it (`want`: each kernel's widths a tts_ex, once each); the
+                profile_dir, cfg=None) -> dict:
+    """One vocoder of phase 16 behind the default acoustic model (or `cfg`'s:
+    phase 22's tts_medium_tpu) at full width (seed 0, bench.py's text with
+    forced durations, bucket 689): speaker_embed (its [1, 1, d_model]
+    embedding) -> tts_ex -> tts_stream with the launches by width read
+    around it (`want`: each kernel's widths a tts_ex, once each; {}: none of
+    K1-K5 in either precision); the
     engine's vocoder on the card against the same weights' nn.Modules on the
     card and the whole engine against the CPU (1e-3); RTF and first-chunk
     p50; then the same engine in bf16: its bf16 launches a tts_ex, and its
@@ -2378,7 +2435,7 @@ def narrow_path(torch, card: str, name: str, hcfg, want: dict, refwav, sr: int,
     from zerovox_tpu_torch.synthesize import MEL_BUCKETS, ZeroVoxTTS, pick_bucket
     from zerovox_tpu_torch.utils.profiling import RtfStats, cuda_time_ms
 
-    cfg = ZeroVoxConfig()
+    cfg = ZeroVoxConfig() if cfg is None else cfg
     engine = ZeroVoxTTS.from_random(cfg, hcfg, seed=0)
     hop = cfg.audio.hop_size
     ids, puncts = engine.text2phonemeids(TEXT)
@@ -2393,8 +2450,11 @@ def narrow_path(torch, card: str, name: str, hcfg, want: dict, refwav, sr: int,
     chunks = list(engine.tts_stream(TEXT, spk, duration=dur))
     torch.cuda.synchronize()
     counts, at = kernel_counts(), widths_launched()
-    print(f"{name}: launches by width: tts_ex {per_call}; + tts_stream ({len(chunks)} windows) "
-          f"{at}")
+    halo = hcfg.receptive_field_frames()
+    print(f"{name}: launches by width: tts_ex {per_call}; + tts_stream ({len(chunks)} windows, "
+          f"halo {halo} frames) {at}")
+    check(tuple(spk.shape) == (1, 1, cfg.model.emb_size) and bool(torch.isfinite(spk).all()),
+          f"{name}: speaker embedding {tuple(spk.shape)}, d_model {cfg.model.emb_size}")
     check({k: v for k, v in per_call.items() if v} == want,
           f"{name}: tts_ex launched {per_call}, not {want}")
     check(all(at[k] == {w: (1 + len(chunks)) * c for w, c in ws.items()} for k, ws in want.items()),
@@ -2475,7 +2535,8 @@ def narrow_path(torch, card: str, name: str, hcfg, want: dict, refwav, sr: int,
     check(bf16_err < bf16_tol, f"{name} bf16: waveform {bf16_err} from float32's, over {bf16_tol}")
     del e16
     torch.cuda.empty_cache()
-    out = {"vocoder": name, "bucket": bucket, "launches_per_tts_ex": per_call,
+    out = {"vocoder": name, "d_model": cfg.model.emb_size, "halo_frames": halo,
+           "bucket": bucket, "launches_per_tts_ex": per_call,
            "launches": counts, "launches_at": at, "stream_windows": len(chunks),
            "bf16_launches_per_tts_ex": counts16, "bf16_err": bf16_err, "bf16_bound": bf16_tol,
            "modules_err": mod_err, "modules_peak": mod_peak,
@@ -2488,14 +2549,16 @@ def narrow_path(torch, card: str, name: str, hcfg, want: dict, refwav, sr: int,
 
 
 def narrow_phase(torch, card: str, refwav, sr: int, profile_dir) -> dict:
-    """Phase 16: HiFi-GAN V2, then the 256-channel single-tower vocoder."""
+    """Phase 16: HiFi-GAN V2, the 256-channel single-tower vocoder, then
+    HiFi-GAN V3 (ResBlock2: no kernel)."""
     v2 = narrow_path(torch, card, "hifigan_v2", hifigan_v2(),
                      {"fused_mrf": {64: 1, 32: 1},
                       "fused_upsample_stage": {"32x16": 1, "16x8": 1}}, refwav, sr, profile_dir)
     single = narrow_path(torch, card, "single_tower_256", single_tower_256(),
                          {"fused_resblock1": {128: 1, 64: 1, 32: 1, 16: 1}}, refwav, sr,
                          profile_dir)
-    return {"hifigan_v2": v2, "single_tower_256": single}
+    v3 = narrow_path(torch, card, "hifigan_v3", hifigan_v3(), {}, refwav, sr, profile_dir)
+    return {"hifigan_v2": v2, "single_tower_256": single, "hifigan_v3": v3}
 
 
 def write_vocoder_corpus(root: Path, n_items: int, seconds: float, seed: int = 0) -> None:
@@ -3641,8 +3704,9 @@ def sdpa_backend(torch, F, q, k, v, mask, scale) -> str:
     return "unknown"
 
 
-def k5_rows(torch, dev) -> list[dict]:
-    """Phase 21's kernel rows: K5's forward at the serving decoder's, the
+def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "") -> list[dict]:
+    """Phase 21's kernel rows (phase 22's with its `shapes` at d = 256, names
+    ending in `suffix`): K5's forward at the serving decoder's, the
     training decoder's and the serving encoder's shapes, and its backward
     (dK/dV, dQ, both) at the training shape, float32 and bf16, each against
     its plain version (the backward against autograd of the plain version),
@@ -3679,8 +3743,7 @@ def k5_rows(torch, dev) -> list[dict]:
         o = f(qg, kg, vg, seg, scale)
         return lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)
 
-    for label, shape in (("", FLASH_SERVE_SHAPE), ("_train", FLASH_TRAIN_SHAPE),
-                         ("_enc", FLASH_ENC_SHAPE)):
+    for label, shape in shapes:
         B, h, L, d = shape
         q, k, v, seg, do, lengths = inputs(shape)
         scale = 1.0 / math.sqrt(d)
@@ -3692,7 +3755,7 @@ def k5_rows(torch, dev) -> list[dict]:
         fwd_flop = 4.0 * B * h * L * L * d
         for bf in (False, True):
             qx, kx, vx, dox = (x.to(torch.bfloat16) if bf else x for x in (q, k, v, do))
-            name = f"flash_fwd{label}" + ("_bf16" if bf else "")
+            name = f"flash_fwd{label}" + ("_bf16" if bf else "") + suffix
             extra = {**fa.fwd_layout(B, h, L, qx.dtype), "valid_lengths": lengths[:4]}
             fn = lambda: fa.flash_fwd(qx, kx, vx, seg, scale)[0]  # noqa: E731
             plain = lambda: fa.flash_attention_plain(qx, kx, vx, seg, scale)  # noqa: E731
@@ -3722,7 +3785,7 @@ def k5_rows(torch, dev) -> list[dict]:
                      lambda g: g[:1]),
                     ("", 10.0, 7, lambda: fa.flash_bwd(qx, kx, vx, o, lse, dox, seg, scale),
                      lambda g: g)):
-                name = "flash_bwd" + (f"_{part}" if part else "") + ("_bf16" if bf else "")
+                name = "flash_bwd" + (f"_{part}" if part else "") + ("_bf16" if bf else "") + suffix
                 fn = lambda kernel=kernel: torch.stack(kernel())  # noqa: E731
                 plain = lambda pick=pick: torch.stack(pick(plain_g()))  # noqa: E731
                 lib = lib_g if not part else None
@@ -3751,8 +3814,9 @@ def k5_rows(torch, dev) -> list[dict]:
     return rows
 
 
-def flash_serving(torch, card: str, refwav, sr: int) -> dict:
-    """Phase 21's serving run: the main-path engine at full width (seed 0)
+def flash_serving(torch, card: str, refwav, sr: int, cfg=None) -> dict:
+    """Phase 21's serving run (phase 22's with `cfg`, tts_medium_tpu): the
+    main-path engine at full width (seed 0)
     on bench.py's text twice (204 phones, text bucket 256) at FLASH_FRAMES
     frames a phone (mel bucket 1024): tts_ex under ZEROVOX_ATTN=flash (K5's
     forward 10 times: 4 encoder and 6 decoder layers) against the same
@@ -3768,7 +3832,7 @@ def flash_serving(torch, card: str, refwav, sr: int) -> dict:
     from zerovox_tpu_torch.synthesize import MEL_BUCKETS, TEXT_BUCKETS, ZeroVoxTTS, pick_bucket
     from zerovox_tpu_torch.utils.profiling import RtfStats, cuda_time_ms
 
-    engine = ZeroVoxTTS.from_random(seed=0)
+    engine = ZeroVoxTTS.from_random(cfg, HifiGanConfig(), seed=0)
     text = " ".join([TEXT] * FLASH_REPEAT)
     ids, puncts = engine.text2phonemeids(text)
     n = len(ids)
@@ -3851,9 +3915,10 @@ def flash_serving(torch, card: str, refwav, sr: int) -> dict:
             "encode_ms": cuda_time_ms(lambda: engine._encode(ids, puncts, spk, dur), iters=10),
             "decode_ms": cuda_time_ms(lambda: engine._decode(enc, spk, mel_b), iters=10)})
     set_attention(None)
-    out = {"card": card, "phones": n, "text_bucket": text_b, "mel_bucket": mel_b,
-           "layers": {"encoder": engine.cfg.model.encoder.fs2_layer,
-                      "decoder": engine.cfg.model.decoder.n_layers},
+    m = engine.cfg.model
+    out = {"card": card, "d_model": m.emb_size, "head_dim": m.emb_size // m.decoder.n_head,
+           "phones": n, "text_bucket": text_b, "mel_bucket": mel_b,
+           "layers": {"encoder": m.encoder.fs2_layer, "decoder": m.decoder.n_layers},
            "launches": n_f, "launches_bf16": n_16, "wav_peak": peak,
            "flash_vs_einsum_max_abs": err_e, "flash_vs_cpu_max_abs": err_c,
            "bf16_vs_f32_max_abs": err_16, "bf16_bound": tol_16, "stream_vs_einsum_stream": err_s,
@@ -3868,8 +3933,9 @@ def grad_gap(a: dict, b: dict, names) -> float:
     return (num / max(sum((b[n].double() ** 2).sum().item() for n in names), 1e-300)) ** 0.5
 
 
-def flash_training(torch, card: str) -> dict:
-    """Phase 21's training run: phase 6's configuration and corpus (tts_medium,
+def flash_training(torch, card: str, base=None, timed=("32", "bf16-mixed")) -> dict:
+    """Phase 21's training run (phase 22's on `base`, tts_medium_tpu, timing
+    only float32): phase 6's configuration and corpus (tts_medium,
     the fused stage 1, batch 24, mel bucket 512, text bucket 128: the encoder
     stays on the einsum path), one forward_backward from the same weights and
     batch (the same dropout masks) under flash and under einsum, in float32
@@ -3881,7 +3947,8 @@ def flash_training(torch, card: str) -> dict:
     within MIXED_LOSS_RTOL of float32 einsum and its gradients no further
     from float32 einsum's than 1.5 x the bf16-mixed einsum step's. A remat
     step under flash re-runs the forward (12 + 6 + 6). Then train_step's
-    device ms and peak memory, flash against einsum in turns, each precision."""
+    device ms and peak memory, flash against einsum in turns, each precision
+    in `timed`."""
     import dataclasses as dc
 
     import numpy as np
@@ -3890,8 +3957,9 @@ def flash_training(torch, card: str) -> dict:
     from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig, device_batch
     from zerovox_tpu_torch.utils.profiling import cuda_time_ms
 
-    cfg = train_config(fused=True)
-    out = {"card": card}
+    cfg = train_config(fused=True, base=base)
+    out = {"card": card, "d_model": cfg.model.emb_size,
+           "head_dim": cfg.model.emb_size // cfg.model.decoder.n_head}
     BUILD.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
         root = Path(tmp)
@@ -3984,7 +4052,8 @@ def flash_training(torch, card: str) -> dict:
         del rtrainer, g_r, g_f, g_e, g_fb, g_eb
 
         # train_step in turns: device ms and peak memory
-        for precision, (trainer, state) in trainers.items():
+        for precision in timed:
+            trainer, state = trainers[precision]
             turns = {"flash": [], "einsum": []}
             for kind in ("flash", "einsum", "einsum", "flash"):
                 set_attention(kind if kind == "flash" else None)
@@ -4011,21 +4080,148 @@ def flash_phase(torch, dev, card: str, refwav, sr: int) -> dict:
     rows = k5_rows(torch, dev)
     serve = flash_serving(torch, card, refwav, sr)
     train = flash_training(torch, card)
+    k5_row_launches(rows, serve, train)
+    return {"rows": rows, "serving": serve, "training": train,
+            "phase_s": time.perf_counter() - t0}
+
+
+def k5_row_launches(rows, serve: dict, train: dict, suffix: str = "") -> None:
+    """Each K5 row's launches from a flash_serving and a flash_training run
+    (rows named as k5_rows names them, ending in `suffix`)."""
     for row in rows:
-        name = row["name"]
+        name = row["name"].removesuffix(suffix)
         bf = name.endswith("_bf16")
-        suffix = "_bf16" if bf else ""
+        dtype = "_bf16" if bf else ""
         if name.startswith("flash_fwd") and "_train" not in name:
-            row["launches"] = serve["launches_bf16" if bf else "launches"][f"flash_fwd{suffix}"]
+            row["launches"] = serve["launches_bf16" if bf else "launches"][f"flash_fwd{dtype}"]
             # of them at this row's shape: the encoder's layers or the decoder's
             row["launches_at_shape"] = serve["layers"]["encoder" if "_enc" in name else "decoder"]
             continue
         counts = train["bf16_mixed" if bf else "f32"]["launches"]
         kernel = name.removesuffix("_bf16").replace("_train", "")
         # a whole backward pass ("flash_bwd") launches dK/dV and dQ once each
-        row["launches"] = counts[("flash_bwd_dq" if kernel == "flash_bwd" else kernel) + suffix]
-    return {"rows": rows, "serving": serve, "training": train,
-            "phase_s": time.perf_counter() - t0}
+        row["launches"] = counts[("flash_bwd_dq" if kernel == "flash_bwd" else kernel) + dtype]
+
+
+def model_turns(torch, card: str, refwav, sr: int) -> dict:
+    """Phase 22 (b): the tts_medium_tpu engine (d_model 512) against phase
+    4's tts_medium engine (528), both with the default vocoder from seed 0,
+    in turns (512, 528, 528, 512) on bench.py's text and forced durations:
+    time_engine's encode, decode and vocode device ms at bucket 689, RTF,
+    first-chunk p50 and tts_batch at B=4."""
+    import numpy as np
+
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+    from zerovox_tpu_torch.synthesize import ZeroVoxTTS
+
+    engines = {"512": ZeroVoxTTS.from_random(tts_medium_tpu(), HifiGanConfig(), seed=0),
+               "528": ZeroVoxTTS.from_random(seed=0)}
+    rng = np.random.default_rng(15)
+    spk_wavs = [refwav] + [rng.normal(size=2 * sr).astype(np.float32) * s for s in (0.05, 0.2, 0.3)]
+    args = {}
+    for name, e in engines.items():
+        dur = np.full(len(e.text2phonemeids(TEXT)[0]), FRAMES_PER_PHONE, np.int32)
+        durs, spks = batch_inputs(e, spk_wavs)
+        args[name] = (e.speaker_embed(refwav), dur, spks, durs)
+    turns = {"512": [], "528": []}
+    for name in ("512", "528", "528", "512"):
+        turns[name].append(time_engine(torch, engines[name], *args[name], sr))
+    out = {"card": card, "turns": turns}
+    print(json.dumps({"tts_medium_tpu_vs_tts_medium": out}), flush=True)
+    del engines, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def medium_tpu_training(torch, dev, card: str) -> dict:
+    """Phase 22 (d): tts_medium_tpu's float32 train_step with the fused stage
+    1 at batch 24, mel bucket 512 (phase 6's corpus): finite losses, 6 + 6
+    K4 launches a step; its device ms and peak memory in turns with
+    tts_medium's step (512, 528, 528, 512; peak memory with both models
+    resident, and the step's own rise above what was resident); one step
+    at train_cross_check's reduced depth on the card against the CPU (phase
+    7's bounds); then flash_training on tts_medium_tpu (K5 at [24, 2, 512,
+    256]; its turns, flash against einsum, in float32 only)."""
+    import numpy as np
+
+    from zerovox_tpu_torch.training.data import SpeechDataModule
+    from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig, device_batch
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    cfgs = {"512": train_config(fused=True, base=tts_medium_tpu()), "528": train_config(fused=True)}
+    cfg = cfgs["512"]
+    out = {"card": card}
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        root = Path(tmp)
+        write_corpus(root, "train", cfg.symbols(), cfg.audio.num_mels, TRAIN_UTTS, (80, 100), seed=0)
+        write_corpus(root, "short", cfg.symbols(), cfg.audio.num_mels, 2, (16, 16), seed=1)
+        dm = SpeechDataModule([{"path": {"preprocessed_path": "train"}}], cfg.symbols(), STATS,
+                              batch_size=TRAIN_BATCH, num_workers=4, seed=0, base_path=str(root))
+        dm.prepare_data()
+        batch = device_batch(next(iter(dm.train_dataloader(0))), "cuda")
+        check(tuple(batch["mel"].shape[:2]) == (TRAIN_BATCH, 512),
+              f"tts_medium_tpu training batch: mel {tuple(batch['mel'].shape)}")
+        tcfg = TrainerConfig(max_epochs=1, warmup_epochs=1, seed=0, out_folder=str(root / "model"))
+        runs = {}
+        for name, c in cfgs.items():
+            trainer = Trainer(c, tcfg, steps_per_epoch=dm.steps_per_epoch())
+            state = trainer.init_state()
+            zero_counts()
+            losses = {k: float(v) for k, v in trainer.train_step(state, batch).items()}
+            torch.cuda.synchronize()
+            check(k4_counts() == (6, 6), f"the {name} step launched K4 {k4_counts()}, not 6 + 6")
+            check(all(np.isfinite(v) for v in losses.values()), f"the {name} step's losses {losses}")
+            runs[name] = (trainer, state)
+            out[f"losses_{name}"] = losses
+        turns = {"512": [], "528": []}
+        for name in ("512", "528", "528", "512"):
+            trainer, state = runs[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            n0 = k4_counts()
+            ms = cuda_time_ms(lambda: trainer.train_step(state, batch), iters=3, warmup=1)
+            n1 = k4_counts()
+            check(n1[0] - n0[0] == 4 * 6 and n1[1] - n0[1] == 4 * 6,
+                  f"{name} steps launched K4 {n1[0] - n0[0]} + {n1[1] - n0[1]} times, not 24 each")
+            peak = torch.cuda.max_memory_allocated()
+            turns[name].append({"ms": ms, "peak_mem_gb": peak / 1e9,
+                                "step_mem_gb": (peak - resident) / 1e9})
+        out["step_turns_f32"] = turns
+        del runs, trainer, state, batch
+        torch.cuda.empty_cache()
+        out["cross_check"] = train_cross_check(torch, dev, root, base=tts_medium_tpu())
+    print(json.dumps({"tts_medium_tpu_training": out}), flush=True)
+    out["flash"] = flash_training(torch, card, base=tts_medium_tpu(), timed=("32",))
+    return out
+
+
+def medium_tpu_phase(torch, dev, card: str, refwav, sr: int) -> dict:
+    """Phase 22: tts_medium_tpu on the card (see the module docstring): K5's
+    rows at d = 256 (named *_d256, their launches from (c) and (d)), then
+    (a) serving on the einsum path, (b) 512 against 528 in turns, (c)
+    serving under flash, (d) training."""
+    from zerovox_tpu_torch.models.hifigan import HifiGanConfig
+
+    t0 = time.perf_counter()
+    cfg = tts_medium_tpu()
+    m = cfg.model
+    check(m.emb_size == 512 and m.emb_size // m.encoder.fs2_head == 256
+          and m.emb_size // m.decoder.n_head == 256,
+          f"tts_medium_tpu: d_model {m.emb_size}, heads {m.encoder.fs2_head}, {m.decoder.n_head}")
+    rows = k5_rows(torch, dev, K5_D256_SHAPES, suffix="_d256")
+    zero_k5_counts()  # (a) holds every kernel's count at 0 but K1's and K2's
+    serve = narrow_path(torch, card, "tts_medium_tpu", HifiGanConfig(), MAIN_WIDTHS, refwav, sr,
+                        None, cfg=cfg)
+    turns = model_turns(torch, card, refwav, sr)
+    flash = flash_serving(torch, card, refwav, sr, cfg)
+    train = medium_tpu_training(torch, dev, card)
+    k5_row_launches(rows, flash, train["flash"], suffix="_d256")
+    out = {"rows": rows, "serving": serve, "turns": turns, "flash_serving": flash,
+           "training": train, "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"tts_medium_tpu_phase_s": out["phase_s"], "card": card}), flush=True)
+    return out
 
 
 def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
@@ -4084,7 +4280,7 @@ def arg_value(flag: str, default=None):
 
 def only_phases(torch, dev, card: str, kind: str, count: int) -> None:
     """`--only N[,M] --repeat R [--dump DIR]`: after phases 1-2, run phases
-    12, 18, 19, 20 and/or 21 alone, R times each. A repeat's failed check is recorded with
+    12, 18, 19, 20, 21 and/or 22 alone, R times each. A repeat's failed check is recorded with
     its message and the run goes on; a summary line lists them, and the
     exit code is 1 if any repeat failed."""
     import numpy as np
@@ -4101,7 +4297,8 @@ def only_phases(torch, dev, card: str, kind: str, count: int) -> None:
             19: ("data parallel, serving mesh, resume, compile cache",
                  lambda: parallel_phase(torch, dev, card, refwav, sr, profile_dir)),
             20: ("tensor parallel", lambda: tensor_parallel_phase(torch, dev, card)),
-            21: ("flash attention", lambda: flash_phase(torch, dev, card, refwav, sr))}
+            21: ("flash attention", lambda: flash_phase(torch, dev, card, refwav, sr)),
+            22: ("tts_medium_tpu", lambda: medium_tpu_phase(torch, dev, card, refwav, sr))}
     wanted = [int(v) for v in arg_value("--only").split(",")]
     check(all(n in runs for n in wanted), f"--only takes phases {sorted(runs)}")
     repeat = int(arg_value("--repeat", 1))
@@ -4394,6 +4591,11 @@ def main() -> None:
     check(not any(k5_counts().values()), f"phases 1-20 launched K5: {k5_counts()}")
     phase("flash attention")
     rows += flash_phase(torch, dev, card, refwav, sr)["rows"]
+    torch.cuda.empty_cache()
+
+    # ---- 22. tts_medium_tpu (d_model 512: K5 at d = 256) on the serving and training paths
+    phase("tts_medium_tpu")
+    rows += medium_tpu_phase(torch, dev, card, refwav, sr)["rows"]
 
     # ---- results
     print(card)
