@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile DIR   # also torch.profiler breakdowns of tts_ex (float32
                                           # and bf16) and of a train step, in DIR/profile_*.txt
     python3 chip_smoke.py --only 12 --repeat 20 [--dump DIR]
-                                          # phases 1-2, then phase 12 (18-22) alone, 20 times:
+                                          # phases 1-2, then phase 12 (18-23) alone, 20 times:
                                           # each repeat's failure is recorded and the run goes
                                           # on; exits nonzero if any repeat failed. --dump
                                           # writes phase 12's variance predictions per repeat
@@ -262,6 +262,23 @@ Phases, in order; any failure exits nonzero:
    flash training on this model (6 + 6 + 6 K5 launches a step at [24, 2,
    512, 256], float32 and bf16-mixed; flash against einsum timed in float32
    only). `--only 22` runs it after phases 1-2.
+23. Every head dim (`ZEROVOX_ATTN=flash`): tts_medium (`ZeroVoxConfig()`)
+   with 4 heads in the encoder and the decoder (d = 528 / 4 = 132, which
+   `flash_attention` zero-pads to 136 onto the tuned kernels) and with 1
+   head (d = 528, the wide kernels), random weights from seed 0 at full
+   width and depth: (a) K5's rows of phase 21 at [1, h, 1024, d], [24, h,
+   512, d] and [1, h, 256, d] (names ending `_d132`, `_d528`; inputs and
+   valid lengths from seed 23; at d = 132 each timed call pads and slices
+   as the model does), phase 21's bounds, the bound's FLOP at d itself and
+   the wide kernels' recompute beside it, SDPA's time and backend or its
+   refusal; then the wide kernels alone at [1, 1, 256, 280] and [1, 1, 256,
+   1040], forward and backward (`_alone_d280`, `_alone_d1040`); (b) phase
+   21's flash tts_ex on each config (10 K5 forward launches, float32 and
+   bf16; within 1e-3 of einsum and of the CPU, bf16 within phase 15's
+   bound); (c) phase 21's flash training on each config (6 + 6 + 6 K5
+   launches a step, 12 + 6 + 6 with remat; float32 and bf16-mixed against
+   einsum; device ms and peak memory in turns in float32). `--only 23`
+   runs it after phases 1-2.
 
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -355,6 +372,11 @@ FLASH_REPEAT, FLASH_FRAMES = 2, 5
 K5_SHAPES = (("", FLASH_SERVE_SHAPE), ("_train", FLASH_TRAIN_SHAPE), ("_enc", FLASH_ENC_SHAPE))
 # phase 22: tts_medium_tpu's head dim 512 / 2 at the same lengths; rows named *_d256
 K5_D256_SHAPES = tuple((label, shape[:3] + (256,)) for label, shape in K5_SHAPES)
+# phase 23: tts_medium at 4 heads (d = 132: padded to 136) and 1 head (d =
+# 528: the wide kernels), rows named *_d132, *_d528; the wide kernels alone
+# at the first head dim above the tuned ones and above 1024
+K5_HEAD_CONFIGS = ((4, 132), (1, 528))
+K5_ALONE_SHAPES = ((1, 1, 256, 280), (1, 1, 256, 1040))
 # the default vocoder's kernels a tts_ex by width: K1 at stage 1, K2 at stages 2 and 3
 MAIN_WIDTHS = {"fused_mrf": {128: 1}, "fused_upsample_stage": {"128x64": 1, "64x32": 1}}
 K5_SOURCE = "zerovox_tpu_torch/csrc/flash_attn.cu"
@@ -3704,26 +3726,55 @@ def sdpa_backend(torch, F, q, k, v, mask, scale) -> str:
     return "unknown"
 
 
-def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "") -> list[dict]:
-    """Phase 21's kernel rows (phase 22's with its `shapes` at d = 256, names
-    ending in `suffix`): K5's forward at the serving decoder's, the
-    training decoder's and the serving encoder's shapes, and its backward
-    (dK/dV, dQ, both) at the training shape, float32 and bf16, each against
-    its plain version (the backward against autograd of the plain version),
-    with scaled_dot_product_attention on the boolean segment mask timed
-    beside it; the forward's rows carry its layout (query rows a block, key
-    groups) and its kernel's registers and spill bytes, the whole
-    backward's rows the SDPA backend that ran and its gradients' largest
-    distance from plain's. Inputs from seed 21, views of [B, L, h, d]
-    tensors as the model passes them; segment ids with per-row valid
-    lengths from the seed."""
+def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "", seed: int = 21,
+            bwd_labels=("_train",)) -> list[dict]:
+    """Phase 21's kernel rows (phase 22's with its `shapes` at d = 256,
+    phase 23's at d = 132, 528, 280 and 1040; names ending in `suffix`):
+    K5's forward at the serving decoder's, the training decoder's and the
+    serving encoder's shapes, and its backward (dK/dV, dQ, both) at the
+    shapes labelled in `bwd_labels` (the training shape), float32 and bf16,
+    each against its plain version (the backward against autograd of the
+    plain version), with scaled_dot_product_attention on the boolean segment
+    mask timed beside it (or the error with which it refused the shape);
+    the forward's rows carry its layout (query rows a block, key groups)
+    and its kernel's registers and spill bytes, the whole backward's rows
+    the SDPA backend that ran and its gradients' largest distance from
+    plain's. A head dim that is not a multiple of 8 runs as the model runs
+    it: zero-padded by `pad_head_dim` inside each timed call, outputs
+    sliced back; a head dim above 272 runs the wide kernels, whose rows
+    carry the work they do over the bound's (`recompute`) and their
+    registers. Inputs from `seed`, views of [B, L, h, d] tensors as the model
+    passes them; segment ids with per-row valid lengths from the seed."""
     import numpy as np
     import torch.nn.functional as F
 
     from zerovox_tpu_torch.ops import flash_attention as fa
 
-    rng = np.random.default_rng(21)
+    rng = np.random.default_rng(seed)
     rows: list[dict] = []
+
+    def padded(kernel, d):
+        """kernel on [B, h, L, d] tensors as flash_attention runs it: the
+        tensor arguments padded, each output sliced back to d"""
+        def run(*args):
+            n = 6 if kernel is not fa.flash_fwd else 3  # q, k, v (, o, lse, do)
+            ts = [a for a in args[:n] if a.dim() == 4]
+            pads = iter(fa.pad_head_dim(*ts))
+            args = [next(pads) if (i < n and a.dim() == 4) else a for i, a in enumerate(args)]
+            out = kernel(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            outs = tuple(o[..., :d] if o.dim() == 4 else o for o in outs)
+            return outs if isinstance(out, tuple) else outs[0]
+        return run if d % fa.HEAD_DIM_MULTIPLE else kernel
+
+    def library_or_refusal(lib):
+        """(lib, {}) where SDPA takes the inputs, else (None, its refusal)"""
+        try:
+            lib()
+            torch.cuda.synchronize()
+            return lib, {}
+        except RuntimeError as e:
+            return None, {"library_refused": str(e).splitlines()[0][:200]}
 
     def inputs(shape):
         B, h, L, d = shape
@@ -3748,62 +3799,77 @@ def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "") -> list[dict]:
         q, k, v, seg, do, lengths = inputs(shape)
         scale = 1.0 / math.sqrt(d)
         mask = seg[:, None, :, None] == seg[:, None, None, :]
+        path = fa.head_dim_path(d)
+        wide = path["path"] == "wide"
+        fwd, bwd_dkv, bwd_dq, bwd = (padded(f, d) for f in (fa.flash_fwd, fa.flash_bwd_dkv,
+                                                             fa.flash_bwd_dq, fa.flash_bwd))
 
         def sdpa(q, k, v, seg, scale):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+        def layout(dtype, part):
+            if not wide:
+                return {**fa.fwd_layout(B, h, L, dtype), **path} if part == "fwd" else path
+            regs = fa.wide_registers()[f"{part}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"] \
+                if part != "bwd" else {}
+            return {**path, "recompute": path["recompute"][part], **regs}
 
         fwd_flop = 4.0 * B * h * L * L * d
         for bf in (False, True):
             qx, kx, vx, dox = (x.to(torch.bfloat16) if bf else x for x in (q, k, v, do))
             name = f"flash_fwd{label}" + ("_bf16" if bf else "") + suffix
-            extra = {**fa.fwd_layout(B, h, L, qx.dtype), "valid_lengths": lengths[:4]}
-            fn = lambda: fa.flash_fwd(qx, kx, vx, seg, scale)[0]  # noqa: E731
+            extra = {**layout(qx.dtype, "fwd"), "valid_lengths": lengths[:4]}
+            fn = lambda: fwd(qx, kx, vx, seg, scale)[0]  # noqa: E731
             plain = lambda: fa.flash_attention_plain(qx, kx, vx, seg, scale)  # noqa: E731
-            lib = lambda: sdpa(qx, kx, vx, seg, scale)  # noqa: E731
+            lib, refused = library_or_refusal(lambda: sdpa(qx, kx, vx, seg, scale))
+            extra.update(refused)
             nbytes = k5_bytes(shape, 2 if bf else 4, 4, 1)
             if bf:
                 w = [x.float() for x in (qx, kx, vx)]
                 measure_bf16(torch, rows, name, K5_SOURCE, K5_REPLACES["fwd"], list(shape), fn,
-                             lambda: fa.flash_fwd(*w, seg, scale)[0], plain, fwd_flop, nbytes,
+                             lambda: fwd(*w, seg, scale)[0], plain, fwd_flop, nbytes,
                              method="bf16", max_share=None, steps=1, library=lib, **extra)
             else:
                 measure(torch, rows, name, K5_SOURCE, K5_REPLACES["fwd"], list(shape), fn, plain,
                         fwd_flop, nbytes, method="3xtf32", library=lib, **extra)
-            if label != "_train":
+            if label not in bwd_labels:
                 continue
             # the backward at the training shape: each kernel and both
-            o, lse = fa.flash_fwd(qx, kx, vx, seg, scale)
+            o, lse = fwd(qx, kx, vx, seg, scale)
             plain_g = grads_of(fa.flash_attention_plain, qx, kx, vx, seg, scale, dox)
-            lib_g = grads_of(sdpa, qx, kx, vx, seg, scale, dox)
-            yardstick = {"library_backend": sdpa_backend(torch, F, qx, kx, vx, mask, scale),
-                         "library_max_abs_err": max((a.float() - b.float()).abs().max().item()
-                                                    for a, b in zip(lib_g(), plain_g()))}
+            lib_g, refused = library_or_refusal(grads_of(sdpa, qx, kx, vx, seg, scale, dox))
+            yardstick = refused if lib_g is None else {
+                "library_backend": sdpa_backend(torch, F, qx, kx, vx, mask, scale),
+                "library_max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                           for a, b in zip(lib_g(), plain_g()))}
+            tag = label if label != "_train" else ""
             for part, flop, tensors, kernel, pick in (
-                    ("dkv", 8.0, 6, lambda: fa.flash_bwd_dkv(qx, kx, vx, o, lse, dox, seg, scale),
+                    ("dkv", 8.0, 6, lambda: bwd_dkv(qx, kx, vx, o, lse, dox, seg, scale),
                      lambda g: g[1:]),
-                    ("dq", 6.0, 5, lambda: (fa.flash_bwd_dq(qx, kx, vx, o, lse, dox, seg, scale),),
+                    ("dq", 6.0, 5, lambda: (bwd_dq(qx, kx, vx, o, lse, dox, seg, scale),),
                      lambda g: g[:1]),
-                    ("", 10.0, 7, lambda: fa.flash_bwd(qx, kx, vx, o, lse, dox, seg, scale),
+                    ("", 10.0, 7, lambda: bwd(qx, kx, vx, o, lse, dox, seg, scale),
                      lambda g: g)):
-                name = "flash_bwd" + (f"_{part}" if part else "") + ("_bf16" if bf else "") + suffix
+                name = ("flash_bwd" + (f"_{part}" if part else "") + tag + ("_bf16" if bf else "")
+                        + suffix)
                 fn = lambda kernel=kernel: torch.stack(kernel())  # noqa: E731
                 plain = lambda pick=pick: torch.stack(pick(plain_g()))  # noqa: E731
                 lib = lib_g if not part else None
                 flop_b = flop * B * h * L * L * d
                 nbytes = k5_bytes(shape, 2 if bf else 4, tensors, 2)
-                more = {} if part else yardstick
+                more = {**layout(qx.dtype, part or "bwd"), **({} if part else yardstick)}
                 if bf:
                     w = [x.float() for x in (qx, kx, vx, o, lse, dox)]
                     w[4] = lse
-                    f32 = {"dkv": lambda: fa.flash_bwd_dkv(*w, seg, scale),
-                           "dq": lambda: (fa.flash_bwd_dq(*w, seg, scale),),
-                           "": lambda: fa.flash_bwd(*w, seg, scale)}[part]
+                    f32 = {"dkv": lambda: bwd_dkv(*w, seg, scale),
+                           "dq": lambda: (bwd_dq(*w, seg, scale),),
+                           "": lambda: bwd(*w, seg, scale)}[part]
                     measure_bf16(torch, rows, name, K5_SOURCE, K5_REPLACES[part or "bwd"],
                                  list(shape), fn, f32, plain, flop_b, nbytes, method="bf16",
                                  max_share=None, steps=2, library=lib,
                                  f32_ref=lambda f32=f32: torch.stack(f32()),
-                                 valid_lengths=lengths[:4], kernels=fa.bwd_bf16_registers(),
-                                 **more)
+                                 valid_lengths=lengths[:4],
+                                 **({} if wide else {"kernels": fa.bwd_bf16_registers()}), **more)
                 else:
                     measure(torch, rows, name, K5_SOURCE, K5_REPLACES[part or "bwd"],
                             list(shape), fn, plain, flop_b, nbytes, method="3xtf32",
@@ -3814,9 +3880,10 @@ def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "") -> list[dict]:
     return rows
 
 
-def flash_serving(torch, card: str, refwav, sr: int, cfg=None) -> dict:
-    """Phase 21's serving run (phase 22's with `cfg`, tts_medium_tpu): the
-    main-path engine at full width (seed 0)
+def flash_serving(torch, card: str, refwav, sr: int, cfg=None, full: bool = True) -> dict:
+    """Phase 21's serving run (phase 22's with `cfg`, tts_medium_tpu; phase
+    23's with tts_medium at 4 and 1 heads and not `full`: tts_ex only, no
+    stream, batch or turns): the main-path engine at full width (seed 0)
     on bench.py's text twice (204 phones, text bucket 256) at FLASH_FRAMES
     frames a phone (mel bucket 1024): tts_ex under ZEROVOX_ATTN=flash (K5's
     forward 10 times: 4 encoder and 6 decoder layers) against the same
@@ -3877,6 +3944,17 @@ def flash_serving(torch, card: str, refwav, sr: int, cfg=None) -> dict:
     check(bool(np.isfinite(wav_16).all()) and err_16 <= tol_16,
           f"bf16 flash tts_ex {err_16} from the card's float32 (bound {tol_16})")
     del e16
+    m = engine.cfg.model
+    out = {"card": card, "d_model": m.emb_size, "head_dim": m.emb_size // m.decoder.n_head,
+           "phones": n, "text_bucket": text_b, "mel_bucket": mel_b,
+           "layers": {"encoder": m.encoder.fs2_layer, "decoder": m.decoder.n_layers},
+           "launches": n_f, "launches_bf16": n_16, "wav_peak": peak,
+           "flash_vs_einsum_max_abs": err_e, "flash_vs_cpu_max_abs": err_c,
+           "bf16_vs_f32_max_abs": err_16, "bf16_bound": tol_16}
+    if not full:
+        set_attention(None)
+        print(json.dumps({"flash_serving": out}), flush=True)
+        return out
 
     # tts_stream and tts_batch (B = 2) under flash: one encode and one decode each
     set_attention("flash")
@@ -3915,14 +3993,8 @@ def flash_serving(torch, card: str, refwav, sr: int, cfg=None) -> dict:
             "encode_ms": cuda_time_ms(lambda: engine._encode(ids, puncts, spk, dur), iters=10),
             "decode_ms": cuda_time_ms(lambda: engine._decode(enc, spk, mel_b), iters=10)})
     set_attention(None)
-    m = engine.cfg.model
-    out = {"card": card, "d_model": m.emb_size, "head_dim": m.emb_size // m.decoder.n_head,
-           "phones": n, "text_bucket": text_b, "mel_bucket": mel_b,
-           "layers": {"encoder": m.encoder.fs2_layer, "decoder": m.decoder.n_layers},
-           "launches": n_f, "launches_bf16": n_16, "wav_peak": peak,
-           "flash_vs_einsum_max_abs": err_e, "flash_vs_cpu_max_abs": err_c,
-           "bf16_vs_f32_max_abs": err_16, "bf16_bound": tol_16, "stream_vs_einsum_stream": err_s,
-           "batch2_vs_einsum_batch2": err_b, "turns": turns}
+    out.update({"stream_vs_einsum_stream": err_s, "batch2_vs_einsum_batch2": err_b,
+                "turns": turns})
     print(json.dumps({"flash_serving": out}), flush=True)
     return out
 
@@ -4092,6 +4164,9 @@ def k5_row_launches(rows, serve: dict, train: dict, suffix: str = "") -> None:
         name = row["name"].removesuffix(suffix)
         bf = name.endswith("_bf16")
         dtype = "_bf16" if bf else ""
+        if "_alone" in name:  # a kernel-only row: its kernel's launches on the path, none here
+            name = name.replace("_alone", "_train" if name.startswith("flash_fwd") else "")
+            row["launches_at_shape"] = 0
         if name.startswith("flash_fwd") and "_train" not in name:
             row["launches"] = serve["launches_bf16" if bf else "launches"][f"flash_fwd{dtype}"]
             # of them at this row's shape: the encoder's layers or the decoder's
@@ -4224,6 +4299,51 @@ def medium_tpu_phase(torch, dev, card: str, refwav, sr: int) -> dict:
     return out
 
 
+def tts_medium_heads(heads: int):
+    """tts_medium (ZeroVoxConfig()) with `heads` attention heads in the
+    encoder and the decoder: each head 528 / heads wide."""
+    import dataclasses as dc
+
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+
+    m = ZeroVoxConfig().model
+    return dc.replace(ZeroVoxConfig(), model=dc.replace(
+        m, encoder=dc.replace(m.encoder, fs2_head=heads), decoder=dc.replace(m.decoder, n_head=heads)))
+
+
+def any_dim_phase(torch, dev, card: str, refwav, sr: int) -> dict:
+    """Phase 23 (see the module docstring): for tts_medium at 4 heads (d =
+    132, padded to 136 onto the tuned kernels) and at 1 head (d = 528, the
+    wide kernels), K5's rows at the phase-21 shapes (named *_d132, *_d528),
+    flash serving (tts_ex only) and flash training (float32 turns only);
+    then the wide kernels alone at [1, 1, 256, 280] and [1, 1, 256, 1040]
+    (forward and backward, *_alone_d280, *_alone_d1040), whose launches
+    are the d = 528 run's."""
+    t0 = time.perf_counter()
+    rows, out = [], {}
+    for heads, d in K5_HEAD_CONFIGS:
+        cfg = tts_medium_heads(heads)
+        m = cfg.model
+        check(m.emb_size // m.encoder.fs2_head == d and m.emb_size // m.decoder.n_head == d,
+              f"tts_medium at {heads} heads: d_model {m.emb_size}")
+        shapes = tuple((label, (shape[0], heads, shape[2], d)) for label, shape in K5_SHAPES)
+        r = k5_rows(torch, dev, shapes, suffix=f"_d{d}", seed=23)
+        serve = flash_serving(torch, card, refwav, sr, cfg, full=False)
+        train = flash_training(torch, card, base=cfg, timed=("32",))
+        k5_row_launches(r, serve, train, suffix=f"_d{d}")
+        rows += r
+        out[f"d{d}"] = {"heads": heads, "serving": serve, "training": train}
+    for shape in K5_ALONE_SHAPES:
+        suffix = f"_d{shape[3]}"
+        r = k5_rows(torch, dev, (("_alone", shape),), suffix=suffix, seed=23,
+                    bwd_labels=("_alone",))
+        k5_row_launches(r, out["d528"]["serving"], out["d528"]["training"], suffix=suffix)
+        rows += r
+    out.update({"rows": rows, "phase_s": time.perf_counter() - t0})
+    print(json.dumps({"any_dim_phase_s": out["phase_s"], "card": card}), flush=True)
+    return out
+
+
 def profile_calls(torch, fn, calls: int, out: Path, label: str) -> dict:
     """torch.profiler over `calls` calls of fn: device time by kernel, the
     device's busy share of the window (the union of the kernels' and
@@ -4280,7 +4400,7 @@ def arg_value(flag: str, default=None):
 
 def only_phases(torch, dev, card: str, kind: str, count: int) -> None:
     """`--only N[,M] --repeat R [--dump DIR]`: after phases 1-2, run phases
-    12, 18, 19, 20, 21 and/or 22 alone, R times each. A repeat's failed check is recorded with
+    12, 18, 19, 20, 21, 22 and/or 23 alone, R times each. A repeat's failed check is recorded with
     its message and the run goes on; a summary line lists them, and the
     exit code is 1 if any repeat failed."""
     import numpy as np
@@ -4298,7 +4418,8 @@ def only_phases(torch, dev, card: str, kind: str, count: int) -> None:
                  lambda: parallel_phase(torch, dev, card, refwav, sr, profile_dir)),
             20: ("tensor parallel", lambda: tensor_parallel_phase(torch, dev, card)),
             21: ("flash attention", lambda: flash_phase(torch, dev, card, refwav, sr)),
-            22: ("tts_medium_tpu", lambda: medium_tpu_phase(torch, dev, card, refwav, sr))}
+            22: ("tts_medium_tpu", lambda: medium_tpu_phase(torch, dev, card, refwav, sr)),
+            23: ("every head dim", lambda: any_dim_phase(torch, dev, card, refwav, sr))}
     wanted = [int(v) for v in arg_value("--only").split(",")]
     check(all(n in runs for n in wanted), f"--only takes phases {sorted(runs)}")
     repeat = int(arg_value("--repeat", 1))
@@ -4596,6 +4717,11 @@ def main() -> None:
     # ---- 22. tts_medium_tpu (d_model 512: K5 at d = 256) on the serving and training paths
     phase("tts_medium_tpu")
     rows += medium_tpu_phase(torch, dev, card, refwav, sr)["rows"]
+    torch.cuda.empty_cache()
+
+    # ---- 23. every head dim: tts_medium at 4 heads (d = 132) and 1 head (d = 528) under flash
+    phase("every head dim")
+    rows += any_dim_phase(torch, dev, card, refwav, sr)["rows"]
 
     # ---- results
     print(card)

@@ -1207,8 +1207,13 @@ def _attn_inputs(rng, B, h, L, d, dev, dtype=torch.float32, strided=False):
     return t(), t(), t(), seg, t()
 
 
+# and every other head dim: d not a multiple of 8 through the padding (11 ->
+# 16, 44 -> 48, 132 -> 136), d above 272 on the wide kernels (280 the first,
+# 528 tts_medium's one head, 520 a bf16 chunk with a zero tail, 1040 above
+# 1024)
 FLASH_SHAPES = [(2, 2, 256, 24), (1, 2, 1024, 264), (2, 2, 384, 136), (2, 2, 512, 256),
-                (2, 2, 256, 272)]
+                (2, 2, 256, 272), (1, 4, 256, 11), (2, 4, 128, 44), (1, 2, 256, 132),
+                (2, 1, 256, 280), (1, 1, 256, 528), (2, 1, 128, 520), (1, 1, 128, 1040)]
 
 
 def _flash_grads(fn, q, k, v, seg, do, scale):
@@ -1318,12 +1323,43 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
     def qkv(L, d, dtype=torch.float32):
         return [torch.zeros(1, 2, L, d, device=cuda, dtype=dtype) for _ in range(3)]
 
-    for args, what in ((qkv(256, 12), "head dim"), (qkv(256, 280), "head dim"),
-                       (qkv(100, 24), "multiple of 64"), (qkv(256, 24, torch.float16), "float16")):
+    for args, what in ((qkv(100, 24), "multiple of 64"), (qkv(256, 24, torch.float16), "float16"),
+                       (qkv(100, 12), "multiple of 64"), (qkv(100, 280), "multiple of 64")):
         with pytest.raises((ValueError, TypeError), match=what):
             flash_attention(*args, None, 1.0)
+    # the kernels themselves take multiples of 8 only: flash_attention pads the rest
+    with pytest.raises(ValueError, match="head dim"):
+        flash_fwd(*qkv(256, 12))
     q, k, v = qkv(256, 24)
     with pytest.raises(ValueError, match="segment ids"):
         flash_fwd(q, k, v, torch.zeros(1, 256, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError, match="CUDA device"):
         flash_fwd(q.cpu(), k.cpu(), v.cpu())
+
+
+@pytest.mark.parametrize("d", [280, 528])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_lse_and_repeats(cuda, d, dtype):
+    """The wide forward's lse (written by the first column slice) within
+    1e-5 x its largest value of the float64 log-sum-exp, unmasked and
+    masked; the wide kernels bitwise repeatable, one launch of each a
+    call."""
+    from zerovox_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(d)
+    q, k, v, seg, do = _attn_inputs(rng, 2, 2, 192, d, cuda, dtype, strided=True)
+    scale = 1.0 / np.sqrt(d)
+    for s in (seg, None):
+        o, lse = fa.flash_fwd(q, k, v, s, scale)
+        want = _lse_plain(q, k, s, scale)
+        err, bound = (lse.double() - want).abs().max().item(), 1e-5 * want.abs().max().item()
+        assert err <= bound, f"lse: {err} > {bound}"
+    before = [(f.launches, f.launches_bf16) for f in fa.KERNELS]
+    a = _flash_grads(fa.flash_attention, q, k, v, seg, do, scale)
+    b = _flash_grads(fa.flash_attention, q, k, v, seg, do, scale)
+    after = [(f.launches, f.launches_bf16) for f in fa.KERNELS]
+    two = (2, 0) if dtype == torch.float32 else (0, 2)
+    assert [(x - y, z - w) for (x, z), (y, w) in zip(after, before)] == [two] * 3
+    for x, y in zip(a, b):
+        assert torch.equal(x, y), "the wide kernels are not bitwise repeatable"
+

@@ -173,10 +173,33 @@
 // Neither backward kernel uses atomics: each output row belongs to one
 // block, so a step is bitwise repeatable.
 //
-// Supported: d a multiple of 8 up to DMAX = 272, L a multiple of 64, every
-// tensor's base 16-byte aligned and its batch, head and row strides
-// multiples of 16 bytes. Anything else returns cudaErrorInvalidValue (the
-// wrapper checks first and says why).
+// The wide head dims (namespace wd: forward, dK/dV and dQ, float32 and bf16
+// as one template on mma.sync). At d = 272 the tuned kernels above hold
+// whole rows of their tiles in shared memory and use all that a block may
+// have, so a head dim above DMAX runs these kernels, whose shared memory and
+// registers do not grow with d: a block owns BR = 64 output rows (4 warps of
+// 16) and one column slice of its output (the forward's o and dQ 128
+// columns, dK and dV 64: two accumulators), and streams the operands of S
+// (and of dP) through shared memory in head-dim chunks of 128 bytes a row
+// (32 float32 or 64 bf16 columns, the tail zero), two buffers by cp.async,
+// a step ahead. S (and dP) accumulate over every chunk of a step's 64 rows;
+// after the last chunk come the softmax (the forward's online, in the log2
+// domain as fw), P and dS, and the slice's accumulation against the slice
+// of V (dO and Q; K) that arrived under the step's chunks. P and dS stay in
+// registers: their C fragments are the accumulation's A fragments, as fw's
+// P (bf16: rounded as they are packed), so that no shared memory grows with
+// them and two blocks an SM fit (at most 109,312 bytes a block). The grid is
+// (row tiles x slices, H, B), one launch a kernel: S and dP are recomputed
+// once a slice (at d = 528: 5 slices of o and dQ, 9 of dK/dV). Every slice
+// computes S with the same instructions in the same order, so its m and l
+// are bitwise those of the others; the slice at column 0 writes lse. No
+// atomics: each output element belongs to one block.
+//
+// Supported: d a multiple of 8 (the wrapper zero-pads any other), L a
+// multiple of 64, every tensor's base 16-byte aligned and its batch, head
+// and row strides multiples of 16 bytes: d <= DMAX = 272 on fw, tf and wg,
+// above it on wd. Anything else returns cudaErrorInvalidValue (the wrapper
+// checks first and says why).
 #include <cuda.h>  // CUtensorMap (cuTensorMapEncodeTiled is looked up at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -195,7 +218,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
-constexpr int DMAX = 272;            // the largest head dim
+constexpr int DMAX = 272;            // the largest head dim of fw, tf and wg (above: wd)
 constexpr int NT_MAX = DMAX / 8;     // n-tiles of 8 columns in an output row
 constexpr int L_MULTIPLE = 64;
 constexpr float MASK = -0.7f * FLT_MAX;  // the library's DEFAULT_MASK_VALUE
@@ -1705,6 +1728,584 @@ __global__ void __launch_bounds__(THREADS, 1) dq_kernel(const __grid_constant__ 
 
 }  // namespace wg
 
+// ---- the wide head dims (namespace wd): d above DMAX, a multiple of 8, no
+// upper bound; float32 (3xTF32 mma.sync.m16n8k8) and bf16 (mma.sync.m16n8k16)
+// are one template. See the header for the design.
+namespace wd {
+
+constexpr int WARPS_W = 4;                // warps a block, 16 of its rows each
+constexpr int THREADS_W = 32 * WARPS_W;
+constexpr int BR = 16 * WARPS_W;          // a block's rows: queries (forward, dQ) or keys (dK/dV)
+constexpr int BS = BR;                    // the other side's rows a step
+constexpr int CHUNK_BYTES = 128;          // a row of a head-dim chunk: 32 float32 or 64 bf16
+constexpr int CS_FWD = 128;               // o's columns a block
+constexpr int CS_DKV = 64;                // dK's and dV's columns a block (two accumulators)
+constexpr int CS_DQ = 128;                // dQ's columns a block
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// The products of one element type: A (16 x KS, row-major) and B (KS x 8)
+// fragments loaded from shared memory, B either n-major (B[k][n] = s[n ld +
+// k], the rows of Y in X Y^T) or k-major (B[k][n] = s[k ld + n]); and A
+// from a C tile in registers (lda_c) with its k-major B (ldb_kp).
+template <class P>
+struct Ops;
+
+// float32: 3xTF32, each operand split into TF32 hi and lo at its load.
+template <>
+struct Ops<F32> {
+  using T = float;
+  using A = F32::A;
+  using B = F32::B;
+  static constexpr int KS = 8;
+  static __device__ __forceinline__ void lda(A& a, const float* s, int ld, int k0, int g, int t) {
+    const float* p = s + g * ld + k0 + t;
+    tc::split(p[0], a.hi[0], a.lo[0]);
+    tc::split(p[8 * ld], a.hi[1], a.lo[1]);
+    tc::split(p[4], a.hi[2], a.lo[2]);
+    tc::split(p[8 * ld + 4], a.hi[3], a.lo[3]);
+  }
+  static __device__ __forceinline__ void ldb_n(B& b, const float* s, int ld, int k0, int g, int t) {
+    const float* p = s + g * ld + k0 + t;
+    tc::split(p[0], b.hi[0], b.lo[0]);
+    tc::split(p[4], b.hi[1], b.lo[1]);
+  }
+  static __device__ __forceinline__ void ldb_k(B& b, const float* s, int ld, int k0, int g, int t) {
+    const float* p = s + (k0 + t) * ld + g;
+    tc::split(p[0], b.hi[0], b.lo[0]);
+    tc::split(p[4 * ld], b.hi[1], b.lo[1]);
+  }
+  // B[k][n] = s[(k0 + k') ld + n] on the k-order of lda_c: lane t's k and
+  // k + 4 are rows 2t and 2t + 1
+  static __device__ __forceinline__ void ldb_kp(B& b, const float* s, int ld, int k0, int g,
+                                                int t) {
+    const float* p = s + (k0 + 2 * t) * ld + g;
+    tc::split(p[0], b.hi[0], b.lo[0]);
+    tc::split(p[ld], b.hi[1], b.lo[1]);
+  }
+  // A (16 x 8) straight from the C fragments of a 16 x 8 NS tile, k-step kk:
+  // columns 2t, 2t + 1 of n-tile kk as lane t's k and k + 4
+  template <int NS>
+  static __device__ __forceinline__ void lda_c(A& a, const float (&c)[NS][4], int kk) {
+    tc::split(c[kk][0], a.hi[0], a.lo[0]);
+    tc::split(c[kk][2], a.hi[1], a.lo[1]);
+    tc::split(c[kk][1], a.hi[2], a.lo[2]);
+    tc::split(c[kk][3], a.hi[3], a.lo[3]);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
+    F32::mma(d, a, b);
+  }
+};
+
+// bf16: m16n8k16, two bf16 a register (the lower k in the low half).
+template <>
+struct Ops<BF16> {
+  using T = bf16;
+  struct A { uint32_t r[4]; };
+  struct B { uint32_t r[2]; };
+  static constexpr int KS = 16;
+  static __device__ __forceinline__ uint32_t pair(const bf16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  static __device__ __forceinline__ uint32_t pair2(const bf16* p, int ld) {  // p[0], p[ld]
+    return (uint32_t)__bfloat16_as_ushort(p[0]) | ((uint32_t)__bfloat16_as_ushort(p[ld]) << 16);
+  }
+  static __device__ __forceinline__ void lda(A& a, const bf16* s, int ld, int k0, int g, int t) {
+    const bf16* p = s + g * ld + k0 + 2 * t;
+    a.r[0] = pair(p);
+    a.r[1] = pair(p + 8 * ld);
+    a.r[2] = pair(p + 8);
+    a.r[3] = pair(p + 8 * ld + 8);
+  }
+  static __device__ __forceinline__ void ldb_n(B& b, const bf16* s, int ld, int k0, int g, int t) {
+    const bf16* p = s + g * ld + k0 + 2 * t;
+    b.r[0] = pair(p);
+    b.r[1] = pair(p + 8);
+  }
+  static __device__ __forceinline__ void ldb_k(B& b, const bf16* s, int ld, int k0, int g, int t) {
+    const bf16* p = s + (k0 + 2 * t) * ld + g;
+    b.r[0] = pair2(p, ld);
+    b.r[1] = pair2(p + 8 * ld, ld);
+  }
+  static __device__ __forceinline__ void ldb_kp(B& b, const bf16* s, int ld, int k0, int g,
+                                                int t) {
+    ldb_k(b, s, ld, k0, g, t);
+  }
+  // A (16 x 16) from the C fragments of n-tiles 2 kk and 2 kk + 1, rounded to
+  // bf16
+  template <int NS>
+  static __device__ __forceinline__ void lda_c(A& a, const float (&c)[NS][4], int kk) {
+    a.r[0] = fw::pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a.r[1] = fw::pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a.r[2] = fw::pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a.r[3] = fw::pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
+    tc::mma16(d, a.r, b.r);
+  }
+};
+
+// Row lengths in shared memory (elements). A chunk row (DC columns) is 4 mod
+// 32 words, so that the natural fragment loads (row g, column t or pair t)
+// of a warp fall on distinct banks; a slice row (CS columns) CS + 4 in
+// float32 and CS + 8 in bf16, so that the k-major loads (rows 2t and 2t + 1,
+// column g) do.
+template <class P>
+struct Lay {
+  using T = typename Ops<P>::T;
+  static constexpr int DC = CHUNK_BYTES / (int)sizeof(T);  // a chunk's columns
+  static constexpr int LDC = DC + 16 / (int)sizeof(T);
+};
+template <class P>
+__host__ __device__ constexpr int slice_ld(int cs) {
+  return cs + (std::is_same_v<P, F32> ? 4 : 8);
+}
+
+// Shared memory of each kernel (bytes): chunks of the block's rows and of a
+// step's rows in two buffers, slices of a step's rows, a step's vectors.
+template <class P>
+constexpr size_t region(int rows, int cols) {
+  return (size_t)rows * cols * sizeof(typename Ops<P>::T);
+}
+// forward: Q and K chunks, V's slice, the keys' segment ids
+template <class P>
+constexpr size_t fwd_smem() {
+  return 2 * region<P>(BR + BS, Lay<P>::LDC) + region<P>(BS, slice_ld<P>(CS_FWD)) + BS * 4;
+}
+// dK/dV: K, V, Q and dO chunks, Q's and dO's slices, the queries' lse, D and
+// segment ids
+template <class P>
+constexpr size_t dkv_smem() {
+  return 4 * region<P>(BR + BS, Lay<P>::LDC) + 2 * region<P>(BS, slice_ld<P>(CS_DKV)) + 3 * BS * 4;
+}
+// dQ: Q, dO, K and V chunks, K's slice, the keys' segment ids
+template <class P>
+constexpr size_t dq_smem() {
+  return 4 * region<P>(BR + BS, Lay<P>::LDC) + region<P>(BS, slice_ld<P>(CS_DQ)) + BS * 4;
+}
+
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(tc::smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+// Every group but the last committed one has landed (all of them when
+// `all`); then the block's copies are visible to every thread.
+__device__ __forceinline__ void wait_landed(bool all) {
+  if (all) asm volatile("cp.async.wait_group 0;" ::: "memory");
+  else asm volatile("cp.async.wait_group 1;" ::: "memory");
+  __syncthreads();
+}
+
+// rows x W columns (c0..) of a tensor's rows (`stride` apart, g at row 0,
+// column 0) into shared rows of ld, by cp.async; columns from d on are zero.
+template <class T, int W>
+__device__ __forceinline__ void copy_cols(T* s, int ld, const T* g, int stride, int rows, int c0,
+                                          int d) {
+  constexpr int V = 16 / (int)sizeof(T), NV = W / V;
+  for (int i = threadIdx.x; i < rows * NV; i += THREADS_W) {
+    const int r = i / NV, c = (i - r * NV) * V;
+    const bool ok = c0 + c < d;
+    cp_async16z(s + r * ld + c, g + (size_t)r * stride + (ok ? c0 + c : 0), ok);
+  }
+}
+
+// n BS-row vectors (float32 or int32) of a step by cp.async, 4 bytes a thread
+__device__ __forceinline__ void copy_vec(void* s, const void* g) {
+  if ((int)threadIdx.x < BS) tf::cp_async4(static_cast<int*>(s) + threadIdx.x,
+                                           static_cast<const int*>(g) + threadIdx.x);
+}
+
+// acc (16 rows x 8 N columns) += X Y^T over the columns [0, kd): X's 16 rows
+// at x, Y's 8 N rows at y, rows of ld.
+template <class P, int N>
+__device__ __forceinline__ void mma_nt(float (&acc)[N][4], const typename Ops<P>::T* x,
+                                       const typename Ops<P>::T* y, int ld, int kd, int g, int t) {
+  using O = Ops<P>;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kd; k0 += O::KS) {
+    typename O::A a;
+    O::lda(a, x, ld, k0, g, t);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      typename O::B b;
+      O::ldb_n(b, y + n * 8 * ld, ld, k0, g, t);
+      O::mma(acc[n], a, b);
+    }
+  }
+}
+
+// acc (16 x 8 N) += X Y: X the warp's 16 x 8 NS tile (P or dS) in the C
+// fragments x, Y 8 NS x 8 N at y (rows of ldy); only the n-tiles below nv.
+template <class P, int N, int NS>
+__device__ __forceinline__ void mma_rc(float (&acc)[N][4], const float (&x)[NS][4],
+                                       const typename Ops<P>::T* y, int ldy, int nv, int g,
+                                       int t) {
+  using O = Ops<P>;
+#pragma unroll
+  for (int kk = 0; kk < 8 * NS / O::KS; ++kk) {
+    typename O::A a;
+    O::template lda_c<NS>(a, x, kk);
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      if (n < nv) {
+        typename O::B b;
+        O::ldb_kp(b, y + n * 8, ldy, kk * O::KS, g, t);
+        O::mma(acc[n], a, b);
+      }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+}
+
+// The block's part of an output: rows r0 + g, + 8 of the tile's 16 (out at
+// row r0, column c0), its n-tiles below nv, times s0 and s1.
+template <class P, int N>
+__device__ __forceinline__ void store_out(typename Ops<P>::T* out, int stride, const float (&x)[N][4],
+                                          float s0, float s1, int nv, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    if (n < nv) {
+      typename Ops<P>::T* p = out + (size_t)g * stride + n * 8 + 2 * t;
+      P::store2(p, x[n][0] * s0, x[n][1] * s0);
+      P::store2(p + (size_t)8 * stride, x[n][2] * s1, x[n][3] * s1);
+    }
+}
+
+// Where a block stands: its row tile and column slice of CS columns
+// (blockIdx.x = tile x slices + slice), its (b, h) and the chunks of the
+// head dim.
+template <class P, int CS>
+struct Where {
+  int r0, c0, nv, nc;
+  size_t base;
+  const int* seg;
+  __device__ explicit Where(const Args& a) {
+    const int ns = (a.d + CS - 1) / CS;
+    const int tile = blockIdx.x / ns;
+    c0 = (blockIdx.x - tile * ns) * CS;
+    r0 = tile * BR;
+    nv = min(CS / 8, (a.d - c0) / 8);
+    nc = (a.d + Lay<P>::DC - 1) / Lay<P>::DC;
+    base = (size_t)blockIdx.z * a.sb + (size_t)blockIdx.y * a.sh;
+    seg = a.seg ? a.seg + (size_t)blockIdx.z * a.L : nullptr;
+  }
+};
+
+// k-columns of chunk c that the products take: to a multiple of KS (the
+// zero tail of the last chunk in bf16)
+template <class P>
+__device__ __forceinline__ int chunk_k(int d, int c) {
+  const int left = d - c * Lay<P>::DC;
+  return min(Lay<P>::DC, round_up(left, Ops<P>::KS));
+}
+
+// o and lse of BR query rows, o's columns [c0, c0 + CS_FWD): out0 = o, out1 =
+// lse (written by the slice at c0 = 0). Step st takes key tile st / nc's
+// chunk st % nc: S accumulates over the chunks; after the last one, the
+// online softmax and O += P V on the slice of V that came with the tile's
+// first chunk.
+template <class P>
+__global__ void __launch_bounds__(THREADS_W, 1) fwd_kernel(Args a) {
+  using T = typename Ops<P>::T;
+  using Y = Lay<P>;
+  constexpr int LDC = Y::LDC, LDS = slice_ld<P>(CS_FWD), NO = CS_FWD / 8, NS = BS / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qc = reinterpret_cast<T*>(smem);
+  T* kc = qc + 2 * BR * LDC;
+  T* vs = kc + 2 * BS * LDC;
+  int* segk = reinterpret_cast<int*>(vs + BS * LDS);
+
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const Where<P, CS_FWD> at(a);
+  const int d = a.d, nc = at.nc;
+  const T* qg = static_cast<const T*>(a.q) + at.base + (size_t)at.r0 * a.sl;
+  const T* kg = static_cast<const T*>(a.k) + at.base;
+  const T* vg = static_cast<const T*>(a.v) + at.base;
+
+  auto stage = [&](int st) {  // step st's chunk of Q and of K (one group)
+    const int j = st / nc, c = st - j * nc;
+    copy_cols<T, Y::DC>(qc + (st & 1) * BR * LDC, LDC, qg, a.sl, BR, c * Y::DC, d);
+    copy_cols<T, Y::DC>(kc + (st & 1) * BS * LDC, LDC, kg + (size_t)j * BS * a.sl, a.sl, BS,
+                        c * Y::DC, d);
+    commit();
+  };
+  int sq[2] = {0, 0};
+  if (at.seg) {
+    sq[0] = at.seg[at.r0 + 16 * w + g];
+    sq[1] = at.seg[at.r0 + 16 * w + g + 8];
+  }
+  float o[NO][4], s[NS][4];
+  zero(o);
+  zero(s);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float sl2 = a.scale * LOG2E;  // scores in the log2 domain
+
+  const int steps = a.L / BS * nc;
+  stage(0);
+  for (int st = 0; st < steps; ++st) {
+    const int j = st / nc, c = st - j * nc;
+    if (c == 0) {  // V's slice and the keys' segment ids of tile j, landing under its chunks
+      if (st > 0) __syncthreads();  // every warp is done with tile j - 1's
+      copy_cols<T, CS_FWD>(vs, LDS, vg + (size_t)j * BS * a.sl, a.sl, BS, at.c0, d);
+      if (at.seg) copy_vec(segk, at.seg + j * BS);
+      else if ((int)threadIdx.x < BS) segk[threadIdx.x] = 0;
+      commit();
+    }
+    // this step's chunks (the slice too at the tile's last); step st - 1 is
+    // done with the other buffer
+    wait_landed(c != 0 || nc == 1);
+    if (st + 1 < steps) stage(st + 1);
+    mma_nt<P, NS>(s, qc + (st & 1) * BR * LDC + 16 * w * LDC, kc + (st & 1) * BS * LDC, LDC,
+                  chunk_k<P>(d, c), g, t);
+    if (c != nc - 1) continue;
+    // the online softmax of rows g and g + 8 (lane quads share a row)
+    float mx[2] = {m[0], m[1]};
+    const int* sk = segk + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = fmaf(s[n][e], sl2, sq[e >> 1] == sk[n * 8 + (e & 1)] ? 0.f : MASK);
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m[e >> 1]);
+        s[n][e] = p;
+        ls[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+    mma_rc<P, NO, NS>(o, s, vs, LDS, at.nv, g, t);  // P rounded to T
+    zero(s);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const int row = at.r0 + 16 * w;
+  store_out<P, NO>(static_cast<T*>(a.out0) + at.base + (size_t)row * a.sl + at.c0, a.sl, o,
+                   1.f / l[0], 1.f / l[1], at.nv, g, t);
+  if (at.c0 == 0 && t == 0) {  // every slice has the same m and l; the first writes lse
+    float* lse = static_cast<float*>(a.out1) + ((size_t)blockIdx.z * a.H + blockIdx.y) * a.L + row + g;
+    lse[0] = m[0] * LN2 + logf(l[0]);
+    lse[8] = m[1] * LN2 + logf(l[1]);
+  }
+}
+
+// dK and dV of BR key rows, columns [c0, c0 + CS_DKV): out0 = dk, out1 = dv.
+// Step st takes query tile st / nc's chunk st % nc: S^T = K Q^T and dP^T = V
+// dO^T accumulate over the chunks; after the last, P^T and dS^T, then dV +=
+// P^T dO and dK += dS^T Q on the slices of dO and Q that came with the
+// tile's first chunk.
+template <class P>
+__global__ void __launch_bounds__(THREADS_W, 1) dkv_kernel(Args a) {
+  using T = typename Ops<P>::T;
+  using Y = Lay<P>;
+  constexpr int LDC = Y::LDC, LDS = slice_ld<P>(CS_DKV), NO = CS_DKV / 8, NS = BS / 8;
+  constexpr int XC = BR * LDC, YC = BS * LDC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xc = reinterpret_cast<T*>(smem);  // [buffer][K, V] chunks
+  T* yc = xc + 4 * XC;                 // [buffer][Q, dO] chunks
+  T* qs = yc + 4 * YC;
+  T* dos = qs + BS * LDS;
+  float* lse_s = reinterpret_cast<float*>(dos + BS * LDS);
+  float* dsum_s = lse_s + BS;
+  int* segq = reinterpret_cast<int*>(dsum_s + BS);
+
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const Where<P, CS_DKV> at(a);
+  const int d = a.d, nc = at.nc;
+  const size_t rows = ((size_t)blockIdx.z * a.H + blockIdx.y) * a.L;
+  const T* kg = static_cast<const T*>(a.k) + at.base + (size_t)at.r0 * a.sl;
+  const T* vg = static_cast<const T*>(a.v) + at.base + (size_t)at.r0 * a.sl;
+  const T* qg = static_cast<const T*>(a.q) + at.base;
+  const T* og = static_cast<const T*>(a.dout) + at.base;
+
+  auto stage = [&](int st) {  // step st's chunks of K, V, Q and dO (one group)
+    const int j = st / nc, c = st - j * nc, c0 = c * Y::DC;
+    T* x = xc + (st & 1) * 2 * XC;
+    T* y = yc + (st & 1) * 2 * YC;
+    const size_t q0 = (size_t)j * BS * a.sl;
+    copy_cols<T, Y::DC>(x, LDC, kg, a.sl, BR, c0, d);
+    copy_cols<T, Y::DC>(x + XC, LDC, vg, a.sl, BR, c0, d);
+    copy_cols<T, Y::DC>(y, LDC, qg + q0, a.sl, BS, c0, d);
+    copy_cols<T, Y::DC>(y + YC, LDC, og + q0, a.sl, BS, c0, d);
+    commit();
+  };
+  int sk[2] = {0, 0};
+  if (at.seg) {
+    sk[0] = at.seg[at.r0 + 16 * w + g];
+    sk[1] = at.seg[at.r0 + 16 * w + g + 8];
+  }
+  float dk[NO][4], dv[NO][4], s[NS][4], dp[NS][4];
+  zero(dk);
+  zero(dv);
+  zero(s);
+  zero(dp);
+  const float sl2 = a.scale * LOG2E;
+
+  const int steps = a.L / BS * nc;
+  stage(0);
+  for (int st = 0; st < steps; ++st) {
+    const int j = st / nc, c = st - j * nc;
+    if (c == 0) {  // the slices of Q and dO, lse, D and segment ids of tile j
+      if (st > 0) __syncthreads();
+      const size_t q0 = (size_t)j * BS * a.sl;
+      copy_cols<T, CS_DKV>(qs, LDS, qg + q0, a.sl, BS, at.c0, d);
+      copy_cols<T, CS_DKV>(dos, LDS, og + q0, a.sl, BS, at.c0, d);
+      copy_vec(lse_s, a.lse + rows + j * BS);
+      copy_vec(dsum_s, a.dsum + rows + j * BS);
+      if (at.seg) copy_vec(segq, at.seg + j * BS);
+      else if ((int)threadIdx.x < BS) segq[threadIdx.x] = 0;
+      commit();
+    }
+    wait_landed(c != 0 || nc == 1);
+    if (st + 1 < steps) stage(st + 1);
+    const T* x = xc + (st & 1) * 2 * XC + 16 * w * LDC;
+    const T* y = yc + (st & 1) * 2 * YC;
+    const int kd = chunk_k<P>(d, c);
+    mma_nt<P, NS>(s, x, y, LDC, kd, g, t);
+    mma_nt<P, NS>(dp, x + XC, y + YC, LDC, kd, g, t);
+    if (c != nc - 1) continue;
+    // P^T = exp2(S^T scale log2(e) - lse log2(e)) where the segments match;
+    // dS^T = P^T (dP^T - D) scale
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = n * 8 + 2 * t + (e & 1);
+        const float p = sk[e >> 1] == segq[qi]
+                            ? exp2f(fmaf(s[n][e], sl2, -(lse_s[qi] * LOG2E))) : 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - dsum_s[qi]) * a.scale;
+      }
+    mma_rc<P, NO, NS>(dv, s, dos, LDS, at.nv, g, t);
+    mma_rc<P, NO, NS>(dk, dp, qs, LDS, at.nv, g, t);
+    zero(s);
+    zero(dp);
+  }
+  const size_t out = at.base + (size_t)(at.r0 + 16 * w) * a.sl + at.c0;
+  store_out<P, NO>(static_cast<T*>(a.out0) + out, a.sl, dk, 1.f, 1.f, at.nv, g, t);
+  store_out<P, NO>(static_cast<T*>(a.out1) + out, a.sl, dv, 1.f, 1.f, at.nv, g, t);
+}
+
+// dQ of BR query rows, columns [c0, c0 + CS_DQ): out0 = dq. Step st takes key
+// tile st / nc's chunk st % nc: S = Q K^T and dP = dO V^T over the chunks;
+// after the last, P and dS, then dQ += dS K on K's slice.
+template <class P>
+__global__ void __launch_bounds__(THREADS_W, 1) dq_kernel(Args a) {
+  using T = typename Ops<P>::T;
+  using Y = Lay<P>;
+  constexpr int LDC = Y::LDC, LDS = slice_ld<P>(CS_DQ), NO = CS_DQ / 8, NS = BS / 8;
+  constexpr int XC = BR * LDC, YC = BS * LDC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xc = reinterpret_cast<T*>(smem);  // [buffer][Q, dO] chunks
+  T* yc = xc + 4 * XC;                 // [buffer][K, V] chunks
+  T* ks = yc + 4 * YC;
+  int* segk = reinterpret_cast<int*>(ks + BS * LDS);
+
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const Where<P, CS_DQ> at(a);
+  const int d = a.d, nc = at.nc;
+  const size_t rows = ((size_t)blockIdx.z * a.H + blockIdx.y) * a.L;
+  const T* qg = static_cast<const T*>(a.q) + at.base + (size_t)at.r0 * a.sl;
+  const T* og = static_cast<const T*>(a.dout) + at.base + (size_t)at.r0 * a.sl;
+  const T* kg = static_cast<const T*>(a.k) + at.base;
+  const T* vg = static_cast<const T*>(a.v) + at.base;
+
+  auto stage = [&](int st) {  // step st's chunks of Q, dO, K and V (one group)
+    const int j = st / nc, c = st - j * nc, c0 = c * Y::DC;
+    T* x = xc + (st & 1) * 2 * XC;
+    T* y = yc + (st & 1) * 2 * YC;
+    const size_t k0 = (size_t)j * BS * a.sl;
+    copy_cols<T, Y::DC>(x, LDC, qg, a.sl, BR, c0, d);
+    copy_cols<T, Y::DC>(x + XC, LDC, og, a.sl, BR, c0, d);
+    copy_cols<T, Y::DC>(y, LDC, kg + k0, a.sl, BS, c0, d);
+    copy_cols<T, Y::DC>(y + YC, LDC, vg + k0, a.sl, BS, c0, d);
+    commit();
+  };
+  int sq[2] = {0, 0};
+  float lq[2], dq_sum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = at.r0 + 16 * w + g + 8 * r;
+    if (at.seg) sq[r] = at.seg[row];
+    lq[r] = a.lse[rows + row] * LOG2E;
+    dq_sum[r] = a.dsum[rows + row];
+  }
+  float dq[NO][4], s[NS][4], dp[NS][4];
+  zero(dq);
+  zero(s);
+  zero(dp);
+  const float sl2 = a.scale * LOG2E;
+
+  const int steps = a.L / BS * nc;
+  stage(0);
+  for (int st = 0; st < steps; ++st) {
+    const int j = st / nc, c = st - j * nc;
+    if (c == 0) {  // K's slice and the keys' segment ids of tile j
+      if (st > 0) __syncthreads();
+      copy_cols<T, CS_DQ>(ks, LDS, kg + (size_t)j * BS * a.sl, a.sl, BS, at.c0, d);
+      if (at.seg) copy_vec(segk, at.seg + j * BS);
+      else if ((int)threadIdx.x < BS) segk[threadIdx.x] = 0;
+      commit();
+    }
+    wait_landed(c != 0 || nc == 1);
+    if (st + 1 < steps) stage(st + 1);
+    const T* x = xc + (st & 1) * 2 * XC + 16 * w * LDC;
+    const T* y = yc + (st & 1) * 2 * YC;
+    const int kd = chunk_k<P>(d, c);
+    mma_nt<P, NS>(s, x, y, LDC, kd, g, t);
+    mma_nt<P, NS>(dp, x + XC, y + YC, LDC, kd, g, t);
+    if (c != nc - 1) continue;
+    // P = exp2(S scale log2(e) - lse log2(e)) where the segments match; dS =
+    // P (dP - D) scale
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ki = n * 8 + 2 * t + (e & 1), r = e >> 1;
+        const float p = sq[r] == segk[ki] ? exp2f(fmaf(s[n][e], sl2, -lq[r])) : 0.f;
+        dp[n][e] = p * (dp[n][e] - dq_sum[r]) * a.scale;
+      }
+    mma_rc<P, NO, NS>(dq, dp, ks, LDS, at.nv, g, t);
+    zero(s);
+    zero(dp);
+  }
+  store_out<P, NO>(static_cast<T*>(a.out0) + at.base + (size_t)(at.r0 + 16 * w) * a.sl + at.c0,
+                   a.sl, dq, 1.f, 1.f, at.nv, g, t);
+}
+
+}  // namespace wd
+
 // ---- host side
 
 template <class P>
@@ -1713,7 +2314,7 @@ bool supported(const Args& a) {
   const void* ptrs[] = {a.q, a.k, a.v, a.dout, a.out0, a.out1};
   for (const void* p : ptrs)
     if (p && reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  return a.d % 8 == 0 && a.d >= 8 && a.d <= DMAX && a.L % L_MULTIPLE == 0 && a.L > 0 &&
+  return a.d % 8 == 0 && a.d >= 8 && a.L % L_MULTIPLE == 0 && a.L > 0 &&
          a.B > 0 && a.H > 0 && a.sb % v == 0 && a.sh % v == 0 && a.sl % v == 0;
 }
 
@@ -1735,12 +2336,24 @@ int fwd_tile(int B, int H, int L, int sms) {
 }
 
 template <class K, class A>
-cudaError_t launch(K kernel, dim3 grid, size_t smem, const A& a, void* stream) {
+cudaError_t launch(K kernel, dim3 grid, size_t smem, const A& a, void* stream,
+                   int threads = THREADS) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
+}
+
+// A wide kernel on its grid, (row tiles x column slices of cs, H, B), with
+// all of an SM's shared memory asked for: two blocks an SM fit.
+template <class K>
+cudaError_t launch_wide(K kernel, int cs, size_t smem, const Args& a, void* stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  return launch(kernel, dim3(a.L / wd::BR * ((a.d + cs - 1) / cs), a.H, a.B), smem, a, stream,
+                wd::THREADS_W);
 }
 
 template <class P, int RG>
@@ -1752,6 +2365,8 @@ int fwd_launch(const Args& a, void* stream) {
 template <class P>
 int fwd(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.out1) return (int)cudaErrorInvalidValue;
+  if (a.d > DMAX)
+    return (int)launch_wide(wd::fwd_kernel<P>, wd::CS_FWD, wd::fwd_smem<P>(), a, stream);
   switch (fwd_tile(a.B, a.H, a.L, sm_count())) {
     case 64:
       return fwd_launch<P, 4>(a, stream);
@@ -1810,6 +2425,8 @@ bool wg_params(wg::Params* p, const Args& a, const void* s0, const void* s1) {
 template <class P>
 int dkv(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.lse || !a.dsum || !a.out1) return (int)cudaErrorInvalidValue;
+  if (a.d > DMAX)
+    return (int)launch_wide(wd::dkv_kernel<P>, wd::CS_DKV, wd::dkv_smem<P>(), a, stream);
   if constexpr (std::is_same_v<P, F32>)
     return (int)launch(tf::dkv_kernel, dim3(a.L / tf::TB, a.H, a.B), tf::Smem(a.d).bytes, a,
                        stream);
@@ -1822,6 +2439,8 @@ int dkv(const Args& a, void* stream) {
 template <class P>
 int dq(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.lse || !a.dsum) return (int)cudaErrorInvalidValue;
+  if (a.d > DMAX)
+    return (int)launch_wide(wd::dq_kernel<P>, wd::CS_DQ, wd::dq_smem<P>(), a, stream);
   if constexpr (std::is_same_v<P, F32>)
     return (int)launch(tf::dq_kernel, dim3(a.L / tf::TB, a.H, a.B), tf::Smem(a.d).bytes, a,
                        stream);

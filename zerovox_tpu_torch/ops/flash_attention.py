@@ -27,9 +27,17 @@ and o (and on the backward dq, dk, dv) comes back with q's strides.
   * On CPU tensors it runs `flash_attention_plain`, the same function by
     masked softmax with float32 scores, differentiated by autograd.
 
-There is no fallback: a CUDA tensor the kernels do not take (d not a
-multiple of 8 or above 272, L not a multiple of 64, another dtype, k or v
-shaped or strided unlike q) raises.
+Every head dim d >= 1 is taken, as the JAX package's flash branch takes
+any d_k == d_v. On both devices, before the kernel-or-plain dispatch,
+`pad_head_dim` zero-pads q, k and v to the next multiple of 8 where d is not
+one (zero q and k lanes add nothing to the scores, zero v lanes are sliced
+off o; the gradients go back through the pad and the slice). On the card a
+head dim up to TUNED_HEAD_DIM = 272 runs the tuned kernels (namespaces fw,
+tf and wg of the source), a wider one the wide kernels (namespace wd),
+whose shared memory and registers do not grow with d.
+
+There is no fallback: a CUDA tensor the kernels do not take (L not a
+multiple of 64, another dtype, k or v shaped or strided unlike q) raises.
 """
 
 from __future__ import annotations
@@ -41,8 +49,38 @@ from zerovox_tpu_torch.ops import _cuda
 # the library's DEFAULT_MASK_VALUE: finite, so a row whose first key tile is
 # all masked does not produce NaN in an online softmax
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-MAX_HEAD_DIM = 272
+HEAD_DIM_MULTIPLE = 8  # the kernels' head dims; flash_attention pads any other
+TUNED_HEAD_DIM = 272  # the largest the tuned kernels take; the wide kernels take the rest
+# the columns of each output a block of the wide kernels computes (csrc's
+# wd::CS_FWD, CS_DKV, CS_DQ): S (and dP) are recomputed once a slice
+WIDE_SLICE = {"fwd": 128, "dkv": 64, "dq": 128}
 L_MULTIPLE = 64
+
+
+def pad_head_dim(*ts):
+    """[B, h, L, d] tensors with d zero-padded to the next multiple of
+    HEAD_DIM_MULTIPLE (new contiguous tensors, differentiable), or the
+    tensors as they are when d is one already."""
+    pad = -ts[0].shape[-1] % HEAD_DIM_MULTIPLE
+    if not pad:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, pad)).contiguous() for t in ts)
+
+
+def head_dim_path(d: int) -> dict:
+    """Which kernels take head dim d on the card: the padded dim, "tuned" or
+    "wide", and for the wide path the column slices of each kernel and the
+    work it does over the work of the function (S and dP recomputed once a
+    slice): the forward (slices + 1) / 2, dK/dV (slices + 1) / 2, dQ
+    (2 slices + 1) / 3, the whole backward (4 (dkv + 1) + 4 dq + 2) / 10."""
+    dp = d + (-d % HEAD_DIM_MULTIPLE)
+    if dp <= TUNED_HEAD_DIM:
+        return {"head_dim": d, "padded_to": dp, "path": "tuned"}
+    ns = {k: -(-dp // cs) for k, cs in WIDE_SLICE.items()}
+    return {"head_dim": d, "padded_to": dp, "path": "wide", "slices": ns,
+            "recompute": {"fwd": (ns["fwd"] + 1) / 2, "dkv": (ns["dkv"] + 1) / 2,
+                          "dq": (2 * ns["dq"] + 1) / 3,
+                          "bwd": (4 * (ns["dkv"] + 1) + 4 * ns["dq"] + 2) / 10}}
 
 
 def flash_attention_plain(q, k, v, segment_ids=None, sm_scale: float = 1.0):
@@ -72,8 +110,9 @@ def _check(name: str, q, *others) -> None:
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be [B, h, L, d], got {tuple(q.shape)}")
     L, d = q.shape[2], q.shape[3]
-    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d} is not a multiple of 8 in [8, {MAX_HEAD_DIM}]")
+    if d % HEAD_DIM_MULTIPLE or d < HEAD_DIM_MULTIPLE:
+        raise ValueError(f"{name}: head dim {d} is not a multiple of {HEAD_DIM_MULTIPLE} "
+                         f"(flash_attention pads it)")
     if L % L_MULTIPLE:
         raise ValueError(f"{name}: sequence length {L} is not a multiple of {L_MULTIPLE}")
     vec = 16 // q.element_size()
@@ -221,19 +260,30 @@ def fwd_layout(B: int, h: int, L: int, dtype=torch.float32) -> dict:
             "spill_bytes": (res["spill_stores"] + res["spill_loads"]) if res else None}
 
 
-def bwd_bf16_registers() -> dict:
-    """The registers and spill bytes of the bf16 backward's kernels
-    (`wg::dkv_kernel`, `wg::dq_kernel`) as ptxas reported them when this
-    process built the library: {"dkv": {...}, "dq": {...}}, values None when
-    the library came from the build cache."""
+def _registers(*parts: str) -> dict:
+    """The registers and spill bytes of the one kernel whose mangled name
+    holds every part, as ptxas reported them when this process built the
+    library (values None when it came from the build cache)."""
     ptxas = _cuda.ptxas_kernels(_cuda.build_info.get("ptxas", {}).get("flash_attn") or [])
-    res = {}
-    for part, name in (("dkv", "2wg10dkv_kernel"), ("dq", "2wg9dq_kernel")):
-        found = [v for k, v in ptxas.items() if name in k]
-        r = found[0] if len(found) == 1 else {}
-        res[part] = {"registers": r.get("registers"),
-                     "spill_bytes": (r["spill_stores"] + r["spill_loads"]) if r else None}
-    return res
+    found = [v for k, v in ptxas.items() if all(p in k for p in parts)]
+    r = found[0] if len(found) == 1 else {}
+    return {"registers": r.get("registers"),
+            "spill_bytes": (r["spill_stores"] + r["spill_loads"]) if r else None}
+
+
+def wide_registers() -> dict:
+    """_registers of the wide kernels (`wd::fwd_kernel`, `wd::dkv_kernel`,
+    `wd::dq_kernel`): {"fwd_f32": {...}, "fwd_bf16": {...}, ...}."""
+    return {f"{part}_{kind}": _registers(name, tag)
+            for part, name in (("fwd", "2wd10fwd_kernel"), ("dkv", "2wd10dkv_kernel"),
+                               ("dq", "2wd9dq_kernel"))
+            for kind, tag in (("f32", "3F32"), ("bf16", "4BF16"))}
+
+
+def bwd_bf16_registers() -> dict:
+    """_registers of the bf16 backward's kernels (`wg::dkv_kernel`,
+    `wg::dq_kernel`): {"dkv": {...}, "dq": {...}}."""
+    return {"dkv": _registers("2wg10dkv_kernel"), "dq": _registers("2wg9dq_kernel")}
 
 
 class FlashAttention(torch.autograd.Function):
@@ -254,12 +304,21 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, segment_ids=None, sm_scale: float = 1.0):
-    """K5; see the module docstring. CPU tensors run `flash_attention_plain`
-    under autograd."""
+    """K5; see the module docstring. The head dim is padded by
+    `pad_head_dim` on both devices; CPU tensors then run
+    `flash_attention_plain` under autograd."""
+    d, like = q.shape[-1], q
+    q, k, v = pad_head_dim(q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, segment_ids, sm_scale)
-    if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if segment_ids is not None:
-        segment_ids = segment_ids.contiguous()
-    return FlashAttention.apply(q, k, v, segment_ids, sm_scale)
+        o = flash_attention_plain(q, k, v, segment_ids, sm_scale)
+    else:
+        if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1):
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if segment_ids is not None:
+            segment_ids = segment_ids.contiguous()
+        o = FlashAttention.apply(q, k, v, segment_ids, sm_scale)
+    if o.shape[-1] == d:
+        return o
+    # o in q's strides, as an unpadded call returns it: the model's reshape of
+    # o.transpose(1, 2) is then a view
+    return torch.empty_like(like).copy_(o[..., :d])
