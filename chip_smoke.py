@@ -265,14 +265,18 @@ Phases, in order; any failure exits nonzero:
 23. Every head dim (`ZEROVOX_ATTN=flash`): tts_medium (`ZeroVoxConfig()`)
    with 4 heads in the encoder and the decoder (d = 528 / 4 = 132, which
    `flash_attention` zero-pads to 136 onto the tuned kernels) and with 1
-   head (d = 528, the wide kernels), random weights from seed 0 at full
-   width and depth: (a) K5's rows of phase 21 at [1, h, 1024, d], [24, h,
-   512, d] and [1, h, 256, d] (names ending `_d132`, `_d528`; inputs and
-   valid lengths from seed 23; at d = 132 each timed call pads and slices
-   as the model does), phase 21's bounds, the bound's FLOP at d itself and
-   the wide kernels' recompute beside it, SDPA's time and backend or its
-   refusal; then the wide kernels alone at [1, 1, 256, 280] and [1, 1, 256,
-   1040], forward and backward (`_alone_d280`, `_alone_d1040`); (b) phase
+   head (d = 528: float32 on the cluster kernels, clusters of two blocks
+   each owning 264 columns; bf16 on the wide kernels), random weights from
+   seed 0 at full width and depth: (a) K5's rows of phase 21 at [1, h,
+   1024, d], [24, h, 512, d] and [1, h, 256, d] (names ending `_d132`,
+   `_d528`; inputs and valid lengths from seed 23; at d = 132 each timed
+   call pads and slices as the model does), phase 21's bounds, the bound's
+   FLOP at d itself, the cluster's ranks and parts or the wide kernels'
+   recompute beside it, registers and spills, SDPA's time and backend or
+   its refusal; then the kernels of d above 272 alone at [1, 1, 256, 280]
+   (clusters of two), [1, 1, 256, 1040] (of four) and [1, 1, 256, 2184]
+   (above the clusters' reach: float32 too on the wide kernels), forward
+   and backward (`_alone_d280`, `_alone_d1040`, `_alone_d2184`); (b) phase
    21's flash tts_ex on each config (10 K5 forward launches, float32 and
    bf16; within 1e-3 of einsum and of the CPU, bf16 within phase 15's
    bound); (c) phase 21's flash training on each config (6 + 6 + 6 K5
@@ -373,10 +377,12 @@ K5_SHAPES = (("", FLASH_SERVE_SHAPE), ("_train", FLASH_TRAIN_SHAPE), ("_enc", FL
 # phase 22: tts_medium_tpu's head dim 512 / 2 at the same lengths; rows named *_d256
 K5_D256_SHAPES = tuple((label, shape[:3] + (256,)) for label, shape in K5_SHAPES)
 # phase 23: tts_medium at 4 heads (d = 132: padded to 136) and 1 head (d =
-# 528: the wide kernels), rows named *_d132, *_d528; the wide kernels alone
-# at the first head dim above the tuned ones and above 1024
+# 528: float32 on clusters of two blocks, bf16 on the wide kernels), rows
+# named *_d132, *_d528; the kernels of d above 272 alone at the first head
+# dim above the tuned ones (clusters of two), above 1024 (clusters of four)
+# and above the clusters' reach of 2112 (float32 on the wide kernels too)
 K5_HEAD_CONFIGS = ((4, 132), (1, 528))
-K5_ALONE_SHAPES = ((1, 1, 256, 280), (1, 1, 256, 1040))
+K5_ALONE_SHAPES = ((1, 1, 256, 280), (1, 1, 256, 1040), (1, 1, 256, 2184))
 # the default vocoder's kernels a tts_ex by width: K1 at stage 1, K2 at stages 2 and 3
 MAIN_WIDTHS = {"fused_mrf": {128: 1}, "fused_upsample_stage": {"128x64": 1, "64x32": 1}}
 K5_SOURCE = "zerovox_tpu_torch/csrc/flash_attn.cu"
@@ -3741,7 +3747,8 @@ def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "", seed: int = 21,
     the SDPA backend that ran and its gradients' largest distance from
     plain's. A head dim that is not a multiple of 8 runs as the model runs
     it: zero-padded by `pad_head_dim` inside each timed call, outputs
-    sliced back; a head dim above 272 runs the wide kernels, whose rows
+    sliced back; a head dim above 272 runs the float32 cluster kernels
+    (rows with the cluster's ranks and parts) or the wide kernels, whose rows
     carry the work they do over the bound's (`recompute`) and their
     registers. Inputs from `seed`, views of [B, L, h, d] tensors as the model
     passes them; segment ids with per-row valid lengths from the seed."""
@@ -3799,8 +3806,8 @@ def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "", seed: int = 21,
         q, k, v, seg, do, lengths = inputs(shape)
         scale = 1.0 / math.sqrt(d)
         mask = seg[:, None, :, None] == seg[:, None, None, :]
-        path = fa.head_dim_path(d)
-        wide = path["path"] == "wide"
+        paths = {dt: fa.head_dim_path(d, dt) for dt in (torch.float32, torch.bfloat16)}
+        wide = paths[torch.bfloat16]["path"] == "wide"
         fwd, bwd_dkv, bwd_dq, bwd = (padded(f, d) for f in (fa.flash_fwd, fa.flash_bwd_dkv,
                                                              fa.flash_bwd_dq, fa.flash_bwd))
 
@@ -3808,8 +3815,15 @@ def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "", seed: int = 21,
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
         def layout(dtype, part):
-            if not wide:
+            path = paths[dtype]
+            if path["path"] == "tuned":
                 return {**fa.fwd_layout(B, h, L, dtype), **path} if part == "fwd" else path
+            if path["path"] == "cluster":  # float32 above 272: clusters splitting the head dim
+                rows = fa.fwd_tile(B, h * path["ranks"], L)  # the rule over every block
+                more = {"tile_rows": rows, "key_groups": fa.FWD_PAIRS // (rows // 16)} \
+                    if part == "fwd" else {}
+                regs = fa.cluster_registers(rows)[part] if part != "bwd" else {}
+                return {**path, "recompute": path["recompute"][part], **more, **regs}
             regs = fa.wide_registers()[f"{part}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"] \
                 if part != "bwd" else {}
             return {**path, "recompute": path["recompute"][part], **regs}
@@ -4313,11 +4327,12 @@ def tts_medium_heads(heads: int):
 
 def any_dim_phase(torch, dev, card: str, refwav, sr: int) -> dict:
     """Phase 23 (see the module docstring): for tts_medium at 4 heads (d =
-    132, padded to 136 onto the tuned kernels) and at 1 head (d = 528, the
-    wide kernels), K5's rows at the phase-21 shapes (named *_d132, *_d528),
+    132, padded to 136 onto the tuned kernels) and at 1 head (d = 528: the
+    float32 cluster kernels, the bf16 wide kernels), K5's rows at the
+    phase-21 shapes (named *_d132, *_d528),
     flash serving (tts_ex only) and flash training (float32 turns only);
-    then the wide kernels alone at [1, 1, 256, 280] and [1, 1, 256, 1040]
-    (forward and backward, *_alone_d280, *_alone_d1040), whose launches
+    then the kernels of d above 272 alone at K5_ALONE_SHAPES (forward and
+    backward, *_alone_d280, *_alone_d1040, *_alone_d2184), whose launches
     are the d = 528 run's."""
     t0 = time.perf_counter()
     rows, out = [], {}

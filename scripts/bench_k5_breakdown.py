@@ -44,8 +44,27 @@ without an MMA also loses whatever only fed it:
                 the bf16 backward fetching its streamed tiles for the first
                 two steps only, then computing on them again: real data
                 without the fetch (no_fetch computes on stale shared memory);
+  cl_fwd_no_fetch, cl_no_fetch
+                the float32 cluster forward's (`cl::fwd_kernel`) and
+                backward's (`cl::dkv_kernel`, `cl::dq_kernel`) parts of K and
+                V (Q and dO; K and V) not copied from device memory;
+  cl_fwd_no_dsmem, cl_no_dsmem
+                the cluster kernels with each warp's S (and dP) summed from
+                its own block's exchange only: no distributed shared
+                memory read, the cluster barriers kept;
+  cl_fwd_no_exchange, cl_no_exchange
+                the same with the cluster barriers taken out too (the
+                partials summed from the block's own exchange without a
+                barrier): with cl_*_no_dsmem, the barriers' time;
   parent        (with --parent) DIR's flash_attn.cu, the kernels it had
                 (forward and backward).
+
+With --wide the run times the float32 kernels of d above 272 instead, at
+tts_medium's one head (d = 528): the forward at [1, 1, 1024, 528],
+[24, 1, 512, 528] and [1, 1, 256, 528] and the backward at
+[24, 1, 512, 528], in the variants that take a phase out of the cluster
+kernels (the fwd_* and backward ones of the MMAs act on them too: `cl`
+calls `fw`'s and `tf`'s product functions) and with --parent DIR's.
 
 A variant's distance from `kernel` is the device time of what it takes out.
 Beside them, the rate of the instructions the kernels are built on: a
@@ -73,6 +92,12 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCE = ROOT / "zerovox_tpu_torch" / "csrc" / "flash_attn.cu"
 SHAPE = (24, 2, 512, 264)  # the backward's
 FWD_SHAPES = {"train": (24, 2, 512, 264), "serve": (1, 2, 1024, 264), "enc": (1, 2, 256, 264)}
+# a warp's S (dP) as the sum of its own block's exchange: no distributed
+# shared memory
+_LOCAL_FWD = ("#pragma unroll\n    for (int c = 0; c < NS; ++c)\n#pragma unroll\n"
+              "      for (int e = 0; e < 4; ++e) s[c][e] = slot[c * 128 + lane * 4 + e];\n")
+_LOCAL_BWD = ("#pragma unroll\n  for (int c = 0; c < 2; ++c)\n#pragma unroll\n"
+              "    for (int e = 0; e < 4; ++e) s[c][e] = slot[c * 128 + lane * 4 + e];\n")
 VARIANTS = {
     "kernel": [],
     "fwd_no_s_mma": [("      tc::mma(lh[c], a.lo, b.hi);\n      tc::mma(hl[c], a.hi, b.lo);\n"
@@ -134,7 +159,42 @@ VARIANTS = {
                           "    if (warp == 0) tma_tiles(buf(j), pr, q0, h, b, j < 2 ? nk : 0, bars + (j & 1), lane);\n"),
                          ("    if (warp == 0) tma_tiles(buf(j), pr, k0, h, b, nk, bars + (j & 1), lane);\n",
                           "    if (warp == 0) tma_tiles(buf(j), pr, k0, h, b, j < 2 ? nk : 0, bars + (j & 1), lane);\n")],
+    "cl_fwd_no_fetch": [("    fw::copy_rows(Kb + (j & 1) * BK * ldq, ldq, kcols + (size_t)j * BK * a.sl, a.sl, BK, pd);\n",
+                         ""),
+                        ("    fw::copy_rows(Vb + (j & 1) * BK * ldv, ldv, vcols + (size_t)j * BK * a.sl, a.sl, BK, pd);\n",
+                         "")],
+    "cl_fwd_no_dsmem": [("    sum_ranks<NS>(s, slot, n, lane);\n", _LOCAL_FWD)],
+    "cl_fwd_no_exchange": [("    if (j > 0) cluster_wait();\n"
+                            "    if (dh == 0) put_slot<NS>(slot, s, lane);\n"
+                            "    cluster_arrive();\n"
+                            "    if (j > 0) pv_of(pp, j - 1);  // under the barrier\n"
+                            "    cluster_wait();\n"
+                            "    sum_ranks<NS>(s, slot, n, lane);\n    cluster_arrive();\n",
+                            "    if (dh == 0) put_slot<NS>(slot, s, lane);\n"
+                            "    if (j > 0) pv_of(pp, j - 1);  // under the barrier\n"
+                            "    tf::named_sync(1 + u, 64);  // the pair's slot is written\n"
+                            + _LOCAL_FWD),
+                           ("  cluster_wait();  // no rank reads this block's exchange any more: it may exit\n",
+                            "")],
+    "cl_no_fetch": [("    tf::copy2(dst, dst + TB * ld, ld, qcols + row0, docols + row0, a.sl, pd);\n", ""),
+                    ("    tf::copy2(dst, dst + TB * ld, ld, kcols + row0, vcols + row0, a.sl, pd);\n", "")],
+    "cl_no_dsmem": [("  sum_ranks<2>(s, slot, n, lane);\n", _LOCAL_BWD)],
+    "cl_no_exchange": [("  if (!first) cluster_wait();  // every rank has read the last step's partials\n"
+                        "  put_slot<2>(slot, s, lane);\n  cluster_arrive();\n  cluster_wait();\n"
+                        "  sum_ranks<2>(s, slot, n, lane);\n  cluster_arrive();\n",
+                        "  put_slot<2>(slot, s, lane);\n" + _LOCAL_BWD),
+                       ("  cluster_wait();  // no rank reads this block's exchange any more: dK and dV out\n",
+                        ""),
+                       ("  cluster_wait();  // no rank reads this block's exchange any more: dQ out\n",
+                        "")],
 }
+# the variants --wide times (and the parent's, with --parent)
+WIDE_VARIANTS = ("kernel", "fwd_no_s_mma", "fwd_no_pv_mma", "no_s_mma", "no_acc_mma",
+                 "cl_fwd_no_fetch", "cl_fwd_no_dsmem", "cl_fwd_no_exchange", "cl_no_fetch",
+                 "cl_no_dsmem", "cl_no_exchange")
+WIDE_FWD_SHAPES = {"train": (24, 1, 512, 528), "serve": (1, 1, 1024, 528),
+                   "enc": (1, 1, 256, 528)}
+WIDE_SHAPE = (24, 1, 512, 528)
 
 MMA_RATE_CU = r"""
 #include <cstdint>
@@ -211,9 +271,10 @@ def variant_source(src: str, subs) -> str:
     return src
 
 
-def build(tmp: Path, _cuda, parent: Path | None) -> tuple[dict, list[str], dict]:
+def build(tmp: Path, _cuda, parent: Path | None, wide: bool = False) -> tuple[dict, list[str], dict]:
     src = SOURCE.read_text()
-    sources = {name: variant_source(src, subs) for name, subs in VARIANTS.items()}
+    sources = {name: variant_source(src, subs) for name, subs in VARIANTS.items()
+               if not wide or name in WIDE_VARIANTS}
     if parent is not None:
         sources["parent"] = (parent / "zerovox_tpu_torch" / "csrc" / "flash_attn.cu").read_text()
     procs = {}
@@ -231,7 +292,7 @@ def build(tmp: Path, _cuda, parent: Path | None) -> tuple[dict, list[str], dict]
         if name == "kernel":  # registers and spills of each kernel
             ptxas = [ln.strip() for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]
         bf16_bwd[name] = {k: v for k, v in _cuda.ptxas_kernels(log.splitlines()).items()
-                          if "2wg" in k}
+                          if ("2cl" if wide else "2wg") in k}
         lib = ctypes.CDLL(str(tmp / f"{name}.so"))
         for fn, argtypes in _cuda.SIGNATURES["flash_attn"].items():
             getattr(lib, fn).argtypes = argtypes
@@ -258,7 +319,10 @@ def inputs(torch, np, shape, rng):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
+    ap.add_argument("--wide", action="store_true", help="the float32 kernels at d = 528")
     args = ap.parse_args()
+    fwd_shapes, shape = (WIDE_FWD_SHAPES, WIDE_SHAPE) if args.wide else (FWD_SHAPES, SHAPE)
+    kinds = ("f32",) if args.wide else ("f32", "bf16")
     sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch
@@ -277,13 +341,13 @@ def main() -> None:
         return torch.cuda.current_stream().cuda_stream
 
     passes = {}
-    for label, shape in FWD_SHAPES.items():  # the forward: o and lse into buffers of their own
-        q, k, v, _, seg = inputs(torch, np, shape, rng)
-        scale = 1.0 / math.sqrt(shape[3])
-        for kind in ("f32", "bf16"):
+    for label, fshape in fwd_shapes.items():  # the forward: o and lse into buffers of their own
+        q, k, v, _, seg = inputs(torch, np, fshape, rng)
+        scale = 1.0 / math.sqrt(fshape[3])
+        for kind in kinds:
             x = [q, k, v] if kind == "f32" else [t.bfloat16() for t in (q, k, v)]
-            o, lse = torch.empty_like(x[0]), x[0].new_empty(shape[:3], dtype=torch.float32)
-            dims = [*shape, *x[0].stride()[:3]]
+            o, lse = torch.empty_like(x[0]), x[0].new_empty(fshape[:3], dtype=torch.float32)
+            dims = [*fshape, *x[0].stride()[:3]]
 
             def fwd(lib, x=x, o=o, lse=lse, seg=seg, dims=dims, scale=scale, kind=kind):
                 _cuda.check(getattr(lib, f"zv_flash_fwd_{kind}")(
@@ -291,12 +355,12 @@ def main() -> None:
                     lse.data_ptr(), seg.data_ptr(), *dims, scale, stream()), "fwd")
 
             passes[f"fwd_{kind}_{label}"] = fwd
-    q, k, v, do, seg = inputs(torch, np, SHAPE, np.random.default_rng(21))
-    scale = 1.0 / math.sqrt(SHAPE[3])
+    q, k, v, do, seg = inputs(torch, np, shape, np.random.default_rng(21))
+    scale = 1.0 / math.sqrt(shape[3])
     o, lse = fa.flash_fwd(q, k, v, seg, scale)
     dsum = (do * o).sum(-1).contiguous()
     dk, dv, dq = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    dims = [*SHAPE, *q.stride()[:3]]
+    dims = [*shape, *q.stride()[:3]]
 
     def dkv(lib):
         _cuda.check(lib.zv_flash_dkv_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -327,11 +391,12 @@ def main() -> None:
                                          seg.data_ptr(), dqb.data_ptr(), *dims, scale, stream()),
                     "dq_bf16")
 
-    passes.update({"dkv_bf16": dkv_bf16, "dq_bf16": dq_bf16})
+    if not args.wide:
+        passes.update({"dkv_bf16": dkv_bf16, "dq_bf16": dq_bf16})
 
     def timed(name: str) -> list[str]:
         """the passes a variant is timed on: its own side of the kernel"""
-        if name.startswith("fwd_"):
+        if name.startswith(("fwd_", "cl_fwd_")):
             return [p for p in passes if p.startswith("fwd_")]
         if name.startswith("bf16_"):
             return ["dkv_bf16", "dq_bf16"]
@@ -340,7 +405,7 @@ def main() -> None:
         return ["dkv", "dq"]
 
     with tempfile.TemporaryDirectory() as tmp:
-        libs, ptxas, bf16_bwd = build(Path(tmp), _cuda, args.parent)
+        libs, ptxas, bf16_bwd = build(Path(tmp), _cuda, args.parent, args.wide)
         ms = {name: {p: [] for p in timed(name)} for name in libs}
         for names in (list(libs), list(libs)[::-1]):  # in turns, each order once
             for name in names:
@@ -349,9 +414,11 @@ def main() -> None:
                                                     warmup=3))
         rate = mma_rate(torch, Path(tmp), _cuda, cuda_time_ms)
     print(card)
-    print(json.dumps({"k5_breakdown": {"fwd_shapes": FWD_SHAPES, "bwd_shape": list(SHAPE),
+    print(json.dumps({"k5_breakdown": {"fwd_shapes": fwd_shapes, "bwd_shape": list(shape),
                                        "ms": ms, "card": card, "mma_tflops": rate,
-                                       "ptxas": ptxas, "ptxas_bf16_bwd": bf16_bwd}}))
+                                       "ptxas": ptxas,
+                                       ("ptxas_cluster" if args.wide else "ptxas_bf16_bwd"):
+                                           bf16_bwd}}))
 
 
 if __name__ == "__main__":

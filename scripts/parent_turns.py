@@ -18,24 +18,31 @@ forward at the training shape [24, 2, 512, 264] and the serving shapes
 [1, 2, 1024, 264] (decoder) and [1, 2, 256, 264] (encoder), and its
 backward (dK/dV, dQ and both, D's reduction included) at the training
 shape, in float32 and bf16, by CUDA events (the forward's launches queued
-behind a sleeping kernel, so that its small shapes read device time). The
+behind a sleeping kernel, so that its small shapes read device time); the
+same at tts_medium's one head (d = 528, the kernels of d above 272: the
+forward at [1, 1, 1024, 528], [24, 1, 512, 528] and [1, 1, 256, 528], the
+backward at [24, 1, 512, 528]), each beside scaled_dot_product_attention
+(SDPA) on the boolean segment mask on the same inputs (its forward, and its
+backward by autograd); and the float32 train step of tts_medium at 1 head
+(chip_smoke.py phase 23's: batch 24, mel bucket 512, the tree's own
+chip_smoke.py corpus and config) under flash and under einsum in turns. The
 first parent and change children also save the float32 K1, K2, K3 and K4's
 outputs, the bf16 K1, K2 and K3's, the bf16 K4's (y, sum, sq, m; dx, dw,
 ds, dt) and K5's (forward o and lse, backward dq, dk, dv from them; float32
-and bf16, at K5_OUT_SHAPES: one for each of the forward's layouts) on
+and bf16, at K5_OUT_SHAPES: one for each of the forward's layouts, and
+d = 528) on
 seeded inputs, and the two sets are compared with `torch.equal`; the bf16
 K4's dw, ds and dt,
 which sum per-block partials that follow the grid, also by their largest
 distance relative to the parent's largest value (held to BF16_RED_TOL).
 The outputs of a kernel whose arithmetic this tree changed against its
-parent (REDESIGNED: K5's bf16 backward, redesigned for Hopper: its dq, dk
-and dv) are compared instead by their largest distance relative to the
-parent's largest value, held to the kernel's bound against plain: two bf16
-steps of the largest value for bf16 gradients (a float32 difference far
-below a bf16 step flips the rounding of some bf16 outputs; REDESIGNED_TOL
-for a float32 tensor, one bf16 step for a bf16 o, should a later tree list
-those). Everything else, K5's forward and float32 backward included, is
-held bitwise.
+parent (REDESIGNED: K5's float32 kernels of d above 272, redesigned as
+clusters that split the head dim: o, lse, dq, dk and dv at d = 528) are
+compared instead by their largest distance relative to the parent's
+largest value, held to the kernel's bound against plain: REDESIGNED_TOL
+for a float32 tensor (two bf16 steps of the largest value for a bf16
+gradient, one for a bf16 o, should a later tree list those). Everything
+else, K5's bf16 kernels at d = 528 included, is held bitwise.
 
 Prints the card's name and power limit, then one JSON object (also written
 to FILE when given).
@@ -55,13 +62,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 K4_SHAPE = (24, 32, 80, 500)
 BF16_RED_TOL = 1e-3  # tests/test_torch_gpu.py's bound for the bf16 K4's float32 reductions
-REDESIGNED = ("k5_bwd_bf16_",)  # outputs whose arithmetic this tree changed (key prefixes)
+# outputs whose arithmetic this tree changed (key prefixes)
+REDESIGNED = ("k5_fwd_f32_d528_", "k5_bwd_f32_d528_")
 REDESIGNED_TOL = 1e-4  # x the largest value: tests/test_torch_gpu.py's bound for K5's gradients
 K5_SHAPE = (24, 2, 512, 264)
 K5_FWD_SHAPES = {"train": K5_SHAPE, "serve": (1, 2, 1024, 264), "enc": (1, 2, 256, 264)}
 # the outputs compared with the parent's: the forward's 64-, 32- and 16-row tiles on 132 SMs
 K5_OUT_SHAPES = {"rows64": (9, 2, 512, 264), "rows32": (3, 2, 1024, 264),
-                 "rows16": (1, 2, 1024, 264)}
+                 "rows16": (1, 2, 1024, 264), "d528": (3, 1, 512, 528)}
+# tts_medium at 1 head: the kernels of d above 272
+K5_WIDE_SHAPE = (24, 1, 512, 528)
+K5_WIDE_FWD_SHAPES = {"train_d528": K5_WIDE_SHAPE, "serve_d528": (1, 1, 1024, 528),
+                      "enc_d528": (1, 1, 256, 528)}
 K3_SHAPES = ((44096, 128), (88192, 64), (176384, 32), (88192, 16), (176384, 8))
 TEXT = ("The quick brown fox jumps over the lazy dog while the curious cat "
         "watches from a sunny windowsill in the early morning light.")
@@ -178,23 +190,79 @@ def queued_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def k5_ms(torch) -> dict:
-    """ms of K5's forward at K5_FWD_SHAPES (queued_ms) and of its backward at
-    K5_SHAPE by CUDA events: dK/dV, dQ and both (D's reduction included, as
-    chip_smoke.py phase 21's flash_bwd row), float32 and bf16."""
+    """ms of K5's forward at K5_FWD_SHAPES and K5_WIDE_FWD_SHAPES
+    (queued_ms) and of its backward at K5_SHAPE and K5_WIDE_SHAPE by CUDA
+    events: dK/dV, dQ and both (D's reduction included, as chip_smoke.py
+    phase 21's flash_bwd row), float32 and bf16; at d = 528 SDPA's forward
+    (`sdpa_fwd_*`, queued_ms) and backward (`sdpa_bwd_*`) beside them."""
+    import torch.nn.functional as F
+
     from zerovox_tpu_torch.ops import flash_attention as fa
     from zerovox_tpu_torch.utils.profiling import cuda_time_ms
 
     res = {}
-    for label, shape in K5_FWD_SHAPES.items():
+    for label, shape in {**K5_FWD_SHAPES, **K5_WIDE_FWD_SHAPES}.items():
         for kind, (q, k, v, seg, _, scale) in k5_inputs(torch, shape).items():
             res[f"fwd_{label}_{kind}"] = queued_ms(torch, lambda: fa.flash_fwd(q, k, v, seg, scale))
-    for kind, (q, k, v, seg, do, scale) in k5_inputs(torch, K5_SHAPE).items():
-        o, lse = fa.flash_fwd(q, k, v, seg, scale)
-        calls = {"dkv": lambda: fa.flash_bwd_dkv(q, k, v, o, lse, do, seg, scale),
-                 "dq": lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, seg, scale),
-                 "bwd": lambda: fa.flash_bwd(q, k, v, o, lse, do, seg, scale)}
-        for part, fn in calls.items():
-            res[f"{part}_{kind}"] = cuda_time_ms(fn, iters=20, warmup=3)
+            if label.endswith("_d528"):
+                mask = seg[:, None, :, None] == seg[:, None, None, :]
+                res[f"sdpa_fwd_{label}_{kind}"] = queued_ms(
+                    torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                  scale=scale))
+    for tag, shape in (("", K5_SHAPE), ("_d528", K5_WIDE_SHAPE)):
+        for kind, (q, k, v, seg, do, scale) in k5_inputs(torch, shape).items():
+            o, lse = fa.flash_fwd(q, k, v, seg, scale)
+            calls = {"dkv": lambda: fa.flash_bwd_dkv(q, k, v, o, lse, do, seg, scale),
+                     "dq": lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, seg, scale),
+                     "bwd": lambda: fa.flash_bwd(q, k, v, o, lse, do, seg, scale)}
+            for part, fn in calls.items():
+                res[f"{part}{tag}_{kind}"] = cuda_time_ms(fn, iters=20, warmup=3)
+            if tag:
+                mask = seg[:, None, :, None] == seg[:, None, None, :]
+                qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+                so = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
+                res[f"sdpa_bwd{tag}_{kind}"] = cuda_time_ms(
+                    lambda: torch.autograd.grad(so, (qg, kg, vg), do, retain_graph=True),
+                    iters=20, warmup=3)
+                del so, qg, kg, vg
+            del o, lse
+        torch.cuda.empty_cache()
+    return res
+
+
+def flash_step_ms(torch) -> dict:
+    """The float32 train step of tts_medium at 1 head (d = 528) as
+    chip_smoke.py phase 23 runs it (the tree's own chip_smoke.py: its
+    config, corpus and batch 24 at mel bucket 512), device ms by CUDA events
+    (3 steps after 1), flash and einsum in turns (flash, einsum, einsum,
+    flash): {"flash": [ms, ms], "einsum": [ms, ms]}."""
+    import chip_smoke as cs
+
+    from zerovox_tpu_torch.training.data import SpeechDataModule
+    from zerovox_tpu_torch.training.trainer import Trainer, TrainerConfig, device_batch
+    from zerovox_tpu_torch.utils.profiling import cuda_time_ms
+
+    cfg = cs.train_config(fused=True, base=cs.tts_medium_heads(1))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cs.write_corpus(root, "train", cfg.symbols(), cfg.audio.num_mels, cs.TRAIN_UTTS,
+                        (80, 100), seed=0)
+        dm = SpeechDataModule([{"path": {"preprocessed_path": "train"}}], cfg.symbols(), cs.STATS,
+                              batch_size=cs.TRAIN_BATCH, num_workers=4, seed=0,
+                              base_path=str(root))
+        dm.prepare_data()
+        batch = device_batch(next(iter(dm.train_dataloader(0))), "cuda")
+        trainer = Trainer(cfg, TrainerConfig(max_epochs=1, warmup_epochs=1, seed=0,
+                                             out_folder=str(root / "model")), steps_per_epoch=2)
+        state = trainer.init_state()
+        res = {"flash": [], "einsum": []}
+        for kind in ("flash", "einsum", "einsum", "flash"):
+            cs.set_attention(kind if kind == "flash" else None)
+            res[kind].append(cuda_time_ms(lambda: trainer.train_step(state, batch), iters=3,
+                                          warmup=1))
+        cs.set_attention(None)
+        del trainer, state, batch
+    torch.cuda.empty_cache()
     return res
 
 
@@ -313,7 +381,7 @@ def child(root: Path, out: Path, dump: Path | None, runs: int) -> None:
         torch.save(kernel_outputs(torch), dump)
     refwav = np.random.default_rng(0).normal(size=2 * 22050).astype(np.float32) * 0.1
     res = {"k4_bf16_ms": k4_bf16_ms(torch), "bf16_tile_ms": bf16_tile_ms(torch),
-           "k5_ms": k5_ms(torch)}
+           "k5_ms": k5_ms(torch), "flash_step_ms": flash_step_ms(torch)}
     res["main"] = first_chunk_p50(torch, ZeroVoxTTS.from_random(seed=0), refwav, runs)
     base = ZeroVoxConfig()
     cfg = dc.replace(base, model=dc.replace(
@@ -375,6 +443,7 @@ def main() -> None:
     k4 = {label: [t.pop("k4_bf16_ms") for t in ts] for label, ts in turns.items()}
     k12 = {label: [t.pop("bf16_tile_ms") for t in ts] for label, ts in turns.items()}
     k5 = {label: [t.pop("k5_ms") for t in ts] for label, ts in turns.items()}
+    steps = {label: [t.pop("flash_step_ms") for t in ts] for label, ts in turns.items()}
     medians = {label: {k: statistics.median(t[k] for t in ts) for k in ts[0]}
                for label, ts in turns.items()}
     k4_medians = {label: {p: statistics.median(m[p] for m in ms) for p in ("fwd", "bwd")}
@@ -386,7 +455,7 @@ def main() -> None:
     result = {"first_chunk_p50_ms": turns, "median_of_p50s_ms": medians, "runs": args.runs,
               "k4_bf16_ms": k4, "k4_bf16_median_ms": k4_medians,
               "bf16_tile_ms": k12, "bf16_tile_median_ms": k12_medians,
-              "k5_ms": k5, "k5_median_ms": k5_medians,
+              "k5_ms": k5, "k5_median_ms": k5_medians, "flash_step_d528_ms": steps,
               "redesigned_rel_err_vs_parent": redesigned,
               "redesigned_rel_bound": redesigned_tol,
               "redesigned_within": bool(redesigned) and all(v <= redesigned_tol[k]

@@ -5,10 +5,14 @@ The JAX package's `models/fs2.py` takes any d_k == d_v under
 ZEROVOX_ATTN=flash (a head dim above 128 zero-padded to a multiple of 128);
 the head dim is d_model / n_head. The port's `flash_attention` zero-pads a
 head dim that is not a multiple of 8 (`pad_head_dim`, on both devices,
-before the kernel-or-plain dispatch), and on the card runs a head dim above
-272 on the wide kernels (`wd::` in `csrc/flash_attn.cu`), whose arithmetic
-is emulated here: the column slices of o, the head-dim chunks of S, the
-online softmax over key tiles, 3xTF32 products.
+before the kernel-or-plain dispatch), and on the card runs a float32 head
+dim above 272 on the cluster kernels (`cl::` in `csrc/flash_attn.cu`),
+whose forward's arithmetic is emulated here: each rank's part of the head
+dim, its warp pairs' halves of S, the partials summed in rank order, one
+online softmax over key tiles, each rank's columns of o, 3xTF32 products
+(tests/test_torch_flash_wide_cluster.py emulates its backward). A bf16 head
+dim above 272, or a float32 one above the clusters' reach, runs the wide
+kernels (`wd::`), whose source is read here.
 
 Tolerances as tests/test_torch_flash_attention.py: the function 1e-5
 forward and 1e-4 x each gradient's largest value backward (bf16: one and two
@@ -37,7 +41,7 @@ import zerovox_tpu_torch.config as pc
 from test_torch_flash_attention import (PHONES, PUNCTS, STATS, _attention_inputs, _jax_attention,
                                         _port_attention, _port_encode_decode, _text, batch,
                                         bf16_step)
-from test_torch_flash_fwd_emulation import rna_tf32
+from test_torch_flash_fwd_emulation import pv as fw_pv, rna_tf32, s_half as fw_s_half, tile
 from zerovox_tpu_torch.models.zerovox import ZeroVox
 from zerovox_tpu_torch.ops import flash_attention as fa
 from zerovox_tpu_torch.synthesize import random_init_
@@ -226,65 +230,89 @@ def _mma(acc, x, y, passes):
     return acc + xh @ yh
 
 
-def emulate_wide_fwd(q, k, v, seg, scale, passes=3):
-    """(o, lse of every column slice) of wd::fwd_kernel<F32> for float32
-    [B, h, L, d] inputs: each slice of CS_FWD columns computes S over every
-    key tile of BS keys chunk by chunk (CHUNK_BYTES / 4 columns a chunk, a
-    k-step of 8 at a time), the online softmax in the log2 domain, then its
-    columns of O += P V a k-step of 8 keys at a time."""
-    BS, DC, CS = _const("BS"), _const("CHUNK_BYTES") // 4, _const("CS_FWD")
+def emulate_wide_fwd(q, k, v, seg, scale, rg=4, passes=3):
+    """(o, the lse of every rank) of cl::fwd_kernel<rg> for float32 [B, h, L,
+    d] inputs: rank r's part of the head dim (fa.cluster_parts), its warp
+    pairs splitting the part's k-steps in two halves (fw's s_part: S's
+    three terms in their own accumulators, lo truncated), each rank's
+    partial half 0 + half 1, S the partials summed in rank order; then in
+    every rank fw's online softmax over key tiles of BK keys (KQ key groups
+    of KW keys, merged by their row max), and O += P V on the rank's columns
+    of V. Each rank runs its own softmax on its own sum, as the kernel
+    does."""
+    t = tile(rg)
+    KQ, BK, KW = t["KQ"], t["BK"], t["KW"]
     B, h, L, d = q.shape
+    parts = fa.cluster_parts(d)
+    c0s = np.cumsum([0] + parts[:-1]).tolist()
+    n = len(parts)
     same = seg[:, None, :, None] == seg[:, None, None, :]
     mask = torch.where(same, 0.0, fa.MASK_VALUE).float()
     sl2 = float(np.float32(scale) * LOG2E)
+    m = torch.full((n, KQ, B, h, L), -math.inf)
+    l = torch.zeros(n, KQ, B, h, L)
+    acc = [torch.zeros(KQ, B, h, L, pd) for pd in parts]
+    for k0 in range(0, L, BK):
+        for g in range(KQ):
+            keys = slice(k0 + g * KW, k0 + (g + 1) * KW)
+            partial = []
+            for c0, pd in zip(c0s, parts):  # each rank's two halves over its part
+                kh = (pd // KS + 1) // 2
+                x, y = q[..., c0:c0 + pd], k[:, :, keys, c0:c0 + pd]
+                partial.append(fw_s_half(x, y, 0, kh, passes) + fw_s_half(x, y, kh, pd // KS, passes))
+            for me, (c0, pd) in enumerate(zip(c0s, parts)):
+                s = partial[0]
+                for r in range(1, n):  # in rank order
+                    s = s + partial[r]
+                x = (s.double() * sl2 + mask[:, :, :, keys].double()).float()  # fmaf
+                mx = torch.maximum(m[me, g], x.amax(-1))
+                alpha = torch.exp2(m[me, g] - mx)
+                p = torch.exp2(x - mx[..., None])
+                l[me, g] = l[me, g] * alpha + p.sum(-1)
+                m[me, g] = mx
+                acc[me][g] = fw_pv(acc[me][g] * alpha[..., None], p, v[:, :, keys, c0:c0 + pd],
+                                   passes)
     o = torch.zeros(B, h, L, d)
     lses = []
-    for c0 in range(0, d, CS):
-        cols = slice(c0, min(c0 + CS, d))
-        m = torch.full((B, h, L), -math.inf)
-        l = torch.zeros(B, h, L)
-        acc = torch.zeros(B, h, L, cols.stop - c0)
-        for j in range(0, L, BS):
-            keys = slice(j, j + BS)
-            kt = k[:, :, keys].transpose(-1, -2)
-            s = torch.zeros(B, h, L, BS)
-            for ch in range(0, d, DC):  # the chunks, each a run of k-steps
-                for k0 in range(ch, min(ch + DC, d), KS):
-                    s = _mma(s, q[..., k0:k0 + KS], kt[..., k0:k0 + KS, :], passes)
-            x = (s.double() * sl2 + mask[:, :, :, keys].double()).float()  # fmaf
-            mx = torch.maximum(m, x.amax(-1))
-            alpha = torch.exp2(m - mx)
-            p = torch.exp2(x - mx[..., None])
-            l = l * alpha + p.sum(-1)
-            m = mx
-            acc = acc * alpha[..., None]
-            for k0 in range(0, BS, KS):
-                acc = _mma(acc, p[..., k0:k0 + KS], v[:, :, j + k0:j + k0 + KS, cols], passes)
-        o[..., cols] = acc * (1.0 / l)[..., None]
-        lses.append(m * np.float32(math.log(2.0)) + torch.log(l))
+    for me, (c0, pd) in enumerate(zip(c0s, parts)):  # the key groups merged by their row max
+        mt = m[me].amax(0)
+        f = torch.exp2(m[me] - mt)
+        lt, om = f[0] * l[me, 0], f[0][..., None] * acc[me][0]
+        for g in range(1, KQ):
+            lt = lt + f[g] * l[me, g]
+            om = om + f[g][..., None] * acc[me][g]
+        o[..., c0:c0 + pd] = om * (1.0 / lt)[..., None]
+        lses.append(mt * np.float32(math.log(2.0)) + torch.log(lt))
     return o, lses
 
 
 def test_wide_emulation_matches_the_library_kernel():
-    """At d = 528, L = 256: o within 1e-4 x its largest value of the JAX
-    library kernel (interpret mode) and lse of the float64 log-sum-exp;
-    every column slice's lse bitwise the first's (only the first writes it);
-    one TF32 pass misses the bound."""
+    """At d = 528, L = 256 (a cluster of two ranks of 264 columns, the
+    training layout of 64 query rows a block): o within 1e-4 x its largest
+    value of the JAX library kernel (interpret mode) and of float64 plain,
+    lse within 1e-4 x its largest value of the float64 log-sum-exp; every
+    rank's lse bitwise rank 0's (only rank 0 writes it); one TF32 pass
+    misses the bound."""
     B, h, L, d = 1, 1, 256, 528
     q, k, v, seg, do = _attention_inputs(528, B, h, L, d, (203,))
     scale = 1.0 / np.sqrt(d)
     want_o = _jax_attention(q, k, v, seg, scale, do)[0]
     qt, kt, vt, st = (torch.from_numpy(x) for x in (q, k, v, seg))
     o, lses = emulate_wide_fwd(qt, kt, vt, st, scale)
-    assert len(lses) == fa.head_dim_path(d)["slices"]["fwd"] == 5
+    path = fa.head_dim_path(d)
+    assert path["path"] == "cluster" and path["parts"] == [264, 264] == fa.cluster_parts(d)
+    assert len(lses) == path["ranks"] == 2
     assert all(torch.equal(x, lses[0]) for x in lses[1:])
-    np.testing.assert_allclose(o.numpy(), want_o, rtol=0, atol=1e-4 * np.abs(want_o).max())
+    bound = 1e-4 * np.abs(want_o).max()
+    np.testing.assert_allclose(o.numpy(), want_o, rtol=0, atol=bound)
+    plain = fa.flash_attention_plain(qt.double(), kt.double(), vt.double(), st, scale)
+    assert (o.double() - plain).abs().max() <= 1e-4 * plain.abs().max()
     s = torch.einsum("bhqd,bhkd->bhqk", qt.double(), kt.double()) * scale
     same = st[:, None, :, None] == st[:, None, None, :]
     want_lse = torch.logsumexp(s + torch.where(same, 0.0, fa.MASK_VALUE).double(), dim=-1)
     assert (lses[0].double() - want_lse).abs().max() <= 1e-4 * want_lse.abs().max()
     o1 = emulate_wide_fwd(qt, kt, vt, st, scale, passes=1)[0]
-    assert np.abs(o1.numpy() - want_o).max() > 1e-4 * np.abs(want_o).max(), "one pass held"
+    assert np.abs(o1.numpy() - want_o).max() > bound, "one pass held"
 
 
 def test_the_source_holds_what_the_wide_emulation_follows():

@@ -173,11 +173,53 @@
 // Neither backward kernel uses atomics: each output row belongs to one
 // block, so a step is bitwise repeatable.
 //
-// The wide head dims (namespace wd: forward, dK/dV and dQ, float32 and bf16
-// as one template on mma.sync). At d = 272 the tuned kernels above hold
-// whole rows of their tiles in shared memory and use all that a block may
-// have, so a head dim above DMAX runs these kernels, whose shared memory and
-// registers do not grow with d: a block owns BR = 64 output rows (4 warps of
+// The float32 wide head dims on clusters (namespace cl: forward, dK/dV and
+// dQ). At d = 272 the tuned kernels above hold whole rows of their tiles in
+// shared memory and use all that a block may have. Above DMAX a float32
+// call launches thread block clusters of n = ceil(d / PART_MAX) blocks
+// (PART_MAX = 264; n at most CLUSTER_MAX = 8, the portable cluster size, so
+// d up to 2112), one cluster for each of the tuned kernel's blocks. Rank r
+// of a cluster owns a contiguous part of the head dim (d's n-tiles of 8
+// columns split as evenly as they go, the wider parts first: 528 -> 264 +
+// 264, 280 -> 144 + 136, 1040 -> 264 + 264 + 256 + 256): the Q and K (dO
+// and V) columns it multiplies for S (dP), and the output columns it owns
+// (o; dK, dV; dQ). Each block is the tuned float32 kernel's block at its
+// part (the forward fw's, its warp pairs splitting the part; the backward
+// tf's), except that S (and dP) over its part is a partial: every warp
+// writes its partial tile to its block's exchange, the cluster barrier
+// passes, and every warp reads the same tile of every rank's exchange
+// through distributed shared memory (mapa + ld.shared::cluster, 16 bytes a
+// lane) and sums them in rank order (the forward's pair halves summed first
+// within each rank). So every rank holds bitwise the same S and dP, m and l
+// (rank 0 writes lse), and no block computes S or dP over a part it does not
+// own: S and dP are computed once across the cluster, each operand tile is
+// read by the one block that owns its columns, and no atomics are needed.
+// The exchange is one buffer, not two: at a part of 264 the forward's
+// layout (BQ = 64) already takes 220,672 bytes, and a second 16,384-byte
+// buffer would not fit (the backward's 228,352 bytes likewise with a second
+// 8,192). So the cluster barrier is split: a step writes its partials after
+// waiting on the arrival that every rank made once it had read the last
+// step's, which leaves that wait under the next step's S. In the forward a
+// warp pair first sums its two halves in its block's shared memory (fw's
+// pair exchange, one pair barrier) and the cluster exchanges one partial a
+// pair (8,192 bytes more at 64 rows: 228,864), and P.V of key tile j - 1
+// runs between the arrival at step j's exchange barrier and the wait on it
+// (V arrives a step after K; O sees the same operations in the same
+// order). Times from scripts/bench_k5_breakdown.py
+// --wide on an NVIDIA H100 80GB HBM3 at 700 W, [24, 1, 512, 528] / [1, 1,
+// 1024, 528]: with neither 0.437 / 0.149 ms, each half's partial
+// exchanged 0.426 / 0.145, P.V after the exchange 0.419 / 0.149, both
+// 0.416 / 0.145. What bounds them now: the exchange and its exposed
+// barrier, 19 % / 35 % of the forward (taken out: 0.339 / 0.095, fw's
+// time at [24, 2, 512, 264]) and 16 % / 18 % of dK/dV / dQ (0.909 ->
+// 0.767, 0.778 -> 0.635 ms at [24, 1, 512, 528]); the rest is fw's and
+// tf's. Parts stop at 264, not 272: at 272 the backward's tiles take all
+// of a block's shared memory and leave no room for its exchange.
+//
+// The wide head dims otherwise (namespace wd: forward, dK/dV and dQ, float32
+// and bf16 as one template on mma.sync): every bf16 head dim above DMAX, and
+// a float32 one above the clusters' reach, runs these kernels, whose shared
+// memory and registers do not grow with d: a block owns BR = 64 output rows (4 warps of
 // 16) and one column slice of its output (the forward's o and dQ 128
 // columns, dK and dV 64: two accumulators), and streams the operands of S
 // (and of dP) through shared memory in head-dim chunks of 128 bytes a row
@@ -198,7 +240,7 @@
 // Supported: d a multiple of 8 (the wrapper zero-pads any other), L a
 // multiple of 64, every tensor's base 16-byte aligned and its batch, head
 // and row strides multiples of 16 bytes: d <= DMAX = 272 on fw, tf and wg,
-// above it on wd. Anything else returns cudaErrorInvalidValue (the wrapper
+// above it on cl (float32 up to 2112) and wd. Anything else returns cudaErrorInvalidValue (the wrapper
 // checks first and says why).
 #include <cuda.h>  // CUtensorMap (cuTensorMapEncodeTiled is looked up at run time)
 #include <cuda_bf16.h>
@@ -2306,6 +2348,552 @@ __global__ void __launch_bounds__(THREADS_W, 1) dq_kernel(Args a) {
 
 }  // namespace wd
 
+// ---- the float32 wide head dims on thread block clusters (namespace cl):
+// each block of a cluster owns one part of the head dim. See the header.
+namespace cl {
+
+constexpr int PART_MAX = 264;    // the widest part a block takes (a multiple of 8)
+constexpr int CLUSTER_MAX = 8;   // the portable cluster size: d up to CLUSTER_MAX * PART_MAX
+constexpr int XCH_BWD = WARPS * 2 * 128;  // the backward's exchange (floats): a warp's 16 x 16 tile
+
+__device__ __forceinline__ int ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return (int)r;
+}
+// The cluster barrier in its two halves: every thread of every block of the
+// cluster arrives (its shared-memory writes and reads before it are then
+// done), and a wait returns once all have.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// 16 bytes at p (a shared-memory address of this block) in block `rank`'s
+// shared memory (distributed shared memory)
+__device__ __forceinline__ float4 ld_rank(const float* p, int rank) {
+  uint32_t at;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(at) : "r"(tc::smem_u32(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(at) : "memory");
+  return v;
+}
+
+// The parts of a head dim d (a multiple of 8): n = ceil(d / PART_MAX)
+// ranks; of its d / 8 = q n + m n-tiles, rank r takes q (the first m
+// ranks q + 1) from n-tile r q + min(r, m) on.
+__host__ __device__ inline int ranks(int d) { return (d / 8 + PART_MAX / 8 - 1) / (PART_MAX / 8); }
+struct Part {
+  int c0, pd, pd0;  // its first column, its width, rank 0's width (the widest: every rank's layout)
+  __host__ __device__ Part(int d, int n, int r) {
+    const int nt = d / 8, q = nt / n, m = nt % n;
+    c0 = 8 * (r * q + (r < m ? r : m));
+    pd = 8 * (q + (r < m ? 1 : 0));
+    pd0 = 8 * (q + (m > 0 ? 1 : 0));
+  }
+};
+
+// x (a warp's C fragments, 4 floats a lane an n-tile) = the sum over the
+// cluster's ranks, in rank order, of each rank's partial at `slot`.
+template <int N>
+__device__ __forceinline__ void sum_ranks(float (&x)[N][4], const float* slot, int n, int lane) {
+  for (int r = 0; r < n; ++r) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      const float4 p = ld_rank(slot + c * 128 + lane * 4, r);
+      x[c][0] = r ? x[c][0] + p.x : p.x;
+      x[c][1] = r ? x[c][1] + p.y : p.y;
+      x[c][2] = r ? x[c][2] + p.z : p.z;
+      x[c][3] = r ? x[c][3] + p.w : p.w;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void put_slot(float* slot, const float (&x)[N][4], int lane) {
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+    *reinterpret_cast<float4*>(slot + c * 128 + lane * 4) = make_float4(x[c][0], x[c][1], x[c][2],
+                                                                        x[c][3]);
+}
+
+// Shared memory of the forward: fw's at rank 0's part, then a slot of S's
+// partial for each warp pair.
+template <int RG>
+__host__ __device__ inline size_t fwd_smem(int pd0) {
+  return fw::Smem<F32, RG>(pd0).bytes +
+         (size_t)fw::PAIRS * fw::Tile<F32, RG>::NS * 128 * sizeof(float);
+}
+
+// o and lse of BQ query rows, o's columns of this rank's part: out0 = o,
+// out1 = lse (rank 0). fw's block at the part: each warp pair sums its
+// halves of S in shared memory, the pairs' sums are summed across the
+// cluster, and P.V of key tile j - 1 runs under step j's exchange barrier
+// (V arrives a step after K).
+template <int RG>
+__global__ void __launch_bounds__(THREADS, 1) fwd_kernel(Args a) {
+  using C = fw::Tile<F32, RG>;
+  constexpr int KQ = C::KQ, BK = C::BK, KW = C::KW, NS = C::NS, NTD = C::NTD;
+  constexpr int PAIRS = fw::PAIRS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = nctarank(), rank = ctarank();
+  const Part pt(a.d, n, rank);
+  const fw::Smem<F32, RG> lay(pt.pd0);  // one layout in every rank: the exchange at one offset
+  float* Qs = reinterpret_cast<float*>(smem + lay.q);
+  float* Kb = reinterpret_cast<float*>(smem + lay.k);
+  float* Vb = reinterpret_cast<float*>(smem + lay.v);
+  float* xch = reinterpret_cast<float*>(smem + lay.xch);
+  int* segq = reinterpret_cast<int*>(smem + lay.segq);
+  int* segk = reinterpret_cast<int*>(smem + lay.segk);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int u = warp % PAIRS, dh = warp / PAIRS, rg = u % RG, kq = u / RG;
+  const int pd = pt.pd, ldq = fw::ld_qk<F32>(pt.pd0), ldv = fw::ld_v<F32>(pt.pd0), nt = pd / 8;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x / n * C::BQ;
+  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh + pt.c0;  // this rank's columns
+  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
+  const float* kcols = static_cast<const float*>(a.k) + base;
+  const float* vcols = static_cast<const float*>(a.v) + base;
+  const int lid = threadIdx.x;
+
+  // this warp's half of the part: S's k-steps [kb, ke), O's n-tiles n0.. (ntw)
+  const int kh = (nt + 1) / 2, kb = dh ? kh : 0, ke = dh ? nt : kh;
+  const int n0 = dh ? kh : 0, ntw = dh ? nt - kh : kh;
+
+  // key tile j's part of K and its segment ids, or its part of V, into
+  // buffer j & 1 (a step commits one group: K of tile j + 1, V of tile j)
+  auto fetch_k = [&](int j) {
+    fw::copy_rows(Kb + (j & 1) * BK * ldq, ldq, kcols + (size_t)j * BK * a.sl, a.sl, BK, pd);
+    if (lid < BK) {
+      if (seg) tf::cp_async4(segk + (j & 1) * BK + lid, seg + j * BK + lid);
+      else segk[(j & 1) * BK + lid] = 0;
+    }
+  };
+  auto fetch_v = [&](int j) {
+    fw::copy_rows(Vb + (j & 1) * BK * ldv, ldv, vcols + (size_t)j * BK * a.sl, a.sl, BK, pd);
+  };
+  fw::copy_rows(Qs, ldq, static_cast<const float*>(a.q) + base + (size_t)q0 * a.sl, a.sl, C::BQ,
+                pd);
+  if (lid < C::BQ) {
+    if (seg) tf::cp_async4(segq + lid, seg + q0 + lid);
+    else segq[lid] = 0;
+  }
+  fetch_k(0);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+
+  float acc[NTD][4];
+#pragma unroll
+  for (int i = 0; i < NTD; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float pp[NS][4];  // P of the last key tile
+  int sq[2] = {0, 0};
+  const float sl2 = a.scale * fw::LOG2E;
+  // this warp's half of S and its partner's; the pair's partial, which
+  // warp dh = 0 publishes to the cluster
+  float* mine = xch + warp * (NS * 128);
+  const float* other = xch + (warp ^ PAIRS) * (NS * 128);
+  float* slot = reinterpret_cast<float*>(smem + lay.bytes) + u * (NS * 128);
+  auto pv_of = [&](const float (&p)[NS][4], int j) {
+    fw::pv<NS, NTD>(acc, p, Vb + ((j & 1) * BK + kq * KW) * ldv, ldv, n0, ntw, lane, g, t);
+  };
+
+  const int steps = a.L / BK;
+  for (int j = 0; j < steps; ++j) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();  // K of tile j and V of tile j - 1 have arrived; the other buffers are free
+    if (j + 1 < steps) fetch_k(j + 1);
+    fetch_v(j);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    if (j == 0) {
+      sq[0] = segq[rg * 16 + g];
+      sq[1] = segq[rg * 16 + g + 8];
+    }
+    const float* Kt = Kb + ((j & 1) * BK + kq * KW) * ldq;
+    const int* sk = segk + (j & 1) * BK + kq * KW + 2 * t;
+    float s[NS][4];
+    fw::s_part<NS>(s, Qs + rg * 16 * ldq, Kt, ldq, kb, ke, g, t);
+    // the pair's halves: x0 + x1 in both warps
+    put_slot<NS>(mine, s, lane);
+    tf::named_sync(1 + u, 64);  // the partner's half is written
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      const float4 y = *reinterpret_cast<const float4*>(other + c * 128 + lane * 4);
+      s[c][0] += y.x;
+      s[c][1] += y.y;
+      s[c][2] += y.z;
+      s[c][3] += y.w;
+    }
+    // S = the ranks' partials summed in rank order: the same S, m and l in
+    // every rank. The exchange is written once every rank has read the
+    // last step's (the second half of its barrier, arrived at below).
+    if (j > 0) cluster_wait();
+    if (dh == 0) put_slot<NS>(slot, s, lane);
+    cluster_arrive();
+    if (j > 0) pv_of(pp, j - 1);  // under the barrier
+    cluster_wait();
+    sum_ranks<NS>(s, slot, n, lane);
+    cluster_arrive();
+    // the online softmax of rows g and g + 8 (lane quads share a row)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = fmaf(s[c][e], sl2, sq[e >> 1] == sk[c * 8 + (e & 1)] ? 0.f : MASK);
+        s[c][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);  // 0 on the first step (m = -inf)
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[c][e] - m[e >> 1]);
+        s[c][e] = p;
+        ls[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < NTD; ++i) {
+        acc[i][0] *= alpha[0];
+        acc[i][1] *= alpha[0];
+        acc[i][2] *= alpha[1];
+        acc[i][3] *= alpha[1];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pp[c][e] = s[c][e];
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();  // V of the last key tile has arrived
+  pv_of(pp, steps - 1);
+  cluster_wait();  // no rank reads this block's exchange any more: it may exit
+
+  // each row's sum over the quad; key groups merge by their row max (fw's)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float mt[2] = {m[0], m[1]}, lt[2] = {l[0], l[1]};
+  if constexpr (KQ > 1) {
+    float* ml = reinterpret_cast<float*>(smem + lay.ml);  // [rg][kq][row]{m, l}
+    float* part = reinterpret_cast<float*>(smem + lay.k);
+    __syncthreads();  // every warp is done with K and V: their buffers take the partial O's
+    if (dh == 0 && t == 0) {
+      float* x = ml + (rg * KQ + kq) * 32;
+      x[2 * g] = m[0];
+      x[2 * g + 1] = l[0];
+      x[2 * (g + 8)] = m[1];
+      x[2 * (g + 8) + 1] = l[1];
+    }
+    __syncthreads();
+    float f[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* x = ml + rg * KQ * 32 + 2 * (g + 8 * r);
+      float mm = x[0];
+#pragma unroll
+      for (int w = 1; w < KQ; ++w) mm = fmaxf(mm, x[w * 32]);
+      float ll = 0.f;
+#pragma unroll
+      for (int w = 0; w < KQ; ++w) ll += exp2f(x[w * 32] - mm) * x[w * 32 + 1];
+      mt[r] = mm;
+      lt[r] = ll;
+      f[r] = exp2f(m[r] - mm);
+    }
+#pragma unroll
+    for (int i = 0; i < NTD; ++i) {
+      acc[i][0] *= f[0];
+      acc[i][1] *= f[0];
+      acc[i][2] *= f[1];
+      acc[i][3] *= f[1];
+    }
+    auto at = [&](int w) { return part + ((rg * (KQ - 1) + w - 1) * 2 + dh) * (NTD * 128); };
+    if (kq != 0) {
+      float* x = at(kq) + lane * 4;
+#pragma unroll
+      for (int i = 0; i < NTD; ++i)
+        if (i < ntw)
+          *reinterpret_cast<float4*>(x + i * 128) = make_float4(acc[i][0], acc[i][1], acc[i][2],
+                                                                acc[i][3]);
+    }
+    __syncthreads();
+    if (kq == 0) {
+#pragma unroll
+      for (int w = 1; w < KQ; ++w) {
+        const float* x = at(w) + lane * 4;
+#pragma unroll
+        for (int i = 0; i < NTD; ++i)
+          if (i < ntw) {
+            const float4 y = *reinterpret_cast<const float4*>(x + i * 128);
+            acc[i][0] += y.x;
+            acc[i][1] += y.y;
+            acc[i][2] += y.z;
+            acc[i][3] += y.w;
+          }
+      }
+    }
+  }
+  if (kq == 0) {
+    const float inv0 = 1.f / lt[0], inv1 = 1.f / lt[1];
+    float* out = static_cast<float*>(a.out0) + base + (size_t)(q0 + rg * 16 + g) * a.sl + 2 * t;
+#pragma unroll
+    for (int i = 0; i < NTD; ++i) {
+      const int nn = n0 + i;
+      if (i < ntw && nn < nt) {
+        F32::store2(out + nn * 8, acc[i][0] * inv0, acc[i][1] * inv0);
+        F32::store2(out + (size_t)8 * a.sl + nn * 8, acc[i][2] * inv1, acc[i][3] * inv1);
+      }
+    }
+    if (rank == 0 && dh == 0 && t == 0) {  // every rank has the same m and l
+      float* lse = static_cast<float*>(a.out1) + ((size_t)b * a.H + h) * a.L + q0 + rg * 16 + g;
+      lse[0] = mt[0] * fw::LN2 + logf(lt[0]);
+      lse[8] = mt[1] * fw::LN2 + logf(lt[1]);
+    }
+  }
+}
+
+// tf::s_p_ds on the part, with each warp's S (S^T) or dP (dP^T) tile summed
+// across the cluster before P and dS: xch is this block's exchange, `first`
+// the block's first step.
+__device__ __forceinline__ void s_p_ds(const float* xs, const float* xd, const float* ys,
+                                       const float* yd, int ld, int pd, bool rows_are_keys,
+                                       const float* lse, const float* dsum, const int* segq,
+                                       const int* segk, float scale, float* pa, float* pb,
+                                       bool write_pt, float* xch, int n, bool first) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rg = (warp & 3) >> 1, cg = warp & 1;
+  const bool is_s = warp < 4;
+  float s[2][4];
+  tf::s_tile(s, (is_s ? xs : xd) + rg * 16 * ld, (is_s ? ys : yd) + cg * 16 * ld, ld, pd, g, t);
+  float* slot = xch + warp * 256;
+  if (!first) cluster_wait();  // every rank has read the last step's partials
+  put_slot<2>(slot, s, lane);
+  cluster_arrive();
+  cluster_wait();
+  sum_ranks<2>(s, slot, n, lane);
+  cluster_arrive();
+  const int r0 = rg * 16, c0 = cg * 16;
+  float* hand = pb + (warp & 3) * 8 * 32 + lane;
+  if (is_s) {
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + 8 * (e >> 1), c = c0 + nn * 8 + 2 * t + (e & 1);
+        const int qi = rows_are_keys ? c : r, ki = rows_are_keys ? r : c;
+        const float x = s[nn][e] * scale + (segq[qi] == segk[ki] ? 0.f : MASK);
+        const float p = expf(x - lse[qi]);
+        hand[(nn * 4 + e) * 32] = p;
+        if (write_pt) tf::store_frag(pa, r, c, p);
+      }
+  }
+  __syncthreads();  // P handed over
+  if (!is_s) {
+    float p[2][4];
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[nn][e] = hand[(nn * 4 + e) * 32];
+    tf::named_sync(1, 128);  // every dP warp has read P before pb is overwritten
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + 8 * (e >> 1), c = c0 + nn * 8 + 2 * t + (e & 1);
+        const int qi = rows_are_keys ? c : r;
+        tf::store_frag(pb, r, c, p[nn][e] * (s[nn][e] - dsum[qi]) * scale);
+      }
+  }
+}
+
+// Shared memory of the backward: tf's at rank 0's part, then the exchange.
+__host__ __device__ inline size_t bwd_xch(int pd0) { return tf::Smem(pd0).bytes; }
+__host__ __device__ inline size_t bwd_smem(int pd0) {
+  return bwd_xch(pd0) + XCH_BWD * sizeof(float);
+}
+
+// dK and dV of one key tile of TB rows, this rank's columns: out0 = dk,
+// out1 = dv. tf's block at the part: it streams its part of Q and dO.
+__global__ void __launch_bounds__(THREADS, 1) dkv_kernel(Args a) {
+  using tf::TB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = nctarank(), rank = ctarank();
+  const Part pt(a.d, n, rank);
+  const tf::Smem lay(pt.pd0);
+  float* Ks = reinterpret_cast<float*>(smem + lay.res0);
+  float* Vs = reinterpret_cast<float*>(smem + lay.res1);
+  float* Pt = reinterpret_cast<float*>(smem + lay.pa);
+  float* dSt = reinterpret_cast<float*>(smem + lay.pb);
+  int* segk = reinterpret_cast<int*>(smem + lay.segk);
+  float* xch = reinterpret_cast<float*>(smem + bwd_xch(pt.pd0));
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int pd = pt.pd, ld = tf::ld_of(pt.pd0), nt = pd / 8;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x / n * TB;
+  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh + pt.c0;  // this rank's columns
+  const size_t rows = ((size_t)b * a.H + h) * a.L;
+  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
+  const float* qcols = static_cast<const float*>(a.q) + base;
+  const float* docols = static_cast<const float*>(a.dout) + base;
+
+  // query tile j's part of Q and dO, its lse, D and segment ids into buffer j & 1
+  const int lid = threadIdx.x;
+  auto fetch = [&](int j) {
+    float* dst = reinterpret_cast<float*>(smem + ((j & 1) ? lay.buf1 : lay.buf0));
+    const size_t row0 = (size_t)j * TB * a.sl;
+    const int o = (j & 1) * TB;
+    tf::copy2(dst, dst + TB * ld, ld, qcols + row0, docols + row0, a.sl, pd);
+    if (lid < TB) {
+      tf::cp_async4(reinterpret_cast<float*>(smem + lay.lse) + o + lid, a.lse + rows + j * TB + lid);
+      tf::cp_async4(reinterpret_cast<float*>(smem + lay.dsum) + o + lid,
+                    a.dsum + rows + j * TB + lid);
+      if (seg) tf::cp_async4(reinterpret_cast<int*>(smem + lay.segq) + o + lid, seg + j * TB + lid);
+      else reinterpret_cast<int*>(smem + lay.segq)[o + lid] = 0;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  tf::copy2(Ks, Vs, ld, static_cast<const float*>(a.k) + base + (size_t)k0 * a.sl,
+            static_cast<const float*>(a.v) + base + (size_t)k0 * a.sl, a.sl, pd);
+  load_seg(segk, seg ? seg + k0 : nullptr, TB);
+  fetch(0);
+
+  // dV += P^T dO (warps 0-3), dK += dS^T Q (4-7): both row groups, n-tiles
+  // (w & 3) + 4 i of the part
+  const bool is_dv = warp < 4;
+  float acc[2][tf::NTW_KV][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < tf::NTW_KV; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][i][e] = 0.f;
+
+  const int steps = a.L / TB;
+  for (int j = 0; j < steps; ++j) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();  // query tile j has arrived; tile j - 1 is done with the other buffer
+    if (j + 1 < steps) fetch(j + 1);
+    const float* Qt = reinterpret_cast<const float*>(smem + ((j & 1) ? lay.buf1 : lay.buf0));
+    const float* dOt = Qt + TB * ld;
+    const int o = (j & 1) * TB;
+    // S^T = K Q^T, dP^T = V dO^T, each summed across the cluster
+    s_p_ds(Ks, Vs, Qt, dOt, ld, pd, true, reinterpret_cast<const float*>(smem + lay.lse) + o,
+           reinterpret_cast<const float*>(smem + lay.dsum) + o,
+           reinterpret_cast<const int*>(smem + lay.segq) + o, segk, a.scale, Pt, dSt, true, xch,
+           n, j == 0);
+    if (is_dv) {
+      tf::accumulate(acc, Pt, dOt, ld, nt, warp & 3, 4, lane, g, t);
+    } else {
+      tf::named_sync(2, 128);  // dS^T is complete
+      tf::accumulate(acc, dSt, Qt, ld, nt, warp & 3, 4, lane, g, t);
+    }
+  }
+  cluster_wait();  // no rank reads this block's exchange any more: dK and dV out
+  float* out = static_cast<float*>(is_dv ? a.out1 : a.out0) + base + (size_t)k0 * a.sl;
+  store_rows<F32, tf::NTW_KV>(out, a.sl, acc[0], 1.f, 1.f, nt, warp & 3, 4, g, t);
+  store_rows<F32, tf::NTW_KV>(out + (size_t)16 * a.sl, a.sl, acc[1], 1.f, 1.f, nt, warp & 3, 4, g,
+                              t);
+}
+
+// dQ of one query tile of TB rows, this rank's columns: out0 = dq. tf's block
+// at the part: it streams its part of K and V.
+__global__ void __launch_bounds__(THREADS, 1) dq_kernel(Args a) {
+  using tf::TB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = nctarank(), rank = ctarank();
+  const Part pt(a.d, n, rank);
+  const tf::Smem lay(pt.pd0);
+  float* Qs = reinterpret_cast<float*>(smem + lay.res0);
+  float* dOs = reinterpret_cast<float*>(smem + lay.res1);
+  float* dSs = reinterpret_cast<float*>(smem + lay.pb);
+  float* lse_s = reinterpret_cast<float*>(smem + lay.lse);
+  float* dsum_s = reinterpret_cast<float*>(smem + lay.dsum);
+  int* segq = reinterpret_cast<int*>(smem + lay.segq);
+  int* segk = reinterpret_cast<int*>(smem + lay.segk);
+  float* xch = reinterpret_cast<float*>(smem + bwd_xch(pt.pd0));
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int pd = pt.pd, ld = tf::ld_of(pt.pd0), nt = pd / 8;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x / n * TB;
+  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh + pt.c0;  // this rank's columns
+  const size_t rows = ((size_t)b * a.H + h) * a.L;
+  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
+  const float* kcols = static_cast<const float*>(a.k) + base;
+  const float* vcols = static_cast<const float*>(a.v) + base;
+
+  // key tile j's part of K and V and its segment ids into buffer j & 1
+  const int lid = threadIdx.x;
+  auto fetch = [&](int j) {
+    float* dst = reinterpret_cast<float*>(smem + ((j & 1) ? lay.buf1 : lay.buf0));
+    const size_t row0 = (size_t)j * TB * a.sl;
+    const int o = (j & 1) * TB;
+    tf::copy2(dst, dst + TB * ld, ld, kcols + row0, vcols + row0, a.sl, pd);
+    if (lid < TB) {
+      if (seg) tf::cp_async4(segk + o + lid, seg + j * TB + lid);
+      else segk[o + lid] = 0;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  tf::copy2(Qs, dOs, ld, static_cast<const float*>(a.q) + base + (size_t)q0 * a.sl,
+            static_cast<const float*>(a.dout) + base + (size_t)q0 * a.sl, a.sl, pd);
+  if (lid < TB) {
+    lse_s[lid] = a.lse[rows + q0 + lid];
+    dsum_s[lid] = a.dsum[rows + q0 + lid];
+  }
+  load_seg(segq, seg ? seg + q0 : nullptr, TB);
+  fetch(0);
+
+  // dQ += dS K: both row groups, n-tiles w + 8 i of the part
+  float acc[2][tf::NTW_Q][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < tf::NTW_Q; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][i][e] = 0.f;
+
+  const int steps = a.L / TB;
+  for (int j = 0; j < steps; ++j) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();  // key tile j has arrived; tile j - 1 is done with the other buffer
+    if (j + 1 < steps) fetch(j + 1);
+    const float* Kt = reinterpret_cast<const float*>(smem + ((j & 1) ? lay.buf1 : lay.buf0));
+    const float* Vt = Kt + TB * ld;
+    // S = Q K^T, dP = dO V^T, each summed across the cluster
+    s_p_ds(Qs, dOs, Kt, Vt, ld, pd, false, lse_s, dsum_s, segq, segk + (j & 1) * TB, a.scale,
+           nullptr, dSs, false, xch, n, j == 0);
+    __syncthreads();  // dS is complete
+    tf::accumulate(acc, dSs, Kt, ld, nt, warp, WARPS, lane, g, t);
+  }
+  cluster_wait();  // no rank reads this block's exchange any more: dQ out
+  float* out = static_cast<float*>(a.out0) + base + (size_t)q0 * a.sl;
+  store_rows<F32, tf::NTW_Q>(out, a.sl, acc[0], 1.f, 1.f, nt, warp, WARPS, g, t);
+  store_rows<F32, tf::NTW_Q>(out + (size_t)16 * a.sl, a.sl, acc[1], 1.f, 1.f, nt, warp, WARPS, g,
+                             t);
+}
+
+}  // namespace cl
+
 // ---- host side
 
 template <class P>
@@ -2356,6 +2944,49 @@ cudaError_t launch_wide(K kernel, int cs, size_t smem, const Args& a, void* stre
                 wd::THREADS_W);
 }
 
+// A float32 call above DMAX runs on clusters of cl::ranks(d) blocks while
+// that is a portable cluster; a wider one, and every bf16 call above DMAX,
+// on namespace wd. A rule on d, not a fallback.
+template <class P>
+bool on_clusters(const Args& a) {
+  return std::is_same_v<P, F32> && a.d > DMAX && cl::ranks(a.d) <= cl::CLUSTER_MAX;
+}
+
+// A cluster kernel on its grid, (row tiles x ranks, H, B) in clusters of
+// (ranks, 1, 1), once the card has said that such a cluster fits.
+template <class K>
+cudaError_t launch_cluster(K kernel, int tile_rows, size_t smem, const Args& a, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  const int n = cl::ranks(a.d);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = n;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.L / tile_rows * n, a.H, a.B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int RG>
+int cl_fwd_launch(const Args& a, void* stream) {
+  const cl::Part p0(a.d, cl::ranks(a.d), 0);
+  return (int)launch_cluster(cl::fwd_kernel<RG>, 16 * RG, cl::fwd_smem<RG>(p0.pd0), a, stream);
+}
+
 template <class P, int RG>
 int fwd_launch(const Args& a, void* stream) {
   return (int)launch(fw::fwd_kernel<P, RG>, dim3(a.L / (16 * RG), a.H, a.B),
@@ -2365,6 +2996,16 @@ int fwd_launch(const Args& a, void* stream) {
 template <class P>
 int fwd(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.out1) return (int)cudaErrorInvalidValue;
+  if (on_clusters<P>(a)) {
+    switch (fwd_tile(a.B, a.H * cl::ranks(a.d), a.L, sm_count())) {  // over every block
+      case 64:
+        return cl_fwd_launch<4>(a, stream);
+      case 32:
+        return cl_fwd_launch<2>(a, stream);
+      default:
+        return cl_fwd_launch<1>(a, stream);
+    }
+  }
   if (a.d > DMAX)
     return (int)launch_wide(wd::fwd_kernel<P>, wd::CS_FWD, wd::fwd_smem<P>(), a, stream);
   switch (fwd_tile(a.B, a.H, a.L, sm_count())) {
@@ -2425,6 +3066,9 @@ bool wg_params(wg::Params* p, const Args& a, const void* s0, const void* s1) {
 template <class P>
 int dkv(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.lse || !a.dsum || !a.out1) return (int)cudaErrorInvalidValue;
+  if (on_clusters<P>(a))
+    return (int)launch_cluster(cl::dkv_kernel, tf::TB,
+                               cl::bwd_smem(cl::Part(a.d, cl::ranks(a.d), 0).pd0), a, stream);
   if (a.d > DMAX)
     return (int)launch_wide(wd::dkv_kernel<P>, wd::CS_DKV, wd::dkv_smem<P>(), a, stream);
   if constexpr (std::is_same_v<P, F32>)
@@ -2439,6 +3083,9 @@ int dkv(const Args& a, void* stream) {
 template <class P>
 int dq(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.lse || !a.dsum) return (int)cudaErrorInvalidValue;
+  if (on_clusters<P>(a))
+    return (int)launch_cluster(cl::dq_kernel, tf::TB,
+                               cl::bwd_smem(cl::Part(a.d, cl::ranks(a.d), 0).pd0), a, stream);
   if (a.d > DMAX)
     return (int)launch_wide(wd::dq_kernel<P>, wd::CS_DQ, wd::dq_smem<P>(), a, stream);
   if constexpr (std::is_same_v<P, F32>)

@@ -33,8 +33,13 @@ any d_k == d_v. On both devices, before the kernel-or-plain dispatch,
 one (zero q and k lanes add nothing to the scores, zero v lanes are sliced
 off o; the gradients go back through the pad and the slice). On the card a
 head dim up to TUNED_HEAD_DIM = 272 runs the tuned kernels (namespaces fw,
-tf and wg of the source), a wider one the wide kernels (namespace wd),
-whose shared memory and registers do not grow with d.
+tf and wg of the source). Above it, a float32 head dim up to CLUSTER_MAX x
+CLUSTER_PART = 2112 runs the cluster kernels (namespace cl: a thread block
+cluster splits the head dim into parts, `cluster_parts`, and sums the
+parts' S and dP through distributed shared memory), and a bf16 one, or a
+float32 one above that, the wide kernels (namespace wd), whose shared
+memory and registers do not grow with d. Which runs is a rule on d and the
+dtype (`head_dim_path`), never a fallback.
 
 There is no fallback: a CUDA tensor the kernels do not take (L not a
 multiple of 64, another dtype, k or v shaped or strided unlike q) raises.
@@ -50,10 +55,14 @@ from zerovox_tpu_torch.ops import _cuda
 # all masked does not produce NaN in an online softmax
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIM_MULTIPLE = 8  # the kernels' head dims; flash_attention pads any other
-TUNED_HEAD_DIM = 272  # the largest the tuned kernels take; the wide kernels take the rest
+TUNED_HEAD_DIM = 272  # the largest the tuned kernels take; the cluster and wide kernels the rest
 # the columns of each output a block of the wide kernels computes (csrc's
 # wd::CS_FWD, CS_DKV, CS_DQ): S (and dP) are recomputed once a slice
 WIDE_SLICE = {"fwd": 128, "dkv": 64, "dq": 128}
+# the float32 cluster kernels (csrc's cl::PART_MAX, cl::CLUSTER_MAX): the
+# widest part of the head dim a block takes, the most blocks a cluster has
+CLUSTER_PART = 264
+CLUSTER_MAX = 8
 L_MULTIPLE = 64
 
 
@@ -67,15 +76,35 @@ def pad_head_dim(*ts):
     return tuple(torch.nn.functional.pad(t, (0, pad)).contiguous() for t in ts)
 
 
-def head_dim_path(d: int) -> dict:
-    """Which kernels take head dim d on the card: the padded dim, "tuned" or
-    "wide", and for the wide path the column slices of each kernel and the
-    work it does over the work of the function (S and dP recomputed once a
-    slice): the forward (slices + 1) / 2, dK/dV (slices + 1) / 2, dQ
-    (2 slices + 1) / 3, the whole backward (4 (dkv + 1) + 4 dq + 2) / 10."""
+def cluster_parts(d: int) -> list[int] | None:
+    """The widths of the parts into which the float32 cluster kernels split
+    a head dim d (a multiple of 8) above TUNED_HEAD_DIM, rank 0 first
+    (cl::Part: ceil(d / CLUSTER_PART) ranks, the n-tiles of 8 columns as
+    even as they go, the wider parts first), or None where that takes more
+    than CLUSTER_MAX ranks."""
+    nt, per = d // HEAD_DIM_MULTIPLE, CLUSTER_PART // HEAD_DIM_MULTIPLE
+    n = -(-nt // per)
+    if n > CLUSTER_MAX:
+        return None
+    q, m = divmod(nt, n)
+    return [HEAD_DIM_MULTIPLE * (q + (r < m)) for r in range(n)]
+
+
+def head_dim_path(d: int, dtype=torch.float32) -> dict:
+    """Which kernels take head dim d of `dtype` on the card: the padded dim
+    and "tuned", "cluster" or "wide". The cluster path gives its ranks and
+    parts; it computes S and dP once (recompute 1). The wide path gives the
+    column slices of each kernel and the work it does over the work of the
+    function (S and dP recomputed once a slice): the forward (slices + 1) /
+    2, dK/dV (slices + 1) / 2, dQ (2 slices + 1) / 3, the whole backward
+    (4 (dkv + 1) + 4 dq + 2) / 10."""
     dp = d + (-d % HEAD_DIM_MULTIPLE)
     if dp <= TUNED_HEAD_DIM:
         return {"head_dim": d, "padded_to": dp, "path": "tuned"}
+    parts = cluster_parts(dp) if dtype == torch.float32 else None
+    if parts is not None:
+        return {"head_dim": d, "padded_to": dp, "path": "cluster", "ranks": len(parts),
+                "parts": parts, "recompute": {"fwd": 1.0, "dkv": 1.0, "dq": 1.0, "bwd": 1.0}}
     ns = {k: -(-dp // cs) for k, cs in WIDE_SLICE.items()}
     return {"head_dim": d, "padded_to": dp, "path": "wide", "slices": ns,
             "recompute": {"fwd": (ns["fwd"] + 1) / 2, "dkv": (ns["dkv"] + 1) / 2,
@@ -278,6 +307,14 @@ def wide_registers() -> dict:
             for part, name in (("fwd", "2wd10fwd_kernel"), ("dkv", "2wd10dkv_kernel"),
                                ("dq", "2wd9dq_kernel"))
             for kind, tag in (("f32", "3F32"), ("bf16", "4BF16"))}
+
+
+def cluster_registers(rows: int) -> dict:
+    """_registers of the float32 cluster kernels (`cl::fwd_kernel<RG>` at
+    `rows` = 16 RG query rows a block, `cl::dkv_kernel`, `cl::dq_kernel`):
+    {"fwd": {...}, "dkv": {...}, "dq": {...}}."""
+    return {"fwd": _registers(f"2cl10fwd_kernelILi{rows // 16}E"),
+            "dkv": _registers("2cl10dkv_kernel"), "dq": _registers("2cl9dq_kernel")}
 
 
 def bwd_bf16_registers() -> dict:
