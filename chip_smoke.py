@@ -265,24 +265,28 @@ Phases, in order; any failure exits nonzero:
 23. Every head dim (`ZEROVOX_ATTN=flash`): tts_medium (`ZeroVoxConfig()`)
    with 4 heads in the encoder and the decoder (d = 528 / 4 = 132, which
    `flash_attention` zero-pads to 136 onto the tuned kernels) and with 1
-   head (d = 528: float32 on the cluster kernels, clusters of two blocks
-   each owning 264 columns; bf16 on the wide kernels), random weights from
+   head (d = 528: the cluster kernels, float32 on clusters of two blocks
+   each owning 264 columns; bf16's forward likewise, its backward on
+   clusters of three owning 176), random weights from
    seed 0 at full width and depth: (a) K5's rows of phase 21 at [1, h,
    1024, d], [24, h, 512, d] and [1, h, 256, d] (names ending `_d132`,
    `_d528`; inputs and valid lengths from seed 23; at d = 132 each timed
    call pads and slices as the model does), phase 21's bounds, the bound's
-   FLOP at d itself, the cluster's ranks and parts or the wide kernels'
-   recompute beside it, registers and spills, SDPA's time and backend or
-   its refusal; then the kernels of d above 272 alone at [1, 1, 256, 280]
-   (clusters of two), [1, 1, 256, 1040] (of four) and [1, 1, 256, 2184]
-   (above the clusters' reach: float32 too on the wide kernels), forward
+   FLOP at d itself, the cluster's ranks and parts (the backward's apart)
+   or the wide kernels' recompute beside it, registers and spills, SDPA's
+   time and backend or its refusal, each bf16 cluster row also held to the
+   float32 kernel on the widened inputs (one bf16 step forward, two
+   backward); then the kernels of d above 272 alone at [1, 1, 256, 280]
+   (clusters of two), [1, 1, 256, 1040] (of four; the bf16 backward of
+   six) and [1, 1, 256, 2184] (above both dtypes' reach: the wide
+   kernels), forward
    and backward (`_alone_d280`, `_alone_d1040`, `_alone_d2184`); (b) phase
    21's flash tts_ex on each config (10 K5 forward launches, float32 and
    bf16; within 1e-3 of einsum and of the CPU, bf16 within phase 15's
    bound); (c) phase 21's flash training on each config (6 + 6 + 6 K5
    launches a step, 12 + 6 + 6 with remat; float32 and bf16-mixed against
-   einsum; device ms and peak memory in turns in float32). `--only 23`
-   runs it after phases 1-2.
+   einsum; device ms and peak memory in turns in float32, and at d = 528
+   in bf16-mixed too). `--only 23` runs it after phases 1-2.
 
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]}, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -377,10 +381,11 @@ K5_SHAPES = (("", FLASH_SERVE_SHAPE), ("_train", FLASH_TRAIN_SHAPE), ("_enc", FL
 # phase 22: tts_medium_tpu's head dim 512 / 2 at the same lengths; rows named *_d256
 K5_D256_SHAPES = tuple((label, shape[:3] + (256,)) for label, shape in K5_SHAPES)
 # phase 23: tts_medium at 4 heads (d = 132: padded to 136) and 1 head (d =
-# 528: float32 on clusters of two blocks, bf16 on the wide kernels), rows
-# named *_d132, *_d528; the kernels of d above 272 alone at the first head
-# dim above the tuned ones (clusters of two), above 1024 (clusters of four)
-# and above the clusters' reach of 2112 (float32 on the wide kernels too)
+# 528: clusters of two blocks, the bf16 backward's of three), rows named
+# *_d132, *_d528; the kernels of d above 272 alone at the first head dim
+# above the tuned ones (clusters of two), above 1024 (clusters of four, the
+# bf16 backward's of six) and above the clusters' reach of 2112 (float32)
+# and 1408 (bf16): the wide kernels
 K5_HEAD_CONFIGS = ((4, 132), (1, 528))
 K5_ALONE_SHAPES = ((1, 1, 256, 280), (1, 1, 256, 1040), (1, 1, 256, 2184))
 # the default vocoder's kernels a tts_ex by width: K1 at stage 1, K2 at stages 2 and 3
@@ -3747,8 +3752,9 @@ def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "", seed: int = 21,
     the SDPA backend that ran and its gradients' largest distance from
     plain's. A head dim that is not a multiple of 8 runs as the model runs
     it: zero-padded by `pad_head_dim` inside each timed call, outputs
-    sliced back; a head dim above 272 runs the float32 cluster kernels
-    (rows with the cluster's ranks and parts) or the wide kernels, whose rows
+    sliced back; a head dim above 272 runs the cluster kernels (rows with
+    the cluster's ranks and parts, the bf16 ones also held to the float32
+    kernel on the widened inputs) or the wide kernels, whose rows
     carry the work they do over the bound's (`recompute`) and their
     registers. Inputs from `seed`, views of [B, L, h, d] tensors as the model
     passes them; segment ids with per-row valid lengths from the seed."""
@@ -3807,7 +3813,7 @@ def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "", seed: int = 21,
         scale = 1.0 / math.sqrt(d)
         mask = seg[:, None, :, None] == seg[:, None, None, :]
         paths = {dt: fa.head_dim_path(d, dt) for dt in (torch.float32, torch.bfloat16)}
-        wide = paths[torch.bfloat16]["path"] == "wide"
+        tuned = paths[torch.bfloat16]["path"] == "tuned"
         fwd, bwd_dkv, bwd_dq, bwd = (padded(f, d) for f in (fa.flash_fwd, fa.flash_bwd_dkv,
                                                              fa.flash_bwd_dq, fa.flash_bwd))
 
@@ -3818,11 +3824,11 @@ def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "", seed: int = 21,
             path = paths[dtype]
             if path["path"] == "tuned":
                 return {**fa.fwd_layout(B, h, L, dtype), **path} if part == "fwd" else path
-            if path["path"] == "cluster":  # float32 above 272: clusters splitting the head dim
+            if path["path"] == "cluster":  # above 272: clusters splitting the head dim
                 rows = fa.fwd_tile(B, h * path["ranks"], L)  # the rule over every block
                 more = {"tile_rows": rows, "key_groups": fa.FWD_PAIRS // (rows // 16)} \
                     if part == "fwd" else {}
-                regs = fa.cluster_registers(rows)[part] if part != "bwd" else {}
+                regs = fa.cluster_registers(rows, dtype)[part] if part != "bwd" else {}
                 return {**path, "recompute": path["recompute"][part], **more, **regs}
             regs = fa.wide_registers()[f"{part}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"] \
                 if part != "bwd" else {}
@@ -3840,9 +3846,11 @@ def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "", seed: int = 21,
             nbytes = k5_bytes(shape, 2 if bf else 4, 4, 1)
             if bf:
                 w = [x.float() for x in (qx, kx, vx)]
+                f32 = lambda: fwd(*w, seg, scale)[0]  # noqa: E731
                 measure_bf16(torch, rows, name, K5_SOURCE, K5_REPLACES["fwd"], list(shape), fn,
-                             lambda: fwd(*w, seg, scale)[0], plain, fwd_flop, nbytes,
-                             method="bf16", max_share=None, steps=1, library=lib, **extra)
+                             f32, plain, fwd_flop, nbytes, method="bf16", max_share=None,
+                             steps=1, library=lib,
+                             f32_ref=f32 if extra["path"] == "cluster" else None, **extra)
             else:
                 measure(torch, rows, name, K5_SOURCE, K5_REPLACES["fwd"], list(shape), fn, plain,
                         fwd_flop, nbytes, method="3xtf32", library=lib, **extra)
@@ -3883,7 +3891,7 @@ def k5_rows(torch, dev, shapes=K5_SHAPES, suffix: str = "", seed: int = 21,
                                  max_share=None, steps=2, library=lib,
                                  f32_ref=lambda f32=f32: torch.stack(f32()),
                                  valid_lengths=lengths[:4],
-                                 **({} if wide else {"kernels": fa.bwd_bf16_registers()}), **more)
+                                 **({"kernels": fa.bwd_bf16_registers()} if tuned else {}), **more)
                 else:
                     measure(torch, rows, name, K5_SOURCE, K5_REPLACES[part or "bwd"],
                             list(shape), fn, plain, flop_b, nbytes, method="3xtf32",
@@ -4328,9 +4336,10 @@ def tts_medium_heads(heads: int):
 def any_dim_phase(torch, dev, card: str, refwav, sr: int) -> dict:
     """Phase 23 (see the module docstring): for tts_medium at 4 heads (d =
     132, padded to 136 onto the tuned kernels) and at 1 head (d = 528: the
-    float32 cluster kernels, the bf16 wide kernels), K5's rows at the
+    cluster kernels, float32 and bf16), K5's rows at the
     phase-21 shapes (named *_d132, *_d528),
-    flash serving (tts_ex only) and flash training (float32 turns only);
+    flash serving (tts_ex only) and flash training (float32 turns, and
+    bf16-mixed at d = 528);
     then the kernels of d above 272 alone at K5_ALONE_SHAPES (forward and
     backward, *_alone_d280, *_alone_d1040, *_alone_d2184), whose launches
     are the d = 528 run's."""
@@ -4344,7 +4353,8 @@ def any_dim_phase(torch, dev, card: str, refwav, sr: int) -> dict:
         shapes = tuple((label, (shape[0], heads, shape[2], d)) for label, shape in K5_SHAPES)
         r = k5_rows(torch, dev, shapes, suffix=f"_d{d}", seed=23)
         serve = flash_serving(torch, card, refwav, sr, cfg, full=False)
-        train = flash_training(torch, card, base=cfg, timed=("32",))
+        train = flash_training(torch, card, base=cfg,
+                               timed=("32", "bf16-mixed") if d == 528 else ("32",))
         k5_row_launches(r, serve, train, suffix=f"_d{d}")
         rows += r
         out[f"d{d}"] = {"heads": heads, "serving": serve, "training": train}

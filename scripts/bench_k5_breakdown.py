@@ -48,6 +48,11 @@ without an MMA also loses whatever only fed it:
                 the float32 cluster forward's (`cl::fwd_kernel`) and
                 backward's (`cl::dkv_kernel`, `cl::dq_kernel`) parts of K and
                 V (Q and dO; K and V) not copied from device memory;
+  cl_fwd_split_sums
+                the cluster forward with each warp of a pair summing half of
+                S's n-tiles over the ranks (its own partial from registers)
+                and the pair swapping halves through shared memory: half the
+                remote reads, one pair barrier more;
   cl_fwd_no_dsmem, cl_no_dsmem
                 the cluster kernels with each warp's S (and dP) summed from
                 its own block's exchange only: no distributed shared
@@ -55,16 +60,26 @@ without an MMA also loses whatever only fed it:
   cl_fwd_no_exchange, cl_no_exchange
                 the same with the cluster barriers taken out too (the
                 partials summed from the block's own exchange without a
-                barrier): with cl_*_no_dsmem, the barriers' time;
+                barrier): with cl_*_no_dsmem, the barriers' time (the
+                cl_fwd_* variants act on the float32 and the bf16 forward,
+                one template);
+  clb_no_dsmem, clb_no_exchange
+                the same two of the bf16 cluster backward
+                (`cl::dkv_bf16_kernel`, `cl::dq_bf16_kernel`): S and dP
+                summed from the block's own exchange, with and without the
+                cluster barriers;
+  clb_all_ranks the bf16 cluster backward's exchange as every rank reading
+                every rank's whole partial after one barrier, the design
+                its reduce-scatter replaced;
   parent        (with --parent) DIR's flash_attn.cu, the kernels it had
                 (forward and backward).
 
-With --wide the run times the float32 kernels of d above 272 instead, at
-tts_medium's one head (d = 528): the forward at [1, 1, 1024, 528],
+With --wide the run times the kernels of d above 272 instead, float32 and
+bf16, at tts_medium's one head (d = 528): the forward at [1, 1, 1024, 528],
 [24, 1, 512, 528] and [1, 1, 256, 528] and the backward at
 [24, 1, 512, 528], in the variants that take a phase out of the cluster
-kernels (the fwd_* and backward ones of the MMAs act on them too: `cl`
-calls `fw`'s and `tf`'s product functions) and with --parent DIR's.
+kernels (the fwd_* and float32 backward ones of the MMAs act on them too:
+`cl` calls `fw`'s and `tf`'s product functions) and with --parent DIR's.
 
 A variant's distance from `kernel` is the device time of what it takes out.
 Beside them, the rate of the instructions the kernels are built on: a
@@ -98,6 +113,59 @@ _LOCAL_FWD = ("#pragma unroll\n    for (int c = 0; c < NS; ++c)\n#pragma unroll\
               "      for (int e = 0; e < 4; ++e) s[c][e] = slot[c * 128 + lane * 4 + e];\n")
 _LOCAL_BWD = ("#pragma unroll\n  for (int c = 0; c < 2; ++c)\n#pragma unroll\n"
               "    for (int e = 0; e < 4; ++e) s[c][e] = slot[c * 128 + lane * 4 + e];\n")
+# the cluster forward with each warp of a pair summing half of S's n-tiles
+# over the ranks (this rank's partial from registers) and the pair swapping
+# halves through shared memory: half the remote reads, a pair barrier more
+_SPLIT_SUMS_FN = (
+    "template <int N>\n"
+    "__device__ __forceinline__ void sum_ranks_part(float (&x)[N][4], const float* slot, int n,\n"
+    "                                               int rank, int c0, int c1, int lane) {\n"
+    "#pragma unroll\n"
+    "  for (int c = 0; c < N; ++c) {\n"
+    "    if (c < c0 || c >= c1) continue;\n"
+    "    const float4 own = make_float4(x[c][0], x[c][1], x[c][2], x[c][3]);\n"
+    "    float4 acc = own;\n"
+    "#pragma unroll\n"
+    "    for (int r = 0; r < CLUSTER_MAX; ++r) {\n"
+    "      if (r >= n) break;\n"
+    "      const float4 p = r == rank ? own : ld_rank(slot + c * 128 + lane * 4, r);\n"
+    "      acc = r ? make_float4(acc.x + p.x, acc.y + p.y, acc.z + p.z, acc.w + p.w) : p;\n"
+    "    }\n"
+    "    x[c][0] = acc.x;\n    x[c][1] = acc.y;\n    x[c][2] = acc.z;\n    x[c][3] = acc.w;\n"
+    "  }\n"
+    "}\n\n")
+_SPLIT_SUMS = (
+    "    constexpr int CH = (NS + 1) / 2;\n"
+    "    sum_ranks_part<NS>(s, slot, n, rank, dh ? CH : 0, dh ? NS : CH, lane);\n"
+    "    cluster_arrive();\n"
+    "#pragma unroll\n"
+    "    for (int c = 0; c < NS; ++c)\n"
+    "      if ((c < CH) == (dh == 0))\n"
+    "        *reinterpret_cast<float4*>(mine + c * 128 + lane * 4) =\n"
+    "            make_float4(s[c][0], s[c][1], s[c][2], s[c][3]);\n"
+    "    tf::named_sync(1 + u, 64);\n"
+    "#pragma unroll\n"
+    "    for (int c = 0; c < NS; ++c)\n"
+    "      if ((c < CH) != (dh == 0)) {\n"
+    "        const float4 y = *reinterpret_cast<const float4*>(other + c * 128 + lane * 4);\n"
+    "        s[c][0] = y.x;\n        s[c][1] = y.y;\n        s[c][2] = y.z;\n        s[c][3] = y.w;\n"
+    "      }\n")
+# the bf16 cluster backward's exchange: its reduce-scatter loop, and the
+# design it replaced (every rank reads every rank's whole partial, in rank
+# order, after one barrier; the rest of the function then dead)
+_CLB_RS = ("#pragma unroll\n  for (int c = 0; c < PIECES; ++c) {  // this rank's pieces: every rank's "
+           "partial, in rank order\n")
+_CLB_ALL = ("  for (int r = 0; r < n; ++r) {\n#pragma unroll\n    for (int c = 0; c < PIECES; ++c) {\n"
+            "      const float4 p = ld_rank(slot + c * 512, r);\n"
+            "      s[4 * c] = r ? s[4 * c] + p.x : p.x;\n"
+            "      s[4 * c + 1] = r ? s[4 * c + 1] + p.y : p.y;\n"
+            "      s[4 * c + 2] = r ? s[4 * c + 2] + p.z : p.z;\n"
+            "      s[4 * c + 3] = r ? s[4 * c + 3] + p.w : p.w;\n    }\n  }\n  return;\n")
+# its remote reads as reads of the block's own exchange
+_LOCAL_CLB = [("      const float4 p = r == rank ? x : ld_rank(slot + c * 512, r);\n",
+               "      const float4 p = r == rank ? x : *reinterpret_cast<const float4*>(slot + c * 512);\n"),
+              ("    const float4 p = ld_rank(slot + c * 512, c % n);\n",
+               "    const float4 p = *reinterpret_cast<const float4*>(slot + c * 512);\n")]
 VARIANTS = {
     "kernel": [],
     "fwd_no_s_mma": [("      tc::mma(lh[c], a.lo, b.hi);\n      tc::mma(hl[c], a.hi, b.lo);\n"
@@ -179,6 +247,25 @@ VARIANTS = {
     "cl_no_fetch": [("    tf::copy2(dst, dst + TB * ld, ld, qcols + row0, docols + row0, a.sl, pd);\n", ""),
                     ("    tf::copy2(dst, dst + TB * ld, ld, kcols + row0, vcols + row0, a.sl, pd);\n", "")],
     "cl_no_dsmem": [("  sum_ranks<2>(s, slot, n, lane);\n", _LOCAL_BWD)],
+    "cl_fwd_split_sums": [("template <int N>\n__device__ __forceinline__ void put_slot(",
+                           _SPLIT_SUMS_FN + "template <int N>\n__device__ __forceinline__ void put_slot("),
+                          ("    sum_ranks<NS>(s, slot, n, lane);\n    cluster_arrive();\n", _SPLIT_SUMS)],
+    "clb_no_dsmem": _LOCAL_CLB,
+    "clb_no_exchange": _LOCAL_CLB + [
+        ("                                                             s[4 * c + 3]);\n"
+         "  cluster_arrive();\n  cluster_wait();\n",
+         "                                                             s[4 * c + 3]);\n"),
+        ("    *reinterpret_cast<float4*>(slot + c * 512) = acc;\n  }\n  cluster_arrive();\n"
+         "  cluster_wait();\n", "    *reinterpret_cast<float4*>(slot + c * 512) = acc;\n  }\n"),
+        ("  cluster_arrive();  // this block has read every rank's last partials\n"
+         "  cluster_wait();    // and every rank this block's: it may exit\n"
+         "  bf16* out = static_cast<bf16*>(grp ? a.out0 : a.out1)",
+         "  bf16* out = static_cast<bf16*>(grp ? a.out0 : a.out1)"),
+        ("  cluster_arrive();  // this block has read every rank's last partials\n"
+         "  cluster_wait();    // and every rank this block's: it may exit\n"
+         "  bf16* out = static_cast<bf16*>(a.out0)",
+         "  bf16* out = static_cast<bf16*>(a.out0)")],
+    "clb_all_ranks": [(_CLB_RS, _CLB_ALL + _CLB_RS)],
     "cl_no_exchange": [("  if (!first) cluster_wait();  // every rank has read the last step's partials\n"
                         "  put_slot<2>(slot, s, lane);\n  cluster_arrive();\n  cluster_wait();\n"
                         "  sum_ranks<2>(s, slot, n, lane);\n  cluster_arrive();\n",
@@ -190,8 +277,9 @@ VARIANTS = {
 }
 # the variants --wide times (and the parent's, with --parent)
 WIDE_VARIANTS = ("kernel", "fwd_no_s_mma", "fwd_no_pv_mma", "no_s_mma", "no_acc_mma",
-                 "cl_fwd_no_fetch", "cl_fwd_no_dsmem", "cl_fwd_no_exchange", "cl_no_fetch",
-                 "cl_no_dsmem", "cl_no_exchange")
+                 "cl_fwd_no_fetch", "cl_fwd_no_dsmem", "cl_fwd_no_exchange", "cl_fwd_split_sums", "cl_no_fetch",
+                 "cl_no_dsmem", "cl_no_exchange", "clb_no_dsmem", "clb_no_exchange",
+                 "clb_all_ranks")
 WIDE_FWD_SHAPES = {"train": (24, 1, 512, 528), "serve": (1, 1, 1024, 528),
                    "enc": (1, 1, 256, 528)}
 WIDE_SHAPE = (24, 1, 512, 528)
@@ -319,10 +407,10 @@ def inputs(torch, np, shape, rng):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
-    ap.add_argument("--wide", action="store_true", help="the float32 kernels at d = 528")
+    ap.add_argument("--wide", action="store_true", help="the kernels at d = 528")
     args = ap.parse_args()
     fwd_shapes, shape = (WIDE_FWD_SHAPES, WIDE_SHAPE) if args.wide else (FWD_SHAPES, SHAPE)
-    kinds = ("f32",) if args.wide else ("f32", "bf16")
+    kinds = ("f32", "bf16")
     sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch
@@ -391,14 +479,13 @@ def main() -> None:
                                          seg.data_ptr(), dqb.data_ptr(), *dims, scale, stream()),
                     "dq_bf16")
 
-    if not args.wide:
-        passes.update({"dkv_bf16": dkv_bf16, "dq_bf16": dq_bf16})
+    passes.update({"dkv_bf16": dkv_bf16, "dq_bf16": dq_bf16})
 
     def timed(name: str) -> list[str]:
         """the passes a variant is timed on: its own side of the kernel"""
         if name.startswith(("fwd_", "cl_fwd_")):
             return [p for p in passes if p.startswith("fwd_")]
-        if name.startswith("bf16_"):
+        if name.startswith(("bf16_", "clb_")):
             return ["dkv_bf16", "dq_bf16"]
         if name in ("kernel", "parent"):
             return list(passes)

@@ -23,9 +23,10 @@ same at tts_medium's one head (d = 528, the kernels of d above 272: the
 forward at [1, 1, 1024, 528], [24, 1, 512, 528] and [1, 1, 256, 528], the
 backward at [24, 1, 512, 528]), each beside scaled_dot_product_attention
 (SDPA) on the boolean segment mask on the same inputs (its forward, and its
-backward by autograd); and the float32 train step of tts_medium at 1 head
-(chip_smoke.py phase 23's: batch 24, mel bucket 512, the tree's own
-chip_smoke.py corpus and config) under flash and under einsum in turns. The
+backward by autograd); and the float32 and the bf16-mixed train step of
+tts_medium at 1 head (chip_smoke.py phase 23's: batch 24, mel bucket 512,
+the tree's own chip_smoke.py corpus and config) under flash and under einsum
+in turns. The
 first parent and change children also save the float32 K1, K2, K3 and K4's
 outputs, the bf16 K1, K2 and K3's, the bf16 K4's (y, sum, sq, m; dx, dw,
 ds, dt) and K5's (forward o and lse, backward dq, dk, dv from them; float32
@@ -36,13 +37,13 @@ K4's dw, ds and dt,
 which sum per-block partials that follow the grid, also by their largest
 distance relative to the parent's largest value (held to BF16_RED_TOL).
 The outputs of a kernel whose arithmetic this tree changed against its
-parent (REDESIGNED: K5's float32 kernels of d above 272, redesigned as
+parent (REDESIGNED: K5's bf16 kernels of d above 272, redesigned as
 clusters that split the head dim: o, lse, dq, dk and dv at d = 528) are
 compared instead by their largest distance relative to the parent's
-largest value, held to the kernel's bound against plain: REDESIGNED_TOL
-for a float32 tensor (two bf16 steps of the largest value for a bf16
-gradient, one for a bf16 o, should a later tree list those). Everything
-else, K5's bf16 kernels at d = 528 included, is held bitwise.
+largest value, held to the kernel's bound against plain: one bf16 step of
+the largest value for a bf16 o, two for a bf16 gradient, REDESIGNED_TOL
+for a float32 tensor (lse). Everything else, K5's float32 cluster kernels
+at d = 528 included, is held bitwise.
 
 Prints the card's name and power limit, then one JSON object (also written
 to FILE when given).
@@ -63,7 +64,7 @@ ROOT = Path(__file__).resolve().parents[1]
 K4_SHAPE = (24, 32, 80, 500)
 BF16_RED_TOL = 1e-3  # tests/test_torch_gpu.py's bound for the bf16 K4's float32 reductions
 # outputs whose arithmetic this tree changed (key prefixes)
-REDESIGNED = ("k5_fwd_f32_d528_", "k5_bwd_f32_d528_")
+REDESIGNED = ("k5_fwd_bf16_d528_", "k5_bwd_bf16_d528_")
 REDESIGNED_TOL = 1e-4  # x the largest value: tests/test_torch_gpu.py's bound for K5's gradients
 K5_SHAPE = (24, 2, 512, 264)
 K5_FWD_SHAPES = {"train": K5_SHAPE, "serve": (1, 2, 1024, 264), "enc": (1, 2, 256, 264)}
@@ -231,11 +232,12 @@ def k5_ms(torch) -> dict:
 
 
 def flash_step_ms(torch) -> dict:
-    """The float32 train step of tts_medium at 1 head (d = 528) as
-    chip_smoke.py phase 23 runs it (the tree's own chip_smoke.py: its
-    config, corpus and batch 24 at mel bucket 512), device ms by CUDA events
-    (3 steps after 1), flash and einsum in turns (flash, einsum, einsum,
-    flash): {"flash": [ms, ms], "einsum": [ms, ms]}."""
+    """The float32 and the bf16-mixed train step of tts_medium at 1 head (d =
+    528) as chip_smoke.py phase 23 runs it (the tree's own chip_smoke.py:
+    its config, corpus and batch 24 at mel bucket 512), device ms by CUDA
+    events (3 steps after 1), flash and einsum in turns (flash, einsum,
+    einsum, flash): {"flash": [ms, ms], "einsum": [ms, ms], "flash_bf16":
+    ..., "einsum_bf16": ...}."""
     import chip_smoke as cs
 
     from zerovox_tpu_torch.training.data import SpeechDataModule
@@ -252,16 +254,20 @@ def flash_step_ms(torch) -> dict:
                               base_path=str(root))
         dm.prepare_data()
         batch = device_batch(next(iter(dm.train_dataloader(0))), "cuda")
-        trainer = Trainer(cfg, TrainerConfig(max_epochs=1, warmup_epochs=1, seed=0,
-                                             out_folder=str(root / "model")), steps_per_epoch=2)
-        state = trainer.init_state()
-        res = {"flash": [], "einsum": []}
-        for kind in ("flash", "einsum", "einsum", "flash"):
-            cs.set_attention(kind if kind == "flash" else None)
-            res[kind].append(cuda_time_ms(lambda: trainer.train_step(state, batch), iters=3,
-                                          warmup=1))
-        cs.set_attention(None)
-        del trainer, state, batch
+        res = {}
+        for precision, tag in (("32", ""), ("bf16-mixed", "_bf16")):
+            trainer = Trainer(cfg, TrainerConfig(max_epochs=1, warmup_epochs=1, seed=0,
+                                                 precision=precision,
+                                                 out_folder=str(root / "model")),
+                              steps_per_epoch=2)
+            state = trainer.init_state()
+            for kind in ("flash", "einsum", "einsum", "flash"):
+                cs.set_attention(kind if kind == "flash" else None)
+                res.setdefault(kind + tag, []).append(
+                    cuda_time_ms(lambda: trainer.train_step(state, batch), iters=3, warmup=1))
+            cs.set_attention(None)
+            del trainer, state
+        del batch
     torch.cuda.empty_cache()
     return res
 

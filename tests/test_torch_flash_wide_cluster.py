@@ -178,10 +178,12 @@ def test_cluster_dq_emulation_matches_the_library_kernel(case):
 
 def test_cluster_parts_and_the_wrappers_rule():
     """cluster_parts follows cl::Part and its constants; head_dim_path
-    sends float32 above 272 to the clusters up to CLUSTER_MAX ranks, and
-    bf16 (and float32 beyond) to the wide kernels."""
-    assert (_cl_const("PART_MAX"), _cl_const("CLUSTER_MAX")) == (fa.CLUSTER_PART,
-                                                                  fa.CLUSTER_MAX) == (264, 8)
+    sends float32 above 272 to the clusters up to CLUSTER_MAX ranks, bf16
+    above 272 to the clusters up to its reach of 1408 (the backward's parts
+    of at most 176 columns), and each beyond its reach to the wide
+    kernels."""
+    assert (_cl_const("PART_MAX"), _cl_const("PART_BF16"), _cl_const("CLUSTER_MAX")) == \
+        (fa.CLUSTER_PART, fa.CLUSTER_PART_BF16, fa.CLUSTER_MAX) == (264, 176, 8)
     assert fa.cluster_parts(528) == [264, 264]
     assert fa.cluster_parts(280) == [144, 136]
     assert fa.cluster_parts(1040) == [264, 264, 256, 256]
@@ -195,7 +197,10 @@ def test_cluster_parts_and_the_wrappers_rule():
         assert all(pd <= 264 and pd % 8 == 0 for _, pd in got)
     assert fa.head_dim_path(528)["path"] == "cluster"
     assert fa.head_dim_path(526)["parts"] == [264, 264]  # padded to 528
-    assert fa.head_dim_path(528, torch.bfloat16)["path"] == "wide"
+    bf = fa.head_dim_path(528, torch.bfloat16)
+    assert bf["path"] == "cluster" and (bf["parts"], bf["bwd_parts"]) == ([264, 264], [176] * 3)
+    assert fa.head_dim_path(1416, torch.bfloat16)["path"] == "wide"
+    assert fa.head_dim_path(1416)["path"] == "cluster"
     assert fa.head_dim_path(2184)["path"] == "wide" and fa.head_dim_path(272)["path"] == "tuned"
     assert all(v == 1.0 for v in fa.head_dim_path(1040)["recompute"].values())
 
@@ -207,7 +212,7 @@ def test_the_source_holds_what_the_cluster_emulation_follows():
     launcher's rule on d; shared memory that fits at the widest part and
     would not at 272, which is why parts stop at 264."""
     for line in ("c0 = 8 * (r * q + (r < m ? r : m));", "pd = 8 * (q + (r < m ? 1 : 0));",
-                 "return (d / 8 + PART_MAX / 8 - 1) / (PART_MAX / 8);",
+                 "return (d / 8 + part / 8 - 1) / (part / 8);",
                  "for (int r = 0; r < n; ++r) {",
                  "const float4 y = *reinterpret_cast<const float4*>(other + c * 128 + lane * 4);",
                  "s[c][0] += y.x;", "if (dh == 0) put_slot<NS>(slot, s, lane);",
@@ -215,7 +220,7 @@ def test_the_source_holds_what_the_cluster_emulation_follows():
                  "asm volatile(\"mapa.shared::cluster.u32 %0, %1, %2;\"",
                  "ld.shared::cluster.v4.f32",
                  "barrier.cluster.arrive.release.aligned;", "barrier.cluster.wait.acquire.aligned;",
-                 "fw::s_part<NS>(s, Qs + rg * 16 * ldq, Kt, ldq, kb, ke, g, t);",
+                 "if constexpr (F) fw::s_part<NS>(s, Qs + rg * 16 * ldq, Kt, ldq, kb, ke, g, t);",
                  "sum_ranks<NS>(s, slot, n, lane);",
                  "fw::pv<NS, NTD>(acc, p, Vb + ((j & 1) * BK + kq * KW) * ldv, ldv, n0, ntw, lane, g, t);",
                  "if (j > 0) pv_of(pp, j - 1);  // under the barrier", "pv_of(pp, steps - 1);",
@@ -230,10 +235,12 @@ def test_the_source_holds_what_the_cluster_emulation_follows():
         assert line in CL, line
     assert "atomic" not in CL
     # every S and dP product takes the part (pd columns) only, from base + c0
-    assert CL.count("+ pt.c0;  // this rank's columns") == 3
+    # (the forward, the float32 backward's two kernels, the bf16 backward's two)
+    assert CL.count("+ pt.c0;  // this rank's columns") == 5
     assert "no block computes S or dP over a part it does not\n// own" in SOURCE
     host = SOURCE[SOURCE.index("// ---- host side"):]
-    assert "std::is_same_v<P, F32> && a.d > DMAX && cl::ranks(a.d) <= cl::CLUSTER_MAX" in host
+    assert "const int n = cl::ranks(a.d, F || forward ? cl::PART_MAX : cl::PART_BF16);" in host
+    assert "return n <= cl::CLUSTER_MAX ? n : 0;" in host
     assert "cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);" in host
     assert "attr.id = cudaLaunchAttributeClusterDimension;" in host
     # shared memory: fw's forward and tf's backward (plus the exchange) at the widest part

@@ -1208,14 +1208,16 @@ def _attn_inputs(rng, B, h, L, d, dev, dtype=torch.float32, strided=False):
 
 
 # and every other head dim: d not a multiple of 8 through the padding (11 ->
-# 16, 44 -> 48, 132 -> 136), d above 272 on the float32 cluster kernels and
-# the bf16 wide kernels (280 the first, 528 tts_medium's one head, 520 a
-# bf16 chunk with a zero tail, 1040 above 1024: a cluster of four, 2112 the
-# clusters' reach: eight; 2184 beyond it, float32 too on the wide kernels)
+# 16, 44 -> 48, 132 -> 136), d above 272 on the cluster kernels (280 the
+# first, 528 tts_medium's one head: bf16's backward on clusters of three,
+# 520 uneven parts with a bf16 zero tail, 1040 above 1024: a cluster of
+# four, the bf16 backward's of six, 1408 bf16's reach: its backward's
+# clusters of eight, 2112 float32's reach: eight, bf16 on the wide kernels)
+# and on the wide kernels (2184, beyond both)
 FLASH_SHAPES = [(2, 2, 256, 24), (1, 2, 1024, 264), (2, 2, 384, 136), (2, 2, 512, 256),
                 (2, 2, 256, 272), (1, 4, 256, 11), (2, 4, 128, 44), (1, 2, 256, 132),
                 (2, 1, 256, 280), (1, 1, 256, 528), (2, 1, 128, 520), (1, 1, 128, 1040),
-                (1, 1, 128, 2112), (1, 1, 128, 2184)]
+                (1, 1, 128, 1408), (1, 1, 128, 2112), (1, 1, 128, 2184)]
 
 
 def _flash_grads(fn, q, k, v, seg, do, scale):
@@ -1339,13 +1341,12 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
         flash_fwd(q.cpu(), k.cpu(), v.cpu())
 
 
-@pytest.mark.parametrize("d", [280, 528, 1040])
+@pytest.mark.parametrize("d", [280, 528, 1040, 1408])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_wide_lse_and_repeats(cuda, d, dtype):
-    """The forward's lse above 272 (written by rank 0 of a float32 cluster,
-    by the first column slice of the bf16 wide kernels) within 1e-5 x its
-    largest value of the float64 log-sum-exp, unmasked and masked; the
-    kernels bitwise repeatable, one launch of each a call."""
+    """The forward's lse above 272 (written by rank 0 of a cluster) within
+    1e-5 x its largest value of the float64 log-sum-exp, unmasked and
+    masked; the kernels bitwise repeatable, one launch of each a call."""
     from zerovox_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(d)

@@ -173,19 +173,21 @@
 // Neither backward kernel uses atomics: each output row belongs to one
 // block, so a step is bitwise repeatable.
 //
-// The float32 wide head dims on clusters (namespace cl: forward, dK/dV and
-// dQ). At d = 272 the tuned kernels above hold whole rows of their tiles in
-// shared memory and use all that a block may have. Above DMAX a float32
-// call launches thread block clusters of n = ceil(d / PART_MAX) blocks
-// (PART_MAX = 264; n at most CLUSTER_MAX = 8, the portable cluster size, so
-// d up to 2112), one cluster for each of the tuned kernel's blocks. Rank r
+// The wide head dims on clusters (namespace cl: forward, dK/dV and dQ;
+// float32, and bf16 below). At d = 272 the tuned kernels above hold
+// whole rows of their tiles in shared memory and use all that a block may
+// have. Above DMAX a float32 call launches thread block clusters of n =
+// ceil(d / PART_MAX) blocks (PART_MAX = 264; n at most CLUSTER_MAX = 8, the
+// portable cluster size, so d up to 2112), one cluster for each of the tuned
+// kernel's blocks. Rank r
 // of a cluster owns a contiguous part of the head dim (d's n-tiles of 8
 // columns split as evenly as they go, the wider parts first: 528 -> 264 +
 // 264, 280 -> 144 + 136, 1040 -> 264 + 264 + 256 + 256): the Q and K (dO
 // and V) columns it multiplies for S (dP), and the output columns it owns
 // (o; dK, dV; dQ). Each block is the tuned float32 kernel's block at its
 // part (the forward fw's, its warp pairs splitting the part; the backward
-// tf's), except that S (and dP) over its part is a partial: every warp
+// tf's; the forward is one template, float32 and bf16), except that S (and
+// dP) over its part is a partial: every warp
 // writes its partial tile to its block's exchange, the cluster barrier
 // passes, and every warp reads the same tile of every rank's exchange
 // through distributed shared memory (mapa + ld.shared::cluster, 16 bytes a
@@ -216,9 +218,46 @@
 // tf's. Parts stop at 264, not 272: at 272 the backward's tiles take all
 // of a block's shared memory and leave no room for its exchange.
 //
+// bf16 on clusters. A bf16 d above DMAX up to REACH_BF16 = 1408
+// runs the forward above at parts of PART_MAX (fw's bf16 block: 64-key
+// steps, Q and K by ldmatrix, V by ldmatrix.trans, P packed into m16n8k16 A
+// fragments, rounded to bf16 as it is packed; a part's zero tail [pd, pd +
+// 8) as fw's; 229,120 bytes at a part of 264, BQ = 64), and the backward on
+// wg's block at parts of at most PART_BF16 = 176 columns (dkv_bf16_kernel,
+// dq_bf16_kernel: two warpgroups, the streamed tiles by TMA into 32-byte
+// swizzled panels at the rank's columns, P^T and dS^T as the
+// accumulations' register A, no atomics; d = 528 on clusters of three).
+// Its shared memory is the design question: wg's layout at 272 columns
+// takes 226,832 bytes, and an exchange of the two warpgroups' float32
+// partials of S^T and dP^T (64 x 64 each) needs 32,768 more. At parts of 176
+// the resident tiles, streamed buffers, P handover and step vectors take
+// 153,104 bytes (45,056 + 90,112 + 16,384 + 1,552), which leaves room for two
+// exchange buffers by step parity (65,536: 218,640 in all): a step writes
+// its partial to buffer j & 1 and sums the ranks' partials by a
+// reduce-scatter and an all-gather (mapa + ld.shared::cluster, 16 bytes a
+// lane, each piece summed in rank order by one rank; two cluster barriers),
+// and no rank writes that buffer again before every rank has passed the
+// next step's barriers, so the split barrier of the float32 kernels is not
+// needed (one at the end keeps each block alive while others read it).
+// Times from scripts/bench_k5_breakdown.py --wide on an NVIDIA H100 80GB
+// HBM3 at 700 W, dK/dV / dQ at [24, 1, 512, 528]: 0.309 / 0.304 ms; every
+// rank reading every rank's whole partial after one barrier (the first
+// design, 24 remote pieces a thread a step against 11) 0.329 / 0.324. What
+// bounds them now: the exchange, 42 % (taken out: 0.179 / 0.175; its
+// remote reads 0.061 / 0.063, its barriers 0.069 / 0.065); the rest is
+// wg's. The forward likewise spends 31 % in its exchange at [24, 1, 512,
+// 528] (0.172 -> 0.119 ms without it, fw's time at [24, 2, 512, 264]); a
+// pair's warps each summing half of S over the ranks and swapping halves
+// was no faster (bf16 0.172 either way; float32 0.416 -> 0.427, spilling).
+// A part of 264 with one buffer would take 251,904 bytes. Each rank's
+// accumulations are one wgmma of N = 176 (dK/dV, 88 registers a thread)
+// or 96 + 80 (dQ, by warpgroup); a part narrower than 176 computes the pad
+// columns and stores none of them. Only the summation order of S and dP
+// changes against wg: P and dS are rounded to bf16 where wg rounds them.
+//
 // The wide head dims otherwise (namespace wd: forward, dK/dV and dQ, float32
-// and bf16 as one template on mma.sync): every bf16 head dim above DMAX, and
-// a float32 one above the clusters' reach, runs these kernels, whose shared
+// and bf16 as one template on mma.sync): a head dim above its dtype's
+// clusters' reach (float32 2112, bf16 1408) runs these kernels, whose shared
 // memory and registers do not grow with d: a block owns BR = 64 output rows (4 warps of
 // 16) and one column slice of its output (the forward's o and dQ 128
 // columns, dK and dV 64: two accumulators), and streams the operands of S
@@ -240,8 +279,9 @@
 // Supported: d a multiple of 8 (the wrapper zero-pads any other), L a
 // multiple of 64, every tensor's base 16-byte aligned and its batch, head
 // and row strides multiples of 16 bytes: d <= DMAX = 272 on fw, tf and wg,
-// above it on cl (float32 up to 2112) and wd. Anything else returns cudaErrorInvalidValue (the wrapper
-// checks first and says why).
+// above it on cl (float32 up to 2112, bf16 up to 1408) and wd. Anything
+// else returns cudaErrorInvalidValue (the wrapper checks first and says
+// why).
 #include <cuda.h>  // CUtensorMap (cuTensorMapEncodeTiled is looked up at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -2348,12 +2388,14 @@ __global__ void __launch_bounds__(THREADS_W, 1) dq_kernel(Args a) {
 
 }  // namespace wd
 
-// ---- the float32 wide head dims on thread block clusters (namespace cl):
-// each block of a cluster owns one part of the head dim. See the header.
+// ---- the wide head dims on thread block clusters (namespace cl): each
+// block of a cluster owns one part of the head dim. See the header.
 namespace cl {
 
-constexpr int PART_MAX = 264;    // the widest part a block takes (a multiple of 8)
-constexpr int CLUSTER_MAX = 8;   // the portable cluster size: d up to CLUSTER_MAX * PART_MAX
+constexpr int PART_MAX = 264;    // the widest part a block of the forward, and of the float32 backward, takes
+constexpr int PART_BF16 = 176;   // the widest part a block of the bf16 backward takes (11 panels)
+constexpr int CLUSTER_MAX = 8;   // the portable cluster size: float32 d up to CLUSTER_MAX * PART_MAX
+constexpr int REACH_BF16 = CLUSTER_MAX * PART_BF16;  // the widest bf16 head dim on clusters
 constexpr int XCH_BWD = WARPS * 2 * 128;  // the backward's exchange (floats): a warp's 16 x 16 tile
 
 __device__ __forceinline__ int ctarank() {
@@ -2386,10 +2428,10 @@ __device__ __forceinline__ float4 ld_rank(const float* p, int rank) {
   return v;
 }
 
-// The parts of a head dim d (a multiple of 8): n = ceil(d / PART_MAX)
-// ranks; of its d / 8 = q n + m n-tiles, rank r takes q (the first m
-// ranks q + 1) from n-tile r q + min(r, m) on.
-__host__ __device__ inline int ranks(int d) { return (d / 8 + PART_MAX / 8 - 1) / (PART_MAX / 8); }
+// The parts of a head dim d (a multiple of 8) at parts of at most `part`
+// columns: n = ceil(d / part) ranks; of its d / 8 = q n + m n-tiles, rank r
+// takes q (the first m ranks q + 1) from n-tile r q + min(r, m) on.
+__host__ __device__ inline int ranks(int d, int part) { return (d / 8 + part / 8 - 1) / (part / 8); }
 struct Part {
   int c0, pd, pd0;  // its first column, its width, rank 0's width (the widest: every rank's layout)
   __host__ __device__ Part(int d, int n, int r) {
@@ -2426,46 +2468,60 @@ __device__ __forceinline__ void put_slot(float* slot, const float (&x)[N][4], in
 
 // Shared memory of the forward: fw's at rank 0's part, then a slot of S's
 // partial for each warp pair.
-template <int RG>
+template <class P, int RG>
 __host__ __device__ inline size_t fwd_smem(int pd0) {
-  return fw::Smem<F32, RG>(pd0).bytes +
-         (size_t)fw::PAIRS * fw::Tile<F32, RG>::NS * 128 * sizeof(float);
+  return fw::Smem<P, RG>(pd0).bytes +
+         (size_t)fw::PAIRS * fw::Tile<P, RG>::NS * 128 * sizeof(float);
 }
 
 // o and lse of BQ query rows, o's columns of this rank's part: out0 = o,
-// out1 = lse (rank 0). fw's block at the part: each warp pair sums its
-// halves of S in shared memory, the pairs' sums are summed across the
-// cluster, and P.V of key tile j - 1 runs under step j's exchange barrier
-// (V arrives a step after K).
-template <int RG>
+// out1 = lse (rank 0). fw's block at the part (float32 or bf16): each warp
+// pair sums its halves of S in shared memory, the pairs' sums are summed
+// across the cluster, and P.V of key tile j - 1 runs under step j's exchange
+// barrier (V arrives a step after K).
+template <class P, int RG>
 __global__ void __launch_bounds__(THREADS, 1) fwd_kernel(Args a) {
-  using C = fw::Tile<F32, RG>;
+  using T = typename P::T;
+  using C = fw::Tile<P, RG>;
   constexpr int KQ = C::KQ, BK = C::BK, KW = C::KW, NS = C::NS, NTD = C::NTD;
   constexpr int PAIRS = fw::PAIRS;
+  constexpr bool F = std::is_same_v<P, F32>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = nctarank(), rank = ctarank();
   const Part pt(a.d, n, rank);
-  const fw::Smem<F32, RG> lay(pt.pd0);  // one layout in every rank: the exchange at one offset
-  float* Qs = reinterpret_cast<float*>(smem + lay.q);
-  float* Kb = reinterpret_cast<float*>(smem + lay.k);
-  float* Vb = reinterpret_cast<float*>(smem + lay.v);
+  const fw::Smem<P, RG> lay(pt.pd0);  // one layout in every rank: the exchange at one offset
+  T* Qs = reinterpret_cast<T*>(smem + lay.q);
+  T* Kb = reinterpret_cast<T*>(smem + lay.k);
+  T* Vb = reinterpret_cast<T*>(smem + lay.v);
   float* xch = reinterpret_cast<float*>(smem + lay.xch);
   int* segq = reinterpret_cast<int*>(smem + lay.segq);
   int* segk = reinterpret_cast<int*>(smem + lay.segk);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int u = warp % PAIRS, dh = warp / PAIRS, rg = u % RG, kq = u / RG;
-  const int pd = pt.pd, ldq = fw::ld_qk<F32>(pt.pd0), ldv = fw::ld_v<F32>(pt.pd0), nt = pd / 8;
+  const int pd = pt.pd, ldq = fw::ld_qk<P>(pt.pd0), ldv = fw::ld_v<P>(pt.pd0), nt = pd / 8;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x / n * C::BQ;
   const size_t base = (size_t)b * a.sb + (size_t)h * a.sh + pt.c0;  // this rank's columns
   const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
-  const float* kcols = static_cast<const float*>(a.k) + base;
-  const float* vcols = static_cast<const float*>(a.v) + base;
+  const T* kcols = static_cast<const T*>(a.k) + base;
+  const T* vcols = static_cast<const T*>(a.v) + base;
   const int lid = threadIdx.x;
 
   // this warp's half of the part: S's k-steps [kb, ke), O's n-tiles n0.. (ntw)
-  const int kh = (nt + 1) / 2, kb = dh ? kh : 0, ke = dh ? nt : kh;
-  const int n0 = dh ? kh : 0, ntw = dh ? nt - kh : kh;
+  int kb, ke, n0, ntw;
+  if constexpr (F) {
+    const int kh = (nt + 1) / 2;
+    kb = dh ? kh : 0;
+    ke = dh ? nt : kh;
+    n0 = dh ? kh : 0;
+    ntw = dh ? nt - kh : kh;
+  } else {  // fw's: k-steps of 16 columns, o's n-tiles in pairs (the zero tail's computed, not stored)
+    const int nk = (pd + 15) / 16, kh = (nk + 1) / 2, np = (nt + 1) / 2, ph = (np + 1) / 2;
+    kb = dh ? kh : 0;
+    ke = dh ? nk : kh;
+    n0 = dh ? 2 * ph : 0;
+    ntw = dh ? 2 * (np - ph) : 2 * ph;
+  }
 
   // key tile j's part of K and its segment ids, or its part of V, into
   // buffer j & 1 (a step commits one group: K of tile j + 1, V of tile j)
@@ -2479,14 +2535,22 @@ __global__ void __launch_bounds__(THREADS, 1) fwd_kernel(Args a) {
   auto fetch_v = [&](int j) {
     fw::copy_rows(Vb + (j & 1) * BK * ldv, ldv, vcols + (size_t)j * BK * a.sl, a.sl, BK, pd);
   };
-  fw::copy_rows(Qs, ldq, static_cast<const float*>(a.q) + base + (size_t)q0 * a.sl, a.sl, C::BQ,
-                pd);
+  fw::copy_rows(Qs, ldq, static_cast<const T*>(a.q) + base + (size_t)q0 * a.sl, a.sl, C::BQ, pd);
   if (lid < C::BQ) {
     if (seg) tf::cp_async4(segq + lid, seg + q0 + lid);
     else segq[lid] = 0;
   }
   fetch_k(0);
   asm volatile("cp.async.commit_group;" ::: "memory");
+  if constexpr (!F) {  // bf16's zero tail [pd, pd + 8) of every row the products read (fw's)
+    if (pd % 16 != 0) {
+      for (int r = lid; r < C::BQ + 4 * BK; r += THREADS) {
+        T* row = r < C::BQ ? Qs + r * ldq
+                 : r < C::BQ + 2 * BK ? Kb + (r - C::BQ) * ldq : Vb + (r - C::BQ - 2 * BK) * ldv;
+        *reinterpret_cast<uint4*>(row + pd) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
 
   float acc[NTD][4];
 #pragma unroll
@@ -2515,10 +2579,11 @@ __global__ void __launch_bounds__(THREADS, 1) fwd_kernel(Args a) {
       sq[0] = segq[rg * 16 + g];
       sq[1] = segq[rg * 16 + g + 8];
     }
-    const float* Kt = Kb + ((j & 1) * BK + kq * KW) * ldq;
+    const T* Kt = Kb + ((j & 1) * BK + kq * KW) * ldq;
     const int* sk = segk + (j & 1) * BK + kq * KW + 2 * t;
     float s[NS][4];
-    fw::s_part<NS>(s, Qs + rg * 16 * ldq, Kt, ldq, kb, ke, g, t);
+    if constexpr (F) fw::s_part<NS>(s, Qs + rg * 16 * ldq, Kt, ldq, kb, ke, g, t);
+    else fw::s_part<NS>(s, Qs + rg * 16 * ldq, Kt, ldq, kb, ke, lane);
     // the pair's halves: x0 + x1 in both warps
     put_slot<NS>(mine, s, lane);
     tf::named_sync(1 + u, 64);  // the partner's half is written
@@ -2655,13 +2720,13 @@ __global__ void __launch_bounds__(THREADS, 1) fwd_kernel(Args a) {
   }
   if (kq == 0) {
     const float inv0 = 1.f / lt[0], inv1 = 1.f / lt[1];
-    float* out = static_cast<float*>(a.out0) + base + (size_t)(q0 + rg * 16 + g) * a.sl + 2 * t;
+    T* out = static_cast<T*>(a.out0) + base + (size_t)(q0 + rg * 16 + g) * a.sl + 2 * t;
 #pragma unroll
     for (int i = 0; i < NTD; ++i) {
       const int nn = n0 + i;
       if (i < ntw && nn < nt) {
-        F32::store2(out + nn * 8, acc[i][0] * inv0, acc[i][1] * inv0);
-        F32::store2(out + (size_t)8 * a.sl + nn * 8, acc[i][2] * inv1, acc[i][3] * inv1);
+        P::store2(out + nn * 8, acc[i][0] * inv0, acc[i][1] * inv0);
+        P::store2(out + (size_t)8 * a.sl + nn * 8, acc[i][2] * inv1, acc[i][3] * inv1);
       }
     }
     if (rank == 0 && dh == 0 && t == 0) {  // every rank has the same m and l
@@ -2892,6 +2957,457 @@ __global__ void __launch_bounds__(THREADS, 1) dq_kernel(Args a) {
                              t);
 }
 
+
+// ---- the bf16 backward on clusters: wg's block at a part of at most
+// PART_BF16 columns (two warpgroups, the streamed tiles by TMA, P^T and dS^T
+// as the accumulations' register A), its S and dP partials summed across
+// the cluster through an exchange of two buffers by step parity.
+
+constexpr int CB16 = PART_BF16 / 8;        // 16-byte chunks of a resident row
+constexpr int RT16 = wg::BR * CB16 * 8;    // elements of a resident tile
+constexpr int NP16 = PART_BF16 / 16;       // 16-column panels of a streamed tile
+constexpr int ST16 = NP16 * wg::PANEL;     // elements of a streamed tile
+constexpr int NQ0 = 96;                    // dQ's columns of warpgroup 0 (whole panels)
+constexpr int NQ1 = PART_BF16 - NQ0;       // and of warpgroup 1
+constexpr int XCH16 = 2 * wg::NS * 128;    // floats of an exchange buffer: each warpgroup's 64 x 64
+static_assert(PART_BF16 % 16 == 0 && NQ0 % 16 == 0 && NQ1 % 16 == 0 && wg::BS == 64, "the layout");
+
+// wg's Smem at PART_BF16 columns, then the exchange's two buffers.
+struct SmemB {
+  size_t res0, res1, buf0, buf1, xp, lse, dsum, seg, bar, xch, bytes;
+  __host__ __device__ SmemB(bool dkv) {
+    Carve c;
+    res0 = c.take(RT16 * sizeof(bf16));
+    res1 = c.take(RT16 * sizeof(bf16));
+    buf0 = c.take(2 * ST16 * sizeof(bf16));
+    buf1 = c.take(2 * ST16 * sizeof(bf16));
+    xp = c.take(4 * wg::NS * 32 * sizeof(float));
+    lse = c.take(dkv ? 2 * wg::BS * sizeof(float) : 0);
+    dsum = c.take(dkv ? 2 * wg::BS * sizeof(float) : 0);
+    seg = c.take(2 * wg::BS * sizeof(int));
+    bar = c.take(2 * sizeof(uint64_t));
+    xch = c.take(2 * XCH16 * sizeof(float));
+    bytes = c.off;
+  }
+};
+
+// d (64 x PART_BF16) += A (registers) B, B MN-major in shared memory
+__device__ __forceinline__ void mma_acc(float (&d)[88], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87"
+      "}, {%88, %89, %90, %91}, %92, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d (64 x NQ0) += A B, A K-major and B MN-major in shared memory
+__device__ __forceinline__ void mma_acc_ss(float (&d)[48], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b));
+}
+
+// d (64 x NQ1) += A B, A K-major and B MN-major in shared memory
+__device__ __forceinline__ void mma_acc_ss(float (&d)[40], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b));
+}
+
+// The pad of this rank's tiles: chunks [nv, CB16) of both resident tiles,
+// panels [np, NP16) of both buffers' streamed tiles (TMA zeroes the columns
+// past d in its boxes; a box past the part reads the next part's columns,
+// which the zero chunks of the resident tile cancel in S and dP and no
+// output keeps).
+__device__ __forceinline__ void zero_part_pads(bf16* res, int nv, int np) {
+  for (int i = threadIdx.x; i < (CB16 - nv) * wg::BR; i += THREADS) {
+    *reinterpret_cast<uint4*>(res + (nv * wg::BR + i) * 8) = make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(res + RT16 + (nv * wg::BR + i) * 8) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  const int per = (NP16 - np) * wg::PANEL / 8;  // 16-byte pieces of a tile's pad panels
+  for (int i = threadIdx.x; i < 4 * per; i += THREADS) {
+    const int tile = i / per;
+    *reinterpret_cast<uint4*>(res + 2 * RT16 + tile * ST16 + np * wg::PANEL + (i - tile * per) * 8) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Step j's two streamed tiles (rows r0.. of (b, h), the np panels of this
+// rank's part from column c0) into buf and buf + ST16 by TMA, completing on
+// bar; warp 0.
+__device__ __forceinline__ void tma_part(bf16* buf, const wg::Params& p, int r0, int c0, int h,
+                                         int b, int np, uint64_t* bar, int lane) {
+  if (lane == 0) wg::mbar_expect(bar, 2 * np * wg::BOX);
+  __syncwarp();
+  const int c1 = p.l_inner ? r0 : h, c2 = p.l_inner ? h : r0;
+  for (int k = lane; k < 2 * np; k += 32) {
+    const int one = k >= np, c = k - one * np;
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(tc::smem_u32(buf + one * ST16 + c * wg::PANEL)),
+        "l"(reinterpret_cast<uint64_t>(one ? &p.t1 : &p.t0)), "r"(c0 + 16 * c), "r"(c1), "r"(c2),
+        "r"(b), "r"(tc::smem_u32(bar)) : "memory");
+  }
+}
+
+// s (a warpgroup's 64 x 64 accumulator, 32 floats a thread, 8 pieces of 16
+// bytes) = the sum over the cluster's ranks, in rank order, of each rank's
+// partial, by a reduce-scatter and an all-gather through distributed shared
+// memory: each thread writes its partial to this block's exchange buffer at
+// slot (one of two by step parity, so that no rank writes a buffer another
+// may still read); after the cluster barrier, rank r sums the pieces c with
+// c % n == r over every rank (its own from registers) and writes each sum
+// back in place (no other rank reads those pieces in this round); after a
+// second barrier it reads every other piece's sum from the rank that made
+// it. So each rank reads 2 (n - 1) / n of a partial from the others, not n
+// partials.
+__device__ __forceinline__ void sum_partials(float (&s)[wg::NS], float* slot, int n, int rank) {
+  constexpr int PIECES = wg::NS / 4;
+#pragma unroll
+  for (int c = 0; c < PIECES; ++c)
+    *reinterpret_cast<float4*>(slot + c * 512) = make_float4(s[4 * c], s[4 * c + 1], s[4 * c + 2],
+                                                             s[4 * c + 3]);
+  cluster_arrive();
+  cluster_wait();
+#pragma unroll
+  for (int c = 0; c < PIECES; ++c) {  // this rank's pieces: every rank's partial, in rank order
+    if (c % n != rank) continue;
+    const float4 x = make_float4(s[4 * c], s[4 * c + 1], s[4 * c + 2], s[4 * c + 3]);
+    float4 acc = x;
+#pragma unroll
+    for (int r = 0; r < CLUSTER_MAX; ++r) {
+      if (r >= n) break;
+      const float4 p = r == rank ? x : ld_rank(slot + c * 512, r);
+      acc = r ? make_float4(acc.x + p.x, acc.y + p.y, acc.z + p.z, acc.w + p.w) : p;
+    }
+    s[4 * c] = acc.x;
+    s[4 * c + 1] = acc.y;
+    s[4 * c + 2] = acc.z;
+    s[4 * c + 3] = acc.w;
+    *reinterpret_cast<float4*>(slot + c * 512) = acc;
+  }
+  cluster_arrive();
+  cluster_wait();
+#pragma unroll
+  for (int c = 0; c < PIECES; ++c) {  // the other pieces' sums, each from the rank that made it
+    if (c % n == rank) continue;
+    const float4 p = ld_rank(slot + c * 512, c % n);
+    s[4 * c] = p.x;
+    s[4 * c + 1] = p.y;
+    s[4 * c + 2] = p.z;
+    s[4 * c + 3] = p.w;
+  }
+}
+
+// dK and dV of 64 key rows, this rank's columns: out0 = dk, out1 = dv.
+// Warpgroup 0: S^T = K Q^T over the part, summed across the cluster, P^T,
+// dV += P^T dO; warpgroup 1: dP^T = V dO^T likewise, dS^T, dK += dS^T Q.
+__global__ void __launch_bounds__(THREADS, 1) dkv_bf16_kernel(const __grid_constant__ wg::Params pr) {
+  extern __shared__ __align__(128) unsigned char wsmem[];
+  unsigned char* smem = wsmem;
+  const Args& a = pr.a;
+  const int n = nctarank(), rank = ctarank();
+  const Part pt(a.d, n, rank);
+  const SmemB lay(true);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + lay.res0);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + lay.res1);
+  float* xp = reinterpret_cast<float*>(smem + lay.xp);
+  float* lse_s = reinterpret_cast<float*>(smem + lay.lse);
+  float* dsum_s = reinterpret_cast<float*>(smem + lay.dsum);
+  int* segq = reinterpret_cast<int*>(smem + lay.seg);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int grp = warp >> 2, w = warp & 3;
+  const int pd = pt.pd, nv = pd / 8, nk = (pd + 15) / 16;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x / n * wg::BR;
+  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh + pt.c0;  // this rank's columns
+  const size_t rows = ((size_t)b * a.H + h) * a.L;
+  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
+  const int lid = threadIdx.x;
+  // this thread's pieces of its warpgroup's slot in the exchange's buffer 0
+  float* slot = reinterpret_cast<float*>(smem + lay.xch) + grp * (wg::NS * 128) + (lid & 127) * 4;
+
+  auto buf = [&](int j) { return reinterpret_cast<bf16*>(smem + ((j & 1) ? lay.buf1 : lay.buf0)); };
+  // query tile j's part of Q and dO by TMA, its lse, D and segment ids into buffer j & 1
+  auto stage = [&](int j) {
+    const int q0 = j * wg::BS, o = (j & 1) * wg::BS;
+    if (warp == 0) tma_part(buf(j), pr, q0, pt.c0, h, b, nk, bars + (j & 1), lane);
+    if (lid < wg::BS) {
+      tf::cp_async4(lse_s + o + lid, a.lse + rows + q0 + lid);
+      tf::cp_async4(dsum_s + o + lid, a.dsum + rows + q0 + lid);
+      if (seg) tf::cp_async4(segq + o + lid, seg + q0 + lid);
+      else segq[o + lid] = 0;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  zero_part_pads(Ks, nv, nk);
+  if (lid == 0) {
+    wg::mbar_init(bars);
+    wg::mbar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  wg::copy_tile(Ks, static_cast<const bf16*>(a.k) + base + (size_t)k0 * a.sl, a.sl, nv, warp, lane);
+  wg::copy_tile(Vs, static_cast<const bf16*>(a.v) + base + (size_t)k0 * a.sl, a.sl, nv, warp, lane);
+  stage(0);
+
+  int sk[2] = {0, 0};  // the segment ids of this thread's key rows
+  if (seg) {
+    sk[0] = seg[k0 + 16 * w + g];
+    sk[1] = seg[k0 + 16 * w + g + 8];
+  }
+  const float sl2 = a.scale * wg::LOG2E;  // scores in the log2 domain
+  float* xw = xp + w * (wg::NS * 32) + lane;
+  float acc[PART_BF16 / 2];  // the gradient's columns of the part (and its pad)
+#pragma unroll
+  for (int i = 0; i < PART_BF16 / 2; ++i) acc[i] = 0.f;
+
+  const int steps = a.L / wg::BS;
+  for (int j = 0; j < steps; ++j) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    wg::mbar_wait(bars + (j & 1), (j >> 1) & 1);
+    __syncthreads();  // step j's tiles have arrived; step j - 1 is done with the other buffer
+    const bf16* Qt = buf(j);
+    const bf16* dOt = Qt + ST16;
+    const int o = (j & 1) * wg::BS + 2 * t;
+    float s[wg::NS];  // the first k-step writes it (its wgmma's scale-d off)
+    const bf16* xs = grp ? Vs : Ks;
+    const bf16* ys = grp ? dOt : Qt;
+    wg::wg_fence();
+    for (int kk = 0; kk < nk; ++kk) wg::mma_s(s, wg::desc_k(xs, kk), wg::desc_ks(ys, kk), kk);
+    wg::wg_commit();
+    if (j + 1 < steps) stage(j + 1);  // the copies issue while the tensor cores run
+    wg::wg_wait();
+    wg::fence_regs(s);
+    sum_partials(s, slot + (j & 1) * XCH16, n, rank);  // S^T (dP^T) over the whole head dim
+    if (grp == 0) {  // P^T = exp2(S^T scale log2(e) - lse log2(e)) where the segments match
+#pragma unroll
+      for (int c = 0; c < wg::BS / 8; ++c) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + o + 8 * c);
+        const int2 sq = *reinterpret_cast<const int2*>(segq + o + 8 * c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq = (e & 1) ? l2.y : l2.x;
+          const int sg = (e & 1) ? sq.y : sq.x;
+          const float p =
+              sk[e >> 1] == sg ? exp2f(fmaf(s[4 * c + e], sl2, -(lq * wg::LOG2E))) : 0.f;
+          s[4 * c + e] = p;
+          xw[(4 * c + e) * 32] = p;
+        }
+      }
+      wg::bar_arrive(1, THREADS);  // P to warpgroup 1
+    } else {  // dS^T = P^T (dP^T - D) scale
+      tf::named_sync(1, THREADS);
+#pragma unroll
+      for (int c = 0; c < wg::BS / 8; ++c) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dsum_s + o + 8 * c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * c + e] = xw[(4 * c + e) * 32] * (s[4 * c + e] - ((e & 1) ? d2.y : d2.x)) * a.scale;
+      }
+    }
+    uint32_t af[wg::KS][4];
+    wg::to_a(af, s);
+    const bf16* yb = grp ? Qt : dOt;  // dV += P^T dO, dK += dS^T Q on the part's columns
+    wg::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < wg::KS; ++kk) mma_acc(acc, af[kk], wg::desc_mn(yb, kk, 0));
+    wg::wg_commit();
+    wg::wg_wait();
+    wg::fence_regs(acc);
+  }
+  cluster_arrive();  // this block has read every rank's last partials
+  cluster_wait();    // and every rank this block's: it may exit
+  bf16* out = static_cast<bf16*>(grp ? a.out0 : a.out1) + base + (size_t)(k0 + 16 * w) * a.sl;
+  wg::store_cols(out, a.sl, acc, 0, pd, g, t);
+}
+
+// dQ of 64 query rows, this rank's columns: out0 = dq. Warpgroup 0: S = Q
+// K^T over the part, summed across the cluster, and P; warpgroup 1: dP = dO
+// V^T likewise and dS, into shared memory; then dQ += dS K, warpgroup 0 on
+// the part's first NQ0 columns, 1 on the rest.
+__global__ void __launch_bounds__(THREADS, 1) dq_bf16_kernel(const __grid_constant__ wg::Params pr) {
+  extern __shared__ __align__(128) unsigned char wsmem[];
+  unsigned char* smem = wsmem;
+  const Args& a = pr.a;
+  const int n = nctarank(), rank = ctarank();
+  const Part pt(a.d, n, rank);
+  const SmemB lay(false);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + lay.res0);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + lay.res1);
+  float* xp = reinterpret_cast<float*>(smem + lay.xp);
+  bf16* dSs = reinterpret_cast<bf16*>(smem + lay.xp);  // after P is read
+  int* segk = reinterpret_cast<int*>(smem + lay.seg);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int grp = warp >> 2, w = warp & 3;
+  const int pd = pt.pd, nv = pd / 8, nk = (pd + 15) / 16;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x / n * wg::BR;
+  const size_t base = (size_t)b * a.sb + (size_t)h * a.sh + pt.c0;  // this rank's columns
+  const size_t rows = ((size_t)b * a.H + h) * a.L;
+  const int* seg = a.seg ? a.seg + (size_t)b * a.L : nullptr;
+  const int lid = threadIdx.x;
+  float* slot = reinterpret_cast<float*>(smem + lay.xch) + grp * (wg::NS * 128) + (lid & 127) * 4;
+
+  auto buf = [&](int j) { return reinterpret_cast<bf16*>(smem + ((j & 1) ? lay.buf1 : lay.buf0)); };
+  // key tile j's part of K and V by TMA and its segment ids into buffer j & 1
+  auto stage = [&](int j) {
+    const int k0 = j * wg::BS, o = (j & 1) * wg::BS;
+    if (warp == 0) tma_part(buf(j), pr, k0, pt.c0, h, b, nk, bars + (j & 1), lane);
+    if (lid < wg::BS) {
+      if (seg) tf::cp_async4(segk + o + lid, seg + k0 + lid);
+      else segk[o + lid] = 0;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  zero_part_pads(Qs, nv, nk);
+  if (lid == 0) {
+    wg::mbar_init(bars);
+    wg::mbar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  wg::copy_tile(Qs, static_cast<const bf16*>(a.q) + base + (size_t)q0 * a.sl, a.sl, nv, warp, lane);
+  wg::copy_tile(dOs, static_cast<const bf16*>(a.dout) + base + (size_t)q0 * a.sl, a.sl, nv, warp,
+                lane);
+  stage(0);
+
+  float lq[2], dr[2];  // lse log2(e), D and segment ids of this thread's query rows
+  int sq[2] = {0, 0};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * w + g + 8 * r;
+    lq[r] = a.lse[rows + row] * wg::LOG2E;
+    dr[r] = a.dsum[rows + row];
+    if (seg) sq[r] = seg[row];
+  }
+  const float sl2 = a.scale * wg::LOG2E;
+  float* xw = xp + w * (wg::NS * 32) + lane;
+  // dQ's columns 0..NQ0 - 1 of the part (warpgroup 0) or NQ0.. (warpgroup 1,
+  // the first NQ1 / 2 of them)
+  float acc[NQ0 / 2];
+  float (&acc1)[NQ1 / 2] = *reinterpret_cast<float(*)[NQ1 / 2]>(acc);
+#pragma unroll
+  for (int i = 0; i < NQ0 / 2; ++i) acc[i] = 0.f;
+
+  const int steps = a.L / wg::BS;
+  for (int j = 0; j < steps; ++j) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    wg::mbar_wait(bars + (j & 1), (j >> 1) & 1);
+    __syncthreads();  // step j's tiles have arrived; step j - 1 is done with the other buffer
+    const bf16* Kt = buf(j);
+    const bf16* Vt = Kt + ST16;
+    float s[wg::NS];  // the first k-step writes it (its wgmma's scale-d off)
+    const bf16* xs = grp ? dOs : Qs;
+    const bf16* ys = grp ? Vt : Kt;
+    wg::wg_fence();
+    for (int kk = 0; kk < nk; ++kk) wg::mma_s(s, wg::desc_k(xs, kk), wg::desc_ks(ys, kk), kk);
+    wg::wg_commit();
+    if (j + 1 < steps) stage(j + 1);  // the copies issue while the tensor cores run
+    wg::wg_wait();
+    wg::fence_regs(s);
+    sum_partials(s, slot + (j & 1) * XCH16, n, rank);  // S (dP) over the whole head dim
+    if (grp == 0) {  // P = exp2(S scale log2(e) - lse log2(e)) where the segments match
+      const int* sk = segk + (j & 1) * wg::BS + 2 * t;
+#pragma unroll
+      for (int c = 0; c < wg::BS / 8; ++c) {
+        const int2 k2 = *reinterpret_cast<const int2*>(sk + 8 * c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          xw[(4 * c + e) * 32] = sq[e >> 1] == ((e & 1) ? k2.y : k2.x)
+                                     ? exp2f(fmaf(s[4 * c + e], sl2, -lq[e >> 1])) : 0.f;
+      }
+      wg::bar_arrive(1, THREADS);  // P to warpgroup 1
+    } else {  // dS = P (dP - D) scale, into shared memory as a K-major A
+      tf::named_sync(1, THREADS);
+#pragma unroll
+      for (int c = 0; c < wg::BS / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * c + e] = xw[(4 * c + e) * 32] * (s[4 * c + e] - dr[e >> 1]) * a.scale;
+      tf::named_sync(2, THREADS / 2);  // every warp of the group has read P
+#pragma unroll
+      for (int c = 0; c < wg::BS / 8; ++c) {
+        bf16* p = dSs + (c * wg::BR + 16 * w + g) * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(p) = fw::pack_bf16(s[4 * c], s[4 * c + 1]);
+        *reinterpret_cast<uint32_t*>(p + 64) = fw::pack_bf16(s[4 * c + 2], s[4 * c + 3]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+    __syncthreads();  // dS is complete
+    wg::wg_fence();  // dQ's columns of warpgroup grp += dS K
+    if (grp == 0) {
+#pragma unroll
+      for (int kk = 0; kk < wg::KS; ++kk)
+        mma_acc_ss(acc, wg::desc_k(dSs, kk), wg::desc_mn(Kt, kk, 0));
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < wg::KS; ++kk)
+        mma_acc_ss(acc1, wg::desc_k(dSs, kk), wg::desc_mn(Kt, kk, NQ0 / 16));
+    }
+    wg::wg_commit();
+    wg::wg_wait();
+    wg::fence_regs(acc);
+  }
+  cluster_arrive();  // this block has read every rank's last partials
+  cluster_wait();    // and every rank this block's: it may exit
+  bf16* out = static_cast<bf16*>(a.out0) + base + (size_t)(q0 + 16 * w) * a.sl;
+  if (grp == 0) wg::store_cols(out, a.sl, acc, 0, pd, g, t);
+  else wg::store_cols(out, a.sl, acc1, NQ0, pd, g, t);
+}
+
 }  // namespace cl
 
 // ---- host side
@@ -2944,22 +3460,28 @@ cudaError_t launch_wide(K kernel, int cs, size_t smem, const Args& a, void* stre
                 wd::THREADS_W);
 }
 
-// A float32 call above DMAX runs on clusters of cl::ranks(d) blocks while
-// that is a portable cluster; a wider one, and every bf16 call above DMAX,
-// on namespace wd. A rule on d, not a fallback.
+// The ranks of the cluster that a call above DMAX runs on, or 0 for the wide
+// kernels (namespace wd): a float32 d up to CLUSTER_MAX * PART_MAX and a
+// bf16 d up to REACH_BF16 run on clusters, the forward (and the float32
+// backward) at parts of PART_MAX, the bf16 backward at parts of PART_BF16.
+// A rule on d, the dtype and the kernel, not a fallback.
 template <class P>
-bool on_clusters(const Args& a) {
-  return std::is_same_v<P, F32> && a.d > DMAX && cl::ranks(a.d) <= cl::CLUSTER_MAX;
+int cluster_ranks(const Args& a, bool forward) {
+  constexpr bool F = std::is_same_v<P, F32>;
+  if (a.d <= DMAX || (!F && a.d > cl::REACH_BF16)) return 0;
+  const int n = cl::ranks(a.d, F || forward ? cl::PART_MAX : cl::PART_BF16);
+  return n <= cl::CLUSTER_MAX ? n : 0;
 }
 
-// A cluster kernel on its grid, (row tiles x ranks, H, B) in clusters of
-// (ranks, 1, 1), once the card has said that such a cluster fits.
-template <class K>
-cudaError_t launch_cluster(K kernel, int tile_rows, size_t smem, const Args& a, void* stream) {
+// A cluster kernel on its grid, (row tiles x n ranks, H, B) in clusters of
+// (n, 1, 1), once the card has said that such a cluster fits; its
+// parameter `arg` (Args, or the bf16 backward's Params).
+template <class K, class A>
+cudaError_t launch_cluster(K kernel, int tile_rows, int n, size_t smem, const Args& a,
+                           const A& arg, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  const int n = cl::ranks(a.d);
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = n;
@@ -2976,15 +3498,16 @@ cudaError_t launch_cluster(K kernel, int tile_rows, size_t smem, const Args& a, 
   e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (e != cudaSuccess) return e;
   if (clusters < 1) return cudaErrorInvalidConfiguration;
-  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  e = cudaLaunchKernelEx(&cfg, kernel, arg);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <int RG>
-int cl_fwd_launch(const Args& a, void* stream) {
-  const cl::Part p0(a.d, cl::ranks(a.d), 0);
-  return (int)launch_cluster(cl::fwd_kernel<RG>, 16 * RG, cl::fwd_smem<RG>(p0.pd0), a, stream);
+template <class P, int RG>
+int cl_fwd_launch(const Args& a, int n, void* stream) {
+  const cl::Part p0(a.d, n, 0);
+  return (int)launch_cluster(cl::fwd_kernel<P, RG>, 16 * RG, n, cl::fwd_smem<P, RG>(p0.pd0), a, a,
+                             stream);
 }
 
 template <class P, int RG>
@@ -2996,14 +3519,14 @@ int fwd_launch(const Args& a, void* stream) {
 template <class P>
 int fwd(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.out1) return (int)cudaErrorInvalidValue;
-  if (on_clusters<P>(a)) {
-    switch (fwd_tile(a.B, a.H * cl::ranks(a.d), a.L, sm_count())) {  // over every block
+  if (const int n = cluster_ranks<P>(a, true)) {
+    switch (fwd_tile(a.B, a.H * n, a.L, sm_count())) {  // over every block
       case 64:
-        return cl_fwd_launch<4>(a, stream);
+        return cl_fwd_launch<P, 4>(a, n, stream);
       case 32:
-        return cl_fwd_launch<2>(a, stream);
+        return cl_fwd_launch<P, 2>(a, n, stream);
       default:
-        return cl_fwd_launch<1>(a, stream);
+        return cl_fwd_launch<P, 1>(a, n, stream);
     }
   }
   if (a.d > DMAX)
@@ -3019,7 +3542,7 @@ int fwd(const Args& a, void* stream) {
 }
 
 // The backward: float32 on the kernels of namespace tf, bf16 on those of
-// namespace wg.
+// namespace wg; above DMAX on clusters (cl) or the wide kernels (wd).
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -3066,16 +3589,21 @@ bool wg_params(wg::Params* p, const Args& a, const void* s0, const void* s1) {
 template <class P>
 int dkv(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.lse || !a.dsum || !a.out1) return (int)cudaErrorInvalidValue;
-  if (on_clusters<P>(a))
-    return (int)launch_cluster(cl::dkv_kernel, tf::TB,
-                               cl::bwd_smem(cl::Part(a.d, cl::ranks(a.d), 0).pd0), a, stream);
-  if (a.d > DMAX)
+  constexpr bool F = std::is_same_v<P, F32>;
+  const int n = cluster_ranks<P>(a, false);
+  if (n && F)
+    return (int)launch_cluster(cl::dkv_kernel, tf::TB, n,
+                               cl::bwd_smem(cl::Part(a.d, n, 0).pd0), a, a, stream);
+  if (!n && a.d > DMAX)
     return (int)launch_wide(wd::dkv_kernel<P>, wd::CS_DKV, wd::dkv_smem<P>(), a, stream);
-  if constexpr (std::is_same_v<P, F32>)
+  if constexpr (F)
     return (int)launch(tf::dkv_kernel, dim3(a.L / tf::TB, a.H, a.B), tf::Smem(a.d).bytes, a,
                        stream);
   wg::Params p;
   if (!wg_params(&p, a, a.q, a.dout)) return (int)cudaErrorInvalidValue;
+  if (n)
+    return (int)launch_cluster(cl::dkv_bf16_kernel, wg::BR, n, cl::SmemB(true).bytes, a, p,
+                               stream);
   return (int)launch(wg::dkv_kernel, dim3(a.L / wg::BR, a.H, a.B), wg::Smem(true).bytes, p,
                      stream);
 }
@@ -3083,16 +3611,21 @@ int dkv(const Args& a, void* stream) {
 template <class P>
 int dq(const Args& a, void* stream) {
   if (!supported<P>(a) || !a.lse || !a.dsum) return (int)cudaErrorInvalidValue;
-  if (on_clusters<P>(a))
-    return (int)launch_cluster(cl::dq_kernel, tf::TB,
-                               cl::bwd_smem(cl::Part(a.d, cl::ranks(a.d), 0).pd0), a, stream);
-  if (a.d > DMAX)
+  constexpr bool F = std::is_same_v<P, F32>;
+  const int n = cluster_ranks<P>(a, false);
+  if (n && F)
+    return (int)launch_cluster(cl::dq_kernel, tf::TB, n,
+                               cl::bwd_smem(cl::Part(a.d, n, 0).pd0), a, a, stream);
+  if (!n && a.d > DMAX)
     return (int)launch_wide(wd::dq_kernel<P>, wd::CS_DQ, wd::dq_smem<P>(), a, stream);
-  if constexpr (std::is_same_v<P, F32>)
+  if constexpr (F)
     return (int)launch(tf::dq_kernel, dim3(a.L / tf::TB, a.H, a.B), tf::Smem(a.d).bytes, a,
                        stream);
   wg::Params p;
   if (!wg_params(&p, a, a.k, a.v)) return (int)cudaErrorInvalidValue;
+  if (n)
+    return (int)launch_cluster(cl::dq_bf16_kernel, wg::BR, n, cl::SmemB(false).bytes, a, p,
+                               stream);
   return (int)launch(wg::dq_kernel, dim3(a.L / wg::BR, a.H, a.B), wg::Smem(false).bytes, p,
                      stream);
 }

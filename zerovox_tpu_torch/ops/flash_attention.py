@@ -33,13 +33,15 @@ any d_k == d_v. On both devices, before the kernel-or-plain dispatch,
 one (zero q and k lanes add nothing to the scores, zero v lanes are sliced
 off o; the gradients go back through the pad and the slice). On the card a
 head dim up to TUNED_HEAD_DIM = 272 runs the tuned kernels (namespaces fw,
-tf and wg of the source). Above it, a float32 head dim up to CLUSTER_MAX x
-CLUSTER_PART = 2112 runs the cluster kernels (namespace cl: a thread block
-cluster splits the head dim into parts, `cluster_parts`, and sums the
-parts' S and dP through distributed shared memory), and a bf16 one, or a
-float32 one above that, the wide kernels (namespace wd), whose shared
-memory and registers do not grow with d. Which runs is a rule on d and the
-dtype (`head_dim_path`), never a fallback.
+tf and wg of the source). Above it, a head dim up to CLUSTER_REACH of its
+dtype (float32 CLUSTER_MAX x CLUSTER_PART = 2112, bf16 CLUSTER_MAX x
+CLUSTER_PART_BF16 = 1408) runs the cluster kernels (namespace cl: a thread
+block cluster splits the head dim into parts, `cluster_parts`, and sums
+the parts' S and dP through distributed shared memory; the bf16 backward's
+parts are narrower than the rest), and one above that the wide kernels
+(namespace wd), whose shared memory and registers do not grow with d.
+Which runs is a rule on d, the dtype and the kernel (`head_dim_path`),
+never a fallback.
 
 There is no fallback: a CUDA tensor the kernels do not take (L not a
 multiple of 64, another dtype, k or v shaped or strided unlike q) raises.
@@ -59,10 +61,15 @@ TUNED_HEAD_DIM = 272  # the largest the tuned kernels take; the cluster and wide
 # the columns of each output a block of the wide kernels computes (csrc's
 # wd::CS_FWD, CS_DKV, CS_DQ): S (and dP) are recomputed once a slice
 WIDE_SLICE = {"fwd": 128, "dkv": 64, "dq": 128}
-# the float32 cluster kernels (csrc's cl::PART_MAX, cl::CLUSTER_MAX): the
-# widest part of the head dim a block takes, the most blocks a cluster has
+# the cluster kernels (csrc's cl::PART_MAX, cl::PART_BF16, cl::CLUSTER_MAX):
+# the widest part of the head dim a block of the forward (and of the float32
+# backward) takes, that of the bf16 backward, the most blocks a cluster has;
+# the widest head dim of each dtype on clusters (cl::REACH_BF16 for bf16)
 CLUSTER_PART = 264
+CLUSTER_PART_BF16 = 176
 CLUSTER_MAX = 8
+CLUSTER_REACH = {torch.float32: CLUSTER_MAX * CLUSTER_PART,
+                 torch.bfloat16: CLUSTER_MAX * CLUSTER_PART_BF16}
 L_MULTIPLE = 64
 
 
@@ -76,24 +83,27 @@ def pad_head_dim(*ts):
     return tuple(torch.nn.functional.pad(t, (0, pad)).contiguous() for t in ts)
 
 
-def cluster_parts(d: int) -> list[int] | None:
-    """The widths of the parts into which the float32 cluster kernels split
-    a head dim d (a multiple of 8) above TUNED_HEAD_DIM, rank 0 first
-    (cl::Part: ceil(d / CLUSTER_PART) ranks, the n-tiles of 8 columns as
-    even as they go, the wider parts first), or None where that takes more
-    than CLUSTER_MAX ranks."""
-    nt, per = d // HEAD_DIM_MULTIPLE, CLUSTER_PART // HEAD_DIM_MULTIPLE
-    n = -(-nt // per)
-    if n > CLUSTER_MAX:
+def cluster_parts(d: int, dtype=torch.float32, kernel: str = "fwd") -> list[int] | None:
+    """The widths of the parts into which the cluster kernel `kernel`
+    ("fwd", "dkv" or "dq") of `dtype` splits a head dim d (a multiple of 8)
+    above TUNED_HEAD_DIM, rank 0 first (cl::Part: ceil(d / part) ranks at
+    parts of CLUSTER_PART, or CLUSTER_PART_BF16 for the bf16 backward, the
+    n-tiles of 8 columns as even as they go, the wider parts first), or None
+    above the dtype's CLUSTER_REACH (the wide kernels)."""
+    if d > CLUSTER_REACH[dtype]:
         return None
+    part = CLUSTER_PART_BF16 if dtype == torch.bfloat16 and kernel != "fwd" else CLUSTER_PART
+    nt, per = d // HEAD_DIM_MULTIPLE, part // HEAD_DIM_MULTIPLE
+    n = -(-nt // per)
     q, m = divmod(nt, n)
     return [HEAD_DIM_MULTIPLE * (q + (r < m)) for r in range(n)]
 
 
 def head_dim_path(d: int, dtype=torch.float32) -> dict:
     """Which kernels take head dim d of `dtype` on the card: the padded dim
-    and "tuned", "cluster" or "wide". The cluster path gives its ranks and
-    parts; it computes S and dP once (recompute 1). The wide path gives the
+    and "tuned", "cluster" or "wide". The cluster path gives the forward's
+    ranks and parts and the backward's (`bwd_ranks`, `bwd_parts`: dK/dV's
+    and dQ's); it computes S and dP once (recompute 1). The wide path gives the
     column slices of each kernel and the work it does over the work of the
     function (S and dP recomputed once a slice): the forward (slices + 1) /
     2, dK/dV (slices + 1) / 2, dQ (2 slices + 1) / 3, the whole backward
@@ -101,10 +111,12 @@ def head_dim_path(d: int, dtype=torch.float32) -> dict:
     dp = d + (-d % HEAD_DIM_MULTIPLE)
     if dp <= TUNED_HEAD_DIM:
         return {"head_dim": d, "padded_to": dp, "path": "tuned"}
-    parts = cluster_parts(dp) if dtype == torch.float32 else None
+    parts = cluster_parts(dp, dtype)
     if parts is not None:
+        bwd = cluster_parts(dp, dtype, "dkv")
         return {"head_dim": d, "padded_to": dp, "path": "cluster", "ranks": len(parts),
-                "parts": parts, "recompute": {"fwd": 1.0, "dkv": 1.0, "dq": 1.0, "bwd": 1.0}}
+                "parts": parts, "bwd_ranks": len(bwd), "bwd_parts": bwd,
+                "recompute": {"fwd": 1.0, "dkv": 1.0, "dq": 1.0, "bwd": 1.0}}
     ns = {k: -(-dp // cs) for k, cs in WIDE_SLICE.items()}
     return {"head_dim": d, "padded_to": dp, "path": "wide", "slices": ns,
             "recompute": {"fwd": (ns["fwd"] + 1) / 2, "dkv": (ns["dkv"] + 1) / 2,
@@ -282,7 +294,7 @@ def fwd_layout(B: int, h: int, L: int, dtype=torch.float32) -> dict:
     ptxas = _cuda.build_info.get("ptxas", {}).get("flash_attn")
     kind = "3F32" if dtype == torch.float32 else "4BF16"
     found = [v for k, v in _cuda.ptxas_kernels(ptxas or []).items()
-             if "fwd_kernel" in k and f"{kind}ELi{rg}E" in k]
+             if "2fw10fwd_kernel" in k and f"{kind}ELi{rg}E" in k]
     res = found[0] if len(found) == 1 else {}
     return {"tile_rows": rows, "key_groups": FWD_PAIRS // rg,
             "registers": res.get("registers"),
@@ -309,12 +321,16 @@ def wide_registers() -> dict:
             for kind, tag in (("f32", "3F32"), ("bf16", "4BF16"))}
 
 
-def cluster_registers(rows: int) -> dict:
-    """_registers of the float32 cluster kernels (`cl::fwd_kernel<RG>` at
-    `rows` = 16 RG query rows a block, `cl::dkv_kernel`, `cl::dq_kernel`):
-    {"fwd": {...}, "dkv": {...}, "dq": {...}}."""
-    return {"fwd": _registers(f"2cl10fwd_kernelILi{rows // 16}E"),
-            "dkv": _registers("2cl10dkv_kernel"), "dq": _registers("2cl9dq_kernel")}
+def cluster_registers(rows: int, dtype=torch.float32) -> dict:
+    """_registers of the cluster kernels of `dtype`: `cl::fwd_kernel<P, RG>`
+    at `rows` = 16 RG query rows a block, and the backward's (float32
+    `cl::dkv_kernel`, `cl::dq_kernel`; bf16 `cl::dkv_bf16_kernel`,
+    `cl::dq_bf16_kernel`): {"fwd": {...}, "dkv": {...}, "dq": {...}}."""
+    if dtype == torch.float32:
+        return {"fwd": _registers("2cl10fwd_kernel", f"3F32ELi{rows // 16}E"),
+                "dkv": _registers("2cl10dkv_kernel"), "dq": _registers("2cl9dq_kernel")}
+    return {"fwd": _registers("2cl10fwd_kernel", f"4BF16ELi{rows // 16}E"),
+            "dkv": _registers("2cl15dkv_bf16_kernel"), "dq": _registers("2cl14dq_bf16_kernel")}
 
 
 def bwd_bf16_registers() -> dict:
